@@ -6,10 +6,15 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. build   — compiles the CUDA kernels from fedml_tpu_torch/ops/csrc.
-2. kernels — each kernel against its plain PyTorch twin on the card, at
-             the serving shape and two extra cases; times the kernel, the
-             twin and one PyTorch library call of the same function, and
-             computes the card's bound for the same work.
+2. kernels — each kernel against its plain PyTorch twin on the card:
+             flash_fwd at the serving shape and two extra cases; the
+             GroupNorm forward and backward at the eight shapes that
+             ResNet-56's training path gives them, with 8 rows of γ/β, in
+             the training path's layout (8 clients' rows, x a strided
+             view) at one shape per stage, in f32 on a ragged shape and on
+             a 2-D input. Times each kernel, its twin and one PyTorch
+             library call of the same function, and computes the card's
+             bound for the same work.
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
@@ -17,7 +22,19 @@ Phases, each of which must pass or the script exits non-zero:
              are zeroed just before and read just after; one batch's
              prefill is re-run with the plain attention and held to a
              bf16 bound.
-4. report  — a ``kernels`` JSON line, the card's name and power limit,
+4. train   — the flagship training path at full width and depth:
+             FedAvgAPI over resnet56 (GroupNorm, bf16 compute), 128
+             clients x 256 CIFAR-shaped samples from seed 0, batch 32, 8
+             clients per round, 1 local epoch, sgd lr 0.1. One warm-up
+             round, then 3 timed rounds with the GroupNorm launch counts
+             zeroed just before and read just after (58 forward, 58
+             backward and 58 reduce launches per local step). From one
+             start, the kernel path against the plain GroupNorm twin: one
+             local step in f32 and in bf16, and one round in f32 at lr
+             1e-3, which must also tell a planted fault (the dγ/dβ
+             reduce skipping one sample per client) from the twin. One
+             round under the profiler gives the device time by kernel.
+5. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -26,6 +43,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -48,6 +66,45 @@ LSE_TOL = 1e-3
 # Served logits, flash kernel vs plain attention, both bf16 end to end
 # over 4 layers: a few bf16 ulps (2^-6 at |logit| in [2, 4)) per layer.
 LOGITS_TOL = 0.25
+
+# Training configuration: bench.py's primary (bench_cifar_resnet56).
+TRAIN_CLIENTS, TRAIN_PER_CLIENT, TRAIN_BATCH, TRAIN_PER_ROUND = 128, 256, 32, 8
+TRAIN_LR, TRAIN_ROUNDS, RESNET56_GN = 0.1, 3, 58
+# GroupNorm kernels vs the f32 twin: (shape [N, S, C], groups, rows, dtype,
+# interleaved). The bf16 shapes are every (S, C, groups) of ResNet-56's 58
+# GroupNorms at 8 clients x 32 samples; "interleaved" lays x and dy out as
+# the vmapped conv hands them over: [M, S, R, C] memory seen as [R, M, S, C].
+GN_MAIN = ((256, 1024, 64), 32)
+GN_CASES = [((256, 1024, 16), 16, 1, torch.bfloat16, False),
+            ((256, 1024, 64), 32, 1, torch.bfloat16, False),
+            ((256, 1024, 32), 32, 1, torch.bfloat16, False),
+            ((256, 256, 32), 32, 1, torch.bfloat16, False),
+            ((256, 256, 128), 32, 1, torch.bfloat16, False),
+            ((256, 256, 64), 32, 1, torch.bfloat16, False),
+            ((256, 64, 64), 32, 1, torch.bfloat16, False),
+            ((256, 64, 256), 32, 1, torch.bfloat16, False),
+            ((256, 1024, 64), 32, 8, torch.bfloat16, False),
+            ((256, 1024, 16), 16, 8, torch.bfloat16, True),
+            ((256, 1024, 64), 32, 8, torch.bfloat16, True),
+            ((256, 256, 128), 32, 8, torch.bfloat16, True),
+            ((256, 64, 256), 32, 8, torch.bfloat16, True),
+            ((6, 49, 48), 8, 1, torch.float32, False),
+            ((9, 1, 16), 4, 1, torch.float32, False)]
+# GroupNorm kernel vs plain twin in training, same start and keys, as the
+# share of the update's norm (update = new params - start) by which they
+# differ. One local step in f32 (cuDNN without TF32, the two paths on
+# other conv kernels; 6.4e-4 measured on an H100): 5e-3. In bf16 every
+# layer rounds activations and gradients to 8 bits, and the two paths round
+# in other places (the twin's layouts send the convs to other cuDNN
+# kernels), so the bf16 step is held to the f32 twin's step: the kernel's
+# distance at most 1.5x the twin's + 1e-2. A round at lr 0.1 cannot be held
+# to a bound that fails a wrong kernel: its 8 SGD steps amplify rounding to
+# ~50% of the update in bf16 and ~28% in f32. So the round runs in f32 at
+# lr 1e-3, where on an H100 the kernel read 1.7e-3 from the twin and a
+# planted fault (the reduce skipping one sample per client) 8.5e-3: the
+# bound is 4e-3, and the planted fault must read above it.
+STEP_F32_TOL, STEP_BF16_SLACK, ROUND_F32_TOL = 5e-3, 1e-2, 4e-3
+ROUND_LR = 1e-3
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -166,6 +223,128 @@ def phase_kernels(peaks):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
+
+
+def _gn_inputs(shape, rows, dtype, gen, interleaved=False):
+    n, s, c = shape
+    m = n // rows
+    phys = (m, s, rows, c) if interleaved else (rows, m, s, c)
+    x = torch.randn(phys, device="cuda", generator=gen) * 2 + 0.5
+    dy = torch.randn(phys, device="cuda", generator=gen)
+    gamma = torch.rand(rows, c, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(rows, c, device="cuda", generator=gen)
+    x, dy = x.to(dtype), dy.to(dtype)
+    if interleaved:
+        x, dy = x.permute(2, 0, 1, 3), dy.permute(2, 0, 1, 3)
+    return x, dy, gamma, beta
+
+
+def _gn_err(got, want, dtype):
+    """max |Δ| and whether it is inside the bound: one bf16 rounding of the
+    f32 value (2^-8 relative) plus 1e-5 of the scale, or 1e-5 in f32."""
+    err = (got.float() - want).abs()
+    if dtype == torch.bfloat16:
+        lim = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
+    else:
+        lim = 1e-5 * (1 + want.abs())
+    return err.max().item(), bool((err <= lim).all())
+
+
+def phase_gn_kernels(peaks):
+    """GroupNorm forward/backward kernels vs their plain twins; returns the
+    two kernels-line entries (launches filled in by the train phase)."""
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    for shape, groups, rows, dtype, interleaved in GN_CASES:
+        x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, interleaved)
+        y = gn.group_norm_fwd(x, gamma, beta, groups)
+        dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+        torch.cuda.synchronize()
+        want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
+        want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
+            x.float(), dy.float(), gamma, groups)
+        ey, ok_y = _gn_err(y, want_y, dtype)
+        edx, ok_dx = _gn_err(dx, want_dx, dtype)
+        # dγ/dβ: f32 sums of the same terms in other orders; recursive
+        # summation bounds the gap by chain·2^-24·Σ|terms| per channel.
+        r, m, s, c = x.shape
+        chain = s + m + 64
+        mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+        d32 = dy.float()
+        lim_g = chain * 2.0 ** -24 * (d32 * (x.float() - mu) * rstd).abs(
+        ).sum(dim=(1, 2)) + 1e-7
+        lim_b = chain * 2.0 ** -24 * d32.abs().sum(dim=(1, 2)) + 1e-7
+        edg = (dgamma - want_dg).abs()
+        edb = (dbeta - want_db).abs()
+        ok_p = bool((edg <= lim_g).all() and (edb <= lim_b).all())
+        name = (f"[{r}x{m}, {s}, {c}] g{groups} R{r} "
+                f"{str(dtype).split('.')[-1]}"
+                f"{' interleaved' if interleaved else ''}")
+        print(f"[kernels] group_norm {name}: max|y-plain| {ey:.3e}, "
+              f"max|dx-plain| {edx:.3e}, max|dgamma-plain| "
+              f"{edg.max().item():.3e}, max|dbeta-plain| "
+              f"{edb.max().item():.3e} (bf16: 2^-8 rel + 1e-5 of scale; "
+              f"f32: 1e-5; dgamma/dbeta: sum-order bound)", flush=True)
+        check(ok_y and ok_dx and ok_p,
+              f"group_norm kernels disagree with plain ({name})")
+        if (shape, groups) == GN_MAIN and rows == 1 and not interleaved:
+            errs = {"fwd": ey, "bwd": max(edx, edg.max().item(),
+                                           edb.max().item())}
+
+    shape, groups = GN_MAIN
+    x, dy, gamma, beta = _gn_inputs(shape, 1, torch.bfloat16, g)
+    fwd_ms = time_ms(lambda: gn.group_norm_fwd(x, gamma, beta, groups))
+    bwd_ms = time_ms(lambda: gn.group_norm_bwd(x, dy, gamma, groups))
+    fwd_plain = time_ms(lambda: gn.group_norm_fwd_plain(x, gamma, beta,
+                                                        groups))
+    bwd_plain = time_ms(lambda: gn.group_norm_bwd_plain(x, dy, gamma,
+                                                        groups))
+    # Library yardstick: F.group_norm on the same data in NCHW (its CUDA
+    # kernel wants γ/β in x's dtype).
+    n, s, c = shape
+    side = int(math.isqrt(s))
+    xl = x.reshape(n, side, side, c).permute(0, 3, 1, 2).contiguous()
+    dyl = dy.reshape(n, side, side, c).permute(0, 3, 1, 2).contiguous()
+    w, b = gamma[0].to(x.dtype), beta[0].to(x.dtype)
+    lib_fwd = time_ms(lambda: F.group_norm(xl, groups, w, b, gn.EPS))
+    xr, wr, br = (t.clone().requires_grad_() for t in (xl, w, b))
+
+    def lib_fwd_bwd():
+        yl = F.group_norm(xr, groups, wr, br, gn.EPS)
+        torch.autograd.grad(yl, (xr, wr, br), dyl)
+
+    lib_bwd = time_ms(lib_fwd_bwd) - time_ms(
+        lambda: F.group_norm(xr, groups, wr, br, gn.EPS))
+    _, fp32_peak, hbm = peaks
+    elems, esz = x.numel(), x.element_size()
+    entries = []
+    for kind, ms, plain_ms, lib_ms, nbytes, flops in (
+            ("fwd", fwd_ms, fwd_plain, lib_fwd,
+             2 * elems * esz + 2 * c * 4, 8 * elems),
+            ("bwd", bwd_ms, bwd_plain, lib_bwd,
+             3 * elems * esz + 3 * c * 4, 20 * elems)):
+        t_bytes, t_ops = nbytes / hbm * 1e3, flops / fp32_peak * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"[kernels] group_norm_{kind} [{n}, {s}, {c}] g{groups} bf16: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.group_norm "
+              f"{lib_ms:.4f} ms; {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e6:.1f} MFLOP -> bound {bound_ms * 1e3:.2f} us "
+              f"(bytes {t_bytes * 1e3:.2f} us, ops {t_ops * 1e3:.2f} us); "
+              f"kernel at {nbytes / ms / 1e9:.3f} TB/s", flush=True)
+        entries.append({
+            "name": f"group_norm_{kind}", "route": "cuda",
+            "source": "fedml_tpu_torch/ops/csrc/group_norm.cu",
+            "replaces": ("fedml_tpu/ops/group_norm.py:102" if kind == "fwd"
+                         else "fedml_tpu/ops/group_norm.py:115"),
+            "launches": None, "max_abs_err": errs[kind], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+    return entries
 
 
 def _random_adapters(model, gen):
@@ -314,6 +493,213 @@ def phase_serve():
     return launches
 
 
+def _gn_counts():
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    return (gn.group_norm_fwd.launches, gn.group_norm_bwd.launches,
+            gn.group_norm_bwd.reduce_launches, gn.group_norm.copies)
+
+
+def _zero_gn_counts():
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    gn.group_norm_fwd.launches = gn.group_norm_bwd.launches = 0
+    gn.group_norm_bwd.reduce_launches = gn.group_norm.copies = 0
+
+
+def _profile_round(api, round_idx):
+    """One round under torch.profiler: device time by kernel (top 12),
+    the GroupNorm kernels' share, and the device idle share of the round
+    (1 - summed kernel time / wall; kernels run on one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.train_one_round(round_idx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print("[train] profiler: no device time recorded; device time by "
+              "kernel not measured", flush=True)
+        return
+    rows.sort(reverse=True)
+    gn_ms = sum(r[0] for r in rows if "gn_" in r[2])
+    print(f"[train] profiled round {round_idx}: wall {wall_ms:.1f} ms, "
+          f"device busy {busy:.1f} ms (idle share "
+          f"{1 - busy / wall_ms:.3f}); GroupNorm kernels {gn_ms:.1f} ms "
+          f"({gn_ms / busy:.3f} of device time)", flush=True)
+    for ms, count, key in rows[:12]:
+        print(f"[train]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
+              flush=True)
+
+
+class _SkipOneSamplePerRow:
+    """Planted fault for the round check: the extension with its dγ/dβ
+    reduce leaving out the last sample of every row (1 of 32 per client)."""
+
+    def __init__(self, ext):
+        self._ext = ext
+
+    def __getattr__(self, name):
+        return getattr(self._ext, name)
+
+    def group_norm_reduce(self, part_g, part_b, rows):
+        dg, db = self._ext.group_norm_reduce(part_g, part_b, rows)
+        last = part_g.shape[0] // rows - 1
+        return (dg - part_g.view(rows, last + 1, -1)[:, last],
+                db - part_b.view(rows, last + 1, -1)[:, last])
+
+
+def phase_train():
+    """ResNet-56-GN FedAvg through FedAvgAPI at the primary config;
+    returns {kernel name: launches in the timed rounds}."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import group_norm as gn
+    from fedml_tpu_torch.trainer.local import NetState
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)  # bench.py _synthetic_cifar_fed
+    x = rng.randn(TRAIN_CLIENTS * TRAIN_PER_CLIENT, 32, 32, 3).astype(
+        np.float32)
+    y = rng.randint(0, 10, size=len(x)).astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+
+    def build(gn_fn=None, dtype="bf16", lr=TRAIN_LR):
+        model = create_model("resnet56", num_classes=10, dtype=dtype,
+                             gn_fn=gn_fn, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        return FedAvgAPI(model, fed, None, dataclasses.replace(cfg, lr=lr),
+                         device="cuda")
+
+    api = build()
+    n_params = sum(v.numel() for v in api.net.params.values())
+    steps = fed.steps_per_epoch * cfg.epochs
+    print(f"[train] resnet56 GroupNorm bf16 ({n_params} params), "
+          f"{TRAIN_CLIENTS} clients x {TRAIN_PER_CLIENT} samples [32, 32, "
+          f"3], batch {TRAIN_BATCH}, {TRAIN_PER_ROUND} clients per round, "
+          f"{steps} local steps per round, sgd lr {TRAIN_LR}; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    warm = api.train_one_round(0)
+    torch.cuda.synchronize()
+    print(f"[train] warm-up round: {(time.perf_counter() - t0) * 1e3:.1f} ms,"
+          f" loss {warm['train_loss']:.4f}", flush=True)
+
+    _zero_gn_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_ms, losses = [], [warm["train_loss"]]
+    for r in range(1, TRAIN_ROUNDS + 1):
+        t0 = time.perf_counter()
+        out = api.train_one_round(r)  # float(loss) syncs the round
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out["train_loss"])
+    fwd, bwd, red, copies = _gn_counts()
+    want = TRAIN_ROUNDS * steps * RESNET56_GN
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    med = statistics.median(round_ms)
+    print(f"[train] rounds 1-{TRAIN_ROUNDS}: "
+          f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
+          f"{med:.1f} ms = {samples / med * 1e3:.1f} samples/s, "
+          f"{steps / med * 1e3:.2f} steps/s); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[train] GroupNorm launches in the timed rounds: fwd {fwd}, bwd "
+          f"{bwd}, reduce {red} (expected {want} each = {TRAIN_ROUNDS} "
+          f"rounds x {steps} steps x {RESNET56_GN}); copies of an operand "
+          f"{copies} ({copies / (TRAIN_ROUNDS * steps):.1f} per step)",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(fwd == bwd == red == want,
+          f"GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
+          f"expected {want}")
+
+    # Kernel vs plain twin from the same start and keys: one local step of
+    # a sampled cohort (well conditioned) in f32 and in bf16, then one
+    # whole round in f32 at ROUND_LR, with and without a planted fault in
+    # the kernel path.
+    start = {k: v.clone() for k, v in api.net.params.items()}
+    key = api.rng.clone()
+    twin = build(gn_fn=gn.group_norm_plain)
+    api32 = build(dtype=None)
+    twin32 = build(gn_fn=gn.group_norm_plain, dtype=None)
+    api32r = build(dtype=None, lr=ROUND_LR)
+    twin32r = build(gn_fn=gn.group_norm_plain, dtype=None, lr=ROUND_LR)
+    sub = gather_clients(fed, sample_clients(TRAIN_ROUNDS + 1, TRAIN_CLIENTS,
+                                             TRAIN_PER_ROUND))
+    net0 = NetState(start, {})
+    rngs = torch.arange(TRAIN_PER_ROUND, device="cuda")
+    one = (sub.x[:, :1], sub.y[:, :1], sub.mask[:, :1])
+
+    def updates(a, b):
+        return torch.cat([(a[k] - b[k]).flatten() for k in b])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def step(a):
+        return updates(a.local_train.run_clients(net0, *one, rngs)[0].params,
+                       start)
+
+    step_k, step_t = step(api), step(twin)
+    step_k32, step_t32 = step(api32), step(twin32)
+    rel_f32 = rel(step_k32, step_t32)
+    rel_k, rel_t = rel(step_k, step_t32), rel(step_t, step_t32)
+
+    def round_from(a):
+        a.net, a.rng = NetState(dict(start), {}), key.clone()
+        a.train_one_round(TRAIN_ROUNDS + 1)
+        return updates(a.net.params, start)
+
+    round_k, round_t = round_from(api32r), round_from(twin32r)
+    ext = gn.extension
+    gn.extension = lambda: _SkipOneSamplePerRow(ext())
+    try:
+        round_f = round_from(api32r)
+    finally:
+        gn.extension = ext
+    rel_round, rel_fault = rel(round_k, round_t), rel(round_f, round_t)
+    print(f"[train] GroupNorm kernel vs plain twin, same start and keys, "
+          f"|update diff|/|update|: one local step in f32 {rel_f32:.4e} "
+          f"(tol {STEP_F32_TOL}); in bf16, kernel {rel_k:.4e} and twin "
+          f"{rel_t:.4e} from the f32 twin's step (tol: kernel <= 1.5 x "
+          f"twin + {STEP_BF16_SLACK}); one round in f32 at lr {ROUND_LR} "
+          f"{rel_round:.4e} "
+          f"(tol {ROUND_F32_TOL}), and with the planted fault (reduce "
+          f"skips one sample per client) {rel_fault:.4e} (must exceed the "
+          f"tol); |round update| {round_t.norm().item():.4f}", flush=True)
+    check(math.isfinite(rel_f32) and rel_f32 <= STEP_F32_TOL,
+          f"f32 kernel step disagrees with the plain twin: {rel_f32}")
+    check(math.isfinite(rel_k) and rel_k <= 1.5 * rel_t + STEP_BF16_SLACK,
+          f"bf16 kernel step is {rel_k} from f32, the twin {rel_t}")
+    check(math.isfinite(rel_round) and rel_round <= ROUND_F32_TOL,
+          f"f32 kernel round disagrees with the plain twin: {rel_round}")
+    check(not rel_fault <= ROUND_F32_TOL,
+          f"the round check passed a planted fault: {rel_fault}")
+    del twin, api32, twin32, api32r, twin32r
+    _profile_round(api, TRAIN_ROUNDS + 2)
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -330,10 +716,12 @@ def main() -> int:
           f" TFLOP/s, fp32 {peaks[1] / 1e12:.0f} TFLOP/s, HBM "
           f"{peaks[2] / 1e12:.2f} TB/s", flush=True)
     phase_build()
-    entry = phase_kernels(peaks)
+    entries = [phase_kernels(peaks)] + phase_gn_kernels(peaks)
     launches = phase_serve()
-    entry["launches"] = launches[entry["name"]]
-    print(json.dumps({"kernels": [entry]}))
+    launches.update(phase_train())
+    for entry in entries:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": entries}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

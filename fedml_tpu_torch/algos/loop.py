@@ -1,0 +1,59 @@
+"""Shared federated training loop (port of ``fedml_tpu/algos/loop.py``'s
+``FederatedLoop``): seeded sampling, one round through ``round_fn``,
+evaluation every ``frequency_of_the_test`` rounds and on the last."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+from fedml_tpu_torch.core import keys
+from fedml_tpu_torch.core.sampling import sample_clients
+from fedml_tpu_torch.data.batching import gather_clients
+
+
+class FederatedLoop:
+    """Mixin. Subclasses provide ``cfg``, ``train_fed``, ``test_global``,
+    ``eval_fn``, ``net``, ``rng``, ``round_fn`` and ``train_one_round``."""
+
+    def train_one_round(self, round_idx: int) -> Dict[str, float]:
+        raise NotImplementedError
+
+    def sample_round(self, round_idx: int):
+        """Reference-seeded sampling (``np.random.RandomState(round_idx)``,
+        FedAVGAggregator.py:90-99)."""
+        sel = getattr(self.cfg, "client_selection", "random")
+        if sel != "random":
+            raise NotImplementedError(
+                f"client_selection={sel!r} is not ported yet (ROADMAP.md "
+                "A5); only 'random' is")
+        idx = sample_clients(round_idx, self.cfg.client_num_in_total,
+                             self.cfg.client_num_per_round)
+        return idx
+
+    def run_round(self, round_idx: int):
+        """One sampled round: gather the cohort on the device, weight it by
+        true sample counts, fresh round key. Returns ``(avg_net,
+        mean_loss)`` without touching ``self.net``."""
+        pair = keys.split(self.rng)
+        self.rng, rnd_rng = pair[0], pair[1]
+        sub = gather_clients(self.train_fed, self.sample_round(round_idx))
+        weights = sub.counts.float()
+        return self.round_fn(self.net, sub.x, sub.y, sub.mask, weights,
+                             weights, rnd_rng)
+
+    def evaluate(self) -> Dict[str, float]:
+        if self.test_global is None:
+            return {}
+        x, y, mask = self.test_global
+        m = self.eval_fn(self.net, x, y, mask)
+        return {k: float(v) for k, v in m.items()}
+
+    def train(self) -> List[Dict[str, float]]:
+        history = []
+        for round_idx in range(self.cfg.comm_round):
+            metrics = self.train_one_round(round_idx)
+            if (round_idx % self.cfg.frequency_of_the_test == 0
+                    or round_idx == self.cfg.comm_round - 1):
+                metrics.update(self.evaluate())
+            history.append(metrics)
+        return history

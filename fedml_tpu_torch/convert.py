@@ -1,14 +1,17 @@
-"""Weights carried across from a flax ``transformer_lm`` param tree.
+"""Weights carried across from a flax param tree: ``transformer_lm`` and the
+CIFAR ResNets (``CifarResNet``).
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
-adapters)`` for the port's ``TransformerLM``:
+adapters)`` for the port's model:
 
 - the module path keeps the flax names (``Block_0/MHA_0/Dense_0`` →
-  ``Block_0.MHA_0.Dense_0``);
+  ``Block_0.MHA_0.Dense_0``, ``BottleneckBlock_3/Norm_2/GroupNorm_0`` →
+  ``BottleneckBlock_3.Norm_2.GroupNorm_0``, ``…/downsample``);
 - ``Dense`` ``kernel [in, out]`` → ``weight [out, in]`` (transposed);
-  ``Embed`` ``embedding`` and ``LayerNorm`` ``scale`` → ``weight``;
-  ``bias`` stays ``bias``;
+  ``Conv`` ``kernel`` HWIO → ``weight`` OIHW;
+  ``Embed`` ``embedding``, ``LayerNorm`` and ``GroupNorm`` ``scale`` →
+  ``weight``; ``bias`` stays ``bias``;
 - ``lora_*`` leaves are not module params: they come back as the adapter
   tree, nested and named as flax nests them, in f32 — so its flat vector
   (``core.flat.tree_to_vector_np``) equals JAX's ``tree_to_vector_np``.
@@ -45,7 +48,7 @@ def from_jax_params(params):
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
         arr = np.asarray(leaf, np.float32)
         if name == "kernel":
-            arr = arr.T
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         key = ".".join(path[:-1] + (_LEAF_TO_TORCH[name],))
         state[key] = torch.from_numpy(np.array(arr, order="C"))
 
@@ -63,8 +66,9 @@ def _flax_leaf(module_path, torch_name):
     kind = module_path[-1].split("_")[0]
     if torch_name == "bias":
         return "bias"
-    return {"Dense": "kernel", "Embed": "embedding",
-            "LayerNorm": "scale"}[kind]
+    return {"Dense": "kernel", "Conv": "kernel", "downsample": "kernel",
+            "Embed": "embedding", "LayerNorm": "scale",
+            "GroupNorm": "scale"}[kind]
 
 
 def to_jax_params(state_dict, adapters=None):
@@ -76,7 +80,7 @@ def to_jax_params(state_dict, adapters=None):
         leaf = _flax_leaf(path[:-1], path[-1])
         arr = val.detach().to("cpu", torch.float32).numpy()
         if leaf == "kernel":
-            arr = arr.T
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})

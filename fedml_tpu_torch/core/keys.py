@@ -1,0 +1,58 @@
+"""Counter-based random keys in integer tensor ops.
+
+The JAX package derives every stream from threefry keys with
+``fold_in``/``split``; those bits cannot be reproduced in torch. The port
+keeps the same structure with its own keys: a key is an int64 tensor
+holding a 32-bit value, ``fold_in(key, i)`` hashes the pair, and a
+uniform draw hashes the key once more. Everything is elementwise, so a
+``[C]`` tensor of keys is C independent streams, and a child key depends
+only on its parent and its index (the prefix-stability the JAX trainer's
+shuffle relies on, ``fedml_tpu/trainer/local.py:125-134``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_SPLIT_TAG = 0x5EED
+
+
+def _mul32(a, c: int):
+    """``a·c mod 2^32`` for ``a`` in [0, 2^32) without int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit avalanche hash (xor-shift-multiply)."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """The root key of ``seed`` (a 0-d int64 tensor)."""
+    return _mix32(torch.tensor(int(seed) & _M32, dtype=torch.int64,
+                               device=device))
+
+
+def fold_in(k, data):
+    """Child key of ``k`` for ``data`` (int or int64 tensor), broadcast."""
+    if not torch.is_tensor(data):
+        data = torch.tensor(int(data), dtype=torch.int64, device=k.device)
+    return _mix32(_mix32(k) ^ _mix32(data.to(torch.int64) + 0x9E3779B9))
+
+
+def split(k, n: int = 2):
+    """``n`` children of ``k`` along a new last dim (``[..., n]``)."""
+    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    return fold_in(fold_in(k, _SPLIT_TAG)[..., None], idx)
+
+
+def uniform(k):
+    """A float32 in [0, 1) per key (24 random bits)."""
+    return (_mix32(k) >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -1,0 +1,20 @@
+"""Synthetic image data (host-side numpy; port of
+``fedml_tpu/data/synthetic.py``'s ``make_image_classification``)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def make_image_classification(n_samples: int,
+                              hwc: Tuple[int, int, int] = (28, 28, 1),
+                              n_classes: int = 10, seed: int = 0
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Class-conditional Gaussian images (NHWC, f32) and int32 labels."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, n_classes, size=n_samples).astype(np.int32)
+    protos = rng.randn(n_classes, *hwc).astype(np.float32)
+    x = protos[y] + 0.5 * rng.randn(n_samples, *hwc).astype(np.float32)
+    return x, y

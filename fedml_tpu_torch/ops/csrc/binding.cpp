@@ -14,6 +14,22 @@ cudaError_t flash_fwd_launch(const void* q, const void* k, const void* v,
                              const long long* sk, const long long* sv, int B,
                              int T_len, int H, int D, bool is_bf16,
                              bool causal, cudaStream_t stream);
+cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
+                                  float eps, const long long* sx,
+                                  const long long* sy, const void* x,
+                                  const float* gamma, const float* beta,
+                                  void* y, bool is_bf16, cudaStream_t stream);
+cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
+                                  float eps, const long long* sx,
+                                  const long long* sdy, const long long* sdx,
+                                  const void* x, const void* dy,
+                                  const float* gamma, void* dx,
+                                  float* part_g, float* part_b, bool is_bf16,
+                                  cudaStream_t stream);
+cudaError_t group_norm_reduce_launch(int R, int M, int C,
+                                     const float* part_g,
+                                     const float* part_b, float* dgamma,
+                                     float* dbeta, cudaStream_t stream);
 }
 
 namespace {
@@ -57,9 +73,130 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   return {o, lse};
 }
 
+// x [R, M, S, C] (bf16 or f32, C at stride 1); gamma/beta [R, C] f32.
+void check_gn_input(const torch::Tensor& x, const torch::Tensor& gamma,
+                    int64_t groups, const char* what) {
+  TORCH_CHECK(x.is_cuda() && gamma.is_cuda(), what,
+              ": tensors must be on a CUDA device");
+  TORCH_CHECK(x.device() == gamma.device(), what,
+              ": tensors must be on one device");
+  const auto st = x.scalar_type();
+  TORCH_CHECK(st == torch::kFloat32 || st == torch::kBFloat16, what,
+              ": dtype must be float32 or bfloat16, got ", st);
+  TORCH_CHECK(x.dim() == 4, what, ": x must be [R, M, S, C]");
+  TORCH_CHECK(x.stride(3) == 1 || x.size(3) == 1, what,
+              ": the channel dim must be contiguous (stride 1)");
+  const int64_t R = x.size(0), M = x.size(1), S = x.size(2), C = x.size(3);
+  TORCH_CHECK(R > 0 && M > 0 && S > 0 && C > 0, what, ": empty input");
+  TORCH_CHECK(C <= 4096, what, ": at most 4096 channels, got ", C);
+  TORCH_CHECK(groups > 0 && C % groups == 0, what, ": groups ", groups,
+              " must divide channels ", C);
+  TORCH_CHECK(R * M <= 2147483647LL && S * C <= 2147483647LL, what,
+              ": too many samples or elements per sample");
+  TORCH_CHECK(gamma.scalar_type() == torch::kFloat32 && gamma.dim() == 2 &&
+                  gamma.size(0) == R && gamma.size(1) == C &&
+                  gamma.is_contiguous(),
+              what, ": gamma/beta must be contiguous float32 [R, C]");
+}
+
+void strides3(const torch::Tensor& t, long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = t.stride(i);
+}
+
+torch::Tensor group_norm_fwd(torch::Tensor x, torch::Tensor gamma,
+                             torch::Tensor beta, int64_t groups, double eps) {
+  check_gn_input(x, gamma, groups, "group_norm_fwd");
+  TORCH_CHECK(beta.sizes() == gamma.sizes() &&
+                  beta.scalar_type() == torch::kFloat32 &&
+                  beta.is_contiguous() && beta.device() == x.device(),
+              "group_norm_fwd: beta must match gamma");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = torch::empty_like(x);  // x's strides when x is dense
+  TORCH_CHECK(y.stride(3) == 1 || y.size(3) == 1,
+              "group_norm_fwd: output channel dim not contiguous");
+  long long sx[3], sy[3];
+  strides3(x, sx);
+  strides3(y, sy);
+  const cudaError_t err = fedml_tpu_torch::group_norm_fwd_launch(
+      x.size(0), x.size(1), x.size(2), x.size(3), groups,
+      static_cast<float>(eps), sx, sy, x.data_ptr(), gamma.data_ptr<float>(),
+      beta.data_ptr<float>(), y.data_ptr(),
+      x.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "group_norm_fwd: launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return y;
+}
+
+std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
+                                          torch::Tensor gamma, int64_t groups,
+                                          double eps) {
+  check_gn_input(x, gamma, groups, "group_norm_bwd");
+  TORCH_CHECK(dy.device() == x.device() && dy.sizes() == x.sizes() &&
+                  dy.scalar_type() == x.scalar_type(),
+              "group_norm_bwd: dy must match x in device, shape and dtype");
+  TORCH_CHECK(dy.stride(3) == 1 || dy.size(3) == 1,
+              "group_norm_bwd: dy's channel dim must be contiguous");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto dx = torch::empty_like(x);
+  TORCH_CHECK(dx.stride(3) == 1 || dx.size(3) == 1,
+              "group_norm_bwd: output channel dim not contiguous");
+  const int64_t N = x.size(0) * x.size(1), C = x.size(3);
+  auto opts = x.options().dtype(torch::kFloat32);
+  auto part_g = torch::empty({N, C}, opts);
+  auto part_b = torch::empty({N, C}, opts);
+  long long sx[3], sdy[3], sdx[3];
+  strides3(x, sx);
+  strides3(dy, sdy);
+  strides3(dx, sdx);
+  const cudaError_t err = fedml_tpu_torch::group_norm_bwd_launch(
+      x.size(0), x.size(1), x.size(2), C, groups, static_cast<float>(eps), sx,
+      sdy, sdx, x.data_ptr(), dy.data_ptr(), gamma.data_ptr<float>(),
+      dx.data_ptr(), part_g.data_ptr<float>(), part_b.data_ptr<float>(),
+      x.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "group_norm_bwd: launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dx, part_g, part_b};
+}
+
+// part_g/part_b [R·M, C] f32 → (dgamma, dbeta) [R, C] f32.
+std::vector<torch::Tensor> group_norm_reduce(torch::Tensor part_g,
+                                             torch::Tensor part_b, int64_t R) {
+  TORCH_CHECK(part_g.is_cuda() && part_b.device() == part_g.device(),
+              "group_norm_reduce: partials must be on one CUDA device");
+  TORCH_CHECK(part_g.scalar_type() == torch::kFloat32 && part_g.dim() == 2 &&
+                  part_g.is_contiguous() && part_b.sizes() == part_g.sizes() &&
+                  part_b.scalar_type() == torch::kFloat32 &&
+                  part_b.is_contiguous(),
+              "group_norm_reduce: partials must be contiguous float32 [N, C]");
+  const int64_t N = part_g.size(0), C = part_g.size(1);
+  TORCH_CHECK(R > 0 && N % R == 0, "group_norm_reduce: R ", R,
+              " must divide N ", N);
+  const c10::cuda::CUDAGuard guard(part_g.device());
+  auto dgamma = torch::empty({R, C}, part_g.options());
+  auto dbeta = torch::empty({R, C}, part_g.options());
+  const cudaError_t err = fedml_tpu_torch::group_norm_reduce_launch(
+      R, N / R, C, part_g.data_ptr<float>(), part_b.data_ptr<float>(),
+      dgamma.data_ptr<float>(), dbeta.data_ptr<float>(),
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "group_norm_reduce: launch failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dgamma, dbeta};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
         "flash-attention forward: (q, k, v [B,T,H,D], causal) -> (o, lse)");
+  m.def("group_norm_fwd", &group_norm_fwd,
+        "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> y");
+  m.def("group_norm_bwd", &group_norm_bwd,
+        "GroupNorm backward: (x, dy [R,M,S,C], gamma [R,C], groups, eps) -> "
+        "(dx, dgamma partials [R*M,C], dbeta partials [R*M,C])");
+  m.def("group_norm_reduce", &group_norm_reduce,
+        "per-row sum of GroupNorm partials: (part_g, part_b [R*M,C], R) -> "
+        "(dgamma, dbeta [R,C])");
 }

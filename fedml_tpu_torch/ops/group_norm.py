@@ -1,0 +1,312 @@
+"""GroupNorm forward and backward: hand-written Hopper kernels and their
+plain twins, wired into autograd and ``torch.func.vmap``.
+
+Source: ``fedml_tpu/ops/group_norm.py`` — ``_fwd_kernel`` (reached through
+``_fwd``) and ``_bwd_kernel`` (through ``_bwd``), the Pallas TPU kernels
+under the ``jax.custom_vjp`` of the public ``group_norm``. The port
+computes the same functions: per sample and group, f32 mean and
+``var = max(E[x²] − μ², 0)``; ``y = (x − μ)·rsqrt(var + eps)·γ + β`` in
+x's type; the backward recomputes the statistics and gives
+``dx = rstd·(dxhat − mean_g(dxhat) − xhat·mean_g(dxhat·xhat))`` with
+``dxhat = dy·γ``, ``dγ = Σ dy·xhat`` and ``dβ = Σ dy``.
+
+The kernels are ``csrc/group_norm.cu``. They work on ``x [R, M, S, C]``:
+R rows of γ/β (``[R, C]`` f32), M samples per row, S positions and C
+channels, C contiguous and the other three dims at any stride. R is 1 for
+a plain call; under ``vmap`` the client dim becomes R, so one launch
+normalizes every client with its own γ/β. The backward writes per-sample
+f32 partials of dγ/dβ and a second kernel sums them per row in a fixed
+order (no atomics: a rerun gives the same bits).
+
+Routes: the ops ``fedml_tpu_torch::group_norm_fwd``/``group_norm_bwd``
+run the kernels for CUDA tensors and the plain twins
+(:func:`group_norm_fwd_plain`, :func:`group_norm_bwd_plain`) for CPU
+tensors; there is no other route and no fallback. ``group_norm_fwd
+.launches``, ``group_norm_bwd.launches`` and ``group_norm_bwd
+.reduce_launches`` count kernel launches; ``group_norm.copies`` counts
+every copy of an operand on the way to the kernels: an input whose
+channel dim was not contiguous, or whose dims could not be merged or
+folded as a view.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fedml_tpu_torch.ops.build import extension
+
+EPS = 1e-6
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_CHANNELS = 4096
+_OP = "fedml_tpu_torch::"
+
+
+def _check(x, gamma, groups, what):
+    if x.dim() != 4:
+        raise ValueError(f"{what}: x must be [R, M, S, C], got shape "
+                         f"{tuple(x.shape)}")
+    r, _, _, c = x.shape
+    if x.dtype not in DTYPES:
+        raise ValueError(f"{what}: dtype must be one of {DTYPES}, got "
+                         f"{x.dtype}")
+    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (r, c):
+        raise ValueError(f"{what}: gamma/beta must be float32 [{r}, {c}], "
+                         f"got {gamma.dtype} {tuple(gamma.shape)}")
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{what}: groups {groups} must divide channels {c}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"{what}: at most {MAX_CHANNELS} channels, got {c}")
+    if gamma.device != x.device:
+        raise ValueError(f"{what}: x and gamma are on different devices")
+
+
+def _channels_innermost(t):
+    """The kernels read C at stride 1 and every other dim at any stride;
+    anything else is copied once and counted."""
+    if t.stride(-1) == 1 or t.shape[-1] == 1:
+        return t
+    group_norm.copies += 1
+    return t.contiguous()
+
+
+def _view(t, shape):
+    """``t`` viewed as ``shape``; a layout that no view can express is
+    copied once and counted, so ``group_norm.copies`` sees every copy made
+    on the way to the kernels (under ``vmap`` the view is taken of the
+    physical, batched tensor)."""
+    try:
+        return t.view(shape)
+    except RuntimeError:
+        group_norm.copies += 1
+        return t.reshape(shape)
+
+
+# --- plain twins ------------------------------------------------------------
+
+def _stats(x32, groups, eps):
+    """Per-(row, sample, group) mean and rstd in f32, broadcast back to
+    ``[R, M, 1, C]`` (each channel carries its group's stats)."""
+    r, m, s, c = x32.shape
+    xg = x32.reshape(r, m, s, groups, c // groups)
+    denom = s * (c // groups)
+    mu = xg.sum(dim=(2, 4), keepdim=True) / denom
+    ex2 = (xg * xg).sum(dim=(2, 4), keepdim=True) / denom
+    rstd = torch.rsqrt(torch.clamp(ex2 - mu * mu, min=0.0) + eps)
+    cpg = c // groups
+    return (mu.expand(r, m, 1, groups, cpg).reshape(r, m, 1, c),
+            rstd.expand(r, m, 1, groups, cpg).reshape(r, m, 1, c))
+
+
+def group_norm_fwd_plain(x, gamma, beta, groups: int, eps: float = EPS):
+    """Plain twin of the forward kernel: ``x [R, M, S, C]``, ``gamma``/
+    ``beta [R, C]`` f32 → y in x's dtype."""
+    _check(x, gamma, groups, "group_norm_fwd")
+    x32 = x.float()
+    mu, rstd = _stats(x32, groups, eps)
+    y = (x32 - mu) * rstd
+    y = y * gamma[:, None, None, :] + beta[:, None, None, :]
+    return y.to(x.dtype)
+
+
+def group_norm_bwd_plain(x, dy, gamma, groups: int, eps: float = EPS):
+    """Plain twin of the backward kernels: ``(dx in x's dtype, dγ [R, C]
+    f32, dβ [R, C] f32)``, dγ/dβ summed over each row's M samples."""
+    _check(x, gamma, groups, "group_norm_bwd")
+    r, m, s, c = x.shape
+    x32, dy32 = x.float(), dy.float()
+    mu, rstd = _stats(x32, groups, eps)
+    xhat = (x32 - mu) * rstd
+    dgamma = (dy32 * xhat).sum(dim=(1, 2))
+    dbeta = dy32.sum(dim=(1, 2))
+    dxhat = dy32 * gamma[:, None, None, :]
+    cpg = c // groups
+    denom = s * cpg
+
+    def group_mean(t):  # [R, M, S, C] → per-group mean over (S, C/G)
+        g = t.sum(dim=2).reshape(r, m, groups, cpg).sum(dim=3) / denom
+        return g[..., None].expand(r, m, groups, cpg).reshape(r, m, 1, c)
+
+    dx = rstd * (dxhat - group_mean(dxhat) - xhat * group_mean(dxhat * xhat))
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def group_norm_fwd(x, gamma, beta, groups: int, eps: float = EPS):
+    """Forward kernel on CUDA tensors: ``x [R, M, S, C]`` (bf16 or f32, C
+    at stride 1 — or copied and counted), ``gamma``/``beta [R, C]`` f32 →
+    y in x's dtype and x's strides. Counts one launch."""
+    _check(x, gamma, groups, "group_norm_fwd")
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_fwd launches on cuda, got {x.device}")
+    x = _channels_innermost(x)
+    y = extension().group_norm_fwd(x, gamma.contiguous(), beta.contiguous(),
+                                   int(groups), float(eps))
+    group_norm_fwd.launches += 1
+    return y
+
+
+def group_norm_bwd(x, dy, gamma, groups: int, eps: float = EPS):
+    """Backward kernels on CUDA tensors: the per-sample pass (dx and f32
+    partials of dγ/dβ) and the per-row reduce → ``(dx, dγ [R, C],
+    dβ [R, C])``. Counts one launch of each."""
+    _check(x, gamma, groups, "group_norm_bwd")
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_bwd launches on cuda, got {x.device}")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"group_norm_bwd: dy {dy.dtype} {tuple(dy.shape)} "
+                         f"must match x {x.dtype} {tuple(x.shape)}")
+    ext = extension()
+    x, dy = _channels_innermost(x), _channels_innermost(dy)
+    dx, part_g, part_b = ext.group_norm_bwd(x, dy, gamma.contiguous(),
+                                            int(groups), float(eps))
+    group_norm_bwd.launches += 1
+    dgamma, dbeta = ext.group_norm_reduce(part_g, part_b, x.shape[0])
+    group_norm_bwd.reduce_launches += 1
+    return dx, dgamma, dbeta
+
+
+group_norm_fwd.launches = 0
+group_norm_bwd.launches = 0
+group_norm_bwd.reduce_launches = 0
+
+
+# --- the ops: device dispatch, autograd, vmap --------------------------------
+
+@torch.library.custom_op(_OP + "group_norm_fwd", mutates_args=())
+def _fwd_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            groups: int, eps: float) -> torch.Tensor:
+    if x.device.type != "cpu":
+        raise ValueError(f"group_norm runs on cuda or cpu, got {x.device}")
+    return group_norm_fwd_plain(x, gamma, beta, groups, eps)
+
+
+@torch.library.custom_op(_OP + "group_norm_bwd", mutates_args=())
+def _bwd_op(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+            groups: int, eps: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if x.device.type != "cpu":
+        raise ValueError(f"group_norm runs on cuda or cpu, got {x.device}")
+    return group_norm_bwd_plain(x, dy, gamma, groups, eps)
+
+
+_fwd_op.register_kernel("cuda")(group_norm_fwd)
+_bwd_op.register_kernel("cuda")(group_norm_bwd)
+
+
+@_fwd_op.register_fake
+def _(x, gamma, beta, groups, eps):
+    return torch.empty_like(x)
+
+
+@_bwd_op.register_fake
+def _(x, dy, gamma, groups, eps):
+    return (torch.empty_like(x), torch.empty_like(gamma),
+            torch.empty_like(gamma))
+
+
+class _GroupNorm(torch.autograd.Function):
+    """The gradient of the forward op is the backward op. This is an
+    ``autograd.Function`` with ``setup_context`` rather than the op's own
+    ``register_autograd``: the Function that ``register_autograd``
+    generates has no ``setup_context``, so ``torch.func.grad`` refuses it.
+    ``generate_vmap_rule`` batches the Function by running its body under
+    ``vmap``, which reaches the ops' own vmap rules below: one launch per
+    call for every client."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, gamma, beta, groups, eps):
+        return _fwd_op(x, gamma, beta, groups, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, _, groups, eps = inputs
+        ctx.save_for_backward(x, gamma)
+        ctx.groups, ctx.eps = groups, eps
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        with torch.no_grad():  # once differentiable: no double backward
+            dx, dgamma, dbeta = _bwd_op(x, dy, gamma, ctx.groups, ctx.eps)
+        return dx, dgamma, dbeta, None, None
+
+
+def _fold(t, bdim, size):
+    """A batched operand ``[..., R, rest]`` with its vmap dim moved to the
+    front and folded into R: ``[B·R, rest]``. Unbatched operands are
+    broadcast (a stride-0 view; the kernels read any stride)."""
+    if bdim is None:
+        t = t.unsqueeze(0).expand(size, *t.shape)
+    else:
+        t = t.movedim(bdim, 0)
+    return _view(t, (-1, *t.shape[2:]))
+
+
+def _unfold(t, size):
+    return t.unflatten(0, (size, t.shape[0] // size))
+
+
+@_fwd_op.register_vmap
+def _(info, in_dims, x, gamma, beta, groups, eps):
+    b = info.batch_size
+    y = _fwd_op(_fold(x, in_dims[0], b), _fold(gamma, in_dims[1], b),
+                _fold(beta, in_dims[2], b), groups, eps)
+    return _unfold(y, b), 0
+
+
+@_bwd_op.register_vmap
+def _(info, in_dims, x, dy, gamma, groups, eps):
+    b = info.batch_size
+    dx, dgamma, dbeta = _bwd_op(_fold(x, in_dims[0], b),
+                                _fold(dy, in_dims[1], b),
+                                _fold(gamma, in_dims[2], b), groups, eps)
+    return (_unfold(dx, b), _unfold(dgamma, b), _unfold(dbeta, b)), (0, 0, 0)
+
+
+# --- public functions --------------------------------------------------------
+
+def _as_nsc(x):
+    """``[C]`` → ``[1, 1, C]``, ``[N, C]`` → ``[N, 1, C]``, ``[N, …, C]``
+    → ``[N, prod(…), C]`` (the JAX wrapper's reshapes)."""
+    c = x.shape[-1]
+    if x.dim() == 1:
+        return x.view(1, 1, c)
+    if x.dim() == 2:
+        return x[:, None, :]
+    return _view(x, (x.shape[0], -1, c))
+
+
+def _check_public(x, gamma, groups):
+    c = x.shape[-1]
+    if groups <= 0 or c % groups:
+        raise ValueError(f"groups {groups} must divide channels {c}")
+    if tuple(gamma.shape) != (c,):
+        raise ValueError(f"gamma/beta must be [{c}], got {tuple(gamma.shape)}")
+
+
+def group_norm(x, gamma, beta, groups: int, eps: float = EPS):
+    """GroupNorm over ``x [..., C]`` with ``gamma``/``beta [C]`` f32 (the
+    JAX ``group_norm``): leading dim = samples, the middle dims pooled,
+    ``groups`` must divide C; f32 statistics, output in x's dtype.
+    Differentiable, and batched by ``torch.func.vmap`` into one launch.
+    CUDA tensors run the kernels, CPU tensors the plain twins."""
+    _check_public(x, gamma, groups)
+    y = _GroupNorm.apply(_as_nsc(x)[None], gamma.float()[None],
+                         beta.float()[None], int(groups), float(eps))
+    return y.view(x.shape)
+
+
+def group_norm_plain(x, gamma, beta, groups: int, eps: float = EPS):
+    """Plain twin of :func:`group_norm` (same signature, ordinary autograd
+    through torch ops): what ``chip_smoke.py`` and the tests hold the
+    kernels against."""
+    _check_public(x, gamma, groups)
+    y = group_norm_fwd_plain(_as_nsc(x)[None], gamma.float()[None],
+                             beta.float()[None], int(groups), float(eps))
+    return y.reshape(x.shape)
+
+
+group_norm.copies = 0

@@ -1,0 +1,92 @@
+"""Client-parallel FedAvg rounds on one card (port of
+``fedml_tpu/parallel/shard.py``'s ``make_vmap_round``).
+
+All sampled clients train together: each local step runs under
+``torch.func.vmap`` over the client dim (``LocalTrain.run_clients``), and
+the server's sample-weighted average is one f32 reduction per leaf. The
+mesh-sharded round, robust aggregators, client transforms and the attack
+drill are not ported yet; asking for them raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fedml_tpu_torch.core import keys
+from fedml_tpu_torch.core.tree import tree_leaves, tree_map, tree_weighted_mean
+from fedml_tpu_torch.trainer.local import NetState
+
+
+def client_rngs(rng, n_local: int, offset: int = 0):
+    """Per-client keys by GLOBAL client slot: ``fold_in(rng, offset + i)``."""
+    slots = offset + torch.arange(n_local, dtype=torch.int64,
+                                  device=rng.device)
+    return keys.fold_in(rng, slots)
+
+
+def client_finite_mask(client_params):
+    """``[C]`` float: 1.0 where every leaf of that client's model is
+    finite."""
+    flags = [torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1)
+             for leaf in tree_leaves(client_params)]
+    return torch.stack(flags).all(dim=0).float()
+
+
+def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
+                        mask, rngs, corruptor=None):
+    """Local training of the cohort, then the NaN guard: returns
+    ``(client_nets, losses [C], finite [C])``, with a diverged client's
+    params and loss zeroed (``torch.where``: NaN·0 is still NaN) and
+    ``finite`` 0 for it (all ones when the guard is off)."""
+    if client_transform is not None or corruptor is not None:
+        raise NotImplementedError(
+            "client transforms and the corruption drill are not ported yet "
+            "(ROADMAP.md A7)")
+    client_nets, losses = local_train.run_clients(net, x, y, mask, rngs)
+    if not nan_guard:
+        return client_nets, losses, torch.ones_like(losses)
+    finite = client_finite_mask(client_nets.params)
+    ok = finite.bool()
+    params = tree_map(
+        lambda p: torch.where(ok.reshape((-1,) + (1,) * (p.dim() - 1)), p,
+                              torch.zeros((), dtype=p.dtype,
+                                          device=p.device)),
+        client_nets.params)
+    losses = torch.where(torch.isfinite(losses), losses,
+                         torch.zeros_like(losses))
+    return NetState(params, client_nets.model_state), losses, finite
+
+
+def make_vmap_round(local_train, client_transform=None,
+                    nan_guard: bool = False, aggregator=None,
+                    corruptor=None):
+    """``round_fn(net, x, y, mask, weights, loss_weights, rng) ->
+    (avg_net, mean_loss)`` over client-stacked ``[C, S, B, ...]`` inputs.
+
+    ``weights [C]`` weight the model average, ``loss_weights [C]`` the
+    reported loss; padded slots carry 0 in both. ``nan_guard`` zero-weights
+    a client whose trained model is not finite, and keeps the previous
+    model when every client is excluded."""
+    if aggregator is not None and not getattr(aggregator, "is_mean", False):
+        raise NotImplementedError(
+            "robust aggregators are not ported yet (ROADMAP.md A7)")
+
+    def round_fn(net, x, y, mask, weights, loss_weights, rng):
+        rngs = client_rngs(rng, x.shape[0], 0)
+        client_nets, losses, finite = run_clients_guarded(
+            local_train, client_transform, nan_guard, net, x, y, mask, rngs,
+            corruptor)
+        weights = weights * finite
+        loss_weights = loss_weights * finite
+        avg = tree_weighted_mean(client_nets.params, weights)
+        if nan_guard:
+            # Every sampled client diverged: keep the previous global model
+            # (a zero-total weighted mean would silently zero the params).
+            any_ok = weights.sum() > 0
+            avg = tree_map(lambda a, p: torch.where(any_ok, a, p), avg,
+                           net.params)
+        lw = loss_weights / torch.clamp(loss_weights.sum(), min=1e-12)
+        mean_loss = (losses * lw).sum()
+        return NetState(avg, net.model_state), mean_loss
+
+    return round_fn

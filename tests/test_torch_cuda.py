@@ -95,3 +95,218 @@ def test_model_flash_path_matches_plain_attention(cuda):
     assert flash_attention.launches == before + 2
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 0.1
+
+
+# --- GroupNorm kernels --------------------------------------------------------
+
+# The main path's shapes: 8 clients x 32 samples, every (S, C, groups) that
+# ResNet-56's 58 GroupNorms give the kernels.
+GN_MAIN_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
+                  ((256, 1024, 32), 32), ((256, 256, 32), 32),
+                  ((256, 256, 128), 32), ((256, 256, 64), 32),
+                  ((256, 64, 64), 32), ((256, 64, 256), 32)]
+# One shape per stage (and the stem's) in the training path's layout.
+GN_STAGE_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
+                   ((256, 256, 128), 32), ((256, 64, 256), 32)]
+
+
+def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
+    """x [R, M, S, C] and dy in ``dtype``, per-row γ in [0.5, 1.5), β ~
+    N(0, 1). ``interleaved``: x and dy lie in memory as ``[M, S, R, C]``,
+    the clients next to the channels, as a vmapped channels-last conv
+    hands them over."""
+    n, s, c = shape
+    m = n // rows
+    phys = (m, s, rows, c) if interleaved else (rows, m, s, c)
+    x = torch.randn(phys, generator=gen, device=device) * 2 + 0.5
+    dy = torch.randn(phys, generator=gen, device=device)
+    gamma = torch.rand(rows, c, generator=gen, device=device) + 0.5
+    beta = torch.randn(rows, c, generator=gen, device=device)
+    x, dy = x.to(dtype), dy.to(dtype)
+    if interleaved:
+        x, dy = x.permute(2, 0, 1, 3), dy.permute(2, 0, 1, 3)
+    return x, dy, gamma, beta
+
+
+def _within_bf16_ulp(got, want):
+    """One rounding to bf16 of the f32 value: |Δ| ≤ 2^-8·|want|, plus 1e-5
+    of the tensor's scale for the f32 noise of another sum order."""
+    err = (got.float() - want).abs()
+    lim = want.abs() * 2.0 ** -8 + 1e-5 * want.abs().max()
+    return bool((err <= lim).all()), err.max().item()
+
+
+def _sum_order_bound(terms, chain):
+    """|Δ| of two f32 sums of the same terms in other orders: at most
+    chain·2^-24·Σ|terms| per channel (recursive summation's bound with
+    `chain` sequential adds)."""
+    return chain * 2.0 ** -24 * terms.abs().sum(dim=(1, 2)) + 1e-7
+
+
+@pytest.mark.parametrize("shape,groups,rows,dtype,interleaved", [
+    *[(s, g, 1, torch.bfloat16, False) for s, g in GN_MAIN_SHAPES],
+    ((256, 1024, 64), 32, 8, torch.bfloat16, False),
+    *[(s, g, 8, torch.bfloat16, True) for s, g in GN_STAGE_SHAPES],
+    ((6, 49, 48), 8, 1, torch.float32, False),
+    ((6, 49, 48), 8, 3, torch.float32, False),
+    ((9, 1, 16), 4, 1, torch.float32, False),
+])
+def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
+                                             dtype, interleaved):
+    """Forward and backward kernels against the f32 plain twins on the same
+    inputs: y and dx within one bf16 rounding (bf16) or 1e-5 (f32); dγ and
+    dβ within the sum-order bound. The interleaved cases are the training
+    path's layout: 8 clients' rows of γ/β, x a strided view."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, cuda, interleaved)
+    f0, b0 = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+    r0 = gn.group_norm_bwd.reduce_launches
+    y = gn.group_norm_fwd(x, gamma, beta, groups)
+    dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_fwd.launches - f0, gn.group_norm_bwd.launches - b0,
+            gn.group_norm_bwd.reduce_launches - r0) == (1, 1, 1)
+    assert y.dtype == dtype and dx.dtype == dtype
+    want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
+    want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
+        x.float(), dy.float(), gamma, groups)
+    if dtype == torch.bfloat16:
+        for got, want in ((y, want_y), (dx, want_dx)):
+            ok, err = _within_bf16_ulp(got, want)
+            assert ok, err
+    else:
+        torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    r, m, s, c = x.shape
+    chain = s + m + 64
+    mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+    xhat = (x.float() - mu) * rstd
+    d32 = dy.float()
+    assert bool(((dgamma - want_dg).abs()
+                 <= _sum_order_bound(d32 * xhat, chain)).all())
+    assert bool(((dbeta - want_db).abs()
+                 <= _sum_order_bound(d32, chain)).all())
+
+
+def test_group_norm_kernel_reads_strided_views(cuda):
+    """A client-interleaved view (what a vmapped conv hands over): same bits
+    as the contiguous copy, output in the input's strides, no copy counted."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    phys = torch.randn(32, 64, 8, 64, generator=g, device=cuda)  # [M, S, R, C]
+    x = phys.to(torch.bfloat16).permute(2, 0, 1, 3)  # [R, M, S, C] view
+    gamma = torch.rand(8, 64, generator=g, device=cuda) + 0.5
+    beta = torch.randn(8, 64, generator=g, device=cuda)
+    dy = torch.randn_like(x)
+    copies = gn.group_norm.copies
+    y = gn.group_norm_fwd(x, gamma, beta, 32)
+    dx, dg, db = gn.group_norm_bwd(x, dy, gamma, 32)
+    assert gn.group_norm.copies == copies
+    assert y.stride() == x.stride()
+    yc = gn.group_norm_fwd(x.contiguous(), gamma, beta, 32)
+    dxc, dgc, dbc = gn.group_norm_bwd(x.contiguous(), dy, gamma, 32)
+    assert torch.equal(y, yc) and torch.equal(dx, dxc)
+    assert torch.equal(dg, dgc) and torch.equal(db, dbc)
+
+
+def test_group_norm_kernels_are_deterministic(cuda):
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x, dy, gamma, _ = _gn_inputs((256, 256, 128), 8, torch.bfloat16, g, cuda)
+    a = gn.group_norm_bwd(x, dy, gamma, 32)
+    b = gn.group_norm_bwd(x, dy, gamma, 32)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_group_norm_under_vmap_grad_launches_once(cuda):
+    """vmap(grad) over 4 clients: one forward and one backward launch, and
+    the same gradients as the plain twin per client."""
+    from torch.func import grad, vmap
+
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 6, 8, 8, 64, generator=g, device=cuda)
+    gamma = torch.rand(4, 64, generator=g, device=cuda) + 0.5
+    beta = torch.randn(4, 64, generator=g, device=cuda)
+
+    def loss(fn):
+        return lambda x, g_, b_: torch.sin(fn(x, g_, b_, 32)).sum()
+
+    f0, b0 = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+    got = vmap(grad(loss(gn.group_norm), argnums=(0, 1, 2)))(x, gamma, beta)
+    assert (gn.group_norm_fwd.launches - f0,
+            gn.group_norm_bwd.launches - b0) == (1, 1)
+    want = vmap(grad(loss(gn.group_norm_plain), argnums=(0, 1, 2)))(
+        x, gamma, beta)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_group_norm_copies_and_counts_a_strided_channel_dim(cuda):
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    x = torch.zeros(1, 2, 4, 32, device=cuda).transpose(2, 3)  # C stride 4
+    copies = gn.group_norm.copies
+    gn.group_norm_fwd(x, torch.ones(1, 4, device=cuda),
+                      torch.zeros(1, 4, device=cuda), 2)
+    assert gn.group_norm.copies == copies + 1
+
+
+def test_fedavg_round_on_the_card_matches_a_client_loop(cuda, monkeypatch):
+    """A small ResNet-20-GN round on the card: every local step of the
+    3-client cohort launches each GroupNorm kernel once per layer (21
+    layers), no channel-dim copies, and the vmapped round equals a loop of
+    per-client ``local_train`` within 1e-4 (f32, cuDNN without TF32, other
+    conv kernels for the grouped convs; lr 5e-3 keeps the small model's
+    amplification of rounding under the bound)."""
+    import numpy as np
+
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.tree import tree_weighted_mean
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      gather_clients,
+                                      make_image_classification,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import group_norm as gn
+    from fedml_tpu_torch.parallel.shard import client_rngs, make_vmap_round
+    from fedml_tpu_torch.trainer.local import (make_client_optimizer,
+                                               make_local_train_fn,
+                                               model_fns)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, y = make_image_classification(48, (16, 16, 3), 4, seed=0)
+    fed = build_federated_arrays(x, y, partition_homo(48, 4), 4,
+                                 device=cuda)
+    sub = gather_clients(fed, np.arange(3))
+    model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
+                         device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    fns = model_fns(model)
+    net = fns.init()
+    lt = make_local_train_fn(fns.apply, make_client_optimizer("sgd", 5e-3),
+                             1)
+    w = sub.counts.float()
+    rng = keys.key(1, cuda)
+    f0, b0, c0 = (gn.group_norm_fwd.launches, gn.group_norm_bwd.launches,
+                  gn.group_norm.copies)
+    avg, loss = make_vmap_round(lt)(net, sub.x, sub.y, sub.mask, w, w, rng)
+    steps = sub.x.shape[1]
+    assert (gn.group_norm_fwd.launches - f0,
+            gn.group_norm_bwd.launches - b0) == (21 * steps, 21 * steps)
+    assert gn.group_norm.copies == c0
+    rngs = client_rngs(rng, 3)
+    outs = [lt(net, sub.x[i], sub.y[i], sub.mask[i], rngs[i])
+            for i in range(3)]
+    want = tree_weighted_mean(
+        {k: torch.stack([o.params[k] for o, _ in outs]) for k in net.params},
+        w)
+    assert torch.isfinite(loss)
+    for k in want:
+        torch.testing.assert_close(avg.params[k], want[k], rtol=1e-4,
+                                   atol=1e-4)
