@@ -7,8 +7,13 @@ Phases, each of which must pass or the script exits non-zero:
 
 1. build   — compiles the CUDA kernels from fedml_tpu_torch/ops/csrc.
 2. kernels — each kernel against its plain PyTorch twin on the card:
-             flash_fwd at the serving shape and two extra cases; the
-             GroupNorm forward and backward at the eight shapes that
+             flash_fwd at the serving shape and two extra cases; flash_dq
+             and flash_dkv at the FedAdapter slice's shape (8 clients x
+             batch 2, T 2048, 8 heads, D 64, bf16, causal), in f32 at T
+             2048, without the mask, at a ragged T, at D 32 and 128, on
+             views of one qkv buffer and under vmap with the clients next
+             to T (the trainer's layout); the GroupNorm forward and
+             backward at the eight shapes that
              ResNet-56's training path gives them, with 8 rows of γ/β, in
              the training path's layout (8 clients' rows, x a strided
              view) at one shape per stage, in f32 on a ragged shape and on
@@ -34,7 +39,21 @@ Phases, each of which must pass or the script exits non-zero:
              1e-3, which must also tell a planted fault (the dγ/dβ
              reduce skipping one sample per client) from the twin. One
              round under the profiler gives the device time by kernel.
-5. report  — a ``kernels`` JSON line, the card's name and power limit,
+5. adapter — the FedAdapter training path at full width: FedAdapterAPI
+             over transformer_lm vocab 10004, d_model 512, 8 heads, 4
+             layers, bf16, flash attention, LoRA rank 16 on the attention
+             projections, T 2048; 16 clients x 8 random-token sequences,
+             batch 2, 8 clients per round, 1 local epoch (4 steps), sgd lr
+             0.1, seq_softmax_ce. One warm-up round, then 3 timed rounds
+             with the flash launch counts zeroed just before and read just
+             after (16 per round of each of the three kernels, 0 copies);
+             the frozen base bitwise unchanged and the adapters moved; from
+             one start, one local step in f32 through the kernels against
+             the plain twin, which must also tell a planted fault (dk/dv
+             skipping the last Q tile) from the twin; one personalize_cohort
+             of a round's clients and evaluate_personalized on them. One
+             round under the profiler gives the device time by kernel.
+6. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -44,6 +63,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -105,6 +125,28 @@ GN_CASES = [((256, 1024, 16), 16, 1, torch.bfloat16, False),
 # bound is 4e-3, and the planted fault must read above it.
 STEP_F32_TOL, STEP_BF16_SLACK, ROUND_F32_TOL = 5e-3, 1e-2, 4e-3
 ROUND_LR = 1e-3
+
+# FedAdapter configuration: bench.py's transformer_fed_mfu width
+# (bench.py:2951-2958) with flash attention at the model's max_len.
+ADAPTER_RANK, ADAPTER_CLIENTS, ADAPTER_PER_CLIENT = 16, 16, 8
+ADAPTER_BATCH, ADAPTER_PER_ROUND, ADAPTER_LR, ADAPTER_ROUNDS = 2, 8, 0.1, 3
+# Flash backward kernels vs the f32 twin on the same inputs, as a share of
+# max |want|: bf16 2e-2 (the kernels round dS and P to bf16 before the
+# products, as the TPU kernels do, and write bf16), f32 1e-4 (another
+# summation order). Cases: (B, T, H, D, dtype, causal); the first is the
+# slice's shape, 8 clients x batch 2.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
+             (2, 2048, 8, 64, torch.float32, True),
+             (2, 2048, 8, 64, torch.bfloat16, False),
+             (2, 1000, 8, 64, torch.float32, True),
+             (2, 1024, 8, 32, torch.bfloat16, True),
+             (2, 1024, 4, 128, torch.bfloat16, True)]
+# One local step of the FedAdapter cohort in f32, kernels vs the plain
+# twin, same start and keys, as |update diff| / |update|. The bound is
+# picked from readings of the sound kernels and of a planted fault (dk/dv
+# skipping the last 64-row Q tile), PERF.md §6.
+ADAPTER_STEP_TOL = 1e-3
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -170,6 +212,7 @@ def phase_kernels(peaks):
     """Flash forward vs its plain twin; returns the kernels-line entry."""
     import torch.nn.functional as F
 
+    from fedml_tpu_torch.ops.build import extension
     from fedml_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -199,7 +242,12 @@ def phase_kernels(peaks):
             main = (q, k, v, err_o)
     q, k, v, err_o = main
     b, t, h, d = q.shape
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    # The kernel alone, as the backward kernels are timed: one event pair
+    # around one launch also counts the host time of the autograd and op
+    # dispatch in front of it while the card idles, printed apart.
+    q5, k5, v5 = (x[None] for x in (q, k, v))
+    ms = time_ms(lambda: extension().flash_fwd(q5, k5, v5, True))
+    wrapper_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -211,7 +259,8 @@ def phase_kernels(peaks):
     t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / hbm * 1e3
     bound_ms = max(t_ops, t_bytes)
     print(f"[kernels] flash_fwd B={b} T={t} H={h} D={d} bf16 causal: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"{ms:.4f} ms (through flash_attention {wrapper_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us "
           f"(ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); "
@@ -223,6 +272,156 @@ def phase_kernels(peaks):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
+
+
+def _scaled_err(got, want):
+    """max |Δ| as a share of max |want| (f32 want)."""
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _check_bwd(name, got, want, dtype):
+    """Holds (dq, dk, dv) to the bound; returns their max |Δ|."""
+    errs = [_scaled_err(a, w) for a, w in zip(got, want)]
+    absd = [(a.float() - w).abs().max().item() for a, w in zip(got, want)]
+    print(f"[kernels] flash_bwd {name}: max|d-plain|/max|plain| dq "
+          f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+          f"(tol {BWD_TOL[dtype]:.0e}); max|d-plain| {absd[0]:.3e}, "
+          f"{absd[1]:.3e}, {absd[2]:.3e}", flush=True)
+    check(all(math.isfinite(e) and e <= BWD_TOL[dtype] for e in errs),
+          f"flash backward disagrees with plain: {errs} ({name})")
+    return absd
+
+
+def phase_flash_bwd_kernels(peaks):
+    """flash_dq and flash_dkv vs the plain backward twin; returns their two
+    kernels-line entries (launches filled in by the adapter phase)."""
+    import torch.nn.functional as F
+    from torch.func import vmap
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(b, t, h, d, dtype, causal):
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=g)
+                       .to(dtype) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, causal=causal)
+        return q, k, v, o, lse, do
+
+    def plain(q, k, v, o, lse, do, causal):
+        return fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                            o.float(), lse, do.float(),
+                                            causal)
+
+    main_errs = None
+    for b, t, h, d, dtype, causal in BWD_CASES:
+        q, k, v, o, lse, do = inputs(b, t, h, d, dtype, causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        name = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]} causal={causal}"
+        errs = _check_bwd(name, got, plain(q, k, v, o, lse, do, causal),
+                          dtype)
+        main_errs = main_errs or errs
+        del q, k, v, o, lse, do, got
+
+    # q, k, v as views of one [B, T, 3·H·D] buffer (what MHA passes), and
+    # under vmap with the clients next to T as the trainer lays tokens out:
+    # [B, C, T, 3·H·D] memory, the client dim folded into the kernels' R.
+    for clients in (None, 8):
+        shape = (2, 2048, 3 * 512) if clients is None else (2, clients, 2048,
+                                                            3 * 512)
+        qkv = torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+        q, k, v = (z.unflatten(-1, (8, 64)) for z in qkv.split(512, dim=-1))
+        do = torch.randn(q.shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+        counts = (fa.flash_attention_bwd.dq_launches,
+                  fa.flash_attention_bwd.dkv_launches,
+                  fa.flash_attention.copies)
+        if clients is None:
+            o, lse = fa.flash_attention(q, k, v, causal=True)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+            want = plain(q, k, v, o, lse, do, True)
+            name = "B=2 T=2048 H=8 D=64 bf16 causal, qkv views"
+        else:
+            fwd = vmap(lambda q, k, v: fa.flash_attention(q, k, v, True),
+                       in_dims=1)
+            o, lse = fwd(q, k, v)
+            got = vmap(lambda *a: fa.flash_attention_bwd(*a, causal=True),
+                       in_dims=(1, 1, 1, 0, 0, 1))(q, k, v, o, lse, do)
+            flat = [x.movedim(1, 0).flatten(0, 1) for x in (q, k, v)]
+            want = plain(*flat, o.flatten(0, 1), lse.flatten(0, 1),
+                         do.movedim(1, 0).flatten(0, 1), True)
+            got = [x.flatten(0, 1) for x in got]
+            name = (f"{clients} clients x B=2 T=2048 H=8 D=64 bf16 causal, "
+                    "vmapped, clients next to T")
+        torch.cuda.synchronize()
+        after = (fa.flash_attention_bwd.dq_launches,
+                 fa.flash_attention_bwd.dkv_launches,
+                 fa.flash_attention.copies)
+        _check_bwd(name, got, want, torch.bfloat16)
+        check(tuple(a - c for a, c in zip(after, counts)) == (1, 1, 0),
+              f"{name}: launches/copies {after} from {counts}, expected "
+              "one launch of each kernel and no copy")
+        del qkv, q, k, v, o, lse, do, got, want
+
+    # Times at the slice's shape: each kernel alone (δ made once), the
+    # plain twin and the library's backward, which both compute dq, dk and
+    # dv together, and the forward kernel at the same shape.
+    b, t, h, d, dtype, _ = BWD_CASES[0]
+    q, k, v, o, lse, do = inputs(b, t, h, d, dtype, True)
+    ext = fa.extension()
+    q5, k5, v5, do5 = (x[None] for x in (q, k, v, do))
+    lse5 = lse[None]
+    delta = (do5.float() * o.float()[None]).sum(-1).transpose(-1, -2)
+    delta = delta.contiguous()
+    dq_ms = time_ms(lambda: ext.flash_dq(q5, k5, v5, do5, lse5, delta, True))
+    dkv_ms = time_ms(lambda: ext.flash_dkv(q5, k5, v5, do5, lse5, delta,
+                                           True))
+    fwd_ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, True))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True), warmup=1, reps=5)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (qr, kr, vr), dot)
+
+    library_ms = time_ms(lib_fwd_bwd) - time_ms(lib_fwd)
+    pairs = t * (t + 1) // 2
+    bf16_peak, _, hbm = peaks
+    elem = b * t * h * d * q.element_size()
+    rows = 2 * b * h * t * 4  # lse and delta, f32
+    entries = []
+    for kind, ms, products, nbytes, line in (
+            ("dq", dq_ms, 3, 5 * elem + rows, 157),
+            ("dkv", dkv_ms, 4, 6 * elem + rows, 195)):
+        flops = 2 * products * b * h * d * pairs
+        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / hbm * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        print(f"[kernels] flash_{kind} B={b} T={t} H={h} D={d} bf16 causal: "
+              f"kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
+              f"backward {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us (ops "
+              f"{t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); kernel "
+              f"at {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        entries.append({
+            "name": f"flash_{kind}", "route": "cuda",
+            "source": "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
+            "launches": None,
+            "max_abs_err": main_errs[0] if kind == "dq" else max(main_errs[1:]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms})
+    fwd_flops = 4 * b * h * d * pairs
+    print(f"[kernels] flash_fwd at the slice's shape B={b} T={t} H={h} D={d} "
+          f"bf16 causal: {fwd_ms:.4f} ms, {fwd_flops / 1e9:.2f} GFLOP -> "
+          f"bound {fwd_flops / bf16_peak * 1e6:.2f} us", flush=True)
+    return entries
 
 
 def _gn_inputs(shape, rows, dtype, gen, interleaved=False):
@@ -507,10 +706,12 @@ def _zero_gn_counts():
     gn.group_norm_bwd.reduce_launches = gn.group_norm.copies = 0
 
 
-def _profile_round(api, round_idx):
-    """One round under torch.profiler: device time by kernel (top 12),
-    the GroupNorm kernels' share, and the device idle share of the round
-    (1 - summed kernel time / wall; kernels run on one stream)."""
+def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
+                   what="GroupNorm kernels"):
+    """One round under torch.profiler: device time by kernel (top 12), the
+    share of the kernels whose names contain one of ``kernels``, and the
+    device idle share of the round (1 - summed kernel time / wall; kernels
+    run on one stream)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -529,17 +730,17 @@ def _profile_round(api, round_idx):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("[train] profiler: no device time recorded; device time by "
+        print(f"[{tag}] profiler: no device time recorded; device time by "
               "kernel not measured", flush=True)
         return
     rows.sort(reverse=True)
-    gn_ms = sum(r[0] for r in rows if "gn_" in r[2])
-    print(f"[train] profiled round {round_idx}: wall {wall_ms:.1f} ms, "
+    own_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
+    print(f"[{tag}] profiled round {round_idx}: wall {wall_ms:.1f} ms, "
           f"device busy {busy:.1f} ms (idle share "
-          f"{1 - busy / wall_ms:.3f}); GroupNorm kernels {gn_ms:.1f} ms "
-          f"({gn_ms / busy:.3f} of device time)", flush=True)
+          f"{1 - busy / wall_ms:.3f}); {what} {own_ms:.1f} ms "
+          f"({own_ms / busy:.3f} of device time)", flush=True)
     for ms, count, key in rows[:12]:
-        print(f"[train]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
+        print(f"[{tag}]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
               flush=True)
 
 
@@ -700,6 +901,192 @@ def phase_train():
     return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
 
 
+class _SkipLastQTile:
+    """Planted fault for the adapter step check: the extension with its
+    dk/dv kernel fed a dO whose last 64 rows are zero, as if the kernel had
+    skipped the last Q tile."""
+
+    def __init__(self, ext):
+        self._ext = ext
+
+    def __getattr__(self, name):
+        return getattr(self._ext, name)
+
+    def flash_dkv(self, q, k, v, do, lse, delta, causal):
+        do = do.clone()
+        do[:, :, -64:] = 0
+        return self._ext.flash_dkv(q, k, v, do, lse, delta, causal)
+
+
+def _flash_counts():
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    return (fa.flash_attention.launches, fa.flash_attention_bwd.dq_launches,
+            fa.flash_attention_bwd.dkv_launches, fa.flash_attention.copies)
+
+
+def _zero_flash_counts():
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    fa.flash_attention.launches = fa.flash_attention.copies = 0
+    fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+
+
+def phase_adapter():
+    """FedAdapter training through FedAdapterAPI at the slice's config;
+    returns {kernel name: launches in the timed rounds}."""
+    import functools
+
+    from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.core.tree import tree_leaves, tree_map
+    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import NetState, seq_softmax_ce
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)  # bench.py _token_fed
+    seqs = rng.randint(1, VOCAB, size=(ADAPTER_CLIENTS * ADAPTER_PER_CLIENT,
+                                       SEQ_LEN + 1))
+    x, y = seqs[:, :SEQ_LEN].astype(np.int32), seqs[:, 1:].astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(len(x),
+                                                      ADAPTER_CLIENTS),
+                                 ADAPTER_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=ADAPTER_CLIENTS,
+                    client_num_per_round=ADAPTER_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=ADAPTER_BATCH, lr=ADAPTER_LR,
+                    seed=SEED, adapter_rank=ADAPTER_RANK)
+    loss_fn = functools.partial(seq_softmax_ce, pad_id=0)
+
+    def build(dtype="bf16", attn_fn=None):
+        model = create_model(
+            "transformer_lm", vocab_size=VOCAB, d_model=D_MODEL,
+            n_heads=N_HEADS, n_layers=N_LAYERS, max_len=SEQ_LEN, dtype=dtype,
+            attn="flash", attn_fn=attn_fn, adapter_rank=ADAPTER_RANK,
+            adapter_scope="attn", device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        return FedAdapterAPI(model, fed, None, cfg, loss_fn=loss_fn,
+                             device="cuda")
+
+    api = build()
+    prof = api.adapter_profile()
+    steps = fed.steps_per_epoch * cfg.epochs
+    tokens = ADAPTER_PER_ROUND * ADAPTER_PER_CLIENT * SEQ_LEN * cfg.epochs
+    print(f"[adapter] transformer_lm d_model {D_MODEL}, {N_HEADS} heads, "
+          f"{N_LAYERS} layers, vocab {VOCAB}, T {SEQ_LEN}, bf16, flash; LoRA "
+          f"rank {ADAPTER_RANK} on attn: {prof['adapter_params']} adapter "
+          f"params over a frozen base of {prof['base_params']}; "
+          f"{ADAPTER_CLIENTS} clients x {ADAPTER_PER_CLIENT} sequences, "
+          f"batch {ADAPTER_BATCH}, {ADAPTER_PER_ROUND} clients per round, "
+          f"{steps} local steps per round, sgd lr {ADAPTER_LR}; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    base0 = {k: v.clone() for k, v in api.base.state_dict().items()}
+    start = tree_map(torch.clone, api.net.params)
+    t0 = time.perf_counter()
+    warm = api.train_one_round(0)
+    torch.cuda.synchronize()
+    print(f"[adapter] warm-up round: {(time.perf_counter() - t0) * 1e3:.1f} "
+          f"ms, loss {warm['train_loss']:.4f}", flush=True)
+
+    _zero_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_ms, losses = [], [warm["train_loss"]]
+    for r in range(1, ADAPTER_ROUNDS + 1):
+        t0 = time.perf_counter()
+        out = api.train_one_round(r)  # float(loss) syncs the round
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out["train_loss"])
+    fwd, dq, dkv, copies = _flash_counts()
+    want = ADAPTER_ROUNDS * steps * N_LAYERS
+    med = statistics.median(round_ms)
+    print(f"[adapter] rounds 1-{ADAPTER_ROUNDS}: "
+          f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
+          f"{med:.1f} ms = {tokens / med * 1e3:.0f} tokens/s); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[adapter] flash launches in the timed rounds: fwd {fwd}, dq {dq}, "
+          f"dkv {dkv} (expected {want} each = {ADAPTER_ROUNDS} rounds x "
+          f"{steps} steps x {N_LAYERS} layers, one launch for all "
+          f"{ADAPTER_PER_ROUND} clients); copies {copies}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(fwd == dq == dkv == want,
+          f"flash launches fwd {fwd} dq {dq} dkv {dkv}, expected {want}")
+    check(copies == 0, f"{copies} copies on the way to the flash kernels")
+    after = api.base.state_dict()
+    check(all(torch.equal(v, after[k]) for k, v in base0.items()),
+          "the frozen base changed in training")
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(api.net.params), tree_leaves(start)))
+    print(f"[adapter] frozen base bitwise unchanged over "
+          f"{ADAPTER_ROUNDS + 1} rounds; adapters moved by up to "
+          f"{moved:.4e}", flush=True)
+    check(moved > 0, "the adapters did not move")
+
+    # Kernels vs the plain twin from one start and keys: one local step of
+    # a sampled cohort in f32, and again with a fault planted in dk/dv.
+    def twin_fn(q, k, v, causal):
+        return fa.flash_attention_plain(q, k, v, causal)[0]
+
+    api32, twin32 = build(dtype=None), build(dtype=None, attn_fn=twin_fn)
+    net0 = NetState(tree_map(torch.clone, start), {})
+    sub = gather_clients(fed, sample_clients(ADAPTER_ROUNDS + 1,
+                                             ADAPTER_CLIENTS,
+                                             ADAPTER_PER_ROUND))
+    one = (sub.x[:, :1], sub.y[:, :1], sub.mask[:, :1])
+    rngs = torch.arange(ADAPTER_PER_ROUND, device="cuda")
+
+    def step(a):
+        new = a.local_train.run_clients(net0, *one, rngs)[0].params
+        return torch.cat([(v - s[None]).flatten() for v, s in zip(
+            tree_leaves(new), tree_leaves(start))])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    step_t = step(twin32)
+    rel_k = rel(step(api32), step_t)
+    ext = fa.extension
+    fa.extension = lambda: _SkipLastQTile(ext())
+    try:
+        rel_fault = rel(step(api32), step_t)
+    finally:
+        fa.extension = ext
+    print(f"[adapter] flash kernels vs plain twin, one local step in f32 from "
+          f"one start and keys, |update diff|/|update|: {rel_k:.4e} (tol "
+          f"{ADAPTER_STEP_TOL}); with the planted fault (dk/dv skip the last "
+          f"Q tile) {rel_fault:.4e} (must exceed the tol); |update| "
+          f"{step_t.norm().item():.4e}", flush=True)
+    check(math.isfinite(rel_k) and rel_k <= ADAPTER_STEP_TOL,
+          f"f32 kernel step disagrees with the plain twin: {rel_k}")
+    check(not rel_fault <= ADAPTER_STEP_TOL,
+          f"the step check passed a planted fault: {rel_fault}")
+    del api32, twin32, step_t
+
+    cohort = api.sample_round(ADAPTER_ROUNDS)
+    t0 = time.perf_counter()
+    p_losses = api.personalize_cohort(cohort)
+    pm = api.evaluate_personalized(clients=cohort)
+    seen = api.personal_store().seen
+    print(f"[adapter] personalize_cohort of clients {cohort.tolist()} "
+          f"+ evaluate_personalized: {time.perf_counter() - t0:.1f} s; "
+          f"losses {' '.join(f'{v:.4f}' for v in p_losses)}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pm.items()), flush=True)
+    check(bool(np.isfinite(p_losses).all())
+          and all(math.isfinite(v) for v in pm.values()),
+          f"non-finite personalization {p_losses} {pm}")
+    check(bool(seen[cohort].all()) and int(seen.sum()) == len(cohort),
+          f"personal store rows seen {np.flatnonzero(seen)}, expected "
+          f"{sorted(cohort)}")
+    _profile_round(api, ADAPTER_ROUNDS + 1, "adapter",
+                   ("flash_fwd", "flash_dq", "flash_dkv"), "flash kernels")
+    return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -716,9 +1103,15 @@ def main() -> int:
           f" TFLOP/s, fp32 {peaks[1] / 1e12:.0f} TFLOP/s, HBM "
           f"{peaks[2] / 1e12:.2f} TB/s", flush=True)
     phase_build()
-    entries = [phase_kernels(peaks)] + phase_gn_kernels(peaks)
+    entries = ([phase_kernels(peaks)] + phase_flash_bwd_kernels(peaks)
+               + phase_gn_kernels(peaks))
     launches = phase_serve()
     launches.update(phase_train())
+    adapter = phase_adapter()
+    print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "
+          f"adapter {adapter['flash_fwd']}", flush=True)
+    adapter["flash_fwd"] += launches["flash_fwd"]
+    launches.update(adapter)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": entries}))

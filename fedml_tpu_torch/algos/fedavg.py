@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
@@ -31,7 +33,7 @@ from fedml_tpu_torch.trainer.local import (make_client_optimizer,
 UNPORTED_FIELDS = ("aggregator", "group_reduce", "corrupt_mode",
                    "client_selection", "compress", "wire_codec",
                    "ingest_workers", "compute_layout", "client_step_dtype",
-                   "adapter_rank", "remat", "dp_clip", "dp_noise_multiplier")
+                   "remat", "dp_clip", "dp_noise_multiplier")
 
 
 def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
@@ -49,11 +51,19 @@ class FedAvgAPI(FederatedLoop):
     own parameters are the initial global model (``api.net`` is public and
     may be replaced); ``train_fed`` a ``FederatedArrays`` on ``device``
     (``None`` → cuda); ``test_global`` an ``(x, y, mask)`` triple from
-    ``data.batching.batch_global`` or None."""
+    ``data.batching.batch_global`` or None. ``pad_id`` marks padding in
+    sequence labels (excluded from eval accuracy); it must match the pad
+    id of a sequence ``loss_fn`` (``partial(seq_softmax_ce, pad_id=...)``).
+    """
+
+    #: Set True by the one subclass that reads cfg.adapter_rank
+    #: (FedAdapterAPI); every other trainer class refuses the flag, which
+    #: would otherwise silently train the dense model.
+    _consumes_adapter_cfg = False
 
     def __init__(self, model, train_fed: FederatedArrays, test_global,
                  cfg: FedConfig, mesh=None, loss_fn=softmax_ce,
-                 nan_guard: bool = False, device=None):
+                 pad_id: int = 0, nan_guard: bool = False, device=None):
         if mesh is not None:
             raise NotImplementedError(
                 "a client mesh is not ported yet (ROADMAP.md A11); the port "
@@ -64,6 +74,12 @@ class FedAvgAPI(FederatedLoop):
                 "resident FederatedArrays layout is ported (streaming "
                 "stores: ROADMAP.md A9)")
         refuse_unported(cfg)
+        if cfg.adapter_rank and not self._consumes_adapter_cfg:
+            raise NotImplementedError(
+                f"cfg.adapter_rank={cfg.adapter_rank} configures frozen-base "
+                "adapter finetuning; use FedAdapterAPI (algos/fedadapter.py)"
+                f" — on {type(self).__name__} the flag would be silently "
+                "inert")
         self.device = resolve_device(device)
         fd, dev = train_fed.device, self.device
         if fd.type != dev.type or (fd.index is not None and dev.index
@@ -78,16 +94,24 @@ class FedAvgAPI(FederatedLoop):
         self.cfg = cfg
         self.train_fed, self.test_global = train_fed, test_global
         self.model = model.to(self.device)
-        self.fns = model_fns(self.model)
+        self.fns = self._model_fns(self.model)
         optimizer = make_client_optimizer(cfg.client_optimizer, cfg.lr,
                                           cfg.wd, cfg.grad_clip)
         self.local_train = make_local_train_fn(self.fns.apply, optimizer,
                                                cfg.epochs, loss_fn)
         self.round_fn = make_vmap_round(self.local_train,
                                         nan_guard=nan_guard)
-        self.eval_fn = make_eval_fn(self.fns.apply, loss_fn)
+        self.eval_fn = make_eval_fn(self.fns.apply, loss_fn, pad_id)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
-        self.net = self.fns.init()
+        self.net = self.fns.init(torch.Generator().manual_seed(cfg.seed))
+
+    def _model_fns(self, model):
+        """The functional model interface that the round and the
+        evaluation are built on. FedAdapterAPI returns the adapter-level fns here (``init`` →
+        the trainable adapter tree, ``apply`` → the frozen base with the
+        adapters per call), so the rest of FedAvg runs on the adapter tree
+        unchanged."""
+        return model_fns(model)
 
     def _server_update(self, old_net, avg_net):
         """FedAvg: the new global model is the client average."""

@@ -6,9 +6,12 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from torch.func import vmap
+
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.batching import gather_clients
+from fedml_tpu_torch.trainer.local import NetState
 
 
 class FederatedLoop:
@@ -40,6 +43,19 @@ class FederatedLoop:
         weights = sub.counts.float()
         return self.round_fn(self.net, sub.x, sub.y, sub.mask, weights,
                              weights, rnd_rng)
+
+    def _per_client_eval(self, net, x, y, mask, net_dim=None):
+        """``eval_fn`` over a client-stacked layout (``x [C, S, B, ...]``),
+        without gradients, vmapped so each step is one launch of each
+        kernel for every client: ``net`` is one model (``net_dim=None``)
+        or per-client ``[C, ...]`` params (``net_dim=0``). Returns the
+        metrics as ``[C]`` tensors."""
+        state = net.model_state
+
+        def one(params, xc, yc, mc):
+            return self.eval_fn(NetState(params, state), xc, yc, mc)
+
+        return vmap(one, in_dims=(net_dim, 0, 0, 0))(net.params, x, y, mask)
 
     def evaluate(self) -> Dict[str, float]:
         if self.test_global is None:

@@ -10,7 +10,8 @@ reproduces that order.
 
 Leaves are numpy arrays or torch tensors. Vectors are numpy float32 on
 the host; :func:`stacked_tree_of` turns ``[B, D]`` rows into ``[B, ...]``
-torch leaves on a device with one host-to-device copy.
+torch leaves on a device with one host-to-device copy, and
+:func:`stacked_vectors_np` turns them back.
 """
 
 from __future__ import annotations
@@ -111,3 +112,13 @@ def stacked_tree_of(vecs, spec: TreeSpec, device) -> dict:
         leaves.append(block[:, off:off + size].reshape((b,) + shape))
         off += size
     return _unflatten(spec.paths, leaves)
+
+
+def stacked_vectors_np(tree) -> np.ndarray:
+    """Inverse of :func:`stacked_tree_of`: a tree of ``[B, ...]`` torch
+    leaves → ``[B, D]`` float32 rows on the host, one device-to-host copy."""
+    leaves = [leaf for _, leaf in leaf_paths(tree)]
+    b = leaves[0].shape[0]
+    block = torch.cat([leaf.detach().reshape(b, -1).float()
+                       for leaf in leaves], dim=1)
+    return block.cpu().numpy()

@@ -6,7 +6,8 @@
   reassemble it losslessly.
 - :func:`adapter_model_fns` is the apply surface over the ADAPTER tree:
   the frozen base is the ``nn.Module`` (``holder["base"]``), adapters are
-  a plain nested dict passed per call.
+  a plain nested dict passed per call; ``apply`` trains them, ``infer``
+  serves them.
 - :class:`PersonalAdapterStore` keeps per-client adapters as ONE
   ``[n_clients, D]`` float32 host array (optionally a memmap on disk),
   rows in JAX's flat order, with copy-on-read locking for a serving plane
@@ -24,6 +25,7 @@ import torch
 
 from fedml_tpu_torch.core.flat import (tree_spec, tree_to_vector_np,
                                        vector_to_tree_np)
+from fedml_tpu_torch.trainer.local import NetState
 
 #: Leaf-name prefix marking adapter params.
 ADAPTER_PREFIX = "lora_"
@@ -68,38 +70,70 @@ def merge_params(base, adapters):
     return out
 
 
+def param_count(tree) -> int:
+    """Number of elements in a nested dict of tensors or arrays."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return int(np.prod(tree.shape))
+
+
 class AdapterFns(NamedTuple):
-    """The apply surface over the adapter tree: ``init(generator)`` →
-    fresh adapters (A ~ N(0, 0.02), B = 0), ``apply(adapters, tokens)`` →
-    f32 logits, ``holder["base"]`` the frozen ``nn.Module``."""
+    """The apply surface over the adapter tree. Training (the
+    :class:`~fedml_tpu_torch.trainer.local.ModelFns` surface):
+    ``init(generator)`` → ``NetState(adapters, {})`` with fresh adapters
+    (A ~ N(0, 0.02), B = 0) and ``apply(net, tokens, train, rng)`` →
+    ``(f32 logits, {})``, differentiable in the adapters. Serving:
+    ``infer(adapters, tokens)`` → f32 logits under ``inference_mode``.
+    ``holder["base"]`` is the frozen ``nn.Module``."""
 
     init: Callable
     apply: Callable
+    infer: Callable
     holder: dict
+
+
+def _check_base_params(model, base_params) -> None:
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in base_params.items()}
+    if want != got:
+        raise ValueError(
+            "base_params does not match the model's frozen-base structure: "
+            f"expected {want}, got {got} — pass the dense checkpoint's "
+            "state dict (adapter leaves excluded)")
 
 
 def adapter_model_fns(model, base_params=None) -> AdapterFns:
     """Adapter-level functions over ``model`` (built with
     ``adapter_rank > 0``). ``base_params`` — a state dict, e.g. from
-    ``convert.from_jax_params`` — replaces the model's base weights
-    (strict: the keys must match). Raises for a model without adapters."""
+    ``convert.from_jax_params`` — replaces the model's base weights; its
+    keys and shapes must be the model's or it raises. Raises for a model
+    without adapters.
+
+    The base stays frozen on both paths: its parameters never require a
+    gradient, so under ``torch.func.grad`` over the adapters only the
+    adapters receive one."""
     if not getattr(model, "adapter_rank", 0):
         raise ValueError(
             "adapter finetuning needs a model with injected adapter params "
             f"(no '{ADAPTER_PREFIX}*' leaves) — build it with "
             "adapter_rank > 0")
     if base_params is not None:
+        _check_base_params(model, base_params)
         model.load_state_dict(base_params, strict=True)
+    model.requires_grad_(False)
     holder = {"base": model}
 
     def init(generator: Optional[torch.Generator] = None):
-        return model.init_adapters(generator)
+        return NetState(model.init_adapters(generator), {})
 
-    def apply(adapters, tokens):
+    def apply(net, tokens, train=False, rng=None):
+        return holder["base"](tokens, net.params), net.model_state
+
+    def infer(adapters, tokens):
         with torch.inference_mode():
             return holder["base"](tokens, adapters)
 
-    return AdapterFns(init=init, apply=apply, holder=holder)
+    return AdapterFns(init=init, apply=apply, infer=infer, holder=holder)
 
 
 class PersonalAdapterStore:

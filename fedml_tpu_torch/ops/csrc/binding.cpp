@@ -11,8 +11,22 @@
 namespace fedml_tpu_torch {
 cudaError_t flash_fwd_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* sq,
-                             const long long* sk, const long long* sv, int B,
-                             int T_len, int H, int D, bool is_bf16,
+                             const long long* sk, const long long* sv, int R,
+                             int B, int T_len, int H, int D, bool is_bf16,
+                             bool causal, cudaStream_t stream);
+cudaError_t flash_dq_launch(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, const long long* sq,
+                            const long long* sk, const long long* sv,
+                            const long long* sdo, int R, int B, int T_len,
+                            int H, int D, bool is_bf16, bool causal,
+                            cudaStream_t stream);
+cudaError_t flash_dkv_launch(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv,
+                             const long long* sq, const long long* sk,
+                             const long long* sv, const long long* sdo, int R,
+                             int B, int T_len, int H, int D, bool is_bf16,
                              bool causal, cudaStream_t stream);
 cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
                                   float eps, const long long* sx,
@@ -34,43 +48,126 @@ cudaError_t group_norm_reduce_launch(int R, int M, int C,
 
 namespace {
 
+// q, k, v (and dO) [R, B, T, H, D], bf16 or f32, D at stride 1 and the
+// other dims at any stride.
+void check_flash(const torch::Tensor& q, const torch::Tensor& k,
+                 const torch::Tensor& v, const char* what) {
+  TORCH_CHECK(q.is_cuda() && k.is_cuda() && v.is_cuda(), what,
+              ": q, k, v must be CUDA tensors");
+  TORCH_CHECK(q.device() == k.device() && q.device() == v.device(), what,
+              ": q, k, v must be on one device");
+  const auto st = q.scalar_type();
+  TORCH_CHECK(st == torch::kFloat32 || st == torch::kBFloat16, what,
+              ": dtype must be float32 or bfloat16, got ", st);
+  TORCH_CHECK(k.scalar_type() == st && v.scalar_type() == st, what,
+              ": q, k, v must share one dtype");
+  TORCH_CHECK(q.dim() == 5, what, ": q must be [R, B, T, H, D]");
+  TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(), what,
+              ": q, k, v must have one shape");
+  TORCH_CHECK(q.stride(4) == 1 && k.stride(4) == 1 && v.stride(4) == 1, what,
+              ": the head dim must be contiguous (stride 1)");
+  const int64_t D = q.size(4);
+  TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 128, what,
+              ": head dim must be 16, 32, 64 or 128, got ", D);
+  TORCH_CHECK(q.numel() > 0, what, ": empty input");
+  TORCH_CHECK(q.size(0) * q.size(1) * q.size(3) <= 65535, what,
+              ": R*B*H must be <= 65535");
+  TORCH_CHECK(q.size(2) <= 2147483647LL / 64, what, ": T too large");
+}
+
+void strides4(const torch::Tensor& t, long long* out) {
+  for (int i = 0; i < 4; ++i) out[i] = t.stride(i);
+}
+
 std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
                                      torch::Tensor v, bool causal) {
-  TORCH_CHECK(q.is_cuda() && k.is_cuda() && v.is_cuda(),
-              "flash_fwd: q, k, v must be CUDA tensors");
-  TORCH_CHECK(q.device() == k.device() && q.device() == v.device(),
-              "flash_fwd: q, k, v must be on one device");
-  const auto st = q.scalar_type();
-  TORCH_CHECK(st == torch::kFloat32 || st == torch::kBFloat16,
-              "flash_fwd: dtype must be float32 or bfloat16, got ", st);
-  TORCH_CHECK(k.scalar_type() == st && v.scalar_type() == st,
-              "flash_fwd: q, k, v must share one dtype");
-  TORCH_CHECK(q.dim() == 4, "flash_fwd: q must be [B, T, H, D]");
-  TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(),
-              "flash_fwd: q, k, v must have one shape");
-  TORCH_CHECK(q.stride(3) == 1 && k.stride(3) == 1 && v.stride(3) == 1,
-              "flash_fwd: the head dim must be contiguous (stride 1)");
-  const int64_t B = q.size(0), T = q.size(1), H = q.size(2), D = q.size(3);
-  TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 128,
-              "flash_fwd: head dim must be 16, 32, 64 or 128, got ", D);
-  TORCH_CHECK(B > 0 && T > 0 && H > 0, "flash_fwd: empty input");
-  TORCH_CHECK(B * H <= 65535, "flash_fwd: B*H must be <= 65535");
-
+  check_flash(q, k, v, "flash_fwd");
+  const int64_t R = q.size(0), B = q.size(1), T = q.size(2), H = q.size(3),
+                D = q.size(4);
   const c10::cuda::CUDAGuard guard(q.device());
-  auto o = torch::empty({B, T, H, D}, q.options());
-  auto lse = torch::empty({B, H, T}, q.options().dtype(torch::kFloat32));
-  const long long sq[3] = {q.stride(0), q.stride(1), q.stride(2)};
-  const long long sk[3] = {k.stride(0), k.stride(1), k.stride(2)};
-  const long long sv[3] = {v.stride(0), v.stride(1), v.stride(2)};
+  auto o = torch::empty({R, B, T, H, D}, q.options());
+  auto lse = torch::empty({R, B, H, T}, q.options().dtype(torch::kFloat32));
+  long long sq[4], sk[4], sv[4];
+  strides4(q, sq);
+  strides4(k, sk);
+  strides4(v, sv);
   const cudaError_t err = fedml_tpu_torch::flash_fwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-      lse.data_ptr<float>(), sq, sk, sv, static_cast<int>(B),
-      static_cast<int>(T), static_cast<int>(H), static_cast<int>(D),
-      st == torch::kBFloat16, causal, at::cuda::getCurrentCUDAStream());
+      lse.data_ptr<float>(), sq, sk, sv, R, B, T, H, D,
+      q.scalar_type() == torch::kBFloat16, causal,
+      at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "flash_fwd: set-up failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {o, lse};
+}
+
+// The backward's extra operands: dO like q, lse and delta contiguous f32
+// [R, B, H, T].
+void check_flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, const torch::Tensor& dout,
+                     const torch::Tensor& lse, const torch::Tensor& delta,
+                     const char* what) {
+  check_flash(q, k, v, what);
+  TORCH_CHECK(dout.device() == q.device() && dout.sizes() == q.sizes() &&
+                  dout.scalar_type() == q.scalar_type() &&
+                  dout.stride(4) == 1,
+              what, ": dO must match q in device, shape and dtype, with the "
+              "head dim contiguous");
+  const std::vector<int64_t> rows{q.size(0), q.size(1), q.size(3), q.size(2)};
+  for (const auto* t : {&lse, &delta})
+    TORCH_CHECK(t->device() == q.device() &&
+                    t->scalar_type() == torch::kFloat32 &&
+                    t->sizes() == c10::IntArrayRef(rows) && t->is_contiguous(),
+                what, ": lse and delta must be contiguous float32 [R, B, H, T]");
+}
+
+torch::Tensor flash_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                       torch::Tensor dout, torch::Tensor lse,
+                       torch::Tensor delta, bool causal) {
+  check_flash_bwd(q, k, v, dout, lse, delta, "flash_dq");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dq = torch::empty(q.sizes(), q.options());
+  long long sq[4], sk[4], sv[4], sdo[4];
+  strides4(q, sq);
+  strides4(k, sk);
+  strides4(v, sv);
+  strides4(dout, sdo);
+  const cudaError_t err = fedml_tpu_torch::flash_dq_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), sq, sk,
+      sv, sdo, q.size(0), q.size(1), q.size(2), q.size(3), q.size(4),
+      q.scalar_type() == torch::kBFloat16, causal,
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "flash_dq: set-up failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return dq;
+}
+
+std::vector<torch::Tensor> flash_dkv(torch::Tensor q, torch::Tensor k,
+                                     torch::Tensor v, torch::Tensor dout,
+                                     torch::Tensor lse, torch::Tensor delta,
+                                     bool causal) {
+  check_flash_bwd(q, k, v, dout, lse, delta, "flash_dkv");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dk = torch::empty(k.sizes(), k.options());
+  auto dv = torch::empty(v.sizes(), v.options());
+  long long sq[4], sk[4], sv[4], sdo[4];
+  strides4(q, sq);
+  strides4(k, sk);
+  strides4(v, sv);
+  strides4(dout, sdo);
+  const cudaError_t err = fedml_tpu_torch::flash_dkv_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
+      dv.data_ptr(), sq, sk, sv, sdo, q.size(0), q.size(1), q.size(2),
+      q.size(3), q.size(4), q.scalar_type() == torch::kBFloat16, causal,
+      at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "flash_dkv: set-up failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dk, dv};
 }
 
 // x [R, M, S, C] (bf16 or f32, C at stride 1); gamma/beta [R, C] f32.
@@ -190,7 +287,14 @@ std::vector<torch::Tensor> group_norm_reduce(torch::Tensor part_g,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "flash-attention forward: (q, k, v [B,T,H,D], causal) -> (o, lse)");
+        "flash-attention forward: (q, k, v [R,B,T,H,D], causal) -> "
+        "(o [R,B,T,H,D], lse [R,B,H,T])");
+  m.def("flash_dq", &flash_dq,
+        "flash-attention dq: (q, k, v, dO [R,B,T,H,D], lse, delta "
+        "[R,B,H,T], causal) -> dq");
+  m.def("flash_dkv", &flash_dkv,
+        "flash-attention dk/dv: (q, k, v, dO [R,B,T,H,D], lse, delta "
+        "[R,B,H,T], causal) -> (dk, dv)");
   m.def("group_norm_fwd", &group_norm_fwd,
         "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> y");
   m.def("group_norm_bwd", &group_norm_bwd,

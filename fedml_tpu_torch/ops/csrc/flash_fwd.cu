@@ -6,7 +6,7 @@
 // scale = 1/√D, causal mask NEG_INF = -1e30, a running row max m and sum l
 // in f32, P rounded to the input type before P·V (the TPU kernel's
 // p.astype(v.dtype)), l = 0 rows guarded, lse = m + log(l). The TPU's
-// 8-row replication of lse is dropped: lse is [B, H, T].
+// 8-row replication of lse is dropped: lse is [R, B, H, T].
 //
 // What bounds it on an H100: at the serving shape (T = 2048, D = 64) the
 // work is ~2·B·H·T²·D operations against ~4·B·T·H·D·2 bytes, far above the
@@ -18,43 +18,21 @@
 // memory at a time) and register-blocks each thread on a 4 × 4 tile of S
 // and a 4 × D/16 tile of O, so each shared-memory load feeds 2 FMAs.
 //
-// Design: one thread block per (batch·head, 64-row Q tile), 256 threads as
+// Design: one thread block per (r·batch·head, 64-row Q tile), 256 threads as
 // 16 row groups × 16 column groups. A loop inside the block walks the K/V
 // tiles (64 rows each) through shared memory; with causal masking it stops
 // at the tile holding the block's last row, so tiles wholly above the
-// diagonal are never read. Q, K, V are read through their [B, T, H, D]
-// strides (innermost dim contiguous), so the caller's views of one qkv
-// buffer need no copy. Rows and keys past T are masked in the kernel.
+// diagonal are never read. Q, K, V are read through their [R, B, T, H, D]
+// strides (innermost dim contiguous; flash_common.cuh), so the caller's
+// views of one qkv buffer, and the clients' dim under vmap, need no copy.
+// Rows and keys past T are masked in the kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace fedml_tpu_torch {
 namespace {
 
-constexpr int BM = 64;   // query rows per block
-constexpr int BN = 64;   // key rows per tile
-constexpr int NT = 256;  // threads: 16 row groups x 16 column groups
-constexpr int LDP = BN + 16;  // P row pitch: two row groups hit disjoint banks
-constexpr float kNegInf = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace flash;
 
 // Sum / max over the 16 lanes of one row group (lane bits 0-3 are the
 // column group).
@@ -71,10 +49,6 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-struct Strides {
-  long long b, t, h;
-};
-
 template <int D>
 constexpr int smem_floats() {
   return BM * (D + 1) + BN * (D + 1) + BN * D + BM * LDP;
@@ -85,7 +59,8 @@ __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Strides sq, Strides sk,
-                     Strides sv, int H, int T_len, float scale, int causal) {
+                     Strides sv, int B, int H, int T_len, float scale,
+                     int causal) {
   constexpr int LDQ = D + 1;  // odd pitch: 16 rows at one column, 16 banks
   constexpr int LDK = D + 1;
   constexpr int DJ = D / 16;  // O columns per thread
@@ -97,22 +72,15 @@ __global__ void __launch_bounds__(NT)
   float* sP = sV + BN * D;
 
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const Head hd(bh, B, H);
   const int q0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
   const int tr = tid >> 4;  // rows tr + 16 i
   const int tc = tid & 15;  // S columns tc + 16 j, O columns tc + 16 j
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  for (int idx = tid; idx < BM * D; idx += NT) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int row = q0 + r;
-    sQ[r * LDQ + d] = row < T_len ? to_float(qb[row * sq.t + d]) : 0.f;
-  }
+  const T* kb = hd.at(k, sk);
+  const T* vb = hd.at(v, sv);
+  load_tile<T, D>(sQ, hd.at(q, sq), sq.t, q0, T_len);
 
   float m[4], l[4], acc[4][DJ];
 #pragma unroll
@@ -203,7 +171,8 @@ __global__ void __launch_bounds__(NT)
     const int row = q0 + tr + 16 * i;
     if (row >= T_len) continue;
     const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = o + ((static_cast<long long>(b) * T_len + row) * H + h) * D;
+    T* orow = o + (static_cast<long long>(bh / H) * T_len + row) * H * D +
+              hd.h * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       orow[tc + 16 * j] = from_float<T>(acc[i][j] / l_safe);
@@ -215,41 +184,41 @@ __global__ void __launch_bounds__(NT)
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const long long* sq, const long long* sk,
-                   const long long* sv, int B, int T_len, int H, int causal,
-                   cudaStream_t stream) {
+                   const long long* sv, int R, int B, int T_len, int H,
+                   int causal, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T_len + BM - 1) / BM, B * H);
+  const dim3 grid((T_len + BM - 1) / BM, R * B * H);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse,
-      Strides{sq[0], sq[1], sq[2]}, Strides{sk[0], sk[1], sk[2]},
-      Strides{sv[0], sv[1], sv[2]}, H, T_len, scale, causal);
+      Strides{sq[0], sq[1], sq[2], sq[3]}, Strides{sk[0], sk[1], sk[2], sk[3]},
+      Strides{sv[0], sv[1], sv[2], sv[3]}, B, H, T_len, scale, causal);
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o,
                          float* lse, const long long* sq, const long long* sk,
-                         const long long* sv, int B, int T_len, int H, int D,
-                         int causal, cudaStream_t stream) {
+                         const long long* sv, int R, int B, int T_len, int H,
+                         int D, int causal, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, sq, sk, sv, B, T_len, H, causal,
-                           stream);
+      return launch<T, 16>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                           causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, B, T_len, H, causal,
-                           stream);
+      return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                           causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, B, T_len, H, causal,
-                           stream);
+      return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                           causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, B, T_len, H, causal,
-                            stream);
+      return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                            causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -258,16 +227,17 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches on `stream`; returns the error of the set-up calls (the launch
-// itself is checked by the caller with cudaGetLastError).
+// itself is checked by the caller with cudaGetLastError). Strides are
+// (r, b, t, h) of [R, B, T, H, D] operands.
 cudaError_t flash_fwd_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* sq,
-                             const long long* sk, const long long* sv, int B,
-                             int T_len, int H, int D, bool is_bf16,
+                             const long long* sk, const long long* sv, int R,
+                             int B, int T_len, int H, int D, bool is_bf16,
                              bool causal, cudaStream_t stream) {
   if (is_bf16)
-    return launch_dtype<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, B, T_len,
-                                       H, D, causal, stream);
-  return launch_dtype<float>(q, k, v, o, lse, sq, sk, sv, B, T_len, H, D,
+    return launch_dtype<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, R, B,
+                                       T_len, H, D, causal, stream);
+  return launch_dtype<float>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H, D,
                              causal, stream);
 }
 

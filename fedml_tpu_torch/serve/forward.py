@@ -77,11 +77,11 @@ class ServeForward:
     def batched(self, stacked, tokens):
         """``[B, ...]``-stacked adapters + ``[B, T]`` tokens → ``[B, T, V]``
         f32 logits on the device, in one forward."""
-        return self.fns.apply(stacked, _tokens(tokens, self.device))
+        return self.fns.infer(stacked, _tokens(tokens, self.device))
 
     def sequential(self, adapters, tokens_row):
         """One adapter tree + ``[T]`` tokens → ``[T, V]``."""
-        return self.fns.apply(adapters,
+        return self.fns.infer(adapters,
                               _tokens(tokens_row, self.device)[None])[0]
 
     def stacked_tree(self, vecs):

@@ -167,6 +167,18 @@ def softmax_ce(logits, labels):
     return F.cross_entropy(logits.float(), labels.long(), reduction="none")
 
 
+def seq_softmax_ce(logits, labels, pad_id: int = 0):
+    """Per-example next-token CE for sequence models: ``logits [B, T, V]``,
+    ``labels [B, T]``; the mean over the positions whose label is not
+    ``pad_id`` (1 where a row is all padding)."""
+    per_tok = F.cross_entropy(logits.flatten(0, -2).float(),
+                              labels.flatten().long(),
+                              reduction="none").view(labels.shape)
+    tok_mask = (labels != pad_id).to(per_tok.dtype)
+    denom = torch.clamp(tok_mask.sum(-1), min=1.0)
+    return (per_tok * tok_mask).sum(-1) / denom
+
+
 def epoch_perm(mask, epoch_key):
     """The per-epoch reshuffle of ``[..., S, B]`` packed slots
     (DataLoader(shuffle=True) semantics): REAL samples permuted among
@@ -251,15 +263,26 @@ class LocalTrain:
         ``rngs [C]`` from one global ``net`` → (client nets with ``[C, ...]``
         params, losses ``[C]``)."""
         c = x.shape[0]
+        params = tree_map(lambda t: _per_client(t, c), net.params)
+        return self.run_stacked(NetState(params, net.model_state), x, y,
+                                mask, rngs)
 
-        def per_client(t):
-            return t.unsqueeze(0).expand(c, *t.shape).clone()
+    def run_stacked(self, nets: NetState, x, y, mask, rngs):
+        """The cohort from per-client starting nets (``[C, ...]`` params,
+        one shared ``model_state``), as :meth:`run_clients` takes it after
+        broadcasting the global net; the optimizer state starts fresh."""
+        c = x.shape[0]
+        first = tree_map(lambda t: t[0], nets.params)
+        opt_state = tree_map(lambda t: _per_client(t, c),
+                             self.optimizer.init(first))
+        params, losses = self._epochs(nets.params, opt_state,
+                                      nets.model_state, x, y, mask, rngs,
+                                      batched=True)
+        return NetState(params, nets.model_state), losses
 
-        params = tree_map(per_client, net.params)
-        opt_state = tree_map(per_client, self.optimizer.init(net.params))
-        params, losses = self._epochs(params, opt_state, net.model_state,
-                                      x, y, mask, rngs, batched=True)
-        return NetState(params, net.model_state), losses
+
+def _per_client(t, c: int):
+    return t.unsqueeze(0).expand(c, *t.shape).clone()
 
 
 def _take(a, perm, batched: bool):
@@ -294,10 +317,11 @@ def make_local_train_fn(apply_fn, optimizer: Optimizer, local_epochs: int,
     return LocalTrain(apply_fn, optimizer, local_epochs, loss_fn)
 
 
-def make_eval_fn(apply_fn, loss_fn=softmax_ce):
+def make_eval_fn(apply_fn, loss_fn=softmax_ce, pad_id: int = 0):
     """``evaluate(net, x, y, mask) -> {loss, accuracy, num}`` over a
-    batched ``[S, B, ...]`` set of classification labels, without
-    gradients (the JAX function's sequence-label branch is not ported)."""
+    batched ``[S, B, ...]`` set, without gradients. Sequence tasks
+    (``[B, T]`` labels): a sample's accuracy is its mean over the positions
+    whose label is not ``pad_id``, consistent with :func:`seq_softmax_ce`."""
 
     @torch.no_grad()
     def evaluate(net: NetState, x, y, mask):
@@ -306,6 +330,10 @@ def make_eval_fn(apply_fn, loss_fn=softmax_ce):
             logits, _ = apply_fn(net, xb, train=False)
             per = loss_fn(logits, yb)
             correct = (logits.argmax(-1) == yb).float()
+            if correct.dim() > 1:  # sequence tasks: mean over non-pad tokens
+                tok_mask = (yb != pad_id).float().flatten(1)
+                correct = ((correct.flatten(1) * tok_mask).sum(-1)
+                           / torch.clamp(tok_mask.sum(-1), min=1.0))
             tot_loss = tot_loss + (per * mb).sum()
             tot_correct = tot_correct + (correct * mb).sum()
             tot_n = tot_n + mb.sum()

@@ -67,6 +67,113 @@ def test_flash_kernel_refuses_a_strided_head_dim(cuda):
         flash_attention(q, q, q)
 
 
+def _bwd_inputs(b, t, h, d, dtype, causal, gen, device):
+    """q, k, v, dO in ``dtype`` and the kernel's forward (o, lse)."""
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=device)
+                   .to(dtype) for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=causal)
+    return q, k, v, do, o, lse
+
+
+def _scaled_err(got, want):
+    """max |Δ| as a share of max |want|."""
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+# The slice's shape (8 clients x batch 2, T 2048, 8 heads, D 64), f32 at
+# T 2048, bf16 without the mask, a ragged T, and the other head dims.
+FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
+                   (2, 2048, 4, 64, torch.float32, True),
+                   (2, 1024, 4, 64, torch.bfloat16, False),
+                   (2, 1000, 4, 64, torch.float32, True),
+                   (2, 77, 3, 16, torch.float32, False),
+                   (2, 300, 4, 32, torch.bfloat16, True),
+                   (2, 200, 2, 128, torch.float32, True),
+                   (1, 130, 2, 128, torch.bfloat16, False)]
+
+
+@pytest.mark.parametrize("b,t,h,d,dtype,causal", FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain_twin(cuda, b, t, h, d, dtype, causal):
+    """dq, dk, dv from the two backward kernels against the f32 twin on the
+    same inputs (and the kernel's lse): within 1e-4 of max |want| in f32
+    (another summation order) and 2e-2 in bf16 (the kernels round dS and P
+    to bf16 before the products, as the TPU kernels do, and write bf16)."""
+    from fedml_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do, o, lse = _bwd_inputs(b, t, h, d, dtype, causal, g, cuda)
+    dq0 = flash_attention_bwd.dq_launches
+    dkv0 = flash_attention_bwd.dkv_launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.dq_launches - dq0,
+            flash_attention_bwd.dkv_launches - dkv0) == (1, 1)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     o.float(), lse, do.float(), causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert _scaled_err(a, w) <= tol, (name, _scaled_err(a, w))
+
+
+def test_flash_bwd_kernels_read_strided_views(cuda):
+    """q, k, v as views into one [B, T, 3·H·D] buffer: the same bits as
+    contiguous inputs, and no copy counted."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 300, 3 * 4 * 64, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (z.reshape(2, 300, 4, 64) for z in qkv.split(256, dim=-1))
+    do = torch.randn(2, 300, 4, 64, generator=g, device=cuda).to(
+        torch.bfloat16)
+    o, lse = flash_attention(q, k, v, causal=True)
+    copies = flash_attention.copies
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert flash_attention.copies == copies
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                               o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_kernels_are_deterministic(cuda):
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = _bwd_inputs(4, 512, 4, 64, torch.bfloat16, True, g, cuda)
+    q, k, v, do, o, lse = args
+    a = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    b = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_under_vmap_grad_launches_once(cuda):
+    """vmap(grad) over 4 clients: one launch of each of the three kernels,
+    no copy, and per-client gradients equal to the plain twin's autograd
+    within 1e-4 (f32)."""
+    from torch.func import grad, vmap
+
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(4, 2, 256, 4, 32, generator=g, device=cuda)
+               for _ in range(3))
+
+    def loss(fn):
+        return lambda q, k, v: torch.sin(fn(q, k, v, causal=True)[0]).sum()
+
+    counts = (flash_attention.launches, flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches, flash_attention.copies)
+    got = vmap(grad(loss(flash_attention), argnums=(0, 1, 2)))(q, k, v)
+    after = (flash_attention.launches, flash_attention_bwd.dq_launches,
+             flash_attention_bwd.dkv_launches, flash_attention.copies)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 1, 1, 0)
+    want = vmap(grad(loss(flash_attention_plain), argnums=(0, 1, 2)))(q, k, v)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
 def test_model_flash_path_matches_plain_attention(cuda):
     """A small bf16 transformer with adapters: the flash kernel in every
     block against the plain twin as attention, same weights; logits
