@@ -5,21 +5,24 @@
 
 Phases, each of which must pass or the script exits non-zero:
 
-1. build   — compiles the CUDA kernels from fedml_tpu_torch/ops/csrc.
+1. build   — compiles the CUDA kernels from fedml_tpu_torch/ops/csrc and
+             reads, from the built library, each flash backward kernel's
+             registers and its count of wgmma (HGMMA) instructions.
 2. kernels — each kernel against its plain PyTorch twin on the card:
-             flash_fwd at the serving shape and two extra cases; flash_dq
-             and flash_dkv at the FedAdapter slice's shape (8 clients x
-             batch 2, T 2048, 8 heads, D 64, bf16, causal), in f32 at T
-             2048, without the mask, at a ragged T, at D 32 and 128, on
-             views of one qkv buffer and under vmap with the clients next
-             to T (the trainer's layout); the GroupNorm forward and
-             backward at the eight shapes that
-             ResNet-56's training path gives them, with 8 rows of γ/β, in
-             the training path's layout (8 clients' rows, x a strided
-             view) at one shape per stage, in f32 on a ragged shape and on
-             a 2-D input. Times each kernel, its twin and one PyTorch
-             library call of the same function, and computes the card's
-             bound for the same work.
+             flash_fwd at the serving shape and two extra cases; the flash
+             backward (bf16: the tensor-core kernels; f32: the FMA ones) at
+             the FedAdapter slice's shape (8 clients x batch 2, T 2048, 8
+             heads, D 64, bf16, causal), in f32 at T 2048 and 1000, without
+             the mask, at a ragged T, at D 16, 32 and 128, on views of one
+             qkv buffer and under vmap with the clients next to T (the
+             trainer's layout); the GroupNorm forward and backward at the
+             eight shapes that ResNet-56's training path gives them, with
+             8 rows of γ/β, in the training path's layout (8 clients'
+             rows, x a strided view) at one shape per stage, in f32 on a
+             ragged shape and on a 2-D input. Times each kernel, its twin
+             and one PyTorch library call of the same function (many calls
+             per CUDA event pair; a library backward as a replayed CUDA
+             graph), and computes the card's bound for the same work.
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
@@ -48,11 +51,15 @@ Phases, each of which must pass or the script exits non-zero:
              with the flash launch counts zeroed just before and read just
              after (16 per round of each of the three kernels, 0 copies);
              the frozen base bitwise unchanged and the adapters moved; from
-             one start, one local step in f32 through the kernels against
-             the plain twin, which must also tell a planted fault (dk/dv
-             skipping the last Q tile) from the twin; one personalize_cohort
-             of a round's clients and evaluate_personalized on them. One
-             round under the profiler gives the device time by kernel.
+             one start, one local step in f32 through the FMA backward
+             kernels against the plain twin, and one in bf16 through the
+             tensor-core kernels held to the f32 twin's step beside the
+             bf16 twin's, each of which must also tell a planted fault
+             (dk/dv skipping the last Q tile) from the twin; one
+             personalize_cohort of a round's clients and
+             evaluate_personalized on them. One round under the profiler
+             gives the device time by kernel and shows, by name, that the
+             backward ran on the tensor-core kernels only.
 6. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -66,6 +73,8 @@ import dataclasses
 import importlib
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -140,13 +149,22 @@ BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
              (2, 2048, 8, 64, torch.float32, True),
              (2, 2048, 8, 64, torch.bfloat16, False),
              (2, 1000, 8, 64, torch.float32, True),
+             (2, 1000, 8, 64, torch.bfloat16, True),
+             (2, 1024, 8, 16, torch.bfloat16, True),
              (2, 1024, 8, 32, torch.bfloat16, True),
-             (2, 1024, 4, 128, torch.bfloat16, True)]
+             (2, 1024, 4, 128, torch.bfloat16, True),
+             (2, 1000, 4, 128, torch.bfloat16, False)]
 # One local step of the FedAdapter cohort in f32, kernels vs the plain
 # twin, same start and keys, as |update diff| / |update|. The bound is
 # picked from readings of the sound kernels and of a planted fault (dk/dv
 # skipping the last 64-row Q tile), PERF.md §6.
 ADAPTER_STEP_TOL = 1e-3
+# The same step in bf16 (the main path's tensor-core kernels), held to the
+# f32 twin's step as the train phase's bf16 step is: the kernels' distance
+# at most FACTOR x the bf16 twin's + SLACK. On an H100 the kernels read
+# 9.56e-3, the bf16 twin 9.41e-3 (bound 2.41e-2) and the planted fault
+# 1.45e-1.
+ADAPTER_BF16_FACTOR, ADAPTER_BF16_SLACK = 1.5, 1e-2
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -182,8 +200,11 @@ def peaks_for(name: str):
     raise SmokeFailure(f"no published peaks for {name!r}")
 
 
-def time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
-    """Median CUDA-event time of ``fn`` after warm-up."""
+def time_ms(fn, warmup: int = 3, reps: int = 15, inner: int = 20) -> float:
+    """Median CUDA-event time of one call of ``fn`` after warm-up: each of
+    ``reps`` event pairs brackets ``inner`` back-to-back calls and is
+    divided by ``inner``, so the host's dispatch in front of one call
+    overlaps the card's work on the others instead of being timed."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -192,20 +213,72 @@ def time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
+def graph_ms(fn) -> float:
+    """``time_ms`` of ``fn`` captured once as a CUDA graph and replayed: for
+    a library call whose host time (autograd, dispatch) exceeds its device
+    time, so that many back-to-back calls would still time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay)
+
+
 def phase_build():
+    """Builds the extension; prints, from the built library, each flash
+    backward kernel's registers, stack and local memory (``cuobjdump
+    -res-usage``) and its count of HGMMA (``wgmma``) instructions
+    (``cuobjdump -sass``), and fails if a tensor-core kernel has none."""
     from fedml_tpu_torch.ops import build
 
     t0 = time.perf_counter()
     build.extension()
     print(f"[build] extension built in {time.perf_counter() - t0:.1f} s "
           f"from {build.CSRC}", flush=True)
+    lib = os.path.join(build.BUILD_DIR, "fedml_tpu_torch_kernels.so")
+    tool = "/usr/local/cuda/bin/cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([tool, flag, lib], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+
+    hgmma, fn = {}, None
+    for line in dump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "HGMMA" in line:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    fn = None  # -res-usage prints "Function <name>:", then its usage
+    for line in dump("-res-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
+        if m:
+            fn = m.group(1)
+        if fn and "REG" in res and re.search(r"flash_d\w*_kernel", fn):
+            name = re.search(r"flash_d\w*_kernel\w*?Li\d+E", fn).group(0)
+            print(f"[build] {name}: REG {res['REG']} STACK {res.get('STACK')}"
+                  f" LOCAL {res.get('LOCAL')}; HGMMA {hgmma.get(fn, 0)}",
+                  flush=True)
+            fn = None
+    for kernel in ("flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"):
+        counts = [n for f, n in hgmma.items() if kernel in f]
+        check(len(counts) == 4 and all(n > 0 for n in counts),
+              f"{kernel}: HGMMA counts {counts} in {lib}, expected four "
+              "instantiations with wgmma")
 
 
 def phase_kernels(peaks):
@@ -367,7 +440,8 @@ def phase_flash_bwd_kernels(peaks):
 
     # Times at the slice's shape: each kernel alone (δ made once), the
     # plain twin and the library's backward, which both compute dq, dk and
-    # dv together, and the forward kernel at the same shape.
+    # dv together, and the forward kernel and the library's forward at the
+    # same shape.
     b, t, h, d, dtype, _ = BWD_CASES[0]
     q, k, v, o, lse, do = inputs(b, t, h, d, dtype, True)
     ext = fa.extension()
@@ -375,12 +449,12 @@ def phase_flash_bwd_kernels(peaks):
     lse5 = lse[None]
     delta = (do5.float() * o.float()[None]).sum(-1).transpose(-1, -2)
     delta = delta.contiguous()
-    dq_ms = time_ms(lambda: ext.flash_dq(q5, k5, v5, do5, lse5, delta, True))
-    dkv_ms = time_ms(lambda: ext.flash_dkv(q5, k5, v5, do5, lse5, delta,
-                                           True))
-    fwd_ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, True))
+    args = (q5, k5, v5, do5, lse5, delta, True)
+    dq_ms = time_ms(lambda: ext.flash_dq_sm90(*args))
+    dkv_ms = time_ms(lambda: ext.flash_dkv_sm90(*args))
+    fwd_ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, True), inner=5)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, o, lse, do, True), warmup=1, reps=5)
+        q, k, v, o, lse, do, True), warmup=1, reps=5, inner=1)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
 
@@ -390,7 +464,8 @@ def phase_flash_bwd_kernels(peaks):
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), (qr, kr, vr), dot)
 
-    library_ms = time_ms(lib_fwd_bwd) - time_ms(lib_fwd)
+    lib_fwd_ms = time_ms(lib_fwd)
+    library_ms = graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd)
     pairs = t * (t + 1) // 2
     bf16_peak, _, hbm = peaks
     elem = b * t * h * d * q.element_size()
@@ -403,24 +478,30 @@ def phase_flash_bwd_kernels(peaks):
         t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / hbm * 1e3
         bound_ms = max(t_ops, t_bytes)
         print(f"[kernels] flash_{kind} B={b} T={t} H={h} D={d} bf16 causal: "
-              f"kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
-              f"backward {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain backward {plain_ms:.4f} ms, sdpa backward "
+              f"{library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us (ops "
-              f"{t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); kernel "
-              f"at {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"{t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us)",
+              flush=True)
         entries.append({
             "name": f"flash_{kind}", "route": "cuda",
-            "source": "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
+            "source": "fedml_tpu_torch/ops/csrc/flash_bwd_sm90.cu",
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
             "launches": None,
             "max_abs_err": main_errs[0] if kind == "dq" else max(main_errs[1:]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms})
+    print(f"[kernels] flash dq + dk/dv B={b} T={t} H={h} D={d} bf16 causal: "
+          f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / library_ms:.2f}x "
+          "sdpa's backward",
+          flush=True)
     fwd_flops = 4 * b * h * d * pairs
     print(f"[kernels] flash_fwd at the slice's shape B={b} T={t} H={h} D={d} "
-          f"bf16 causal: {fwd_ms:.4f} ms, {fwd_flops / 1e9:.2f} GFLOP -> "
-          f"bound {fwd_flops / bf16_peak * 1e6:.2f} us", flush=True)
+          f"bf16 causal: {fwd_ms:.4f} ms, sdpa forward {lib_fwd_ms:.4f} ms; "
+          f"{fwd_flops / 1e9:.2f} GFLOP -> bound "
+          f"{fwd_flops / bf16_peak * 1e3:.4f} ms", flush=True)
     return entries
 
 
@@ -516,7 +597,7 @@ def phase_gn_kernels(peaks):
         yl = F.group_norm(xr, groups, wr, br, gn.EPS)
         torch.autograd.grad(yl, (xr, wr, br), dyl)
 
-    lib_bwd = time_ms(lib_fwd_bwd) - time_ms(
+    lib_bwd = graph_ms(lib_fwd_bwd) - graph_ms(
         lambda: F.group_norm(xr, groups, wr, br, gn.EPS))
     _, fp32_peak, hbm = peaks
     elems, esz = x.numel(), x.element_size()
@@ -669,11 +750,12 @@ def phase_serve():
     del twin, twin_fwd, want
 
     st = fwd.stacked_tree(vecs)
-    prefill_ms = time_ms(lambda: fwd.batched(st, tokens), warmup=1, reps=5)
+    prefill_ms = time_ms(lambda: fwd.batched(st, tokens), warmup=1, reps=5,
+                         inner=1)
     d2h_ms = time_ms(lambda: fwd.batched(st, tokens).cpu(), warmup=1,
-                     reps=5) - prefill_ms
+                     reps=5, inner=1) - prefill_ms
     dec_prefill_ms = time_ms(lambda: dec.prefill(st, tokens, lens=lens),
-                             warmup=1, reps=3)
+                             warmup=1, reps=3, inner=1)
     _, cache = dec.prefill(st, tokens, lens=lens)
     nxt = torch.zeros(MAX_BATCH, dtype=torch.long, device="cuda")
     torch.cuda.synchronize()
@@ -711,7 +793,8 @@ def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
     """One round under torch.profiler: device time by kernel (top 12), the
     share of the kernels whose names contain one of ``kernels``, and the
     device idle share of the round (1 - summed kernel time / wall; kernels
-    run on one stream)."""
+    run on one stream). Returns (kernel name, launches, ms) of every kernel
+    with device time, or [] if the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -732,7 +815,7 @@ def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
     if not rows:
         print(f"[{tag}] profiler: no device time recorded; device time by "
               "kernel not measured", flush=True)
-        return
+        return []
     rows.sort(reverse=True)
     own_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
     print(f"[{tag}] profiled round {round_idx}: wall {wall_ms:.1f} ms, "
@@ -742,6 +825,7 @@ def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
     for ms, count, key in rows[:12]:
         print(f"[{tag}]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
               flush=True)
+    return [(key, count, ms) for ms, count, key in rows]
 
 
 class _SkipOneSamplePerRow:
@@ -902,9 +986,10 @@ def phase_train():
 
 
 class _SkipLastQTile:
-    """Planted fault for the adapter step check: the extension with its
-    dk/dv kernel fed a dO whose last 64 rows are zero, as if the kernel had
-    skipped the last Q tile."""
+    """Planted fault for the adapter step checks: the extension with its
+    dk/dv kernels (the FMA one for f32, the tensor-core one for bf16) fed a
+    dO whose last 64 rows are zero, as if the kernel had skipped the last Q
+    tile."""
 
     def __init__(self, ext):
         self._ext = ext
@@ -913,9 +998,17 @@ class _SkipLastQTile:
         return getattr(self._ext, name)
 
     def flash_dkv(self, q, k, v, do, lse, delta, causal):
+        return self._ext.flash_dkv(q, k, v, self._cut(do), lse, delta, causal)
+
+    def flash_dkv_sm90(self, q, k, v, do, lse, delta, causal):
+        return self._ext.flash_dkv_sm90(q, k, v, self._cut(do), lse, delta,
+                                        causal)
+
+    @staticmethod
+    def _cut(do):
         do = do.clone()
         do[:, :, -64:] = 0
-        return self._ext.flash_dkv(q, k, v, do, lse, delta, causal)
+        return do
 
 
 def _flash_counts():
@@ -1028,11 +1121,13 @@ def phase_adapter():
     check(moved > 0, "the adapters did not move")
 
     # Kernels vs the plain twin from one start and keys: one local step of
-    # a sampled cohort in f32, and again with a fault planted in dk/dv.
+    # a sampled cohort in f32 (the FMA kernels) and in bf16 (the tensor-core
+    # kernels, the main path's), each again with a fault planted in dk/dv.
     def twin_fn(q, k, v, causal):
         return fa.flash_attention_plain(q, k, v, causal)[0]
 
     api32, twin32 = build(dtype=None), build(dtype=None, attn_fn=twin_fn)
+    twin16 = build(attn_fn=twin_fn)
     net0 = NetState(tree_map(torch.clone, start), {})
     sub = gather_clients(fed, sample_clients(ADAPTER_ROUNDS + 1,
                                              ADAPTER_CLIENTS,
@@ -1048,24 +1143,38 @@ def phase_adapter():
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
+    def faulty_step(a):
+        ext = fa.extension
+        fa.extension = lambda: _SkipLastQTile(ext())
+        try:
+            return step(a)
+        finally:
+            fa.extension = ext
+
     step_t = step(twin32)
-    rel_k = rel(step(api32), step_t)
-    ext = fa.extension
-    fa.extension = lambda: _SkipLastQTile(ext())
-    try:
-        rel_fault = rel(step(api32), step_t)
-    finally:
-        fa.extension = ext
+    rel_k, rel_fault = rel(step(api32), step_t), rel(faulty_step(api32), step_t)
+    rel_k16, rel_t16 = rel(step(api), step_t), rel(step(twin16), step_t)
+    rel_f16 = rel(faulty_step(api), step_t)
+    bound16 = ADAPTER_BF16_FACTOR * rel_t16 + ADAPTER_BF16_SLACK
     print(f"[adapter] flash kernels vs plain twin, one local step in f32 from "
           f"one start and keys, |update diff|/|update|: {rel_k:.4e} (tol "
           f"{ADAPTER_STEP_TOL}); with the planted fault (dk/dv skip the last "
           f"Q tile) {rel_fault:.4e} (must exceed the tol); |update| "
           f"{step_t.norm().item():.4e}", flush=True)
+    print(f"[adapter] the same step in bf16, distance from the f32 twin's "
+          f"step: tensor-core kernels {rel_k16:.4e}, plain twin in bf16 "
+          f"{rel_t16:.4e} (tol: kernels <= {ADAPTER_BF16_FACTOR} x twin + "
+          f"{ADAPTER_BF16_SLACK} = {bound16:.4e}); with the planted fault "
+          f"{rel_f16:.4e} (must exceed the tol)", flush=True)
     check(math.isfinite(rel_k) and rel_k <= ADAPTER_STEP_TOL,
           f"f32 kernel step disagrees with the plain twin: {rel_k}")
     check(not rel_fault <= ADAPTER_STEP_TOL,
           f"the step check passed a planted fault: {rel_fault}")
-    del api32, twin32, step_t
+    check(math.isfinite(rel_k16) and rel_k16 <= bound16,
+          f"bf16 kernel step is {rel_k16} from f32, the twin {rel_t16}")
+    check(not rel_f16 <= bound16,
+          f"the bf16 step check passed a planted fault: {rel_f16}")
+    del api32, twin32, twin16, step_t
 
     cohort = api.sample_round(ADAPTER_ROUNDS)
     t0 = time.perf_counter()
@@ -1082,8 +1191,21 @@ def phase_adapter():
     check(bool(seen[cohort].all()) and int(seen.sum()) == len(cohort),
           f"personal store rows seen {np.flatnonzero(seen)}, expected "
           f"{sorted(cohort)}")
-    _profile_round(api, ADAPTER_ROUNDS + 1, "adapter",
-                   ("flash_fwd", "flash_dq", "flash_dkv"), "flash kernels")
+    rows = _profile_round(api, ADAPTER_ROUNDS + 1, "adapter",
+                          ("flash_fwd", "flash_dq", "flash_dkv"),
+                          "flash kernels")
+    if rows:  # the bf16 round reaches the tensor-core kernels, never FMA
+        names = ("flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
+                 "flash_dq_kernel", "flash_dkv_kernel")
+        ran = {n: sum(c for key, c, _ in rows if n in key) for n in names}
+        dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)
+               for n in names}
+        print(f"[adapter] profiled round, launches by kernel name: {ran}; "
+              f"device ms: {dev}", flush=True)
+        check(ran["flash_dq_sm90_kernel"] == ran["flash_dkv_sm90_kernel"]
+              == steps * N_LAYERS and ran["flash_dq_kernel"] == 0
+              and ran["flash_dkv_kernel"] == 0,
+              f"the profiled round's backward kernels: {ran}")
     return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
 
 

@@ -19,15 +19,23 @@ cudaError_t flash_dq_launch(const void* q, const void* k, const void* v,
                             const float* delta, void* dq, const long long* sq,
                             const long long* sk, const long long* sv,
                             const long long* sdo, int R, int B, int T_len,
-                            int H, int D, bool is_bf16, bool causal,
-                            cudaStream_t stream);
+                            int H, int D, bool causal, cudaStream_t stream);
 cudaError_t flash_dkv_launch(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
                              const long long* sq, const long long* sk,
                              const long long* sv, const long long* sdo, int R,
-                             int B, int T_len, int H, int D, bool is_bf16,
-                             bool causal, cudaStream_t stream);
+                             int B, int T_len, int H, int D, bool causal,
+                             cudaStream_t stream);
+cudaError_t flash_bwd_sm90_launch(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse,
+                                  const float* delta, void* dq, void* dk,
+                                  void* dv, const long long* sq,
+                                  const long long* sk, const long long* sv,
+                                  const long long* sdo, int R, int B,
+                                  int T_len, int H, int D, bool causal,
+                                  bool dkv, cudaStream_t stream,
+                                  int* encode_status);
 cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
                                   float eps, const long long* sx,
                                   const long long* sy, const void* x,
@@ -122,10 +130,18 @@ void check_flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
                 what, ": lse and delta must be contiguous float32 [R, B, H, T]");
 }
 
+// The FMA kernels (flash_bwd.cu) take f32 only; bf16 has flash_*_sm90.
+void check_f32(const torch::Tensor& q, const char* what) {
+  TORCH_CHECK(q.scalar_type() == torch::kFloat32, what,
+              ": the FMA backward kernels take float32 only (bfloat16 goes "
+              "to the tensor-core kernels)");
+}
+
 torch::Tensor flash_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                        torch::Tensor dout, torch::Tensor lse,
                        torch::Tensor delta, bool causal) {
   check_flash_bwd(q, k, v, dout, lse, delta, "flash_dq");
+  check_f32(q, "flash_dq");
   const c10::cuda::CUDAGuard guard(q.device());
   auto dq = torch::empty(q.sizes(), q.options());
   long long sq[4], sk[4], sv[4], sdo[4];
@@ -136,8 +152,7 @@ torch::Tensor flash_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   const cudaError_t err = fedml_tpu_torch::flash_dq_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), sq, sk,
-      sv, sdo, q.size(0), q.size(1), q.size(2), q.size(3), q.size(4),
-      q.scalar_type() == torch::kBFloat16, causal,
+      sv, sdo, q.size(0), q.size(1), q.size(2), q.size(3), q.size(4), causal,
       at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "flash_dq: set-up failed: ",
               cudaGetErrorString(err));
@@ -150,6 +165,7 @@ std::vector<torch::Tensor> flash_dkv(torch::Tensor q, torch::Tensor k,
                                      torch::Tensor lse, torch::Tensor delta,
                                      bool causal) {
   check_flash_bwd(q, k, v, dout, lse, delta, "flash_dkv");
+  check_f32(q, "flash_dkv");
   const c10::cuda::CUDAGuard guard(q.device());
   auto dk = torch::empty(k.sizes(), k.options());
   auto dv = torch::empty(v.sizes(), v.options());
@@ -162,12 +178,76 @@ std::vector<torch::Tensor> flash_dkv(torch::Tensor q, torch::Tensor k,
       q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dk.data_ptr(),
       dv.data_ptr(), sq, sk, sv, sdo, q.size(0), q.size(1), q.size(2),
-      q.size(3), q.size(4), q.scalar_type() == torch::kBFloat16, causal,
-      at::cuda::getCurrentCUDAStream());
+      q.size(3), q.size(4), causal, at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "flash_dkv: set-up failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {dk, dv};
+}
+
+// The tensor-core kernels (flash_bwd_sm90.cu) take bf16 operands whose base
+// and (r, b, t, h) strides are multiples of 16 bytes, as TMA reads them;
+// ops/flash_attention.py copies any other operand before the call.
+void check_sm90(const torch::Tensor& t, const char* what) {
+  TORCH_CHECK(t.scalar_type() == torch::kBFloat16, what,
+              ": the tensor-core kernels take bfloat16 only");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0, what,
+              ": operand base must be 16-byte aligned for TMA");
+  for (int i = 0; i < 4; ++i)
+    TORCH_CHECK(t.size(i) == 1 || (t.stride(i) > 0 && t.stride(i) % 8 == 0),
+                what, ": operand strides must be multiples of 16 bytes for "
+                "TMA, got stride ", t.stride(i), " in dim ", i);
+}
+
+// dq (dkv false) or (dk, dv) (dkv true) from the tensor-core kernels.
+std::vector<torch::Tensor> flash_bwd_sm90(
+    const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+    const torch::Tensor& dout, const torch::Tensor& lse,
+    const torch::Tensor& delta, bool causal, bool dkv, const char* what) {
+  check_flash_bwd(q, k, v, dout, lse, delta, what);
+  for (const auto* t : {&q, &k, &v, &dout}) check_sm90(*t, what);
+  const c10::cuda::CUDAGuard guard(q.device());
+  std::vector<torch::Tensor> out;
+  if (dkv) {
+    out = {torch::empty(k.sizes(), k.options()),
+           torch::empty(v.sizes(), v.options())};
+  } else {
+    out = {torch::empty(q.sizes(), q.options())};
+  }
+  long long sq[4], sk[4], sv[4], sdo[4];
+  strides4(q, sq);
+  strides4(k, sk);
+  strides4(v, sv);
+  strides4(dout, sdo);
+  int encode_status = 0;
+  const cudaError_t err = fedml_tpu_torch::flash_bwd_sm90_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), delta.data_ptr<float>(),
+      dkv ? nullptr : out[0].data_ptr(), dkv ? out[0].data_ptr() : nullptr,
+      dkv ? out[1].data_ptr() : nullptr, sq, sk, sv, sdo, q.size(0),
+      q.size(1), q.size(2), q.size(3), q.size(4), causal, dkv,
+      at::cuda::getCurrentCUDAStream(), &encode_status);
+  TORCH_CHECK(encode_status == 0, what,
+              ": cuTensorMapEncodeTiled failed with CUresult ", encode_status);
+  TORCH_CHECK(err == cudaSuccess, what, ": set-up failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+torch::Tensor flash_dq_sm90(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                            torch::Tensor dout, torch::Tensor lse,
+                            torch::Tensor delta, bool causal) {
+  return flash_bwd_sm90(q, k, v, dout, lse, delta, causal, false,
+                        "flash_dq_sm90")[0];
+}
+
+std::vector<torch::Tensor> flash_dkv_sm90(torch::Tensor q, torch::Tensor k,
+                                          torch::Tensor v, torch::Tensor dout,
+                                          torch::Tensor lse,
+                                          torch::Tensor delta, bool causal) {
+  return flash_bwd_sm90(q, k, v, dout, lse, delta, causal, true,
+                        "flash_dkv_sm90");
 }
 
 // x [R, M, S, C] (bf16 or f32, C at stride 1); gamma/beta [R, C] f32.
@@ -290,11 +370,17 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash-attention forward: (q, k, v [R,B,T,H,D], causal) -> "
         "(o [R,B,T,H,D], lse [R,B,H,T])");
   m.def("flash_dq", &flash_dq,
-        "flash-attention dq: (q, k, v, dO [R,B,T,H,D], lse, delta "
-        "[R,B,H,T], causal) -> dq");
+        "flash-attention dq, FMA (f32): (q, k, v, dO [R,B,T,H,D], lse, "
+        "delta [R,B,H,T], causal) -> dq");
   m.def("flash_dkv", &flash_dkv,
-        "flash-attention dk/dv: (q, k, v, dO [R,B,T,H,D], lse, delta "
-        "[R,B,H,T], causal) -> (dk, dv)");
+        "flash-attention dk/dv, FMA (f32): (q, k, v, dO [R,B,T,H,D], lse, "
+        "delta [R,B,H,T], causal) -> (dk, dv)");
+  m.def("flash_dq_sm90", &flash_dq_sm90,
+        "flash-attention dq on the tensor cores (bf16): (q, k, v, dO "
+        "[R,B,T,H,D], lse, delta [R,B,H,T], causal) -> dq");
+  m.def("flash_dkv_sm90", &flash_dkv_sm90,
+        "flash-attention dk/dv on the tensor cores (bf16): (q, k, v, dO "
+        "[R,B,T,H,D], lse, delta [R,B,H,T], causal) -> (dk, dv)");
   m.def("group_norm_fwd", &group_norm_fwd,
         "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> y");
   m.def("group_norm_bwd", &group_norm_bwd,

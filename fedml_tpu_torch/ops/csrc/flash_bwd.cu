@@ -1,25 +1,28 @@
-// Flash-attention backward for Hopper (sm_90a): dq, and dk with dv, from
-// Q, K, V, dO, the forward's row log-sum-exp and δ = rowsum(dO∘O).
+// Flash-attention backward on the FP32 pipes (sm_90a): dq, and dk with dv,
+// from Q, K, V, dO, the forward's row log-sum-exp and δ = rowsum(dO∘O), for
+// f32 operands. bf16 operands take the tensor-core kernels of
+// flash_bwd_sm90.cu; the tensor cores have no full-f32 product, so f32
+// stays here.
 //
 // Replaces fedml_tpu/ops/flash_attention.py::_dq_kernel and ::_dkv_kernel
-// (the Pallas TPU kernels reached through _bwd). Same arithmetic:
+// (the Pallas TPU kernels reached through _bwd) for f32. Same arithmetic:
 // S = (Q·Kᵀ)·scale with scale = 1/√D, causal mask NEG_INF = -1e30,
 // P = exp(S − lse), dP = dO·Vᵀ, dS = P∘(dP − δ) rounded to the input type
 // before the products that use it (the TPU kernels' ds.astype(q.dtype)),
 // P rounded to dO's type before Pᵀ·dO (p.astype(do.dtype)); dq = scale·dS·K,
-// dk = scale·dSᵀ·Q, dv = P̃ᵀ·dO, all accumulated in f32.
+// dk = scale·dSᵀ·Q, dv = P̃ᵀ·dO, all accumulated in f32. (The kernels are
+// templated on the operand type; only f32 is instantiated.)
 //
 // What bounds them on an H100: at the FedAdapter training shape (R·B = 16,
 // T = 2048, H = 8, D = 64, causal) dq recomputes S and dP and forms dS·K,
 // three T²·D/2 products per head, and dk/dv four; that is ~100 and ~140
 // GFLOP against ~35 MB of operands, far above the card's ~295 operations
-// per byte, so both are bound by operations. Like flash_fwd.cu this first
-// version computes on the FP32 pipes with FMA, so its ceiling is the 67
-// TFLOP/s FP32 rate, not the 989 TFLOP/s bf16 tensor-core rate; wgmma and
-// TMA are later work. The design keeps every [T, T] matrix out of device
-// memory (64 × 64 tiles of dS and P in shared memory), register-blocks each
-// thread on 4 × 4 tiles of S and dP (four shared-memory loads feed eight
-// FMAs) and on 4 × D/16 tiles of the outputs.
+// per byte, so both are bound by operations. They compute on the FP32
+// pipes with FMA, so their ceiling is the 67 TFLOP/s FP32 rate. The design
+// keeps every [T, T] matrix out of device memory (64 × 64 tiles of dS and
+// P in shared memory), register-blocks each thread on 4 × 4 tiles of S and
+// dP (four shared-memory loads feed eight FMAs) and on 4 × D/16 tiles of
+// the outputs.
 //
 // Design. The TPU grid walks the contraction tiles in order and carries the
 // sums in VMEM scratch; here a loop inside the block takes its place, so no
@@ -390,19 +393,18 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 
 // Both launch on `stream` and return the error of the set-up calls (the
 // launch itself is checked by the caller with cudaGetLastError). Strides are
-// (r, b, t, h) of [R, B, T, H, D] operands; lse and delta are [R, B, H, T].
+// (r, b, t, h) of [R, B, T, H, D] f32 operands; lse and delta are
+// [R, B, H, T]. bf16 operands go to flash_bwd_sm90.cu instead.
 cudaError_t flash_dq_launch(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, const long long* sq,
                             const long long* sk, const long long* sv,
                             const long long* sdo, int R, int B, int T_len,
-                            int H, int D, bool is_bf16, bool causal,
-                            cudaStream_t stream) {
+                            int H, int D, bool causal, cudaStream_t stream) {
   BwdArgs a = make_args(q, k, v, dout, lse, delta, sq, sk, sv, sdo, R, B,
                         T_len, H, causal);
   a.dq = dq;
-  return is_bf16 ? launch_dtype<__nv_bfloat16>(a, D, false, stream)
-                 : launch_dtype<float>(a, D, false, stream);
+  return launch_dtype<float>(a, D, false, stream);
 }
 
 cudaError_t flash_dkv_launch(const void* q, const void* k, const void* v,
@@ -410,14 +412,13 @@ cudaError_t flash_dkv_launch(const void* q, const void* k, const void* v,
                              const float* delta, void* dk, void* dv,
                              const long long* sq, const long long* sk,
                              const long long* sv, const long long* sdo, int R,
-                             int B, int T_len, int H, int D, bool is_bf16,
-                             bool causal, cudaStream_t stream) {
+                             int B, int T_len, int H, int D, bool causal,
+                             cudaStream_t stream) {
   BwdArgs a = make_args(q, k, v, dout, lse, delta, sq, sk, sv, sdo, R, B,
                         T_len, H, causal);
   a.dk = dk;
   a.dv = dv;
-  return is_bf16 ? launch_dtype<__nv_bfloat16>(a, D, true, stream)
-                 : launch_dtype<float>(a, D, true, stream);
+  return launch_dtype<float>(a, D, true, stream);
 }
 
 }  // namespace fedml_tpu_torch

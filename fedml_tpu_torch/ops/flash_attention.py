@@ -13,21 +13,27 @@ sublane copy of lse is dropped); the backward recomputes
 is computed here with torch ops in f32, as ``_bwd`` computes it outside
 its kernels.
 
-The CUDA kernels are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``. They
-read q, k, v (and dO) as ``[R, B, T, H, D]`` at any stride with D at
-stride 1, so MHA's views of one qkv buffer need no copy. R is 1 for a plain
+The CUDA kernels are ``csrc/flash_fwd.cu`` (the forward, FMA on the FP32
+pipes), ``csrc/flash_bwd_sm90.cu`` (dq and dk/dv for bf16, on the tensor
+cores with ``wgmma`` and TMA) and ``csrc/flash_bwd.cu`` (dq and dk/dv for
+f32, FMA: the tensor cores have no full-f32 product). The backward's route
+is chosen by dtype alone. The kernels read q, k, v (and dO) as
+``[R, B, T, H, D]`` at any stride with D at stride 1, so MHA's views of
+one qkv buffer need no copy; the tensor-core kernels also need every base
+and stride a multiple of 16 bytes, as TMA reads them. R is 1 for a plain
 call; under ``vmap`` the client dim becomes R, so one launch serves every
-client. All three are bound by operations and run on the FP32 pipes in
-this first version — see the notes at the top of the sources.
+client. All are bound by operations — see the notes at the top of the
+sources.
 
 Routes: the ops ``fedml_tpu_torch::flash_fwd``/``flash_bwd`` run the
 kernels for CUDA tensors and the plain twins (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`) for CPU tensors; there is no other route
 and no fallback. ``flash_attention.launches``,
 ``flash_attention_bwd.dq_launches`` and ``flash_attention_bwd.dkv_launches``
-count kernel launches; ``flash_attention.copies`` counts every copy made on
-the way to any of the three kernels: a dO whose head dim is not at stride
-1, or a client dim that no view can fold into R.
+count kernel launches (the backward's counts take both routes);
+``flash_attention.copies`` counts every copy made on the way to any of the
+kernels: a dO whose head dim is not at stride 1, a client dim that no view
+can fold into R, or a bf16 operand whose base or strides TMA cannot take.
 """
 
 from __future__ import annotations
@@ -138,17 +144,36 @@ def _launch_fwd(q, k, v, causal: bool):
     return o, lse
 
 
+def _tma_ready(t):
+    """The tensor-core kernels read bf16 operands by TMA, which takes a base
+    and (r, b, t, h) strides that are multiples of 16 bytes; any other
+    operand is copied once (into a fresh, aligned buffer) and counted."""
+    if t.data_ptr() % 16 == 0 and all(
+            n == 1 or (s > 0 and s * t.element_size() % 16 == 0)
+            for n, s in zip(t.shape[:4], t.stride()[:4])):
+        return t
+    flash_attention.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_bwd(q, k, v, o, lse, do, causal: bool):
-    """δ in f32 with torch ops, then the dq kernel and the dk/dv kernel."""
+    """δ in f32 with torch ops, then the dq kernel and the dk/dv kernel:
+    bf16 operands reach the tensor-core kernels (``flash_bwd_sm90.cu``),
+    f32 operands the FMA kernels (``flash_bwd.cu``), by dtype alone."""
     ext = extension()
     do = _head_dim_contiguous(do)
     if not lse.is_contiguous():
         flash_attention.copies += 1
         lse = lse.contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(-1, -2).contiguous()
-    dq = ext.flash_dq(q, k, v, do, lse, delta, bool(causal))
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+        dq_fn, dkv_fn = ext.flash_dq_sm90, ext.flash_dkv_sm90
+    else:
+        dq_fn, dkv_fn = ext.flash_dq, ext.flash_dkv
+    dq = dq_fn(q, k, v, do, lse, delta, bool(causal))
     flash_attention_bwd.dq_launches += 1
-    dk, dv = ext.flash_dkv(q, k, v, do, lse, delta, bool(causal))
+    dk, dv = dkv_fn(q, k, v, do, lse, delta, bool(causal))
     flash_attention_bwd.dkv_launches += 1
     return dq, dk, dv
 
@@ -287,7 +312,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     JAX's ``_bwd`` takes it (ring attention merges per-block results with
     log-sum-exp algebra): ``[B, T, H, D]`` q, k, v, o, do and
     ``lse [B, H, T]`` → ``(dq, dk, dv)``. CUDA tensors launch the dq and
-    the dk/dv kernel (one count each); CPU tensors run
+    the dk/dv kernel (one count each): in bf16 the tensor-core kernels
+    ``flash_dq_sm90_kernel`` and ``flash_dkv_sm90_kernel``, in f32 the FMA
+    kernels ``flash_dq_kernel`` and ``flash_dkv_kernel``. CPU tensors run
     :func:`flash_attention_bwd_plain`."""
     _check_bwd(q, k, v, o, lse, do)
     grads = _bwd_op(q[None], k[None], v[None], o[None], lse[None], do[None],

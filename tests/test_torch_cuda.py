@@ -81,7 +81,9 @@ def _scaled_err(got, want):
 
 
 # The slice's shape (8 clients x batch 2, T 2048, 8 heads, D 64), f32 at
-# T 2048, bf16 without the mask, a ragged T, and the other head dims.
+# T 2048, bf16 without the mask, a ragged T, and the other head dims. f32
+# reaches the FMA kernels; bf16 the tensor-core kernels, at every head dim
+# with and without the mask, and at the ragged T 77 and 1000.
 FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
                    (2, 2048, 4, 64, torch.float32, True),
                    (2, 1024, 4, 64, torch.bfloat16, False),
@@ -89,7 +91,14 @@ FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
                    (2, 77, 3, 16, torch.float32, False),
                    (2, 300, 4, 32, torch.bfloat16, True),
                    (2, 200, 2, 128, torch.float32, True),
-                   (1, 130, 2, 128, torch.bfloat16, False)]
+                   (1, 130, 2, 128, torch.bfloat16, False),
+                   (2, 77, 3, 16, torch.bfloat16, True),
+                   (2, 1000, 2, 16, torch.bfloat16, False),
+                   (2, 1000, 4, 32, torch.bfloat16, False),
+                   (2, 1000, 4, 64, torch.bfloat16, True),
+                   (2, 77, 3, 64, torch.bfloat16, False),
+                   (2, 1000, 2, 128, torch.bfloat16, True),
+                   (2, 77, 2, 128, torch.bfloat16, True)]
 
 
 @pytest.mark.parametrize("b,t,h,d,dtype,causal", FLASH_BWD_CASES)
@@ -146,6 +155,72 @@ def test_flash_bwd_kernels_are_deterministic(cuda):
     a = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     b = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_bwd_bf16_reruns_are_bit_equal_at_the_slice_shape(cuda):
+    """The tensor-core kernels sum in a fixed order with no atomics: two
+    runs at the FedAdapter shape give the same bits."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do, o, lse = _bwd_inputs(16, 2048, 8, 64, torch.bfloat16, True,
+                                      g, cuda)
+    a = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    b = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_bwd_bf16_copies_a_view_tma_cannot_take(cuda):
+    """A bf16 q whose T stride (257 elements, 514 bytes) is no multiple of
+    16 bytes: copied once and counted once, with the same bits as the
+    contiguous q."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    buf = torch.randn(2, 300, 4 * 64 + 1, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q = buf[..., :256].unflatten(-1, (4, 64))
+    k, v, do = (torch.randn(2, 300, 4, 64, generator=g, device=cuda)
+                .to(torch.bfloat16) for _ in range(3))
+    o, lse = flash_attention(q, k, v, causal=True)
+    copies = flash_attention.copies
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert flash_attention.copies == copies + 1
+    want = flash_attention_bwd(q.contiguous(), k, v, o, lse, do, causal=True)
+    assert flash_attention.copies == copies + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bf16_under_vmap_grad_launches_once(cuda):
+    """vmap(grad) over 8 clients in bf16 with the clients next to T, as the
+    trainer lays tokens out ([B, C, T, 3·H·D] memory, q, k, v views of it):
+    one launch of each of the three kernels, no copy, and per-client
+    gradients within 2e-2 of max |want| of the plain twin's autograd."""
+    from torch.func import grad, vmap
+
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qkv = torch.randn(2, 8, 256, 3 * 4 * 32, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (z.unflatten(-1, (4, 32)) for z in qkv.split(128, dim=-1))
+
+    def loss(fn):
+        return lambda q, k, v: torch.sin(
+            fn(q, k, v, causal=True)[0].float()).sum()
+
+    counts = (flash_attention.launches, flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches, flash_attention.copies)
+    got = vmap(grad(loss(flash_attention), argnums=(0, 1, 2)), in_dims=1)(
+        q, k, v)
+    after = (flash_attention.launches, flash_attention_bwd.dq_launches,
+             flash_attention_bwd.dkv_launches, flash_attention.copies)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 1, 1, 0)
+    want = vmap(grad(loss(flash_attention_plain), argnums=(0, 1, 2)),
+                in_dims=1)(*(x.float() for x in (q, k, v)))
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert _scaled_err(a, w) <= 2e-2, _scaled_err(a, w)
 
 
 def test_flash_under_vmap_grad_launches_once(cuda):

@@ -9,6 +9,8 @@ to both.
 On the CPU the ops run the plain twins; the CUDA kernels are held against
 those twins on the card (tests/test_torch_cuda.py and chip_smoke.py)."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +180,40 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(bad):
         o = o.to(torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, o, lse, do)
+
+
+@pytest.mark.parametrize("case,copied", [
+    ("contiguous", False),
+    ("qkv_view", False),        # MHA's view: T stride 3·H·D, base + 2·H·D
+    ("size1_odd_stride", False),  # a dim of size 1: its stride is unused
+    ("t_stride_514_bytes", True),
+    ("base_off_by_2_bytes", True),
+    ("broadcast_stride_0", True),
+])
+def test_tma_ready_copies_only_what_tma_cannot_take(case, copied):
+    """The bf16 route's operand check: TMA takes a base and (r, b, t, h)
+    strides that are multiples of 16 bytes; anything else is copied once
+    into a fresh contiguous buffer and counted, with the same values."""
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+    base = torch.arange(3 * 2 * 40 * 4 * 16 * 3, dtype=torch.float32)
+    base = base.to(torch.bfloat16)
+    x = {
+        "contiguous": lambda: base[:2 * 40 * 4 * 16].view(1, 2, 40, 4, 16),
+        "qkv_view": lambda: base[:2 * 40 * 192].view(1, 2, 40, 192)[
+            ..., 128:].unflatten(-1, (4, 16)),
+        "size1_odd_stride": lambda: base[:40 * 65].view(40, 65)[
+            :, :64].unflatten(-1, (4, 16))[None, None, :1],
+        "t_stride_514_bytes": lambda: base[:2 * 40 * 257].view(2, 40, 257)[
+            ..., :64].unflatten(-1, (4, 16))[None],
+        "base_off_by_2_bytes": lambda: base[1:1 + 2 * 40 * 64].view(
+            1, 2, 40, 4, 16),
+        "broadcast_stride_0": lambda: base[:40 * 64].view(1, 1, 40, 4, 16)
+        .expand(3, 1, 40, 4, 16),
+    }[case]()
+    before = fa.flash_attention.copies
+    got = fa._tma_ready(x)
+    assert fa.flash_attention.copies - before == int(copied)
+    assert (got is not x) == copied
+    assert torch.equal(got, x)
+    if copied:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
