@@ -6,30 +6,35 @@
 Phases, each of which must pass or the script exits non-zero:
 
 1. build   — compiles the CUDA kernels from fedml_tpu_torch/ops/csrc and
-             reads, from the built library, each flash backward kernel's
-             registers and its count of wgmma (HGMMA) instructions.
+             reads, from the built library, each flash and GroupNorm
+             kernel's registers, stack and local memory and its count of
+             wgmma (HGMMA) instructions; every head dim of the three
+             tensor-core flash kernels must have wgmma and no spills.
 2. kernels — each kernel against its plain PyTorch twin on the card:
-             flash_fwd at the serving shape and two extra cases; the flash
-             backward (bf16: the tensor-core kernels; f32: the FMA ones) at
-             the FedAdapter slice's shape (8 clients x batch 2, T 2048, 8
-             heads, D 64, bf16, causal), in f32 at T 2048 and 1000, without
-             the mask, at a ragged T, at D 16, 32 and 128, on views of one
-             qkv buffer and under vmap with the clients next to T (the
-             trainer's layout); the GroupNorm forward and backward at the
-             eight shapes that ResNet-56's training path gives them, with
-             8 rows of γ/β, in the training path's layout (8 clients'
+             the flash forward (bf16: the tensor-core kernel; f32: the FMA
+             one) at the serving shape (B 8, T 2048, 8 heads, D 64) causal
+             and full, at a ragged T, at D 16, 32 and 128, and in f32; the
+             flash backward (bf16: the tensor-core kernels; f32: the FMA
+             ones) at the FedAdapter slice's shape (8 clients x batch 2, T
+             2048, 8 heads, D 64, bf16, causal), in f32 at T 2048 and 1000,
+             without the mask, at a ragged T, at D 16, 32 and 128, on views
+             of one qkv buffer and under vmap with the clients next to T
+             (the trainer's layout); the GroupNorm forward and backward at
+             the eight shapes that ResNet-56's training path gives them,
+             with 8 rows of γ/β, in the training path's layout (8 clients'
              rows, x a strided view) at one shape per stage, in f32 on a
-             ragged shape and on a 2-D input. Times each kernel, its twin
-             and one PyTorch library call of the same function (many calls
-             per CUDA event pair; a library backward as a replayed CUDA
-             graph), and computes the card's bound for the same work.
+             ragged shape and on a 2-D input. Times each kernel (the
+             forward at B 8 and B 16), its twin and one PyTorch library
+             call of the same function (many calls per CUDA event pair; a
+             library backward as a replayed CUDA graph), and computes the
+             card's bound for the same work.
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
              16 requests through ServeManager with decode. Launch counts
-             are zeroed just before and read just after; one batch's
-             prefill is re-run with the plain attention and held to a
-             bf16 bound.
+             and copies are zeroed just before and read just after (no
+             copy); one batch's prefill is re-run with the plain attention
+             and held to a bf16 bound.
 4. train   — the flagship training path at full width and depth:
              FedAvgAPI over resnet56 (GroupNorm, bf16 compute), 128
              clients x 256 CIFAR-shaped samples from seed 0, batch 32, 8
@@ -59,7 +64,7 @@ Phases, each of which must pass or the script exits non-zero:
              personalize_cohort of a round's clients and
              evaluate_personalized on them. One round under the profiler
              gives the device time by kernel and shows, by name, that the
-             backward ran on the tensor-core kernels only.
+             forward and backward ran on the tensor-core kernels only.
 6. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -237,11 +242,17 @@ def graph_ms(fn) -> float:
     return time_ms(graph.replay)
 
 
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                "flash_dkv_sm90_kernel")
+
+
 def phase_build():
-    """Builds the extension; prints, from the built library, each flash
-    backward kernel's registers, stack and local memory (``cuobjdump
+    """Builds the extension; prints, from the built library, each flash and
+    GroupNorm kernel's registers, stack and local memory (``cuobjdump
     -res-usage``) and its count of HGMMA (``wgmma``) instructions
-    (``cuobjdump -sass``), and fails if a tensor-core kernel has none."""
+    (``cuobjdump -sass``), and fails unless each of the four head dims of
+    every tensor-core kernel has HGMMA and neither stack nor local memory
+    (no spills)."""
     from fedml_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -262,27 +273,49 @@ def phase_build():
             fn = m.group(1)
         elif fn and "HGMMA" in line:
             hgmma[fn] = hgmma.get(fn, 0) + 1
-    fn = None  # -res-usage prints "Function <name>:", then its usage
+    fn, spills = None, {}  # -res-usage prints "Function <name>:", then usage
     for line in dump("-res-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
         if m:
             fn = m.group(1)
-        if fn and "REG" in res and re.search(r"flash_d\w*_kernel", fn):
-            name = re.search(r"flash_d\w*_kernel\w*?Li\d+E", fn).group(0)
-            print(f"[build] {name}: REG {res['REG']} STACK {res.get('STACK')}"
-                  f" LOCAL {res.get('LOCAL')}; HGMMA {hgmma.get(fn, 0)}",
-                  flush=True)
+        kernel = fn and re.search(r"(?:flash|gn)_\w+?_kernel(?:\w*?Li\d+E)?",
+                                  fn)
+        if kernel and "REG" in res:
+            print(f"[build] {kernel.group(0)}: REG {res['REG']} STACK "
+                  f"{res.get('STACK')} LOCAL {res.get('LOCAL')}; HGMMA "
+                  f"{hgmma.get(fn, 0)}", flush=True)
+            spills[fn] = int(res.get("STACK", 0)) + int(res.get("LOCAL", 0))
             fn = None
-    for kernel in ("flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"):
+    for kernel in SM90_KERNELS:
         counts = [n for f, n in hgmma.items() if kernel in f]
         check(len(counts) == 4 and all(n > 0 for n in counts),
               f"{kernel}: HGMMA counts {counts} in {lib}, expected four "
               "instantiations with wgmma")
+        spilled = [f for f, n in spills.items() if kernel in f and n]
+        check(not spilled, f"{kernel}: stack or local memory (spills) in "
+              f"{spilled}")
+
+
+# Flash forward cases (B, T, H, D, dtype, causal): bf16 reaches the
+# tensor-core kernel, f32 the FMA one. The first is the serving prefill's
+# shape; the slice's FedAdapter shape is B 16.
+FWD_CASES = [(8, 2048, 8, 64, torch.bfloat16, True),
+             (8, 2048, 8, 64, torch.bfloat16, False),
+             (2, 1000, 8, 64, torch.bfloat16, True),
+             (2, 1000, 8, 64, torch.bfloat16, False),
+             (2, 1024, 8, 16, torch.bfloat16, True),
+             (2, 1024, 8, 32, torch.bfloat16, False),
+             (2, 1024, 4, 128, torch.bfloat16, True),
+             (2, 1000, 4, 128, torch.bfloat16, False),
+             (2, 1000, 8, 64, torch.float32, True)]
 
 
 def phase_kernels(peaks):
-    """Flash forward vs its plain twin; returns the kernels-line entry."""
+    """Flash forward vs its plain twin at every case of FWD_CASES; times
+    the main path's route (bf16: ``flash_fwd_sm90``) at B 8 and B 16 beside
+    its twin and SDPA's forward. Returns the kernels-line entry (at B 16,
+    the FedAdapter shape, where most of its launches are)."""
     import torch.nn.functional as F
 
     from fedml_tpu_torch.ops.build import extension
@@ -290,11 +323,8 @@ def phase_kernels(peaks):
                                                      flash_attention_plain)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [(8, 2048, 8, 64, torch.bfloat16, True),
-             (8, 2048, 8, 64, torch.bfloat16, False),
-             (2, 1000, 8, 64, torch.float32, True)]
-    main = None
-    for b, t, h, d, dtype, causal in cases:
+    main_err = None
+    for b, t, h, d, dtype, causal in FWD_CASES:
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
                    .to(dtype) for _ in range(3))
         o, lse = flash_attention(q, k, v, causal=causal)
@@ -311,40 +341,46 @@ def phase_kernels(peaks):
               f"flash_fwd o disagrees with plain: {err_o} ({name})")
         check(math.isfinite(err_lse) and err_lse <= LSE_TOL,
               f"flash_fwd lse disagrees with plain: {err_lse} ({name})")
-        if main is None:
-            main = (q, k, v, err_o)
-    q, k, v, err_o = main
-    b, t, h, d = q.shape
-    # The kernel alone, as the backward kernels are timed: one event pair
-    # around one launch also counts the host time of the autograd and op
-    # dispatch in front of it while the card idles, printed apart.
-    q5, k5, v5 = (x[None] for x in (q, k, v))
-    ms = time_ms(lambda: extension().flash_fwd(q5, k5, v5, True))
-    wrapper_ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    pairs = t * (t + 1) // 2  # causal (query, key) pairs per head
-    flops = 4 * b * h * d * pairs  # Q·Kᵀ and P·V, 2 FLOP per multiply-add
-    nbytes = 4 * q.numel() * q.element_size() + b * h * t * 4
+        main_err = err_o if main_err is None else main_err
+        del q, k, v, o, lse, po, plse
+
+    # The kernel alone (one event pair around 20 launches, so the host's
+    # dispatch overlaps the card's work), the twin and SDPA's forward.
+    ext = extension()
     bf16_peak, _, hbm = peaks
-    t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / hbm * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    print(f"[kernels] flash_fwd B={b} T={t} H={h} D={d} bf16 causal: kernel "
-          f"{ms:.4f} ms (through flash_attention {wrapper_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms; {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us "
-          f"(ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); "
-          f"kernel at {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "fedml_tpu_torch/ops/csrc/flash_fwd.cu",
-            "replaces": "fedml_tpu/ops/flash_attention.py:78",
-            "launches": None, "max_abs_err": err_o, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+    entry = None
+    for b in (8, 16):
+        t, h, d = 2048, 8, 64
+        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        q5, k5, v5 = (x[None] for x in (q, k, v))
+        ms = time_ms(lambda: ext.flash_fwd_sm90(q5, k5, v5, True))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, True),
+                           warmup=1, reps=5, inner=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        pairs = t * (t + 1) // 2  # causal (query, key) pairs per head
+        flops = 4 * b * h * d * pairs  # Q·Kᵀ and P·V, 2 FLOP per multiply-add
+        nbytes = 4 * q.numel() * q.element_size() + b * h * t * 4
+        t_ops, t_bytes = flops / bf16_peak * 1e3, nbytes / hbm * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        print(f"[kernels] flash_fwd_sm90 B={b} T={t} H={h} D={d} bf16 causal:"
+              f" kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, sdpa forward {library_ms:.4f} ms "
+              f"({ms / library_ms:.2f}x); {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us "
+              f"(ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us)",
+              flush=True)
+        entry = {"name": "flash_fwd", "route": "cuda",
+                 "source": "fedml_tpu_torch/ops/csrc/flash_fwd_sm90.cu",
+                 "replaces": "fedml_tpu/ops/flash_attention.py:78",
+                 "launches": None, "max_abs_err": main_err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "library_ms": library_ms}
+        del q, k, v, q5, k5, v5, qt, kt, vt
+    return entry
 
 
 def _scaled_err(got, want):
@@ -440,8 +476,7 @@ def phase_flash_bwd_kernels(peaks):
 
     # Times at the slice's shape: each kernel alone (δ made once), the
     # plain twin and the library's backward, which both compute dq, dk and
-    # dv together, and the forward kernel and the library's forward at the
-    # same shape.
+    # dv together.
     b, t, h, d, dtype, _ = BWD_CASES[0]
     q, k, v, o, lse, do = inputs(b, t, h, d, dtype, True)
     ext = fa.extension()
@@ -452,7 +487,6 @@ def phase_flash_bwd_kernels(peaks):
     args = (q5, k5, v5, do5, lse5, delta, True)
     dq_ms = time_ms(lambda: ext.flash_dq_sm90(*args))
     dkv_ms = time_ms(lambda: ext.flash_dkv_sm90(*args))
-    fwd_ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, True), inner=5)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, True), warmup=1, reps=5, inner=1)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -464,7 +498,6 @@ def phase_flash_bwd_kernels(peaks):
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), (qr, kr, vr), dot)
 
-    lib_fwd_ms = time_ms(lib_fwd)
     library_ms = graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd)
     pairs = t * (t + 1) // 2
     bf16_peak, _, hbm = peaks
@@ -497,11 +530,6 @@ def phase_flash_bwd_kernels(peaks):
           f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / library_ms:.2f}x "
           "sdpa's backward",
           flush=True)
-    fwd_flops = 4 * b * h * d * pairs
-    print(f"[kernels] flash_fwd at the slice's shape B={b} T={t} H={h} D={d} "
-          f"bf16 causal: {fwd_ms:.4f} ms, sdpa forward {lib_fwd_ms:.4f} ms; "
-          f"{fwd_flops / 1e9:.2f} GFLOP -> bound "
-          f"{fwd_flops / bf16_peak * 1e3:.4f} ms", flush=True)
     return entries
 
 
@@ -575,10 +603,24 @@ def phase_gn_kernels(peaks):
             errs = {"fwd": ey, "bwd": max(edx, edg.max().item(),
                                            edb.max().item())}
 
+    # The kernels' device time as a replayed CUDA graph (where the
+    # wrapper's host work outlasts a kernel, back-to-back calls time the
+    # host), and through the wrapper, as the earlier records timed them.
     shape, groups = GN_MAIN
     x, dy, gamma, beta = _gn_inputs(shape, 1, torch.bfloat16, g)
-    fwd_ms = time_ms(lambda: gn.group_norm_fwd(x, gamma, beta, groups))
-    bwd_ms = time_ms(lambda: gn.group_norm_bwd(x, dy, gamma, groups))
+    fwd_ms = graph_ms(lambda: gn.group_norm_fwd(x, gamma, beta, groups))
+    bwd_ms = graph_ms(lambda: gn.group_norm_bwd(x, dy, gamma, groups))
+    fwd_call = time_ms(lambda: gn.group_norm_fwd(x, gamma, beta, groups))
+    bwd_call = time_ms(lambda: gn.group_norm_bwd(x, dy, gamma, groups))
+    bwd_alone = graph_ms(lambda: gn.extension().group_norm_bwd(
+        x, dy, gamma, groups, gn.EPS))
+    xi, dyi, gi, bi = _gn_inputs(shape, 8, torch.bfloat16, g, True)
+    fwd_r8 = graph_ms(lambda: gn.group_norm_fwd(xi, gi, bi, groups))
+    bwd_r8 = graph_ms(lambda: gn.group_norm_bwd(xi, dyi, gi, groups))
+    print(f"[kernels] group_norm [8x32, {shape[1]}, {shape[2]}] g{groups} "
+          f"bf16 interleaved (the training path's layout): fwd {fwd_r8:.4f} "
+          f"ms, bwd {bwd_r8:.4f} ms (graph)", flush=True)
+    del xi, dyi, gi, bi
     fwd_plain = time_ms(lambda: gn.group_norm_fwd_plain(x, gamma, beta,
                                                         groups))
     bwd_plain = time_ms(lambda: gn.group_norm_bwd_plain(x, dy, gamma,
@@ -590,7 +632,7 @@ def phase_gn_kernels(peaks):
     xl = x.reshape(n, side, side, c).permute(0, 3, 1, 2).contiguous()
     dyl = dy.reshape(n, side, side, c).permute(0, 3, 1, 2).contiguous()
     w, b = gamma[0].to(x.dtype), beta[0].to(x.dtype)
-    lib_fwd = time_ms(lambda: F.group_norm(xl, groups, w, b, gn.EPS))
+    lib_fwd = graph_ms(lambda: F.group_norm(xl, groups, w, b, gn.EPS))
     xr, wr, br = (t.clone().requires_grad_() for t in (xl, w, b))
 
     def lib_fwd_bwd():
@@ -602,15 +644,18 @@ def phase_gn_kernels(peaks):
     _, fp32_peak, hbm = peaks
     elems, esz = x.numel(), x.element_size()
     entries = []
-    for kind, ms, plain_ms, lib_ms, nbytes, flops in (
-            ("fwd", fwd_ms, fwd_plain, lib_fwd,
+    for kind, ms, call_ms, plain_ms, lib_ms, nbytes, flops in (
+            ("fwd", fwd_ms, fwd_call, fwd_plain, lib_fwd,
              2 * elems * esz + 2 * c * 4, 8 * elems),
-            ("bwd", bwd_ms, bwd_plain, lib_bwd,
+            ("bwd", bwd_ms, bwd_call, bwd_plain, lib_bwd,
              3 * elems * esz + 3 * c * 4, 20 * elems)):
         t_bytes, t_ops = nbytes / hbm * 1e3, flops / fp32_peak * 1e3
         bound_ms = max(t_bytes, t_ops)
+        alone = (f", of which gn_bwd_kernel alone {bwd_alone:.4f} ms"
+                 if kind == "bwd" else "")
         print(f"[kernels] group_norm_{kind} [{n}, {s}, {c}] g{groups} bf16: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.group_norm "
+              f"kernel {ms:.4f} ms (graph{alone}; through the wrapper "
+              f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, F.group_norm "
               f"{lib_ms:.4f} ms; {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e6:.1f} MFLOP -> bound {bound_ms * 1e3:.2f} us "
               f"(bytes {t_bytes * 1e3:.2f} us, ops {t_ops * 1e3:.2f} us); "
@@ -690,7 +735,7 @@ def phase_serve():
     mgr = ServeManager(fwd, store, glob, seq_len=SEQ_LEN,
                        max_batch=MAX_BATCH, deadline_s=0.01, decoder=dec)
     tracer = obs_trace.SpanTracer()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.copies = 0
     t0 = time.perf_counter()
     with obs_trace.using(tracer), mgr:
         reqs = [mgr.submit(cid, toks, max_new_tokens=N_NEW)
@@ -698,11 +743,13 @@ def phase_serve():
         results = [r.result(timeout=600) for r in reqs]
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention.launches}
+    copies = flash_attention.copies
     stats = mgr.stats()
     batches = int(stats["serve/batch_fill_count"])
     print(f"[serve] {N_REQUESTS} requests in {batches} batches, "
           f"{wall:.3f} s wall; flash_fwd launches {launches['flash_fwd']} "
-          f"(expected {N_LAYERS} x {batches})", flush=True)
+          f"(expected {N_LAYERS} x {batches}), copies {copies}", flush=True)
+    check(copies == 0, f"{copies} copies on the way to the flash kernel")
     check(stats.get("serve/served") == N_REQUESTS,
           f"served {stats.get('serve/served')} of {N_REQUESTS}")
     check(launches["flash_fwd"] == N_LAYERS * batches,
@@ -1195,17 +1242,16 @@ def phase_adapter():
                           ("flash_fwd", "flash_dq", "flash_dkv"),
                           "flash kernels")
     if rows:  # the bf16 round reaches the tensor-core kernels, never FMA
-        names = ("flash_dq_sm90_kernel", "flash_dkv_sm90_kernel",
-                 "flash_dq_kernel", "flash_dkv_kernel")
-        ran = {n: sum(c for key, c, _ in rows if n in key) for n in names}
+        fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+        ran = {n: sum(c for key, c, _ in rows if n in key)
+               for n in SM90_KERNELS + fma}
         dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)
-               for n in names}
+               for n in SM90_KERNELS + fma}
         print(f"[adapter] profiled round, launches by kernel name: {ran}; "
               f"device ms: {dev}", flush=True)
-        check(ran["flash_dq_sm90_kernel"] == ran["flash_dkv_sm90_kernel"]
-              == steps * N_LAYERS and ran["flash_dq_kernel"] == 0
-              and ran["flash_dkv_kernel"] == 0,
-              f"the profiled round's backward kernels: {ran}")
+        check(all(ran[n] == steps * N_LAYERS for n in SM90_KERNELS)
+              and not any(ran[n] for n in fma),
+              f"the profiled round's flash kernels: {ran}")
     return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
 
 

@@ -1,6 +1,9 @@
 // PyTorch binding of the port's CUDA kernels: the only source that includes
 // PyTorch's headers. Each function checks its tensors, allocates the outputs,
-// launches on PyTorch's current stream and checks the launch.
+// launches on PyTorch's current stream and checks the launch. Numbers in a
+// check's message go through std::to_string: on the card's build, a failed
+// check that streamed an integer into its message crashed the process
+// instead of raising.
 
 #include <torch/extension.h>
 
@@ -12,8 +15,14 @@ namespace fedml_tpu_torch {
 cudaError_t flash_fwd_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* sq,
                              const long long* sk, const long long* sv, int R,
-                             int B, int T_len, int H, int D, bool is_bf16,
-                             bool causal, cudaStream_t stream);
+                             int B, int T_len, int H, int D, bool causal,
+                             cudaStream_t stream);
+cudaError_t flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
+                                  void* o, float* lse, const long long* sq,
+                                  const long long* sk, const long long* sv,
+                                  int R, int B, int T_len, int H, int D,
+                                  bool causal, cudaStream_t stream,
+                                  int* encode_status);
 cudaError_t flash_dq_launch(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, const long long* sq,
@@ -48,6 +57,7 @@ cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
                                   const float* gamma, void* dx,
                                   float* part_g, float* part_b, bool is_bf16,
                                   cudaStream_t stream);
+bool group_norm_bwd_fits(int S, int C, bool is_bf16, int dev);
 cudaError_t group_norm_reduce_launch(int R, int M, int C,
                                      const float* part_g,
                                      const float* part_b, float* dgamma,
@@ -76,7 +86,7 @@ void check_flash(const torch::Tensor& q, const torch::Tensor& k,
               ": the head dim must be contiguous (stride 1)");
   const int64_t D = q.size(4);
   TORCH_CHECK(D == 16 || D == 32 || D == 64 || D == 128, what,
-              ": head dim must be 16, 32, 64 or 128, got ", D);
+              ": head dim must be 16, 32, 64 or 128, got ", std::to_string(D));
   TORCH_CHECK(q.numel() > 0, what, ": empty input");
   TORCH_CHECK(q.size(0) * q.size(1) * q.size(3) <= 65535, what,
               ": R*B*H must be <= 65535");
@@ -87,9 +97,18 @@ void strides4(const torch::Tensor& t, long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = t.stride(i);
 }
 
+// The FMA kernels (flash_fwd.cu, flash_bwd.cu) take f32 only; bf16 has
+// flash_*_sm90.
+void check_f32(const torch::Tensor& q, const char* what) {
+  TORCH_CHECK(q.scalar_type() == torch::kFloat32, what,
+              ": the FMA kernels take float32 only (bfloat16 goes to the "
+              "tensor-core kernels)");
+}
+
 std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
                                      torch::Tensor v, bool causal) {
   check_flash(q, k, v, "flash_fwd");
+  check_f32(q, "flash_fwd");
   const int64_t R = q.size(0), B = q.size(1), T = q.size(2), H = q.size(3),
                 D = q.size(4);
   const c10::cuda::CUDAGuard guard(q.device());
@@ -101,8 +120,7 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   strides4(v, sv);
   const cudaError_t err = fedml_tpu_torch::flash_fwd_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-      lse.data_ptr<float>(), sq, sk, sv, R, B, T, H, D,
-      q.scalar_type() == torch::kBFloat16, causal,
+      lse.data_ptr<float>(), sq, sk, sv, R, B, T, H, D, causal,
       at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "flash_fwd: set-up failed: ",
               cudaGetErrorString(err));
@@ -128,13 +146,6 @@ void check_flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
                     t->scalar_type() == torch::kFloat32 &&
                     t->sizes() == c10::IntArrayRef(rows) && t->is_contiguous(),
                 what, ": lse and delta must be contiguous float32 [R, B, H, T]");
-}
-
-// The FMA kernels (flash_bwd.cu) take f32 only; bf16 has flash_*_sm90.
-void check_f32(const torch::Tensor& q, const char* what) {
-  TORCH_CHECK(q.scalar_type() == torch::kFloat32, what,
-              ": the FMA backward kernels take float32 only (bfloat16 goes "
-              "to the tensor-core kernels)");
 }
 
 torch::Tensor flash_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
@@ -185,9 +196,10 @@ std::vector<torch::Tensor> flash_dkv(torch::Tensor q, torch::Tensor k,
   return {dk, dv};
 }
 
-// The tensor-core kernels (flash_bwd_sm90.cu) take bf16 operands whose base
-// and (r, b, t, h) strides are multiples of 16 bytes, as TMA reads them;
-// ops/flash_attention.py copies any other operand before the call.
+// The tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take bf16
+// operands whose base and (r, b, t, h) strides are multiples of 16 bytes,
+// as TMA reads them; ops/flash_attention.py copies any other operand before
+// the call.
 void check_sm90(const torch::Tensor& t, const char* what) {
   TORCH_CHECK(t.scalar_type() == torch::kBFloat16, what,
               ": the tensor-core kernels take bfloat16 only");
@@ -196,7 +208,37 @@ void check_sm90(const torch::Tensor& t, const char* what) {
   for (int i = 0; i < 4; ++i)
     TORCH_CHECK(t.size(i) == 1 || (t.stride(i) > 0 && t.stride(i) % 8 == 0),
                 what, ": operand strides must be multiples of 16 bytes for "
-                "TMA, got stride ", t.stride(i), " in dim ", i);
+                "TMA, got stride ", std::to_string(t.stride(i)), " in dim ",
+                std::to_string(i));
+}
+
+// (o, lse) from the tensor-core forward (flash_fwd_sm90.cu).
+std::vector<torch::Tensor> flash_fwd_sm90(torch::Tensor q, torch::Tensor k,
+                                          torch::Tensor v, bool causal) {
+  const char* what = "flash_fwd_sm90";
+  check_flash(q, k, v, what);
+  for (const auto* t : {&q, &k, &v}) check_sm90(*t, what);
+  const int64_t R = q.size(0), B = q.size(1), T = q.size(2), H = q.size(3),
+                D = q.size(4);
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto o = torch::empty({R, B, T, H, D}, q.options());
+  auto lse = torch::empty({R, B, H, T}, q.options().dtype(torch::kFloat32));
+  long long sq[4], sk[4], sv[4];
+  strides4(q, sq);
+  strides4(k, sk);
+  strides4(v, sv);
+  int encode_status = 0;
+  const cudaError_t err = fedml_tpu_torch::flash_fwd_sm90_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      lse.data_ptr<float>(), sq, sk, sv, R, B, T, H, D, causal,
+      at::cuda::getCurrentCUDAStream(), &encode_status);
+  TORCH_CHECK(encode_status == 0, what,
+              ": cuTensorMapEncodeTiled failed with CUresult ",
+              std::to_string(encode_status));
+  TORCH_CHECK(err == cudaSuccess, what, ": set-up failed: ",
+              cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {o, lse};
 }
 
 // dq (dkv false) or (dk, dv) (dkv true) from the tensor-core kernels.
@@ -228,7 +270,8 @@ std::vector<torch::Tensor> flash_bwd_sm90(
       q.size(1), q.size(2), q.size(3), q.size(4), causal, dkv,
       at::cuda::getCurrentCUDAStream(), &encode_status);
   TORCH_CHECK(encode_status == 0, what,
-              ": cuTensorMapEncodeTiled failed with CUresult ", encode_status);
+              ": cuTensorMapEncodeTiled failed with CUresult ",
+              std::to_string(encode_status));
   TORCH_CHECK(err == cudaSuccess, what, ": set-up failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -265,9 +308,11 @@ void check_gn_input(const torch::Tensor& x, const torch::Tensor& gamma,
               ": the channel dim must be contiguous (stride 1)");
   const int64_t R = x.size(0), M = x.size(1), S = x.size(2), C = x.size(3);
   TORCH_CHECK(R > 0 && M > 0 && S > 0 && C > 0, what, ": empty input");
-  TORCH_CHECK(C <= 4096, what, ": at most 4096 channels, got ", C);
-  TORCH_CHECK(groups > 0 && C % groups == 0, what, ": groups ", groups,
-              " must divide channels ", C);
+  TORCH_CHECK(C <= 4096, what, ": at most 4096 channels, got ",
+              std::to_string(C));
+  TORCH_CHECK(groups > 0 && C % groups == 0, what, ": groups ",
+              std::to_string(groups), " must divide channels ",
+              std::to_string(C));
   TORCH_CHECK(R * M <= 2147483647LL && S * C <= 2147483647LL, what,
               ": too many samples or elements per sample");
   TORCH_CHECK(gamma.scalar_type() == torch::kFloat32 && gamma.dim() == 2 &&
@@ -314,6 +359,12 @@ std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
               "group_norm_bwd: dy must match x in device, shape and dtype");
   TORCH_CHECK(dy.stride(3) == 1 || dy.size(3) == 1,
               "group_norm_bwd: dy's channel dim must be contiguous");
+  const bool is_bf16 = x.scalar_type() == torch::kBFloat16;
+  TORCH_CHECK(fedml_tpu_torch::group_norm_bwd_fits(x.size(2), x.size(3),
+                                                   is_bf16, x.get_device()),
+              "group_norm_bwd: a sample of ", std::to_string(x.size(2)), " x ",
+              std::to_string(x.size(3)), " elements is more than the shared "
+              "memory of a cluster of 8 blocks holds");
   const c10::cuda::CUDAGuard guard(x.device());
   auto dx = torch::empty_like(x);
   TORCH_CHECK(dx.stride(3) == 1 || dx.size(3) == 1,
@@ -330,7 +381,7 @@ std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
       x.size(0), x.size(1), x.size(2), C, groups, static_cast<float>(eps), sx,
       sdy, sdx, x.data_ptr(), dy.data_ptr(), gamma.data_ptr<float>(),
       dx.data_ptr(), part_g.data_ptr<float>(), part_b.data_ptr<float>(),
-      x.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream());
+      is_bf16, at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "group_norm_bwd: launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -348,8 +399,8 @@ std::vector<torch::Tensor> group_norm_reduce(torch::Tensor part_g,
                   part_b.is_contiguous(),
               "group_norm_reduce: partials must be contiguous float32 [N, C]");
   const int64_t N = part_g.size(0), C = part_g.size(1);
-  TORCH_CHECK(R > 0 && N % R == 0, "group_norm_reduce: R ", R,
-              " must divide N ", N);
+  TORCH_CHECK(R > 0 && N % R == 0, "group_norm_reduce: R ",
+              std::to_string(R), " must divide N ", std::to_string(N));
   const c10::cuda::CUDAGuard guard(part_g.device());
   auto dgamma = torch::empty({R, C}, part_g.options());
   auto dbeta = torch::empty({R, C}, part_g.options());
@@ -367,8 +418,11 @@ std::vector<torch::Tensor> group_norm_reduce(torch::Tensor part_g,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "flash-attention forward: (q, k, v [R,B,T,H,D], causal) -> "
-        "(o [R,B,T,H,D], lse [R,B,H,T])");
+        "flash-attention forward, FMA (f32): (q, k, v [R,B,T,H,D], causal) "
+        "-> (o [R,B,T,H,D], lse [R,B,H,T])");
+  m.def("flash_fwd_sm90", &flash_fwd_sm90,
+        "flash-attention forward on the tensor cores (bf16): (q, k, v "
+        "[R,B,T,H,D], causal) -> (o [R,B,T,H,D], lse [R,B,H,T])");
   m.def("flash_dq", &flash_dq,
         "flash-attention dq, FMA (f32): (q, k, v, dO [R,B,T,H,D], lse, "
         "delta [R,B,H,T], causal) -> dq");

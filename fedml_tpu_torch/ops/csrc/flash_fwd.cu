@@ -1,22 +1,25 @@
-// Flash-attention forward for Hopper (sm_90a): causal or full softmax
-// attention with an online softmax; writes O and the row log-sum-exp.
+// Flash-attention forward on the FP32 pipes (sm_90a), for f32 operands:
+// causal or full softmax attention with an online softmax; writes O and the
+// row log-sum-exp. bf16 operands take the tensor-core kernel of
+// flash_fwd_sm90.cu; the tensor cores have no full-f32 product, so f32
+// stays here.
 //
 // Replaces fedml_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas TPU
-// kernel reached through _fwd). Same arithmetic: S = (Q·Kᵀ)·scale with
-// scale = 1/√D, causal mask NEG_INF = -1e30, a running row max m and sum l
-// in f32, P rounded to the input type before P·V (the TPU kernel's
+// kernel reached through _fwd) for f32. Same arithmetic: S = (Q·Kᵀ)·scale
+// with scale = 1/√D, causal mask NEG_INF = -1e30, a running row max m and
+// sum l in f32, P rounded to the input type before P·V (the TPU kernel's
 // p.astype(v.dtype)), l = 0 rows guarded, lse = m + log(l). The TPU's
-// 8-row replication of lse is dropped: lse is [R, B, H, T].
+// 8-row replication of lse is dropped: lse is [R, B, H, T]. (The kernel is
+// templated on the operand type; only f32 is instantiated.)
 //
 // What bounds it on an H100: at the serving shape (T = 2048, D = 64) the
-// work is ~2·B·H·T²·D operations against ~4·B·T·H·D·2 bytes, far above the
-// card's ~295 operations per byte, so it is bound by operations. This first
-// version computes on the FP32 pipes with FMA (no tensor cores), so its
-// ceiling is the 67 TFLOP/s FP32 rate, not the 989 TFLOP/s bf16 tensor-core
-// rate; moving the two products to wgmma is later work. The design keeps
-// the [T, T] score matrix out of device memory (one 64 × 64 tile in shared
-// memory at a time) and register-blocks each thread on a 4 × 4 tile of S
-// and a 4 × D/16 tile of O, so each shared-memory load feeds 2 FMAs.
+// work is ~2·B·H·T²·D operations against ~4·B·T·H·D·4 bytes, far above the
+// card's operations per byte, so it is bound by operations. It computes on
+// the FP32 pipes with FMA, so its ceiling is the 67 TFLOP/s FP32 rate. The
+// design keeps the [T, T] score matrix out of device memory (one 64 × 64
+// tile in shared memory at a time) and register-blocks each thread on a
+// 4 × 4 tile of S and a 4 × D/16 tile of O, so each shared-memory load
+// feeds 2 FMAs.
 //
 // Design: one thread block per (r·batch·head, 64-row Q tile), 256 threads as
 // 16 row groups × 16 column groups. A loop inside the block walks the K/V
@@ -201,44 +204,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o,
-                         float* lse, const long long* sq, const long long* sk,
-                         const long long* sv, int R, int B, int T_len, int H,
-                         int D, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
-                           causal, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
-                           causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
-                           causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
-                            causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // Launches on `stream`; returns the error of the set-up calls (the launch
 // itself is checked by the caller with cudaGetLastError). Strides are
-// (r, b, t, h) of [R, B, T, H, D] operands.
+// (r, b, t, h) of [R, B, T, H, D] f32 operands. bf16 operands go to
+// flash_fwd_sm90.cu instead.
 cudaError_t flash_fwd_launch(const void* q, const void* k, const void* v,
                              void* o, float* lse, const long long* sq,
                              const long long* sk, const long long* sv, int R,
-                             int B, int T_len, int H, int D, bool is_bf16,
-                             bool causal, cudaStream_t stream) {
-  if (is_bf16)
-    return launch_dtype<__nv_bfloat16>(q, k, v, o, lse, sq, sk, sv, R, B,
-                                       T_len, H, D, causal, stream);
-  return launch_dtype<float>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H, D,
-                             causal, stream);
+                             int B, int T_len, int H, int D, bool causal,
+                             cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<float, 16>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                               causal, stream);
+    case 32:
+      return launch<float, 32>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                               causal, stream);
+    case 64:
+      return launch<float, 64>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                               causal, stream);
+    case 128:
+      return launch<float, 128>(q, k, v, o, lse, sq, sk, sv, R, B, T_len, H,
+                                causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace fedml_tpu_torch

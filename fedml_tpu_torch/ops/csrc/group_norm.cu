@@ -9,27 +9,46 @@
 //
 // Layout: x [R, M, S, C] — R rows of γ/β (clients under vmap), M samples per
 // row, S positions, C channels at stride 1; R, M and S at any stride, so the
-// strided views a vmapped conv hands over are read in place. One block owns
-// one sample (blockIdx.x = r·M + m). Threads read 16-byte vectors of V
-// channels, neighbouring threads on neighbouring addresses; each thread keeps
-// a fixed channel slot and walks rows, so its per-channel sums stay in
-// registers and are combined in shared memory in a fixed order.
+// strided views a vmapped conv hands over are read in place. Threads read
+// 16-byte vectors of V channels, neighbouring threads on neighbouring
+// addresses; each thread keeps a fixed channel slot and walks rows, so its
+// per-channel sums stay in registers and are combined in shared memory in a
+// fixed order.
 //
 // Bound: bytes. Per element the forward does ~8 flops against 4 bytes (bf16
 // read + write), the backward ~20 against 6: far below the card's
 // flops-per-byte balance. The least traffic is one read and one write of x
-// forward, and two reads (x, dy) and one write (dx) backward. This first
-// design leaves on the table: the forward reads x twice (statistics, then
-// normalize), and the backward makes three passes (statistics; Σdy and
-// Σdy·xhat; dx), reading x three times and dy twice. A sample is at most a
-// few hundred KB, so the re-reads mostly hit L2. Folding the statistics pass
-// into the second (Σdy·x instead of Σdy·xhat) would save one backward pass.
+// forward, and two reads (x, dy) and one write (dx) backward.
+//
+// Forward (gn_fwd_kernel): one block per sample, two passes (statistics,
+// then normalize), so it reads x twice; the second read mostly hits L2.
+//
+// Backward (gn_bwd_kernel): x and dy are read from device memory once and
+// dx is written once, as the TPU kernel does from its VMEM copy of a block
+// of samples. The three passes it needs (statistics; Σdy and Σdy·xhat; dx)
+// run over a copy of the sample in shared memory. A sample is up to 128 KB
+// of x and 128 KB of dy at the main path's shapes (bf16 [1024, 64]), more
+// than one block should hold, and one block per sample would put only 256
+// blocks on 132 SMs, too few loads in flight to approach the card's 3.35
+// TB/s. So a thread-block cluster of CL blocks (1 to 8, chosen per shape so
+// that a block holds ~32 KB of x and dy) shares one sample: block q of the
+// cluster copies rows [q·S/CL, (q+1)·S/CL) of x and dy into its shared
+// memory with cp.async (dy's copy lands while the statistics are summed),
+// and the blocks exchange their per-channel partial sums through
+// distributed shared memory, each summing the CL partials in rank order, so
+// every block holds the same totals. At the main shape that is 2048 blocks
+// of 128 threads and 32 KB each, five to an SM. A sample whose x and dy do
+// not both fit in a cluster of 8 keeps x in shared memory and reads dy
+// twice; one whose x alone does not fit is refused. The formulas stay the
+// TPU kernel's: Σdy·xhat with xhat formed from the statistics, not
+// Σdy·x − μΣdy, which cancels.
 //
 // The TPU kernel carries dγ/dβ across its sequential grid in VMEM scratch.
 // CUDA blocks run in no order, so the backward writes f32 per-sample partials
 // [R·M, C] and gn_reduce_kernel sums each row's M partials in index order.
 // No atomics anywhere: a rerun gives the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -38,7 +57,14 @@
 namespace fedml_tpu_torch {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
+// The backward's blocks: 128 threads, and a cluster of at most the portable
+// 8 blocks per sample, each aiming to hold this many bytes of x and dy.
+constexpr int kBwdThreads = 128;
+constexpr int kMaxCluster = 8;
+constexpr size_t kTargetBytes = 32 * 1024;
 
 struct GnShape {
   int R, M, S, C, G;
@@ -78,27 +104,29 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
   *reinterpret_cast<Pack<T, V>*>(p) = pk;
 }
 
-// Two per-channel sums over the S rows of one sample: `body(s, c, a, b)`
-// adds row s's contribution for channels c..c+V-1 into a[] and b[]. Results
-// land in out_a[C] and out_b[C] (shared memory). `part` holds
-// 2·kThreads·V floats. Ends with a barrier.
-template <int V, typename Body>
-__device__ void channel_sums(int S, int C, Body body, float* out_a,
+// Two per-channel sums over the S rows of one sample: `make_row(c)`, called
+// once for the thread's channels c..c+V-1, returns `row(s, a, b)`, which adds
+// row s's contribution for those channels into a[] and b[]. Results land in
+// out_a[C] and out_b[C] (shared memory). `part` holds 2·NT·V floats, for
+// NT threads. Ends with a barrier.
+template <int NT, int V, typename MakeRow>
+__device__ void channel_sums(int S, int C, MakeRow make_row, float* out_a,
                              float* out_b, float* part) {
   const int t = threadIdx.x;
   const int slots = C / V;
   float* part_a = part;
-  float* part_b = part + kThreads * V;
-  for (int base = 0; base < slots; base += kThreads) {
-    const int here = min(kThreads, slots - base);
-    const int rows = kThreads / here;  // row groups walking S in step
+  float* part_b = part + NT * V;
+  for (int base = 0; base < slots; base += NT) {
+    const int here = min(NT, slots - base);
+    const int rows = NT / here;  // row groups walking S in step
     float a[V], b[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
     if (t < rows * here) {
       const int c = (base + t % here) * V;
+      auto row = make_row(c);
 #pragma unroll 4
-      for (int s = t / here; s < S; s += rows) body(s, c, a, b);
+      for (int s = t / here; s < S; s += rows) row(s, a, b);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         part_a[t * V + k] = a[k];
@@ -109,8 +137,9 @@ __device__ void channel_sums(int S, int C, Body body, float* out_a,
     // Thread t = row·here + slot wrote part[(row·here + slot)·V + k]: channel
     // j = slot·V + k of this chunk sits at part[row·here·V + j].
     const int width = here * V;
-    for (int j = t; j < width; j += kThreads) {
+    for (int j = t; j < width; j += NT) {
       float sa = 0.f, sb = 0.f;
+#pragma unroll 8
       for (int row = 0; row < rows; ++row) {
         sa += part_a[row * width + j];
         sb += part_b[row * width + j];
@@ -128,7 +157,7 @@ __device__ void group_stats(const GnShape& g, const float* sum,
                             const float* sumsq, float* mu, float* rstd) {
   const int cpg = g.C / g.G;
   const float denom = static_cast<float>(g.S) * static_cast<float>(cpg);
-  for (int grp = threadIdx.x; grp < g.G; grp += kThreads) {
+  for (int grp = threadIdx.x; grp < g.G; grp += blockDim.x) {
     float s = 0.f, sq = 0.f;
     for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
       s += sum[c];
@@ -143,6 +172,24 @@ __device__ void group_stats(const GnShape& g, const float* sum,
     }
   }
   __syncthreads();
+}
+
+// make_row for channel_sums: Σx and Σx² of the rows at `xs`, `stride`
+// elements apart.
+template <typename T, int V>
+__device__ __forceinline__ auto sum_and_squares(const T* xs,
+                                                long long stride) {
+  return [=](int c) {
+    return [=](int s, float(&a)[V], float(&b)[V]) {
+      float v[V];
+      load<T, V>(xs + s * stride + c, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        a[k] += v[k];
+        b[k] += v[k] * v[k];
+      }
+    };
+  };
 }
 
 template <typename T, int V>
@@ -162,18 +209,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* xs = x + r * sx.r + m * sx.m;
   T* ys = y + r * sy.r + m * sy.m;
 
-  channel_sums<V>(
-      g.S, g.C,
-      [&](int s, int c, float(&a)[V], float(&b)[V]) {
-        float v[V];
-        load<T, V>(xs + s * sx.s + c, v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          a[k] += v[k];
-          b[k] += v[k] * v[k];
-        }
-      },
-      c0, c1, part);
+  channel_sums<kThreads, V>(g.S, g.C, sum_and_squares<T, V>(xs, sx.s), c0,
+                            c1, part);
   group_stats(g, c0, c1, mu, rstd);
   for (int c = threadIdx.x; c < g.C; c += kThreads) {
     c0[c] = gamma[r * g.C + c];
@@ -195,114 +232,238 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// V elements from global to shared memory without passing through
+// registers (cp.async), or by a plain copy below 4 bytes.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const size_t g = __cvta_generic_to_global(src);
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(g)
+                 : "memory");
+  } else if constexpr (BYTES >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(g), "n"(BYTES)
+                 : "memory");
+  } else {
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+  }
+}
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, n_rows) of one sample's slice (`src`, `stride` elements between
+// rows) into dst[n_rows][C].
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void copy_rows(T* dst, const T* src,
+                                          long long stride, int n_rows,
+                                          int C) {
+  const int slots = C / V;
+  const int n = n_rows * slots;
+  for (int e = threadIdx.x; e < n; e += kBwdThreads) {
+    const int s = e / slots, c = (e - s * slots) * V;
+    copy_async<static_cast<int>(V * sizeof(T))>(dst + s * C + c,
+                                                src + s * stride + c);
+  }
+}
+
+// The sample's totals of the cluster's per-channel partials: ex[2·C] of
+// every block of the cluster, summed in rank order into tot[2·C] (the same
+// bits in every block). Ends with a barrier.
+__device__ void cluster_totals(cg::cluster_group& cluster, float* ex,
+                               float* tot, int C) {
+  cluster.sync();  // every block's ex is written
+  const int cl = static_cast<int>(cluster.num_blocks());
+  for (int c = threadIdx.x; c < 2 * C; c += kBwdThreads) {
+    float vals[kMaxCluster];  // all loads in flight before the sum
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      vals[q] = q < cl ? cluster.map_shared_rank(ex, q)[c] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < cl) s += vals[q];
+    tot[c] = s;
+  }
+  __syncthreads();
+}
+
+// One block of a cluster of CL per sample (blockIdx.x = (r·M + m)·CL + q):
+// rows [q·rows_per_block, (q + 1)·rows_per_block) of x, and of dy when
+// dy_resident, in shared memory (see the note at the top).
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads, 6)
     gn_bwd_kernel(GnShape g, Strides sx, Strides sdy, Strides sdx,
                   const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, T* __restrict__ dx,
-                  float* __restrict__ part_g, float* __restrict__ part_b) {
-  extern __shared__ float smem[];
-  float* part = smem;
-  float* c0 = part + 2 * kThreads * V;
-  float* c1 = c0 + g.C;
-  float* mu = c1 + g.C;
-  float* rstd = mu + g.C;
-  float* gam = rstd + g.C;
-  float* k0 = gam + g.C;  // per channel: mean_g(dxhat)
-  float* k1 = k0 + g.C;   // per channel: mean_g(dxhat·xhat)
-
-  const int n = blockIdx.x;
+                  float* __restrict__ part_g, float* __restrict__ part_b,
+                  int rows_per_block, int dy_resident) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int n = blockIdx.x / static_cast<int>(cluster.num_blocks());
   const int r = n / g.M, m = n - r * g.M;
-  const T* xs = x + r * sx.r + m * sx.m;
-  const T* dys = dy + r * sdy.r + m * sdy.m;
-  T* dxs = dx + r * sdx.r + m * sdx.m;
+  const int C = g.C;
+  const int s0 = q * rows_per_block;
+  const int n_rows = max(0, min(g.S - s0, rows_per_block));
+  const T* xs = x + r * sx.r + m * sx.m + s0 * sx.s;
+  const T* dys = dy + r * sdy.r + m * sdy.m + s0 * sdy.s;
+  T* dxs = dx + r * sdx.r + m * sdx.m + s0 * sdx.s;
 
-  // Pass 1: the statistics, as in the forward.
-  channel_sums<V>(
-      g.S, g.C,
-      [&](int s, int c, float(&a)[V], float(&b)[V]) {
-        float v[V];
-        load<T, V>(xs + s * sx.s + c, v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          a[k] += v[k];
-          b[k] += v[k] * v[k];
-        }
-      },
-      c0, c1, part);
-  group_stats(g, c0, c1, mu, rstd);
-  for (int c = threadIdx.x; c < g.C; c += kThreads) gam[c] = gamma[r * g.C + c];
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* part = bwd_smem;  // [2][kBwdThreads·V] row-group partials
+  float* ex0 = part + 2 * kBwdThreads * V;  // this block's Σx, Σx² [2][C]
+  float* ex1 = ex0 + 2 * C;  // this block's Σdy, Σdy·xhat [2][C]
+  float* tot = ex1 + 2 * C;  // the sample's totals [2][C]
+  float* mu = tot + 2 * C;
+  float* rstd = mu + C;
+  float* gam = rstd + C;
+  T* sx_ = reinterpret_cast<T*>(bwd_smem +
+                                ((2 * kBwdThreads * V + 9 * C + 3) & ~3));
+  T* sdy_ = sx_ + rows_per_block * C;  // used when dy_resident
+
+  // x's slice, then dy's, as two groups of asynchronous copies; γ while
+  // they land.
+  copy_rows<T, V>(sx_, xs, sx.s, n_rows, C);
+  copy_async_commit();
+  if (dy_resident) copy_rows<T, V>(sdy_, dys, sdy.s, n_rows, C);
+  copy_async_commit();
+  for (int c = threadIdx.x; c < C; c += kBwdThreads)
+    gam[c] = gamma[r * C + c];
+  copy_async_wait<1>();
+  __syncthreads();
+
+  // Pass 1: the statistics, over the cluster.
+  channel_sums<kBwdThreads, V>(n_rows, C, sum_and_squares<T, V>(sx_, C), ex0,
+                               ex0 + C, part);
+  cluster_totals(cluster, ex0, tot, C);
+  group_stats(g, tot, tot + C, mu, rstd);
+  copy_async_wait<0>();
+  __syncthreads();
 
   // Pass 2: per channel Σdy and Σdy·xhat (this sample's dβ and dγ).
-  channel_sums<V>(
-      g.S, g.C,
-      [&](int s, int c, float(&a)[V], float(&b)[V]) {
-        float v[V], d[V];
-        load<T, V>(xs + s * sx.s + c, v);
-        load<T, V>(dys + s * sdy.s + c, d);
+  const T* dy_rows = dy_resident ? sdy_ : dys;
+  const long long dy_stride = dy_resident ? C : sdy.s;
+  channel_sums<kBwdThreads, V>(
+      n_rows, C,
+      [&](int c) {
+        float mk[V], rk[V];
 #pragma unroll
         for (int k = 0; k < V; ++k) {
-          a[k] += d[k];
-          b[k] += d[k] * ((v[k] - mu[c + k]) * rstd[c + k]);
+          mk[k] = mu[c + k];
+          rk[k] = rstd[c + k];
         }
+        return [=](int s, float(&a)[V], float(&b)[V]) {
+          float v[V], d[V];
+          load<T, V>(sx_ + s * C + c, v);
+          load<T, V>(dy_rows + s * dy_stride + c, d);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            a[k] += d[k];
+            b[k] += d[k] * ((v[k] - mk[k]) * rk[k]);
+          }
+        };
       },
-      c0, c1, part);
-  for (int c = threadIdx.x; c < g.C; c += kThreads) {
-    part_b[static_cast<long long>(n) * g.C + c] = c0[c];
-    part_g[static_cast<long long>(n) * g.C + c] = c1[c];
+      ex1, ex1 + C, part);
+  cluster_totals(cluster, ex1, tot, C);
+  if (q == 0) {
+    for (int c = threadIdx.x; c < C; c += kBwdThreads) {
+      part_b[static_cast<long long>(n) * C + c] = tot[c];
+      part_g[static_cast<long long>(n) * C + c] = tot[C + c];
+    }
   }
-  // Group means of dxhat = dy·γ and dxhat·xhat, per channel.
-  const int cpg = g.C / g.G;
+  __syncthreads();
+  // Group means of dxhat = dy·γ and dxhat·xhat, per channel, in place:
+  // k0 = mean_g(dxhat), k1 = mean_g(dxhat·xhat).
+  float* k0 = tot;
+  float* k1 = tot + C;
+  const int cpg = C / g.G;
   const float denom = static_cast<float>(g.S) * static_cast<float>(cpg);
-  for (int grp = threadIdx.x; grp < g.G; grp += kThreads) {
-    float s0 = 0.f, s1 = 0.f;
+  for (int grp = threadIdx.x; grp < g.G; grp += kBwdThreads) {
+    float s0_ = 0.f, s1_ = 0.f;
     for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
-      s0 += gam[c] * c0[c];
-      s1 += gam[c] * c1[c];
+      s0_ += gam[c] * k0[c];
+      s1_ += gam[c] * k1[c];
     }
     for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
-      k0[c] = s0 / denom;
-      k1[c] = s1 / denom;
+      k0[c] = s0_ / denom;
+      k1[c] = s1_ / denom;
     }
   }
   __syncthreads();
 
-  // Pass 3: dx.
-  const int slots = g.C / V;
-  const int total = g.S * slots;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int s = e / slots;
-    const int c = (e - s * slots) * V;
-    float v[V], d[V];
-    load<T, V>(xs + s * sx.s + c, v);
-    load<T, V>(dys + s * sdy.s + c, d);
+  // Pass 3: dx, each thread on a fixed channel slot with that slot's
+  // constants in registers.
+  const int slots = C / V;
+  const int t = threadIdx.x;
+  for (int base = 0; base < slots; base += kBwdThreads) {
+    const int here = min(kBwdThreads, slots - base);
+    const int rows = kBwdThreads / here;
+    if (t >= rows * here) continue;
+    const int c = (base + t % here) * V;
+    float mk[V], rk[V], gk[V], a0[V], a1[V];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const float xhat = (v[k] - mu[c + k]) * rstd[c + k];
-      v[k] = rstd[c + k] * (d[k] * gam[c + k] - k0[c + k] - xhat * k1[c + k]);
+      mk[k] = mu[c + k];
+      rk[k] = rstd[c + k];
+      gk[k] = gam[c + k];
+      a0[k] = k0[c + k];
+      a1[k] = k1[c + k];
     }
-    store<T, V>(dxs + s * sdx.s + c, v);
+#pragma unroll 2
+    for (int s = t / here; s < n_rows; s += rows) {
+      float v[V], d[V];
+      load<T, V>(sx_ + s * C + c, v);
+      load<T, V>(dy_rows + s * dy_stride + c, d);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float xhat = (v[k] - mk[k]) * rk[k];
+        v[k] = rk[k] * (d[k] * gk[k] - a0[k] - xhat * a1[k]);
+      }
+      store<T, V>(dxs + s * sdx.s + c, v);
+    }
   }
+  // The other blocks of the cluster read this block's ex1 in pass 2: its
+  // shared memory must outlive their reads.
+  cluster.sync();
 }
 
-// dγ[r, c] = Σ_m part_g[r·M + m, c] (and dβ alike), m in index order.
+// dγ[r, c] = Σ_m part_g[r·M + m, c] (and dβ alike), m in index order. One
+// warp per (r, c): its lanes load 32 partials at once, and every lane adds
+// them in order from the shuffles, so the loads are in flight together and
+// the sum is the sequential one.
 __global__ void gn_reduce_kernel(int R, int M, int C,
                                  const float* __restrict__ part_g,
                                  const float* __restrict__ part_b,
                                  float* __restrict__ dgamma,
                                  float* __restrict__ dbeta) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (idx >= static_cast<long long>(R) * C) return;
-  const long long r = idx / C, c = idx - r * C;
+  const long long w =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= static_cast<long long>(R) * C) return;  // whole warps
+  const long long r = w / C, c = w - r * C;
   float sg = 0.f, sb = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const long long off = (r * M + m) * C + c;
-    sg += part_g[off];
-    sb += part_b[off];
+#pragma unroll 4
+  for (int m0 = 0; m0 < M; m0 += 32) {
+    const long long off = (r * M + m0 + lane) * C + c;
+    const bool in = m0 + lane < M;
+    const float pg = in ? part_g[off] : 0.f;
+    const float pb = in ? part_b[off] : 0.f;
+    const int n = min(32, M - m0);
+    for (int i = 0; i < n; ++i) {
+      sg += __shfl_sync(0xffffffffu, pg, i);
+      sb += __shfl_sync(0xffffffffu, pb, i);
+    }
   }
-  dgamma[idx] = sg;
-  dbeta[idx] = sb;
+  if (lane == 0) {
+    dgamma[w] = sg;
+    dbeta[w] = sb;
+  }
 }
 
 size_t smem_bytes(int V, int C, int per_channel_arrays) {
@@ -331,18 +492,75 @@ cudaError_t fwd_v(const GnShape& g, const Strides& sx, const Strides& sy,
   return cudaGetLastError();
 }
 
+// How the backward splits a sample: CL blocks of `rows` rows each, dy held
+// in shared memory or read twice, and the dynamic shared memory per block.
+struct BwdPlan {
+  int cl, rows;
+  bool dy_resident;
+  size_t smem;
+};
+
+// The smallest cluster (a power of 2 up to kMaxCluster) whose blocks hold
+// at most kTargetBytes of x and dy each, on device `dev`; false if even x
+// alone does not fit in the shared memory of kMaxCluster blocks.
+bool plan_bwd(int S, int C, int V, size_t elem_bytes, int dev, BwdPlan* p) {
+  int max_smem = 0;
+  if (cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  // part, ex0, ex1, tot (2·C each), mu, rstd, gam; rounded up to 16 bytes.
+  const size_t fixed =
+      sizeof(float) * ((2 * static_cast<size_t>(kBwdThreads) * V + 9 *
+                        static_cast<size_t>(C) + 3) & ~size_t(3));
+  auto data = [&](int cl, int copies) {
+    const size_t rows = (static_cast<size_t>(S) + cl - 1) / cl;
+    return rows * static_cast<size_t>(C) * elem_bytes * copies;
+  };
+  int cl = 1;
+  while (cl < kMaxCluster && data(cl, 2) > kTargetBytes) cl *= 2;
+  for (int copies = 2; copies >= 1; --copies) {
+    if (fixed + data(cl, copies) <= static_cast<size_t>(max_smem)) {
+      *p = {cl, (S + cl - 1) / cl, copies == 2, fixed + data(cl, copies)};
+      return true;
+    }
+  }
+  return false;
+}
+
 template <typename T, int V>
 cudaError_t bwd_v(const GnShape& g, const Strides& sx, const Strides& sdy,
                   const Strides& sdx, const void* x, const void* dy,
                   const float* gamma, void* dx, float* part_g, float* part_b,
                   cudaStream_t stream) {
-  const size_t bytes = smem_bytes(V, g.C, 7);
-  cudaError_t err = allow_smem(gn_bwd_kernel<T, V>, bytes);
+  BwdPlan p;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  gn_bwd_kernel<T, V><<<g.R * g.M, kThreads, bytes, stream>>>(
-      g, sx, sdy, sdx, static_cast<const T*>(x), static_cast<const T*>(dy),
-      gamma, static_cast<T*>(dx), part_g, part_b);
-  return cudaGetLastError();
+  if (!plan_bwd(g.S, g.C, V, sizeof(T), dev, &p))
+    return cudaErrorInvalidValue;  // the caller checks group_norm_bwd_fits
+  const long long blocks = static_cast<long long>(g.R) * g.M * p.cl;
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  auto kernel = gn_bwd_kernel<T, V>;
+  err = allow_smem(kernel, p.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, g, sx, sdy, sdx,
+                            static_cast<const T*>(x),
+                            static_cast<const T*>(dy), gamma,
+                            static_cast<T*>(dx), part_g, part_b, p.rows,
+                            static_cast<int>(p.dy_resident));
 }
 
 }  // namespace
@@ -359,6 +577,13 @@ int gn_vector_width(int C, int elem_bytes, const long long* strides,
     if (ok) return v;
   }
   return 1;
+}
+
+// Whether the backward takes a sample of S x C elements on device `dev`:
+// the plan at the widest vector, whose partials take the most room.
+bool group_norm_bwd_fits(int S, int C, bool is_bf16, int dev) {
+  BwdPlan p;
+  return plan_bwd(S, C, is_bf16 ? 8 : 4, is_bf16 ? 2 : 4, dev, &p);
 }
 
 cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
@@ -424,7 +649,7 @@ cudaError_t group_norm_reduce_launch(int R, int M, int C,
                                      const float* part_g,
                                      const float* part_b, float* dgamma,
                                      float* dbeta, cudaStream_t stream) {
-  const long long n = static_cast<long long>(R) * C;
+  const long long n = static_cast<long long>(R) * C * 32;  // a warp each
   const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
   gn_reduce_kernel<<<blocks, kThreads, 0, stream>>>(R, M, C, part_g, part_b,
                                                     dgamma, dbeta);

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash backward kernels in
-// flash_bwd_sm90.cu: warpgroup matrix multiplies (wgmma) in bf16 with f32
-// sums, their shared-memory descriptors, mbarriers and TMA loads, all as
-// inline PTX.
+// Hopper (sm_90a) building blocks of the tensor-core flash kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): warpgroup matrix multiplies
+// (wgmma) in bf16 with f32 sums, their shared-memory descriptors, mbarriers
+// and TMA loads, all as inline PTX.
 //
 // wgmma m64nNk16: D[64][N] += A[64][16] * B[16][N], issued by one warpgroup
 // (128 threads). The accumulator fragment of thread t (warp w = t / 32,

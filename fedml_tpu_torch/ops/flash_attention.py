@@ -13,11 +13,12 @@ sublane copy of lse is dropped); the backward recomputes
 is computed here with torch ops in f32, as ``_bwd`` computes it outside
 its kernels.
 
-The CUDA kernels are ``csrc/flash_fwd.cu`` (the forward, FMA on the FP32
-pipes), ``csrc/flash_bwd_sm90.cu`` (dq and dk/dv for bf16, on the tensor
-cores with ``wgmma`` and TMA) and ``csrc/flash_bwd.cu`` (dq and dk/dv for
-f32, FMA: the tensor cores have no full-f32 product). The backward's route
-is chosen by dtype alone. The kernels read q, k, v (and dO) as
+The CUDA kernels for bf16 run on the tensor cores with ``wgmma`` and TMA:
+``csrc/flash_fwd_sm90.cu`` (the forward) and ``csrc/flash_bwd_sm90.cu``
+(dq and dk/dv). f32 runs on the FP32 pipes with FMA, since the tensor
+cores have no full-f32 product: ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``. Each route is chosen by dtype alone. The kernels
+read q, k, v (and dO) as
 ``[R, B, T, H, D]`` at any stride with D at stride 1, so MHA's views of
 one qkv buffer need no copy; the tensor-core kernels also need every base
 and stride a multiple of 16 bytes, as TMA reads them. R is 1 for a plain
@@ -138,12 +139,6 @@ def _head_dim_contiguous(t):
     return t.contiguous()
 
 
-def _launch_fwd(q, k, v, causal: bool):
-    o, lse = extension().flash_fwd(q, k, v, bool(causal))
-    flash_attention.launches += 1
-    return o, lse
-
-
 def _tma_ready(t):
     """The tensor-core kernels read bf16 operands by TMA, which takes a base
     and (r, b, t, h) strides that are multiples of 16 bytes; any other
@@ -154,6 +149,21 @@ def _tma_ready(t):
         return t
     flash_attention.copies += 1
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_fwd(q, k, v, causal: bool):
+    """The forward kernel by dtype alone: bf16 operands reach the
+    tensor-core kernel (``flash_fwd_sm90.cu``), f32 operands the FMA kernel
+    (``flash_fwd.cu``)."""
+    ext = extension()
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
+        fwd_fn = ext.flash_fwd_sm90
+    else:
+        fwd_fn = ext.flash_fwd
+    o, lse = fwd_fn(q, k, v, bool(causal))
+    flash_attention.launches += 1
+    return o, lse
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool):
@@ -301,7 +311,9 @@ def flash_attention(q, k, v, causal: bool = False):
     TPU version's ``block_q``/``block_k``/``bwd_block_*`` arguments were
     TPU tuning (VMEM block sizes) and are not carried over; the CUDA
     kernels fix their own tiles. CUDA tensors launch the kernel (and count
-    one launch); CPU tensors run :func:`flash_attention_plain`."""
+    one launch): in bf16 the tensor-core ``flash_fwd_sm90_kernel``, in f32
+    the FMA ``flash_fwd_kernel``. CPU tensors run
+    :func:`flash_attention_plain`."""
     _check(q, k, v)
     o, lse = _FlashAttention.apply(q[None], k[None], v[None], bool(causal))
     return o[0], lse[0]

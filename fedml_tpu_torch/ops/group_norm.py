@@ -14,9 +14,11 @@ The kernels are ``csrc/group_norm.cu``. They work on ``x [R, M, S, C]``:
 R rows of γ/β (``[R, C]`` f32), M samples per row, S positions and C
 channels, C contiguous and the other three dims at any stride. R is 1 for
 a plain call; under ``vmap`` the client dim becomes R, so one launch
-normalizes every client with its own γ/β. The backward writes per-sample
-f32 partials of dγ/dβ and a second kernel sums them per row in a fixed
-order (no atomics: a rerun gives the same bits).
+normalizes every client with its own γ/β. The backward holds each sample
+in the shared memory of a thread-block cluster, so it reads x and dy once
+(a sample whose x alone is more than 8 blocks hold is refused); it writes
+per-sample f32 partials of dγ/dβ and a second kernel sums them per row in
+a fixed order (no atomics: a rerun gives the same bits).
 
 Routes: the ops ``fedml_tpu_torch::group_norm_fwd``/``group_norm_bwd``
 run the kernels for CUDA tensors and the plain twins

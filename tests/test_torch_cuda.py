@@ -30,11 +30,16 @@ def cuda():
     (torch.float32, 77, 3, 16, True),
     (torch.bfloat16, 130, 2, 32, False),
     (torch.float32, 200, 2, 128, True),
+    *[(torch.bfloat16, t, 2 if d == 128 else 4, d, causal)
+      for t in (2048, 1000) for d in (16, 32, 64, 128)
+      for causal in (True, False) if (t, d) != (2048, 64)],
 ])
 def test_flash_kernel_matches_plain_twin(cuda, dtype, t, h, d, causal):
     """The kernel against the f32 twin on the same inputs: o within 2e-2
     (bf16: the kernel rounds P to bf16 before P·V) or 1e-4 (f32), lse
-    within 1e-3; ragged T and every head dim included."""
+    within 1e-3; ragged T and every head dim included, bf16 (the
+    tensor-core kernel) at every head dim with and without the mask at
+    T 2048 and 1000."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, t, h, d, device=cuda, generator=g).to(dtype)
                for _ in range(3))
@@ -49,13 +54,17 @@ def test_flash_kernel_matches_plain_twin(cuda, dtype, t, h, d, causal):
     assert (lse - plse).abs().max().item() <= 1e-3
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as views into one [B, T, 3·H·D] buffer (what MHA passes):
-    no copy, same result as contiguous inputs."""
+    no copy (in bf16 the tensor maps take the views' strides), same result
+    as contiguous inputs."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    qkv = torch.randn(2, 300, 3 * 4 * 32, device=cuda, generator=g)
+    qkv = torch.randn(2, 300, 3 * 4 * 32, device=cuda, generator=g).to(dtype)
     q, k, v = (z.reshape(2, 300, 4, 32) for z in qkv.split(128, dim=-1))
+    copies = flash_attention.copies
     o, lse = flash_attention(q, k, v, causal=True)
+    assert flash_attention.copies == copies
     co, clse = flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=True)
     assert torch.equal(o, co) and torch.equal(lse, clse)
@@ -65,6 +74,35 @@ def test_flash_kernel_refuses_a_strided_head_dim(cuda):
     q = torch.zeros(1, 8, 2, 64, device=cuda)[..., ::2]  # stride 2 in D
     with pytest.raises(RuntimeError, match="contiguous"):
         flash_attention(q, q, q)
+
+
+def test_flash_fwd_bf16_reruns_are_bit_equal_at_the_slice_shape(cuda):
+    """No sum crosses blocks: two bf16 forwards at the FedAdapter shape
+    give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(16, 2048, 8, 64, device=cuda, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    a = flash_attention(q, k, v, causal=True)
+    b = flash_attention(q, k, v, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_fwd_bf16_copies_a_view_tma_cannot_take(cuda):
+    """A bf16 q whose T stride (257 elements, 514 bytes) is no multiple of
+    16 bytes: copied once and counted once, with the same bits as the
+    contiguous q."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    buf = torch.randn(2, 300, 4 * 64 + 1, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q = buf[..., :256].unflatten(-1, (4, 64))
+    k, v = (torch.randn(2, 300, 4, 64, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    copies = flash_attention.copies
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.copies == copies + 1
+    want = flash_attention(q.contiguous(), k, v, causal=True)
+    assert flash_attention.copies == copies + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _bwd_inputs(b, t, h, d, dtype, causal, gen, device):
@@ -191,19 +229,21 @@ def test_flash_bwd_bf16_copies_a_view_tma_cannot_take(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_flash_bf16_under_vmap_grad_launches_once(cuda):
+@pytest.mark.parametrize("t,h,d", [(256, 4, 32), (2048, 8, 64)])
+def test_flash_bf16_under_vmap_grad_launches_once(cuda, t, h, d):
     """vmap(grad) over 8 clients in bf16 with the clients next to T, as the
-    trainer lays tokens out ([B, C, T, 3·H·D] memory, q, k, v views of it):
-    one launch of each of the three kernels, no copy, and per-client
-    gradients within 2e-2 of max |want| of the plain twin's autograd."""
+    trainer lays tokens out ([B, C, T, 3·H·D] memory, q, k, v views of it),
+    small and at the FedAdapter shape: one launch of each of the three
+    kernels, no copy, and per-client gradients within 2e-2 of max |want|
+    of the plain twin's autograd."""
     from torch.func import grad, vmap
 
     from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
 
     g = torch.Generator(device=cuda).manual_seed(10)
-    qkv = torch.randn(2, 8, 256, 3 * 4 * 32, generator=g, device=cuda).to(
+    qkv = torch.randn(2, 8, t, 3 * h * d, generator=g, device=cuda).to(
         torch.bfloat16)
-    q, k, v = (z.unflatten(-1, (4, 32)) for z in qkv.split(128, dim=-1))
+    q, k, v = (z.unflatten(-1, (h, d)) for z in qkv.split(h * d, dim=-1))
 
     def loss(fn):
         return lambda q, k, v: torch.sin(
@@ -287,9 +327,6 @@ GN_MAIN_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
                   ((256, 1024, 32), 32), ((256, 256, 32), 32),
                   ((256, 256, 128), 32), ((256, 256, 64), 32),
                   ((256, 64, 64), 32), ((256, 64, 256), 32)]
-# One shape per stage (and the stem's) in the training path's layout.
-GN_STAGE_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
-                   ((256, 256, 128), 32), ((256, 64, 256), 32)]
 
 
 def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
@@ -328,28 +365,36 @@ def _sum_order_bound(terms, chain):
 @pytest.mark.parametrize("shape,groups,rows,dtype,interleaved", [
     *[(s, g, 1, torch.bfloat16, False) for s, g in GN_MAIN_SHAPES],
     ((256, 1024, 64), 32, 8, torch.bfloat16, False),
-    *[(s, g, 8, torch.bfloat16, True) for s, g in GN_STAGE_SHAPES],
+    *[(s, g, 8, torch.bfloat16, True) for s, g in GN_MAIN_SHAPES],
     ((6, 49, 48), 8, 1, torch.float32, False),
     ((6, 49, 48), 8, 3, torch.float32, False),
     ((9, 1, 16), 4, 1, torch.float32, False),
+    ((2, 4096, 64), 32, 1, torch.float32, False),
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
     """Forward and backward kernels against the f32 plain twins on the same
     inputs: y and dx within one bf16 rounding (bf16) or 1e-5 (f32); dγ and
-    dβ within the sum-order bound. The interleaved cases are the training
-    path's layout: 8 clients' rows of γ/β, x a strided view."""
+    dβ within the sum-order bound; no copy, and a rerun of the backward
+    gives the same bits. The interleaved cases are the training path's
+    layout at every ResNet-56 shape: 8 clients' rows of γ/β, x a strided
+    view. The f32 sample of 4096 x 64 (1 MB of x and of dy) is more than a
+    cluster of 8 blocks holds of both: the backward keeps x in shared
+    memory and reads dy twice."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)
     x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, cuda, interleaved)
     f0, b0 = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
-    r0 = gn.group_norm_bwd.reduce_launches
+    r0, c0 = gn.group_norm_bwd.reduce_launches, gn.group_norm.copies
     y = gn.group_norm_fwd(x, gamma, beta, groups)
     dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+    again = gn.group_norm_bwd(x, dy, gamma, groups)
     torch.cuda.synchronize()
     assert (gn.group_norm_fwd.launches - f0, gn.group_norm_bwd.launches - b0,
-            gn.group_norm_bwd.reduce_launches - r0) == (1, 1, 1)
+            gn.group_norm_bwd.reduce_launches - r0) == (1, 2, 2)
+    assert gn.group_norm.copies == c0
+    assert all(torch.equal(a, b) for a, b in zip((dx, dgamma, dbeta), again))
     assert y.dtype == dtype and dx.dtype == dtype
     want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
     want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
@@ -402,6 +447,31 @@ def test_group_norm_kernels_are_deterministic(cuda):
     a = gn.group_norm_bwd(x, dy, gamma, 32)
     b = gn.group_norm_bwd(x, dy, gamma, 32)
     assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_group_norm_bwd_refuses_a_sample_larger_than_a_cluster_holds(cuda):
+    """x alone past the shared memory of a cluster of 8 blocks (400,000 x
+    64 f32, 102 MB) is refused, not run another way."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    x = torch.zeros(1, 1, 400_000, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="400000 x 64 elements"):
+        gn.group_norm_bwd(x, x, torch.ones(1, 64, device=cuda), 32)
+
+
+def test_binding_checks_raise_with_numbers_in_the_message(cuda):
+    """A failed check in the binding whose message carries numbers raises a
+    RuntimeError (it used to crash the process on the card)."""
+    from fedml_tpu_torch.ops.build import extension
+
+    ext = extension()
+    x = torch.zeros(1, 1, 16, 60, device=cuda)
+    g = torch.ones(1, 60, device=cuda)
+    with pytest.raises(RuntimeError, match="groups 7 must divide channels 60"):
+        ext.group_norm_fwd(x, g, g, 7, 1e-6)
+    q = torch.zeros(1, 1, 8, 2, 24, device=cuda)
+    with pytest.raises(RuntimeError, match="got 24"):
+        ext.flash_fwd(q, q, q, True)
 
 
 def test_group_norm_under_vmap_grad_launches_once(cuda):

@@ -60,11 +60,12 @@ def test_plain_matches_jax_flash_f32(causal, t, blk):
     np.testing.assert_allclose(lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
 
 
-def test_plain_matches_jax_flash_bf16():
-    """bf16 inputs: o at atol 2e-2 (the Pallas kernel rounds P to bf16
-    before P·V and writes bf16; the twin keeps P in f32 — a few bf16 ulps
-    of an O(1) output)."""
-    q, k, v = _qkv(t=64)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_plain_matches_jax_flash_bf16(d):
+    """bf16 inputs at every head dim the kernels take: o at atol 2e-2 (the
+    Pallas kernel rounds P to bf16 before P·V and writes bf16; the twin
+    keeps P in f32 — a few bf16 ulps of an O(1) output)."""
+    q, k, v = _qkv(t=64, d=d)
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     want = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=16,
                                 block_k=16).astype(jnp.float32))

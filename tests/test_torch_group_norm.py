@@ -16,9 +16,14 @@ from torch.func import grad, vmap
 from fedml_tpu.ops.group_norm import group_norm as jax_group_norm
 from fedml_tpu_torch.ops import group_norm as gn
 
-# The five shapes of tests/test_group_norm.py:21-27.
+# The five shapes of tests/test_group_norm.py:21-27, then the eight
+# (S, C, groups) that ResNet-56's GroupNorms give the kernels on CIFAR
+# (S = 32², 16², 8²), at N 2.
 SHAPES = [((6, 8, 8, 32), 32), ((4, 4, 4, 64), 32), ((3, 2, 2, 128), 32),
-          ((5, 7, 48), 8), ((9, 16), 4)]
+          ((5, 7, 48), 8), ((9, 16), 4),
+          ((2, 32, 32, 16), 16), ((2, 32, 32, 64), 32), ((2, 32, 32, 32), 32),
+          ((2, 16, 16, 32), 32), ((2, 16, 16, 128), 32),
+          ((2, 16, 16, 64), 32), ((2, 8, 8, 64), 32), ((2, 8, 8, 256), 32)]
 
 
 @pytest.fixture(autouse=True, scope="module")
