@@ -9,7 +9,10 @@ Phases, each of which must pass or the script exits non-zero:
              reads, from the built library, each flash and GroupNorm
              kernel's registers, stack and local memory and its count of
              wgmma (HGMMA) instructions; every head dim of the three
-             tensor-core flash kernels must have wgmma and no spills.
+             tensor-core flash kernels must have wgmma and no spills, and
+             no GroupNorm kernel of the main path may spill. Prints the
+             GroupNorm kernels' cluster plans (blocks per sample, shared
+             memory per block).
 2. kernels — each kernel against its plain PyTorch twin on the card:
              the flash forward (bf16: the tensor-core kernel; f32: the FMA
              one) at the serving shape (B 8, T 2048, 8 heads, D 64) causal
@@ -23,11 +26,18 @@ Phases, each of which must pass or the script exits non-zero:
              the eight shapes that ResNet-56's training path gives them,
              with 8 rows of γ/β, in the training path's layout (8 clients'
              rows, x a strided view) at one shape per stage, in f32 on a
-             ragged shape and on a 2-D input. Times each kernel (the
-             forward at B 8 and B 16), its twin and one PyTorch library
-             call of the same function (many calls per CUDA event pair; a
-             library backward as a replayed CUDA graph), and computes the
-             card's bound for the same work.
+             ragged shape and on a 2-D input, at an S the forward's
+             cluster does not divide and at a sample that takes 8 blocks
+             (the forward on its cluster route, reruns bit-equal), and
+             the forward's streamed route on a sample past a cluster's
+             shared memory. Times each kernel (the flash forward at B 8
+             and B 16), its twin and one PyTorch library call of the same
+             function (many calls per CUDA event pair; a library backward
+             and the GroupNorm kernels as replayed CUDA graphs), and
+             computes the card's bound for the same work; times the
+             GroupNorm kernels at each training shape in the path's
+             layout and sums launches x ms per local step against
+             launches x bound.
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
@@ -39,14 +49,16 @@ Phases, each of which must pass or the script exits non-zero:
              FedAvgAPI over resnet56 (GroupNorm, bf16 compute), 128
              clients x 256 CIFAR-shaped samples from seed 0, batch 32, 8
              clients per round, 1 local epoch, sgd lr 0.1. One warm-up
-             round, then 3 timed rounds with the GroupNorm launch counts
-             zeroed just before and read just after (58 forward, 58
-             backward and 58 reduce launches per local step). From one
+             round, which tallies the forward's shapes, then 3 timed
+             rounds with the GroupNorm launch counts zeroed just before
+             and read just after (58 forward, 58 backward and 58 reduce
+             launches per local step, no forward streamed). From one
              start, the kernel path against the plain GroupNorm twin: one
              local step in f32 and in bf16, and one round in f32 at lr
              1e-3, which must also tell a planted fault (the dγ/dβ
              reduce skipping one sample per client) from the twin. One
-             round under the profiler gives the device time by kernel.
+             round under the profiler gives the device time by kernel and
+             shows, by name, that every forward ran on the cluster kernel.
 5. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
@@ -103,27 +115,37 @@ LOGITS_TOL = 0.25
 
 # Training configuration: bench.py's primary (bench_cifar_resnet56).
 TRAIN_CLIENTS, TRAIN_PER_CLIENT, TRAIN_BATCH, TRAIN_PER_ROUND = 128, 256, 32, 8
-TRAIN_LR, TRAIN_ROUNDS, RESNET56_GN = 0.1, 3, 58
+TRAIN_LR, TRAIN_ROUNDS = 0.1, 3
+# ResNet-56's GroupNorms at 8 clients x 32 samples: (shape [N, S, C],
+# groups, forward (and backward) launches per local step), as the train
+# phase tallies them in its warm-up round.
+GN_STEP = [((256, 1024, 16), 16, 13), ((256, 1024, 64), 32, 7),
+           ((256, 1024, 32), 32, 1), ((256, 256, 32), 32, 11),
+           ((256, 256, 128), 32, 7), ((256, 256, 64), 32, 1),
+           ((256, 64, 64), 32, 11), ((256, 64, 256), 32, 7)]
+RESNET56_GN = sum(n for _, _, n in GN_STEP)  # 58
 # GroupNorm kernels vs the f32 twin: (shape [N, S, C], groups, rows, dtype,
-# interleaved). The bf16 shapes are every (S, C, groups) of ResNet-56's 58
-# GroupNorms at 8 clients x 32 samples; "interleaved" lays x and dy out as
-# the vmapped conv hands them over: [M, S, R, C] memory seen as [R, M, S, C].
+# interleaved). The first eight are GN_STEP's shapes; "interleaved" lays x
+# and dy out as the vmapped conv hands them over: [M, S, R, C] memory seen
+# as [R, M, S, C]. Then a ragged S that the forward's cluster does not
+# divide (CL 4 of 251 rows; CL 8 in f32) and a sample that takes CL 8 in
+# bf16.
 GN_MAIN = ((256, 1024, 64), 32)
-GN_CASES = [((256, 1024, 16), 16, 1, torch.bfloat16, False),
-            ((256, 1024, 64), 32, 1, torch.bfloat16, False),
-            ((256, 1024, 32), 32, 1, torch.bfloat16, False),
-            ((256, 256, 32), 32, 1, torch.bfloat16, False),
-            ((256, 256, 128), 32, 1, torch.bfloat16, False),
-            ((256, 256, 64), 32, 1, torch.bfloat16, False),
-            ((256, 64, 64), 32, 1, torch.bfloat16, False),
-            ((256, 64, 256), 32, 1, torch.bfloat16, False),
+GN_CASES = [(shape, groups, 1, torch.bfloat16, False)
+            for shape, groups, _ in GN_STEP] + [
             ((256, 1024, 64), 32, 8, torch.bfloat16, False),
             ((256, 1024, 16), 16, 8, torch.bfloat16, True),
             ((256, 1024, 64), 32, 8, torch.bfloat16, True),
             ((256, 256, 128), 32, 8, torch.bfloat16, True),
             ((256, 64, 256), 32, 8, torch.bfloat16, True),
             ((6, 49, 48), 8, 1, torch.float32, False),
-            ((9, 1, 16), 4, 1, torch.float32, False)]
+            ((9, 1, 16), 4, 1, torch.float32, False),
+            ((3, 1001, 64), 32, 1, torch.bfloat16, False),
+            ((3, 1001, 64), 32, 1, torch.float32, False),
+            ((4, 1024, 128), 32, 1, torch.bfloat16, False)]
+# A sample whose x is more than a cluster of 8 blocks holds (2 MB): the
+# forward's streamed route.
+GN_STREAMED = ((2, 8192, 64), 32, torch.float32)
 # GroupNorm kernel vs plain twin in training, same start and keys, as the
 # share of the update's norm (update = new params - start) by which they
 # differ. One local step in f32 (cuDNN without TF32, the two paths on
@@ -252,7 +274,9 @@ def phase_build():
     -res-usage``) and its count of HGMMA (``wgmma``) instructions
     (``cuobjdump -sass``), and fails unless each of the four head dims of
     every tensor-core kernel has HGMMA and neither stack nor local memory
-    (no spills)."""
+    (no spills), nor any GroupNorm kernel of the main path (the streamed
+    forward is off it); prints the GroupNorm kernels' cluster plans at the
+    training path's shapes."""
     from fedml_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -295,6 +319,19 @@ def phase_build():
         spilled = [f for f, n in spills.items() if kernel in f and n]
         check(not spilled, f"{kernel}: stack or local memory (spills) in "
               f"{spilled}")
+    spilled = [f for f, n in spills.items() if n and any(
+        k in f for k in ("gn_fwd_kernel", "gn_bwd_kernel", "gn_reduce"))]
+    check(not spilled, f"the main path's GroupNorm kernels with stack or "
+          f"local memory (spills): {spilled}")
+    # The GroupNorm kernels' dynamic shared memory per block is the
+    # cluster plan's, chosen per shape.
+    ext = build.extension()
+    for (_, s, c), _, _ in GN_STEP:
+        fwd, bwd = (ext.group_norm_plan(s, c, True, n) for n in (1, 2))
+        print(f"[build] group_norm plan [{s}, {c}] bf16: gn_fwd_kernel CL "
+              f"{fwd[0]} x {fwd[1]} rows, {fwd[3]} B shared memory per "
+              f"block; gn_bwd_kernel CL {bwd[0]} x {bwd[1]} rows, {bwd[2]} "
+              f"tensors resident, {bwd[3]} B", flush=True)
 
 
 # Flash forward cases (B, T, H, D, dtype, causal): bf16 reaches the
@@ -558,9 +595,30 @@ def _gn_err(got, want, dtype):
     return err.max().item(), bool((err <= lim).all())
 
 
+def _gn_bound(kind, x, peaks):
+    """The least time of one GroupNorm launch on ``x [R, M, S, C]`` (bf16
+    or f32; γ/β f32 [R, C]): (bound ms, "bytes" or "operations", bytes,
+    flops, bytes ms, ops ms). The forward reads x, γ, β once and writes y;
+    the backward reads x, dy, γ and writes dx, dγ, dβ. ~8 and ~20 flops per
+    element, against the fp32 peak."""
+    _, fp32_peak, hbm = peaks
+    r, _, _, c = x.shape
+    elems, esz = x.numel(), x.element_size()
+    tensors, rows, flops = ((2, 2, 8 * elems) if kind == "fwd"
+                            else (3, 3, 20 * elems))
+    nbytes = tensors * elems * esz + rows * r * c * 4
+    t_bytes, t_ops = nbytes / hbm * 1e3, flops / fp32_peak * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops, t_bytes, t_ops)
+
+
 def phase_gn_kernels(peaks):
-    """GroupNorm forward/backward kernels vs their plain twins; returns the
-    two kernels-line entries (launches filled in by the train phase)."""
+    """GroupNorm forward/backward kernels vs their plain twins at every case
+    of GN_CASES (the forward on the cluster route, reruns bit-equal) and
+    the forward's streamed route at GN_STREAMED; times both at the main
+    shape and at each GN_STEP shape in the training path's layout, and sums
+    launches x ms per local step against launches x bound. Returns the two
+    kernels-line entries (launches filled in by the train phase)."""
     import torch.nn.functional as F
 
     from fedml_tpu_torch.ops import group_norm as gn
@@ -569,7 +627,9 @@ def phase_gn_kernels(peaks):
     errs = {}
     for shape, groups, rows, dtype, interleaved in GN_CASES:
         x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, interleaved)
+        streamed = gn.group_norm_fwd.streamed
         y = gn.group_norm_fwd(x, gamma, beta, groups)
+        rerun = gn.group_norm_fwd(x, gamma, beta, groups)
         dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
         torch.cuda.synchronize()
         want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
@@ -599,9 +659,29 @@ def phase_gn_kernels(peaks):
               f"f32: 1e-5; dgamma/dbeta: sum-order bound)", flush=True)
         check(ok_y and ok_dx and ok_p,
               f"group_norm kernels disagree with plain ({name})")
+        check(gn.group_norm_fwd.streamed == streamed,
+              f"group_norm_fwd took the streamed route ({name})")
+        check(torch.equal(y, rerun), f"group_norm_fwd reruns differ ({name})")
         if (shape, groups) == GN_MAIN and rows == 1 and not interleaved:
             errs = {"fwd": ey, "bwd": max(edx, edg.max().item(),
                                            edb.max().item())}
+
+    # The streamed route: chosen by shape, counted, held to the twin.
+    shape, groups, dtype = GN_STREAMED
+    x, _, gamma, beta = _gn_inputs(shape, 1, dtype, g)
+    counts = (gn.group_norm_fwd.launches, gn.group_norm_fwd.streamed)
+    y = gn.group_norm_fwd(x, gamma, beta, groups)
+    torch.cuda.synchronize()
+    after = (gn.group_norm_fwd.launches, gn.group_norm_fwd.streamed)
+    ey, ok_y = _gn_err(y, gn.group_norm_fwd_plain(x.float(), gamma, beta,
+                                                  groups), dtype)
+    print(f"[kernels] group_norm_fwd {list(shape)} g{groups} "
+          f"{str(dtype).split('.')[-1]} (x past a cluster's shared memory): "
+          f"streamed route, launches/streamed {counts} -> {after}; "
+          f"max|y-plain| {ey:.3e} (tol 1e-5)", flush=True)
+    check(ok_y and after == (counts[0] + 1, counts[1] + 1),
+          f"the streamed forward: counts {counts} -> {after}, error {ey}")
+    del x, y, gamma, beta
 
     # The kernels' device time as a replayed CUDA graph (where the
     # wrapper's host work outlasts a kernel, back-to-back calls time the
@@ -614,13 +694,30 @@ def phase_gn_kernels(peaks):
     bwd_call = time_ms(lambda: gn.group_norm_bwd(x, dy, gamma, groups))
     bwd_alone = graph_ms(lambda: gn.extension().group_norm_bwd(
         x, dy, gamma, groups, gn.EPS))
-    xi, dyi, gi, bi = _gn_inputs(shape, 8, torch.bfloat16, g, True)
-    fwd_r8 = graph_ms(lambda: gn.group_norm_fwd(xi, gi, bi, groups))
-    bwd_r8 = graph_ms(lambda: gn.group_norm_bwd(xi, dyi, gi, groups))
-    print(f"[kernels] group_norm [8x32, {shape[1]}, {shape[2]}] g{groups} "
-          f"bf16 interleaved (the training path's layout): fwd {fwd_r8:.4f} "
-          f"ms, bwd {bwd_r8:.4f} ms (graph)", flush=True)
-    del xi, dyi, gi, bi
+
+    # The training path: every GN_STEP shape with 8 clients' rows, x and dy
+    # interleaved, weighted by its launches per local step.
+    path = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}  # Σ n·ms, Σ n·bound
+    for (n, s, c), grp, per_step in GN_STEP:
+        xi, dyi, gi, bi = _gn_inputs((n, s, c), 8, torch.bfloat16, g, True)
+        line = []
+        for kind, fn in (
+                ("fwd", lambda: gn.group_norm_fwd(xi, gi, bi, grp)),
+                ("bwd", lambda: gn.group_norm_bwd(xi, dyi, gi, grp))):
+            ms, bound = graph_ms(fn), _gn_bound(kind, xi, peaks)[0]
+            path[kind][0] += per_step * ms
+            path[kind][1] += per_step * bound
+            line.append(f"{kind} {ms:.4f} ms (bound {bound:.4f} ms, "
+                        f"{bound / ms:.2f} of it)")
+        print(f"[kernels] group_norm path [8x{n // 8}, {s}, {c}] g{grp} bf16 "
+              f"interleaved, {per_step} launches per step: "
+              + ", ".join(line), flush=True)
+        del xi, dyi, gi, bi
+    for kind, (ms, bound) in path.items():
+        print(f"[kernels] group_norm_{kind} per local step ({RESNET56_GN} "
+              f"launches): sum of launches x ms {ms:.4f} ms against sum of "
+              f"launches x bound {bound:.4f} ms ({bound / ms:.2f} of it)",
+              flush=True)
     fwd_plain = time_ms(lambda: gn.group_norm_fwd_plain(x, gamma, beta,
                                                         groups))
     bwd_plain = time_ms(lambda: gn.group_norm_bwd_plain(x, dy, gamma,
@@ -641,16 +738,12 @@ def phase_gn_kernels(peaks):
 
     lib_bwd = graph_ms(lib_fwd_bwd) - graph_ms(
         lambda: F.group_norm(xr, groups, wr, br, gn.EPS))
-    _, fp32_peak, hbm = peaks
-    elems, esz = x.numel(), x.element_size()
     entries = []
-    for kind, ms, call_ms, plain_ms, lib_ms, nbytes, flops in (
-            ("fwd", fwd_ms, fwd_call, fwd_plain, lib_fwd,
-             2 * elems * esz + 2 * c * 4, 8 * elems),
-            ("bwd", bwd_ms, bwd_call, bwd_plain, lib_bwd,
-             3 * elems * esz + 3 * c * 4, 20 * elems)):
-        t_bytes, t_ops = nbytes / hbm * 1e3, flops / fp32_peak * 1e3
-        bound_ms = max(t_bytes, t_ops)
+    for kind, ms, call_ms, plain_ms, lib_ms in (
+            ("fwd", fwd_ms, fwd_call, fwd_plain, lib_fwd),
+            ("bwd", bwd_ms, bwd_call, bwd_plain, lib_bwd)):
+        bound_ms, bound_by, nbytes, flops, t_bytes, t_ops = _gn_bound(
+            kind, x, peaks)
         alone = (f", of which gn_bwd_kernel alone {bwd_alone:.4f} ms"
                  if kind == "bwd" else "")
         print(f"[kernels] group_norm_{kind} [{n}, {s}, {c}] g{groups} bf16: "
@@ -666,9 +759,9 @@ def phase_gn_kernels(peaks):
             "replaces": ("fedml_tpu/ops/group_norm.py:102" if kind == "fwd"
                          else "fedml_tpu/ops/group_norm.py:115"),
             "launches": None, "max_abs_err": errs[kind], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "path_ms_per_step": path[kind][0],
+            "path_bound_ms_per_step": path[kind][1]})
     return entries
 
 
@@ -825,7 +918,8 @@ def _gn_counts():
     from fedml_tpu_torch.ops import group_norm as gn
 
     return (gn.group_norm_fwd.launches, gn.group_norm_bwd.launches,
-            gn.group_norm_bwd.reduce_launches, gn.group_norm.copies)
+            gn.group_norm_bwd.reduce_launches, gn.group_norm.copies,
+            gn.group_norm_fwd.streamed)
 
 
 def _zero_gn_counts():
@@ -833,6 +927,7 @@ def _zero_gn_counts():
 
     gn.group_norm_fwd.launches = gn.group_norm_bwd.launches = 0
     gn.group_norm_bwd.reduce_launches = gn.group_norm.copies = 0
+    gn.group_norm_fwd.streamed = 0
 
 
 def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
@@ -873,6 +968,22 @@ def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
         print(f"[{tag}]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
               flush=True)
     return [(key, count, ms) for ms, count, key in rows]
+
+
+class _ShapeTally:
+    """The extension, tallying the (S, C) of every GroupNorm forward."""
+
+    def __init__(self, ext):
+        self._ext = ext
+        self.shapes = {}
+
+    def __getattr__(self, name):
+        return getattr(self._ext, name)
+
+    def group_norm_fwd(self, x, *args):
+        key = tuple(x.shape[2:])
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        return self._ext.group_norm_fwd(x, *args)
 
 
 class _SkipOneSamplePerRow:
@@ -930,11 +1041,22 @@ def phase_train():
           f"3], batch {TRAIN_BATCH}, {TRAIN_PER_ROUND} clients per round, "
           f"{steps} local steps per round, sgd lr {TRAIN_LR}; set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The warm-up round tallies the forward's shapes against GN_STEP.
+    ext = gn.extension
+    tally = _ShapeTally(ext())
+    gn.extension = lambda: tally
     t0 = time.perf_counter()
-    warm = api.train_one_round(0)
-    torch.cuda.synchronize()
+    try:
+        warm = api.train_one_round(0)
+        torch.cuda.synchronize()
+    finally:
+        gn.extension = ext
     print(f"[train] warm-up round: {(time.perf_counter() - t0) * 1e3:.1f} ms,"
-          f" loss {warm['train_loss']:.4f}", flush=True)
+          f" loss {warm['train_loss']:.4f}; GroupNorm forwards by (S, C): "
+          f"{tally.shapes}", flush=True)
+    want_shapes = {(s, c): steps * n for (_, s, c), _, n in GN_STEP}
+    check(tally.shapes == want_shapes,
+          f"GroupNorm forward shapes {tally.shapes}, expected {want_shapes}")
 
     _zero_gn_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -945,7 +1067,7 @@ def phase_train():
         torch.cuda.synchronize()
         round_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(out["train_loss"])
-    fwd, bwd, red, copies = _gn_counts()
+    fwd, bwd, red, copies, streamed = _gn_counts()
     want = TRAIN_ROUNDS * steps * RESNET56_GN
     samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
     med = statistics.median(round_ms)
@@ -957,13 +1079,14 @@ def phase_train():
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"[train] GroupNorm launches in the timed rounds: fwd {fwd}, bwd "
           f"{bwd}, reduce {red} (expected {want} each = {TRAIN_ROUNDS} "
-          f"rounds x {steps} steps x {RESNET56_GN}); copies of an operand "
-          f"{copies} ({copies / (TRAIN_ROUNDS * steps):.1f} per step)",
-          flush=True)
+          f"rounds x {steps} steps x {RESNET56_GN}); forwards on the "
+          f"streamed route {streamed}; copies of an operand {copies} "
+          f"({copies / (TRAIN_ROUNDS * steps):.1f} per step)", flush=True)
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(fwd == bwd == red == want,
           f"GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
           f"expected {want}")
+    check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
 
     # Kernel vs plain twin from the same start and keys: one local step of
     # a sampled cohort (well conditioned) in f32 and in bf16, then one
@@ -1028,7 +1151,18 @@ def phase_train():
     check(not rel_fault <= ROUND_F32_TOL,
           f"the round check passed a planted fault: {rel_fault}")
     del twin, api32, twin32, api32r, twin32r
-    _profile_round(api, TRAIN_ROUNDS + 2)
+    rows = _profile_round(api, TRAIN_ROUNDS + 2)
+    if rows:  # every forward on the cluster-resident kernel
+        names = ("gn_fwd_kernel", "gn_fwd_streamed_kernel", "gn_bwd_kernel",
+                 "gn_reduce_kernel")
+        ran = {n: sum(c for key, c, _ in rows if n in key) for n in names}
+        dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)
+               for n in names}
+        print(f"[train] profiled round, GroupNorm launches by kernel name: "
+              f"{ran}; device ms: {dev}", flush=True)
+        check(ran["gn_fwd_kernel"] == steps * RESNET56_GN
+              and ran["gn_fwd_streamed_kernel"] == 0,
+              f"the profiled round's GroupNorm forwards: {ran}")
     return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
 
 

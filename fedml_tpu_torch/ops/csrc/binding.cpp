@@ -49,7 +49,8 @@ cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
                                   float eps, const long long* sx,
                                   const long long* sy, const void* x,
                                   const float* gamma, const float* beta,
-                                  void* y, bool is_bf16, cudaStream_t stream);
+                                  void* y, bool is_bf16, bool* streamed,
+                                  cudaStream_t stream);
 cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
                                   float eps, const long long* sx,
                                   const long long* sdy, const long long* sdx,
@@ -57,7 +58,8 @@ cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
                                   const float* gamma, void* dx,
                                   float* part_g, float* part_b, bool is_bf16,
                                   cudaStream_t stream);
-bool group_norm_bwd_fits(int S, int C, bool is_bf16, int dev);
+cudaError_t group_norm_plan(int S, int C, bool is_bf16, int tensors, int dev,
+                            long long* out);
 cudaError_t group_norm_reduce_launch(int R, int M, int C,
                                      const float* part_g,
                                      const float* part_b, float* dgamma,
@@ -325,8 +327,12 @@ void strides3(const torch::Tensor& t, long long* out) {
   for (int i = 0; i < 3; ++i) out[i] = t.stride(i);
 }
 
-torch::Tensor group_norm_fwd(torch::Tensor x, torch::Tensor gamma,
-                             torch::Tensor beta, int64_t groups, double eps) {
+// (y, whether the streamed route ran): the route is the kernel's choice by
+// shape, reported so the caller can count it.
+std::tuple<torch::Tensor, bool> group_norm_fwd(torch::Tensor x,
+                                               torch::Tensor gamma,
+                                               torch::Tensor beta,
+                                               int64_t groups, double eps) {
   check_gn_input(x, gamma, groups, "group_norm_fwd");
   TORCH_CHECK(beta.sizes() == gamma.sizes() &&
                   beta.scalar_type() == torch::kFloat32 &&
@@ -339,15 +345,39 @@ torch::Tensor group_norm_fwd(torch::Tensor x, torch::Tensor gamma,
   long long sx[3], sy[3];
   strides3(x, sx);
   strides3(y, sy);
+  bool streamed = false;
   const cudaError_t err = fedml_tpu_torch::group_norm_fwd_launch(
       x.size(0), x.size(1), x.size(2), x.size(3), groups,
       static_cast<float>(eps), sx, sy, x.data_ptr(), gamma.data_ptr<float>(),
       beta.data_ptr<float>(), y.data_ptr(),
-      x.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream());
+      x.scalar_type() == torch::kBFloat16, &streamed,
+      at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "group_norm_fwd: launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return y;
+  return std::make_tuple(y, streamed);
+}
+
+// The cluster plan of a sample of S x C elements on the current device, with
+// `tensors` tensors to hold (1: the forward, 2: the backward): (CL, rows per
+// block, tensors resident, shared memory bytes per block), all 0 when x
+// does not fit.
+std::vector<int64_t> group_norm_plan(int64_t S, int64_t C, bool is_bf16,
+                                     int64_t tensors) {
+  TORCH_CHECK(S > 0 && C > 0 && S * C <= 2147483647LL && C <= 4096 &&
+                  (tensors == 1 || tensors == 2),
+              "group_norm_plan: no plan for S ", std::to_string(S), ", C ",
+              std::to_string(C), ", tensors ", std::to_string(tensors));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  long long out[4];
+  if (err == cudaSuccess)
+    err = fedml_tpu_torch::group_norm_plan(
+        static_cast<int>(S), static_cast<int>(C), is_bf16,
+        static_cast<int>(tensors), dev, out);
+  TORCH_CHECK(err == cudaSuccess, "group_norm_plan: ",
+              cudaGetErrorString(err));
+  return {out[0], out[1], out[2], out[3]};
 }
 
 std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
@@ -360,12 +390,11 @@ std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
   TORCH_CHECK(dy.stride(3) == 1 || dy.size(3) == 1,
               "group_norm_bwd: dy's channel dim must be contiguous");
   const bool is_bf16 = x.scalar_type() == torch::kBFloat16;
-  TORCH_CHECK(fedml_tpu_torch::group_norm_bwd_fits(x.size(2), x.size(3),
-                                                   is_bf16, x.get_device()),
+  const c10::cuda::CUDAGuard guard(x.device());
+  TORCH_CHECK(group_norm_plan(x.size(2), x.size(3), is_bf16, 2)[0] > 0,
               "group_norm_bwd: a sample of ", std::to_string(x.size(2)), " x ",
               std::to_string(x.size(3)), " elements is more than the shared "
               "memory of a cluster of 8 blocks holds");
-  const c10::cuda::CUDAGuard guard(x.device());
   auto dx = torch::empty_like(x);
   TORCH_CHECK(dx.stride(3) == 1 || dx.size(3) == 1,
               "group_norm_bwd: output channel dim not contiguous");
@@ -436,7 +465,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash-attention dk/dv on the tensor cores (bf16): (q, k, v, dO "
         "[R,B,T,H,D], lse, delta [R,B,H,T], causal) -> (dk, dv)");
   m.def("group_norm_fwd", &group_norm_fwd,
-        "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> y");
+        "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> "
+        "(y, whether the streamed route ran)");
+  m.def("group_norm_plan", &group_norm_plan,
+        "GroupNorm cluster plan: (S, C, is_bf16, tensors) -> [CL, rows per "
+        "block, tensors resident, shared memory bytes per block], 0s if x "
+        "does not fit");
   m.def("group_norm_bwd", &group_norm_bwd,
         "GroupNorm backward: (x, dy [R,M,S,C], gamma [R,C], groups, eps) -> "
         "(dx, dgamma partials [R*M,C], dbeta partials [R*M,C])");

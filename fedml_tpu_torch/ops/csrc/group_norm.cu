@@ -20,33 +20,39 @@
 // flops-per-byte balance. The least traffic is one read and one write of x
 // forward, and two reads (x, dy) and one write (dx) backward.
 //
-// Forward (gn_fwd_kernel): one block per sample, two passes (statistics,
-// then normalize), so it reads x twice; the second read mostly hits L2.
+// Both kernels hold each sample in the shared memory of a thread-block
+// cluster, as the TPU kernel holds a block of samples in VMEM, so x (and dy)
+// are read from device memory once. A sample is up to 128 KB of x at the
+// main path's shapes (bf16 [1024, 64]), more than one block should hold, and
+// one block per sample would put only 256 blocks on 132 SMs, too few loads
+// in flight to approach the card's 3.35 TB/s. So a cluster of CL blocks of
+// 128 threads (CL 1 to 8, chosen per shape by plan_cluster so that a block
+// holds ~32 KB of the sample's resident tensors) shares one sample: block q
+// copies rows [q·S/CL, (q+1)·S/CL) into its shared memory with cp.async, and
+// the blocks exchange per-channel partial sums through distributed shared
+// memory, each summing the CL partials in rank order, so every block holds
+// the same totals. No atomics anywhere: a rerun gives the same bits.
 //
-// Backward (gn_bwd_kernel): x and dy are read from device memory once and
-// dx is written once, as the TPU kernel does from its VMEM copy of a block
-// of samples. The three passes it needs (statistics; Σdy and Σdy·xhat; dx)
-// run over a copy of the sample in shared memory. A sample is up to 128 KB
-// of x and 128 KB of dy at the main path's shapes (bf16 [1024, 64]), more
-// than one block should hold, and one block per sample would put only 256
-// blocks on 132 SMs, too few loads in flight to approach the card's 3.35
-// TB/s. So a thread-block cluster of CL blocks (1 to 8, chosen per shape so
-// that a block holds ~32 KB of x and dy) shares one sample: block q of the
-// cluster copies rows [q·S/CL, (q+1)·S/CL) of x and dy into its shared
-// memory with cp.async (dy's copy lands while the statistics are summed),
-// and the blocks exchange their per-channel partial sums through
-// distributed shared memory, each summing the CL partials in rank order, so
-// every block holds the same totals. At the main shape that is 2048 blocks
-// of 128 threads and 32 KB each, five to an SM. A sample whose x and dy do
-// not both fit in a cluster of 8 keeps x in shared memory and reads dy
-// twice; one whose x alone does not fit is refused. The formulas stay the
-// TPU kernel's: Σdy·xhat with xhat formed from the statistics, not
-// Σdy·x − μΣdy, which cancels.
+// Forward (gn_fwd_kernel): one tensor resident. Σx and Σx² per channel from
+// shared memory, one exchange, the group statistics, then y from shared
+// memory with 16-byte stores. At the main shape that is 1024 blocks of 32 KB,
+// clusters of 4. A sample whose x does not fit in a cluster of 8 takes the
+// streamed route (gn_fwd_streamed_kernel: one 256-thread block per sample,
+// statistics then normalize, reading x twice), chosen by shape before the
+// launch and reported to the caller, who counts it.
+//
+// Backward (gn_bwd_kernel): x and dy resident, three passes over shared
+// memory (statistics; Σdy and Σdy·xhat; dx) and two exchanges; dy's copy
+// lands while the statistics are summed. At the main shape that is 2048
+// blocks of 32 KB, five to an SM. A sample whose x and dy do not both fit in
+// a cluster of 8 keeps x in shared memory and reads dy twice; one whose x
+// alone does not fit is refused. The formulas stay the TPU kernel's:
+// Σdy·xhat with xhat formed from the statistics, not Σdy·x − μΣdy, which
+// cancels.
 //
 // The TPU kernel carries dγ/dβ across its sequential grid in VMEM scratch.
 // CUDA blocks run in no order, so the backward writes f32 per-sample partials
 // [R·M, C] and gn_reduce_kernel sums each row's M partials in index order.
-// No atomics anywhere: a rerun gives the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -59,12 +65,21 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+// The streamed forward's and the reduce's blocks.
 constexpr int kThreads = 256;
-// The backward's blocks: 128 threads, and a cluster of at most the portable
-// 8 blocks per sample, each aiming to hold this many bytes of x and dy.
-constexpr int kBwdThreads = 128;
+// The cluster-resident kernels' blocks: 128 threads, and a cluster of at most
+// the portable 8 blocks per sample, each aiming to hold this many bytes of
+// the sample's resident tensors.
+constexpr int kClusterThreads = 128;
 constexpr int kMaxCluster = 8;
 constexpr size_t kTargetBytes = 32 * 1024;
+
+// Offset, in floats, of the resident rows in a cluster kernel's shared
+// memory: after the row-group partials [2][kClusterThreads·V] and nine
+// per-channel arrays, rounded up to 16 bytes.
+__host__ __device__ constexpr int resident_offset(int C, int V) {
+  return (2 * kClusterThreads * V + 9 * C + 3) & ~3;
+}
 
 struct GnShape {
   int R, M, S, C, G;
@@ -192,9 +207,12 @@ __device__ __forceinline__ auto sum_and_squares(const T* xs,
   };
 }
 
+// The streamed route: one block per sample (blockIdx.x = r·M + m), two
+// passes over device memory (statistics, then normalize), for a sample too
+// large for a cluster's shared memory.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-    gn_fwd_kernel(GnShape g, Strides sx, Strides sy,
+    gn_fwd_streamed_kernel(GnShape g, Strides sx, Strides sy,
                   const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, T* __restrict__ y) {
   extern __shared__ float smem[];
@@ -266,7 +284,7 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
                                           int C) {
   const int slots = C / V;
   const int n = n_rows * slots;
-  for (int e = threadIdx.x; e < n; e += kBwdThreads) {
+  for (int e = threadIdx.x; e < n; e += kClusterThreads) {
     const int s = e / slots, c = (e - s * slots) * V;
     copy_async<static_cast<int>(V * sizeof(T))>(dst + s * C + c,
                                                 src + s * stride + c);
@@ -280,7 +298,7 @@ __device__ void cluster_totals(cg::cluster_group& cluster, float* ex,
                                float* tot, int C) {
   cluster.sync();  // every block's ex is written
   const int cl = static_cast<int>(cluster.num_blocks());
-  for (int c = threadIdx.x; c < 2 * C; c += kBwdThreads) {
+  for (int c = threadIdx.x; c < 2 * C; c += kClusterThreads) {
     float vals[kMaxCluster];  // all loads in flight before the sum
 #pragma unroll
     for (int q = 0; q < kMaxCluster; ++q)
@@ -294,11 +312,98 @@ __device__ void cluster_totals(cg::cluster_group& cluster, float* ex,
   __syncthreads();
 }
 
+// The cluster barrier in two halves (barrier.cluster, default release and
+// acquire): a block arrives once it has read the others' shared memory and
+// waits before it exits, so that no block's shared memory goes while
+// another still reads it, and no block waits on the slowest in between.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One block of a cluster of CL per sample (blockIdx.x = (r·M + m)·CL + q):
+// rows [q·rows_per_block, (q + 1)·rows_per_block) of x in shared memory (see
+// the note at the top).
+template <typename T, int V>
+__global__ void __launch_bounds__(kClusterThreads, 6)
+    gn_fwd_kernel(GnShape g, Strides sx, Strides sy,
+                  const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ y,
+                  int rows_per_block) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int n = blockIdx.x / static_cast<int>(cluster.num_blocks());
+  const int r = n / g.M, m = n - r * g.M;
+  const int C = g.C;
+  const int s0 = q * rows_per_block;
+  const int n_rows = max(0, min(g.S - s0, rows_per_block));
+  const T* xs = x + r * sx.r + m * sx.m + s0 * sx.s;
+  T* ys = y + r * sy.r + m * sy.m + s0 * sy.s;
+
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* part = fwd_smem;  // [2][kClusterThreads·V] row-group partials
+  float* ex = part + 2 * kClusterThreads * V;  // this block's Σx, Σx² [2][C]
+  float* tot = ex + 2 * C;  // the sample's totals [2][C]
+  float* mu = tot + 2 * C;
+  float* rstd = mu + C;
+  float* gam = rstd + C;
+  float* bet = gam + C;
+  T* sx_ = reinterpret_cast<T*>(fwd_smem + resident_offset(C, V));
+
+  // x's slice as one group of asynchronous copies; γ and β while it lands.
+  copy_rows<T, V>(sx_, xs, sx.s, n_rows, C);
+  copy_async_commit();
+  for (int c = threadIdx.x; c < C; c += kClusterThreads) {
+    gam[c] = gamma[r * C + c];
+    bet[c] = beta[r * C + c];
+  }
+  copy_async_wait<0>();
+  __syncthreads();
+
+  // The statistics, over the cluster.
+  channel_sums<kClusterThreads, V>(n_rows, C, sum_and_squares<T, V>(sx_, C),
+                                   ex, ex + C, part);
+  cluster_totals(cluster, ex, tot, C);
+  cluster_arrive();
+  group_stats(g, tot, tot + C, mu, rstd);
+
+  // y from shared memory, each thread on a fixed channel slot with that
+  // slot's constants in registers.
+  const int slots = C / V;
+  const int t = threadIdx.x;
+  for (int base = 0; base < slots; base += kClusterThreads) {
+    const int here = min(kClusterThreads, slots - base);
+    const int rows = kClusterThreads / here;
+    if (t >= rows * here) continue;
+    const int c = (base + t % here) * V;
+    float mk[V], rk[V], gk[V], bk[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      mk[k] = mu[c + k];
+      rk[k] = rstd[c + k];
+      gk[k] = gam[c + k];
+      bk[k] = bet[c + k];
+    }
+#pragma unroll 2
+    for (int s = t / here; s < n_rows; s += rows) {
+      float v[V];
+      load<T, V>(sx_ + s * C + c, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        v[k] = ((v[k] - mk[k]) * rk[k]) * gk[k] + bk[k];
+      store<T, V>(ys + s * sy.s + c, v);
+    }
+  }
+  cluster_wait();
+}
+
 // One block of a cluster of CL per sample (blockIdx.x = (r·M + m)·CL + q):
 // rows [q·rows_per_block, (q + 1)·rows_per_block) of x, and of dy when
 // dy_resident, in shared memory (see the note at the top).
 template <typename T, int V>
-__global__ void __launch_bounds__(kBwdThreads, 6)
+__global__ void __launch_bounds__(kClusterThreads, 6)
     gn_bwd_kernel(GnShape g, Strides sx, Strides sdy, Strides sdx,
                   const T* __restrict__ x, const T* __restrict__ dy,
                   const float* __restrict__ gamma, T* __restrict__ dx,
@@ -316,15 +421,14 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
   T* dxs = dx + r * sdx.r + m * sdx.m + s0 * sdx.s;
 
   extern __shared__ __align__(16) float bwd_smem[];
-  float* part = bwd_smem;  // [2][kBwdThreads·V] row-group partials
-  float* ex0 = part + 2 * kBwdThreads * V;  // this block's Σx, Σx² [2][C]
+  float* part = bwd_smem;  // [2][kClusterThreads·V] row-group partials
+  float* ex0 = part + 2 * kClusterThreads * V;  // this block's Σx, Σx² [2][C]
   float* ex1 = ex0 + 2 * C;  // this block's Σdy, Σdy·xhat [2][C]
   float* tot = ex1 + 2 * C;  // the sample's totals [2][C]
   float* mu = tot + 2 * C;
   float* rstd = mu + C;
   float* gam = rstd + C;
-  T* sx_ = reinterpret_cast<T*>(bwd_smem +
-                                ((2 * kBwdThreads * V + 9 * C + 3) & ~3));
+  T* sx_ = reinterpret_cast<T*>(bwd_smem + resident_offset(C, V));
   T* sdy_ = sx_ + rows_per_block * C;  // used when dy_resident
 
   // x's slice, then dy's, as two groups of asynchronous copies; γ while
@@ -333,13 +437,13 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
   copy_async_commit();
   if (dy_resident) copy_rows<T, V>(sdy_, dys, sdy.s, n_rows, C);
   copy_async_commit();
-  for (int c = threadIdx.x; c < C; c += kBwdThreads)
+  for (int c = threadIdx.x; c < C; c += kClusterThreads)
     gam[c] = gamma[r * C + c];
   copy_async_wait<1>();
   __syncthreads();
 
   // Pass 1: the statistics, over the cluster.
-  channel_sums<kBwdThreads, V>(n_rows, C, sum_and_squares<T, V>(sx_, C), ex0,
+  channel_sums<kClusterThreads, V>(n_rows, C, sum_and_squares<T, V>(sx_, C), ex0,
                                ex0 + C, part);
   cluster_totals(cluster, ex0, tot, C);
   group_stats(g, tot, tot + C, mu, rstd);
@@ -349,7 +453,7 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
   // Pass 2: per channel Σdy and Σdy·xhat (this sample's dβ and dγ).
   const T* dy_rows = dy_resident ? sdy_ : dys;
   const long long dy_stride = dy_resident ? C : sdy.s;
-  channel_sums<kBwdThreads, V>(
+  channel_sums<kClusterThreads, V>(
       n_rows, C,
       [&](int c) {
         float mk[V], rk[V];
@@ -372,7 +476,7 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
       ex1, ex1 + C, part);
   cluster_totals(cluster, ex1, tot, C);
   if (q == 0) {
-    for (int c = threadIdx.x; c < C; c += kBwdThreads) {
+    for (int c = threadIdx.x; c < C; c += kClusterThreads) {
       part_b[static_cast<long long>(n) * C + c] = tot[c];
       part_g[static_cast<long long>(n) * C + c] = tot[C + c];
     }
@@ -384,7 +488,7 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
   float* k1 = tot + C;
   const int cpg = C / g.G;
   const float denom = static_cast<float>(g.S) * static_cast<float>(cpg);
-  for (int grp = threadIdx.x; grp < g.G; grp += kBwdThreads) {
+  for (int grp = threadIdx.x; grp < g.G; grp += kClusterThreads) {
     float s0_ = 0.f, s1_ = 0.f;
     for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
       s0_ += gam[c] * k0[c];
@@ -401,9 +505,9 @@ __global__ void __launch_bounds__(kBwdThreads, 6)
   // constants in registers.
   const int slots = C / V;
   const int t = threadIdx.x;
-  for (int base = 0; base < slots; base += kBwdThreads) {
-    const int here = min(kBwdThreads, slots - base);
-    const int rows = kBwdThreads / here;
+  for (int base = 0; base < slots; base += kClusterThreads) {
+    const int here = min(kClusterThreads, slots - base);
+    const int rows = kClusterThreads / here;
     if (t >= rows * here) continue;
     const int c = (base + t % here) * V;
     float mk[V], rk[V], gk[V], a0[V], a1[V];
@@ -466,12 +570,6 @@ __global__ void gn_reduce_kernel(int R, int M, int C,
   }
 }
 
-size_t smem_bytes(int V, int C, int per_channel_arrays) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(kThreads) * V +
-          static_cast<size_t>(per_channel_arrays) * C);
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -480,73 +578,63 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int V>
-cudaError_t fwd_v(const GnShape& g, const Strides& sx, const Strides& sy,
-                  const void* x, const float* gamma, const float* beta,
-                  void* y, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(V, g.C, 4);
-  cudaError_t err = allow_smem(gn_fwd_kernel<T, V>, bytes);
-  if (err != cudaSuccess) return err;
-  gn_fwd_kernel<T, V><<<g.R * g.M, kThreads, bytes, stream>>>(
-      g, sx, sy, static_cast<const T*>(x), gamma, beta, static_cast<T*>(y));
-  return cudaGetLastError();
-}
-
-// How the backward splits a sample: CL blocks of `rows` rows each, dy held
-// in shared memory or read twice, and the dynamic shared memory per block.
-struct BwdPlan {
-  int cl, rows;
-  bool dy_resident;
+// How a cluster-resident kernel splits a sample: CL blocks of `rows` rows
+// each, the number of the sample's tensors held in shared memory, and the
+// dynamic shared memory per block.
+struct ClusterPlan {
+  int cl, rows, resident;
   size_t smem;
 };
 
-// The smallest cluster (a power of 2 up to kMaxCluster) whose blocks hold
-// at most kTargetBytes of x and dy each, on device `dev`; false if even x
-// alone does not fit in the shared memory of kMaxCluster blocks.
-bool plan_bwd(int S, int C, int V, size_t elem_bytes, int dev, BwdPlan* p) {
-  int max_smem = 0;
-  if (cudaDeviceGetAttribute(&max_smem,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return false;
-  // part, ex0, ex1, tot (2·C each), mu, rstd, gam; rounded up to 16 bytes.
+// For a sample of S x C elements and a kernel with `tensors` tensors to hold
+// (the forward x; the backward x and dy): the smallest cluster (a power of 2
+// up to kMaxCluster) whose blocks hold at most kTargetBytes of them each,
+// and the most of them that fit in `max_smem` bytes a block; false if not
+// even x fits. The partials are sized at the widest vector, so the plan
+// depends on the shape alone.
+bool plan_cluster(int S, int C, size_t elem_bytes, int tensors, int max_smem,
+                  ClusterPlan* p) {
+  const int widest = static_cast<int>(16 / elem_bytes);
   const size_t fixed =
-      sizeof(float) * ((2 * static_cast<size_t>(kBwdThreads) * V + 9 *
-                        static_cast<size_t>(C) + 3) & ~size_t(3));
-  auto data = [&](int cl, int copies) {
+      sizeof(float) * static_cast<size_t>(resident_offset(C, widest));
+  auto data = [&](int cl, int n) {
     const size_t rows = (static_cast<size_t>(S) + cl - 1) / cl;
-    return rows * static_cast<size_t>(C) * elem_bytes * copies;
+    return rows * static_cast<size_t>(C) * elem_bytes * n;
   };
   int cl = 1;
-  while (cl < kMaxCluster && data(cl, 2) > kTargetBytes) cl *= 2;
-  for (int copies = 2; copies >= 1; --copies) {
-    if (fixed + data(cl, copies) <= static_cast<size_t>(max_smem)) {
-      *p = {cl, (S + cl - 1) / cl, copies == 2, fixed + data(cl, copies)};
+  while (cl < kMaxCluster && data(cl, tensors) > kTargetBytes) cl *= 2;
+  for (int n = tensors; n >= 1; --n) {
+    if (fixed + data(cl, n) <= static_cast<size_t>(max_smem)) {
+      *p = {cl, (S + cl - 1) / cl, n, fixed + data(cl, n)};
       return true;
     }
   }
   return false;
 }
 
-template <typename T, int V>
-cudaError_t bwd_v(const GnShape& g, const Strides& sx, const Strides& sdy,
-                  const Strides& sdx, const void* x, const void* dy,
-                  const float* gamma, void* dx, float* part_g, float* part_b,
-                  cudaStream_t stream) {
-  BwdPlan p;
+cudaError_t max_smem_optin(int dev, int* bytes) {
+  return cudaDeviceGetAttribute(bytes,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+cudaError_t current_max_smem(int* bytes) {
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (!plan_bwd(g.S, g.C, V, sizeof(T), dev, &p))
-    return cudaErrorInvalidValue;  // the caller checks group_norm_bwd_fits
-  const long long blocks = static_cast<long long>(g.R) * g.M * p.cl;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : max_smem_optin(dev, bytes);
+}
+
+// One cluster of p.cl blocks of kClusterThreads per sample.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), long long samples,
+                           const ClusterPlan& p, cudaStream_t stream,
+                           Args... args) {
+  const long long blocks = samples * p.cl;
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  auto kernel = gn_bwd_kernel<T, V>;
-  err = allow_smem(kernel, p.smem);
+  const cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(kBwdThreads);
+  cfg.blockDim = dim3(kClusterThreads);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -556,11 +644,53 @@ cudaError_t bwd_v(const GnShape& g, const Strides& sx, const Strides& sdy,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, g, sx, sdy, sdx,
-                            static_cast<const T*>(x),
-                            static_cast<const T*>(dy), gamma,
-                            static_cast<T*>(dx), part_g, part_b, p.rows,
-                            static_cast<int>(p.dy_resident));
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The route is chosen by shape before the launch: the cluster-resident
+// kernel when x fits in a cluster's shared memory, else the streamed one.
+// `*streamed` says which ran; an error on either route is returned as is.
+template <typename T, int V>
+cudaError_t fwd_v(const GnShape& g, const Strides& sx, const Strides& sy,
+                  const void* x, const float* gamma, const float* beta,
+                  void* y, bool* streamed, cudaStream_t stream) {
+  int max_smem = 0;
+  cudaError_t err = current_max_smem(&max_smem);
+  if (err != cudaSuccess) return err;
+  ClusterPlan p;
+  *streamed = !plan_cluster(g.S, g.C, sizeof(T), 1, max_smem, &p);
+  if (!*streamed)
+    return launch_cluster(gn_fwd_kernel<T, V>,
+                          static_cast<long long>(g.R) * g.M, p, stream, g,
+                          sx, sy, static_cast<const T*>(x), gamma, beta,
+                          static_cast<T*>(y), p.rows);
+  // part, Σx and Σx² (then γ and β), μ and rstd.
+  const size_t bytes = sizeof(float) * (2 * static_cast<size_t>(kThreads) *
+                                            V + 4 * static_cast<size_t>(g.C));
+  err = allow_smem(gn_fwd_streamed_kernel<T, V>, bytes);
+  if (err != cudaSuccess) return err;
+  gn_fwd_streamed_kernel<T, V><<<g.R * g.M, kThreads, bytes, stream>>>(
+      g, sx, sy, static_cast<const T*>(x), gamma, beta, static_cast<T*>(y));
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t bwd_v(const GnShape& g, const Strides& sx, const Strides& sdy,
+                  const Strides& sdx, const void* x, const void* dy,
+                  const float* gamma, void* dx, float* part_g, float* part_b,
+                  cudaStream_t stream) {
+  int max_smem = 0;
+  const cudaError_t err = current_max_smem(&max_smem);
+  if (err != cudaSuccess) return err;
+  ClusterPlan p;
+  if (!plan_cluster(g.S, g.C, sizeof(T), 2, max_smem, &p))
+    return cudaErrorInvalidValue;  // the caller checks group_norm_plan
+  return launch_cluster(gn_bwd_kernel<T, V>,
+                        static_cast<long long>(g.R) * g.M, p, stream, g, sx,
+                        sdy, sdx, static_cast<const T*>(x),
+                        static_cast<const T*>(dy), gamma,
+                        static_cast<T*>(dx), part_g, part_b, p.rows,
+                        static_cast<int>(p.resident == 2));
 }
 
 }  // namespace
@@ -579,37 +709,51 @@ int gn_vector_width(int C, int elem_bytes, const long long* strides,
   return 1;
 }
 
-// Whether the backward takes a sample of S x C elements on device `dev`:
-// the plan at the widest vector, whose partials take the most room.
-bool group_norm_bwd_fits(int S, int C, bool is_bf16, int dev) {
-  BwdPlan p;
-  return plan_bwd(S, C, is_bf16 ? 8 : 4, is_bf16 ? 2 : 4, dev, &p);
+// The cluster plan for a sample of S x C elements on device `dev`, with
+// `tensors` tensors to hold (1: the forward, 2: the backward): out = {CL,
+// rows per block, tensors resident, shared memory bytes per block}, all 0
+// when x does not fit (the forward streams, the backward refuses).
+cudaError_t group_norm_plan(int S, int C, bool is_bf16, int tensors, int dev,
+                            long long* out) {
+  int max_smem = 0;
+  const cudaError_t err = max_smem_optin(dev, &max_smem);
+  if (err != cudaSuccess) return err;
+  ClusterPlan p{0, 0, 0, 0};
+  plan_cluster(S, C, is_bf16 ? 2 : 4, tensors, max_smem, &p);
+  out[0] = p.cl;
+  out[1] = p.rows;
+  out[2] = p.resident;
+  out[3] = static_cast<long long>(p.smem);
+  return cudaSuccess;
 }
 
 cudaError_t group_norm_fwd_launch(int R, int M, int S, int C, int G,
                                   float eps, const long long* sx,
                                   const long long* sy, const void* x,
                                   const float* gamma, const float* beta,
-                                  void* y, bool is_bf16,
+                                  void* y, bool is_bf16, bool* streamed,
                                   cudaStream_t stream) {
   const GnShape g{R, M, S, C, G, eps};
   const Strides tx{sx[0], sx[1], sx[2]}, ty{sy[0], sy[1], sy[2]};
   const long long strides[6] = {sx[0], sx[1], sx[2], sy[0], sy[1], sy[2]};
   const void* ptrs[2] = {x, y};
   const int v = gn_vector_width(C, is_bf16 ? 2 : 4, strides, 6, ptrs, 2);
+#define FEDML_GN_FWD(T, V) \
+  return fwd_v<T, V>(g, tx, ty, x, gamma, beta, y, streamed, stream)
   if (is_bf16) {
     switch (v) {
-      case 8: return fwd_v<__nv_bfloat16, 8>(g, tx, ty, x, gamma, beta, y, stream);
-      case 4: return fwd_v<__nv_bfloat16, 4>(g, tx, ty, x, gamma, beta, y, stream);
-      case 2: return fwd_v<__nv_bfloat16, 2>(g, tx, ty, x, gamma, beta, y, stream);
-      default: return fwd_v<__nv_bfloat16, 1>(g, tx, ty, x, gamma, beta, y, stream);
+      case 8: FEDML_GN_FWD(__nv_bfloat16, 8);
+      case 4: FEDML_GN_FWD(__nv_bfloat16, 4);
+      case 2: FEDML_GN_FWD(__nv_bfloat16, 2);
+      default: FEDML_GN_FWD(__nv_bfloat16, 1);
     }
   }
   switch (v) {
-    case 4: return fwd_v<float, 4>(g, tx, ty, x, gamma, beta, y, stream);
-    case 2: return fwd_v<float, 2>(g, tx, ty, x, gamma, beta, y, stream);
-    default: return fwd_v<float, 1>(g, tx, ty, x, gamma, beta, y, stream);
+    case 4: FEDML_GN_FWD(float, 4);
+    case 2: FEDML_GN_FWD(float, 2);
+    default: FEDML_GN_FWD(float, 1);
   }
+#undef FEDML_GN_FWD
 }
 
 cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,

@@ -14,19 +14,24 @@ The kernels are ``csrc/group_norm.cu``. They work on ``x [R, M, S, C]``:
 R rows of γ/β (``[R, C]`` f32), M samples per row, S positions and C
 channels, C contiguous and the other three dims at any stride. R is 1 for
 a plain call; under ``vmap`` the client dim becomes R, so one launch
-normalizes every client with its own γ/β. The backward holds each sample
-in the shared memory of a thread-block cluster, so it reads x and dy once
-(a sample whose x alone is more than 8 blocks hold is refused); it writes
-per-sample f32 partials of dγ/dβ and a second kernel sums them per row in
-a fixed order (no atomics: a rerun gives the same bits).
+normalizes every client with its own γ/β. Both kernels hold each sample in
+the shared memory of a thread-block cluster of up to 8 blocks, which sum
+the statistics together through distributed shared memory, so the forward
+reads x once and the backward x and dy once. The forward routes a sample
+whose x is more than 8 blocks hold to a streamed kernel that reads x twice;
+the backward refuses it. The backward writes per-sample f32 partials of
+dγ/dβ and a second kernel sums them per row in a fixed order (no atomics: a
+rerun gives the same bits).
 
 Routes: the ops ``fedml_tpu_torch::group_norm_fwd``/``group_norm_bwd``
 run the kernels for CUDA tensors and the plain twins
 (:func:`group_norm_fwd_plain`, :func:`group_norm_bwd_plain`) for CPU
 tensors; there is no other route and no fallback. ``group_norm_fwd
 .launches``, ``group_norm_bwd.launches`` and ``group_norm_bwd
-.reduce_launches`` count kernel launches; ``group_norm.copies`` counts
-every copy of an operand on the way to the kernels: an input whose
+.reduce_launches`` count kernel launches, and ``group_norm_fwd.streamed``
+the forward's launches that took the streamed route (the kernel chooses it
+by shape before the launch, never on an error); ``group_norm.copies``
+counts every copy of an operand on the way to the kernels: an input whose
 channel dim was not contiguous, or whose dims could not be merged or
 folded as a view.
 """
@@ -137,14 +142,16 @@ def group_norm_bwd_plain(x, dy, gamma, groups: int, eps: float = EPS):
 def group_norm_fwd(x, gamma, beta, groups: int, eps: float = EPS):
     """Forward kernel on CUDA tensors: ``x [R, M, S, C]`` (bf16 or f32, C
     at stride 1 — or copied and counted), ``gamma``/``beta [R, C]`` f32 →
-    y in x's dtype and x's strides. Counts one launch."""
+    y in x's dtype and x's strides. Counts one launch, and one streamed
+    launch when the sample was too large for a cluster."""
     _check(x, gamma, groups, "group_norm_fwd")
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_fwd launches on cuda, got {x.device}")
     x = _channels_innermost(x)
-    y = extension().group_norm_fwd(x, gamma.contiguous(), beta.contiguous(),
-                                   int(groups), float(eps))
+    y, streamed = extension().group_norm_fwd(
+        x, gamma.contiguous(), beta.contiguous(), int(groups), float(eps))
     group_norm_fwd.launches += 1
+    group_norm_fwd.streamed += int(streamed)
     return y
 
 
@@ -169,6 +176,7 @@ def group_norm_bwd(x, dy, gamma, groups: int, eps: float = EPS):
 
 
 group_norm_fwd.launches = 0
+group_norm_fwd.streamed = 0
 group_norm_bwd.launches = 0
 group_norm_bwd.reduce_launches = 0
 

@@ -370,30 +370,40 @@ def _sum_order_bound(terms, chain):
     ((6, 49, 48), 8, 3, torch.float32, False),
     ((9, 1, 16), 4, 1, torch.float32, False),
     ((2, 4096, 64), 32, 1, torch.float32, False),
+    ((3, 1001, 64), 32, 1, torch.bfloat16, False),
+    ((3, 1001, 64), 32, 1, torch.float32, False),
+    ((6, 49, 48), 8, 1, torch.bfloat16, False),
+    ((4, 1024, 128), 32, 1, torch.bfloat16, False),
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
     """Forward and backward kernels against the f32 plain twins on the same
     inputs: y and dx within one bf16 rounding (bf16) or 1e-5 (f32); dγ and
-    dβ within the sum-order bound; no copy, and a rerun of the backward
-    gives the same bits. The interleaved cases are the training path's
-    layout at every ResNet-56 shape: 8 clients' rows of γ/β, x a strided
-    view. The f32 sample of 4096 x 64 (1 MB of x and of dy) is more than a
-    cluster of 8 blocks holds of both: the backward keeps x in shared
-    memory and reads dy twice."""
+    dβ within the sum-order bound; no copy, the forward on its cluster
+    route, and reruns of both give the same bits. The interleaved cases are
+    the training path's layout at every ResNet-56 shape: 8 clients' rows of
+    γ/β, x a strided view. The f32 sample of 4096 x 64 (1 MB of x and of
+    dy) is more than a cluster of 8 blocks holds of both: the backward
+    keeps x in shared memory and reads dy twice. S 1001 is ragged for the
+    forward's clusters (CL 4 of 251 rows in bf16, CL 8 of 126 in f32), and
+    the bf16 sample of 1024 x 128 takes CL 8."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)
     x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, cuda, interleaved)
     f0, b0 = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
     r0, c0 = gn.group_norm_bwd.reduce_launches, gn.group_norm.copies
+    s0 = gn.group_norm_fwd.streamed
     y = gn.group_norm_fwd(x, gamma, beta, groups)
+    y_again = gn.group_norm_fwd(x, gamma, beta, groups)
     dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
     again = gn.group_norm_bwd(x, dy, gamma, groups)
     torch.cuda.synchronize()
     assert (gn.group_norm_fwd.launches - f0, gn.group_norm_bwd.launches - b0,
-            gn.group_norm_bwd.reduce_launches - r0) == (1, 2, 2)
+            gn.group_norm_bwd.reduce_launches - r0) == (2, 2, 2)
+    assert gn.group_norm_fwd.streamed == s0
     assert gn.group_norm.copies == c0
+    assert torch.equal(y, y_again)
     assert all(torch.equal(a, b) for a, b in zip((dx, dgamma, dbeta), again))
     assert y.dtype == dtype and dx.dtype == dtype
     want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
@@ -447,6 +457,53 @@ def test_group_norm_kernels_are_deterministic(cuda):
     a = gn.group_norm_bwd(x, dy, gamma, 32)
     b = gn.group_norm_bwd(x, dy, gamma, 32)
     assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("s,c,is_bf16,tensors,want_cl,ragged", [
+    (1024, 64, True, 1, 4, False),   # the main shape's forward: 32 KB
+    (1024, 64, True, 2, 8, False),   # its backward: 16 KB of x and of dy
+    (1024, 128, True, 1, 8, False),
+    (1001, 64, True, 1, 4, True),
+    (1001, 64, False, 1, 8, True),
+    (64, 64, True, 1, 1, False),
+    (8192, 64, False, 1, 0, False),  # 2 MB: the forward streams
+])
+def test_group_norm_cluster_plan(cuda, s, c, is_bf16, tensors, want_cl,
+                                 ragged):
+    """The cluster plan by shape: CL, rows per block (ragged when CL does
+    not divide S), and a block's shared memory within the card's."""
+    from fedml_tpu_torch.ops.build import extension
+
+    cl, rows, resident, smem = extension().group_norm_plan(s, c, is_bf16,
+                                                           tensors)
+    assert cl == want_cl
+    if cl:
+        assert rows == -(-s // cl) and (s % rows != 0) == ragged
+        assert resident == tensors
+        props = torch.cuda.get_device_properties(cuda)
+        limit = getattr(props, "shared_memory_per_block_optin", 232448)
+        assert 0 < smem <= limit
+    else:
+        assert (rows, resident, smem) == (0, 0, 0)
+
+
+def test_group_norm_fwd_streams_a_sample_larger_than_a_cluster_holds(cuda):
+    """x past the shared memory of a cluster of 8 blocks (8192 x 64 f32, 2
+    MB) takes the streamed route: chosen by shape, counted, and within the
+    twin's bound; the backward refuses the same sample."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, dy, gamma, beta = _gn_inputs((2, 8192, 64), 1, torch.float32, g, cuda)
+    f0, s0 = gn.group_norm_fwd.launches, gn.group_norm_fwd.streamed
+    y = gn.group_norm_fwd(x, gamma, beta, 32)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_fwd.launches - f0,
+            gn.group_norm_fwd.streamed - s0) == (1, 1)
+    torch.testing.assert_close(
+        y, gn.group_norm_fwd_plain(x, gamma, beta, 32), rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="8192 x 64 elements"):
+        gn.group_norm_bwd(x, dy, gamma, 32)
 
 
 def test_group_norm_bwd_refuses_a_sample_larger_than_a_cluster_holds(cuda):
