@@ -48,35 +48,47 @@ Phases, each of which must pass or the script exits non-zero:
 4. train   — the flagship training path at full width and depth:
              FedAvgAPI over resnet56 (GroupNorm, bf16 compute), 128
              clients x 256 CIFAR-shaped samples from seed 0, batch 32, 8
-             clients per round, 1 local epoch, sgd lr 0.1. One warm-up
-             round, which tallies the forward's shapes, then 3 timed
-             rounds with the GroupNorm launch counts zeroed just before
+             clients per round, 1 local epoch, sgd lr 0.1. One eager
+             warm-up round (run_round + _server_update, the reference
+             procedure), which tallies the forward's shapes; (a) from one
+             start, key and cohort, the captured fused round
+             (train_one_round, whose first call captures a CUDA graph)
+             held to the eager round within the spread of two eager rounds
+             (bit-equal when they are); 3 timed train_one_round rounds,
+             replayed, with the GroupNorm launch counts zeroed just before
              and read just after (58 forward, 58 backward and 58 reduce
-             launches per local step, no forward streamed). From one
-             start, the kernel path against the plain GroupNorm twin: one
-             local step in f32 and in bf16, and one round in f32 at lr
-             1e-3, which must also tell a planted fault (the dγ/dβ
-             reduce skipping one sample per client) from the twin. One
-             round under the profiler gives the device time by kernel and
-             shows, by name, that every forward ran on the cluster kernel.
+             launches per local step, no forward streamed), and 3
+             train_rounds_pipelined rounds timed together; (b) a warm
+             train_rounds_on_device(3) call, which captures, held to 3
+             eager host-loop rounds fed the same on-device cohorts, then 3
+             timed calls (bench.py's timing), counted the same way. From
+             one start, the kernel path against the plain GroupNorm twin:
+             one local step in f32 and in bf16, and one round in f32 at lr
+             1e-3, which must also tell a planted fault (the dγ/dβ reduce
+             skipping one sample per client) from the twin. One on-device
+             round and one replayed fused round under the profiler give
+             the device busy time and idle share; the latter the device
+             time by kernel, and shows, by name, that every forward ran on
+             the cluster kernel.
 5. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
              batch 2, 8 clients per round, 1 local epoch (4 steps), sgd lr
-             0.1, seq_softmax_ce. One warm-up round, then 3 timed rounds
-             with the flash launch counts zeroed just before and read just
-             after (16 per round of each of the three kernels, 0 copies);
-             the frozen base bitwise unchanged and the adapters moved; from
-             one start, one local step in f32 through the FMA backward
-             kernels against the plain twin, and one in bf16 through the
-             tensor-core kernels held to the f32 twin's step beside the
-             bf16 twin's, each of which must also tell a planted fault
-             (dk/dv skipping the last Q tile) from the twin; one
-             personalize_cohort of a round's clients and
-             evaluate_personalized on them. One round under the profiler
-             gives the device time by kernel and shows, by name, that the
-             forward and backward ran on the tensor-core kernels only.
+             0.1, seq_softmax_ce. As in the train phase: an eager warm-up
+             round, (a), 3 timed replayed rounds with the flash launch
+             counts zeroed just before and read just after (16 per round
+             of each of the three kernels, 0 copies), 3 pipelined rounds,
+             (b) and 3 timed on-device calls; the frozen base bitwise unchanged and the
+             adapters moved; from one start, one local step in f32 through
+             the FMA backward kernels against the plain twin, and one in
+             bf16 through the tensor-core kernels held to the f32 twin's
+             step beside the bf16 twin's, each of which must also tell a
+             planted fault (dk/dv skipping the last Q tile) from the twin;
+             one personalize_cohort of a round's clients and
+             evaluate_personalized on them. The profiled rounds as in the
+             train phase; by name, the forward and backward ran on the
+             tensor-core kernels only.
 6. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -930,20 +942,23 @@ def _zero_gn_counts():
     gn.group_norm_fwd.streamed = 0
 
 
-def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
-                   what="GroupNorm kernels"):
-    """One round under torch.profiler: device time by kernel (top 12), the
-    share of the kernels whose names contain one of ``kernels``, and the
-    device idle share of the round (1 - summed kernel time / wall; kernels
-    run on one stream). Returns (kernel name, launches, ms) of every kernel
-    with device time, or [] if the profiler recorded none."""
+def _profile_round(run, label, tag="train", kernels=("gn_",),
+                   what="GroupNorm kernels", top=12):
+    """``run()`` — one replayed round — under torch.profiler, which names
+    a graph's kernels on this stack: device time by kernel (the ``top``
+    rows), the share of the kernels whose names contain one of
+    ``kernels``, and the device idle share of the round (1 - busy / wall,
+    busy the union of the kernels' intervals on the timeline: kernels of a
+    graph may overlap, so their summed time can exceed the wall time).
+    Returns (kernel name, launches, ms) of every kernel with device time,
+    or [] if the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.train_one_round(round_idx)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -953,21 +968,205 @@ def _profile_round(api, round_idx, tag="train", kernels=("gn_",),
             dev_us = getattr(ev, "self_cuda_time_total", 0)
         if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev_us / 1e3, ev.count, ev.key))
-    busy = sum(r[0] for r in rows)
+    summed = sum(r[0] for r in rows)
     if not rows:
         print(f"[{tag}] profiler: no device time recorded; device time by "
               "kernel not measured", flush=True)
         return []
     rows.sort(reverse=True)
     own_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
-    print(f"[{tag}] profiled round {round_idx}: wall {wall_ms:.1f} ms, "
-          f"device busy {busy:.1f} ms (idle share "
-          f"{1 - busy / wall_ms:.3f}); {what} {own_ms:.1f} ms "
-          f"({own_ms / busy:.3f} of device time)", flush=True)
-    for ms, count, key in rows[:12]:
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.time_range.end > ev.time_range.start)
+    busy_us, end = 0.0, -math.inf
+    for lo, hi in spans:  # the union of the kernels' intervals
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    busy = (f"device busy {busy_us / 1e3:.1f} ms (idle share "
+            f"{1 - busy_us / 1e3 / wall_ms:.3f})" if spans else
+            "device busy and idle not measured (no kernel intervals)")
+    print(f"[{tag}] profiled {label}: wall "
+          f"{wall_ms:.1f} ms, {busy}; kernel time summed "
+          f"{summed:.1f} ms; {what} {own_ms:.1f} ms "
+          f"({own_ms / summed:.3f} of the summed kernel time)", flush=True)
+    for ms, count, key in rows[:top]:
         print(f"[{tag}]   {ms:9.2f} ms  x{count:<6d} {key[:110]}",
               flush=True)
     return [(key, count, ms) for ms, count, key in rows]
+
+
+def _eager_round(api, round_idx):
+    """The reference procedure: one eager ``run_round`` and the server
+    update; returns the round's loss (a device tensor)."""
+    avg, loss = api.run_round(round_idx)
+    api.net = api._server_update(api.net, avg)
+    return loss
+
+
+def _net_copy(net):
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.trainer.local import NetState
+
+    return NetState(tree_map(torch.clone, net.params),
+                    tree_map(torch.clone, net.model_state))
+
+
+def _net_vec(net):
+    from fedml_tpu_torch.core.tree import tree_leaves
+
+    return torch.cat([t.float().flatten() for t in tree_leaves(net.params)])
+
+
+def _spread(runs):
+    """max |Δ| of the params and of the losses between two runs, each a
+    (param vector, [losses]) pair."""
+    (pa, la), (pb, lb) = runs
+    return ((pa - pb).abs().max().item(),
+            max(abs(a - b) for a, b in zip(la, lb)))
+
+
+def _hold_captured_round(api, round_idx, tag):
+    """Pin (a): from one start, key and cohort, two eager rounds (the
+    reference procedure) give the eager-versus-eager spread, and the
+    captured fused round (``train_one_round``, whose first call warms up
+    and captures) must lie within it of the first eager round: bit-equal
+    when the eager rounds are. Leaves ``api`` after the captured round."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    start, key = _net_copy(api.net), api.rng.clone()
+    eager, eager_ms = [], []
+    for _ in range(2):
+        api.net, api.rng = _net_copy(start), key.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _eager_round(api, round_idx).item()  # .item() syncs
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager.append((_net_vec(api.net), [loss]))
+    api.net, api.rng = _net_copy(start), key.clone()
+    captures = CapturedStep.captures
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = api.train_one_round(round_idx)["train_loss"]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    graph = api._graphs["fused"]
+    spread, loss_spread = _spread(eager)
+    dist, loss_dist = _spread([eager[0], (_net_vec(api.net), [loss])])
+    print(f"[{tag}] eager rounds (run_round + _server_update, the host "
+          f"dispatching every op): {' / '.join(f'{t:.1f}' for t in eager_ms)}"
+          f" ms", flush=True)
+    print(f"[{tag}] fused round captured: first call {first_ms:.1f} ms, of "
+          f"which warm-up + capture {graph.capture_ms:.1f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[{tag}] (a) captured fused round vs eager run_round + "
+          f"_server_update, one start, key and cohort: max|dparam| "
+          f"{dist:.3e}, |dloss| {loss_dist:.3e}; eager vs eager "
+          f"{spread:.3e}, {loss_spread:.3e} (must be within it; "
+          f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
+          flush=True)
+    check(CapturedStep.captures == captures + 1,
+          f"{CapturedStep.captures - captures} captures of the fused round")
+    check(dist <= spread and loss_dist <= loss_spread,
+          f"the captured round is {dist}, {loss_dist} from the eager one, "
+          f"the eager rounds {spread}, {loss_spread} from each other")
+
+
+def _hold_on_device_rounds(api, n, tag):
+    """Pin (b): ``train_rounds_on_device(n)`` — its first call warms up and
+    captures — against ``n`` eager host-loop rounds fed the same cohorts,
+    drawn from the same key chain, within the spread of two such host
+    loops (bit-equal when they are)."""
+    from fedml_tpu_torch.core import keys
+
+    start, key = _net_copy(api.net), api.rng.clone()
+    rng, cohorts = key.clone(), []
+    everyone = torch.arange(api.train_fed.num_clients, device=key.device)
+    for _ in range(n):
+        pair = keys.split(rng)
+        rng = pair[0]
+        cohort = api._device_cohort(pair[1])  # None: full participation
+        cohorts.append(everyone if cohort is None else cohort)
+    host = []
+    for _ in range(2):
+        api.net, api.rng = _net_copy(start), key.clone()
+        api.sample_round = lambda r: cohorts[r]
+        try:
+            losses = [_eager_round(api, r).item() for r in range(n)]
+        finally:
+            del api.sample_round
+        host.append((_net_vec(api.net), losses))
+    api.net, api.rng = _net_copy(start), key.clone()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = api.train_rounds_on_device(n).tolist()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    graph = api._graphs["on_device"]
+    spread, loss_spread = _spread(host)
+    dist, loss_dist = _spread([host[0], (_net_vec(api.net), losses)])
+    print(f"[{tag}] train_rounds_on_device({n}) warm call (captures): "
+          f"{first_ms:.1f} ms, of which warm-up + capture "
+          f"{graph.capture_ms:.1f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; cohorts "
+          f"{[c.tolist() for c in cohorts]}",
+          flush=True)
+    print(f"[{tag}] (b) on-device rounds vs {n} eager host-loop rounds fed "
+          f"the same cohorts: max|dparam| {dist:.3e}, max|dloss| "
+          f"{loss_dist:.3e}; host loop vs host loop {spread:.3e}, "
+          f"{loss_spread:.3e} (must be within it; "
+          f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(dist <= spread and loss_dist <= loss_spread,
+          f"the on-device rounds are {dist}, {loss_dist} from the host "
+          f"loop, two host loops {spread}, {loss_spread} from each other")
+
+
+def _time_pipelined(api, n, tag, per_round, unit):
+    """``train_rounds_pipelined(n)``: n replayed fused rounds with no sync
+    between them, timed to its return (it fetches the losses once)."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    replays = CapturedStep.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = api.train_rounds_pipelined(n, start_round=2)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    replays = CapturedStep.replays - replays
+    print(f"[{tag}] train_rounds_pipelined({n}): {ms:.2f} ms a round = "
+          f"{per_round / ms * 1e3:.1f} {unit}/s; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(replays == n, f"{replays} replays in {n} pipelined rounds")
+
+
+def _time_on_device(api, n, tag, per_round, unit, zero, counts):
+    """Three timed calls of ``train_rounds_on_device(n)``, each synced by
+    fetching its losses (bench.py's timing); the counts are zeroed just
+    before and returned as read just after."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    zero()
+    replays = CapturedStep.replays
+    call_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses = api.train_rounds_on_device(n).tolist()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    got = counts()
+    replays = CapturedStep.replays - replays
+    med = statistics.median(call_ms) / n
+    print(f"[{tag}] train_rounds_on_device({n}), 3 timed calls: "
+          f"{' / '.join(f'{t:.1f}' for t in call_ms)} ms; median round "
+          f"{med:.2f} ms = {per_round / med * 1e3:.1f} {unit}/s, "
+          f"{1e3 / med:.3f} rounds/s; last losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(replays == 3 * n, f"{replays} replays in {3 * n} rounds")
+    return got
 
 
 class _ShapeTally:
@@ -1007,6 +1206,7 @@ def phase_train():
     """ResNet-56-GN FedAvg through FedAvgAPI at the primary config;
     returns {kernel name: launches in the timed rounds}."""
     from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.core.graph import CapturedStep
     from fedml_tpu_torch.core.sampling import sample_clients
     from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
                                       partition_homo)
@@ -1041,50 +1241,75 @@ def phase_train():
           f"3], batch {TRAIN_BATCH}, {TRAIN_PER_ROUND} clients per round, "
           f"{steps} local steps per round, sgd lr {TRAIN_LR}; set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # The warm-up round tallies the forward's shapes against GN_STEP.
+    # The eager warm-up round (the reference procedure) tallies the
+    # forward's shapes against GN_STEP.
     ext = gn.extension
     tally = _ShapeTally(ext())
     gn.extension = lambda: tally
     t0 = time.perf_counter()
     try:
-        warm = api.train_one_round(0)
-        torch.cuda.synchronize()
+        warm = _eager_round(api, 0).item()
     finally:
         gn.extension = ext
-    print(f"[train] warm-up round: {(time.perf_counter() - t0) * 1e3:.1f} ms,"
-          f" loss {warm['train_loss']:.4f}; GroupNorm forwards by (S, C): "
-          f"{tally.shapes}", flush=True)
+    print(f"[train] eager warm-up round: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {warm:.4f}; "
+          f"GroupNorm forwards by (S, C): {tally.shapes}", flush=True)
     want_shapes = {(s, c): steps * n for (_, s, c), _, n in GN_STEP}
     check(tally.shapes == want_shapes,
           f"GroupNorm forward shapes {tally.shapes}, expected {want_shapes}")
 
+    # (a) The captured fused round against the eager one; its first call
+    # captures the graph that train_one_round replays from then on.
+    _hold_captured_round(api, 1, "train")
+
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
     _zero_gn_counts()
-    torch.cuda.reset_peak_memory_stats()
-    round_ms, losses = [], [warm["train_loss"]]
-    for r in range(1, TRAIN_ROUNDS + 1):
+    replays = CapturedStep.replays
+    round_ms, losses = [], []
+    for r in range(2, TRAIN_ROUNDS + 2):
         t0 = time.perf_counter()
         out = api.train_one_round(r)  # float(loss) syncs the round
         torch.cuda.synchronize()
         round_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(out["train_loss"])
     fwd, bwd, red, copies, streamed = _gn_counts()
+    replays = CapturedStep.replays - replays
     want = TRAIN_ROUNDS * steps * RESNET56_GN
-    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
     med = statistics.median(round_ms)
-    print(f"[train] rounds 1-{TRAIN_ROUNDS}: "
+    print(f"[train] train_one_round (replayed fused round) "
           f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
           f"{med:.1f} ms = {samples / med * 1e3:.1f} samples/s, "
           f"{steps / med * 1e3:.2f} steps/s); losses "
-          f"{' '.join(f'{v:.4f}' for v in losses)}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"[train] GroupNorm launches in the timed rounds: fwd {fwd}, bwd "
-          f"{bwd}, reduce {red} (expected {want} each = {TRAIN_ROUNDS} "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays",
+          flush=True)
+    print(f"[train] GroupNorm launches in the replayed rounds: fwd {fwd}, "
+          f"bwd {bwd}, reduce {red} (expected {want} each = {TRAIN_ROUNDS} "
           f"rounds x {steps} steps x {RESNET56_GN}); forwards on the "
           f"streamed route {streamed}; copies of an operand {copies} "
           f"({copies / (TRAIN_ROUNDS * steps):.1f} per step)", flush=True)
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(replays == TRAIN_ROUNDS, f"{replays} replays in {TRAIN_ROUNDS} "
+          "rounds")
     check(fwd == bwd == red == want,
           f"GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
+          f"expected {want}")
+    check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
+    _time_pipelined(api, TRAIN_ROUNDS, "train", samples, "samples")
+
+    # (b) train_rounds_on_device: its first call captures (bench.py's warm
+    # call) and is held to the host loop fed the same cohorts; then three
+    # timed calls, each synced by fetching the losses.
+    _hold_on_device_rounds(api, TRAIN_ROUNDS, "train")
+    launches = _time_on_device(api, TRAIN_ROUNDS, "train", samples,
+                               "samples", _zero_gn_counts, _gn_counts)
+    fwd, bwd, red, copies, streamed = launches
+    want = 3 * TRAIN_ROUNDS * steps * RESNET56_GN
+    print(f"[train] GroupNorm launches in the timed on-device calls: fwd "
+          f"{fwd}, bwd {bwd}, reduce {red} (expected {want} each = 3 calls x "
+          f"{TRAIN_ROUNDS} rounds x {steps} steps x {RESNET56_GN}); streamed "
+          f"{streamed}; copies {copies}", flush=True)
+    check(fwd == bwd == red == want,
+          f"on-device GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
           f"expected {want}")
     check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
 
@@ -1126,10 +1351,13 @@ def phase_train():
         return updates(a.net.params, start)
 
     round_k, round_t = round_from(api32r), round_from(twin32r)
+    # The fault goes into a fresh api: api32r replays the graph it
+    # captured with the sound kernels.
+    api32f = build(dtype=None, lr=ROUND_LR)
     ext = gn.extension
     gn.extension = lambda: _SkipOneSamplePerRow(ext())
     try:
-        round_f = round_from(api32r)
+        round_f = round_from(api32f)
     finally:
         gn.extension = ext
     rel_round, rel_fault = rel(round_k, round_t), rel(round_f, round_t)
@@ -1150,11 +1378,14 @@ def phase_train():
           f"f32 kernel round disagrees with the plain twin: {rel_round}")
     check(not rel_fault <= ROUND_F32_TOL,
           f"the round check passed a planted fault: {rel_fault}")
-    del twin, api32, twin32, api32r, twin32r
-    rows = _profile_round(api, TRAIN_ROUNDS + 2)
+    del twin, api32, twin32, api32r, twin32r, api32f
+    names = ("gn_fwd_kernel", "gn_fwd_streamed_kernel", "gn_bwd_kernel",
+             "gn_reduce_kernel")
+    _profile_round(lambda: api.train_rounds_on_device(1).tolist(),
+                   "on-device round (train_rounds_on_device(1))", top=0)
+    rows = _profile_round(lambda: api.train_one_round(TRAIN_ROUNDS + 2),
+                          "replayed fused round (train_one_round)")
     if rows:  # every forward on the cluster-resident kernel
-        names = ("gn_fwd_kernel", "gn_fwd_streamed_kernel", "gn_bwd_kernel",
-                 "gn_reduce_kernel")
         ran = {n: sum(c for key, c, _ in rows if n in key) for n in names}
         dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)
                for n in names}
@@ -1213,6 +1444,7 @@ def phase_adapter():
     import functools
 
     from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
+    from fedml_tpu_torch.core.graph import CapturedStep
     from fedml_tpu_torch.core.sampling import sample_clients
     from fedml_tpu_torch.core.tree import tree_leaves, tree_map
     from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
@@ -1261,35 +1493,56 @@ def phase_adapter():
     base0 = {k: v.clone() for k, v in api.base.state_dict().items()}
     start = tree_map(torch.clone, api.net.params)
     t0 = time.perf_counter()
-    warm = api.train_one_round(0)
-    torch.cuda.synchronize()
-    print(f"[adapter] warm-up round: {(time.perf_counter() - t0) * 1e3:.1f} "
-          f"ms, loss {warm['train_loss']:.4f}", flush=True)
+    warm = _eager_round(api, 0).item()
+    print(f"[adapter] eager warm-up round: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {warm:.4f}",
+          flush=True)
+    # (a) The captured fused round against the eager one.
+    _hold_captured_round(api, 1, "adapter")
 
     _zero_flash_counts()
-    torch.cuda.reset_peak_memory_stats()
-    round_ms, losses = [], [warm["train_loss"]]
-    for r in range(1, ADAPTER_ROUNDS + 1):
+    replays = CapturedStep.replays
+    round_ms, losses = [], []
+    for r in range(2, ADAPTER_ROUNDS + 2):
         t0 = time.perf_counter()
         out = api.train_one_round(r)  # float(loss) syncs the round
         torch.cuda.synchronize()
         round_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(out["train_loss"])
     fwd, dq, dkv, copies = _flash_counts()
+    replays = CapturedStep.replays - replays
     want = ADAPTER_ROUNDS * steps * N_LAYERS
     med = statistics.median(round_ms)
-    print(f"[adapter] rounds 1-{ADAPTER_ROUNDS}: "
+    print(f"[adapter] train_one_round (replayed fused round) "
           f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
           f"{med:.1f} ms = {tokens / med * 1e3:.0f} tokens/s); losses "
-          f"{' '.join(f'{v:.4f}' for v in losses)}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"[adapter] flash launches in the timed rounds: fwd {fwd}, dq {dq}, "
-          f"dkv {dkv} (expected {want} each = {ADAPTER_ROUNDS} rounds x "
-          f"{steps} steps x {N_LAYERS} layers, one launch for all "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays",
+          flush=True)
+    print(f"[adapter] flash launches in the replayed rounds: fwd {fwd}, dq "
+          f"{dq}, dkv {dkv} (expected {want} each = {ADAPTER_ROUNDS} rounds "
+          f"x {steps} steps x {N_LAYERS} layers, one launch for all "
           f"{ADAPTER_PER_ROUND} clients); copies {copies}", flush=True)
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(replays == ADAPTER_ROUNDS, f"{replays} replays in "
+          f"{ADAPTER_ROUNDS} rounds")
     check(fwd == dq == dkv == want,
           f"flash launches fwd {fwd} dq {dq} dkv {dkv}, expected {want}")
+    check(copies == 0, f"{copies} copies on the way to the flash kernels")
+    _time_pipelined(api, ADAPTER_ROUNDS, "adapter", tokens, "tokens")
+
+    # (b) train_rounds_on_device: the warm call captures; three timed calls.
+    _hold_on_device_rounds(api, ADAPTER_ROUNDS, "adapter")
+    fwd, dq, dkv, copies = _time_on_device(
+        api, ADAPTER_ROUNDS, "adapter", tokens, "tokens", _zero_flash_counts,
+        _flash_counts)
+    want = 3 * ADAPTER_ROUNDS * steps * N_LAYERS
+    print(f"[adapter] flash launches in the timed on-device calls: fwd "
+          f"{fwd}, dq {dq}, dkv {dkv} (expected {want} each = 3 calls x "
+          f"{ADAPTER_ROUNDS} rounds x {steps} steps x {N_LAYERS} layers); "
+          f"copies {copies}", flush=True)
+    check(fwd == dq == dkv == want,
+          f"on-device flash launches fwd {fwd} dq {dq} dkv {dkv}, expected "
+          f"{want}")
     check(copies == 0, f"{copies} copies on the way to the flash kernels")
     after = api.base.state_dict()
     check(all(torch.equal(v, after[k]) for k, v in base0.items()),
@@ -1297,8 +1550,8 @@ def phase_adapter():
     moved = max((a - b).abs().max().item() for a, b in zip(
         tree_leaves(api.net.params), tree_leaves(start)))
     print(f"[adapter] frozen base bitwise unchanged over "
-          f"{ADAPTER_ROUNDS + 1} rounds; adapters moved by up to "
-          f"{moved:.4e}", flush=True)
+          f"{4 * ADAPTER_ROUNDS + 6} rounds (eager, replayed fused and "
+          f"on-device); adapters moved by up to {moved:.4e}", flush=True)
     check(moved > 0, "the adapters did not move")
 
     # Kernels vs the plain twin from one start and keys: one local step of
@@ -1372,11 +1625,15 @@ def phase_adapter():
     check(bool(seen[cohort].all()) and int(seen.sum()) == len(cohort),
           f"personal store rows seen {np.flatnonzero(seen)}, expected "
           f"{sorted(cohort)}")
-    rows = _profile_round(api, ADAPTER_ROUNDS + 1, "adapter",
-                          ("flash_fwd", "flash_dq", "flash_dkv"),
-                          "flash kernels")
+    fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    _profile_round(lambda: api.train_rounds_on_device(1).tolist(),
+                   "on-device round (train_rounds_on_device(1))", "adapter",
+                   flash, "flash kernels", top=0)
+    rows = _profile_round(lambda: api.train_one_round(ADAPTER_ROUNDS + 2),
+                          "replayed fused round (train_one_round)",
+                          "adapter", flash, "flash kernels")
     if rows:  # the bf16 round reaches the tensor-core kernels, never FMA
-        fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
         ran = {n: sum(c for key, c, _ in rows if n in key)
                for n in SM90_KERNELS + fma}
         dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)

@@ -1,14 +1,16 @@
 """FedAdapter — federated finetuning of a frozen-base transformer's LoRA
 adapters on one card (port of ``fedml_tpu/algos/fedadapter.py``'s
-``FedAdapterAPI``, host-loop tier).
+``FedAdapterAPI``).
 
 The base transformer is frozen: its parameters never require a gradient,
 are never averaged and stay bitwise unchanged across rounds (test-pinned).
 The federated net IS the adapter tree, so every layer of ``FedAvgAPI`` —
 the vmapped client step, the weighted average, evaluation — runs on a model
-smaller by the rank ratio without knowing adapters exist. On the card each
-local step of the cohort goes through the flash-attention forward, dq and
-dk/dv kernels once per layer for every client.
+smaller by the rank ratio without knowing adapters exist — the fused,
+pipelined and on-device tiers included, which capture the round as a CUDA
+graph (the frozen base is read in place, never part of the carry). On the
+card each local step of the cohort goes through the flash-attention
+forward, dq and dk/dv kernels once per layer for every client.
 
 Per-client personalized adapters live on the host in a
 :class:`~fedml_tpu_torch.models.adapter.PersonalAdapterStore` (the store
@@ -17,9 +19,9 @@ each client from a ditto-style interpolation toward the global adapters and
 runs the same local finetune; :meth:`FedAdapterAPI.evaluate_personalized`
 reports the personalized-vs-global quality.
 
-Not ported yet, and refused by name: the windowed, pipelined and on-device
-tiers (as for FedAvg), streaming stores, and checkpoints of the personal
-store (the port has no checkpoint format yet).
+Not ported yet, and refused by name: the windowed tier (as for FedAvg),
+streaming stores, and checkpoints of the personal store (the port has no
+checkpoint format yet).
 """
 
 from __future__ import annotations
@@ -183,7 +185,7 @@ def _gather_shards(fed, idx) -> FederatedArrays:
         raise NotImplementedError(
             f"{type(fed).__name__}: only the resident FederatedArrays "
             "layout is ported (streaming stores: ROADMAP.md A9)")
-    return gather_clients(fed, np.asarray(idx))
+    return gather_clients(fed, idx)
 
 
 def _stack_netstates(vecs, store: PersonalAdapterStore, model_state,

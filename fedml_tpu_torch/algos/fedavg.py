@@ -1,29 +1,44 @@
 """FedAvg — synchronous federated averaging on one card (port of
-``fedml_tpu/algos/fedavg.py``'s ``FedAvgAPI``, host-loop tier).
+``fedml_tpu/algos/fedavg.py``'s ``FedAvgAPI``).
 
 Sampled clients are a leading tensor dim; each local step of the whole
 cohort runs under ``vmap`` (``parallel.shard.make_vmap_round``), and the
 new global model is the sample-weighted client average. Ported: the
 single-device, resident (``FederatedArrays``), ``client_selection=
-"random"`` case with ``train_one_round``/``train``/``evaluate``. The
-on-device scan, the windowed and pipelined tiers, meshes, streaming
-stores, other selection modes, compression and layouts are not ported
-yet: asking for any of them raises, by name.
+"random"`` case, with three tiers of rounds:
+
+- ``train_one_round`` (and ``train``): one FUSED round — the client
+  gather, local training, the average and the server update as one step,
+  captured once as a CUDA graph and replayed each round
+  (``core/graph.py``; JAX: one donated dispatch per round);
+- ``train_rounds_pipelined``: the same rounds without a host sync between
+  them, the losses fetched once;
+- ``train_rounds_on_device``: one captured round with the cohort drawn on
+  the device from the round's key, replayed once per round (JAX: one
+  ``lax.scan`` over rounds).
+
+On the CPU (``device="cpu"``) the same steps run eagerly. ``run_round``
++ ``_server_update`` stay as the eager reference procedure. The windowed
+tier, meshes, streaming stores, other selection modes, compression and
+layouts are not ported yet: asking for any of them raises, by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
-from fedml_tpu_torch.data.batching import FederatedArrays
-from fedml_tpu_torch.parallel.shard import make_vmap_round
+from fedml_tpu_torch.core.graph import CapturedStep
+from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
+from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
+                                            make_vmap_round)
 from fedml_tpu_torch.trainer.local import (make_client_optimizer,
                                            make_eval_fn, make_local_train_fn,
                                            model_fns, softmax_ce)
@@ -34,6 +49,9 @@ UNPORTED_FIELDS = ("aggregator", "group_reduce", "corrupt_mode",
                    "client_selection", "compress", "wire_codec",
                    "ingest_workers", "compute_layout", "client_step_dtype",
                    "remat", "dp_clip", "dp_noise_multiplier")
+#: fold_in child of a round's key that draws its on-device cohort, as in
+#: the JAX package's train_rounds_on_device.
+_COHORT_TAG = 0x5A
 
 
 def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
@@ -54,12 +72,25 @@ class FedAvgAPI(FederatedLoop):
     ``data.batching.batch_global`` or None. ``pad_id`` marks padding in
     sequence labels (excluded from eval accuracy); it must match the pad
     id of a sequence ``loss_fn`` (``partial(seq_softmax_ce, pad_id=...)``).
+
+    On cuda the rounds replay captured CUDA graphs whose carry is donated:
+    after a round, ``api.net`` holds the graph's static buffers, which the
+    next round overwrites in place. Clone what must outlive a round; a
+    replaced ``api.net`` is copied into the buffers (or captured anew at
+    another shape), and a replaced ``api.train_fed`` is captured anew.
     """
 
     #: Set True by the one subclass that reads cfg.adapter_rank
     #: (FedAdapterAPI); every other trainer class refuses the flag, which
     #: would otherwise silently train the dense model.
     _consumes_adapter_cfg = False
+
+    #: How this algorithm rides the fused and on-device tiers: "round"
+    #: means its round is exactly ``run_round`` + ``_server_update``, with
+    #: the PURE form of the server update from
+    #: :meth:`_window_server_update` (the JAX package's carry protocol).
+    #: The port has no "custom" protocol yet (SCAFFOLD's, ROADMAP.md A7).
+    window_protocol: Optional[str] = "round"
 
     def __init__(self, model, train_fed: FederatedArrays, test_global,
                  cfg: FedConfig, mesh=None, loss_fn=softmax_ce,
@@ -68,11 +99,8 @@ class FedAvgAPI(FederatedLoop):
             raise NotImplementedError(
                 "a client mesh is not ported yet (ROADMAP.md A11); the port "
                 "trains every client on one card")
-        if not isinstance(train_fed, FederatedArrays):
-            raise NotImplementedError(
-                f"train_fed of type {type(train_fed).__name__}: only the "
-                "resident FederatedArrays layout is ported (streaming "
-                "stores: ROADMAP.md A9)")
+        self.train_fed = train_fed
+        self._check_resident()
         refuse_unported(cfg)
         if cfg.adapter_rank and not self._consumes_adapter_cfg:
             raise NotImplementedError(
@@ -92,15 +120,14 @@ class FedAvgAPI(FederatedLoop):
                 f"size {train_fed.batch_size}; build_federated_arrays with "
                 "the same batch_size as the config")
         self.cfg = cfg
-        self.train_fed, self.test_global = train_fed, test_global
+        self.test_global = test_global
         self.model = model.to(self.device)
         self.fns = self._model_fns(self.model)
-        optimizer = make_client_optimizer(cfg.client_optimizer, cfg.lr,
-                                          cfg.wd, cfg.grad_clip)
-        self.local_train = make_local_train_fn(self.fns.apply, optimizer,
-                                               cfg.epochs, loss_fn)
-        self.round_fn = make_vmap_round(self.local_train,
-                                        nan_guard=nan_guard)
+        self._loss_fn, self._nan_guard = loss_fn, nan_guard
+        self._client_lr = cfg.lr
+        #: The captured steps by tier, dropped when the round changes.
+        self._graphs: Dict[str, CapturedStep] = {}
+        self._build_round(cfg.lr)
         self.eval_fn = make_eval_fn(self.fns.apply, loss_fn, pad_id)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
         self.net = self.fns.init(torch.Generator().manual_seed(cfg.seed))
@@ -113,25 +140,215 @@ class FedAvgAPI(FederatedLoop):
         unchanged."""
         return model_fns(model)
 
+    def _build_round(self, lr: float) -> None:
+        cfg = self.cfg
+        optimizer = make_client_optimizer(cfg.client_optimizer, lr, cfg.wd,
+                                          cfg.grad_clip)
+        self.local_train = make_local_train_fn(self.fns.apply, optimizer,
+                                               cfg.epochs, self._loss_fn)
+        self.round_fn = make_vmap_round(self.local_train,
+                                        nan_guard=self._nan_guard)
+
+    def set_client_lr(self, lr: float) -> None:
+        """Rebuild the round for a new client learning rate (the hook of
+        the round-level lr schedules); it takes effect from the next round.
+        The captured steps are dropped, as JAX drops its jits, so each
+        distinct lr costs one capture per tier. A no-op when the lr is
+        unchanged."""
+        if lr == self._client_lr:
+            return
+        self._client_lr = lr
+        self._graphs.clear()
+        self._on_client_lr_change()
+        self._build_round(lr)
+
+    def _on_client_lr_change(self) -> None:
+        """Called whenever the client lr actually changes. A subclass that
+        holds its own lr-dependent steps drops them here."""
+
     def _server_update(self, old_net, avg_net):
         """FedAvg: the new global model is the client average."""
         return avg_net
 
+    # --- the carry protocol ------------------------------------------------
+    def _window_server_update(self):
+        """The PURE form of :meth:`_server_update` that the fused and
+        on-device steps fold in: ``None`` for plain FedAvg (the new model
+        is the average, no carry), else ``(net, avg, extra, key) -> (net',
+        extra')`` with ``extra`` the carried server state and ``key`` the
+        round's key. A subclass that overrides ``_server_update`` must
+        override this too: inheriting the plain average would silently
+        change its semantics inside the captured step."""
+        if type(self)._server_update is not FedAvgAPI._server_update:
+            raise NotImplementedError(
+                f"{type(self).__name__} overrides _server_update without "
+                "providing its pure windowed form; override "
+                "_window_server_update (and the carry init/commit hooks): "
+                "every round tier of the port runs the fused step")
+        return None
+
+    def _window_carry_init(self):
+        """Extra carry entering a captured step (from instance state).
+        Plain FedAvg carries nothing."""
+        return None
+
+    def _window_carry_commit(self, extra) -> None:
+        """Write the carry coming out of a captured step back to instance
+        state, so later rounds and evaluation read it."""
+
+    def _build_fused_step(self):
+        """The one-round step both tiers capture: ``step(net, extra, x, y,
+        mask, weights, key) -> ((net', extra'), loss)``, ``round_fn`` with
+        the pure server update folded in."""
+        if self.window_protocol != "round":
+            raise NotImplementedError(
+                f"{type(self).__name__} declares window_protocol="
+                f"{self.window_protocol!r}; the port's fused and on-device "
+                "rounds serve the 'round' protocol only (custom carries: "
+                "ROADMAP.md A7)")
+        return make_fused_round_step(self.round_fn,
+                                     self._window_server_update())
+
+    def _check_resident(self) -> None:
+        """The rounds gather each cohort on the device from resident
+        ``FederatedArrays``; ``api.train_fed`` may be replaced later."""
+        if not isinstance(self.train_fed, FederatedArrays):
+            raise NotImplementedError(
+                f"train_fed of type {type(self.train_fed).__name__}: only "
+                "the resident FederatedArrays layout is ported (streaming "
+                "stores: ROADMAP.md A9)")
+
+    def _watched(self):
+        """What the captured steps read in place: the dataset and the
+        module's own tensors (FedAdapter's frozen base)."""
+        fed = self.train_fed
+        return [fed.x, fed.y, fed.mask, fed.counts,
+                *self.model.parameters(), *self.model.buffers()]
+
+    def _captured(self, tier: str, build) -> CapturedStep:
+        step = self._graphs.get(tier)
+        if step is None:
+            step = self._graphs[tier] = CapturedStep(build(), self.device,
+                                                     self._watched)
+        return step
+
+    # --- fused round: one replay per host-loop round -----------------------
+    def _fused_round_step(self) -> CapturedStep:
+        """The cached fused round — client gather, training, aggregation and
+        the server update in one captured step ``((net, extra), idx, key)
+        -> ((net', extra'), loss)``."""
+
+        def build():
+            step = self._build_fused_step()
+
+            def gather_step(carry, idx, key):
+                sub = gather_clients(self.train_fed, idx)
+                w = sub.counts.float()
+                return step(*carry, sub.x, sub.y, sub.mask, w, key)
+
+            return gather_step
+
+        return self._captured("fused", build)
+
+    def _cohort_on_device(self, idx) -> torch.Tensor:
+        """The sampled cohort on the device without waiting for it: a host
+        array goes through pinned memory and a non-blocking copy (the
+        caching host allocator keeps the pinned buffer until the copy is
+        done), so the replays already queued keep running."""
+        if torch.is_tensor(idx):
+            return idx.to(self.device, torch.int64)
+        host = torch.from_numpy(np.asarray(idx, np.int64))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    def _train_round_fused(self, round_idx: int):
+        """One host-loop round through the fused step: ``run_round``'s
+        prelude (round key, sampled cohort on the device, with no sync),
+        one replay, the carry committed back. Returns the round's loss, a
+        device tensor that the next round overwrites."""
+        self._check_resident()
+        step = self._fused_round_step()
+        pair = keys.split(self.rng)
+        self.rng, rnd_rng = pair[0], pair[1]
+        idx = self._cohort_on_device(self.sample_round(round_idx))
+        (self.net, extra), loss = step(
+            (self.net, self._window_carry_init()), idx, rnd_rng)
+        self._window_carry_commit(extra)
+        return loss
+
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
-        avg, loss = self.run_round(round_idx)
-        self.net = self._server_update(self.net, avg)
+        loss = self._train_round_fused(round_idx)
         return {"round": round_idx, "train_loss": float(loss)}
+
+    def train_rounds_pipelined(self, n_rounds: int, start_round: int = 0):
+        """``n_rounds`` host-loop rounds back to back WITHOUT a host sync
+        between them: each round's replay is queued as soon as its cohort
+        is on the device, and the losses are fetched once at the end.
+        Per-round semantics are those of ``train_one_round`` in a loop
+        (test-pinned bit-equal); no evaluation."""
+        losses = [self._train_round_fused(r).clone()
+                  for r in range(start_round, start_round + n_rounds)]
+        return torch.stack(losses).tolist() if losses else []
+
+    # --- on-device rounds: one captured round, replayed per round ----------
+    def _device_cohort(self, key) -> Optional[torch.Tensor]:
+        """The cohort of the round with ``key``, drawn on the device
+        (uniform without replacement, the JAX package's ``choice(fold_in(
+        key, 0x5A), ...)``); ``None`` at full participation, where the
+        gather is the identity and is skipped."""
+        n = self.train_fed.num_clients
+        k = min(self.cfg.client_num_per_round, n)
+        if k == n:
+            return None
+        return keys.choice(keys.fold_in(key, _COHORT_TAG), n, k)
+
+    def train_rounds_on_device(self, n_rounds: int) -> torch.Tensor:
+        """``n_rounds`` whole rounds with the cohort drawn on the device:
+        one captured round, replayed once per round with the round's key
+        copied in — no host sync and no host sampling between rounds.
+        Returns the per-round losses as a ``[n_rounds]`` device tensor.
+
+        The keys are the host loop's own ``keys.split`` chain, so at FULL
+        participation this is bit-equal to the host loop (test-pinned);
+        with subsampling the cohorts come from the keys, not from the
+        reference's ``np.random.seed(round_idx)`` stream, as in JAX. The
+        incoming ``api.net`` is donated (see the class docstring)."""
+        self._check_resident()
+
+        def build():
+            step = self._build_fused_step()
+
+            def round_step(carry, key):
+                fed = self.train_fed
+                idx = self._device_cohort(key)
+                sub = fed if idx is None else gather_clients(fed, idx)
+                w = sub.counts.float()
+                return step(*carry, sub.x, sub.y, sub.mask, w, key)
+
+            return round_step
+
+        step = self._captured("on_device", build)
+        round_keys = []
+        for _ in range(n_rounds):
+            pair = keys.split(self.rng)
+            self.rng = pair[0]
+            round_keys.append(pair[1])
+        losses = torch.empty(n_rounds, dtype=torch.float32,
+                             device=self.device)
+        carry = (self.net, self._window_carry_init())
+        for r, key in enumerate(round_keys):
+            carry, loss = step(carry, key)
+            losses[r].copy_(loss)
+        self.net, extra = carry
+        self._window_carry_commit(extra)
+        return losses
 
     def _unported(self, what):
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md A5); use "
-            "train_one_round / train")
-
-    def train_rounds_on_device(self, n_rounds: int):
-        self._unported("train_rounds_on_device")
-
-    def train_rounds_pipelined(self, n_rounds: int, start_round: int = 0):
-        self._unported("train_rounds_pipelined")
+            f"{what} is not ported yet (ROADMAP.md A5: the windowed tier, "
+            "with A9's streaming store); use train_one_round, "
+            "train_rounds_pipelined or train_rounds_on_device")
 
     def train_rounds_windowed(self, n_rounds: int, start_round: int = 0,
                               window: int = 8):

@@ -34,9 +34,11 @@ class FederatedLoop:
         return idx
 
     def run_round(self, round_idx: int):
-        """One sampled round: gather the cohort on the device, weight it by
-        true sample counts, fresh round key. Returns ``(avg_net,
-        mean_loss)`` without touching ``self.net``."""
+        """One sampled round, eagerly: gather the cohort on the device,
+        weight it by true sample counts, fresh round key. Returns
+        ``(avg_net, mean_loss)`` without touching ``self.net``. With
+        ``_server_update`` it is the reference procedure that the captured
+        fused and on-device rounds are held to."""
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
         sub = gather_clients(self.train_fed, self.sample_round(round_idx))

@@ -1,0 +1,181 @@
+"""Captured round steps: the port's counterpart of ``jax.jit(step,
+donate_argnums=(0, 1))`` (``fedml_tpu/algos/fedavg.py``
+``_fused_round_step`` and ``train_rounds_on_device``).
+
+:class:`CapturedStep` runs ``step(carry, *args) -> (carry', out)``, where
+every operand is a tree (dicts, tuples, lists, dataclasses, ``None``) of
+tensors. On a CUDA device it
+
+- warms the step up once on a side stream (cuDNN picks its algorithms
+  and workspaces there; the outputs are dropped);
+- captures one call into a ``torch.cuda.CUDAGraph`` over static copies of
+  the carry and of the args, with the new carry copied back into the
+  carry's static buffers at the end of the captured step: the port's
+  donation;
+- and replays the graph on every call, after copying the caller's carry
+  and args into the static buffers. A carry leaf that IS its static
+  buffer, as the previous call returned it, is not copied.
+
+The returned carry is the static buffers and ``out`` the graph's own
+output, so the next replay overwrites both, as JAX consumes donated
+buffers: clone what must outlive it. The step is captured again when the
+structure, shapes or dtypes of the carry or the args change, or when a
+tensor of ``watch()`` (what the step reads in place: the dataset, a frozen
+base) is another tensor than at capture. A capture or replay that fails
+raises :class:`GraphCaptureError`; the step never runs eagerly instead.
+On the CPU the step runs eagerly: the tests ask for that with
+``device="cpu"``.
+
+Kernel wrappers count their launches in Python, when they are called: a
+capture calls them once and a replay not at all. So each wrapper registers
+its counters here (:func:`launch_counter`); a capture measures by how much
+it moved them, restores them, and every replay adds that much again, so a
+counter keeps counting the launches that ran. ``CapturedStep.captures``
+and ``CapturedStep.replays`` count the helper's own work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+#: ``(owner, attribute)`` of every launch counter: the kernel wrappers'.
+_COUNTERS = []
+
+
+def launch_counter(owner, *names) -> None:
+    """Registers ``owner.<name>`` for each name as a launch counter, set to
+    0: a replay adds to it what the captured call added."""
+    for name in names:
+        setattr(owner, name, 0)
+        _COUNTERS.append((owner, name))
+
+
+def _counts():
+    return [getattr(owner, name) for owner, name in _COUNTERS]
+
+
+def _set_counts(values) -> None:
+    for (owner, name), value in zip(_COUNTERS, values):
+        setattr(owner, name, value)
+
+
+def _map(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    raise TypeError(f"a captured step's operands are trees of tensors, got "
+                    f"{type(tree).__name__}")
+
+
+def _leaves(tree):
+    out = []
+    _map(out.append, tree)
+    return out
+
+
+def _spec(tree):
+    """What a capture depends on: the tree's structure and its leaves'
+    shapes, dtypes and devices (compared with ``==``)."""
+    return _map(lambda t: (tuple(t.shape), t.dtype, t.device), tree)
+
+
+class GraphCaptureError(RuntimeError):
+    """A step could not be captured or replayed as a CUDA graph."""
+
+
+class CapturedStep:
+    """``step(carry, *args) -> (carry', out)`` captured once per spec and
+    replayed on ``device`` (eager on the CPU). ``watch()`` returns the
+    tensors that the step reads in place."""
+
+    captures = 0
+    replays = 0
+
+    def __init__(self, step, device, watch):
+        self.step, self.device, self.watch = step, torch.device(device), watch
+        self.capture_ms = None  # host ms of the last warm-up + capture
+        self._drop()
+
+    def _drop(self) -> None:
+        self._key = self._graph = self._watched = None
+        self._carry = self._args = self._out = None
+        self._delta = []
+
+    def __call__(self, carry, *args):
+        if self.device.type != "cuda":
+            return self.step(carry, *args)
+        watched = list(self.watch())
+        key = (_spec(carry), _spec(args),
+               [(t.data_ptr(), tuple(t.shape), t.dtype) for t in watched])
+        if key != self._key:
+            self._capture(carry, args, watched, key)
+        else:
+            for dst, src in zip(_leaves(self._carry) + _leaves(self._args),
+                                _leaves(carry) + _leaves(args)):
+                if src is not dst:
+                    dst.copy_(src)
+        try:
+            self._graph.replay()
+        except RuntimeError as exc:
+            raise GraphCaptureError(
+                f"replay of the captured step failed: {exc}") from exc
+        CapturedStep.replays += 1
+        if any(self._delta):
+            _set_counts([c + d for c, d in zip(_counts(), self._delta)])
+        return self._carry, self._out
+
+    def _capture(self, carry, args, watched, key) -> None:
+        self._drop()
+        t0 = time.perf_counter()
+        s_carry = _map(torch.clone, carry)
+        s_args = _map(torch.clone, args)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.step(s_carry, *s_args)
+        current.wait_stream(side)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # The outer stream context restores the caller's stream even
+            # when the capture's own exit raises.
+            with torch.cuda.stream(side), torch.cuda.graph(graph,
+                                                           stream=side):
+                new_carry, out = self.step(s_carry, *s_args)
+                if _spec(new_carry) != _spec(s_carry):
+                    raise GraphCaptureError(
+                        "the step returned a carry of another structure, "
+                        "shape or dtype than it was given; it cannot be "
+                        "captured with its carry donated")
+                for dst, src in zip(_leaves(s_carry), _leaves(new_carry)):
+                    dst.copy_(src)
+        except GraphCaptureError:
+            raise
+        except RuntimeError as exc:
+            raise GraphCaptureError(
+                f"capturing the step as a CUDA graph failed (a host sync, "
+                f"a synchronous copy or an allocation the capture forbids "
+                f"inside the step?); the step does not run eagerly on "
+                f"{self.device}: {exc}") from exc
+        finally:
+            after = _counts()
+            _set_counts(before)
+        torch.cuda.synchronize(self.device)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self._delta = [a - b for a, b in zip(after, before)]
+        self._graph, self._key, self._watched = graph, key, watched
+        self._carry, self._args, self._out = s_carry, s_args, out
+        CapturedStep.captures += 1

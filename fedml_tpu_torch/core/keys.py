@@ -8,6 +8,10 @@ uniform draw hashes the key once more. Everything is elementwise, so a
 ``[C]`` tensor of keys is C independent streams, and a child key depends
 only on its parent and its index (the prefix-stability the JAX trainer's
 shuffle relies on, ``fedml_tpu/trainer/local.py:125-134``).
+
+No function here reads a tensor on the host or copies one from it (an
+integer ``data`` is hashed in Python), so every one can run inside a
+captured CUDA graph (``core/graph.py``).
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ def key(seed: int, device=None) -> torch.Tensor:
 
 
 def fold_in(k, data):
-    """Child key of ``k`` for ``data`` (int or int64 tensor), broadcast."""
-    if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64, device=k.device)
-    return _mix32(_mix32(k) ^ _mix32(data.to(torch.int64) + 0x9E3779B9))
+    """Child key of ``k`` for ``data`` (int or int64 tensor), broadcast. An
+    int is hashed on the host: the same bits as a 0-d tensor of it, without
+    a host-to-device copy."""
+    if torch.is_tensor(data):
+        data = data.to(torch.int64)
+    else:
+        data = int(data) & ((1 << 64) - 1)
+    return _mix32(_mix32(k) ^ _mix32(data + 0x9E3779B9))
 
 
 def split(k, n: int = 2):
@@ -56,3 +64,16 @@ def split(k, n: int = 2):
 def uniform(k):
     """A float32 in [0, 1) per key (24 random bits)."""
     return (_mix32(k) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def choice(k, n: int, size: int):
+    """``size`` distinct indices of ``range(n)``, uniform without
+    replacement (the port's ``jax.random.choice(k, n, (size,),
+    replace=False)``): the first ``size`` of a stable argsort of one uniform
+    draw per index. ``[..., size]`` int64 for keys ``k [...]``, on ``k``'s
+    device; no host sync."""
+    if not 0 < size <= n:
+        raise ValueError(f"choice of {size} from {n}")
+    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+    u = uniform(fold_in(k[..., None], idx))
+    return torch.argsort(u, dim=-1, stable=True)[..., :size]

@@ -90,9 +90,19 @@ def build_federated_arrays(x: np.ndarray, y: np.ndarray,
 
 
 def gather_clients(fed: FederatedArrays, indices) -> FederatedArrays:
-    """On-device gather of a sampled client subset."""
-    idx = torch.as_tensor(np.asarray(indices), dtype=torch.long,
-                          device=fed.device)
+    """On-device gather of a sampled client subset. ``indices`` is a host
+    sequence or array (copied to the device), or an int64 tensor on
+    ``fed``'s device, taken as it is: no host round trip, so the gather can
+    run inside a captured CUDA graph."""
+    if torch.is_tensor(indices):
+        if indices.dtype != torch.int64 or indices.device != fed.device:
+            raise ValueError(
+                f"a tensor of client indices must be int64 on {fed.device}, "
+                f"got {indices.dtype} on {indices.device}")
+        idx = indices
+    else:
+        idx = torch.as_tensor(np.asarray(indices), dtype=torch.long,
+                              device=fed.device)
     return FederatedArrays(x=fed.x.index_select(0, idx),
                            y=fed.y.index_select(0, idx),
                            mask=fed.mask.index_select(0, idx),

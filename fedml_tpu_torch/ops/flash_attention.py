@@ -35,6 +35,11 @@ count kernel launches (the backward's counts take both routes);
 ``flash_attention.copies`` counts every copy made on the way to any of the
 kernels: a dO whose head dim is not at stride 1, a client dim that no view
 can fold into R, or a bf16 operand whose base or strides TMA cannot take.
+The counters are registered with ``core/graph.py``, so a replayed CUDA
+graph of a step counts the launches that it replays. The tensor-core
+kernels' TMA descriptors are encoded on the host at each call and passed
+by value, so a captured launch keeps the addresses it was captured with:
+the graph's static buffers and private pool never move.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import math
 
 import torch
 
+from fedml_tpu_torch.core.graph import launch_counter
 from fedml_tpu_torch.ops.build import extension
 
 NEG_INF = -1e30
@@ -334,7 +340,5 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     return tuple(g[0] for g in grads)
 
 
-flash_attention.launches = 0
-flash_attention.copies = 0
-flash_attention_bwd.dq_launches = 0
-flash_attention_bwd.dkv_launches = 0
+launch_counter(flash_attention, "launches", "copies")
+launch_counter(flash_attention_bwd, "dq_launches", "dkv_launches")

@@ -33,13 +33,15 @@ the forward's launches that took the streamed route (the kernel chooses it
 by shape before the launch, never on an error); ``group_norm.copies``
 counts every copy of an operand on the way to the kernels: an input whose
 channel dim was not contiguous, or whose dims could not be merged or
-folded as a view.
+folded as a view. The counters are registered with ``core/graph.py``, so a
+replayed CUDA graph of a step counts the launches that it replays.
 """
 
 from __future__ import annotations
 
 import torch
 
+from fedml_tpu_torch.core.graph import launch_counter
 from fedml_tpu_torch.ops.build import extension
 
 EPS = 1e-6
@@ -175,10 +177,8 @@ def group_norm_bwd(x, dy, gamma, groups: int, eps: float = EPS):
     return dx, dgamma, dbeta
 
 
-group_norm_fwd.launches = 0
-group_norm_fwd.streamed = 0
-group_norm_bwd.launches = 0
-group_norm_bwd.reduce_launches = 0
+launch_counter(group_norm_fwd, "launches", "streamed")
+launch_counter(group_norm_bwd, "launches", "reduce_launches")
 
 
 # --- the ops: device dispatch, autograd, vmap --------------------------------
@@ -319,4 +319,4 @@ def group_norm_plain(x, gamma, beta, groups: int, eps: float = EPS):
     return y.reshape(x.shape)
 
 
-group_norm.copies = 0
+launch_counter(group_norm, "copies")

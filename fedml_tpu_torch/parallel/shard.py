@@ -1,5 +1,6 @@
 """Client-parallel FedAvg rounds on one card (port of
-``fedml_tpu/parallel/shard.py``'s ``make_vmap_round``).
+``fedml_tpu/parallel/shard.py``'s ``make_vmap_round`` and
+``make_fused_round_step``).
 
 All sampled clients train together: each local step runs under
 ``torch.func.vmap`` over the client dim (``LocalTrain.run_clients``), and
@@ -90,3 +91,23 @@ def make_vmap_round(local_train, client_transform=None,
         return NetState(avg, net.model_state), mean_loss
 
     return round_fn
+
+
+def make_fused_round_step(round_fn, server_update=None):
+    """One round as one step: client training and the weighted average
+    (``round_fn``), then the algorithm's PURE server update. Its signature
+    is the JAX package's: ``step(net, extra, x, y, mask, weights, key,
+    *aux) -> ((net', extra'), loss)``, ``weights`` weighting both the
+    average and the loss and ``key`` the round's key (a randomized server
+    update folds in from it). ``server_update(net, avg, extra, key) ->
+    (net', extra')``; ``None`` is plain FedAvg (the new model is the
+    average, ``extra`` passes through). The caller captures the step with
+    its ``(net, extra)`` carry donated (``core/graph.py``)."""
+
+    def step_fn(net, extra, x, y, mask, weights, key, *aux):
+        avg, loss = round_fn(net, x, y, mask, weights, weights, key, *aux)
+        if server_update is None:
+            return (avg, extra), loss
+        return server_update(net, avg, extra, key), loss
+
+    return step_fn

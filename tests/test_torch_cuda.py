@@ -619,3 +619,221 @@ def test_fedavg_round_on_the_card_matches_a_client_loop(cuda, monkeypatch):
     for k in want:
         torch.testing.assert_close(avg.params[k], want[k], rtol=1e-4,
                                    atol=1e-4)
+
+
+# --- the captured round tiers (core/graph.py) ----------------------------------
+
+def _small_fedavg(cuda, cls=None, per_round=3):
+    """ResNet-20-GN at widths (4, 8, 16), 4 clients x 12 images of 16x16,
+    batch 4 (3 local steps), sgd lr 5e-3."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      make_image_classification,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+
+    x, y = make_image_classification(48, (16, 16, 3), 4, seed=0)
+    fed = build_federated_arrays(x, y, partition_homo(48, 4), 4,
+                                 device=cuda)
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=per_round,
+                    epochs=1, batch_size=4, lr=5e-3)
+    model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
+                         device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    return (cls or FedAvgAPI)(model, fed, None, cfg, device=cuda)
+
+
+def _small_fedadapter(cuda):
+    """transformer_lm d_model 64, 2 heads (D 32), 2 layers, T 128, bf16,
+    flash, LoRA rank 4 on attention; 4 clients x 4 sequences, batch 2,
+    3 clients per round."""
+    from functools import partial
+
+    import numpy as np
+
+    from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    rng = np.random.RandomState(0)
+    seqs = rng.randint(1, 64, size=(16, 129))
+    fed = build_federated_arrays(seqs[:, :128].astype(np.int32),
+                                 seqs[:, 1:].astype(np.int32),
+                                 partition_homo(16, 4), 2, device=cuda)
+    model = create_model("transformer_lm", vocab_size=64, d_model=64,
+                         n_heads=2, n_layers=2, max_len=128, dtype="bf16",
+                         attn="flash", adapter_rank=4, adapter_scope="attn",
+                         device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=3,
+                    epochs=1, batch_size=2, lr=0.1, adapter_rank=4)
+    return FedAdapterAPI(model, fed, None, cfg,
+                         loss_fn=partial(seq_softmax_ce, pad_id=0),
+                         device=cuda)
+
+
+def _copy(net):
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.trainer.local import NetState
+
+    return NetState(tree_map(torch.clone, net.params),
+                    tree_map(torch.clone, net.model_state))
+
+
+def _vec(net):
+    from fedml_tpu_torch.core.tree import tree_leaves
+
+    return torch.cat([t.float().flatten() for t in tree_leaves(net.params)])
+
+
+def _eager(api, r):
+    avg, loss = api.run_round(r)
+    api.net = api._server_update(api.net, avg)
+    return loss.item()
+
+
+@pytest.mark.parametrize("make", ["fedavg", "fedadapter"])
+def test_captured_round_matches_the_eager_round(cuda, monkeypatch, make):
+    """From one start, key and cohort: the captured fused round
+    (``train_one_round``, one capture) is bit-equal to the eager round
+    (``run_round`` + ``_server_update``), params and loss, and two eager
+    rounds are bit-equal to each other. cuDNN runs in deterministic mode:
+    otherwise the small f32 ResNet's backward differs by an ulp between
+    two eager rounds now and then (its convolution algorithms add with
+    atomics), which a spread measured on two rounds can miss. FedAdapter's
+    base stays bitwise unchanged."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = (_small_fedavg if make == "fedavg" else _small_fedadapter)(cuda)
+    base0 = {k: v.clone() for k, v in api.model.state_dict().items()}
+    start, key = _copy(api.net), api.rng.clone()
+    eager = []
+    for _ in range(2):
+        api.net, api.rng = _copy(start), key.clone()
+        eager.append((_eager(api, 1), _vec(api.net)))
+    api.net, api.rng = _copy(start), key.clone()
+    captures = CapturedStep.captures
+    loss = api.train_one_round(1)["train_loss"]
+    assert CapturedStep.captures == captures + 1
+    assert eager[0][0] == eager[1][0] and torch.equal(eager[0][1],
+                                                      eager[1][1])
+    assert loss == eager[0][0] and torch.equal(_vec(api.net), eager[0][1])
+    assert torch.isfinite(_vec(api.net)).all()
+    if make == "fedadapter":
+        after = api.base.state_dict()
+        assert all(torch.equal(v, after[k]) for k, v in base0.items())
+
+
+def test_replays_count_the_kernel_launches(cuda):
+    """A replay adds to each wrapper's counters what the captured call
+    added: per fused round, 21 GroupNorm forward, backward and reduce
+    launches per local step (ResNet-20) with no copy; per on-device round
+    the same; FedAdapter: one launch of each flash kernel per layer and
+    step for the whole cohort, no copy. The warm-up before a capture runs
+    the step once for real and counts; the capture itself does not."""
+    import importlib
+
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    def gn_counts():
+        return (gn.group_norm_fwd.launches, gn.group_norm_bwd.launches,
+                gn.group_norm_bwd.reduce_launches, gn.group_norm.copies,
+                gn.group_norm_fwd.streamed)
+
+    def flash_counts():
+        return (fa.flash_attention.launches,
+                fa.flash_attention_bwd.dq_launches,
+                fa.flash_attention_bwd.dkv_launches,
+                fa.flash_attention.copies)
+
+    for api, counts, per_step in (
+            (_small_fedavg(cuda), gn_counts, (21, 21, 21, 0, 0)),
+            (_small_fedadapter(cuda), flash_counts, (2, 2, 2, 0))):
+        steps = api.train_fed.steps_per_epoch
+        per_round = tuple(n * steps for n in per_step)
+        for tier in (lambda r: api.train_one_round(r),
+                     lambda r: api.train_rounds_on_device(1)):
+            c0, captures = counts(), CapturedStep.captures
+            tier(0)  # warm-up (counts once), capture (does not), replay
+            assert CapturedStep.captures == captures + 1
+            assert tuple(b - a for a, b in zip(c0, counts())) == tuple(
+                2 * n for n in per_round)
+            c1, replays = counts(), CapturedStep.replays
+            for r in range(1, 4):
+                tier(r)
+            torch.cuda.synchronize()
+            assert CapturedStep.replays == replays + 3
+            assert CapturedStep.captures == captures + 1
+            assert tuple(b - a for a, b in zip(c1, counts())) == tuple(
+                3 * n for n in per_round)
+
+
+def test_a_replaced_net_is_copied_in_and_a_replaced_dataset_recaptured(
+        cuda, monkeypatch):
+    """The fused round's carry is donated: after a replay ``api.net`` is
+    the graph's static buffers. A replaced ``api.net`` is copied into them
+    (the same start and key give the same round, without a new capture);
+    a replaced ``api.train_fed`` is captured anew. cuDNN in deterministic
+    mode, as above."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.data import FederatedArrays
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _small_fedavg(cuda)
+    api.train_one_round(0)
+    start, key = _copy(api.net), api.rng.clone()
+    runs = []
+    for _ in range(2):
+        api.net, api.rng = _copy(start), key.clone()
+        captures = CapturedStep.captures
+        runs.append((api.train_one_round(1)["train_loss"], _vec(api.net)))
+        assert CapturedStep.captures == captures
+    assert runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
+    f = api.train_fed
+    api.train_fed = FederatedArrays(f.x.clone(), f.y.clone(),
+                                    f.mask.clone(), f.counts.clone())
+    api.net, api.rng = _copy(start), key.clone()
+    captures = CapturedStep.captures
+    loss = api.train_one_round(1)["train_loss"]
+    assert CapturedStep.captures == captures + 1
+    assert loss == runs[0][0] and torch.equal(_vec(api.net), runs[0][1])
+
+
+def test_a_capture_failure_raises_instead_of_running_eagerly(cuda):
+    """A host sync planted inside the step: the capture fails and raises
+    ``GraphCaptureError`` on every call, the round is never taken eagerly
+    (``api.net`` untouched, no replay), and the counters keep only the
+    warm-up's launches."""
+    from fedml_tpu_torch.algos import FedAvgAPI
+    from fedml_tpu_torch.core.graph import CapturedStep, GraphCaptureError
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    class _Syncing(FedAvgAPI):
+        def _build_fused_step(self):
+            step = super()._build_fused_step()
+
+            def synced(*args):
+                carry, loss = step(*args)
+                float(loss)  # a host sync inside the captured step
+                return carry, loss
+
+            return synced
+
+    api = _small_fedavg(cuda, cls=_Syncing)
+    net0 = _copy(api.net)
+    steps = api.train_fed.steps_per_epoch
+    for _ in range(2):
+        fwd, replays = gn.group_norm_fwd.launches, CapturedStep.replays
+        with pytest.raises(GraphCaptureError, match="does not run eagerly"):
+            api.train_one_round(0)
+        assert gn.group_norm_fwd.launches == fwd + 21 * steps  # warm-up
+        assert CapturedStep.replays == replays
+        assert torch.equal(_vec(api.net), _vec(net0))
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.ones(4, device=cuda).sum())

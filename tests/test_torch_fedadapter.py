@@ -246,10 +246,8 @@ def test_constructor_refusals(kw, err, match):
 def test_unported_tiers_and_checkpoints_raise_by_name():
     api = FedAdapterAPI(_model(), _fed(), None, _cfg(), loss_fn=LOSS,
                         device="cpu")
-    for name in ("train_rounds_on_device", "train_rounds_windowed",
-                 "train_rounds_pipelined"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(api, name)(2)
+    with pytest.raises(NotImplementedError, match="train_rounds_windowed"):
+        api.train_rounds_windowed(2)
     for call in (api.checkpoint_extra_state,
                  lambda: api.load_checkpoint_extra_state({})):
         with pytest.raises(NotImplementedError, match="checkpoint format"):
