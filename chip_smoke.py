@@ -70,7 +70,25 @@ Phases, each of which must pass or the script exits non-zero:
              the device busy time and idle share; the latter the device
              time by kernel, and shows, by name, that every forward ran on
              the cluster kernel.
-5. adapter — the FedAdapter training path at full width: FedAdapterAPI
+5. algos   — the algorithms on FedAvg's round at the train phase's
+             configuration: FedOptAPI adam (server lr 0.05): an eager
+             warm-up round, (a) with the server optimizer state held too,
+             (b) with the carried step count advanced by the rounds, and 3
+             timed train_rounds_on_device(3) calls; FedProxAPI (mu 0.01):
+             (a) and 3 replayed rounds; FedAvgRobustAPI (norm bound 5, the
+             scale drill on one adversary forced into every round) with
+             coord_median ((a) and 3 replayed rounds), trimmed_mean0.2,
+             krum1 and geometric_median8 (each (a)), one profiled replayed
+             round each, and each aggregator's device ms as the launches
+             its round has beyond a mean round's (same clip and drill) at
+             each kernel's mean time; FedNovaAPI on partition_dirichlet(
+             alpha 0.5) of the same samples (gamma must change per round):
+             train_rounds_pipelined(3) against two loops of 3 eager
+             rounds, then 3 counted replayed rounds, and
+             train_rounds_on_device refused with its capability record's
+             message. The GroupNorm launches are counted under replay (58
+             per local step each) and added to the kernels line.
+6. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -89,7 +107,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-6. report  — a ``kernels`` JSON line, the card's name and power limit,
+7. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -204,6 +222,14 @@ ADAPTER_STEP_TOL = 1e-3
 # 9.56e-3, the bf16 twin 9.41e-3 (bound 2.41e-2) and the planted fault
 # 1.45e-1.
 ADAPTER_BF16_FACTOR, ADAPTER_BF16_SLACK = 1.5, 1e-2
+
+# The algorithms on the training configuration: FedAdam's server lr (as
+# tests/test_algos.py uses it), FedProx's mu, the robust clip's bound, the
+# robust aggregators, FedNova's Dirichlet alpha, rounds per drive.
+ALGO_SERVER_LR, ALGO_PROX_MU, ALGO_NORM_BOUND = 0.05, 0.01, 5.0
+ALGO_AGGREGATORS = ("coord_median", "trimmed_mean0.2", "krum1",
+                    "geometric_median8")
+NOVA_ALPHA, ALGO_ROUNDS = 0.5, 3
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -1019,6 +1045,31 @@ def _net_vec(net):
     return torch.cat([t.float().flatten() for t in tree_leaves(net.params)])
 
 
+def _snapshot(api):
+    """The round state a pin starts each run from: the net, the key and
+    the algorithm's carry (FedOpt's server optimizer state)."""
+    from fedml_tpu_torch.core.graph import _map
+
+    return (_net_copy(api.net), api.rng.clone(),
+            _map(torch.clone, api._window_carry_init()))
+
+
+def _restore(api, snap):
+    from fedml_tpu_torch.core.graph import _map
+
+    net, key, carry = snap
+    api.net, api.rng = _net_copy(net), key.clone()
+    api._window_carry_commit(_map(torch.clone, carry))
+
+
+def _state_vec(api):
+    """The params and the carry as one f32 vector."""
+    from fedml_tpu_torch.core.graph import _leaves
+
+    return torch.cat([_net_vec(api.net)] + [
+        t.float().flatten() for t in _leaves(api._window_carry_init())])
+
+
 def _spread(runs):
     """max |Δ| of the params and of the losses between two runs, each a
     (param vector, [losses]) pair."""
@@ -1031,20 +1082,21 @@ def _hold_captured_round(api, round_idx, tag):
     """Pin (a): from one start, key and cohort, two eager rounds (the
     reference procedure) give the eager-versus-eager spread, and the
     captured fused round (``train_one_round``, whose first call warms up
-    and captures) must lie within it of the first eager round: bit-equal
-    when the eager rounds are. Leaves ``api`` after the captured round."""
+    and captures) must lie within it of the first eager round, params and
+    carry: bit-equal when the eager rounds are. Leaves ``api`` after the
+    captured round."""
     from fedml_tpu_torch.core.graph import CapturedStep
 
-    start, key = _net_copy(api.net), api.rng.clone()
+    start = _snapshot(api)
     eager, eager_ms = [], []
     for _ in range(2):
-        api.net, api.rng = _net_copy(start), key.clone()
+        _restore(api, start)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = _eager_round(api, round_idx).item()  # .item() syncs
         eager_ms.append((time.perf_counter() - t0) * 1e3)
-        eager.append((_net_vec(api.net), [loss]))
-    api.net, api.rng = _net_copy(start), key.clone()
+        eager.append((_state_vec(api), [loss]))
+    _restore(api, start)
     captures = CapturedStep.captures
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1052,7 +1104,7 @@ def _hold_captured_round(api, round_idx, tag):
     first_ms = (time.perf_counter() - t0) * 1e3
     graph = api._graphs["fused"]
     spread, loss_spread = _spread(eager)
-    dist, loss_dist = _spread([eager[0], (_net_vec(api.net), [loss])])
+    dist, loss_dist = _spread([eager[0], (_state_vec(api), [loss])])
     print(f"[{tag}] eager rounds (run_round + _server_update, the host "
           f"dispatching every op): {' / '.join(f'{t:.1f}' for t in eager_ms)}"
           f" ms", flush=True)
@@ -1061,7 +1113,8 @@ def _hold_captured_round(api, round_idx, tag):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     print(f"[{tag}] (a) captured fused round vs eager run_round + "
-          f"_server_update, one start, key and cohort: max|dparam| "
+          f"_server_update, one start, key and cohort: max|dparam| (params "
+          f"and carry) "
           f"{dist:.3e}, |dloss| {loss_dist:.3e}; eager vs eager "
           f"{spread:.3e}, {loss_spread:.3e} (must be within it; "
           f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
@@ -1080,9 +1133,9 @@ def _hold_on_device_rounds(api, n, tag):
     loops (bit-equal when they are)."""
     from fedml_tpu_torch.core import keys
 
-    start, key = _net_copy(api.net), api.rng.clone()
-    rng, cohorts = key.clone(), []
-    everyone = torch.arange(api.train_fed.num_clients, device=key.device)
+    start = _snapshot(api)
+    rng, cohorts = start[1].clone(), []
+    everyone = torch.arange(api.train_fed.num_clients, device=rng.device)
     for _ in range(n):
         pair = keys.split(rng)
         rng = pair[0]
@@ -1090,21 +1143,21 @@ def _hold_on_device_rounds(api, n, tag):
         cohorts.append(everyone if cohort is None else cohort)
     host = []
     for _ in range(2):
-        api.net, api.rng = _net_copy(start), key.clone()
+        _restore(api, start)
         api.sample_round = lambda r: cohorts[r]
         try:
             losses = [_eager_round(api, r).item() for r in range(n)]
         finally:
             del api.sample_round
-        host.append((_net_vec(api.net), losses))
-    api.net, api.rng = _net_copy(start), key.clone()
+        host.append((_state_vec(api), losses))
+    _restore(api, start)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = api.train_rounds_on_device(n).tolist()
     first_ms = (time.perf_counter() - t0) * 1e3
     graph = api._graphs["on_device"]
     spread, loss_spread = _spread(host)
-    dist, loss_dist = _spread([host[0], (_net_vec(api.net), losses)])
+    dist, loss_dist = _spread([host[0], (_state_vec(api), losses)])
     print(f"[{tag}] train_rounds_on_device({n}) warm call (captures): "
           f"{first_ms:.1f} ms, of which warm-up + capture "
           f"{graph.capture_ms:.1f} ms; peak device memory "
@@ -1112,7 +1165,8 @@ def _hold_on_device_rounds(api, n, tag):
           f"{[c.tolist() for c in cohorts]}",
           flush=True)
     print(f"[{tag}] (b) on-device rounds vs {n} eager host-loop rounds fed "
-          f"the same cohorts: max|dparam| {dist:.3e}, max|dloss| "
+          f"the same cohorts: max|dparam| (params and carry) {dist:.3e}, "
+          f"max|dloss| "
           f"{loss_dist:.3e}; host loop vs host loop {spread:.3e}, "
           f"{loss_spread:.3e} (must be within it; "
           f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
@@ -1202,6 +1256,16 @@ class _SkipOneSamplePerRow:
                 db - part_b.view(rows, last + 1, -1)[:, last])
 
 
+def _cifar_samples():
+    """The primary config's data: 128 x 256 CIFAR-shaped samples and
+    labels from the seed (bench.py _synthetic_cifar_fed)."""
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(TRAIN_CLIENTS * TRAIN_PER_CLIENT, 32, 32, 3).astype(
+        np.float32)
+    y = rng.randint(0, 10, size=len(x)).astype(np.int32)
+    return x, y
+
+
 def phase_train():
     """ResNet-56-GN FedAvg through FedAvgAPI at the primary config;
     returns {kernel name: launches in the timed rounds}."""
@@ -1215,10 +1279,7 @@ def phase_train():
     from fedml_tpu_torch.trainer.local import NetState
 
     t0 = time.perf_counter()
-    rng = np.random.RandomState(SEED)  # bench.py _synthetic_cifar_fed
-    x = rng.randn(TRAIN_CLIENTS * TRAIN_PER_CLIENT, 32, 32, 3).astype(
-        np.float32)
-    y = rng.randint(0, 10, size=len(x)).astype(np.int32)
+    x, y = _cifar_samples()
     fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
                                  TRAIN_BATCH, device="cuda")
     del x, y
@@ -1395,6 +1456,263 @@ def phase_train():
               and ran["gn_fwd_streamed_kernel"] == 0,
               f"the profiled round's GroupNorm forwards: {ran}")
     return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
+def _free():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _replayed_rounds(api, rounds, tag, steps, samples):
+    """``train_one_round`` for ``rounds`` (already captured), the GroupNorm
+    counts zeroed just before and read just after: 58 launches of each
+    kernel per local step, no forward streamed. Returns (fwd, bwd)."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    _zero_gn_counts()
+    replays = CapturedStep.replays
+    round_ms, losses = [], []
+    for r in rounds:
+        t0 = time.perf_counter()
+        losses.append(api.train_one_round(r)["train_loss"])  # syncs
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    replays = CapturedStep.replays - replays
+    want = len(rounds) * steps * RESNET56_GN
+    med = statistics.median(round_ms)
+    print(f"[{tag}] train_one_round (replayed) "
+          f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median {med:.1f}"
+          f" ms = {samples / med * 1e3:.1f} samples/s); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays; "
+          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
+          f"{want} each = {len(rounds)} rounds x {steps} steps x "
+          f"{RESNET56_GN}), streamed {streamed}, copies {copies}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(replays == len(rounds), f"{replays} replays in {len(rounds)} "
+          "rounds")
+    check(fwd == bwd == red == want,
+          f"GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, expected "
+          f"{want}")
+    check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
+    return fwd, bwd
+
+
+def _added_ms(rows, base):
+    """Device ms of the launches a profiled round has beyond a baseline
+    round: per kernel name, the extra launches at that kernel's mean
+    time. Returns (ms, launches)."""
+    have = {key: (count, ms) for key, count, ms in base}
+    ms = launches = 0
+    for key, count, t in rows:
+        extra = count - have.get(key, (0, 0.0))[0]
+        if extra > 0:
+            ms += t / count * extra
+            launches += extra
+    return ms, launches
+
+
+def phase_algos():
+    """The algorithms on FedAvg's round at the primary config (ResNet-56-GN
+    bf16, 128 x 256 samples, batch 32, 8 per round, sgd lr 0.1): FedAdam,
+    FedProx, FedAvgRobust with each robust aggregator and the attack
+    drill, and FedNova on a Dirichlet split. Returns {kernel name:
+    launches in its counted rounds}."""
+    from fedml_tpu_torch.algos import (FedAvgRobustAPI, FedConfig,
+                                       FedNovaAPI, FedOptAPI, FedProxAPI)
+    from fedml_tpu_torch.algos.capability import refusal
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      partition_dirichlet, partition_homo)
+    from fedml_tpu_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+    steps = fed.steps_per_epoch * cfg.epochs
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
+
+    def count(fwd, bwd):
+        counted["group_norm_fwd"] += fwd
+        counted["group_norm_bwd"] += bwd
+
+    def build(cls, data=fed, **kw):
+        model = create_model("resnet56", num_classes=10, dtype="bf16",
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        return cls(model, data, None, dataclasses.replace(cfg, **kw),
+                   device="cuda")
+
+    # 1. FedAdam: pins (a) and (b), the step count carried, three timed
+    # on-device calls.
+    tag = "algos/fedadam"
+    api = build(FedOptAPI, server_optimizer="adam", server_lr=ALGO_SERVER_LR)
+
+    def adam_count():
+        return int(api.server_opt_state["0"]["count"])
+
+    t0 = time.perf_counter()
+    warm = _eager_round(api, 0).item()
+    print(f"[{tag}] FedOptAPI adam, server lr {ALGO_SERVER_LR}; eager "
+          f"warm-up round {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+          f"{warm:.4f}, step count {adam_count()}", flush=True)
+    _hold_captured_round(api, 1, tag)
+    check(adam_count() == 2, f"step count {adam_count()} after 2 rounds")
+    before = adam_count()
+    _hold_on_device_rounds(api, ALGO_ROUNDS, tag)
+    check(adam_count() == before + ALGO_ROUNDS,
+          f"step count {adam_count()} after {ALGO_ROUNDS} on-device rounds "
+          f"from {before}")
+    before = adam_count()
+    fwd, bwd, red, copies, streamed = _time_on_device(
+        api, ALGO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
+        _gn_counts)
+    want = 3 * ALGO_ROUNDS * steps * RESNET56_GN
+    print(f"[{tag}] GroupNorm launches in the timed on-device calls: fwd "
+          f"{fwd}, bwd {bwd}, reduce {red} (expected {want} each); streamed "
+          f"{streamed}; step count {before} -> {adam_count()}", flush=True)
+    check(fwd == bwd == red == want, f"on-device GroupNorm launches fwd "
+          f"{fwd} bwd {bwd} reduce {red}, expected {want}")
+    check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
+    check(adam_count() == before + 3 * ALGO_ROUNDS,
+          f"step count {adam_count()} after {3 * ALGO_ROUNDS} rounds from "
+          f"{before}")
+    count(fwd, bwd)
+    del api
+    _free()
+
+    # 2. FedProx: pin (a), three replayed rounds.
+    tag = "algos/fedprox"
+    api = build(FedProxAPI, fedprox_mu=ALGO_PROX_MU)
+    print(f"[{tag}] FedProxAPI mu {ALGO_PROX_MU}", flush=True)
+    _hold_captured_round(api, 0, tag)
+    count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag, steps,
+                            samples))
+    del api
+    _free()
+
+    # 3. FedAvgRobust: norm clip, the scale drill on one adversary in every
+    # round, and each robust aggregator; a mean round with the same clip
+    # and drill is the profile's baseline.
+    drill = dict(robust_norm_bound=ALGO_NORM_BOUND, corrupt_mode="scale",
+                 attack_num_adversaries=1, attack_freq=1)
+    profiles = {}
+    for spec in ("mean",) + ALGO_AGGREGATORS:
+        tag = f"algos/robust-{spec}"
+        api = build(FedAvgRobustAPI, aggregator=spec, **drill)
+        if spec == "mean":
+            api.train_one_round(0)  # captures
+        else:
+            print(f"[{tag}] FedAvgRobustAPI aggregator {spec}, norm bound "
+                  f"{ALGO_NORM_BOUND}, corrupt_mode scale x"
+                  f"{api.cfg.corrupt_scale}, adversary "
+                  f"{api.adversary_clients.tolist()} in every round; "
+                  f"cohort of round 0 {api.sample_round(0).tolist()}",
+                  flush=True)
+            _hold_captured_round(api, 0, tag)
+        if spec == ALGO_AGGREGATORS[0]:
+            count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag,
+                                    steps, samples))
+        profiles[spec] = _profile_round(
+            lambda: api.train_one_round(ALGO_ROUNDS + 1),
+            f"replayed round, aggregator {spec}", tag=tag, top=0)
+        del api
+        _free()
+    for spec in ALGO_AGGREGATORS:
+        if profiles[spec] and profiles["mean"]:
+            ms, n = _added_ms(profiles[spec], profiles["mean"])
+            print(f"[algos/robust-{spec}] aggregator in the profiled round: "
+                  f"{ms:.3f} ms device time over {n} launches beyond the "
+                  f"mean round's (same clip and drill)", flush=True)
+        else:
+            print(f"[algos/robust-{spec}] aggregator device ms: not "
+                  "measured (no profiler device time)", flush=True)
+    del fed
+    _free()
+
+    # 4. FedNova on a Dirichlet split of the same samples: unequal client
+    # sizes, so tau, q and gamma change from round to round.
+    tag = "algos/fednova"
+    parts = partition_dirichlet(y, TRAIN_CLIENTS, NOVA_ALPHA, seed=SEED)
+    sizes = sorted(len(v) for v in parts.values())
+    nfed = build_federated_arrays(x, y, parts, TRAIN_BATCH, device="cuda")
+    del x, y
+    nsteps = nfed.steps_per_epoch * cfg.epochs
+    api = build(FedNovaAPI, data=nfed)
+    gammas = [float(api._round_aux(r, api.sample_round(r))[1])
+              for r in range(ALGO_ROUNDS)]
+    print(f"[{tag}] FedNovaAPI on partition_dirichlet(alpha {NOVA_ALPHA}): "
+          f"client sizes {sizes[0]}..{sizes[-1]} (median "
+          f"{sizes[len(sizes) // 2]}), {nsteps} packed steps per epoch; "
+          f"gamma of rounds 0-{ALGO_ROUNDS - 1}: {gammas}", flush=True)
+    check(len(set(gammas)) == ALGO_ROUNDS and 1.0 not in gammas,
+          f"FedNova's gamma does not change per round: {gammas}")
+    start = _snapshot(api)
+    host, host_ms = [], []
+    for _ in range(2):
+        _restore(api, start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [_eager_round(api, r).item() for r in range(ALGO_ROUNDS)]
+        host_ms.append((time.perf_counter() - t0) * 1e3 / ALGO_ROUNDS)
+        host.append((_state_vec(api), losses))
+    _restore(api, start)
+    replays = CapturedStep.replays
+    t0 = time.perf_counter()
+    losses = api.train_rounds_pipelined(ALGO_ROUNDS)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    spread, loss_spread = _spread(host)
+    dist, loss_dist = _spread([host[0], (_state_vec(api), losses)])
+    print(f"[{tag}] eager rounds {' / '.join(f'{t:.1f}' for t in host_ms)} "
+          f"ms each; train_rounds_pipelined({ALGO_ROUNDS}) first call "
+          f"(captures) {first_ms:.1f} ms, of which warm-up + capture "
+          f"{api._graphs['fused'].capture_ms:.1f} ms; vs the eager rounds: "
+          f"max|dparam| {dist:.3e}, max|dloss| {loss_dist:.3e}; eager vs "
+          f"eager {spread:.3e}, {loss_spread:.3e} (must be within it; "
+          f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
+          flush=True)
+    check(CapturedStep.replays - replays == ALGO_ROUNDS,
+          f"{CapturedStep.replays - replays} replays in {ALGO_ROUNDS} rounds")
+    check(dist <= spread and loss_dist <= loss_spread,
+          f"the pipelined FedNova rounds are {dist}, {loss_dist} from the "
+          f"eager ones, two eager loops {spread}, {loss_spread} apart")
+    _zero_gn_counts()
+    t0 = time.perf_counter()
+    losses = api.train_rounds_pipelined(ALGO_ROUNDS, start_round=ALGO_ROUNDS)
+    ms = (time.perf_counter() - t0) * 1e3 / ALGO_ROUNDS
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    want = ALGO_ROUNDS * nsteps * RESNET56_GN
+    print(f"[{tag}] train_rounds_pipelined({ALGO_ROUNDS}) replayed: {ms:.1f}"
+          f" ms a round; losses {' '.join(f'{v:.4f}' for v in losses)}; "
+          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
+          f"{want} each = {ALGO_ROUNDS} rounds x {nsteps} steps x "
+          f"{RESNET56_GN}), streamed {streamed}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(fwd == bwd == red == want, f"FedNova GroupNorm launches fwd {fwd}"
+          f" bwd {bwd} reduce {red}, expected {want}")
+    check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
+    count(fwd, bwd)
+    want_msg = refusal(FedNovaAPI, "train_rounds_on_device")
+    try:
+        api.train_rounds_on_device(1)
+    except NotImplementedError as exc:
+        check(str(exc) == want_msg, f"FedNova's on-device refusal: {exc}")
+        print(f"[{tag}] train_rounds_on_device refused: {exc}", flush=True)
+    else:
+        raise SmokeFailure("FedNova's on-device tier ran; its record "
+                           "refuses it")
+    del api, nfed
+    _free()
+    print(f"[algos] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"GroupNorm launches counted {counted}", flush=True)
+    return counted
 
 
 class _SkipLastQTile:
@@ -1666,6 +1984,8 @@ def main() -> int:
                + phase_gn_kernels(peaks))
     launches = phase_serve()
     launches.update(phase_train())
+    for name, n in phase_algos().items():
+        launches[name] += n
     adapter = phase_adapter()
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "
           f"adapter {adapter['flash_fwd']}", flush=True)

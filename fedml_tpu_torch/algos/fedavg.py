@@ -18,9 +18,16 @@ single-device, resident (``FederatedArrays``), ``client_selection=
   ``lax.scan`` over rounds).
 
 On the CPU (``device="cpu"``) the same steps run eagerly. ``run_round``
-+ ``_server_update`` stay as the eager reference procedure. The windowed
-tier, meshes, streaming stores, other selection modes, compression and
-layouts are not ported yet: asking for any of them raises, by name.
++ ``_server_update`` stay as the eager reference procedure. Which tiers a
+subclass rides is its capability record's answer (``algos/capability``);
+the hooks the algorithm zoo builds on are ``_build_local_train``,
+``_client_transform``, ``_corruptor``, ``_make_vmap_round``, the pure
+server update of the carry protocol and ``_round_aux`` (per-round
+operands computed on the host, passed to the captured steps as device
+tensors). ``cfg.aggregator`` picks the server reduction
+(``core/robust_agg``). The windowed tier, meshes, streaming stores, other
+selection modes, compression and layouts are not ported yet: asking for
+any of them raises, by name.
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from fedml_tpu_torch.algos.capability import record_for, refusal
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.core.graph import CapturedStep
+from fedml_tpu_torch.core.robust_agg import make_aggregator
 from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
 from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
                                             make_vmap_round)
@@ -44,11 +53,15 @@ from fedml_tpu_torch.trainer.local import (make_client_optimizer,
                                            model_fns, softmax_ce)
 
 #: FedConfig fields that the JAX FedAvgAPI reads and the port does not
-#: implement yet; a non-default value is refused at construction.
-UNPORTED_FIELDS = ("aggregator", "group_reduce", "corrupt_mode",
-                   "client_selection", "compress", "wire_codec",
-                   "ingest_workers", "compute_layout", "client_step_dtype",
-                   "remat", "dp_clip", "dp_noise_multiplier")
+#: implement yet, each with the ROADMAP.md queue that ports it; a
+#: non-default value is refused at construction.
+UNPORTED_FIELDS = {
+    "remat": "A3", "dp_clip": "A3", "dp_noise_multiplier": "A3",
+    "client_selection": "A5", "compress": "A5", "compute_layout": "A5",
+    "client_step_dtype": "A5",
+    "wire_codec": "A10", "ingest_workers": "A10",
+    "group_reduce": "A11",
+}
 #: fold_in child of a round's key that draws its on-device cohort, as in
 #: the JAX package's train_rounds_on_device.
 _COHORT_TAG = 0x5A
@@ -56,12 +69,13 @@ _COHORT_TAG = 0x5A
 
 def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
     defaults = {f.name: f.default for f in dataclasses.fields(FedConfig)}
-    for name in fields:
+    for name, label in fields.items():
         val = getattr(cfg, name, defaults[name])
         if val != defaults[name]:
             raise NotImplementedError(
                 f"cfg.{name}={val!r} is not ported yet to the PyTorch "
-                f"{who} (ROADMAP.md A5); leave it at {defaults[name]!r}")
+                f"{who} (ROADMAP.md {label}); leave it at "
+                f"{defaults[name]!r}")
 
 
 class FedAvgAPI(FederatedLoop):
@@ -89,7 +103,8 @@ class FedAvgAPI(FederatedLoop):
     #: means its round is exactly ``run_round`` + ``_server_update``, with
     #: the PURE form of the server update from
     #: :meth:`_window_server_update` (the JAX package's carry protocol).
-    #: The port has no "custom" protocol yet (SCAFFOLD's, ROADMAP.md A7).
+    #: The port has no "custom" protocol algorithm yet (SCAFFOLD's,
+    #: ROADMAP.md A7). The capability record is derived from it.
     window_protocol: Optional[str] = "round"
 
     def __init__(self, model, train_fed: FederatedArrays, test_global,
@@ -120,6 +135,22 @@ class FedAvgAPI(FederatedLoop):
                 f"size {train_fed.batch_size}; build_federated_arrays with "
                 "the same batch_size as the config")
         self.cfg = cfg
+        self._aggregator = make_aggregator(cfg.aggregator)
+        rec = self.capability()
+        if not self._aggregator.is_mean and (
+                rec.custom_round or rec.custom_builders or rec.custom_step):
+            raise NotImplementedError(
+                f"{type(self).__name__} customizes the round or its "
+                f"aggregation; cfg.aggregator={cfg.aggregator!r} only "
+                "rides the FedAvg family's shared round builder (a custom "
+                "round would silently keep its own aggregation)")
+        if (cfg.corrupt_mode != "none"
+                and type(self)._corruptor is FedAvgAPI._corruptor):
+            raise NotImplementedError(
+                f"cfg.corrupt_mode={cfg.corrupt_mode!r} drives the device-"
+                "side corruption drill, which needs adversary wiring "
+                "(per-round adversary masks); use FedAvgRobustAPI — on "
+                f"{type(self).__name__} the flag would be silently inert")
         self.test_global = test_global
         self.model = model.to(self.device)
         self.fns = self._model_fns(self.model)
@@ -144,10 +175,42 @@ class FedAvgAPI(FederatedLoop):
         cfg = self.cfg
         optimizer = make_client_optimizer(cfg.client_optimizer, lr, cfg.wd,
                                           cfg.grad_clip)
-        self.local_train = make_local_train_fn(self.fns.apply, optimizer,
-                                               cfg.epochs, self._loss_fn)
-        self.round_fn = make_vmap_round(self.local_train,
-                                        nan_guard=self._nan_guard)
+        self.local_train = self._build_local_train(optimizer, self._loss_fn)
+        self.round_fn = self._make_vmap_round(
+            self.local_train, self._client_transform(), self._nan_guard)
+
+    # --- hooks the algorithms override -------------------------------------
+    def _build_local_train(self, optimizer, loss_fn):
+        """The local trainer; FedProx adds its proximal gradient here."""
+        return make_local_train_fn(self.fns.apply, optimizer,
+                                   self.cfg.epochs, loss_fn)
+
+    def _make_vmap_round(self, local_train, transform, guard):
+        """The round builder; FedNova wraps its normalized averaging
+        around it."""
+        return make_vmap_round(local_train, client_transform=transform,
+                               nan_guard=guard, aggregator=self._aggregator,
+                               corruptor=self._corruptor())
+
+    def _client_transform(self):
+        """``(global_net, client_net) -> client_net`` applied to each
+        trained client before aggregation (robust clipping), or None."""
+        return None
+
+    def _corruptor(self):
+        """The device-side attack drill (``UpdateCorruptor.device_fn()``),
+        or None; a class that arms it supplies the per-round adversary
+        mask through ``_round_aux``."""
+        return None
+
+    def capability(self):
+        """This class's capability record (``algos/capability``), on which
+        every tier's guard keys."""
+        return record_for(type(self))
+
+    def _require(self, tier: str, allowed: bool) -> None:
+        if not allowed:
+            raise NotImplementedError(refusal(type(self), tier))
 
     def set_client_lr(self, lr: float) -> None:
         """Rebuild the round for a new client learning rate (the hook of
@@ -177,14 +240,9 @@ class FedAvgAPI(FederatedLoop):
         is the average, no carry), else ``(net, avg, extra, key) -> (net',
         extra')`` with ``extra`` the carried server state and ``key`` the
         round's key. A subclass that overrides ``_server_update`` must
-        override this too: inheriting the plain average would silently
-        change its semantics inside the captured step."""
-        if type(self)._server_update is not FedAvgAPI._server_update:
-            raise NotImplementedError(
-                f"{type(self).__name__} overrides _server_update without "
-                "providing its pure windowed form; override "
-                "_window_server_update (and the carry init/commit hooks): "
-                "every round tier of the port runs the fused step")
+        override this too, or its capability record refuses every tier:
+        inheriting the plain average would silently change its semantics
+        inside the captured step."""
         return None
 
     def _window_carry_init(self):
@@ -198,14 +256,11 @@ class FedAvgAPI(FederatedLoop):
 
     def _build_fused_step(self):
         """The one-round step both tiers capture: ``step(net, extra, x, y,
-        mask, weights, key) -> ((net', extra'), loss)``, ``round_fn`` with
-        the pure server update folded in."""
+        mask, weights, key, *aux) -> ((net', extra'), loss)``, ``round_fn``
+        with the pure server update folded in."""
         if self.window_protocol != "round":
             raise NotImplementedError(
-                f"{type(self).__name__} declares window_protocol="
-                f"{self.window_protocol!r}; the port's fused and on-device "
-                "rounds serve the 'round' protocol only (custom carries: "
-                "ROADMAP.md A7)")
+                refusal(type(self), "the fused round step"))
         return make_fused_round_step(self.round_fn,
                                      self._window_server_update())
 
@@ -235,49 +290,59 @@ class FedAvgAPI(FederatedLoop):
     # --- fused round: one replay per host-loop round -----------------------
     def _fused_round_step(self) -> CapturedStep:
         """The cached fused round — client gather, training, aggregation and
-        the server update in one captured step ``((net, extra), idx, key)
-        -> ((net', extra'), loss)``."""
+        the server update in one captured step ``((net, extra), idx, key,
+        *aux) -> ((net', extra'), loss)``; the round's ``_round_aux``
+        tensors are step arguments, copied in at every replay."""
 
         def build():
             step = self._build_fused_step()
 
-            def gather_step(carry, idx, key):
+            def gather_step(carry, idx, key, *aux):
                 sub = gather_clients(self.train_fed, idx)
                 w = sub.counts.float()
-                return step(*carry, sub.x, sub.y, sub.mask, w, key)
+                return step(*carry, sub.x, sub.y, sub.mask, w, key, *aux)
 
             return gather_step
 
         return self._captured("fused", build)
 
     def _cohort_on_device(self, idx) -> torch.Tensor:
-        """The sampled cohort on the device without waiting for it: a host
-        array goes through pinned memory and a non-blocking copy (the
-        caching host allocator keeps the pinned buffer until the copy is
-        done), so the replays already queued keep running."""
+        """The sampled cohort on the device without waiting for it."""
         if torch.is_tensor(idx):
             return idx.to(self.device, torch.int64)
-        host = torch.from_numpy(np.asarray(idx, np.int64))
+        return self._to_device(np.asarray(idx, np.int64))
+
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for it: through
+        pinned memory and a non-blocking copy (the caching host allocator
+        keeps the pinned buffer until the copy is done), so the replays
+        already queued keep running."""
+        t = torch.tensor(host)
         if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _train_round_fused(self, round_idx: int):
         """One host-loop round through the fused step: ``run_round``'s
-        prelude (round key, sampled cohort on the device, with no sync),
-        one replay, the carry committed back. Returns the round's loss, a
-        device tensor that the next round overwrites."""
+        prelude (round key, sampled cohort and the round's aux operands on
+        the device, with no sync), one replay, the carry committed back.
+        Returns the round's loss, a device tensor that the next round
+        overwrites."""
         self._check_resident()
         step = self._fused_round_step()
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
-        idx = self._cohort_on_device(self.sample_round(round_idx))
+        self._last_round_key = rnd_rng
+        idx = self.sample_round(round_idx)
+        aux = self._round_aux(round_idx, idx)
         (self.net, extra), loss = step(
-            (self.net, self._window_carry_init()), idx, rnd_rng)
+            (self.net, self._window_carry_init()),
+            self._cohort_on_device(idx), rnd_rng, *aux)
         self._window_carry_commit(extra)
         return loss
 
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
+        self._require("train_one_round", self.capability().fused)
         loss = self._train_round_fused(round_idx)
         return {"round": round_idx, "train_loss": float(loss)}
 
@@ -287,6 +352,7 @@ class FedAvgAPI(FederatedLoop):
         is on the device, and the losses are fetched once at the end.
         Per-round semantics are those of ``train_one_round`` in a loop
         (test-pinned bit-equal); no evaluation."""
+        self._require("train_rounds_pipelined", self.capability().fused)
         losses = [self._train_round_fused(r).clone()
                   for r in range(start_round, start_round + n_rounds)]
         return torch.stack(losses).tolist() if losses else []
@@ -313,7 +379,10 @@ class FedAvgAPI(FederatedLoop):
         participation this is bit-equal to the host loop (test-pinned);
         with subsampling the cohorts come from the keys, not from the
         reference's ``np.random.seed(round_idx)`` stream, as in JAX. The
-        incoming ``api.net`` is donated (see the class docstring)."""
+        incoming ``api.net`` is donated (see the class docstring). A class
+        whose round takes per-round host operands (``_round_aux``) is
+        refused by its record."""
+        self._require("train_rounds_on_device", self.capability().on_device)
         self._check_resident()
 
         def build():

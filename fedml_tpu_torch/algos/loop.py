@@ -33,18 +33,30 @@ class FederatedLoop:
                              self.cfg.client_num_per_round)
         return idx
 
+    def _round_aux(self, round_idx: int, idx):
+        """Trailing operands of ``round_fn`` beyond the standard seven,
+        computed on the host per round from the cohort ``idx`` and handed
+        over as device tensors (FedNova's τ-normalized weights, the attack
+        drill's adversary mask). Default: none."""
+        return ()
+
     def run_round(self, round_idx: int):
         """One sampled round, eagerly: gather the cohort on the device,
-        weight it by true sample counts, fresh round key. Returns
-        ``(avg_net, mean_loss)`` without touching ``self.net``. With
-        ``_server_update`` it is the reference procedure that the captured
-        fused and on-device rounds are held to."""
+        weight it by true sample counts, fresh round key (kept as
+        ``_last_round_key``: a randomized server update folds in from
+        it). Returns ``(avg_net, mean_loss)`` without touching
+        ``self.net``. With ``_server_update`` it is the reference
+        procedure that the captured fused and on-device rounds are held
+        to."""
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
-        sub = gather_clients(self.train_fed, self.sample_round(round_idx))
+        self._last_round_key = rnd_rng
+        idx = self.sample_round(round_idx)
+        aux = self._round_aux(round_idx, idx)
+        sub = gather_clients(self.train_fed, idx)
         weights = sub.counts.float()
         return self.round_fn(self.net, sub.x, sub.y, sub.mask, weights,
-                             weights, rnd_rng)
+                             weights, rnd_rng, *aux)
 
     def _per_client_eval(self, net, x, y, mask, net_dim=None):
         """``eval_fn`` over a client-stacked layout (``x [C, S, B, ...]``),

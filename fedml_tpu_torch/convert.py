@@ -1,5 +1,5 @@
-"""Weights carried across from a flax param tree: ``transformer_lm`` and the
-CIFAR ResNets (``CifarResNet``).
+"""Weights carried across from a flax param tree: ``transformer_lm``, the
+CIFAR ResNets (``CifarResNet``) and ``LogisticRegression``.
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
@@ -67,7 +67,7 @@ def _flax_leaf(module_path, torch_name):
     if torch_name == "bias":
         return "bias"
     return {"Dense": "kernel", "Conv": "kernel", "downsample": "kernel",
-            "Embed": "embedding", "LayerNorm": "scale",
+            "linear": "kernel", "Embed": "embedding", "LayerNorm": "scale",
             "GroupNorm": "scale"}[kind]
 
 

@@ -9,12 +9,14 @@ uniform draw hashes the key once more. Everything is elementwise, so a
 only on its parent and its index (the prefix-stability the JAX trainer's
 shuffle relies on, ``fedml_tpu/trainer/local.py:125-134``).
 
-No function here reads a tensor on the host or copies one from it (an
+``normal`` turns pairs of uniforms into Gaussians. No function here reads a tensor on the host or copies one from it (an
 integer ``data`` is hashed in Python), so every one can run inside a
 captured CUDA graph (``core/graph.py``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -77,3 +79,17 @@ def choice(k, n: int, size: int):
     idx = torch.arange(n, dtype=torch.int64, device=k.device)
     u = uniform(fold_in(k[..., None], idx))
     return torch.argsort(u, dim=-1, stable=True)[..., :size]
+
+
+def normal(k, shape, dtype=torch.float32):
+    """Standard normals of ``shape`` per key: ``[..., *shape]`` for keys
+    ``k [...]``. Element ``i`` is a Box-Muller draw from the uniforms of
+    ``fold_in(k, 2i)`` and ``fold_in(k, 2i + 1)``, so it depends only on
+    the key and its index (24-bit uniforms: the tails end near 5.8σ)."""
+    shape = tuple(shape)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device)
+    kk = k[..., None]
+    u1 = uniform(fold_in(kk, 2 * idx))
+    u2 = uniform(fold_in(kk, 2 * idx + 1))
+    z = torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos((2 * math.pi) * u2)
+    return z.reshape(*k.shape, *shape).to(dtype)

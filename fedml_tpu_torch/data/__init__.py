@@ -6,8 +6,10 @@ from fedml_tpu_torch.data.batching import (FederatedArrays, batch_global,
                                            gather_clients)
 from fedml_tpu_torch.data.partition import (partition_dirichlet,
                                             partition_homo)
-from fedml_tpu_torch.data.synthetic import make_image_classification
+from fedml_tpu_torch.data.synthetic import (make_classification,
+                                            make_image_classification)
 
 __all__ = ["FederatedArrays", "batch_global", "build_federated_arrays",
-           "gather_clients", "make_image_classification",
+           "gather_clients", "make_classification",
+           "make_image_classification",
            "partition_dirichlet", "partition_homo"]

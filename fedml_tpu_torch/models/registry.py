@@ -34,6 +34,7 @@ def create_model(name: str, **kwargs):
     raises without one); the tests pass ``device="cpu"``."""
     if name not in _REGISTRY:
         # Import side-effect registration; import errors propagate.
+        import fedml_tpu_torch.models.lr  # noqa: F401
         import fedml_tpu_torch.models.resnet  # noqa: F401
         import fedml_tpu_torch.models.transformer  # noqa: F401
     if name not in _REGISTRY:

@@ -4,14 +4,18 @@
 
 All sampled clients train together: each local step runs under
 ``torch.func.vmap`` over the client dim (``LocalTrain.run_clients``), and
-the server's sample-weighted average is one f32 reduction per leaf. The
-mesh-sharded round, robust aggregators, client transforms and the attack
-drill are not ported yet; asking for them raises.
+the server's sample-weighted average is one f32 reduction per leaf, or a
+robust aggregator (``core/robust_agg``) over the client-stacked params.
+Client transforms (robust clipping) and the device-side attack drill
+(``core/faults.UpdateCorruptor.device_fn``) run on the trained stack
+before it is aggregated. The mesh-sharded round is not ported yet
+(ROADMAP.md A11).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
 
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.tree import tree_leaves, tree_map, tree_weighted_mean
@@ -33,17 +37,36 @@ def client_finite_mask(client_params):
     return torch.stack(flags).all(dim=0).float()
 
 
+#: fold_in children of a client's key for the corruptor's streams, disjoint
+#: from the streams its training consumed (as in the JAX package).
+_CORRUPT_TAG = 0xC0
+
+
 def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
-                        mask, rngs, corruptor=None):
-    """Local training of the cohort, then the NaN guard: returns
-    ``(client_nets, losses [C], finite [C])``, with a diverged client's
-    params and loss zeroed (``torch.where``: NaN·0 is still NaN) and
-    ``finite`` 0 for it (all ones when the guard is off)."""
-    if client_transform is not None or corruptor is not None:
-        raise NotImplementedError(
-            "client transforms and the corruption drill are not ported yet "
-            "(ROADMAP.md A7)")
+                        mask, rngs, corruptor=None, adv=None):
+    """Local training of the cohort, then the attack drill, the client
+    transform and the NaN guard, in that order (the server's defenses see
+    the corrupted updates): returns ``(client_nets, losses [C], finite
+    [C])``, with a diverged client's params and loss zeroed
+    (``torch.where``: NaN·0 is still NaN) and ``finite`` 0 for it (all
+    ones when the guard is off).
+
+    ``corruptor(global_net, client_nets, adv, rngs) -> client_nets``
+    corrupts the slots where ``adv [C] > 0``, with per-client streams
+    ``fold_in(rng, 0xC0)``. ``client_transform(global_net, client_net) ->
+    client_net`` maps one client's trained net; it runs under ``vmap``
+    over the cohort."""
     client_nets, losses = local_train.run_clients(net, x, y, mask, rngs)
+    if corruptor is not None:
+        client_nets = corruptor(net, client_nets, adv,
+                                keys.fold_in(rngs, _CORRUPT_TAG))
+    if client_transform is not None:
+        state = client_nets.model_state
+
+        def one(params):
+            return client_transform(net, NetState(params, state)).params
+
+        client_nets = NetState(vmap(one)(client_nets.params), state)
     if not nan_guard:
         return client_nets, losses, torch.ones_like(losses)
     finite = client_finite_mask(client_nets.params)
@@ -58,6 +81,15 @@ def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
     return NetState(params, client_nets.model_state), losses, finite
 
 
+def _robust_avg(aggregator, client_params, weights, params):
+    """A non-mean aggregator's result, or the previous global model when
+    no client carries weight (order statistics over no participant would
+    leak their ±inf exclusion sentinels into the model)."""
+    avg = aggregator(client_params, weights)
+    any_ok = (weights > 0).any()
+    return tree_map(lambda a, p: torch.where(any_ok, a, p), avg, params)
+
+
 def make_vmap_round(local_train, client_transform=None,
                     nan_guard: bool = False, aggregator=None,
                     corruptor=None):
@@ -67,28 +99,45 @@ def make_vmap_round(local_train, client_transform=None,
     ``weights [C]`` weight the model average, ``loss_weights [C]`` the
     reported loss; padded slots carry 0 in both. ``nan_guard`` zero-weights
     a client whose trained model is not finite, and keeps the previous
-    model when every client is excluded."""
-    if aggregator is not None and not getattr(aggregator, "is_mean", False):
-        raise NotImplementedError(
-            "robust aggregators are not ported yet (ROADMAP.md A7)")
+    model when every client is excluded.
 
-    def round_fn(net, x, y, mask, weights, loss_weights, rng):
+    ``aggregator`` (``core/robust_agg``): ``None`` or an ``is_mean`` one
+    keeps the weighted mean; any other receives the client-stacked params
+    and the weights after the finite mask (the port's models keep no
+    per-client state, so the params are what is stacked). ``corruptor``
+    arms the attack drill: the round then takes a trailing ``adv [C]``
+    operand, the adversary mask."""
+    if aggregator is not None and getattr(aggregator, "is_mean", False):
+        aggregator = None
+
+    def round_core(net, x, y, mask, weights, loss_weights, rng, adv):
         rngs = client_rngs(rng, x.shape[0], 0)
         client_nets, losses, finite = run_clients_guarded(
             local_train, client_transform, nan_guard, net, x, y, mask, rngs,
-            corruptor)
+            corruptor, adv)
         weights = weights * finite
         loss_weights = loss_weights * finite
-        avg = tree_weighted_mean(client_nets.params, weights)
-        if nan_guard:
-            # Every sampled client diverged: keep the previous global model
-            # (a zero-total weighted mean would silently zero the params).
-            any_ok = weights.sum() > 0
-            avg = tree_map(lambda a, p: torch.where(any_ok, a, p), avg,
-                           net.params)
+        if aggregator is None:
+            avg = tree_weighted_mean(client_nets.params, weights)
+            if nan_guard:
+                # Every sampled client diverged: keep the previous global
+                # model (a zero-total weighted mean would silently zero the
+                # params).
+                any_ok = weights.sum() > 0
+                avg = tree_map(lambda a, p: torch.where(any_ok, a, p), avg,
+                               net.params)
+        else:
+            avg = _robust_avg(aggregator, client_nets.params, weights,
+                              net.params)
         lw = loss_weights / torch.clamp(loss_weights.sum(), min=1e-12)
         mean_loss = (losses * lw).sum()
         return NetState(avg, net.model_state), mean_loss
+
+    if corruptor is not None:
+        return round_core
+
+    def round_fn(net, x, y, mask, weights, loss_weights, rng):
+        return round_core(net, x, y, mask, weights, loss_weights, rng, None)
 
     return round_fn
 

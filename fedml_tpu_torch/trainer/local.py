@@ -201,12 +201,16 @@ class LocalTrain:
     leading client dim), which runs each step under ``vmap``."""
 
     def __init__(self, apply_fn, optimizer: Optimizer, local_epochs: int,
-                 loss_fn=softmax_ce):
+                 loss_fn=softmax_ce, extra_grad_fn=None):
         self.apply_fn, self.optimizer = apply_fn, optimizer
         self.local_epochs, self.loss_fn = local_epochs, loss_fn
+        self.extra_grad_fn = extra_grad_fn
 
-    def step(self, params, opt_state, model_state, xb, yb, mb):
-        """One masked step; an all-masked batch returns its inputs."""
+    def step(self, params, opt_state, model_state, xb, yb, mb, anchor=None):
+        """One masked step; an all-masked batch returns its inputs.
+        ``extra_grad_fn(params, anchor)`` is added to the gradient before
+        the optimizer update (``anchor``: the params the client started
+        the round from)."""
 
         def masked_loss(p):
             logits, _ = self.apply_fn(NetState(p, model_state), xb,
@@ -215,6 +219,9 @@ class LocalTrain:
             return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
 
         grads, loss = grad_and_value(masked_loss)(params)
+        if self.extra_grad_fn is not None:
+            grads = tree_map(torch.add, grads,
+                             self.extra_grad_fn(params, anchor))
         updates, new_opt = self.optimizer.update(grads, opt_state, params)
         new_params = apply_updates(params, updates)
         nb = mb.sum()
@@ -223,15 +230,19 @@ class LocalTrain:
                 tree_select(nonempty, new_opt, opt_state), loss, nb)
 
     def _epochs(self, params, opt_state, model_state, x, y, mask, rng,
-                batched: bool):
-        """The epoch/step loop shared by one client and the cohort."""
+                batched: bool, anchor=None, anchor_dim=None):
+        """The epoch/step loop shared by one client and the cohort;
+        ``anchor`` (batched along ``anchor_dim``) goes to ``extra_grad_fn``
+        at every step."""
         n_steps = mask.shape[-2]
         rng_pair = keys.split(rng)
         epoch_keys = keys.split(rng_pair[..., 1], self.local_epochs)
         step = self.step
         if batched:
             x_dim = x.dim() - 3  # client dim of a step's client-inner x
-            step = vmap(self.step, in_dims=(0, 0, None, x_dim, 0, 0))
+            step = vmap(self.step, in_dims=(
+                0, 0, None, x_dim, 0, 0,
+                None if anchor is None else anchor_dim))
         epoch_losses = []
         for e in range(self.local_epochs):
             perm = epoch_perm(mask, keys.fold_in(epoch_keys[..., e], 0))
@@ -244,7 +255,8 @@ class LocalTrain:
             losses, ns = [], []
             for s in range(n_steps):
                 params, opt_state, loss, nb = step(
-                    params, opt_state, model_state, ex[s], ey[s], em[s])
+                    params, opt_state, model_state, ex[s], ey[s], em[s],
+                    anchor)
                 losses.append(loss)
                 ns.append(nb)
             losses, ns = torch.stack(losses), torch.stack(ns)
@@ -255,8 +267,12 @@ class LocalTrain:
     def __call__(self, net: NetState, x, y, mask, rng):
         opt_state = self.optimizer.init(net.params)
         params, loss = self._epochs(net.params, opt_state, net.model_state,
-                                    x, y, mask, rng, batched=False)
+                                    x, y, mask, rng, batched=False,
+                                    anchor=self._anchor(net.params))
         return NetState(params, net.model_state), loss
+
+    def _anchor(self, params):
+        return params if self.extra_grad_fn is not None else None
 
     def run_clients(self, net: NetState, x, y, mask, rngs):
         """The cohort: ``x [C, S, B, ...]``, ``y``/``mask [C, S, B]``,
@@ -264,20 +280,27 @@ class LocalTrain:
         params, losses ``[C]``)."""
         c = x.shape[0]
         params = tree_map(lambda t: _per_client(t, c), net.params)
-        return self.run_stacked(NetState(params, net.model_state), x, y,
-                                mask, rngs)
+        return self._run_cohort(NetState(params, net.model_state), x, y,
+                                mask, rngs, self._anchor(net.params), None)
 
     def run_stacked(self, nets: NetState, x, y, mask, rngs):
         """The cohort from per-client starting nets (``[C, ...]`` params,
         one shared ``model_state``), as :meth:`run_clients` takes it after
-        broadcasting the global net; the optimizer state starts fresh."""
+        broadcasting the global net (each client its own anchor); the
+        optimizer state starts fresh."""
+        return self._run_cohort(nets, x, y, mask, rngs,
+                                self._anchor(nets.params), 0)
+
+    def _run_cohort(self, nets: NetState, x, y, mask, rngs, anchor,
+                    anchor_dim):
         c = x.shape[0]
         first = tree_map(lambda t: t[0], nets.params)
         opt_state = tree_map(lambda t: _per_client(t, c),
                              self.optimizer.init(first))
         params, losses = self._epochs(nets.params, opt_state,
                                       nets.model_state, x, y, mask, rngs,
-                                      batched=True)
+                                      batched=True, anchor=anchor,
+                                      anchor_dim=anchor_dim)
         return NetState(params, nets.model_state), losses
 
 
@@ -306,15 +329,18 @@ def make_local_train_fn(apply_fn, optimizer: Optimizer, local_epochs: int,
                         dp_clip: float = 0.0,
                         dp_noise_multiplier: float = 0.0) -> LocalTrain:
     """Build ``local_train(net, x, y, mask, rng) -> (net', mean_loss)``,
-    always reshuffling each epoch. ``extra_grad_fn``, ``remat`` and
-    DP-SGD are not ported yet."""
-    for flag, val in (("extra_grad_fn", extra_grad_fn), ("remat", remat),
-                      ("dp_clip", dp_clip),
+    always reshuffling each epoch. ``extra_grad_fn(params,
+    global_params) -> grads`` is added to every step's gradient before the
+    optimizer update, on the same masked-step gate (FedProx's proximal
+    term); ``global_params`` are the params the round started from.
+    ``remat`` and DP-SGD are not ported yet."""
+    for flag, val in (("remat", remat), ("dp_clip", dp_clip),
                       ("dp_noise_multiplier", dp_noise_multiplier)):
         if val:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md A3)")
-    return LocalTrain(apply_fn, optimizer, local_epochs, loss_fn)
+    return LocalTrain(apply_fn, optimizer, local_epochs, loss_fn,
+                      extra_grad_fn)
 
 
 def make_eval_fn(apply_fn, loss_fn=softmax_ce, pad_id: int = 0):

@@ -623,20 +623,30 @@ def test_fedavg_round_on_the_card_matches_a_client_loop(cuda, monkeypatch):
 
 # --- the captured round tiers (core/graph.py) ----------------------------------
 
-def _small_fedavg(cuda, cls=None, per_round=3):
-    """ResNet-20-GN at widths (4, 8, 16), 4 clients x 12 images of 16x16,
-    batch 4 (3 local steps), sgd lr 5e-3."""
+def _small_fedavg(cuda, cls=None, per_round=3, sizes=None, **cfg_kw):
+    """ResNet-20-GN at widths (4, 8, 16), 4 clients x 12 images of 16x16
+    (or ``sizes[i]`` images for client i), batch 4 (3 local steps), sgd lr
+    5e-3; ``cfg_kw`` further FedConfig fields."""
+    import numpy as np
+
     from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
     from fedml_tpu_torch.data import (build_federated_arrays,
                                       make_image_classification,
                                       partition_homo)
     from fedml_tpu_torch.models import create_model
 
-    x, y = make_image_classification(48, (16, 16, 3), 4, seed=0)
-    fed = build_federated_arrays(x, y, partition_homo(48, 4), 4,
-                                 device=cuda)
-    cfg = FedConfig(client_num_in_total=4, client_num_per_round=per_round,
-                    epochs=1, batch_size=4, lr=5e-3)
+    n = 48 if sizes is None else sum(sizes)
+    x, y = make_image_classification(n, (16, 16, 3), 4, seed=0)
+    if sizes is None:
+        parts = partition_homo(48, 4)
+    else:
+        edges = np.cumsum([0, *sizes])
+        parts = {i: np.arange(edges[i], edges[i + 1])
+                 for i in range(len(sizes))}
+    fed = build_federated_arrays(x, y, parts, 4, device=cuda)
+    cfg = FedConfig(client_num_in_total=len(parts),
+                    client_num_per_round=per_round, epochs=1, batch_size=4,
+                    lr=5e-3, **cfg_kw)
     model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
                          device=cuda,
                          generator=torch.Generator().manual_seed(0))
@@ -837,3 +847,88 @@ def test_a_capture_failure_raises_instead_of_running_eagerly(cuda):
         assert torch.equal(_vec(api.net), _vec(net0))
     torch.cuda.synchronize()
     assert torch.isfinite(torch.ones(4, device=cuda).sum())
+
+
+# --- the algorithms on the captured round -------------------------------------
+
+def _assert_same_state(a, b):
+    assert torch.equal(_vec(a.net), _vec(b.net))
+
+
+def test_captured_fedadam_rounds_keep_advancing_the_bias_correction(
+        cuda, monkeypatch):
+    """FedAdam's server step count is a device tensor in the captured
+    step's carry: 3 fused rounds (one capture, 3 replays) are bit-equal to
+    3 eager rounds, params, losses and Adam's moments, with the count at 3
+    (a Python int would freeze the bias correction at round 1 while the
+    replays stayed equal to each other); the on-device round at full
+    participation likewise, the count advancing by 3 per call."""
+    from fedml_tpu_torch.algos import FedOptAPI
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(server_optimizer="adam", server_lr=0.05)
+    for per_round in (3, 4):
+        host = _small_fedavg(cuda, FedOptAPI, per_round=per_round, **kw)
+        want = [_eager(host, r) for r in range(3)]
+        api = _small_fedavg(cuda, FedOptAPI, per_round=per_round, **kw)
+        captures, replays = CapturedStep.captures, CapturedStep.replays
+        if per_round == 3:
+            got = [api.train_one_round(r)["train_loss"] for r in range(3)]
+            assert CapturedStep.replays == replays + 3
+        else:  # full participation: the host loop's cohorts
+            got = api.train_rounds_on_device(3).tolist()
+            assert CapturedStep.replays == replays + 3
+        assert CapturedStep.captures == captures + 1
+        assert got == want
+        _assert_same_state(api, host)
+        st, hst = api.server_opt_state["0"], host.server_opt_state["0"]
+        assert int(st["count"]) == int(hst["count"]) == 3
+        for k in ("mu", "nu"):
+            for name in st[k]:
+                assert torch.equal(st[k][name], hst[k][name])
+    api.train_rounds_on_device(3)
+    assert int(api.server_opt_state["0"]["count"]) == 6
+
+
+@pytest.mark.parametrize("spec", ["coord_median", "trimmed_mean0.2", "krum1",
+                                  "geometric_median8"])
+def test_captured_robust_aggregator_equals_its_eager_round(cuda, monkeypatch,
+                                                           spec):
+    """FedAvgRobustAPI with the norm clip, the scale drill on one adversary
+    in every round and each robust aggregator: 2 captured fused rounds
+    bit-equal to 2 eager rounds; the aggregator's device-side indices need
+    no host sync, so the round captures."""
+    from fedml_tpu_torch.algos import FedAvgRobustAPI
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(aggregator=spec, robust_norm_bound=0.5, corrupt_mode="scale",
+              attack_freq=1)
+    host = _small_fedavg(cuda, FedAvgRobustAPI, **kw)
+    want = [_eager(host, r) for r in range(2)]
+    api = _small_fedavg(cuda, FedAvgRobustAPI, **kw)
+    assert [api.train_one_round(r)["train_loss"] for r in range(2)] == want
+    _assert_same_state(api, host)
+    assert 3 in api.sample_round(1).tolist()
+
+
+def test_captured_fednova_rounds_follow_changing_operands(cuda, monkeypatch):
+    """FedNova on clients of 6, 10, 14 and 18 images (2 to 5 local steps):
+    the cohorts' (q, γ) change from round to round and are copied into the
+    captured step at each replay, so 3 fused rounds are bit-equal to 3
+    eager rounds (a baked-in q would replay round 0's weights)."""
+    from fedml_tpu_torch.algos import FedNovaAPI
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    sizes = (6, 10, 14, 18)
+    host = _small_fedavg(cuda, FedNovaAPI, sizes=sizes)
+    gammas = [float(host._round_aux(r, host.sample_round(r))[1])
+              for r in range(3)]
+    assert gammas[0] != gammas[1] != gammas[2]
+    want = [_eager(host, r) for r in range(3)]
+    api = _small_fedavg(cuda, FedNovaAPI, sizes=sizes)
+    assert [api.train_one_round(r)["train_loss"] for r in range(3)] == want
+    _assert_same_state(api, host)

@@ -341,7 +341,7 @@ def test_fedavg_evaluation_matches_jax(e2e):
 def test_fedavg_refuses_what_is_not_ported(monkeypatch):
     x, y, parts = _task()
     fed = batching.build_federated_arrays(x, y, parts, 32, device="cpu")
-    for field, val in (("aggregator", "krum1"), ("client_selection", "pow_d"),
+    for field, val in (("group_reduce", True), ("client_selection", "pow_d"),
                        ("compress", "q8"), ("dp_clip", 1.0),
                        ("client_step_dtype", "bf16")):
         cfg = FedConfig(client_num_in_total=6, batch_size=32,
