@@ -88,7 +88,25 @@ Phases, each of which must pass or the script exits non-zero:
              train_rounds_on_device refused with its capability record's
              message. The GroupNorm launches are counted under replay (58
              per local step each) and added to the kernels line.
-6. adapter — the FedAdapter training path at full width: FedAdapterAPI
+6. custom  — the "custom" carry protocol at the same configuration:
+             FedAvgAPI's replayed rounds as the call's baseline, then
+             ScaffoldAPI (server lr 1), FedDynAPI (alpha 0.01), DittoAPI
+             (lambda 0.1) and FedBNAPI, each with (a) against its
+             published step run uncaptured and 3 counted replayed rounds;
+             SCAFFOLD and FedDyn also 3 train_rounds_pipelined rounds
+             bit-equal to the replayed ones from one start, and the server
+             state equal to the mean of the client stack; Ditto's global
+             model bit-equal to FedAvg's after 3 and 6 rounds (116
+             GroupNorm launches per local step: two trainings), the
+             personal nets of unsampled clients unchanged and one
+             evaluate_personalized; FedBN's global norm leaves unchanged,
+             the unsampled clients' norms unchanged and the sampled ones
+             moved, and one evaluate_personalized; each class's on-device
+             tier refused with its record's message; a line per class with
+             its replayed round ms and samples/s beside FedAvg's, the
+             capture ms, the peak memory and the card's name and power
+             limit. No GroupNorm operand copied.
+7. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -107,7 +125,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-7. report  — a ``kernels`` JSON line, the card's name and power limit,
+8. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -230,6 +248,9 @@ ALGO_SERVER_LR, ALGO_PROX_MU, ALGO_NORM_BOUND = 0.05, 0.01, 5.0
 ALGO_AGGREGATORS = ("coord_median", "trimmed_mean0.2", "krum1",
                     "geometric_median8")
 NOVA_ALPHA, ALGO_ROUNDS = 0.5, 3
+# The "custom"-protocol algorithms at the JAX package's defaults: FedDyn's
+# alpha and Ditto's lambda (SCAFFOLD runs at server lr 1).
+CUSTOM_ALPHA, CUSTOM_LAM = 0.01, 0.1
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -1025,7 +1046,11 @@ def _profile_round(run, label, tag="train", kernels=("gn_",),
 
 def _eager_round(api, round_idx):
     """The reference procedure: one eager ``run_round`` and the server
-    update; returns the round's loss (a device tensor)."""
+    update, or for a "custom"-protocol class its published step through
+    the same cohort gather, uncaptured; returns the round's loss (a device
+    tensor)."""
+    if api.window_protocol == "custom":
+        return api._train_round_fused(round_idx, api._gather_step())
     avg, loss = api.run_round(round_idx)
     api.net = api._server_update(api.net, avg)
     return loss
@@ -1105,16 +1130,16 @@ def _hold_captured_round(api, round_idx, tag):
     graph = api._graphs["fused"]
     spread, loss_spread = _spread(eager)
     dist, loss_dist = _spread([eager[0], (_state_vec(api), [loss])])
-    print(f"[{tag}] eager rounds (run_round + _server_update, the host "
-          f"dispatching every op): {' / '.join(f'{t:.1f}' for t in eager_ms)}"
-          f" ms", flush=True)
+    ref = ("published step run uncaptured" if api.window_protocol
+           == "custom" else "run_round + _server_update")
+    print(f"[{tag}] eager rounds ({ref}, the host dispatching every op): "
+          f"{' / '.join(f'{t:.1f}' for t in eager_ms)} ms", flush=True)
     print(f"[{tag}] fused round captured: first call {first_ms:.1f} ms, of "
           f"which warm-up + capture {graph.capture_ms:.1f} ms; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    print(f"[{tag}] (a) captured fused round vs eager run_round + "
-          f"_server_update, one start, key and cohort: max|dparam| (params "
-          f"and carry) "
+    print(f"[{tag}] (a) captured fused round vs eager {ref}, one "
+          f"start, key and cohort: max|dparam| (params and carry) "
           f"{dist:.3e}, |dloss| {loss_dist:.3e}; eager vs eager "
           f"{spread:.3e}, {loss_spread:.3e} (must be within it; "
           f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
@@ -1468,7 +1493,8 @@ def _free():
 def _replayed_rounds(api, rounds, tag, steps, samples):
     """``train_one_round`` for ``rounds`` (already captured), the GroupNorm
     counts zeroed just before and read just after: 58 launches of each
-    kernel per local step, no forward streamed. Returns (fwd, bwd)."""
+    kernel per local step, no forward streamed. Returns (fwd, bwd, median
+    round ms, losses, copies)."""
     from fedml_tpu_torch.core.graph import CapturedStep
 
     _zero_gn_counts()
@@ -1497,7 +1523,7 @@ def _replayed_rounds(api, rounds, tag, steps, samples):
           f"GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, expected "
           f"{want}")
     check(streamed == 0, f"{streamed} GroupNorm forwards streamed")
-    return fwd, bwd
+    return fwd, bwd, med, losses, copies
 
 
 def _added_ms(rows, base):
@@ -1594,7 +1620,7 @@ def phase_algos():
     print(f"[{tag}] FedProxAPI mu {ALGO_PROX_MU}", flush=True)
     _hold_captured_round(api, 0, tag)
     count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag, steps,
-                            samples))
+                            samples)[:2])
     del api
     _free()
 
@@ -1619,7 +1645,7 @@ def phase_algos():
             _hold_captured_round(api, 0, tag)
         if spec == ALGO_AGGREGATORS[0]:
             count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag,
-                                    steps, samples))
+                                    steps, samples)[:2])
         profiles[spec] = _profile_round(
             lambda: api.train_one_round(ALGO_ROUNDS + 1),
             f"replayed round, aggregator {spec}", tag=tag, top=0)
@@ -1711,6 +1737,225 @@ def phase_algos():
     del api, nfed
     _free()
     print(f"[algos] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"GroupNorm launches counted {counted}", flush=True)
+    return counted
+
+
+def _client_rows_equal(before, after, clients):
+    """Whether every leaf's row of each client in ``clients`` is bitwise
+    the same in two ``{name: [N, ...]}`` stacks."""
+    return all(torch.equal(before[k][c], after[k][c])
+               for k in before for c in clients)
+
+
+def _mean_invariant(server, rows):
+    """max |s - mean_k s_k| over the leaves, and max |s_k|."""
+    err = max((server[k] - rows[k].mean(0)).abs().max().item()
+              for k in server)
+    scale = max(rows[k].abs().max().item() for k in rows)
+    return err, scale
+
+
+def phase_custom():
+    """The "custom" carry protocol at the primary config (ResNet-56-GN
+    bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch, sgd lr 0.1):
+    FedAvg's replayed rounds as the baseline of the same call, then
+    SCAFFOLD, FedDyn, Ditto and FedBN, each with pin (a) against its
+    published step run eagerly, replayed rounds counted and timed, and its
+    own pins. Returns {kernel name: launches in its counted rounds}."""
+    from fedml_tpu_torch.algos import (DittoAPI, FedAvgAPI, FedBNAPI,
+                                       FedConfig, FedDynAPI, ScaffoldAPI)
+    from fedml_tpu_torch.algos.capability import refusal
+    from fedml_tpu_torch.algos.fedbn import norm_mask
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+    steps = fed.steps_per_epoch * cfg.epochs
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    summary = {}
+
+    def build(cls, **kw):
+        model = create_model("resnet56", num_classes=10, dtype="bf16",
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        return cls(model, fed, None, cfg, device="cuda", **kw)
+
+    def replay(api, rounds, tag, trainings=1):
+        fwd, bwd, med, losses, copies = _replayed_rounds(
+            api, rounds, tag, trainings * steps, samples)
+        check(copies == 0, f"{copies} GroupNorm operand copies")
+        counted["group_norm_fwd"] += fwd
+        counted["group_norm_bwd"] += bwd
+        return med, losses
+
+    def captured(api, tag):
+        _hold_captured_round(api, 0, tag)
+        return (api._graphs["fused"].capture_ms,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    def refuses_on_device(api, tag):
+        want = refusal(type(api), "train_rounds_on_device")
+        try:
+            api.train_rounds_on_device(1)
+        except NotImplementedError as exc:
+            check(str(exc) == want, f"on-device refusal: {exc}")
+            print(f"[{tag}] train_rounds_on_device refused: {exc}",
+                  flush=True)
+        else:
+            raise SmokeFailure(f"{tag}: the on-device tier ran; its record "
+                               "refuses it")
+
+    def sampled(api, rounds):
+        return {int(i) for r in rounds for i in api.sample_round(r)}
+
+    # 0. FedAvg from the same seed: the baseline of the call, and the
+    # global rounds Ditto must reproduce bit for bit.
+    tag = "custom/fedavg"
+    api = build(FedAvgAPI)
+    api.train_one_round(0)  # warm-up and capture
+    for r in (1, 2):
+        api.train_one_round(r)
+    fedavg_vec3 = _net_vec(api.net).clone()
+    med, _ = replay(api, range(3, 6), tag)
+    fedavg_vec6 = _net_vec(api.net).clone()
+    summary["FedAvgAPI"] = (med, api._graphs["fused"].capture_ms, None)
+    del api
+    _free()
+
+    # 1-2. SCAFFOLD and FedDyn: (a), 3 replayed rounds and the same 3
+    # rounds pipelined from one start, bit-equal; the server state is the
+    # mean of the client states; the on-device refusal.
+    for cls, kw, server, rows_of in (
+            (ScaffoldAPI, dict(server_lr=1.0), "server_control",
+             "client_controls"),
+            (FedDynAPI, dict(alpha=CUSTOM_ALPHA), "server_h",
+             "client_grads")):
+        tag = f"custom/{cls.__name__}"
+        api = build(cls, **kw)
+        print(f"[{tag}] {cls.__name__} {kw}; client stack "
+              f"{sum(t.numel() for t in getattr(api, rows_of).values())} "
+              "f32 values", flush=True)
+        capture_ms, peak = captured(api, tag)
+        start = _snapshot(api)
+        med, losses = replay(api, range(1, 4), tag)
+        want = _state_vec(api)
+        _restore(api, start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piped = api.train_rounds_pipelined(3, start_round=1)
+        pipe_ms = (time.perf_counter() - t0) * 1e3 / 3
+        same = piped == losses and torch.equal(_state_vec(api), want)
+        print(f"[{tag}] train_rounds_pipelined(3) {pipe_ms:.1f} ms a round; "
+              f"vs 3 train_one_round from one start: "
+              f"{'bit-equal' if same else 'DIFFERENT'} (losses {piped})",
+              flush=True)
+        check(same, f"{tag}: pipelined rounds differ from train_one_round")
+        err, scale = _mean_invariant(getattr(api, server),
+                                     getattr(api, rows_of))
+        print(f"[{tag}] {server} = mean_k {rows_of}[k] after 4 rounds: "
+              f"max|diff| {err:.3e} (bound {1e-6 * max(1.0, scale):.1e}; "
+              f"max|state| {scale:.3e})", flush=True)
+        check(0 < scale and err <= 1e-6 * max(1.0, scale),
+              f"{tag}: server state {err} from the clients' mean")
+        refuses_on_device(api, tag)
+        summary[cls.__name__] = (med, capture_ms, peak)
+        del api, start
+        _free()
+
+    # 3. Ditto: (a); its global model bit-equal to FedAvg's after 3 and 6
+    # rounds; the personal nets of clients never sampled unchanged.
+    tag = "custom/DittoAPI"
+    api = build(DittoAPI, lam=CUSTOM_LAM)
+    init = {k: v.clone() for k, v in api.net.params.items()}
+    capture_ms, peak = captured(api, tag)
+    replay(api, (1, 2), tag, trainings=2)
+    same3 = torch.equal(_net_vec(api.net), fedavg_vec3)
+    med, _ = replay(api, range(3, 6), tag, trainings=2)
+    same6 = torch.equal(_net_vec(api.net), fedavg_vec6)
+    print(f"[{tag}] global model vs FedAvg's replayed rounds from the same "
+          f"seed: after 3 rounds {'bit-equal' if same3 else 'DIFFERENT'}, "
+          f"after 6 {'bit-equal' if same6 else 'DIFFERENT'}", flush=True)
+    check(same3 and same6, "Ditto's global model differs from FedAvg's")
+    rows = api.personal_nets.params
+    seen = sampled(api, range(6))
+    unseen = set(range(TRAIN_CLIENTS)) - seen
+    start_rows = {k: v.unsqueeze(0).expand_as(rows[k]) for k, v in
+                  init.items()}
+    moved = [c for c in seen if not _client_rows_equal(start_rows, rows,
+                                                       [c])]
+    print(f"[{tag}] personal nets: {len(unseen)} clients never sampled, "
+          f"all unchanged: {_client_rows_equal(start_rows, rows, unseen)}; "
+          f"{len(moved)} of {len(seen)} sampled moved", flush=True)
+    check(_client_rows_equal(start_rows, rows, unseen),
+          "an unsampled client's personal net changed")
+    check(len(moved) == len(seen), "a sampled client's personal net did "
+          "not move")
+    t0 = time.perf_counter()
+    ev = api.evaluate_personalized()
+    print(f"[{tag}] evaluate_personalized over {TRAIN_CLIENTS} clients "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms: {ev}", flush=True)
+    check(all(math.isfinite(v) for v in ev.values()), f"non-finite {ev}")
+    refuses_on_device(api, tag)
+    summary["DittoAPI"] = (med, capture_ms, peak)
+    del api
+    _free()
+
+    # 4. FedBN: (a); the global norm leaves unchanged from init; the
+    # unsampled clients' norms unchanged, the sampled ones moved.
+    tag = "custom/FedBNAPI"
+    api = build(FedBNAPI)
+    mask = norm_mask(api.net.params)
+    init = {k: v.clone() for k, v in api.net.params.items() if mask[k]}
+    print(f"[{tag}] {len(init)} norm leaves, "
+          f"{sum(v.numel() for v in init.values())} values per client",
+          flush=True)
+    capture_ms, peak = captured(api, tag)
+    med, _ = replay(api, range(1, 4), tag)
+    kept = all(torch.equal(api.net.params[k], v) for k, v in init.items())
+    rows = api.local_norms
+    seen = sampled(api, range(4))
+    unseen = set(range(TRAIN_CLIENTS)) - seen
+    start_rows = {k: v.unsqueeze(0).expand_as(rows[k]) for k, v in
+                  init.items()}
+    moved = [c for c in seen if not _client_rows_equal(start_rows, rows,
+                                                       [c])]
+    print(f"[{tag}] global norm leaves unchanged from init: {kept}; "
+          f"{len(unseen)} clients never sampled, norms unchanged: "
+          f"{_client_rows_equal(start_rows, rows, unseen)}; {len(moved)} "
+          f"of {len(seen)} sampled moved", flush=True)
+    check(kept, "FedBN's global norm leaves changed")
+    check(_client_rows_equal(start_rows, rows, unseen),
+          "an unsampled client's norms changed")
+    check(len(moved) == len(seen), "a sampled client's norms did not move")
+    t0 = time.perf_counter()
+    ev = api.evaluate_personalized()
+    print(f"[{tag}] evaluate_personalized over {TRAIN_CLIENTS} clients "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms: {ev}", flush=True)
+    check(all(math.isfinite(v) for v in ev.values()), f"non-finite {ev}")
+    refuses_on_device(api, tag)
+    summary["FedBNAPI"] = (med, capture_ms, peak)
+    del api, fed
+    _free()
+
+    base = summary["FedAvgAPI"][0]
+    for name, (med, capture_ms, peak) in summary.items():
+        extra = (f"; capture {capture_ms:.1f} ms, peak device memory "
+                 f"{peak:.2f} GiB" if peak is not None else "")
+        print(f"[custom] {name}: replayed round median {med:.1f} ms = "
+              f"{samples / med * 1e3:.1f} samples/s ({med - base:+.1f} ms "
+              f"beside FedAvg's {base:.1f} ms in this call){extra}; card "
+              f"{card}", flush=True)
+    print(f"[custom] phase took {time.perf_counter() - t_phase:.1f} s; "
           f"GroupNorm launches counted {counted}", flush=True)
     return counted
 
@@ -1985,6 +2230,8 @@ def main() -> int:
     launches = phase_serve()
     launches.update(phase_train())
     for name, n in phase_algos().items():
+        launches[name] += n
+    for name, n in phase_custom().items():
         launches[name] += n
     adapter = phase_adapter()
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "

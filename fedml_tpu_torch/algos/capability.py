@@ -110,5 +110,11 @@ def refusal(cls, tier: str) -> str:
         return (f"{name} declares window_protocol='custom' but does not "
                 f"provide _build_fused_step; {tier} replays the fused "
                 "one-step round, which only the step hook defines")
+    if tier == "train_rounds_on_device":
+        return (f"{name} carries client-stacked state through a custom "
+                "scan body; the on-device scan serves 'round'-protocol "
+                "algorithms — use train_one_round or "
+                "train_rounds_pipelined (the windowed streaming scan is "
+                "ROADMAP.md A5/A9)")
     return (f"{name} carries client-stacked state through a custom step; "
             f"{tier} serves 'round'-protocol algorithms")

@@ -22,12 +22,13 @@ On the CPU (``device="cpu"``) the same steps run eagerly. ``run_round``
 subclass rides is its capability record's answer (``algos/capability``);
 the hooks the algorithm zoo builds on are ``_build_local_train``,
 ``_client_transform``, ``_corruptor``, ``_make_vmap_round``, the pure
-server update of the carry protocol and ``_round_aux`` (per-round
-operands computed on the host, passed to the captured steps as device
-tensors). ``cfg.aggregator`` picks the server reduction
-(``core/robust_agg``). The windowed tier, meshes, streaming stores, other
-selection modes, compression and layouts are not ported yet: asking for
-any of them raises, by name.
+server update of the carry protocol, ``_round_aux`` (per-round operands
+computed on the host, passed to the captured steps as device tensors)
+and, for the "custom" protocol, a whole published step
+(``_build_fused_step``) over client-stacked state. ``cfg.aggregator``
+picks the server reduction (``core/robust_agg``). The windowed tier,
+meshes, streaming stores, other selection modes, compression and layouts
+are not ported yet: asking for any of them raises, by name.
 """
 
 from __future__ import annotations
@@ -78,6 +79,21 @@ def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
                 f"{defaults[name]!r}")
 
 
+class ClientStateCheckpoints:
+    """Mixin of the "custom"-protocol classes: their client stacks are run
+    state, which the JAX package's orbax run checkpoints hold; the port
+    has no checkpoint format yet."""
+
+    def checkpoint_extra_state(self):
+        raise NotImplementedError(
+            f"{type(self).__name__} checkpoints (its client-stacked state "
+            "as run state) need a checkpoint format, which the port does "
+            "not have yet (ROADMAP.md A8)")
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self.checkpoint_extra_state()
+
+
 class FedAvgAPI(FederatedLoop):
     """Federated trainer on one card. ``model`` is an ``nn.Module`` whose
     own parameters are the initial global model (``api.net`` is public and
@@ -99,12 +115,14 @@ class FedAvgAPI(FederatedLoop):
     #: would otherwise silently train the dense model.
     _consumes_adapter_cfg = False
 
-    #: How this algorithm rides the fused and on-device tiers: "round"
-    #: means its round is exactly ``run_round`` + ``_server_update``, with
-    #: the PURE form of the server update from
-    #: :meth:`_window_server_update` (the JAX package's carry protocol).
-    #: The port has no "custom" protocol algorithm yet (SCAFFOLD's,
-    #: ROADMAP.md A7). The capability record is derived from it.
+    #: How this algorithm rides the round tiers (the JAX package's carry
+    #: protocol): "round" means its round is exactly ``run_round`` +
+    #: ``_server_update``, with the PURE form of the server update from
+    #: :meth:`_window_server_update`; "custom" means the class publishes
+    #: its own one-round step (:meth:`_build_fused_step`), which takes the
+    #: cohort ``idx`` and its update mask as trailing operands and carries
+    #: client-stacked state (SCAFFOLD, FedDyn, Ditto, FedBN). The
+    #: capability record is derived from it.
     window_protocol: Optional[str] = "round"
 
     def __init__(self, model, train_fed: FederatedArrays, test_global,
@@ -229,6 +247,22 @@ class FedAvgAPI(FederatedLoop):
         """Called whenever the client lr actually changes. A subclass that
         holds its own lr-dependent steps drops them here."""
 
+    def _require_plain_sgd_round(self, what: str) -> None:
+        """The constructor guard of the corrected-SGD algorithms (SCAFFOLD,
+        FedDyn): their own local step is plain SGD plus the correction, so
+        a config knob that the generic trainer would honor is refused, not
+        dropped (the JAX package's guard, over the fields the port has; the
+        unported ones are refused earlier, by ``refuse_unported``)."""
+        if self.cfg.client_optimizer != "sgd":
+            raise ValueError(
+                f"{what} applies to plain SGD local steps; got "
+                f"client_optimizer={self.cfg.client_optimizer!r}")
+        bad = ["grad_clip"] if self.cfg.grad_clip else []
+        if self._nan_guard:
+            bad.append("nan_guard")
+        if bad:
+            raise ValueError(f"{what} does not support: " + ", ".join(bad))
+
     def _server_update(self, old_net, avg_net):
         """FedAvg: the new global model is the client average."""
         return avg_net
@@ -255,9 +289,12 @@ class FedAvgAPI(FederatedLoop):
         state, so later rounds and evaluation read it."""
 
     def _build_fused_step(self):
-        """The one-round step both tiers capture: ``step(net, extra, x, y,
+        """The one-round step the tiers capture: ``step(net, extra, x, y,
         mask, weights, key, *aux) -> ((net', extra'), loss)``, ``round_fn``
-        with the pure server update folded in."""
+        with the pure server update folded in. A "custom"-protocol class
+        overrides it; its ``aux`` is ``(idx, umask)``: the cohort's client
+        indices and 1 where a sampled client has samples (the slots whose
+        state it may write back)."""
         if self.window_protocol != "round":
             raise NotImplementedError(
                 refusal(type(self), "the fused round step"))
@@ -288,23 +325,30 @@ class FedAvgAPI(FederatedLoop):
         return step
 
     # --- fused round: one replay per host-loop round -----------------------
+    def _gather_step(self):
+        """The published step with the client gather in front: ``((net,
+        extra), idx, key, *aux) -> ((net', extra'), loss)``. A "custom"
+        step gets ``(idx, umask)`` as its aux, ``umask`` computed on the
+        device from the gathered counts (JAX's ``_window_update_mask``),
+        so a round needs no host sync."""
+        step = self._build_fused_step()
+        custom = self.window_protocol == "custom"
+
+        def gather_step(carry, idx, key, *aux):
+            sub = gather_clients(self.train_fed, idx)
+            w = sub.counts.float()
+            if custom:
+                aux = (idx, (sub.counts > 0).float())
+            return step(*carry, sub.x, sub.y, sub.mask, w, key, *aux)
+
+        return gather_step
+
     def _fused_round_step(self) -> CapturedStep:
         """The cached fused round — client gather, training, aggregation and
-        the server update in one captured step ``((net, extra), idx, key,
-        *aux) -> ((net', extra'), loss)``; the round's ``_round_aux``
-        tensors are step arguments, copied in at every replay."""
-
-        def build():
-            step = self._build_fused_step()
-
-            def gather_step(carry, idx, key, *aux):
-                sub = gather_clients(self.train_fed, idx)
-                w = sub.counts.float()
-                return step(*carry, sub.x, sub.y, sub.mask, w, key, *aux)
-
-            return gather_step
-
-        return self._captured("fused", build)
+        the server update in one captured step (:meth:`_gather_step`); the
+        cohort and the round's ``_round_aux`` tensors are step arguments,
+        copied in at every replay."""
+        return self._captured("fused", self._gather_step)
 
     def _cohort_on_device(self, idx) -> torch.Tensor:
         """The sampled cohort on the device without waiting for it."""
@@ -322,14 +366,17 @@ class FedAvgAPI(FederatedLoop):
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def _train_round_fused(self, round_idx: int):
+    def _train_round_fused(self, round_idx: int, step=None):
         """One host-loop round through the fused step: ``run_round``'s
         prelude (round key, sampled cohort and the round's aux operands on
         the device, with no sync), one replay, the carry committed back.
         Returns the round's loss, a device tensor that the next round
-        overwrites."""
+        overwrites. ``step``: another form of the step, e.g. the
+        uncaptured :meth:`_gather_step`, the eager reference of a
+        "custom" round."""
         self._check_resident()
-        step = self._fused_round_step()
+        if step is None:
+            step = self._fused_round_step()
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
         self._last_round_key = rnd_rng

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import torch
 from torch.func import vmap
 
 from fedml_tpu_torch.core import keys
@@ -70,6 +71,32 @@ class FederatedLoop:
             return self.eval_fn(NetState(params, state), xc, yc, mc)
 
         return vmap(one, in_dims=(net_dim, 0, 0, 0))(net.params, x, y, mask)
+
+    def evaluate_on_clients(self, arrays=None,
+                            prefix: str = "clients_train"
+                            ) -> Dict[str, float]:
+        """The global model on every client's LOCAL shard (the reference's
+        ``_local_test_on_all_clients``) as one vmapped pass over resident
+        ``FederatedArrays`` (``arrays``, default the training shards; the
+        per-client test layout with ``prefix="clients_test"``): the
+        sample-weighted means and the worst client's accuracy and loss,
+        clients without samples left out of the worst. Streaming stores
+        are not ported (ROADMAP.md A9)."""
+        f = self.train_fed if arrays is None else arrays
+        m = self._per_client_eval(self.net, f.x, f.y, f.mask)
+        num = m["num"]
+        n = torch.clamp(num.sum(), min=1.0)
+        present = num > 0
+        inf = torch.tensor(float("inf"), device=num.device)
+        worst_acc = torch.where(present, m["accuracy"], inf).min()
+        worst_loss = torch.where(present, m["loss"], -inf).max()
+        kind = prefix.split("_")[-1]
+        return {
+            f"{prefix}_acc": float((m["accuracy"] * num).sum() / n),
+            f"{prefix}_loss": float((m["loss"] * num).sum() / n),
+            f"worst_client_{kind}_acc": float(worst_acc),
+            f"worst_client_{kind}_loss": float(worst_loss),
+        }
 
     def evaluate(self) -> Dict[str, float]:
         if self.test_global is None:

@@ -11,7 +11,8 @@ tensors. On a CUDA device it
 - captures one call into a ``torch.cuda.CUDAGraph`` over static copies of
   the carry and of the args, with the new carry copied back into the
   carry's static buffers at the end of the captured step: the port's
-  donation;
+  donation (a leaf that the step updated in place, as the client stacks
+  of the "custom" protocol are, is its own buffer and is not copied);
 - and replays the graph on every call, after copying the caller's carry
   and args into the static buffers. A carry leaf that IS its static
   buffer, as the previous call returned it, is not copied.
@@ -21,8 +22,11 @@ output, so the next replay overwrites both, as JAX consumes donated
 buffers: clone what must outlive it. The step is captured again when the
 structure, shapes or dtypes of the carry or the args change, or when a
 tensor of ``watch()`` (what the step reads in place: the dataset, a frozen
-base) is another tensor than at capture. A capture or replay that fails
-raises :class:`GraphCaptureError`; the step never runs eagerly instead.
+base) is another tensor than at capture. Unreachable objects are collected
+before a capture and the cyclic collector is paused during it (a dropped
+graph freed mid-capture would invalidate the capture). A capture or
+replay that fails raises :class:`GraphCaptureError`; the step never runs
+eagerly instead.
 On the CPU the step runs eagerly: the tests ask for that with
 ``device="cpu"``.
 
@@ -37,6 +41,7 @@ and ``CapturedStep.replays`` count the helper's own work.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -146,9 +151,20 @@ class CapturedStep:
         side.wait_stream(current)
         with torch.cuda.stream(side):
             self.step(s_carry, *s_args)
+            # A step may update its donated carry in place (the client
+            # stacks' scatter): the capture starts from the carry as given.
+            for dst, src in zip(_leaves(s_carry), _leaves(carry)):
+                dst.copy_(src)
         current.wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
+        # An unreachable CUDA graph (a dropped api's step) that the cyclic
+        # collector frees while this one is captured destroys its
+        # executable mid-capture, which invalidates the capture: collect
+        # before, never during it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # The outer stream context restores the caller's stream even
             # when the capture's own exit raises.
@@ -161,7 +177,8 @@ class CapturedStep:
                         "shape or dtype than it was given; it cannot be "
                         "captured with its carry donated")
                 for dst, src in zip(_leaves(s_carry), _leaves(new_carry)):
-                    dst.copy_(src)
+                    if src is not dst:
+                        dst.copy_(src)
         except GraphCaptureError:
             raise
         except RuntimeError as exc:
@@ -171,6 +188,8 @@ class CapturedStep:
                 f"inside the step?); the step does not run eagerly on "
                 f"{self.device}: {exc}") from exc
         finally:
+            if collecting:
+                gc.enable()
             after = _counts()
             _set_counts(before)
         torch.cuda.synchronize(self.device)

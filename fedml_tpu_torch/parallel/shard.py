@@ -1,6 +1,7 @@
 """Client-parallel FedAvg rounds on one card (port of
-``fedml_tpu/parallel/shard.py``'s ``make_vmap_round`` and
-``make_fused_round_step``).
+``fedml_tpu/parallel/shard.py``'s ``make_vmap_round``,
+``make_fused_round_step``, ``make_stateful_client_round`` and
+``make_fused_stateful_round_step``).
 
 All sampled clients train together: each local step runs under
 ``torch.func.vmap`` over the client dim (``LocalTrain.run_clients``), and
@@ -18,7 +19,9 @@ import torch
 from torch.func import vmap
 
 from fedml_tpu_torch.core import keys
-from fedml_tpu_torch.core.tree import tree_leaves, tree_map, tree_weighted_mean
+from fedml_tpu_torch.core.tree import (gather_stacked, scatter_stacked,
+                                       tree_leaves, tree_map,
+                                       tree_weighted_mean)
 from fedml_tpu_torch.trainer.local import NetState
 
 
@@ -158,5 +161,43 @@ def make_fused_round_step(round_fn, server_update=None):
         if server_update is None:
             return (avg, extra), loss
         return server_update(net, avg, extra, key), loss
+
+    return step_fn
+
+
+def make_stateful_client_round(body):
+    """The round of an algorithm that carries server and client-stacked
+    state through it (SCAFFOLD's controls, FedDyn's corrections):
+    ``round_fn(net, s_global, s_clients, x, y, mask, weights, rng) ->
+    (net', s_global', s_clients', loss)`` over the cohort's gathered
+    ``s_clients [C, ...]``, with ``body(net, s_global, s_clients, x, y,
+    mask, weights, rngs)`` given the per-client keys of the shared round.
+    The mesh form (JAX's ``shard_map`` with psum'd reductions) is not
+    ported yet (ROADMAP.md A11)."""
+
+    def round_fn(net, s_global, s_clients, x, y, mask, weights, rng):
+        rngs = client_rngs(rng, x.shape[0], 0)
+        return body(net, s_global, s_clients, x, y, mask, weights, rngs)
+
+    return round_fn
+
+
+def make_fused_stateful_round_step(round_fn):
+    """One round of a :func:`make_stateful_client_round` round as one
+    step: the cohort's state gathered from the client stack, the round,
+    and the trained slots scattered back (``core/tree.scatter_stacked``,
+    in place). ``step(net, (s_global, s_clients), x, y, mask, weights,
+    key, idx, umask) -> ((net', (s_global', s_clients')), loss)``:
+    ``s_clients`` the whole ``client_stack``, ``idx [k]`` the cohort and
+    ``umask [k]`` 1 where the client trained (an empty or padded slot
+    keeps its row). The caller captures it with the carry donated."""
+
+    def step_fn(net, extra, x, y, mask, weights, key, idx, umask):
+        s_global, s_clients = extra
+        sub = gather_stacked(s_clients, idx)
+        new_net, new_global, new_sub, loss = round_fn(
+            net, s_global, sub, x, y, mask, weights, key)
+        s_clients = scatter_stacked(s_clients, idx, new_sub, umask)
+        return (new_net, (new_global, s_clients)), loss
 
     return step_fn

@@ -206,11 +206,8 @@ class LocalTrain:
         self.local_epochs, self.loss_fn = local_epochs, loss_fn
         self.extra_grad_fn = extra_grad_fn
 
-    def step(self, params, opt_state, model_state, xb, yb, mb, anchor=None):
-        """One masked step; an all-masked batch returns its inputs.
-        ``extra_grad_fn(params, anchor)`` is added to the gradient before
-        the optimizer update (``anchor``: the params the client started
-        the round from)."""
+    def _grad(self, params, model_state, xb, yb, mb):
+        """The gradient and value of the batch's masked mean loss."""
 
         def masked_loss(p):
             logits, _ = self.apply_fn(NetState(p, model_state), xb,
@@ -218,7 +215,14 @@ class LocalTrain:
             per = self.loss_fn(logits, yb)
             return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
 
-        grads, loss = grad_and_value(masked_loss)(params)
+        return grad_and_value(masked_loss)(params)
+
+    def step(self, params, opt_state, model_state, xb, yb, mb, anchor=None):
+        """One masked step; an all-masked batch returns its inputs.
+        ``extra_grad_fn(params, anchor)`` is added to the gradient before
+        the optimizer update (``anchor``: the params the client started
+        the round from)."""
+        grads, loss = self._grad(params, model_state, xb, yb, mb)
         if self.extra_grad_fn is not None:
             grads = tree_map(torch.add, grads,
                              self.extra_grad_fn(params, anchor))
@@ -283,13 +287,17 @@ class LocalTrain:
         return self._run_cohort(NetState(params, net.model_state), x, y,
                                 mask, rngs, self._anchor(net.params), None)
 
-    def run_stacked(self, nets: NetState, x, y, mask, rngs):
+    def run_stacked(self, nets: NetState, x, y, mask, rngs, anchor=None):
         """The cohort from per-client starting nets (``[C, ...]`` params,
         one shared ``model_state``), as :meth:`run_clients` takes it after
-        broadcasting the global net (each client its own anchor); the
-        optimizer state starts fresh."""
-        return self._run_cohort(nets, x, y, mask, rngs,
-                                self._anchor(nets.params), 0)
+        broadcasting the global net; the optimizer state starts fresh.
+        ``extra_grad_fn`` is anchored at each client's own start, or at
+        ``anchor``, one param tree for the whole cohort (Ditto's global
+        params)."""
+        if anchor is None or self.extra_grad_fn is None:
+            return self._run_cohort(nets, x, y, mask, rngs,
+                                    self._anchor(nets.params), 0)
+        return self._run_cohort(nets, x, y, mask, rngs, anchor, None)
 
     def _run_cohort(self, nets: NetState, x, y, mask, rngs, anchor,
                     anchor_dim):
@@ -302,6 +310,68 @@ class LocalTrain:
                                       batched=True, anchor=anchor,
                                       anchor_dim=anchor_dim)
         return NetState(params, nets.model_state), losses
+
+
+class CorrectedLocalTrain(LocalTrain):
+    """The corrected-SGD trainer of :func:`make_corrected_local_train`:
+    :class:`LocalTrain`'s loop (masked step gate, epoch shuffle, the
+    cohort's vmapped step with the client dim next to channels) with no
+    optimizer; each step is ``step_update(params, grads, aux)``, ``aux``
+    a per-client tree that rides the loop's anchor slot."""
+
+    def __init__(self, apply_fn, local_epochs: int, loss_fn, step_update,
+                 with_step_count: bool):
+        super().__init__(apply_fn, Optimizer(lambda p: {}, None),
+                         local_epochs, loss_fn)
+        self.step_update, self.with_step_count = step_update, with_step_count
+
+    def step(self, params, opt_state, model_state, xb, yb, mb, aux=None):
+        grads, loss = self._grad(params, model_state, xb, yb, mb)
+        new_params = self.step_update(params, grads, aux)
+        nb = mb.sum()
+        return tree_select(nb > 0, new_params, params), opt_state, loss, nb
+
+    def _done(self, net, loss, mask):
+        if not self.with_step_count:
+            return net, loss
+        # Padded trailing batches are no-op steps: K = epochs × the
+        # non-empty steps, at least 1.
+        k = self.local_epochs * (mask.sum(-1) > 0).float().sum(-1)
+        return net, loss, torch.clamp(k, min=1.0)
+
+    def __call__(self, net: NetState, aux, x, y, mask, rng):
+        """One client: ``(net', loss)``, and ``K`` with the step count."""
+        params, loss = self._epochs(net.params, {}, net.model_state, x, y,
+                                    mask, rng, batched=False, anchor=aux)
+        return self._done(NetState(params, net.model_state), loss, mask)
+
+    def run_clients(self, net: NetState, aux, x, y, mask, rngs,
+                    aux_dim=0):
+        """The cohort from one global ``net``: ``aux`` batched along
+        ``aux_dim`` (an int, None, or a tree of them matching ``aux``'s
+        structure: FedDyn's ``(0, None)``). Returns ``(client nets, losses
+        [C])`` and ``K [C]`` with the step count."""
+        c = x.shape[0]
+        params = tree_map(lambda t: _per_client(t, c), net.params)
+        params, losses = self._epochs(params, {}, net.model_state, x, y,
+                                      mask, rngs, batched=True, anchor=aux,
+                                      anchor_dim=aux_dim)
+        return self._done(NetState(params, net.model_state), losses, mask)
+
+
+def make_corrected_local_train(apply_fn, local_epochs: int, loss_fn,
+                               step_update, with_step_count: bool = False
+                               ) -> CorrectedLocalTrain:
+    """The shared corrected-SGD client trainer of algorithms whose step
+    needs per-client inputs that ``extra_grad_fn`` cannot carry
+    (SCAFFOLD's control variates, FedDyn's dynamic regularizer): each step
+    is ``step_update(params, grads, aux) -> params'``, so the algorithm
+    keeps its own arithmetic order. ``local_train(net, aux, x, y, mask,
+    rng) -> (net', loss)``, plus the true step count ``K`` when
+    ``with_step_count``; ``run_clients`` runs a cohort. JAX's ``remat``
+    is not ported yet (ROADMAP.md A3; ``cfg.remat`` is refused)."""
+    return CorrectedLocalTrain(apply_fn, local_epochs, loss_fn, step_update,
+                               with_step_count)
 
 
 def _per_client(t, c: int):

@@ -932,3 +932,145 @@ def test_captured_fednova_rounds_follow_changing_operands(cuda, monkeypatch):
     api = _small_fedavg(cuda, FedNovaAPI, sizes=sizes)
     assert [api.train_one_round(r)["train_loss"] for r in range(3)] == want
     _assert_same_state(api, host)
+
+
+# --- the "custom" carry protocol on the captured round -----------------------
+
+def _custom_leaves(api):
+    extra = api._window_carry_init()
+    parts = extra if isinstance(extra, tuple) else (extra,)
+    return torch.cat([t.float().flatten() for part in parts
+                      for t in part.values()])
+
+
+def _eager_custom(api, r):
+    """The eager reference of a "custom" round: the published step through
+    the same cohort gather, uncaptured."""
+    return api._train_round_fused(r, api._gather_step()).item()
+
+
+@pytest.mark.parametrize("name", ["ScaffoldAPI", "FedDynAPI", "DittoAPI",
+                                  "FedBNAPI"])
+def test_captured_custom_rounds_equal_the_eager_step(cuda, monkeypatch,
+                                                     name):
+    """Each "custom" class on the small ResNet: 3 captured fused rounds
+    (one capture, 2 replays) bit-equal to 3 eager calls of its published
+    step, params, losses and the carried client stacks; the carry keeps
+    advancing across replays (each round's stack differs from the last);
+    ``train_rounds_pipelined(3)`` equals them too."""
+    import fedml_tpu_torch.algos as algos
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cls = getattr(algos, name)
+    host = _small_fedavg(cuda, cls)
+    want, host_carry = [], []
+    for r in range(3):
+        want.append(_eager_custom(host, r))
+        host_carry.append(_custom_leaves(host).clone())
+    api = _small_fedavg(cuda, cls)
+    captures, replays = CapturedStep.captures, CapturedStep.replays
+    got = []
+    for r in range(3):
+        got.append(api.train_one_round(r)["train_loss"])
+        assert torch.equal(_custom_leaves(api), host_carry[r])
+    assert CapturedStep.captures == captures + 1
+    assert CapturedStep.replays == replays + 3
+    assert got == want
+    _assert_same_state(api, host)
+    assert not torch.equal(host_carry[1], host_carry[2])
+    pipe = _small_fedavg(cuda, cls)
+    assert pipe.train_rounds_pipelined(3) == want
+    _assert_same_state(pipe, host)
+    assert torch.equal(_custom_leaves(pipe), host_carry[2])
+
+
+def test_captured_scatter_drops_masked_slots(cuda):
+    """``scatter_stacked`` inside a captured step, replayed with changing
+    cohorts: a masked slot (a padded duplicate of ``idx[0]``) never
+    writes, and a row outside the cohort keeps its bits across replays."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.core.tree import (client_rows, client_stack,
+                                           scatter_stacked)
+
+    def step(stack, idx, values, umask):
+        return scatter_stacked(stack, idx, values, umask), idx.sum()
+
+    stack = client_stack({"w": torch.zeros(3, device=cuda)}, 6)
+    cap = CapturedStep(step, cuda, lambda: [])
+    for r, (idx, umask) in enumerate([([2, 0, 4, 2], [1, 1, 1, 0]),
+                                      ([5, 1, 3, 5], [1, 1, 0, 0])]):
+        before = client_rows(stack)["w"].clone()
+        vals = {"w": torch.arange(12, dtype=torch.float32, device=cuda)
+                .reshape(4, 3) + 100 * (r + 1)}
+        stack, _ = cap(stack, torch.tensor(idx, device=cuda),
+                       vals, torch.tensor(umask, dtype=torch.float32,
+                                          device=cuda))
+        rows = client_rows(stack)["w"]
+        for slot, (i, m) in enumerate(zip(idx, umask)):
+            if m:
+                assert torch.equal(rows[i], vals["w"][slot])
+        written = {i for i, m in zip(idx, umask) if m}
+        for i in set(range(6)) - written:
+            assert torch.equal(rows[i], before[i]), (r, i)
+    assert CapturedStep.captures >= 1
+
+
+def test_ditto_replays_count_two_trainings_of_group_norm(cuda):
+    """Ditto trains the cohort twice a round (global, then personal): a
+    replayed round adds 2 x 21 GroupNorm forward, backward and reduce
+    launches per local step, none copied or streamed."""
+    from fedml_tpu_torch.algos import DittoAPI
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    api = _small_fedavg(cuda, DittoAPI)
+    steps = api.train_fed.steps_per_epoch
+    api.train_one_round(0)  # warm-up and capture
+
+    def counts():
+        return (gn.group_norm_fwd.launches, gn.group_norm_bwd.launches,
+                gn.group_norm_bwd.reduce_launches, gn.group_norm.copies,
+                gn.group_norm_fwd.streamed)
+
+    c0 = counts()
+    for r in range(1, 3):
+        api.train_one_round(r)
+    torch.cuda.synchronize()
+    want = 2 * 2 * 21 * steps
+    assert tuple(b - a for a, b in zip(c0, counts())) == (want, want, want,
+                                                           0, 0)
+
+
+def test_a_dropped_graph_is_not_freed_during_another_capture(cuda):
+    """The cyclic collector is paused while a step is captured (its
+    warm-up runs with it on) and on again after: an api dropped with its
+    graph is garbage in reference cycles, and freeing that graph during
+    another capture would invalidate it. A new api captures after an old
+    one was dropped, with the collector running at every allocation."""
+    import gc
+
+    from fedml_tpu_torch.algos import DittoAPI, ScaffoldAPI
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    seen = []
+
+    def step(carry, x):
+        seen.append(gc.isenabled())
+        return carry * 2, x + 1
+
+    cap = CapturedStep(step, cuda, lambda: [])
+    carry, _ = cap(torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
+    assert seen == [True, False] and gc.isenabled()
+    assert carry.tolist() == [2.0] * 4
+    thresholds = gc.get_threshold()
+    try:
+        old = _small_fedavg(cuda, ScaffoldAPI)
+        old.train_one_round(0)
+        del old
+        gc.set_threshold(1, 1, 1)
+        api = _small_fedavg(cuda, DittoAPI)
+        loss = api.train_one_round(0)["train_loss"]
+    finally:
+        gc.set_threshold(*thresholds)
+    assert loss == loss and gc.isenabled()
