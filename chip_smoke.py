@@ -106,7 +106,33 @@ Phases, each of which must pass or the script exits non-zero:
              its replayed round ms and samples/s beside FedAvg's, the
              capture ms, the peak memory and the card's name and power
              limit. No GroupNorm operand copied.
-7. adapter — the FedAdapter training path at full width: FedAdapterAPI
+7. zoo     — the rest of the FedAvg-round family at the same
+             configuration: FedAvgAPI's replayed and on-device rounds as
+             the call's baseline; FedAcAPI (gamma 2) and ServerAvgAPI (beta
+             0.5), each an eager warm-up round, (a), (b) and 3 timed
+             train_rounds_on_device(3) calls, FedAc at gamma 1 within 1e-6
+             of FedAvg's round and ServerAvg at beta 0 bit-equal to
+             FedAvg's after 3 rounds; QFedAvgAPI (q 1): (a), 3 counted
+             replayed rounds and the on-device tier with 928 GroupNorm
+             forwards against 464 backwards a round (F_global's forward-
+             only pass), F_global against an eager loss of the broadcast
+             net; HierarchicalFedAvgAPI (groups client % 4, 2 inner
+             rounds): 3 timed rounds over captured group steps (one per
+             padded size, none captured while timed), one group against
+             FedAvg's round, a coord_median round, krum refused, the
+             pipelined and on-device tiers refused with the record's
+             message; TurboAggregateAPI (3 share groups): 3 traced rounds
+             split into device training, D2H and host MPC ms, the MPC
+             aggregate against the f64 weighted mean of the same client
+             stack (and with a client dropped); DecentralizedAPI dsgd and
+             pushsum over the first 32 clients: (a) against the eager
+             gossip round, 3 counted replayed rounds with the clients'
+             spread around the consensus net, the push weights' sum, and
+             train_rounds_pipelined(3) and train_rounds_on_device(3)
+             bit-equal to them from one start. A line per class beside
+             FedAvg's with the capture, the peak memory, the GroupNorm
+             launches a round and the card's name and power limit.
+8. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -125,7 +151,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-8. report  — a ``kernels`` JSON line, the card's name and power limit,
+9. report  — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -251,6 +277,19 @@ NOVA_ALPHA, ALGO_ROUNDS = 0.5, 3
 # The "custom"-protocol algorithms at the JAX package's defaults: FedDyn's
 # alpha and Ditto's lambda (SCAFFOLD runs at server lr 1).
 CUSTOM_ALPHA, CUSTOM_LAM = 0.01, 0.1
+# The rest of the round family: FedAc's gamma and ServerAvg's beta (the
+# JAX package's defaults), q-FedAvg's q, hierarchical FL's groups (client %
+# 4) and inner rounds, TurboAggregate's share groups, the gossip's clients
+# (the first 32, every one every round), rounds per drive and per pin (b)
+# (its two host loops of eager rounds are the phase's dearest part). FedAc
+# at gamma 1 and one-group hierarchical FL are held to FedAvg's round
+# within 1e-6 relative (max over leaves); F_global to an eager loss of the
+# same net within 1e-2 relative (bf16 logits, the cohort vmapped against
+# one client's forward).
+ZOO_FEDAC_GAMMA, ZOO_SAVG_BETA, ZOO_Q = 2.0, 0.5, 1.0
+ZOO_GROUPS, ZOO_GROUP_ROUNDS, ZOO_TA_GROUPS = 4, 2, 3
+ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 32, 3, 2
+ZOO_REL_TOL, ZOO_FGLOBAL_TOL = 1e-6, 1e-2
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -1224,7 +1263,7 @@ def _time_pipelined(api, n, tag, per_round, unit):
 def _time_on_device(api, n, tag, per_round, unit, zero, counts):
     """Three timed calls of ``train_rounds_on_device(n)``, each synced by
     fetching its losses (bench.py's timing); the counts are zeroed just
-    before and returned as read just after."""
+    before and returned as read just after, with the median round ms."""
     from fedml_tpu_torch.core.graph import CapturedStep
 
     zero()
@@ -1245,7 +1284,7 @@ def _time_on_device(api, n, tag, per_round, unit, zero, counts):
           flush=True)
     check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
     check(replays == 3 * n, f"{replays} replays in {3 * n} rounds")
-    return got
+    return got, med
 
 
 class _ShapeTally:
@@ -1386,8 +1425,8 @@ def phase_train():
     # call) and is held to the host loop fed the same cohorts; then three
     # timed calls, each synced by fetching the losses.
     _hold_on_device_rounds(api, TRAIN_ROUNDS, "train")
-    launches = _time_on_device(api, TRAIN_ROUNDS, "train", samples,
-                               "samples", _zero_gn_counts, _gn_counts)
+    launches, _ = _time_on_device(api, TRAIN_ROUNDS, "train", samples,
+                                  "samples", _zero_gn_counts, _gn_counts)
     fwd, bwd, red, copies, streamed = launches
     want = 3 * TRAIN_ROUNDS * steps * RESNET56_GN
     print(f"[train] GroupNorm launches in the timed on-device calls: fwd "
@@ -1597,7 +1636,7 @@ def phase_algos():
           f"step count {adam_count()} after {ALGO_ROUNDS} on-device rounds "
           f"from {before}")
     before = adam_count()
-    fwd, bwd, red, copies, streamed = _time_on_device(
+    (fwd, bwd, red, copies, streamed), _ = _time_on_device(
         api, ALGO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
         _gn_counts)
     want = 3 * ALGO_ROUNDS * steps * RESNET56_GN
@@ -1960,6 +1999,547 @@ def phase_custom():
     return counted
 
 
+def _rel(a, b):
+    """max over leaves of max|a - b| / max|b| (two {name: tensor} trees)."""
+    return max(((a[k].float() - b[k].float()).abs().max()
+                / b[k].float().abs().max().clamp(min=1e-30)).item()
+               for k in b)
+
+
+def _refused(api, tier, call, tag):
+    """``call()`` must raise the record's refusal of ``tier``, which for a
+    class that opts out quotes its ``window_exclusion``."""
+    from fedml_tpu_torch.algos.capability import refusal
+
+    want = refusal(type(api), tier)
+    try:
+        call()
+    except NotImplementedError as exc:
+        check(str(exc) == want, f"{tag}: {tier} refusal: {exc}")
+        quoted = getattr(type(api), "window_exclusion", None)
+        check(quoted is None or quoted in str(exc),
+              f"{tag}: the refusal does not quote the window_exclusion")
+        print(f"[{tag}] {tier} refused: {exc}", flush=True)
+    else:
+        raise SmokeFailure(f"{tag}: {tier} ran; its record refuses it")
+
+
+def _counted(run, tag, want_fwd, want_bwd):
+    """``run()`` with the GroupNorm counts zeroed just before and read just
+    after: ``want_fwd`` forward and ``want_bwd`` backward and reduce
+    launches, none streamed, no operand copied. Returns (fwd, bwd, what
+    ``run`` returned)."""
+    _zero_gn_counts()
+    out = run()
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    print(f"[{tag}] GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} "
+          f"(expected {want_fwd}, {want_bwd}, {want_bwd}), streamed "
+          f"{streamed}, copies {copies}", flush=True)
+    check(fwd == want_fwd and bwd == red == want_bwd,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
+          f"expected {want_fwd}, {want_bwd}")
+    check(streamed == 0 and copies == 0,
+          f"{tag}: {streamed} forwards streamed, {copies} operand copies")
+    return fwd, bwd, out
+
+
+def _timed_rounds(api, rounds, tag, samples):
+    """``train_one_round`` for ``rounds`` (each ends in a sync: its loss),
+    timed on the host: (median ms, losses)."""
+    round_ms, losses = [], []
+    for r in rounds:
+        t0 = time.perf_counter()
+        losses.append(api.train_one_round(r)["train_loss"])
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(round_ms)
+    print(f"[{tag}] train_one_round {' / '.join(f'{t:.1f}' for t in round_ms)}"
+          f" ms (median {med:.1f} ms = {samples / med * 1e3:.1f} samples/s);"
+          f" losses {' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    return med, losses
+
+
+def phase_zoo():
+    """The rest of the FedAvg-round family at the primary config
+    (ResNet-56-GN bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch,
+    sgd lr 0.1): FedAvg's replayed and on-device rounds as the call's
+    baseline, then FedAc, ServerAvg, q-FedAvg, hierarchical FL,
+    TurboAggregate, and DSGD and PushSum over the first 32 clients, each
+    with its pins, counted rounds and a line beside FedAvg's. Returns
+    {kernel name: launches in its counted rounds}."""
+    from fedml_tpu_torch.algos import (DecentralizedAPI, FedAcAPI,
+                                       FedAvgAPI, FedConfig,
+                                       HierarchicalFedAvgAPI, QFedAvgAPI,
+                                       ServerAvgAPI, TurboAggregateAPI)
+    from fedml_tpu_torch.algos.qfedavg import make_loss_at_global
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.core.topology import (AsymmetricTopologyManager,
+                                               SymmetricTopologyManager)
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs import trace
+    from fedml_tpu_torch.trainer.local import NetState
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    x, y = _cifar_samples()
+    parts = partition_homo(len(x), TRAIN_CLIENTS)
+    fed = build_federated_arrays(x, y, parts, TRAIN_BATCH, device="cuda")
+    fed32 = build_federated_arrays(
+        x, y, {c: parts[c] for c in range(ZOO_GOSSIP_CLIENTS)}, TRAIN_BATCH,
+        device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+    steps = fed.steps_per_epoch * cfg.epochs
+    per_round = steps * RESNET56_GN  # GroupNorm launches a cohort training
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    summary = {}  # class: (tier, median round ms, samples, capture ms,
+    #                       peak GiB, GroupNorm fwd / bwd a round)
+    base = {}
+
+    def count(fwd, bwd):
+        counted["group_norm_fwd"] += fwd
+        counted["group_norm_bwd"] += bwd
+
+    def model():
+        return create_model("resnet56", num_classes=10, dtype="bf16",
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+
+    def build(cls, c=cfg, **kw):
+        return cls(model(), fed, None, c, device="cuda", **kw)
+
+    def params_copy(api):
+        return {k: v.clone() for k, v in api.net.params.items()}
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    def api_cohort(r):
+        return sample_clients(r, TRAIN_CLIENTS, TRAIN_PER_ROUND)
+
+    # 0. FedAvg from the same seed: the baseline of the call, and the
+    # rounds that FedAc at gamma 1, ServerAvg at beta 0 and one-group
+    # hierarchical FL are held to.
+    tag = "zoo/FedAvgAPI"
+    api = build(FedAvgAPI)
+    api.train_one_round(0)  # warm-up and capture
+    fedavg_r0 = params_copy(api)
+    for r in (1, 2):
+        api.train_one_round(r)
+    fedavg_r2 = params_copy(api)
+    fwd, bwd, med, _, copies = _replayed_rounds(api, range(3, 6), tag, steps,
+                                                samples)
+    check(copies == 0, f"{copies} GroupNorm operand copies")
+    count(fwd, bwd)
+    base["replayed"] = med
+    api.train_rounds_on_device(ZOO_ROUNDS)  # warm call: captures
+    (fwd, bwd, red, copies, streamed), base["on-device"] = _time_on_device(
+        api, ZOO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
+        _gn_counts)
+    check(fwd == bwd == red == 3 * ZOO_ROUNDS * per_round
+          and streamed == copies == 0, f"{tag}: on-device GroupNorm "
+          f"launches {fwd} {bwd} {red}, {streamed} streamed, {copies} copies")
+    count(fwd, bwd)
+    del api
+    _free()
+
+    # 1-2. FedAc (gamma 2) and ServerAvg (beta 0.5, avg_start 0): an eager
+    # warm-up round, (a), (b) and three timed on-device calls.
+    for cls, kw in ((FedAcAPI, dict(gamma=ZOO_FEDAC_GAMMA)),
+                    (ServerAvgAPI, dict(avg_coef=ZOO_SAVG_BETA,
+                                        avg_start=0))):
+        tag = f"zoo/{cls.__name__}"
+        api = build(cls, **kw)
+        t0 = time.perf_counter()
+        warm = _eager_round(api, 0).item()
+        print(f"[{tag}] {cls.__name__} {kw}; eager warm-up round "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {warm:.4f}",
+              flush=True)
+        _hold_captured_round(api, 1, tag)
+        capture_ms = api._graphs["fused"].capture_ms
+        _hold_on_device_rounds(api, ZOO_PIN_ROUNDS, tag)
+        mem = peak()
+        (fwd, bwd, red, copies, streamed), med = _time_on_device(
+            api, ZOO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
+            _gn_counts)
+        want = 3 * ZOO_ROUNDS * per_round
+        print(f"[{tag}] GroupNorm launches in the timed on-device calls: "
+              f"fwd {fwd}, bwd {bwd}, reduce {red} (expected {want} each), "
+              f"streamed {streamed}, copies {copies}", flush=True)
+        check(fwd == bwd == red == want and streamed == copies == 0,
+              f"{tag}: on-device GroupNorm launches {fwd} {bwd} {red}, "
+              f"{streamed} streamed, {copies} copies")
+        count(fwd, bwd)
+        summary[cls.__name__] = ("on-device", med, samples, capture_ms, mem,
+                                 fwd // (3 * ZOO_ROUNDS),
+                                 bwd // (3 * ZOO_ROUNDS))
+        del api
+        _free()
+
+    # FedAc at gamma 1 is FedAvg's round up to md - (md - avg); ServerAvg
+    # at beta 0 is FedAvg's rounds bit for bit.
+    tag = "zoo/FedAcAPI"
+    api = build(FedAcAPI, gamma=1.0)
+    api.train_one_round(0)
+    rel = _rel(api.net.params, fedavg_r0)
+    print(f"[{tag}] gamma 1 (alpha {api.alpha}, beta {api.beta}): round 0 "
+          f"vs FedAvg's from the same start, key and cohort: max over "
+          f"leaves of max|d| / max|p| {rel:.3e} (bound {ZOO_REL_TOL:.0e}; "
+          f"{'bit-equal' if rel == 0 else 'not bit-equal'})", flush=True)
+    check(rel <= ZOO_REL_TOL, f"FedAc at gamma 1 is {rel} from FedAvg")
+    del api
+    _free()
+    tag = "zoo/ServerAvgAPI"
+    api = build(ServerAvgAPI, avg_coef=0.0)
+    for r in range(3):
+        api.train_one_round(r)
+    same = all(torch.equal(api.net.params[k], v)
+               for k, v in fedavg_r2.items())
+    print(f"[{tag}] beta 0: after 3 replayed rounds vs FedAvg's: "
+          f"{'bit-equal' if same else 'DIFFERENT'}; running mean over "
+          f"{float(api._savg_state[1]):.0f} globals", flush=True)
+    check(same, "ServerAvg at beta 0 differs from FedAvg")
+    del api, fedavg_r2
+    _free()
+
+    # 3. q-FedAvg (q 1): (a), 3 counted replayed rounds (F_global's
+    # forward-only pass doubles the GroupNorm forwards), an on-device call
+    # that captures and a counted one; F_global against an eager loss.
+    tag = "zoo/QFedAvgAPI"
+    api = build(QFedAvgAPI, q=ZOO_Q)
+    print(f"[{tag}] QFedAvgAPI q {ZOO_Q}, L = 1/lr = {1 / TRAIN_LR:g}",
+          flush=True)
+    _hold_captured_round(api, 0, tag)
+    capture_ms, mem = api._graphs["fused"].capture_ms, peak()
+    fwd, bwd, (med, _) = _counted(
+        lambda: _timed_rounds(api, range(1, 4), tag, samples), tag,
+        3 * 2 * per_round, 3 * per_round)
+    count(fwd, bwd)
+    print(f"[{tag}] a round: {fwd // 3} GroupNorm forwards against "
+          f"{bwd // 3} backwards ({fwd // 3 - bwd // 3} of them F_global's)",
+          flush=True)
+    t0 = time.perf_counter()
+    losses = api.train_rounds_on_device(ZOO_ROUNDS).tolist()
+    print(f"[{tag}] train_rounds_on_device({ZOO_ROUNDS}) warm call "
+          f"(captures) {(time.perf_counter() - t0) * 1e3:.1f} ms; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    t0 = time.perf_counter()
+    fwd, bwd, losses = _counted(
+        lambda: api.train_rounds_on_device(ZOO_ROUNDS).tolist(), tag,
+        ZOO_ROUNDS * 2 * per_round, ZOO_ROUNDS * per_round)
+    dev_ms = (time.perf_counter() - t0) * 1e3 / ZOO_ROUNDS
+    print(f"[{tag}] train_rounds_on_device({ZOO_ROUNDS}) replayed: "
+          f"{dev_ms:.1f} ms a round = {samples / dev_ms * 1e3:.1f} "
+          f"samples/s; losses {' '.join(f'{v:.4f}' for v in losses)}",
+          flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    count(fwd, bwd)
+    sub = gather_clients(fed, api._cohort_on_device(api.sample_round(7)))
+    F = make_loss_at_global(api.fns.apply, api._loss_fn)(
+        api.net, sub.x, sub.y, sub.mask)
+    eager = torch.stack([api.eval_fn(api.net, sub.x[c], sub.y[c],
+                                     sub.mask[c])["loss"]
+                         for c in range(sub.x.shape[0])])
+    err = ((F - eager).abs() / eager.abs()).max().item()
+    print(f"[{tag}] F_global of round 7's cohort (the vmapped forward-only "
+          f"pass) vs an eager loss of the broadcast net on each client's "
+          f"shard: {' '.join(f'{v:.4f}' for v in F.tolist())}; max "
+          f"relative diff {err:.3e} (bound {ZOO_FGLOBAL_TOL:.0e})",
+          flush=True)
+    check(err <= ZOO_FGLOBAL_TOL, f"F_global {err} from the eager loss")
+    summary["QFedAvgAPI"] = ("replayed", med, samples, capture_ms, mem,
+                             fwd // ZOO_ROUNDS, bwd // ZOO_ROUNDS)
+    del api, sub, F, eager
+    _free()
+
+    # 4. Hierarchical FL: groups client % 4, group_comm_round 2; one
+    # captured inner round per padded group size.
+    tag = "zoo/HierarchicalFedAvgAPI"
+    gids = np.arange(TRAIN_CLIENTS) % ZOO_GROUPS
+    hcfg = dataclasses.replace(cfg, group_comm_round=ZOO_GROUP_ROUNDS)
+    api = build(HierarchicalFedAvgAPI, c=hcfg, group_ids=gids)
+
+    def padded(r):
+        """The padded group sizes of round ``r`` (powers of two)."""
+        idx = api.sample_round(r)
+        return {1 << (int((gids[idx] == g).sum()) - 1).bit_length()
+                for g in np.unique(gids[idx])}
+
+    captures = CapturedStep.captures
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(3):
+        api.train_one_round(r)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    mem = peak()
+    sizes = {int(k[5:]) for k in api._graphs}
+    capture_ms = sum(g.capture_ms for g in api._graphs.values())
+    print(f"[{tag}] groups client % {ZOO_GROUPS}, group_comm_round "
+          f"{ZOO_GROUP_ROUNDS}; warm-up rounds 0-2 {warm_ms:.1f} ms with "
+          f"{CapturedStep.captures - captures} captures (padded group sizes "
+          f"{sorted(sizes)}; warm-up + capture {capture_ms / 1e3:.2f} s)",
+          flush=True)
+    # Timed: the first 3 later rounds whose padded sizes are captured.
+    rounds = [r for r in range(3, 200) if padded(r) <= sizes][:3]
+    groups = [len(np.unique(gids[api.sample_round(r)])) for r in rounds]
+    captures = CapturedStep.captures
+    want = sum(groups) * ZOO_GROUP_ROUNDS * per_round
+    trained = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * ZOO_GROUP_ROUNDS
+    fwd, bwd, (med, _) = _counted(
+        lambda: _timed_rounds(api, rounds, tag, trained), tag, want, want)
+    count(fwd, bwd)
+    check(CapturedStep.captures == captures, "a timed round captured")
+    print(f"[{tag}] rounds {rounds}: groups per round {groups} (x "
+          f"{ZOO_GROUP_ROUNDS} inner rounds), 0 captures; samples/s counts "
+          f"each client's {ZOO_GROUP_ROUNDS} trainings", flush=True)
+    _refused(api, "train_rounds_pipelined",
+             lambda: api.train_rounds_pipelined(1), tag)
+    _refused(api, "train_rounds_on_device",
+             lambda: api.train_rounds_on_device(1), tag)
+    summary["HierarchicalFedAvgAPI"] = (
+        "host loop", med, trained, capture_ms, mem,
+        fwd // len(rounds), bwd // len(rounds))
+    del api
+    _free()
+    api = build(HierarchicalFedAvgAPI, group_ids=np.zeros(TRAIN_CLIENTS, int))
+    api.train_one_round(0)
+    rel = _rel(api.net.params, fedavg_r0)
+    print(f"[{tag}] one group, group_comm_round 1: round 0 vs FedAvg's "
+          f"from the same start, key and cohort: max over leaves of "
+          f"max|d| / max|p| {rel:.3e} (bound {ZOO_REL_TOL:.0e}; "
+          f"{'bit-equal' if rel == 0 else 'not bit-equal'})", flush=True)
+    check(rel <= ZOO_REL_TOL, f"one-group hierarchical is {rel} from FedAvg")
+    del api, fedavg_r0
+    _free()
+    # coord_median over two groups of 4 of round 0's cohort: one capture.
+    halves = np.zeros(TRAIN_CLIENTS, int)
+    halves[api_cohort(0)[TRAIN_PER_ROUND // 2:]] = 1
+    api = build(HierarchicalFedAvgAPI,
+                c=dataclasses.replace(hcfg, aggregator="coord_median"),
+                group_ids=halves)
+    out = api.train_one_round(0)
+    finite = all(torch.isfinite(v).all().item()
+                 for v in api.net.params.values())
+    print(f"[{tag}] aggregator coord_median (within each of 2 groups of "
+          f"{TRAIN_PER_ROUND // 2} and across the group partials): round 0 "
+          f"loss {out['train_loss']:.4f}, params finite {finite}",
+          flush=True)
+    check(finite and math.isfinite(out["train_loss"]),
+          "the coord_median hierarchical round is not finite")
+    del api
+    _free()
+    try:
+        build(HierarchicalFedAvgAPI,
+              c=dataclasses.replace(hcfg, aggregator="krum1"),
+              group_ids=gids)
+    except NotImplementedError as exc:
+        check("krum1" in str(exc) and "does not compose group-wise"
+              in str(exc), f"krum's refusal: {exc}")
+        print(f"[{tag}] krum1 refused: {exc}", flush=True)
+    else:
+        raise SmokeFailure("hierarchical FL accepted krum")
+    _free()
+
+    # 5. TurboAggregate (3 groups): the cohort trained on the card, the
+    # stack copied to the host once, the MPC there.
+    tag = "zoo/TurboAggregateAPI"
+    api = build(TurboAggregateAPI, n_groups=ZOO_TA_GROUPS)
+    torch.cuda.reset_peak_memory_stats()
+    api.train_one_round(0)  # warm-up and capture
+    capture_ms, mem = api._graphs["local_batch"].capture_ms, peak()
+    tracer = trace.SpanTracer()
+
+    def traced():
+        with trace.using(tracer):
+            return _timed_rounds(api, range(1, 4), tag, samples)
+
+    fwd, bwd, (med, _) = _counted(traced, tag, 3 * per_round, 3 * per_round)
+    count(fwd, bwd)
+    spans = {}
+    for ev in tracer.events():
+        spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    n_values = sum(v.numel() for v in api.net.params.values())
+    for r in range(3):
+        print(f"[{tag}] round {r + 1}: device training "
+              f"{spans['turbo.train'][r]:.1f} ms, D2H of the {TRAIN_PER_ROUND}"
+              f" x {n_values} stack {spans['turbo.d2h'][r]:.1f} ms, host MPC "
+              f"({ZOO_TA_GROUPS} groups) {spans['turbo.mpc'][r]:.1f} ms",
+              flush=True)
+    for r, dropped in ((4, None), (5, [0])):
+        api.set_dropout(dropped)
+        seen = {}
+        train = api._train_clients
+
+        def record(idx, key):
+            params, losses = train(idx, key)
+            seen["w"] = fed.counts.cpu().numpy()[idx].astype(np.float64)
+            seen["stack"] = {k: v.double() for k, v in params.items()}
+            return params, losses
+
+        api._train_clients = record
+        api.train_one_round(r)
+        del api._train_clients
+        w = seen["w"]
+        if dropped:
+            w[dropped] = 0.0
+        w = torch.tensor(w / w.sum(), dtype=torch.float64, device="cuda")
+        worst = 0.0
+        for k, p in seen["stack"].items():
+            mean = torch.einsum("c,c...->...", w, p)
+            bound = TRAIN_PER_ROUND * 0.5 / 2**16 + mean.abs() * 2.0**-23
+            worst = max(worst, ((api.net.params[k].double() - mean).abs()
+                                / bound).max().item())
+        print(f"[{tag}] round {r}"
+              f"{' with client 0 dropped' if dropped else ''}: the MPC "
+              f"aggregate vs the f64 weighted mean of the same client stack"
+              f": max |d| / bound {worst:.3f} (must be <= 1; bound "
+              f"{TRAIN_PER_ROUND} x 0.5/2^16 + the f32 cast)", flush=True)
+        check(worst <= 1.0, f"{tag}: MPC aggregate off by {worst} bounds")
+    api.set_dropout(None)
+    _refused(api, "train_rounds_pipelined",
+             lambda: api.train_rounds_pipelined(1), tag)
+    _refused(api, "train_rounds_on_device",
+             lambda: api.train_rounds_on_device(1), tag)
+    summary["TurboAggregateAPI"] = ("host loop", med, samples, capture_ms,
+                                    mem, fwd // 3, bwd // 3)
+    del api
+    _free()
+
+    # 6. DSGD and PushSum over the first 32 clients, every client every
+    # round.
+    gsamples = ZOO_GOSSIP_CLIENTS * TRAIN_PER_CLIENT * cfg.epochs
+    gcfg = dataclasses.replace(cfg, client_num_in_total=ZOO_GOSSIP_CLIENTS,
+                               client_num_per_round=ZOO_GOSSIP_CLIENTS)
+    for mode, topo in (
+            ("dsgd", SymmetricTopologyManager(ZOO_GOSSIP_CLIENTS,
+                                              neighbor_num=4, seed=SEED)),
+            ("pushsum", AsymmetricTopologyManager(ZOO_GOSSIP_CLIENTS,
+                                                  neighbor_num=2,
+                                                  seed=SEED))):
+        tag = f"zoo/DecentralizedAPI-{mode}"
+        api = DecentralizedAPI(model(), fed32, None, gcfg, topo, mode=mode,
+                               device="cuda")
+
+        def snap():
+            return (NetState(tree_map(torch.clone, api.nets.params), {}),
+                    api.push_weights.clone(), api.rng.clone())
+
+        def restore(s):
+            api.nets = NetState(tree_map(torch.clone, s[0].params), {})
+            api.push_weights, api.rng = s[1].clone(), s[2].clone()
+
+        def state():
+            return torch.cat([api.push_weights] + [
+                p.float().flatten() for p in api.nets.params.values()])
+
+        start = snap()
+        api._round_step = api._gossip_step  # the uncaptured round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = api.train_one_round(0)["train_loss"]
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        del api._round_step
+        eager = (state(), [loss])
+        restore(start)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = api.train_one_round(0)["train_loss"]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        capture_ms, mem = api._step.capture_ms, peak()
+        dist, loss_dist = _spread([eager, (state(), [loss])])
+        print(f"[{tag}] {ZOO_GOSSIP_CLIENTS} clients x {TRAIN_PER_CLIENT} "
+              f"samples, {type(topo).__name__}({ZOO_GOSSIP_CLIENTS}, "
+              f"neighbor_num={topo.neighbor_num}, seed={SEED}); eager round "
+              f"{eager_ms:.1f} ms; the captured round's first call "
+              f"{first_ms:.1f} ms, of which warm-up + capture "
+              f"{capture_ms:.1f} ms; peak device memory {mem:.2f} GiB",
+              flush=True)
+        print(f"[{tag}] (a) captured round vs the eager round from one "
+              f"start and key: max|d| (stacks and push weights) {dist:.3e}, "
+              f"|dloss| {loss_dist:.3e} (must be bit-equal)", flush=True)
+        check(dist == loss_dist == 0, f"{tag}: captured round {dist}, "
+              f"{loss_dist} from the eager one")
+        one = snap()
+        spreads = []
+
+        def timed():
+            round_ms, losses = [], []
+            for r in range(1, 1 + ZOO_ROUNDS):
+                t0 = time.perf_counter()
+                losses.append(api.train_one_round(r)["train_loss"])
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                cons = api.consensus_net().params
+                debiased = api._debiased()
+                spreads.append(max((debiased[k] - v[None]).abs().max().item()
+                                   for k, v in cons.items()))
+            return statistics.median(round_ms), round_ms, losses
+
+        fwd, bwd, (med, round_ms, want_losses) = _counted(
+            timed, tag, ZOO_ROUNDS * per_round, ZOO_ROUNDS * per_round)
+        count(fwd, bwd)
+        want = state()
+        wsum = float(api.push_weights.sum())
+        print(f"[{tag}] train_one_round (replayed) "
+              f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
+              f"{med:.1f} ms = {gsamples / med * 1e3:.1f} samples/s); "
+              f"losses {' '.join(f'{v:.4f}' for v in want_losses)}; the "
+              f"clients' max |x_i - consensus| after each round "
+              f"{' '.join(f'{s:.3e}' for s in spreads)}; push weights sum "
+              f"{wsum:.6f}", flush=True)
+        check(abs(wsum - ZOO_GOSSIP_CLIENTS) <= 1e-4,
+              f"{tag}: push weights sum {wsum}")
+        restore(one)
+        piped = api.train_rounds_pipelined(ZOO_ROUNDS, start_round=1)
+        same_p = piped == want_losses and torch.equal(state(), want)
+        restore(one)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = api.train_rounds_on_device(ZOO_ROUNDS).tolist()
+        dev_ms = (time.perf_counter() - t0) * 1e3 / ZOO_ROUNDS
+        same_d = dev == want_losses and torch.equal(state(), want)
+        print(f"[{tag}] from one start, against {ZOO_ROUNDS} "
+              f"train_one_round: train_rounds_pipelined({ZOO_ROUNDS}) "
+              f"{'bit-equal' if same_p else 'DIFFERENT'}, "
+              f"train_rounds_on_device({ZOO_ROUNDS}) "
+              f"{'bit-equal' if same_d else 'DIFFERENT'} ({dev_ms:.1f} ms a "
+              f"round = {gsamples / dev_ms * 1e3:.1f} samples/s)", flush=True)
+        check(same_p and same_d, f"{tag}: the pipelined or on-device rounds "
+              "differ from train_one_round")
+        summary[f"DecentralizedAPI {mode}"] = (
+            "replayed", med, gsamples, capture_ms, mem, fwd // ZOO_ROUNDS,
+            bwd // ZOO_ROUNDS)
+        del api, start, one, eager
+        _free()
+    del fed, fed32
+    _free()
+
+    print(f"[zoo] FedAvgAPI: replayed round {base['replayed']:.1f} ms = "
+          f"{samples / base['replayed'] * 1e3:.1f} samples/s, on-device "
+          f"{base['on-device']:.2f} ms = "
+          f"{samples / base['on-device'] * 1e3:.1f} samples/s; card {card}",
+          flush=True)
+    for name, (tier, med, n, capture_ms, mem, fwd, bwd) in summary.items():
+        ref = base["on-device" if tier == "on-device" else "replayed"]
+        print(f"[zoo] {name}: {tier} round {med:.2f} ms = "
+              f"{n / med * 1e3:.1f} samples/s ({med - ref:+.2f} ms beside "
+              f"FedAvg's {ref:.2f} ms {'on-device' if tier == 'on-device' else 'replayed'}"
+              f" in this call); capture {capture_ms / 1e3:.2f} s, peak "
+              f"device memory {mem:.2f} GiB; GroupNorm launches a round fwd "
+              f"{fwd}, bwd {bwd}, none streamed, no operand copied; card "
+              f"{card}", flush=True)
+    print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"GroupNorm launches counted {counted}", flush=True)
+    return counted
+
+
 class _SkipLastQTile:
     """Planted fault for the adapter step checks: the extension with its
     dk/dv kernels (the FMA one for f32, the tensor-core one for bf16) fed a
@@ -2095,7 +2675,7 @@ def phase_adapter():
 
     # (b) train_rounds_on_device: the warm call captures; three timed calls.
     _hold_on_device_rounds(api, ADAPTER_ROUNDS, "adapter")
-    fwd, dq, dkv, copies = _time_on_device(
+    (fwd, dq, dkv, copies), _ = _time_on_device(
         api, ADAPTER_ROUNDS, "adapter", tokens, "tokens", _zero_flash_counts,
         _flash_counts)
     want = 3 * ADAPTER_ROUNDS * steps * N_LAYERS
@@ -2232,6 +2812,8 @@ def main() -> int:
     for name, n in phase_algos().items():
         launches[name] += n
     for name, n in phase_custom().items():
+        launches[name] += n
+    for name, n in phase_zoo().items():
         launches[name] += n
     adapter = phase_adapter()
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "

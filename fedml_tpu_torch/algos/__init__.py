@@ -1,13 +1,17 @@
 """Federated algorithms of the port on one card: FedAvg, FedAdapter
 (FedAvg over the LoRA adapters of a frozen-base transformer), the
-algorithms that ride FedAvg's round (FedOpt, FedProx, FedNova and
-FedAvgRobust), those that carry client-stacked state through a custom
-step (SCAFFOLD, FedDyn, Ditto and FedBN), and the centralized
-baseline."""
+algorithms that ride FedAvg's round (FedOpt, FedProx, FedNova,
+FedAvgRobust, FedAc, ServerAvg and q-FedAvg), those that carry
+client-stacked state through a custom step (SCAFFOLD, FedDyn, Ditto and
+FedBN), those with their own host loop over FedAvg's round (hierarchical
+FL, TurboAggregate's secure aggregation), serverless gossip (DSGD and
+PushSum) and the centralized baseline."""
 
 from fedml_tpu_torch.algos.centralized import CentralizedTrainer
 from fedml_tpu_torch.algos.config import FedConfig
+from fedml_tpu_torch.algos.decentralized import DecentralizedAPI
 from fedml_tpu_torch.algos.ditto import DittoAPI
+from fedml_tpu_torch.algos.fedac import FedAcAPI, ServerAvgAPI
 from fedml_tpu_torch.algos.fedadapter import FedAdapterAPI
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.algos.fedbn import FedBNAPI
@@ -15,9 +19,14 @@ from fedml_tpu_torch.algos.feddyn import FedDynAPI
 from fedml_tpu_torch.algos.fednova import FedNovaAPI
 from fedml_tpu_torch.algos.fedopt import FedOptAPI
 from fedml_tpu_torch.algos.fedprox import FedProxAPI
+from fedml_tpu_torch.algos.hierarchical import HierarchicalFedAvgAPI
+from fedml_tpu_torch.algos.qfedavg import QFedAvgAPI
 from fedml_tpu_torch.algos.robust import FedAvgRobustAPI
 from fedml_tpu_torch.algos.scaffold import ScaffoldAPI
+from fedml_tpu_torch.algos.turboaggregate import TurboAggregateAPI
 
-__all__ = ["CentralizedTrainer", "DittoAPI", "FedAdapterAPI", "FedAvgAPI",
-           "FedAvgRobustAPI", "FedBNAPI", "FedConfig", "FedDynAPI",
-           "FedNovaAPI", "FedOptAPI", "FedProxAPI", "ScaffoldAPI"]
+__all__ = ["CentralizedTrainer", "DecentralizedAPI", "DittoAPI",
+           "FedAcAPI", "FedAdapterAPI", "FedAvgAPI", "FedAvgRobustAPI",
+           "FedBNAPI", "FedConfig", "FedDynAPI", "FedNovaAPI", "FedOptAPI",
+           "FedProxAPI", "HierarchicalFedAvgAPI", "QFedAvgAPI",
+           "ScaffoldAPI", "ServerAvgAPI", "TurboAggregateAPI"]

@@ -3,9 +3,12 @@
 
 One record per algorithm class, derived from its declarations: the carry
 protocol (``window_protocol`` and the ``_window_*`` hooks) and which
-hooks of ``FedAvgAPI`` the class overrides. Every round tier keys its
-guard on the record and refuses with :func:`refusal`, a message derived
-from it, never on a list of classes.
+hooks of ``FedAvgAPI`` the class overrides; a standalone class with its
+own loop (``DecentralizedAPI``) declares its tiers in
+``capability_tiers``. A class that opts out says why in
+``window_exclusion``. Every round tier keys its guard on the record and
+refuses with :func:`refusal`, a message derived from it, never on a list
+of classes.
 
 What differs from the JAX package's records: the port's host loop
 (``train_one_round``, ``train_rounds_pipelined``) replays the fused step
@@ -31,6 +34,7 @@ class CarryCapability:
 
     algorithm: str
     protocol: Optional[str]       # "round" | "custom" | None
+    excluded: Optional[str]       # the class's window_exclusion
     custom_round: bool            # round != run_round + _server_update
     custom_builders: bool         # round_fn not from the shared builder
     custom_step: bool             # provides its own _build_fused_step
@@ -42,13 +46,30 @@ class CarryCapability:
 
 @lru_cache(maxsize=None)
 def record_for(cls) -> CarryCapability:
-    """The capability record of a ``FedAvgAPI`` subclass (cached per
-    class)."""
+    """The capability record of an algorithm class (cached per class):
+    derived from the hooks for a ``FedAvgAPI`` subclass; a standalone
+    class with its own loop declares ``capability_tiers`` (``fused``,
+    ``pipelined``, ``on_device``), or rides no tier."""
     from fedml_tpu_torch.algos.fedavg import FedAvgAPI
     from fedml_tpu_torch.algos.loop import FederatedLoop
 
-    if not (isinstance(cls, type) and issubclass(cls, FedAvgAPI)):
-        raise TypeError(f"{cls!r} is not an algorithm of the FedAvg family")
+    excluded = getattr(cls, "window_exclusion", None)
+    if not isinstance(cls, type):
+        raise TypeError(f"{cls!r} is not an algorithm class")
+    if not issubclass(cls, FedAvgAPI):
+        tiers = getattr(cls, "capability_tiers", {})
+        proto = getattr(cls, "window_protocol", None)
+        if proto is None and excluded is None:
+            excluded = ("no carry capability record declared "
+                        "(window_protocol=None and no window_exclusion)")
+        # The port's pipelined tier replays the fused step: "fused"
+        # answers for both.
+        fused = bool(tiers.get("fused", False))
+        return CarryCapability(
+            algorithm=cls.__name__, protocol=proto, excluded=excluded,
+            custom_round=True, custom_builders=True, custom_step=fused,
+            pure_server_update=False, round_aux=False, fused=fused,
+            on_device=bool(tiers.get("on_device", False)))
     proto = cls.window_protocol
     custom_round = (cls.train_one_round is not FedAvgAPI.train_one_round
                     or cls.run_round is not FederatedLoop.run_round)
@@ -69,7 +90,7 @@ def record_for(cls) -> CarryCapability:
     elif proto == "custom":
         fused = custom_step
     return CarryCapability(
-        algorithm=cls.__name__, protocol=proto,
+        algorithm=cls.__name__, protocol=proto, excluded=excluded,
         custom_round=custom_round, custom_builders=custom_builders,
         custom_step=custom_step, pure_server_update=pure, round_aux=aux,
         fused=fused, on_device=on_device)
@@ -81,11 +102,17 @@ def refusal(cls, tier: str) -> str:
     its record that rules the tier out, reaches the user as it is."""
     rec = record_for(cls)
     name = cls.__name__
+    if (tier == "train_rounds_windowed" and rec.excluded
+            and rec.protocol is not None):
+        # A class that rides other tiers but declares why the windowed
+        # store tier does not apply (DecentralizedAPI's gossip).
+        return f"{name} opts out of the windowed tier: {rec.excluded}"
     if rec.protocol is None:
-        return (f"{name} opts out of the windowed carry protocol "
-                "(window_protocol=None); every round tier of the port "
-                "replays the fused step, so only the eager run_round + "
-                "_server_update remain")
+        why = rec.excluded or "no reason declared"
+        return (f"{name} opts out of the carry protocol "
+                f"(window_protocol=None): {why}; {tier} replays a "
+                "captured fused step, which it does not have — use its "
+                "train_one_round")
     if rec.protocol == "round":
         if rec.custom_round:
             return (f"{name} customizes the round itself; {tier} only "

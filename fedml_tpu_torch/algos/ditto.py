@@ -19,7 +19,7 @@ from typing import Dict
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import ClientStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.tree import (client_rows, client_stack,
                                        gather_stacked, scatter_stacked,
@@ -43,7 +43,7 @@ def weighted_client_metrics(m) -> Dict[str, float]:
             "personal_loss_eval": float((m["loss"] * num).sum() / n)}
 
 
-class DittoAPI(ClientStateCheckpoints, FedAvgAPI):
+class DittoAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg for the global model + per-client personal models pulled
     toward the current global with strength ``lam``. The carry is the
     stack of the personal params (every personal model starts as the

@@ -39,7 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fedml_tpu_torch.algos.capability import record_for, refusal
+from fedml_tpu_torch.algos.capability import refusal
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
@@ -79,16 +79,19 @@ def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
                 f"{defaults[name]!r}")
 
 
-class ClientStateCheckpoints:
-    """Mixin of the "custom"-protocol classes: their client stacks are run
-    state, which the JAX package's orbax run checkpoints hold; the port
-    has no checkpoint format yet."""
+class RunStateCheckpoints:
+    """Mixin of the classes that carry run state beyond the global net
+    (the "custom"-protocol client stacks, FedAc's sequences, ServerAvg's
+    running mean), which the JAX package's orbax run checkpoints hold; the
+    port has no checkpoint format yet. ``run_state`` names it."""
+
+    run_state = "its client-stacked state"
 
     def checkpoint_extra_state(self):
         raise NotImplementedError(
-            f"{type(self).__name__} checkpoints (its client-stacked state "
-            "as run state) need a checkpoint format, which the port does "
-            "not have yet (ROADMAP.md A8)")
+            f"{type(self).__name__} checkpoints ({self.run_state} as run "
+            "state) need a checkpoint format, which the port does not "
+            "have yet (ROADMAP.md A8)")
 
     def load_checkpoint_extra_state(self, extra) -> None:
         self.checkpoint_extra_state()
@@ -154,14 +157,8 @@ class FedAvgAPI(FederatedLoop):
                 "the same batch_size as the config")
         self.cfg = cfg
         self._aggregator = make_aggregator(cfg.aggregator)
-        rec = self.capability()
-        if not self._aggregator.is_mean and (
-                rec.custom_round or rec.custom_builders or rec.custom_step):
-            raise NotImplementedError(
-                f"{type(self).__name__} customizes the round or its "
-                f"aggregation; cfg.aggregator={cfg.aggregator!r} only "
-                "rides the FedAvg family's shared round builder (a custom "
-                "round would silently keep its own aggregation)")
+        if not self._aggregator.is_mean:
+            self._check_aggregator(cfg.aggregator)
         if (cfg.corrupt_mode != "none"
                 and type(self)._corruptor is FedAvgAPI._corruptor):
             raise NotImplementedError(
@@ -180,6 +177,35 @@ class FedAvgAPI(FederatedLoop):
         self.eval_fn = make_eval_fn(self.fns.apply, loss_fn, pad_id)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
         self.net = self.fns.init(torch.Generator().manual_seed(cfg.seed))
+
+    def _check_aggregator(self, name) -> None:
+        """The guard on a non-mean ``cfg.aggregator``. A class that runs
+        the two-stage (within-group, then across-group) aggregation
+        declares ``composes_group_aggregation`` on ITSELF (its
+        ``__dict__``: a subclass that customizes the round again must not
+        inherit the exemption) and takes only a ``group_composable``
+        aggregator; any other class whose round, its construction or its
+        step is its own is refused, as its aggregation would silently stay
+        its own."""
+        cls = type(self)
+        if cls.__dict__.get("composes_group_aggregation", False):
+            if not getattr(self._aggregator, "group_composable", False):
+                raise NotImplementedError(
+                    f"cfg.aggregator={name!r} does not compose group-wise "
+                    "(krum needs pairwise client distances, "
+                    "geometric_median a joint fixpoint); "
+                    f"{cls.__name__} aggregates within groups then across "
+                    "group partials — use a composable aggregator "
+                    "(coord_median, trimmed_mean<beta>) here, or the flat "
+                    "FedAvg family for the exact full-cohort path")
+            return
+        rec = self.capability()
+        if rec.custom_round or rec.custom_builders or rec.custom_step:
+            raise NotImplementedError(
+                f"{cls.__name__} customizes the round or its "
+                f"aggregation; cfg.aggregator={name!r} only "
+                "rides the FedAvg family's shared round (a custom round "
+                "would silently keep its own aggregation)")
 
     def _model_fns(self, model):
         """The functional model interface that the round and the
@@ -221,15 +247,6 @@ class FedAvgAPI(FederatedLoop):
         mask through ``_round_aux``."""
         return None
 
-    def capability(self):
-        """This class's capability record (``algos/capability``), on which
-        every tier's guard keys."""
-        return record_for(type(self))
-
-    def _require(self, tier: str, allowed: bool) -> None:
-        if not allowed:
-            raise NotImplementedError(refusal(type(self), tier))
-
     def set_client_lr(self, lr: float) -> None:
         """Rebuild the round for a new client learning rate (the hook of
         the round-level lr schedules); it takes effect from the next round.
@@ -267,6 +284,9 @@ class FedAvgAPI(FederatedLoop):
         """FedAvg: the new global model is the client average."""
         return avg_net
 
+    def _eval_net(self):
+        return self.net
+
     # --- the carry protocol ------------------------------------------------
     def _window_server_update(self):
         """The PURE form of :meth:`_server_update` that the fused and
@@ -300,6 +320,13 @@ class FedAvgAPI(FederatedLoop):
                 refusal(type(self), "the fused round step"))
         return make_fused_round_step(self.round_fn,
                                      self._window_server_update())
+
+    def _fence(self) -> None:
+        """Waits for the card: an honest end of a traced span (the host
+        loops of hierarchical FL and TurboAggregate fence only when a
+        tracer is installed)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _check_resident(self) -> None:
         """The rounds gather each cohort on the device from resident

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from fedml_tpu_torch.algos.ditto import weighted_client_metrics
-from fedml_tpu_torch.algos.fedavg import ClientStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
 from fedml_tpu_torch.core.tree import (client_rows, client_stack,
                                        gather_stacked, scatter_stacked)
 from fedml_tpu_torch.parallel.shard import client_rngs
@@ -42,7 +42,7 @@ def norm_mask(params) -> Dict[str, bool]:
             for k in params}
 
 
-class FedBNAPI(ClientStateCheckpoints, FedAvgAPI):
+class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg with client-local normalization layers. A model without
     norm layers is refused (FedBN on it would be FedAvg, almost surely a
     misconfiguration), as is ``nan_guard``, which its round does not

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import ClientStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
 from fedml_tpu_torch.core.tree import client_rows, client_stack, tree_map
 from fedml_tpu_torch.parallel.shard import (make_fused_stateful_round_step,
                                             make_stateful_client_round)
@@ -41,7 +41,7 @@ def make_feddyn_local_train(apply_fn, lr: float, alpha: float,
                                       step_update)
 
 
-class FedDynAPI(ClientStateCheckpoints, FedAvgAPI):
+class FedDynAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg + dynamic regularization, plain-SGD clients only; ``alpha``
     the regularization strength (typically 0.01-0.1). The carry is
     ``(server_h, client stack of the g_k)``; ``client_grads`` is the

@@ -9,6 +9,7 @@ from typing import Dict, List
 import torch
 from torch.func import vmap
 
+from fedml_tpu_torch.algos.capability import record_for, refusal
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.batching import gather_clients
@@ -17,7 +18,24 @@ from fedml_tpu_torch.trainer.local import NetState
 
 class FederatedLoop:
     """Mixin. Subclasses provide ``cfg``, ``train_fed``, ``test_global``,
-    ``eval_fn``, ``net``, ``rng``, ``round_fn`` and ``train_one_round``."""
+    ``eval_fn``, ``train_one_round`` and ``_eval_net()`` (the model that
+    ``evaluate`` and ``evaluate_on_clients`` read); those that also
+    provide ``net``, ``rng`` and ``round_fn`` get the shared round
+    scaffold (``sample_round``/``run_round``)."""
+
+    def _eval_net(self):
+        """The model the evaluations read: FedAvg's global net,
+        DecentralizedAPI's consensus net."""
+        raise NotImplementedError
+
+    def capability(self):
+        """This class's capability record (``algos/capability``), on which
+        every tier's guard keys."""
+        return record_for(type(self))
+
+    def _require(self, tier: str, allowed: bool) -> None:
+        if not allowed:
+            raise NotImplementedError(refusal(type(self), tier))
 
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
         raise NotImplementedError
@@ -83,7 +101,7 @@ class FederatedLoop:
         clients without samples left out of the worst. Streaming stores
         are not ported (ROADMAP.md A9)."""
         f = self.train_fed if arrays is None else arrays
-        m = self._per_client_eval(self.net, f.x, f.y, f.mask)
+        m = self._per_client_eval(self._eval_net(), f.x, f.y, f.mask)
         num = m["num"]
         n = torch.clamp(num.sum(), min=1.0)
         present = num > 0
@@ -102,7 +120,7 @@ class FederatedLoop:
         if self.test_global is None:
             return {}
         x, y, mask = self.test_global
-        m = self.eval_fn(self.net, x, y, mask)
+        m = self.eval_fn(self._eval_net(), x, y, mask)
         return {k: float(v) for k, v in m.items()}
 
     def train(self) -> List[Dict[str, float]]:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import ClientStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
 from fedml_tpu_torch.core.tree import (client_rows, client_stack, tree_map,
                                        tree_select)
 from fedml_tpu_torch.parallel.shard import (make_fused_stateful_round_step,
@@ -43,7 +43,7 @@ def make_scaffold_local_train(apply_fn, lr: float, local_epochs: int,
                                       step_update, with_step_count=True)
 
 
-class ScaffoldAPI(ClientStateCheckpoints, FedAvgAPI):
+class ScaffoldAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg + control variates, plain-SGD clients only. The carry is
     ``(server_control, client stack of the controls)``; the controls are
     f32 zeros like the params at the start. ``client_controls`` is the

@@ -7,11 +7,13 @@ Bucket math: log-spaced buckets with ratio ``growth`` (default 2**0.25 ≈
 below ``lo``; bucket ``i ≥ 1`` covers ``(lo·g^(i-1), lo·g^i]``.
 Percentiles return the geometric midpoint of the selected bucket, clamped
 to the observed min/max. The serving plane's ``serve/*`` names are read
-from :meth:`MetricsRegistry.snapshot`.
+from :meth:`MetricsRegistry.snapshot`. :func:`payload_nbytes` sizes a
+model-sized payload (hierarchical FL's ``reduce.stage2`` span).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 from typing import Dict, Optional
@@ -162,3 +164,21 @@ class MetricsRegistry:
                 for k, v in h.snapshot().items():
                     out[f"{name}_{k}"] = v
         return out
+
+
+def payload_nbytes(tree) -> int:
+    """Approximate bytes-on-wire of an upload payload: the sum of its
+    array leaves' buffer sizes (tensors by ``element_size() × numel()``,
+    numpy arrays by ``nbytes``; scalars and strings are header noise next
+    to model tensors). Walks dicts, lists, tuples and dataclasses
+    (``NetState``)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(payload_nbytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return sum(payload_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(payload_nbytes(v) for v in tree)
+    if hasattr(tree, "element_size") and hasattr(tree, "numel"):
+        return int(tree.element_size() * tree.numel())
+    return int(getattr(tree, "nbytes", 0))

@@ -5,6 +5,8 @@ is stdlib-only; copied so the port imports nothing of ``fedml_tpu``).
   monotonic clock and dumps Chrome trace-event JSON or JSONL.
 - :data:`NULL` / :class:`NullTracer` is the disabled path: ``active()``
   returns it when nothing is installed, and every call is a no-op.
+- :func:`corr` is the correlation key that spans of one round share
+  (hierarchical FL's ``reduce.stage1`` and ``reduce.stage2``).
 
 The tracer is installed process-globally (``install``, or ``using`` for a
 scoped install), so the serving plane traces without a tracer handle in
@@ -19,6 +21,22 @@ import os
 import threading
 import time
 from typing import Dict, List
+
+
+def corr(epoch=None, round=None, sender=None, task_seq=None) -> Dict[str, int]:
+    """The per-message correlation key. Drops unset fields so sync-tier
+    spans (no task_seq) and async-tier spans (no barrier round) share one
+    vocabulary."""
+    out = {}
+    if epoch is not None:
+        out["epoch"] = int(epoch)
+    if round is not None:
+        out["round"] = int(round)
+    if sender is not None:
+        out["sender"] = int(sender)
+    if task_seq is not None:
+        out["task_seq"] = int(task_seq)
+    return out
 
 
 class _NullSpan:

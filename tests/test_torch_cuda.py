@@ -626,7 +626,8 @@ def test_fedavg_round_on_the_card_matches_a_client_loop(cuda, monkeypatch):
 def _small_fedavg(cuda, cls=None, per_round=3, sizes=None, **cfg_kw):
     """ResNet-20-GN at widths (4, 8, 16), 4 clients x 12 images of 16x16
     (or ``sizes[i]`` images for client i), batch 4 (3 local steps), sgd lr
-    5e-3; ``cfg_kw`` further FedConfig fields."""
+    5e-3; ``cfg_kw`` further FedConfig fields and the class's own
+    constructor arguments."""
     import numpy as np
 
     from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
@@ -644,13 +645,15 @@ def _small_fedavg(cuda, cls=None, per_round=3, sizes=None, **cfg_kw):
         parts = {i: np.arange(edges[i], edges[i + 1])
                  for i in range(len(sizes))}
     fed = build_federated_arrays(x, y, parts, 4, device=cuda)
+    api_kw = {k: cfg_kw.pop(k) for k in list(cfg_kw)
+              if k not in FedConfig.__dataclass_fields__}
     cfg = FedConfig(client_num_in_total=len(parts),
                     client_num_per_round=per_round, epochs=1, batch_size=4,
                     lr=5e-3, **cfg_kw)
     model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
                          device=cuda,
                          generator=torch.Generator().manual_seed(0))
-    return (cls or FedAvgAPI)(model, fed, None, cfg, device=cuda)
+    return (cls or FedAvgAPI)(model, fed, None, cfg, device=cuda, **api_kw)
 
 
 def _small_fedadapter(cuda):
@@ -1074,3 +1077,168 @@ def test_a_dropped_graph_is_not_freed_during_another_capture(cuda):
     finally:
         gc.set_threshold(*thresholds)
     assert loss == loss and gc.isenabled()
+
+
+# --- the rest of the FedAvg-round family on the captured round ---------------
+
+@pytest.mark.parametrize("name,kw", [("FedAcAPI", dict(gamma=2.0)),
+                                     ("ServerAvgAPI", dict(avg_coef=0.5)),
+                                     ("QFedAvgAPI", dict(q=1.0))])
+def test_captured_zoo_rounds_equal_the_eager_rounds(cuda, monkeypatch, name,
+                                                    kw):
+    """FedAc, ServerAvg and q-FedAvg on the small ResNet: 3 captured fused
+    rounds (one capture) bit-equal to 3 eager ``run_round`` +
+    ``_server_update``, params, losses and the carry (FedAc's sequences,
+    ServerAvg's running mean and counters); at full participation
+    ``train_rounds_on_device(3)`` likewise. q-FedAvg's round runs the
+    GroupNorm forward twice as often as the backward (F_global's
+    forward-only pass)."""
+    import fedml_tpu_torch.algos as algos
+    from fedml_tpu_torch.core.graph import CapturedStep, _leaves
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cls = getattr(algos, name)
+
+    def carry(api):
+        return [t.clone() for t in _leaves(api._window_carry_init())]
+
+    for per_round in (3, 4):
+        host = _small_fedavg(cuda, cls, per_round=per_round, **kw)
+        want = [_eager(host, r) for r in range(3)]
+        api = _small_fedavg(cuda, cls, per_round=per_round, **kw)
+        captures = CapturedStep.captures
+        if per_round == 3:
+            got = [api.train_one_round(r)["train_loss"] for r in range(3)]
+        else:
+            fwd, bwd = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+            got = api.train_rounds_on_device(3).tolist()
+            fwd = gn.group_norm_fwd.launches - fwd
+            bwd = gn.group_norm_bwd.launches - bwd
+            assert fwd == (2 if name == "QFedAvgAPI" else 1) * bwd > 0
+        assert CapturedStep.captures == captures + 1
+        assert got == want
+        _assert_same_state(api, host)
+        assert all(torch.equal(a, b) for a, b in zip(carry(api),
+                                                     carry(host)))
+
+
+def test_captured_hierarchical_groups_equal_eager_groups(cuda, monkeypatch):
+    """Hierarchical FL over groups of 1 and 2 sampled clients (padded to
+    1 and 2), 2 inner rounds each: 2 rounds through the captured group
+    steps (one capture per padded size) bit-equal to the same rounds with
+    each group's step run uncaptured."""
+    import numpy as np
+
+    from fedml_tpu_torch.algos import HierarchicalFedAvgAPI
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(group_ids=np.array([0, 1, 0, 1]), group_comm_round=2)
+    host = _small_fedavg(cuda, HierarchicalFedAvgAPI, **kw)
+    host._group_step = lambda size: host._group_round()
+    want = [host.train_one_round(r)["train_loss"] for r in range(2)]
+    api = _small_fedavg(cuda, HierarchicalFedAvgAPI, **kw)
+    captures = CapturedStep.captures
+    got = [api.train_one_round(r)["train_loss"] for r in range(2)]
+    assert got == want
+    _assert_same_state(api, host)
+    assert CapturedStep.captures - captures == len(api._graphs) == 2
+
+
+def test_turboaggregate_device_stack_equals_the_cpu_host_input(cuda,
+                                                                monkeypatch):
+    """TurboAggregate's captured cohort training on the card hands the
+    MPC the same client stack as the uncaptured step (bit-equal), and the
+    round's new model is the host MPC of that stack, as on the CPU."""
+    import numpy as np
+
+    from fedml_tpu_torch.algos import TurboAggregateAPI
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    stacks = {}
+
+    def recording(api, tag):
+        train = api._train_clients
+
+        def record(idx, key):
+            params, losses = train(idx, key)
+            stacks[tag] = ({k: v.cpu().clone() for k, v in params.items()},
+                           losses.cpu().clone())
+            return params, losses
+
+        api._train_clients = record
+
+    host = _small_fedavg(cuda, TurboAggregateAPI, n_groups=3)
+    host._local_batch = host._cohort_training
+    recording(host, "eager")
+    api = _small_fedavg(cuda, TurboAggregateAPI, n_groups=3)
+    recording(api, "captured")
+    assert host.train_one_round(0) == api.train_one_round(0)
+    (a, la), (b, lb) = stacks["eager"], stacks["captured"]
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    _assert_same_state(api, host)
+    w = api.train_fed.counts.cpu().numpy()[api.sample_round(0)]
+    w = w / w.sum()
+    for k, p in b.items():
+        mean = np.tensordot(w, p.numpy().astype(np.float64), axes=1)
+        err = np.abs(api.net.params[k].cpu().numpy() - mean)
+        assert (err <= len(w) * 0.5 / 2 ** 16 + np.abs(mean) * 2.0 ** -23
+                ).all()
+
+
+@pytest.mark.parametrize("mode", ["dsgd", "pushsum"])
+def test_captured_gossip_rounds_equal_the_eager_rounds(cuda, monkeypatch,
+                                                       mode):
+    """DSGD and PushSum over 4 clients of the small ResNet: 2 captured
+    rounds bit-equal to 2 uncaptured gossip steps, then
+    ``train_rounds_on_device(2)`` and ``train_rounds_pipelined(2)`` from
+    one start bit-equal to the host loop; the push weights sum to n."""
+    from fedml_tpu_torch.algos import DecentralizedAPI, FedConfig
+    from fedml_tpu_torch.core.topology import (AsymmetricTopologyManager,
+                                               SymmetricTopologyManager)
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import NetState
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    fed = _small_fedavg(cuda).train_fed
+
+    def build():
+        topo = (SymmetricTopologyManager(4, neighbor_num=3, seed=0)
+                if mode == "dsgd" else
+                AsymmetricTopologyManager(4, neighbor_num=2, seed=0))
+        model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
+                             device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        cfg = FedConfig(client_num_in_total=4, client_num_per_round=4,
+                        epochs=1, batch_size=4, lr=5e-3)
+        return DecentralizedAPI(model, fed, None, cfg, topo, mode=mode,
+                                device=cuda)
+
+    def state(api):
+        return (torch.cat([p.flatten() for p in api.nets.params.values()]),
+                api.push_weights.clone(), api.rng.clone())
+
+    host = build()
+    host._round_step = host._gossip_step
+    want = [host.train_one_round(r)["train_loss"] for r in range(2)]
+    mid = state(host)
+    want += [host.train_one_round(r)["train_loss"] for r in range(2, 4)]
+    api = build()
+    got = [api.train_one_round(r)["train_loss"] for r in range(2)]
+    assert got == want[:2]
+    assert all(torch.equal(a, b) for a, b in zip(state(api), mid))
+    start = (NetState(tree_map(torch.clone, api.nets.params), {}),
+             api.push_weights.clone(), api.rng.clone())
+    assert api.train_rounds_on_device(2).tolist() == want[2:]
+    assert all(torch.equal(a, b) for a, b in zip(state(api), state(host)))
+    api.nets, api.push_weights, api.rng = start
+    assert api.train_rounds_pipelined(2) == want[2:]
+    assert all(torch.equal(a, b) for a, b in zip(state(api), state(host)))
+    assert float(api.push_weights.sum()) == pytest.approx(4.0, abs=1e-5)
