@@ -30,14 +30,17 @@ Phases, each of which must pass or the script exits non-zero:
              cluster does not divide and at a sample that takes 8 blocks
              (the forward on its cluster route, reruns bit-equal), and
              the forward's streamed route on a sample past a cluster's
-             shared memory. Times each kernel (the flash forward at B 8
+             shared memory; the split family's f32 shapes (resnet56_server
+             at batch 32, the stump under the FedGKT client phase's vmap).
+             Times each kernel (the flash forward at B 8
              and B 16), its twin and one PyTorch library call of the same
              function (many calls per CUDA event pair; a library backward
              and the GroupNorm kernels as replayed CUDA graphs), and
              computes the card's bound for the same work; times the
              GroupNorm kernels at each training shape in the path's
              layout and sums launches x ms per local step against
-             launches x bound.
+             launches x bound, and the same per resnet56_server step in
+             f32.
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
@@ -132,7 +135,29 @@ Phases, each of which must pass or the script exits non-zero:
              bit-equal to them from one start. A line per class beside
              FedAvg's with the capture, the peak memory, the GroupNorm
              launches a round and the card's name and power limit.
-8. adapter — the FedAdapter training path at full width: FedAdapterAPI
+8. split   — the model-split family at full width on the same data (128
+             clients x 256 samples, batch 32, 1 local epoch, lr 0.1), f32:
+             FedGKTAPI over resnet5_56 + resnet56_server (T 3, server
+             Adam lr 1e-3): (a) the captured client phase against two
+             eager client phases from one start (stumps, losses, client
+             logits, the 2 GiB of features), (b) the first 16 replayed
+             server steps against the eager step (tail, Adam state with
+             its count, loss sums), a warm round that captures the
+             relabel step, (c) round 1's client loss with the teacher
+             against the same replay with have_teacher forced to 0, and 2
+             timed rounds split into client phase, server phase and
+             relabel by CUDA events, with the GroupNorm launches counted
+             against the models' reckoning (116,784 forwards and 58,392
+             backwards a round), none captured, none streamed;
+             SplitNNAPI over resnet_split_bottom + resnet56_server: client
+             0's captured segment against two eager ones, the other rows
+             of the stack unchanged by it, a warm cycle after which every
+             row moved and a timed cycle (61,440 GroupNorm launches of
+             each kind); VflAPI at the NUS-WIDE shape (634 + 1000
+             features, 1,280 samples, batch 64, 5 epochs): per-batch
+             losses within 1e-5 relative of its own CPU run from the same
+             params, the accuracy risen.
+9. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -151,7 +176,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-9. report  — a ``kernels`` JSON line, the card's name and power limit,
+10. report — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -160,6 +185,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -198,12 +224,21 @@ GN_STEP = [((256, 1024, 16), 16, 13), ((256, 1024, 64), 32, 7),
            ((256, 256, 128), 32, 7), ((256, 256, 64), 32, 1),
            ((256, 64, 64), 32, 11), ((256, 64, 256), 32, 7)]
 RESNET56_GN = sum(n for _, _, n in GN_STEP)  # 58
+# The split family's f32 GroupNorms: resnet56_server's 57 a step at batch
+# 32 (shape [N, S, C], groups, launches a step), and the stump's under the
+# FedGKT client phase's vmap (128 clients' rows of 32 samples, x
+# interleaved as the vmapped conv hands it over; 3 a step).
+SPLIT_TAIL_STEP = [((32, 1024, 16), 16, 12), ((32, 1024, 64), 32, 7),
+                   ((32, 1024, 32), 32, 1), ((32, 256, 32), 32, 11),
+                   ((32, 256, 128), 32, 7), ((32, 256, 64), 32, 1),
+                   ((32, 64, 64), 32, 11), ((32, 64, 256), 32, 7)]
+SPLIT_STUMP = ((4096, 1024, 16), 16, 128)
 # GroupNorm kernels vs the f32 twin: (shape [N, S, C], groups, rows, dtype,
 # interleaved). The first eight are GN_STEP's shapes; "interleaved" lays x
 # and dy out as the vmapped conv hands them over: [M, S, R, C] memory seen
 # as [R, M, S, C]. Then a ragged S that the forward's cluster does not
-# divide (CL 4 of 251 rows; CL 8 in f32) and a sample that takes CL 8 in
-# bf16.
+# divide (CL 4 of 251 rows; CL 8 in f32), a sample that takes CL 8 in
+# bf16, and the split family's f32 shapes.
 GN_MAIN = ((256, 1024, 64), 32)
 GN_CASES = [(shape, groups, 1, torch.bfloat16, False)
             for shape, groups, _ in GN_STEP] + [
@@ -216,7 +251,11 @@ GN_CASES = [(shape, groups, 1, torch.bfloat16, False)
             ((9, 1, 16), 4, 1, torch.float32, False),
             ((3, 1001, 64), 32, 1, torch.bfloat16, False),
             ((3, 1001, 64), 32, 1, torch.float32, False),
-            ((4, 1024, 128), 32, 1, torch.bfloat16, False)]
+            ((4, 1024, 128), 32, 1, torch.bfloat16, False)] + [
+            (shape, groups, 1, torch.float32, False)
+            for shape, groups, _ in SPLIT_TAIL_STEP] + [
+            (SPLIT_STUMP[0], SPLIT_STUMP[1], SPLIT_STUMP[2], torch.float32,
+             True)]
 # A sample whose x is more than a cluster of 8 blocks holds (2 MB): the
 # forward's streamed route.
 GN_STREAMED = ((2, 8192, 64), 32, torch.float32)
@@ -290,6 +329,14 @@ ZOO_FEDAC_GAMMA, ZOO_SAVG_BETA, ZOO_Q = 2.0, 0.5, 1.0
 ZOO_GROUPS, ZOO_GROUP_ROUNDS, ZOO_TA_GROUPS = 4, 2, 3
 ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 32, 3, 2
 ZOO_REL_TOL, ZOO_FGLOBAL_TOL = 1e-6, 1e-2
+# The model-split family at the JAX package's defaults (temperature 3,
+# server Adam lr 1e-3, one server epoch) on the training data; pin (b)'s
+# server steps; VFL at the NUS-WIDE shape of load_two_party_nus_wide
+# (634 + 1000 features), its CPU run's per-batch losses within VFL_TOL
+# relative.
+GKT_T, GKT_SERVER_LR, GKT_PIN_STEPS = 3.0, 1e-3, 16
+VFL_DIMS, VFL_N, VFL_BATCH, VFL_REP, VFL_EPOCHS = (634, 1000), 1280, 64, 32, 5
+VFL_LR, VFL_TOL = 0.01, 1e-5
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -816,6 +863,36 @@ def phase_gn_kernels(peaks):
               f"launches): sum of launches x ms {ms:.4f} ms against sum of "
               f"launches x bound {bound:.4f} ms ({bound / ms:.2f} of it)",
               flush=True)
+    # The split family's f32 path: resnet56_server's shapes at batch 32
+    # (one plain call, x contiguous) weighted by their launches a server
+    # step, and the stump's shape under the client phase's vmap.
+    split = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    cases = [(shape, grp, 1, False, n) for shape, grp, n in SPLIT_TAIL_STEP]
+    cases.append((SPLIT_STUMP[0], SPLIT_STUMP[1], SPLIT_STUMP[2], True, 0))
+    for (n, s, c), grp, rows, inter, per_step in cases:
+        xi, dyi, gi, bi = _gn_inputs((n, s, c), rows, torch.float32, g,
+                                     inter)
+        line = []
+        for kind, fn in (
+                ("fwd", lambda: gn.group_norm_fwd(xi, gi, bi, grp)),
+                ("bwd", lambda: gn.group_norm_bwd(xi, dyi, gi, grp))):
+            ms, bound = graph_ms(fn), _gn_bound(kind, xi, peaks)[0]
+            split[kind][0] += per_step * ms
+            split[kind][1] += per_step * bound
+            line.append(f"{kind} {ms:.4f} ms (bound {bound:.4f} ms, "
+                        f"{bound / ms:.2f} of it)")
+        where = (f"{per_step} launches per server step" if per_step else
+                 "the stump under vmap, 3 launches per client step")
+        print(f"[kernels] group_norm split path [{rows}x{n // rows}, {s}, "
+              f"{c}] g{grp} f32{' interleaved' if inter else ''}, {where}: "
+              + ", ".join(line), flush=True)
+        del xi, dyi, gi, bi
+    n_tail = sum(n for _, _, n in SPLIT_TAIL_STEP)
+    for kind, (ms, bound) in split.items():
+        print(f"[kernels] group_norm_{kind} f32 per resnet56_server step "
+              f"({n_tail} launches): sum of launches x ms {ms:.4f} ms "
+              f"against sum of launches x bound {bound:.4f} ms "
+              f"({bound / ms:.2f} of it)", flush=True)
     fwd_plain = time_ms(lambda: gn.group_norm_fwd_plain(x, gamma, beta,
                                                         groups))
     bwd_plain = time_ms(lambda: gn.group_norm_bwd_plain(x, dy, gamma,
@@ -859,7 +936,9 @@ def phase_gn_kernels(peaks):
             "launches": None, "max_abs_err": errs[kind], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "path_ms_per_step": path[kind][0],
-            "path_bound_ms_per_step": path[kind][1]})
+            "path_bound_ms_per_step": path[kind][1],
+            "split_ms_per_server_step": split[kind][0],
+            "split_bound_ms_per_server_step": split[kind][1]})
     return entries
 
 
@@ -2540,6 +2619,386 @@ def phase_zoo():
     return counted
 
 
+def _tree_vec(tree):
+    """Every tensor leaf of a tree as one f32 vector."""
+    from fedml_tpu_torch.core.graph import _leaves
+
+    return torch.cat([t.float().flatten() for t in _leaves(tree)])
+
+
+def _norm_count(module):
+    """The GroupNorms of a model (each one launch a forward)."""
+    from fedml_tpu_torch.models.resnet import Norm
+
+    return sum(isinstance(m, Norm) and m.kind != "none"
+               for m in module.modules())
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """cuDNN in deterministic mode for a pin: its f32 backwards otherwise
+    add with atomics, and the split family's f32 chains (8 steps at lr 0.1,
+    16 Adam steps) amplify that to the order of the update itself, so two
+    eager runs would bound nothing."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _hold_pin(tag, what, eager, got):
+    """``got`` against the first of two ``eager`` runs, each a list of
+    tensors: within the eager runs' own spread, which under
+    ``_cudnn_deterministic`` is 0, so bit-equal. Returns the distance."""
+    spread = max((a - b).abs().max().item() for a, b in zip(*eager))
+    dist = max((a - b).abs().max().item() for a, b in zip(eager[0], got))
+    print(f"[{tag}] {what}: captured vs eager max|d| {dist:.3e}; eager vs "
+          f"eager {spread:.3e} (must be within it; "
+          f"{'bit-equal' if dist == 0 else 'not bit-equal'})", flush=True)
+    check(dist <= spread, f"{tag}: {what} is {dist} from the eager run, "
+          f"the eager runs {spread} from each other")
+    return dist
+
+
+def _gkt_pins(api, tag):
+    """FedGKT's pins (a) and (b) from the api's state: (a) the captured
+    client phase against two eager ones from one start (stumps, losses,
+    client logits, the features), (b) the first GKT_PIN_STEPS replayed
+    server steps on those features against the eager step (the tail,
+    the Adam state and its count, the loss sums)."""
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.graph import CapturedStep, _map
+    from fedml_tpu_torch.trainer.local import NetState
+
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+    # (a)
+    start = clone(api.client_nets.params)
+    key = keys.fold_in(api.rng, 0xA)
+    phase = api._build_client_phase()
+    eager, feats0 = [], None
+    for run in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = phase(clone(start), api._flags[0], key)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if feats0 is None:
+            feats0 = api.feats.clone()
+        eager.append([_tree_vec(params), losses.clone(),
+                      api.client_logits.clone(),
+                      (api.feats - feats0).abs().amax().reshape(1)])
+        print(f"[{tag}] eager client phase {run}: {ms:.1f} ms", flush=True)
+    api.client_nets = NetState(clone(start), {})
+    captures = CapturedStep.captures
+    losses = api._run_client_phase(key)
+    got = [_tree_vec(api.client_nets.params), losses.clone(),
+           api.client_logits.clone(),
+           (api.feats - feats0).abs().amax().reshape(1)]
+    _hold_pin(tag, "(a) client phase (stumps, losses, client logits, "
+              "features)", eager, got)
+    check(CapturedStep.captures == captures + 1, "client phase captures")
+    del feats0, eager, got
+
+    # (b) the first GKT_PIN_STEPS replayed server steps against the eager
+    # step from one start (the features above).
+    sstart = (clone(api.server_net.params), clone(api.server_state),
+              torch.zeros(2, device="cuda"),
+              torch.zeros((), dtype=torch.int64, device="cuda"),
+              keys.fold_in(api.rng, 0xB))
+    sstep = api._build_server_step()
+    eager = []
+    for _ in range(2):
+        carry = clone(sstart)
+        for _ in range(GKT_PIN_STEPS):
+            carry, _ = sstep(carry)
+        eager.append([_tree_vec(carry)])
+    step = api._captured("server", api._build_server_step)
+    carry = clone(sstart)
+    for _ in range(GKT_PIN_STEPS):
+        carry, _ = step(carry)
+    _hold_pin(tag, f"(b) {GKT_PIN_STEPS} replayed server steps (tail, "
+              "Adam state, loss sums)", eager, [_tree_vec(carry)])
+    count = int(carry[1]["0"]["count"])
+    check(count == GKT_PIN_STEPS and int(carry[3]) == GKT_PIN_STEPS,
+          f"{tag}: Adam count {count}, step index {int(carry[3])} after "
+          f"{GKT_PIN_STEPS} replays")
+
+
+def phase_split():
+    """The model-split family at full width on the training data (128
+    clients x 256 CIFAR-shaped samples, batch 32, 1 local epoch, lr 0.1):
+    FedGKTAPI over resnet5_56 + resnet56_server (f32, GroupNorm) with its
+    pins and timed rounds, SplitNNAPI over resnet_split_bottom +
+    resnet56_server with its pins and a timed cycle, and VflAPI at the
+    NUS-WIDE shape against its own CPU run. Returns {kernel name: launches
+    in the counted rounds}."""
+    from fedml_tpu_torch.algos import (FedConfig, FedGKTAPI, SplitNNAPI,
+                                       VflAPI)
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.graph import CapturedStep, _map
+    from fedml_tpu_torch.core.tree import client_rows
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import NetState
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_CLIENTS, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+    n_c, n_s = fed.num_clients, fed.steps_per_epoch
+    cs = n_c * n_s
+    samples = cs * TRAIN_BATCH  # a pass over the clients' data
+    counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+
+    def models(bottom):
+        gen = torch.Generator().manual_seed(SEED)
+        kw = dict(device="cuda", generator=gen)
+        first = (create_model(bottom, **kw) if bottom == "resnet_split_bottom"
+                 else create_model(bottom, num_classes=10, **kw))
+        return first, create_model("resnet56_server", num_classes=10, **kw)
+
+    # --- FedGKT ---------------------------------------------------------
+    tag = "split/FedGKTAPI"
+    stump, tail = models("resnet5_56")
+    n_stump, n_tail = _norm_count(stump), _norm_count(tail)
+    api = FedGKTAPI(stump, tail, fed, None, cfg, temperature=GKT_T,
+                    epochs_server=1, server_lr=GKT_SERVER_LR, device="cuda")
+    # A round's forwards: the stump's training and sweep, the tail's
+    # training and relabel; backwards: the two trainings.
+    want_fwd = n_s * (cfg.epochs + 1) * n_stump + 2 * cs * n_tail
+    want_bwd = n_s * cfg.epochs * n_stump + cs * n_tail
+    print(f"[{tag}] resnet5_56 ({n_stump} GroupNorms) + resnet56_server "
+          f"({n_tail}), f32, {n_c} clients x {n_s} steps of {TRAIN_BATCH}, "
+          f"T {GKT_T}, server Adam lr {GKT_SERVER_LR}; features "
+          f"{list(api.feats.shape)} f32 ({api.feats.numel() * 4 / 2**30:.2f}"
+          f" GiB), read by a device index; GroupNorm launches a round by the "
+          f"models: fwd {want_fwd}, bwd {want_bwd} (reckoned 116784, "
+          f"58392)", flush=True)
+
+    # Pins (a) and (b) under cuDNN's deterministic mode; their captures
+    # are then dropped, and the warm round captures the steps anew in
+    # the default mode, which the timed rounds replay.
+    start = clone(api.client_nets.params)
+    with _cudnn_deterministic():
+        _gkt_pins(api, tag)
+    api._graphs.clear()
+    api.client_nets = NetState(clone(start), {})
+    torch.cuda.reset_peak_memory_stats()
+
+    # The warm round (captures the relabel step), then pin (c): round 1's
+    # client phase with the teacher against the same replay with
+    # have_teacher forced to 0.
+    t0 = time.perf_counter()
+    warm = api.train_one_round(0)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    client_capture, server_capture, relabel_capture = (
+        api._graphs[k].capture_ms for k in ("client", "server", "relabel"))
+    check(api.have_teacher and api.server_logits.abs().max().item() > 0,
+          f"{tag}: no teacher after round 0")
+    mid = clone(api.client_nets.params)
+    key = keys.split(api.rng, 3)[1]
+    with_t = api._run_client_phase(key).mean().item()
+    api.client_nets = NetState(clone(mid), {})
+    api.have_teacher = False
+    without = api._run_client_phase(key).mean().item()
+    api.have_teacher = True
+    api.client_nets = NetState(mid, {})
+    print(f"[{tag}] warm round {warm_ms:.1f} ms (captures its three "
+          f"steps): {warm}; (c) round 1's client loss "
+          f"with the teacher {with_t:.6f}, with have_teacher forced to 0 "
+          f"{without:.6f}", flush=True)
+    check(with_t != without, f"{tag}: the teacher did not change the loss")
+
+    # Two timed rounds: the phases by CUDA events recorded behind each,
+    # the round by the host clock (it ends in a sync).
+    marks = []
+
+    def marked(fn):
+        def run(*args):
+            out = fn(*args)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            return out
+        return run
+
+    for name in ("_run_client_phase", "_run_server_phase", "_run_relabel"):
+        setattr(api, name, marked(getattr(api, name)))
+    _zero_gn_counts()
+    captures, replays = CapturedStep.captures, CapturedStep.replays
+    rows = []
+    for r in (1, 2):
+        marks.clear()
+        begin = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        t0 = time.perf_counter()
+        m = api.train_one_round(r)
+        round_ms = (time.perf_counter() - t0) * 1e3
+        ends = [begin] + marks
+        phases = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        rows.append((round_ms, *phases))
+        print(f"[{tag}] round {r}: {round_ms:.1f} ms (host clock) = client "
+              f"phase {phases[0]:.1f} + server phase {phases[1]:.1f} + "
+              f"relabel {phases[2]:.1f} ms (device events); client "
+              f"{samples / phases[0] * 1e3:.1f} samples/s, server "
+              f"{samples / phases[1] * 1e3:.1f} samples/s, round "
+              f"{2 * samples / round_ms * 1e3:.1f} samples/s; client_loss "
+              f"{m['client_loss']:.4f}, server_loss {m['server_loss']:.4f}",
+              flush=True)
+        check(math.isfinite(m["client_loss"]) and
+              math.isfinite(m["server_loss"]), f"{tag}: non-finite {m}")
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    captures = CapturedStep.captures - captures
+    replays = CapturedStep.replays - replays
+    print(f"[{tag}] 2 timed rounds: {replays} replays, {captures} captures; "
+          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
+          f"{2 * want_fwd}, {2 * want_bwd}, {2 * want_bwd}), streamed "
+          f"{streamed}, copies {copies}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; captures: "
+          f"client phase {client_capture:.1f} ms, server step "
+          f"{server_capture:.1f} ms, relabel {relabel_capture:.1f} ms; "
+          f"{card}", flush=True)
+    check(captures == 0 and replays == 2 * (1 + 2 * cs),
+          f"{tag}: {captures} captures, {replays} replays in 2 rounds")
+    check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}")
+    check(streamed == 0, f"{tag}: {streamed} GroupNorm forwards streamed")
+    counted["group_norm_fwd"] += fwd
+    counted["group_norm_bwd"] += bwd
+    gkt = [statistics.median(col) for col in zip(*rows)]
+    # Where a server step's time goes: 16 replays under the profiler.
+    n_prof = min(16, cs)
+    step = api._graphs["server"]
+    carry = (api.server_net.params, api.server_state,
+             torch.zeros(2, device="cuda"),
+             torch.zeros((), dtype=torch.int64, device="cuda"),
+             keys.fold_in(api.rng, 0xD))
+
+    def server_steps():
+        c = carry
+        for _ in range(n_prof):
+            c, _ = step(c)
+
+    _profile_round(server_steps, f"{n_prof} replayed server steps", tag)
+    del step, carry
+    del api, stump, tail, start, mid
+    _free()
+
+    # --- SplitNN --------------------------------------------------------
+    tag = "split/SplitNNAPI"
+    bottom, tail = models("resnet_split_bottom")
+    per_step = _norm_count(bottom) + _norm_count(tail)
+    api = SplitNNAPI(bottom, tail, fed, None, cfg, device="cuda")
+    start = (clone(api.client_nets.params), clone(api.client_opts),
+             clone(api.server_net.params), clone(api.server_opt),
+             torch.zeros((), device="cuda"))
+    key = keys.split(keys.fold_in(api.rng, 0xC), n_c)[0]
+    seg = api._build_segment()
+
+    def row0(carry):
+        nets, opts, top, opt_t, loss = carry
+        return [_tree_vec({k: v[0] for k, v in nets.items()}),
+                _tree_vec(_map(lambda t: t[0], opts)), _tree_vec(top),
+                _tree_vec(opt_t), loss.reshape(1)]
+
+    eager = []
+    with _cudnn_deterministic():
+        for _ in range(2):
+            carry, _ = seg(clone(start), api._ids[0], key)
+            eager.append(row0(carry))
+        step = api._segment_step()
+        carry, _ = step(clone(start), api._ids[0], key)
+    _hold_pin(tag, "client 0's segment (its bottom and momentum, the top "
+              "and its momentum, the loss)", eager, row0(carry))
+    others = all(torch.equal(carry[0][k][1:], start[0][k][1:])
+                 for k in start[0])
+    print(f"[{tag}] rows 1..{n_c} of the stack (the dustbin too) unchanged "
+          f"by client 0's segment: {others}", flush=True)
+    check(others, f"{tag}: a segment wrote another client's row")
+    api._graphs.clear()
+    del eager, carry, step
+    init_rows = clone(client_rows(api.client_nets.params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = api.train_one_epoch(0)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    seg_capture = api._graphs["segment"].capture_ms
+    moved = [any(not torch.equal(v[c], init_rows[k][c])
+                 for k, v in api.client_nets.params.items())
+             for c in range(n_c)]
+    check(all(moved), f"{tag}: {moved.count(False)} rows unchanged after "
+          "a cycle")
+    _zero_gn_counts()
+    replays = CapturedStep.replays
+    t0 = time.perf_counter()
+    m = api.train_one_epoch(1)
+    cycle_ms = (time.perf_counter() - t0) * 1e3
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    replays = CapturedStep.replays - replays
+    want = cs * per_step
+    print(f"[{tag}] resnet_split_bottom + resnet56_server ({per_step} "
+          f"GroupNorms a joint step), lr {TRAIN_LR}: warm cycle "
+          f"{warm_ms:.1f} ms ({warm['train_loss']:.4f}), every row moved; "
+          f"timed cycle {cycle_ms:.1f} ms = {samples / cycle_ms * 1e3:.1f} "
+          f"samples/s, loss {m['train_loss']:.4f}; {replays} replays; "
+          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
+          f"{want} each; reckoned 61440), streamed {streamed}, copies "
+          f"{copies}; segment captured in {seg_capture:.1f} ms; peak device "
+          f"memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+          flush=True)
+    check(math.isfinite(m["train_loss"]), f"{tag}: non-finite {m}")
+    check(replays == n_c, f"{tag}: {replays} replays in a cycle")
+    check(fwd == bwd == red == want and streamed == 0,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}, "
+          f"{streamed} streamed")
+    counted["group_norm_fwd"] += fwd
+    counted["group_norm_bwd"] += bwd
+    del api, bottom, tail, start, init_rows, fed
+    _free()
+
+    # --- vertical FL ----------------------------------------------------
+    tag = "split/VflAPI"
+    rng = np.random.RandomState(SEED)
+    xs = [rng.randn(VFL_N, d).astype(np.float32) for d in VFL_DIMS]
+    w = [rng.randn(d) / math.sqrt(d) for d in VFL_DIMS]
+    yv = ((xs[0] @ w[0] + xs[1] @ w[1]) > 0).astype(np.int32)
+    card_api = VflAPI(list(VFL_DIMS), rep_dim=VFL_REP, lr=VFL_LR, seed=SEED,
+                      device="cuda")
+    host_api = VflAPI(list(VFL_DIMS), rep_dim=VFL_REP, lr=VFL_LR, seed=SEED,
+                      device="cpu")
+    acc0 = card_api.evaluate(xs, yv)["accuracy"]
+    t0 = time.perf_counter()
+    got = card_api.fit(xs, yv, epochs=VFL_EPOCHS, batch_size=VFL_BATCH)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    want = host_api.fit(xs, yv, epochs=VFL_EPOCHS, batch_size=VFL_BATCH)
+    acc1 = card_api.evaluate(xs, yv)["accuracy"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"[{tag}] parties {VFL_DIMS}, {VFL_N} samples, batch {VFL_BATCH}, "
+          f"rep {VFL_REP}, {VFL_EPOCHS} epochs ({len(got)} batches), lr "
+          f"{VFL_LR}: fit {fit_ms:.1f} ms on the card; per-batch losses vs "
+          f"the CPU run max relative {rel:.3e} (bound {VFL_TOL:.0e}); loss "
+          f"{got[0]:.4f} -> {got[-1]:.4f}; accuracy {acc0:.4f} -> "
+          f"{acc1:.4f}", flush=True)
+    check(len(got) == len(want) and rel <= VFL_TOL,
+          f"{tag}: losses {rel} from the CPU run")
+    check(acc1 > acc0, f"{tag}: accuracy {acc0} -> {acc1}")
+
+    print(f"[split] FedGKT round {gkt[0]:.1f} ms (client {gkt[1]:.1f}, "
+          f"server {gkt[2]:.1f}, relabel {gkt[3]:.1f}); SplitNN cycle "
+          f"{cycle_ms:.1f} ms; VFL fit {fit_ms:.1f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return counted
+
+
 class _SkipLastQTile:
     """Planted fault for the adapter step checks: the extension with its
     dk/dv kernels (the FMA one for f32, the tensor-core one for bf16) fed a
@@ -2814,6 +3273,8 @@ def main() -> int:
     for name, n in phase_custom().items():
         launches[name] += n
     for name, n in phase_zoo().items():
+        launches[name] += n
+    for name, n in phase_split().items():
         launches[name] += n
     adapter = phase_adapter()
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "

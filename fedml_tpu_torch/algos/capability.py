@@ -1,5 +1,6 @@
 """Carry capability records of the FedAvg family (port of
-``fedml_tpu/algos/capability.py``'s ``record_for`` and ``refusal``).
+``fedml_tpu/algos/capability.py``'s ``record_for``, ``refusal`` and
+``ExcludedScanTiers``).
 
 One record per algorithm class, derived from its declarations: the carry
 protocol (``window_protocol`` and the ``_window_*`` hooks) and which
@@ -112,7 +113,7 @@ def refusal(cls, tier: str) -> str:
         return (f"{name} opts out of the carry protocol "
                 f"(window_protocol=None): {why}; {tier} replays a "
                 "captured fused step, which it does not have — use its "
-                "train_one_round")
+                "host loop")
     if rec.protocol == "round":
         if rec.custom_round:
             return (f"{name} customizes the round itself; {tier} only "
@@ -145,3 +146,27 @@ def refusal(cls, tier: str) -> str:
                 "ROADMAP.md A5/A9)")
     return (f"{name} carries client-stacked state through a custom step; "
             f"{tier} serves 'round'-protocol algorithms")
+
+
+class ExcludedScanTiers:
+    """The multi-round tiers as record-derived refusals, for the standalone
+    training loops outside the FedAvg family (FedGKT's alternating
+    distillation, split learning's relay ring, vertical FL): each tier
+    raises :func:`refusal`'s message, which quotes the class's
+    ``window_exclusion``, instead of an ``AttributeError`` that says
+    nothing."""
+
+    window_protocol = None
+    window_exclusion = None
+
+    def train_rounds_windowed(self, *a, **k):
+        raise NotImplementedError(refusal(type(self),
+                                          "train_rounds_windowed"))
+
+    def train_rounds_pipelined(self, *a, **k):
+        raise NotImplementedError(refusal(type(self),
+                                          "train_rounds_pipelined"))
+
+    def train_rounds_on_device(self, *a, **k):
+        raise NotImplementedError(refusal(type(self),
+                                          "train_rounds_on_device"))

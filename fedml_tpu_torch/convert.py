@@ -1,5 +1,6 @@
 """Weights carried across from a flax param tree: ``transformer_lm``, the
-CIFAR ResNets (``CifarResNet``) and ``LogisticRegression``.
+CIFAR ResNets (``CifarResNet``), the split ResNets (``resnet_split``),
+``LogisticRegression`` and the vertical-FL parties (``models/vfl.py``).
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
@@ -16,7 +17,11 @@ adapters)`` for the port's model:
   tree, nested and named as flax nests them, in f32 — so its flat vector
   (``core.flat.tree_to_vector_np``) equals JAX's ``tree_to_vector_np``.
 
-:func:`to_jax_params` is the inverse.
+:func:`to_jax_params` is the inverse. :func:`stacked_from_jax_params` and
+:func:`stacked_to_jax_params` carry a client-stacked tree (``[C, ...]``
+leaves, as ``FedGKTAPI.client_nets`` and ``SplitNNAPI.client_nets`` hold
+them), and :func:`vfl_party_from_jax` / :func:`vfl_party_to_jax` a
+``VflParty``'s ``{"local": ..., "dense": ...}`` params.
 """
 
 from __future__ import annotations
@@ -96,3 +101,45 @@ def to_jax_params(state_dict, adapters=None):
             leaf.detach().cpu() if isinstance(leaf, torch.Tensor) else leaf,
             np.float32)
     return out
+
+
+def stacked_from_jax_params(params):
+    """A client-stacked flax tree (``[C, ...]`` leaves) → ``{name: [C,
+    ...]}``, each client's row through :func:`from_jax_params`."""
+    leaves = [leaf for _, leaf in _walk(params)]
+    n = np.asarray(leaves[0]).shape[0]
+
+    def row(tree, i):
+        return {k: row(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    rows = [from_jax_params(row(params, i))[0] for i in range(n)]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def stacked_to_jax_params(stacked):
+    """Inverse of :func:`stacked_from_jax_params`: ``{name: [C, ...]}`` →
+    the stacked flax tree as nested numpy f32 arrays."""
+    n = next(iter(stacked.values())).shape[0]
+    rows = [to_jax_params({k: v[i] for k, v in stacked.items()})
+            for i in range(n)]
+
+    def stack(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: stack([t[k] for t in trees]) for k in first}
+        return np.stack(trees)
+
+    return stack(rows)
+
+
+def vfl_party_from_jax(params):
+    """A JAX ``VflParty.params`` (``{"local": {"Dense_0"}, "dense":
+    {"Dense_0"}}``) → the port's ``{"local": {...}, "dense": {...}}``."""
+    return {part: from_jax_params(params[part])[0]
+            for part in ("local", "dense")}
+
+
+def vfl_party_to_jax(params):
+    """Inverse of :func:`vfl_party_from_jax`."""
+    return {part: to_jax_params(params[part]) for part in ("local", "dense")}

@@ -1,6 +1,7 @@
 """The port's models: the frozen-base transformer LM with per-call LoRA
-adapters and the CIFAR GroupNorm ResNets, created through
-:func:`create_model`."""
+adapters, the CIFAR GroupNorm ResNets, the split ResNet pair of FedGKT and
+split learning, logistic regression and the vertical-FL party models,
+created through :func:`create_model`."""
 
 from fedml_tpu_torch.models.registry import (create_model, register_model,
                                              resolve_dtype)

@@ -327,6 +327,9 @@ GN_MAIN_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
                   ((256, 1024, 32), 32), ((256, 256, 32), 32),
                   ((256, 256, 128), 32), ((256, 256, 64), 32),
                   ((256, 64, 64), 32), ((256, 64, 256), 32)]
+# resnet56_server's GroupNorm shapes at batch 32 (f32, the split family).
+GN_SPLIT_SHAPES = [((32,) + shape[1:], groups)
+                   for shape, groups in GN_MAIN_SHAPES]
 
 
 def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
@@ -374,6 +377,8 @@ def _sum_order_bound(terms, chain):
     ((3, 1001, 64), 32, 1, torch.float32, False),
     ((6, 49, 48), 8, 1, torch.bfloat16, False),
     ((4, 1024, 128), 32, 1, torch.bfloat16, False),
+    *[(s, g, 1, torch.float32, False) for s, g in GN_SPLIT_SHAPES],
+    ((4096, 1024, 16), 16, 128, torch.float32, True),
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
@@ -386,7 +391,9 @@ def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
     dy) is more than a cluster of 8 blocks holds of both: the backward
     keeps x in shared memory and reads dy twice. S 1001 is ragged for the
     forward's clusters (CL 4 of 251 rows in bf16, CL 8 of 126 in f32), and
-    the bf16 sample of 1024 x 128 takes CL 8."""
+    the bf16 sample of 1024 x 128 takes CL 8. The f32 cases at batch 32
+    are resnet56_server's shapes in the split family, and the 128 rows of
+    32 samples its stump's under the FedGKT client phase's vmap."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -1242,3 +1249,150 @@ def test_captured_gossip_rounds_equal_the_eager_rounds(cuda, monkeypatch,
     assert api.train_rounds_pipelined(2) == want[2:]
     assert all(torch.equal(a, b) for a, b in zip(state(api), state(host)))
     assert float(api.push_weights.sum()) == pytest.approx(4.0, abs=1e-5)
+
+
+def _small_split(cuda, cls):
+    """FedGKT (resnet5_56 + resnet20_server) or SplitNN
+    (resnet_split_bottom + resnet20_server) over 4 clients x 12 images of
+    16x16, batch 4 (3 steps), f32."""
+    from fedml_tpu_torch.algos import FedConfig, FedGKTAPI
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      make_image_classification,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+
+    x, y = make_image_classification(48, (16, 16, 3), 4, seed=0)
+    fed = build_federated_arrays(x, y, partition_homo(48, 4), 4, device=cuda)
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=4, epochs=1,
+                    batch_size=4, lr=5e-3)
+    gen = torch.Generator().manual_seed(0)
+    tail = create_model("resnet20_server", num_classes=4, device=cuda,
+                        generator=gen)
+    if cls is FedGKTAPI:
+        return cls(create_model("resnet5_56", num_classes=4, device=cuda,
+                                generator=gen), tail, fed, None, cfg,
+                   device=cuda)
+    return cls(create_model("resnet_split_bottom", device=cuda,
+                            generator=gen), tail, fed, None, cfg, device=cuda)
+
+
+def test_captured_fedgkt_steps_equal_the_eager_steps(cuda, monkeypatch):
+    """FedGKT's three captured steps against the same steps uncaptured,
+    from one start: the client phase (stumps, losses, features, client
+    logits) with the teacher off and on, every server step of an epoch
+    (tail, Adam state, the loss sums; Adam's count advancing under
+    replay) and every relabel step (server logits), bit-equal under
+    ``cudnn.deterministic``; ``have_teacher`` is an argument, not baked
+    into the graph; the GroupNorm launches of a round counted under
+    replay."""
+    from fedml_tpu_torch.algos import FedGKTAPI
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.graph import CapturedStep, _leaves, _map
+    from fedml_tpu_torch.ops import group_norm as gn
+    from fedml_tpu_torch.trainer.local import NetState
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _small_split(cuda, FedGKTAPI)
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+    start = clone(api.client_nets.params)
+    key = keys.fold_in(api.rng, 1)
+    phase = api._build_client_phase()
+    for flag in (0, 1):
+        want = phase(clone(start), api._flags[flag], key)
+        want_out = (api.feats.clone(), api.client_logits.clone())
+        api.client_nets = NetState(clone(start), {})
+        api.have_teacher = bool(flag)
+        got = api._run_client_phase(key)
+        assert same((api.client_nets.params, got), want)
+        assert same((api.feats, api.client_logits), want_out)
+        if flag == 0:
+            loss_without = got.clone()
+        else:
+            assert not torch.equal(got, loss_without)
+    assert api._graphs["client"] is not None
+    cs = api.n_clients * api.n_steps
+    carry0 = (clone(api.server_net.params), clone(api.server_state),
+              torch.zeros(2, device=cuda),
+              torch.zeros((), dtype=torch.int64, device=cuda),
+              keys.fold_in(api.rng, 2))
+    sstep = api._build_server_step()
+    want = clone(carry0)
+    for _ in range(cs):
+        want, _ = sstep(want)
+    step = api._captured("server", api._build_server_step)
+    got = clone(carry0)
+    for _ in range(cs):
+        got, _ = step(got)
+    assert same(got, want)
+    assert int(got[1]["0"]["count"]) == int(got[3]) == cs
+    relabel = api._build_relabel_step()
+    carry = (want[0], torch.zeros((), dtype=torch.int64, device=cuda))
+    for _ in range(cs):
+        carry, _ = relabel(carry)
+    want_logits = api.server_logits.clone()
+    api.server_logits.zero_()
+    api.server_net = NetState(want[0], {})
+    api._run_relabel()
+    assert torch.equal(api.server_logits, want_logits)
+    # A round under replay: the stump's 3 GroupNorms in training and the
+    # sweep, the tail's 21 in training and the relabel.
+    f0, b0 = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+    captures = CapturedStep.captures
+    api.train_one_round(0)
+    assert CapturedStep.captures == captures
+    assert gn.group_norm_fwd.launches - f0 == 2 * 3 * 3 + 2 * cs * 21
+    assert gn.group_norm_bwd.launches - b0 == 3 * 3 + cs * 21
+
+
+def test_captured_split_nn_segments_equal_the_eager_segments(cuda,
+                                                             monkeypatch):
+    """SplitNN's captured segment, replayed for clients 0, 2 and 1 in turn
+    from one start, bit-equal to the uncaptured segment under
+    ``cudnn.deterministic``: each client's row of the stacks, the top and
+    its momentum, the loss sum; the rows of clients not yet trained (and
+    the dustbin) untouched; a whole cycle through ``train_one_epoch``
+    bit-equal to the uncaptured segments in ring order."""
+    from fedml_tpu_torch.algos import SplitNNAPI
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.graph import CapturedStep, _leaves, _map
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _small_split(cuda, SplitNNAPI)
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+    start = (clone(api.client_nets.params), clone(api.client_opts),
+             clone(api.server_net.params), clone(api.server_opt),
+             torch.zeros((), device=cuda))
+    ks = keys.split(keys.fold_in(api.rng, 3), 4)
+    seg = api._build_segment()
+    want, got = clone(start), clone(start)
+    step = api._segment_step()
+    for c in (0, 2, 1):
+        want, _ = seg(want, api._ids[c], ks[c])
+        got, _ = step(got, api._ids[c], ks[c])
+        assert same(got, want)
+        for k, v in got[0].items():
+            assert torch.equal(v[3:], start[0][k][3:])
+    pair = keys.split(api.rng)
+    ring = keys.split(pair[1], 4)
+    want = (clone(api.client_nets.params), clone(api.client_opts),
+            clone(api.server_net.params), clone(api.server_opt),
+            torch.zeros((), device=cuda))
+    for c in range(4):
+        want, _ = seg(want, api._ids[c], ring[c])
+    captures = CapturedStep.captures
+    loss = api.train_one_epoch(0)["train_loss"]
+    assert CapturedStep.captures == captures
+    assert same((api.client_nets.params, api.client_opts,
+                 api.server_net.params, api.server_opt), want[:4])
+    assert loss == float(want[4] / 4)
+
