@@ -31,7 +31,11 @@ Phases, each of which must pass or the script exits non-zero:
              (the forward on its cluster route, reruns bit-equal), and
              the forward's streamed route on a sample past a cluster's
              shared memory; the split family's f32 shapes (resnet56_server
-             at batch 32, the stump under the FedGKT client phase's vmap).
+             at batch 32, the stump under the FedGKT client phase's vmap);
+             the backward's streamed route (and the forward's) at FedSeg's
+             UNet shapes at 256 x 256 in f32 and one bf16 shape, reruns
+             bit-equal, timed at the path's level-0 shape; GroupNorm's
+             second derivative through the kernels against the twin's.
              Times each kernel (the flash forward at B 8
              and B 16), its twin and one PyTorch library call of the same
              function (many calls per CUDA event pair; a library backward
@@ -157,7 +161,27 @@ Phases, each of which must pass or the script exits non-zero:
              features, 1,280 samples, batch 64, 5 epochs): per-batch
              losses within 1e-5 relative of its own CPU run from the same
              params, the accuracy risen.
-9. adapter — the FedAdapter training path at full width: FedAdapterAPI
+9. extra   — the rest of the simulator zoo (exp/main_extra.py) at full
+             model width, f32: FedNASAPI over the DARTS search net (c 16,
+             8 layers, 4 steps, multiplier 4; 705 GroupNorms a forward) on
+             32 x 32 x 3, 16 clients x 128 samples, batch 32, 8 a round:
+             (a) the captured round against an eager round from one
+             start under cuDNN's deterministic mode, bit-equal, 2 replayed
+             rounds by CUDA events with the GroupNorm launches counted
+             against the model's reckoning, one train_rounds_on_device
+             round, the genotype; the unrolled arch gradient through the
+             kernels against the plain twin's (and the first-order one's
+             distance from it), one unrolled round at 2 clients. FedSegAPI
+             over UNet (21 classes, base 16, 3 levels) on 256 x 256 x 3
+             with ignored pixels, 16 clients x 32, batch 8, 8 a round:
+             (a), a counted replayed round whose streamed GroupNorm
+             launches (forward and backward) match group_norm_plan's, a
+             focal round, evaluate on 64 images with its confusion matrix
+             against a numpy bincount of the same predictions. FedGanAPI
+             over the MNIST GAN (latent 100, LayerNorm), 16 clients x 640,
+             batch 64, 8 a round: (a), a replayed round, one on-device
+             round, generate(16) in [-1, 1].
+10. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -176,7 +200,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-10. report — a ``kernels`` JSON line, the card's name and power limit,
+11. report — a ``kernels`` JSON line, the card's name and power limit,
              and as the last line ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
@@ -233,12 +257,25 @@ SPLIT_TAIL_STEP = [((32, 1024, 16), 16, 12), ((32, 1024, 64), 32, 7),
                    ((32, 256, 128), 32, 7), ((32, 256, 64), 32, 1),
                    ((32, 64, 64), 32, 11), ((32, 64, 256), 32, 7)]
 SPLIT_STUMP = ((4096, 1024, 16), 16, 128)
+# The simulator zoo's f32 GroupNorms on the cluster route, 8 clients' rows
+# (shape [N, S, C], groups as norm_groups gives them): the DARTS search net
+# at batch 32 on 32 x 32 (the stem's 48 channels in 24 groups of 2, the
+# cells' one-channel groups at 16 and 32 channels, 64 channels in 32
+# groups), and UNet at batch 8 on 256 x 256, levels 2 and 3 (levels 0 and
+# 1 stream: GN_BWD_STREAMED).
+ZOO_GN = [((256, 1024, 48), 24), ((256, 1024, 16), 16),
+          ((256, 1024, 32), 32), ((256, 256, 32), 32),
+          ((256, 256, 64), 32), ((256, 64, 64), 32),
+          ((64, 4096, 64), 32), ((64, 1024, 128), 32)]
 # GroupNorm kernels vs the f32 twin: (shape [N, S, C], groups, rows, dtype,
 # interleaved). The first eight are GN_STEP's shapes; "interleaved" lays x
 # and dy out as the vmapped conv hands them over: [M, S, R, C] memory seen
 # as [R, M, S, C]. Then a ragged S that the forward's cluster does not
 # divide (CL 4 of 251 rows; CL 8 in f32), a sample that takes CL 8 in
-# bf16, and the split family's f32 shapes.
+# bf16, the split family's f32 shapes, and ZOO_GN's in both layouts the
+# kernels get on those paths: [R, M, S, C] (most of their convs hand x
+# over channels-first, which the wrapper copies so, counted in
+# group_norm.copies) and interleaved.
 GN_MAIN = ((256, 1024, 64), 32)
 GN_CASES = [(shape, groups, 1, torch.bfloat16, False)
             for shape, groups, _ in GN_STEP] + [
@@ -255,10 +292,27 @@ GN_CASES = [(shape, groups, 1, torch.bfloat16, False)
             (shape, groups, 1, torch.float32, False)
             for shape, groups, _ in SPLIT_TAIL_STEP] + [
             (SPLIT_STUMP[0], SPLIT_STUMP[1], SPLIT_STUMP[2], torch.float32,
-             True)]
+             True)] + [
+            (shape, groups, 8, torch.float32, interleaved)
+            for shape, groups in ZOO_GN for interleaved in (False, True)]
 # A sample whose x is more than a cluster of 8 blocks holds (2 MB): the
 # forward's streamed route.
 GN_STREAMED = ((2, 8192, 64), 32, torch.float32)
+# The backward's streamed route (one block per sample, x read three times
+# and dy twice), held to the twin with reruns bit-equal: FedSeg's UNet at
+# 256 x 256, level 0 (S 65,536, 16 channels, 4 MB of x a sample) and level
+# 1 (16,384 x 32, 2 MB), in f32 as the model runs, and one bf16 sample
+# past a cluster (65,536 x 32, 4 MB). (shape [N, S, C], groups, rows,
+# dtype, interleaved); the last is the level-0 shape in the path's layout,
+# 8 clients' rows of 8 samples, which is timed.
+GN_BWD_STREAMED = [((16, 65536, 16), 16, 1, torch.float32, False),
+                   ((16, 16384, 32), 32, 1, torch.float32, False),
+                   ((4, 65536, 32), 32, 1, torch.bfloat16, False),
+                   ((64, 65536, 16), 16, 8, torch.float32, True)]
+# GroupNorm's second derivative through the kernels against the plain
+# twin's (f32, DARTS's one-channel groups at 32 x 32): max |d| over max
+# |want|, other summation orders (2.5e-7 on the CPU twin).
+GN_GRAD2_SHAPE, GN_GRAD2_GROUPS, GN_GRAD2_TOL = (64, 32, 32, 16), 16, 1e-4
 # GroupNorm kernel vs plain twin in training, same start and keys, as the
 # share of the update's norm (update = new params - start) by which they
 # differ. One local step in f32 (cuDNN without TF32, the two paths on
@@ -337,6 +391,38 @@ ZOO_REL_TOL, ZOO_FGLOBAL_TOL = 1e-6, 1e-2
 GKT_T, GKT_SERVER_LR, GKT_PIN_STEPS = 3.0, 1e-3, 16
 VFL_DIMS, VFL_N, VFL_BATCH, VFL_REP, VFL_EPOCHS = (634, 1000), 1280, 64, 32, 5
 VFL_LR, VFL_TOL = 0.01, 1e-5
+# The rest of the simulator zoo (exp/main_extra.py's algorithms), each at
+# its model's full width in f32 as the JAX models run. FedNAS: the DARTS
+# search net (c 16, 8 layers, 4 steps, multiplier 4: 705 GroupNorms a
+# forward) on 32 x 32 x 3, 10 classes, 16 clients x 128 samples, batch 32
+# (4 packed steps: h 2), 8 a round, weights lr 0.025, alphas lr 3e-4; the
+# unrolled (second-order) round with xi 0.025 at 2 clients a round of 64
+# samples each (the cuts: its lookahead keeps ~3x the first-order round's
+# activations, 47 GiB at 2 clients; one search step, since its eager round
+# is the host's dispatch of ~40 s a step). That round runs eagerly only: a
+# capture runs the step twice more (warm-up and capture, ~2.5x the eager
+# round's host time, past the phase's budget); the captured unrolled round
+# is held bit-equal to its eager round on a small DARTS net by
+# tests/test_torch_cuda.py. Its
+# arch gradient through the kernels against the plain twin's on the card:
+# within NAS_GRAD2_TOL of the largest, and below a tenth of the
+# first-order gradient's own distance from it (so a second derivative
+# lost to zero cannot pass). On the CPU the same route through the twins
+# reads 1.1e-3 from plain autograd in f32 and 6.6e-16 in f64: f32
+# rounding, amplified through 705 GroupNorms of one-channel groups.
+NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 128, 32, 8
+NAS_LR, NAS_ARCH_LR, NAS_XI, NAS_UNROLLED_PER_ROUND = 0.025, 3e-4, 0.025, 2
+NAS_UNROLLED_PER_CLIENT = 64
+NAS_GN, NAS_GRAD2_TOL = 705, 3e-2
+# FedSeg: UNet (21 classes, base 16, 3 levels: 14 GroupNorms a forward) on
+# 256 x 256 x 3 with 10% of the label pixels 255 (ignored), 16 clients x
+# 32 samples, batch 8, 8 a round, lr 0.01; evaluate on 64 test images.
+SEG_CLIENTS, SEG_PER_CLIENT, SEG_BATCH, SEG_PER_ROUND = 16, 32, 8, 8
+SEG_SIDE, SEG_CLASSES, SEG_TEST, SEG_LR, SEG_IGNORED = 256, 21, 64, 0.01, 0.1
+# FedGAN: the MNIST GAN (latent 100, LayerNorm) on 28 x 28 x 1, 16 clients
+# x 640 samples, batch 64, 8 a round, the two Adams' lr 2e-4.
+GAN_CLIENTS, GAN_PER_CLIENT, GAN_BATCH, GAN_PER_ROUND, GAN_LR = (16, 640, 64,
+                                                                 8, 2e-4)
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -420,8 +506,9 @@ def phase_build():
     (``cuobjdump -sass``), and fails unless each of the four head dims of
     every tensor-core kernel has HGMMA and neither stack nor local memory
     (no spills), nor any GroupNorm kernel of the main path (the streamed
-    forward is off it); prints the GroupNorm kernels' cluster plans at the
-    training path's shapes."""
+    forward, on FedSeg's path, keeps an 8-byte stack frame and no local
+    memory at f32 V 4, and is left out); prints the GroupNorm kernels'
+    cluster plans at the training path's shapes."""
     from fedml_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -465,7 +552,8 @@ def phase_build():
         check(not spilled, f"{kernel}: stack or local memory (spills) in "
               f"{spilled}")
     spilled = [f for f, n in spills.items() if n and any(
-        k in f for k in ("gn_fwd_kernel", "gn_bwd_kernel", "gn_reduce"))]
+        k in f for k in ("gn_fwd_kernel", "gn_bwd_kernel", "gn_reduce",
+                         "gn_bwd_streamed_kernel"))]
     check(not spilled, f"the main path's GroupNorm kernels with stack or "
           f"local memory (spills): {spilled}")
     # The GroupNorm kernels' dynamic shared memory per block is the
@@ -757,6 +845,118 @@ def _gn_bound(kind, x, peaks):
             "operations", nbytes, flops, t_bytes, t_ops)
 
 
+def _gn_streamed_bwd_holds(g, peaks):
+    """The backward's streamed route at GN_BWD_STREAMED against the f32
+    twin (dx within the bounds of ``_gn_err``, dγ/dβ within the sum-order
+    bound), chosen by shape, counted once a launch, reruns bit-equal; the
+    forward's streamed route at the same shapes. Times both routes at the
+    last (the FedSeg path's) shape. Returns {"fwd": (ms, bound ms), "bwd":
+    (ms, bound ms), "shape": [...]}."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    timed = {}
+    for shape, groups, rows, dtype, inter in GN_BWD_STREAMED:
+        x, dy, gamma, beta = _gn_inputs(shape, rows, dtype, g, inter)
+        before = (gn.group_norm_bwd.launches, gn.group_norm_bwd.streamed,
+                  gn.group_norm_fwd.streamed)
+        dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+        again = gn.group_norm_bwd(x, dy, gamma, groups)
+        y = gn.group_norm_fwd(x, gamma, beta, groups)
+        torch.cuda.synchronize()
+        after = (gn.group_norm_bwd.launches, gn.group_norm_bwd.streamed,
+                 gn.group_norm_fwd.streamed)
+        want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
+            x.float(), dy.float(), gamma, groups)
+        edx, ok_dx = _gn_err(dx, want_dx, dtype)
+        ey, ok_y = _gn_err(y, gn.group_norm_fwd_plain(x.float(), gamma, beta,
+                                                      groups), dtype)
+        r, m, s, c = x.shape
+        chain = s + m + 64
+        mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+        d32 = dy.float()
+        lim_g = chain * 2.0 ** -24 * (d32 * (x.float() - mu) * rstd).abs(
+        ).sum(dim=(1, 2)) + 1e-7
+        lim_b = chain * 2.0 ** -24 * d32.abs().sum(dim=(1, 2)) + 1e-7
+        edg, edb = (dgamma - want_dg).abs(), (dbeta - want_db).abs()
+        ok_p = bool((edg <= lim_g).all() and (edb <= lim_b).all())
+        same = all(torch.equal(a, b) for a, b in zip((dx, dgamma, dbeta),
+                                                     again))
+        name = (f"[{r}x{m}, {s}, {c}] g{groups} "
+                f"{str(dtype).split('.')[-1]}"
+                f"{' interleaved' if inter else ''}")
+        mib = s * c * x.element_size() / 2**20
+        print(f"[kernels] group_norm streamed {name} ({mib:.1f} MiB of x a "
+              f"sample): "
+              f"bwd launches/streamed {before[:2]} -> {after[:2]}, fwd "
+              f"streamed {before[2]} -> {after[2]}; max|dx-plain| "
+              f"{edx:.3e}, max|dgamma-plain| {edg.max().item():.3e}, "
+              f"max|dbeta-plain| {edb.max().item():.3e}, max|y-plain| "
+              f"{ey:.3e}; reruns {'bit-equal' if same else 'DIFFER'}",
+              flush=True)
+        check(after == (before[0] + 2, before[1] + 2, before[2] + 1),
+              f"group_norm streamed routes not taken ({name}): {before} -> "
+              f"{after}")
+        check(ok_dx and ok_p and ok_y and same,
+              f"group_norm streamed routes disagree with plain ({name})")
+        if inter:
+            for kind, fn in (
+                    ("fwd", lambda: gn.group_norm_fwd(x, gamma, beta,
+                                                      groups)),
+                    ("bwd", lambda: gn.group_norm_bwd(x, dy, gamma,
+                                                      groups))):
+                ms, bound = graph_ms(fn), _gn_bound(kind, x, peaks)[0]
+                timed[kind] = (ms, bound)
+                print(f"[kernels] group_norm_{kind} streamed {name}, the "
+                      f"FedSeg path's level-0 shape: {ms:.4f} ms (bound "
+                      f"{bound:.4f} ms, {bound / ms:.2f} of it; one block a "
+                      f"sample, {r * m} blocks on the card's SMs)",
+                      flush=True)
+            timed["shape"] = [r, m, s, c]
+        del x, dy, dx, y, again
+    return timed
+
+
+def _gn_grad2_hold(g):
+    """GroupNorm's second derivative through the kernels (the backward op
+    differentiated by ``_GroupNormBackward``) against ordinary autograd
+    through the plain twin, f32 on the card: every term of the double
+    backward, within GN_GRAD2_TOL of the largest."""
+    from torch.func import grad
+
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    shape, groups = GN_GRAD2_SHAPE, GN_GRAD2_GROUPS
+    c = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=g) * 2 + 0.5
+    t, w = (torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+    gam = torch.rand(c, device="cuda", generator=g) + 0.5
+    bet = torch.randn(c, device="cuda", generator=g)
+
+    def second(fn):
+        def loss(x, g_, b_):
+            return ((fn(x, g_, b_, groups) - t) ** 3).sum()
+
+        def inner(x, g_, b_):
+            gx, gg, gb = grad(loss, argnums=(0, 1, 2))(x, g_, b_)
+            return (gx * w).sum() + (gg * g_).sum() + (gb * b_ * g_).sum()
+
+        return grad(inner, argnums=(0, 1, 2))(x, gam, bet)
+
+    launches = gn.group_norm_bwd.launches
+    got = second(gn.group_norm)
+    launches = gn.group_norm_bwd.launches - launches
+    want = second(gn.group_norm_plain)
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(got, want)]
+    print(f"[kernels] group_norm second derivative {list(shape)} g{groups} "
+          f"f32 through the kernels ({launches} backward launches) vs the "
+          f"plain twin's autograd: max|d|/max|want| x {rel[0]:.3e}, gamma "
+          f"{rel[1]:.3e}, beta {rel[2]:.3e} (bound {GN_GRAD2_TOL:.0e}); "
+          f"|want_x| {want[0].norm().item():.4e}", flush=True)
+    check(max(rel) <= GN_GRAD2_TOL and launches >= 3,
+          f"group_norm second derivative: {rel}, {launches} launches")
+
+
 def phase_gn_kernels(peaks):
     """GroupNorm forward/backward kernels vs their plain twins at every case
     of GN_CASES (the forward on the cluster route, reruns bit-equal) and
@@ -827,6 +1027,9 @@ def phase_gn_kernels(peaks):
     check(ok_y and after == (counts[0] + 1, counts[1] + 1),
           f"the streamed forward: counts {counts} -> {after}, error {ey}")
     del x, y, gamma, beta
+
+    streamed_bwd = _gn_streamed_bwd_holds(g, peaks)
+    _gn_grad2_hold(g)
 
     # The kernels' device time as a replayed CUDA graph (where the
     # wrapper's host work outlasts a kernel, back-to-back calls time the
@@ -938,7 +1141,10 @@ def phase_gn_kernels(peaks):
             "library_ms": lib_ms, "path_ms_per_step": path[kind][0],
             "path_bound_ms_per_step": path[kind][1],
             "split_ms_per_server_step": split[kind][0],
-            "split_bound_ms_per_server_step": split[kind][1]})
+            "split_bound_ms_per_server_step": split[kind][1],
+            "streamed_ms": streamed_bwd[kind][0],
+            "streamed_bound_ms": streamed_bwd[kind][1],
+            "streamed_shape": streamed_bwd["shape"]})
     return entries
 
 
@@ -1221,18 +1427,19 @@ def _spread(runs):
             max(abs(a - b) for a, b in zip(la, lb)))
 
 
-def _hold_captured_round(api, round_idx, tag):
+def _hold_captured_round(api, round_idx, tag, runs=2):
     """Pin (a): from one start, key and cohort, two eager rounds (the
     reference procedure) give the eager-versus-eager spread, and the
     captured fused round (``train_one_round``, whose first call warms up
     and captures) must lie within it of the first eager round, params and
-    carry: bit-equal when the eager rounds are. Leaves ``api`` after the
-    captured round."""
+    carry: bit-equal when the eager rounds are. ``runs=1`` (under cuDNN's
+    deterministic mode, where the spread is 0) asks for bit-equality from
+    one eager round. Leaves ``api`` after the captured round."""
     from fedml_tpu_torch.core.graph import CapturedStep
 
     start = _snapshot(api)
     eager, eager_ms = [], []
-    for _ in range(2):
+    for _ in range(runs):
         _restore(api, start)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1246,7 +1453,7 @@ def _hold_captured_round(api, round_idx, tag):
     loss = api.train_one_round(round_idx)["train_loss"]
     first_ms = (time.perf_counter() - t0) * 1e3
     graph = api._graphs["fused"]
-    spread, loss_spread = _spread(eager)
+    spread, loss_spread = _spread(eager) if runs > 1 else (0.0, 0.0)
     dist, loss_dist = _spread([eager[0], (_state_vec(api), [loss])])
     ref = ("published step run uncaptured" if api.window_protocol
            == "custom" else "run_round + _server_update")
@@ -2999,6 +3206,444 @@ def phase_split():
     return counted
 
 
+def _zoo_counts(run):
+    """``run()`` with the GroupNorm counts zeroed just before; returns
+    (fwd, bwd, reduce, fwd streamed, bwd streamed, copies, what ``run``
+    returned)."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    _zero_gn_counts()
+    gn.group_norm_bwd.streamed = 0
+    out = run()
+    fwd, bwd, red, copies, fwd_s = _gn_counts()
+    return fwd, bwd, red, fwd_s, gn.group_norm_bwd.streamed, copies, out
+
+
+def _event_rounds(api, rounds, tag, samples):
+    """``train_one_round`` for ``rounds`` (captured already), each
+    bracketed by CUDA events: (median event ms, median host ms, losses)."""
+    ev_ms, host_ms, losses = [], [], []
+    for r in rounds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = api.train_one_round(r)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(start.elapsed_time(end))
+        losses.append(out["train_loss"])
+    med = statistics.median(ev_ms)
+    print(f"[{tag}] train_one_round x{len(rounds)} (replayed): "
+          f"{' / '.join(f'{t:.1f}' for t in ev_ms)} ms by CUDA events "
+          f"(host {' / '.join(f'{t:.1f}' for t in host_ms)} ms); median "
+          f"{med:.1f} ms = {samples / med * 1e3:.1f} samples/s; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite "
+          f"{losses}")
+    return med, statistics.median(host_ms), losses
+
+
+def _on_device_once(api, tag, samples):
+    """One ``train_rounds_on_device(1)`` call (its first: it captures),
+    timed by the host clock; the capture's ms and the loss."""
+    t0 = time.perf_counter()
+    loss = api.train_rounds_on_device(1).tolist()
+    ms = (time.perf_counter() - t0) * 1e3
+    cap = api._graphs["on_device"].capture_ms
+    print(f"[{tag}] train_rounds_on_device(1): {ms:.1f} ms, of which warm-up "
+          f"+ capture {cap:.1f} ms; loss {loss[0]:.4f}", flush=True)
+    check(all(math.isfinite(v) for v in loss), f"{tag}: non-finite {loss}")
+    return ms, cap
+
+
+def _on_device_replayed(api, tag, samples):
+    """One more ``train_rounds_on_device(1)`` call, a replay of its graph,
+    bracketed by CUDA events: the round's device ms."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    captures = CapturedStep.captures
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = api.train_rounds_on_device(1)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    print(f"[{tag}] train_rounds_on_device(1) replayed (captured in cuDNN's "
+          f"default mode): {ms:.1f} ms by CUDA events = "
+          f"{samples / ms * 1e3:.1f} samples/s; loss {loss.item():.4f}",
+          flush=True)
+    check(CapturedStep.captures == captures and math.isfinite(loss.item()),
+          f"{tag}: on-device replay captured again or lost {loss}")
+    return ms
+
+
+def _alpha_free_norms(model):
+    """The search net's GroupNorms whose input does not depend on the
+    alphas: the stem, cell 0's preprocessing and its edges out of its two
+    inputs, cell 1's preprocessing of its first input (the stem's output)
+    and the edges out of it. A gradient in the alphas alone skips their
+    backward."""
+    from fedml_tpu_torch.models.darts import MixedOp
+
+    cell0, cell1 = model.SearchCell_0, model.SearchCell_1
+    mods = [model.Norm_0, getattr(cell0, cell0.pre[0]),
+            getattr(cell0, cell0.pre[1]), getattr(cell1, cell1.pre[0])]
+    for cell, inputs in ((cell0, (0, 1)), (cell1, (0,))):
+        offset = 0
+        for i in range(cell.steps):
+            for j in range(2 + i):
+                if j in inputs:
+                    mods.append(getattr(cell, cell.edges[offset + j]))
+            offset += 2 + i
+    check(all(isinstance(m, MixedOp) for m in mods[4:]), "edges")
+    return sum(_norm_count(m) for m in mods)
+
+
+def _fednas_drives(card):
+    """FedNAS at the DARTS search net's full width: the first-order search
+    (pin (a) under cuDNN's deterministic mode, 2 replayed rounds counted
+    against 705 GroupNorm forwards and backwards per search pass, one
+    on-device round, the genotype), the unrolled arch gradient through the
+    kernels against the plain twin's, and one unrolled round. Returns the
+    counted launches."""
+    from fedml_tpu_torch.algos import FedConfig, FedNASAPI
+    from fedml_tpu_torch.algos.fednas import make_fednas_local_search
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.group_norm import group_norm_plain
+    from fedml_tpu_torch.trainer.local import model_fns
+
+    tag = "extra/FedNASAPI"
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(NAS_CLIENTS * NAS_PER_CLIENT, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, 10, len(x)).astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(len(x), NAS_CLIENTS),
+                                 NAS_BATCH, device="cuda")
+
+    def darts(**kw):
+        return create_model("darts", num_classes=10, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED),
+                            **kw)
+
+    def cfg(per_round):
+        return FedConfig(client_num_in_total=NAS_CLIENTS,
+                         client_num_per_round=per_round, comm_round=3,
+                         epochs=1, batch_size=NAS_BATCH, lr=NAS_LR,
+                         seed=SEED)
+
+    model = darts()
+    n_gn, frozen = _norm_count(model), _alpha_free_norms(model)
+    half = fed.steps_per_epoch // 2
+    # A search step runs the net forward and backward twice (the arch
+    # step on the valid batch, the weight step on the train batch); the
+    # arch step's gradient is in the alphas alone, so autograd skips the
+    # backward of the GroupNorms whose input does not depend on them.
+    want_fwd = 2 * half * n_gn
+    want_bwd = half * (2 * n_gn - frozen)
+    samples = NAS_PER_ROUND * 2 * half * NAS_BATCH
+    print(f"[{tag}] darts c 16, 8 layers, 4 steps ({n_gn} GroupNorms a "
+          f"forward, reckoned {NAS_GN}; {frozen} of them before the alphas' "
+          f"first use), {NAS_CLIENTS} clients x {NAS_PER_CLIENT} samples, "
+          f"batch {NAS_BATCH} ({half} search steps a round), {NAS_PER_ROUND} "
+          f"a round, lr {NAS_LR}, arch lr {NAS_ARCH_LR}; GroupNorm launches "
+          f"a round by the model: fwd {want_fwd}, bwd {want_bwd}",
+          flush=True)
+    check(n_gn == NAS_GN, f"{tag}: {n_gn} GroupNorms, reckoned {NAS_GN}")
+    api = FedNASAPI(model, fed, None, cfg(NAS_PER_ROUND),
+                    arch_lr=NAS_ARCH_LR, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+        fwd, bwd, red, fs, bs, copies, (med, _, _) = _zoo_counts(
+            lambda: _event_rounds(api, (1, 2), tag, samples))
+        print(f"[{tag}] 2 replayed rounds (captured in cuDNN's "
+              f"deterministic mode, as pin (a) holds them): GroupNorm "
+              f"launches fwd {fwd}, "
+              f"bwd {bwd}, reduce {red} (expected {2 * want_fwd}, "
+              f"{2 * want_bwd}, {2 * want_bwd}), streamed {fs}/{bs}, operand "
+              f"copies {copies}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd
+              and fs == bs == 0,
+              f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
+              f"streamed {fs}/{bs}")
+    # The fused round's graph goes first: two graphs of this round do not
+    # fit beside what the earlier phases' allocations left. The on-device
+    # round is captured in cuDNN's default mode, and its replay is the
+    # round's time in that mode (a second capture of the fused round would
+    # cost its ~50 s of host dispatch again).
+    del api._graphs["fused"]
+    _free()
+    dev_ms, _ = _on_device_once(api, tag, samples)
+    dev_med = _on_device_replayed(api, tag, samples)
+    print(f"[{tag}] genotype from the averaged alphas: {api.genotype()}",
+          flush=True)
+    counted = [fwd, bwd]
+    del api
+    _free()
+
+    # The unrolled arch gradient through the kernels against the plain
+    # twin's on one client's batches, beside the first-order gradient.
+    tag = "extra/FedNASAPI unrolled"
+    plain = darts(gn_fn=group_norm_plain)
+    model = darts()
+    check(all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), plain.state_dict().values())),
+          f"{tag}: the twin's model has other weights")
+    batches = [(fed.x[0, i], fed.y[0, i], fed.mask[0, i]) for i in (0, half)]
+    grads = {}
+    t0 = time.perf_counter()
+    for name, m, unrolled in (("kernels", model, True), ("plain", plain, True),
+                              ("first-order", plain, False)):
+        fns = model_fns(m)
+        search = make_fednas_local_search(fns.apply, NAS_LR, NAS_ARCH_LR,
+                                          NAS_XI, 1, unrolled)
+        net = fns.init()
+        grads[name] = search.arch_grad(net.params, net.model_state,
+                                       *batches[0], *batches[1])
+    torch.cuda.synchronize()
+
+    def dist(a, b):
+        top = max(grads[b][k].abs().max().item() for k in grads[b])
+        return max((grads[a][k] - grads[b][k]).abs().max().item()
+                   for k in grads[b]) / top
+
+    rel, fo = dist("kernels", "plain"), dist("first-order", "plain")
+    print(f"[{tag}] arch gradient (xi {NAS_XI}, one client's batch of "
+          f"{NAS_BATCH}; the three in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms): kernels vs the "
+          f"plain twin max|d|/max {rel:.3e} "
+          f"(bound {NAS_GRAD2_TOL:.0e}, and below a tenth of the "
+          f"first-order gradient's distance from it, {fo:.3e})", flush=True)
+    check(rel <= NAS_GRAD2_TOL and rel < 0.1 * fo,
+          f"{tag}: arch gradient {rel} from the twin's (first order {fo})")
+    del plain, grads
+    _free()
+    del fed
+    _free()
+    n = NAS_CLIENTS * NAS_UNROLLED_PER_CLIENT
+    fed = build_federated_arrays(x[:n], y[:n], partition_homo(n, NAS_CLIENTS),
+                                 NAS_BATCH, device="cuda")
+    api = FedNASAPI(model, fed, None, cfg(NAS_UNROLLED_PER_ROUND),
+                    arch_lr=NAS_ARCH_LR, xi=NAS_XI, unrolled=True,
+                    device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd, bwd, red, fs, bs, copies, loss = _zoo_counts(
+        lambda: _eager_round(api, 0).item())
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"[{tag}] {NAS_UNROLLED_PER_ROUND} clients a round of "
+          f"{NAS_UNROLLED_PER_CLIENT} samples (the cuts: one search step), "
+          f"one eager round (run_round + _server_update; eager only, see "
+          f"NAS_UNROLLED_PER_CLIENT): {ms:.1f} ms, loss "
+          f"{loss:.4f}; GroupNorm launches fwd {fwd}, bwd {bwd} (the double "
+          f"backward launches the backward kernel twice more for each "
+          f"GroupNorm it passes), streamed {fs}/{bs}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+          flush=True)
+    check(math.isfinite(loss) and bwd > fwd, f"{tag}: loss {loss}, "
+          f"GroupNorm launches fwd {fwd} bwd {bwd}")
+    del api, model, fed
+    _free()
+    return counted, (med, dev_ms, samples, dev_med)
+
+
+def _unet_gn_plan(side, levels, base):
+    """UNet's GroupNorm (S, C) shapes a forward, from its architecture:
+    two per ConvBlock, levels down, the bottleneck, levels up."""
+    shapes = []
+    for i in range(levels):
+        shapes += [((side >> i) ** 2, base << i)] * 2
+    shapes += [((side >> levels) ** 2, base << levels)] * 2
+    for i in reversed(range(levels)):
+        shapes += [((side >> i) ** 2, base << i)] * 2
+    return shapes
+
+
+def _fedseg_drives(card):
+    """FedSeg over UNet at 256 x 256: pin (a), a counted replayed round
+    (the streamed GroupNorm routes on the path: their launches against
+    ``group_norm_plan``'s), a focal round, ``evaluate`` and its confusion
+    matrix against a numpy bincount of the same predictions."""
+    from fedml_tpu_torch.algos import FedConfig, FedSegAPI
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.data.batching import batch_global
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.build import extension
+    from fedml_tpu_torch.trainer.local import NetState
+
+    tag = "extra/FedSegAPI"
+    rng = np.random.RandomState(SEED)
+    n = SEG_CLIENTS * SEG_PER_CLIENT + SEG_TEST
+    x = rng.randn(n, SEG_SIDE, SEG_SIDE, 3).astype(np.float32)
+    y = rng.randint(0, SEG_CLASSES, (n, SEG_SIDE, SEG_SIDE)).astype(np.int32)
+    y[rng.rand(*y.shape) < SEG_IGNORED] = 255
+    ntr = SEG_CLIENTS * SEG_PER_CLIENT
+    fed = build_federated_arrays(x[:ntr], y[:ntr],
+                                 partition_homo(ntr, SEG_CLIENTS), SEG_BATCH,
+                                 device="cuda")
+    test = batch_global(x[ntr:], y[ntr:], SEG_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=SEG_CLIENTS,
+                    client_num_per_round=SEG_PER_ROUND, comm_round=3,
+                    epochs=1, batch_size=SEG_BATCH, lr=SEG_LR, seed=SEED)
+
+    def unet():
+        return create_model("unet", num_classes=SEG_CLASSES, base=16,
+                            levels=3, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+
+    model = unet()
+    shapes = _unet_gn_plan(SEG_SIDE, 3, 16)
+    ext = extension()
+    fwd_s = sum(ext.group_norm_plan(s_, c, False, 1)[0] == 0
+                for s_, c in shapes)
+    bwd_s = sum(ext.group_norm_plan(s_, c, False, 2)[0] == 0
+                for s_, c in shapes)
+    steps = fed.steps_per_epoch
+    samples = SEG_PER_ROUND * steps * SEG_BATCH
+    print(f"[{tag}] unet 21 classes, base 16, 3 levels ({_norm_count(model)} "
+          f"GroupNorms a forward: {shapes}), {SEG_SIDE}x{SEG_SIDE}, "
+          f"{SEG_CLIENTS} clients x {SEG_PER_CLIENT}, batch {SEG_BATCH} "
+          f"({steps} steps), {SEG_PER_ROUND} a round, lr {SEG_LR}; past a "
+          f"cluster by group_norm_plan: {fwd_s} forwards and {bwd_s} "
+          f"backwards a pass (reckoned 8 and 8)", flush=True)
+    check(len(shapes) == _norm_count(model) == 14 and fwd_s == bwd_s == 8,
+          f"{tag}: GroupNorms {len(shapes)}, streamed {fwd_s}/{bwd_s}")
+    api = FedSegAPI(model, fed, test, cfg, num_classes=SEG_CLASSES,
+                    loss_mode="ce", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag)
+    api._graphs.clear()
+    api.train_one_round(1)  # captures anew in cuDNN's default mode
+    fwd, bwd, red, fs, bs, copies, (med, _, _) = _zoo_counts(
+        lambda: _event_rounds(api, (2,), tag, samples))
+    want = steps * len(shapes)
+    print(f"[{tag}] replayed round: GroupNorm launches fwd {fwd}, bwd {bwd}, "
+          f"reduce {red} (expected {want} each), streamed fwd {fs}, bwd {bs} "
+          f"(expected {steps * fwd_s}, {steps * bwd_s}), operand copies "
+          f"{copies}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(fwd == bwd == red == want and fs == steps * fwd_s
+          and bs == steps * bwd_s,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
+          f"streamed {fs}/{bs}")
+    counted = [fwd, bwd, fs, bs]
+
+    focal = FedSegAPI(unet(), fed, test, cfg, num_classes=SEG_CLASSES,
+                      loss_mode="focal", device="cuda")
+    focal.net = NetState(dict(api.net.params), {})
+    t0 = time.perf_counter()
+    out = focal.train_one_round(3)
+    print(f"[{tag}] focal round (captures): {out}, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    check(math.isfinite(out["train_loss"]), f"{tag}: focal {out}")
+    del focal
+
+    t0 = time.perf_counter()
+    scores = api.evaluate()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    tx, ty, tm = test
+    cm = api._eval_cm(api.net, tx, ty, tm).cpu().numpy()
+    preds = []
+    with torch.no_grad():
+        for bx in tx:
+            preds.append(api.fns.apply(api.net, bx)[0].argmax(-1).cpu())
+    pred = torch.stack(preds).numpy().reshape(-1)
+    lab = torch.where(tm[:, :, None, None] > 0, ty, 255).cpu().numpy()
+    lab = lab.reshape(-1)
+    ok = lab < SEG_CLASSES
+    want_cm = np.bincount(lab[ok] * SEG_CLASSES + pred[ok],
+                          minlength=SEG_CLASSES ** 2).reshape(
+        SEG_CLASSES, SEG_CLASSES)
+    print(f"[{tag}] evaluate on {SEG_TEST} images: {scores} in "
+          f"{eval_ms:.1f} ms; confusion matrix of {int(cm.sum())} pixels "
+          f"{'equal to' if np.array_equal(cm, want_cm) else 'DIFFERS from'} "
+          f"a numpy bincount of the same predictions; {card}", flush=True)
+    check(np.array_equal(cm, want_cm) and all(
+        0.0 <= v <= 1.0 for v in scores.values()),
+          f"{tag}: confusion matrix or scores {scores}")
+    del api, model, fed, test
+    _free()
+    return counted, (med, samples)
+
+
+def _fedgan_drives(card):
+    """FedGAN over the MNIST GAN: pin (a) under cuDNN's deterministic mode,
+    a round replayed from a capture in the default mode, one on-device
+    round, ``generate(16)``."""
+    from fedml_tpu_torch.algos import FedConfig, FedGanAPI
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    tag = "extra/FedGanAPI"
+    rng = np.random.RandomState(SEED)
+    n = GAN_CLIENTS * GAN_PER_CLIENT
+    x = np.tanh(rng.randn(n, 28, 28, 1)).astype(np.float32)
+    fed = build_federated_arrays(x, np.zeros(n, np.int32),
+                                 partition_homo(n, GAN_CLIENTS), GAN_BATCH,
+                                 device="cuda")
+    cfg = FedConfig(client_num_in_total=GAN_CLIENTS,
+                    client_num_per_round=GAN_PER_ROUND, comm_round=3,
+                    epochs=1, batch_size=GAN_BATCH, lr=GAN_LR, seed=SEED)
+    model = create_model("mnist_gan", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    api = FedGanAPI(model, fed, cfg, device="cuda")
+    steps = fed.steps_per_epoch
+    samples = GAN_PER_ROUND * steps * GAN_BATCH
+    print(f"[{tag}] mnist_gan (latent 100, LayerNorm), {GAN_CLIENTS} clients "
+          f"x {GAN_PER_CLIENT}, batch {GAN_BATCH} ({steps} D+G steps), "
+          f"{GAN_PER_ROUND} a round, Adam lr {GAN_LR}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag)
+    api._graphs.clear()
+    api.train_one_round(1)  # captures anew in cuDNN's default mode
+    med, _, _ = _event_rounds(api, (2,), tag, samples)
+    dev_ms, _ = _on_device_once(api, tag, samples)
+    img = api.generate(16)
+    print(f"[{tag}] generate(16): {tuple(img.shape)}, values in "
+          f"[{img.min().item():.4f}, {img.max().item():.4f}]; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{card}", flush=True)
+    check(tuple(img.shape) == (16, 28, 28, 1) and bool(
+        torch.isfinite(img).all()) and img.abs().max().item() <= 1.0,
+          f"{tag}: generate {tuple(img.shape)}")
+    del api, model, fed
+    _free()
+    return med, dev_ms, samples
+
+
+def phase_extra():
+    """The rest of the simulator zoo at full model width (FedNAS, FedSeg,
+    FedGAN; see the constants). Returns {kernel name: launches in the
+    counted rounds}."""
+    t_phase = time.perf_counter()
+    card = smi_line()
+    nas, nas_t = _fednas_drives(card)
+    seg, seg_t = _fedseg_drives(card)
+    gan_t = _fedgan_drives(card)
+    print(f"[extra] FedNAS round {nas_t[0]:.1f} ms replayed in cuDNN's "
+          f"deterministic mode ({nas_t[2] / nas_t[0] * 1e3:.1f} samples/s), "
+          f"{nas_t[3]:.1f} ms on-device in its default mode "
+          f"({nas_t[2] / nas_t[3] * 1e3:.1f} samples/s), on-device call "
+          f"{nas_t[1]:.1f} ms with its capture; FedSeg round {seg_t[0]:.1f} "
+          f"ms ({seg_t[1] / seg_t[0] * 1e3:.1f} samples/s); FedGAN round "
+          f"{gan_t[0]:.1f} ms ({gan_t[2] / gan_t[0] * 1e3:.1f} samples/s); "
+          f"GroupNorm launches counted: fwd {nas[0] + seg[0]} (streamed "
+          f"{seg[2]}), bwd {nas[1] + seg[1]} (streamed {seg[3]}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {"group_norm_fwd": nas[0] + seg[0],
+            "group_norm_bwd": nas[1] + seg[1],
+            "streamed": {"group_norm_fwd": seg[2], "group_norm_bwd": seg[3]}}
+
+
 class _SkipLastQTile:
     """Planted fault for the adapter step checks: the extension with its
     dk/dv kernels (the FMA one for f32, the tensor-core one for bf16) fed a
@@ -3276,6 +3921,10 @@ def main() -> int:
         launches[name] += n
     for name, n in phase_split().items():
         launches[name] += n
+    extra = phase_extra()
+    streamed = extra.pop("streamed")
+    for name, n in extra.items():
+        launches[name] += n
     adapter = phase_adapter()
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "
           f"adapter {adapter['flash_fwd']}", flush=True)
@@ -3283,6 +3932,8 @@ def main() -> int:
     launches.update(adapter)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] in streamed:
+            entry["streamed_launches"] = streamed[entry["name"]]
     print(json.dumps({"kernels": entries}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Weights carried across from a flax param tree: ``transformer_lm``, the
 CIFAR ResNets (``CifarResNet``), the split ResNets (``resnet_split``),
-``LogisticRegression`` and the vertical-FL parties (``models/vfl.py``).
+``LogisticRegression``, the vertical-FL parties (``models/vfl.py``), the
+DARTS search and genotype networks, ``UNet`` and ``MNISTGan``.
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
@@ -10,9 +11,11 @@ adapters)`` for the port's model:
   ``Block_0.MHA_0.Dense_0``, ``BottleneckBlock_3/Norm_2/GroupNorm_0`` →
   ``BottleneckBlock_3.Norm_2.GroupNorm_0``, ``…/downsample``);
 - ``Dense`` ``kernel [in, out]`` → ``weight [out, in]`` (transposed);
-  ``Conv`` ``kernel`` HWIO → ``weight`` OIHW;
+  ``Conv`` ``kernel`` HWIO → ``weight`` OIHW (a depthwise ``[k, k, 1,
+  c]`` → ``[c, 1, k, k]``);
   ``Embed`` ``embedding``, ``LayerNorm`` and ``GroupNorm`` ``scale`` →
-  ``weight``; ``bias`` stays ``bias``;
+  ``weight``; ``bias`` stays ``bias``; a leaf at the root (DARTS's
+  ``alphas_normal``/``alphas_reduce``) keeps its name and layout;
 - ``lora_*`` leaves are not module params: they come back as the adapter
   tree, nested and named as flax nests them, in f32 — so its flat vector
   (``core.flat.tree_to_vector_np``) equals JAX's ``tree_to_vector_np``.
@@ -49,6 +52,9 @@ def from_jax_params(params):
     state = {}
     for path, leaf in _walk(base):
         name = path[-1]
+        if len(path) == 1:  # a parameter of the root module itself
+            state[name] = torch.from_numpy(np.array(leaf, np.float32))
+            continue
         if name not in _LEAF_TO_TORCH:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
         arr = np.asarray(leaf, np.float32)
@@ -82,8 +88,11 @@ def to_jax_params(state_dict, adapters=None):
     out = {}
     for key, val in state_dict.items():
         path = tuple(key.split("."))
-        leaf = _flax_leaf(path[:-1], path[-1])
         arr = val.detach().to("cpu", torch.float32).numpy()
+        if len(path) == 1:  # a parameter of the root module itself
+            out[key] = np.ascontiguousarray(arr)
+            continue
+        leaf = _flax_leaf(path[:-1], path[-1])
         if leaf == "kernel":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = out

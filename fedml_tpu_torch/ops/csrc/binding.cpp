@@ -57,7 +57,7 @@ cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
                                   const void* x, const void* dy,
                                   const float* gamma, void* dx,
                                   float* part_g, float* part_b, bool is_bf16,
-                                  cudaStream_t stream);
+                                  bool* streamed, cudaStream_t stream);
 cudaError_t group_norm_plan(int S, int C, bool is_bf16, int tensors, int dev,
                             long long* out);
 cudaError_t group_norm_reduce_launch(int R, int M, int C,
@@ -380,9 +380,11 @@ std::vector<int64_t> group_norm_plan(int64_t S, int64_t C, bool is_bf16,
   return {out[0], out[1], out[2], out[3]};
 }
 
-std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
-                                          torch::Tensor gamma, int64_t groups,
-                                          double eps) {
+// (dx, dγ partials, dβ partials, whether the streamed route ran): the route
+// is the kernel's choice by shape, reported so the caller can count it.
+std::tuple<torch::Tensor, torch::Tensor, torch::Tensor, bool> group_norm_bwd(
+    torch::Tensor x, torch::Tensor dy, torch::Tensor gamma, int64_t groups,
+    double eps) {
   check_gn_input(x, gamma, groups, "group_norm_bwd");
   TORCH_CHECK(dy.device() == x.device() && dy.sizes() == x.sizes() &&
                   dy.scalar_type() == x.scalar_type(),
@@ -391,10 +393,6 @@ std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
               "group_norm_bwd: dy's channel dim must be contiguous");
   const bool is_bf16 = x.scalar_type() == torch::kBFloat16;
   const c10::cuda::CUDAGuard guard(x.device());
-  TORCH_CHECK(group_norm_plan(x.size(2), x.size(3), is_bf16, 2)[0] > 0,
-              "group_norm_bwd: a sample of ", std::to_string(x.size(2)), " x ",
-              std::to_string(x.size(3)), " elements is more than the shared "
-              "memory of a cluster of 8 blocks holds");
   auto dx = torch::empty_like(x);
   TORCH_CHECK(dx.stride(3) == 1 || dx.size(3) == 1,
               "group_norm_bwd: output channel dim not contiguous");
@@ -406,15 +404,16 @@ std::vector<torch::Tensor> group_norm_bwd(torch::Tensor x, torch::Tensor dy,
   strides3(x, sx);
   strides3(dy, sdy);
   strides3(dx, sdx);
+  bool streamed = false;
   const cudaError_t err = fedml_tpu_torch::group_norm_bwd_launch(
       x.size(0), x.size(1), x.size(2), C, groups, static_cast<float>(eps), sx,
       sdy, sdx, x.data_ptr(), dy.data_ptr(), gamma.data_ptr<float>(),
       dx.data_ptr(), part_g.data_ptr<float>(), part_b.data_ptr<float>(),
-      is_bf16, at::cuda::getCurrentCUDAStream());
+      is_bf16, &streamed, at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "group_norm_bwd: launch failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return {dx, part_g, part_b};
+  return std::make_tuple(dx, part_g, part_b, streamed);
 }
 
 // part_g/part_b [R·M, C] f32 → (dgamma, dbeta) [R, C] f32.
@@ -473,7 +472,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "does not fit");
   m.def("group_norm_bwd", &group_norm_bwd,
         "GroupNorm backward: (x, dy [R,M,S,C], gamma [R,C], groups, eps) -> "
-        "(dx, dgamma partials [R*M,C], dbeta partials [R*M,C])");
+        "(dx, dgamma partials [R*M,C], dbeta partials [R*M,C], whether the "
+        "streamed route ran)");
   m.def("group_norm_reduce", &group_norm_reduce,
         "per-row sum of GroupNorm partials: (part_g, part_b [R*M,C], R) -> "
         "(dgamma, dbeta [R,C])");

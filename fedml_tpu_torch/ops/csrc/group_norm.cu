@@ -46,9 +46,12 @@
 // lands while the statistics are summed. At the main shape that is 2048
 // blocks of 32 KB, five to an SM. A sample whose x and dy do not both fit in
 // a cluster of 8 keeps x in shared memory and reads dy twice; one whose x
-// alone does not fit is refused. The formulas stay the TPU kernel's:
-// Σdy·xhat with xhat formed from the statistics, not Σdy·x − μΣdy, which
-// cancels.
+// alone does not fit takes the streamed route (gn_bwd_streamed_kernel: one
+// 256-thread block per sample and the same three passes over device memory,
+// reading x three times and dy twice), chosen by shape before the launch and
+// reported to the caller, as the forward's is. The formulas stay the TPU
+// kernel's on both routes: Σdy·xhat with xhat formed from the statistics,
+// not Σdy·x − μΣdy, which cancels.
 //
 // The TPU kernel carries dγ/dβ across its sequential grid in VMEM scratch.
 // CUDA blocks run in no order, so the backward writes f32 per-sample partials
@@ -247,6 +250,113 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < V; ++k)
       v[k] = ((v[k] - mu[c + k]) * rstd[c + k]) * c0[c + k] + c1[c + k];
     store<T, V>(ys + s * sy.s + c, v);
+  }
+}
+
+// Σdy and Σdy·xhat per channel for channel_sums, over the rows of one
+// sample at `xs` and `dys`, with the statistics mu[C] and rstd[C].
+template <typename T, int V>
+__device__ __forceinline__ auto dy_sums(const T* xs, long long x_stride,
+                                        const T* dys, long long dy_stride,
+                                        const float* mu, const float* rstd) {
+  return [=](int c) {
+    float mk[V], rk[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      mk[k] = mu[c + k];
+      rk[k] = rstd[c + k];
+    }
+    return [=](int s, float(&a)[V], float(&b)[V]) {
+      float v[V], d[V];
+      load<T, V>(xs + s * x_stride + c, v);
+      load<T, V>(dys + s * dy_stride + c, d);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        a[k] += d[k];
+        b[k] += d[k] * ((v[k] - mk[k]) * rk[k]);
+      }
+    };
+  };
+}
+
+// Group means of dxhat = dy·γ and dxhat·xhat from per-channel Σdy (k0) and
+// Σdy·xhat (k1), written back per channel in place: k0 = mean_g(dxhat),
+// k1 = mean_g(dxhat·xhat). Ends with a barrier.
+__device__ void dy_group_means(const GnShape& g, const float* gam, float* k0,
+                               float* k1) {
+  const int cpg = g.C / g.G;
+  const float denom = static_cast<float>(g.S) * static_cast<float>(cpg);
+  for (int grp = threadIdx.x; grp < g.G; grp += blockDim.x) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
+      s0 += gam[c] * k0[c];
+      s1 += gam[c] * k1[c];
+    }
+    for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
+      k0[c] = s0 / denom;
+      k1[c] = s1 / denom;
+    }
+  }
+  __syncthreads();
+}
+
+// The backward's streamed route: one block per sample (blockIdx.x = r·M +
+// m) and three passes over device memory (the statistics from x; Σdy and
+// Σdy·xhat from x and dy; dx), for a sample whose x is more than a
+// cluster's shared memory holds. The per-sample partials of dγ and dβ go to
+// part_g/part_b [R·M, C], as on the cluster route.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    gn_bwd_streamed_kernel(GnShape g, Strides sx, Strides sdy, Strides sdx,
+                           const T* __restrict__ x, const T* __restrict__ dy,
+                           const float* __restrict__ gamma,
+                           T* __restrict__ dx, float* __restrict__ part_g,
+                           float* __restrict__ part_b) {
+  extern __shared__ float smem[];
+  float* part = smem;
+  float* c0 = part + 2 * kThreads * V;
+  float* c1 = c0 + g.C;
+  float* mu = c1 + g.C;
+  float* rstd = mu + g.C;
+  float* gam = rstd + g.C;
+
+  const int n = blockIdx.x;
+  const int r = n / g.M, m = n - r * g.M;
+  const T* xs = x + r * sx.r + m * sx.m;
+  const T* dys = dy + r * sdy.r + m * sdy.m;
+  T* dxs = dx + r * sdx.r + m * sdx.m;
+
+  // Pass 1: the statistics.
+  channel_sums<kThreads, V>(g.S, g.C, sum_and_squares<T, V>(xs, sx.s), c0,
+                            c1, part);
+  group_stats(g, c0, c1, mu, rstd);
+  for (int c = threadIdx.x; c < g.C; c += kThreads) gam[c] = gamma[r * g.C + c];
+
+  // Pass 2: Σdy and Σdy·xhat per channel (this sample's dβ and dγ).
+  channel_sums<kThreads, V>(
+      g.S, g.C, dy_sums<T, V>(xs, sx.s, dys, sdy.s, mu, rstd), c0, c1, part);
+  for (int c = threadIdx.x; c < g.C; c += kThreads) {
+    part_b[static_cast<long long>(n) * g.C + c] = c0[c];
+    part_g[static_cast<long long>(n) * g.C + c] = c1[c];
+  }
+  __syncthreads();
+  dy_group_means(g, gam, c0, c1);
+
+  // Pass 3: dx.
+  const int slots = g.C / V;
+  const int total = g.S * slots;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int s = e / slots;
+    const int c = (e - s * slots) * V;
+    float v[V], d[V];
+    load<T, V>(xs + s * sx.s + c, v);
+    load<T, V>(dys + s * sdy.s + c, d);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float xhat = (v[k] - mu[c + k]) * rstd[c + k];
+      v[k] = rstd[c + k] * (d[k] * gam[c + k] - c0[c + k] - xhat * c1[c + k]);
+    }
+    store<T, V>(dxs + s * sdx.s + c, v);
   }
 }
 
@@ -454,26 +564,8 @@ __global__ void __launch_bounds__(kClusterThreads, 6)
   const T* dy_rows = dy_resident ? sdy_ : dys;
   const long long dy_stride = dy_resident ? C : sdy.s;
   channel_sums<kClusterThreads, V>(
-      n_rows, C,
-      [&](int c) {
-        float mk[V], rk[V];
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          mk[k] = mu[c + k];
-          rk[k] = rstd[c + k];
-        }
-        return [=](int s, float(&a)[V], float(&b)[V]) {
-          float v[V], d[V];
-          load<T, V>(sx_ + s * C + c, v);
-          load<T, V>(dy_rows + s * dy_stride + c, d);
-#pragma unroll
-          for (int k = 0; k < V; ++k) {
-            a[k] += d[k];
-            b[k] += d[k] * ((v[k] - mk[k]) * rk[k]);
-          }
-        };
-      },
-      ex1, ex1 + C, part);
+      n_rows, C, dy_sums<T, V>(sx_, C, dy_rows, dy_stride, mu, rstd), ex1,
+      ex1 + C, part);
   cluster_totals(cluster, ex1, tot, C);
   if (q == 0) {
     for (int c = threadIdx.x; c < C; c += kClusterThreads) {
@@ -486,20 +578,7 @@ __global__ void __launch_bounds__(kClusterThreads, 6)
   // k0 = mean_g(dxhat), k1 = mean_g(dxhat·xhat).
   float* k0 = tot;
   float* k1 = tot + C;
-  const int cpg = C / g.G;
-  const float denom = static_cast<float>(g.S) * static_cast<float>(cpg);
-  for (int grp = threadIdx.x; grp < g.G; grp += kClusterThreads) {
-    float s0_ = 0.f, s1_ = 0.f;
-    for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
-      s0_ += gam[c] * k0[c];
-      s1_ += gam[c] * k1[c];
-    }
-    for (int c = grp * cpg; c < (grp + 1) * cpg; ++c) {
-      k0[c] = s0_ / denom;
-      k1[c] = s1_ / denom;
-    }
-  }
-  __syncthreads();
+  dy_group_means(g, gam, k0, k1);
 
   // Pass 3: dx, each thread on a fixed channel slot with that slot's
   // constants in registers.
@@ -674,23 +753,35 @@ cudaError_t fwd_v(const GnShape& g, const Strides& sx, const Strides& sy,
   return cudaGetLastError();
 }
 
+// The route is chosen by shape before the launch, as the forward's is: the
+// cluster-resident kernel when x fits in a cluster's shared memory, else the
+// streamed one. `*streamed` says which ran.
 template <typename T, int V>
 cudaError_t bwd_v(const GnShape& g, const Strides& sx, const Strides& sdy,
                   const Strides& sdx, const void* x, const void* dy,
                   const float* gamma, void* dx, float* part_g, float* part_b,
-                  cudaStream_t stream) {
+                  bool* streamed, cudaStream_t stream) {
   int max_smem = 0;
-  const cudaError_t err = current_max_smem(&max_smem);
+  cudaError_t err = current_max_smem(&max_smem);
   if (err != cudaSuccess) return err;
   ClusterPlan p;
-  if (!plan_cluster(g.S, g.C, sizeof(T), 2, max_smem, &p))
-    return cudaErrorInvalidValue;  // the caller checks group_norm_plan
-  return launch_cluster(gn_bwd_kernel<T, V>,
-                        static_cast<long long>(g.R) * g.M, p, stream, g, sx,
-                        sdy, sdx, static_cast<const T*>(x),
-                        static_cast<const T*>(dy), gamma,
-                        static_cast<T*>(dx), part_g, part_b, p.rows,
-                        static_cast<int>(p.resident == 2));
+  *streamed = !plan_cluster(g.S, g.C, sizeof(T), 2, max_smem, &p);
+  if (!*streamed)
+    return launch_cluster(gn_bwd_kernel<T, V>,
+                          static_cast<long long>(g.R) * g.M, p, stream, g, sx,
+                          sdy, sdx, static_cast<const T*>(x),
+                          static_cast<const T*>(dy), gamma,
+                          static_cast<T*>(dx), part_g, part_b, p.rows,
+                          static_cast<int>(p.resident == 2));
+  // part, Σdy and Σdy·xhat (first Σx and Σx²), μ, rstd and γ.
+  const size_t bytes = sizeof(float) * (2 * static_cast<size_t>(kThreads) *
+                                            V + 5 * static_cast<size_t>(g.C));
+  err = allow_smem(gn_bwd_streamed_kernel<T, V>, bytes);
+  if (err != cudaSuccess) return err;
+  gn_bwd_streamed_kernel<T, V><<<g.R * g.M, kThreads, bytes, stream>>>(
+      g, sx, sdy, sdx, static_cast<const T*>(x), static_cast<const T*>(dy),
+      gamma, static_cast<T*>(dx), part_g, part_b);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -712,7 +803,7 @@ int gn_vector_width(int C, int elem_bytes, const long long* strides,
 // The cluster plan for a sample of S x C elements on device `dev`, with
 // `tensors` tensors to hold (1: the forward, 2: the backward): out = {CL,
 // rows per block, tensors resident, shared memory bytes per block}, all 0
-// when x does not fit (the forward streams, the backward refuses).
+// when x does not fit (both kernels then take their streamed route).
 cudaError_t group_norm_plan(int S, int C, bool is_bf16, int tensors, int dev,
                             long long* out) {
   int max_smem = 0;
@@ -762,7 +853,7 @@ cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
                                   const void* x, const void* dy,
                                   const float* gamma, void* dx,
                                   float* part_g, float* part_b, bool is_bf16,
-                                  cudaStream_t stream) {
+                                  bool* streamed, cudaStream_t stream) {
   const GnShape g{R, M, S, C, G, eps};
   const Strides tx{sx[0], sx[1], sx[2]}, tdy{sdy[0], sdy[1], sdy[2]},
       tdx{sdx[0], sdx[1], sdx[2]};
@@ -772,7 +863,7 @@ cudaError_t group_norm_bwd_launch(int R, int M, int S, int C, int G,
   const int v = gn_vector_width(C, is_bf16 ? 2 : 4, strides, 9, ptrs, 3);
 #define FEDML_GN_BWD(T, V)                                                  \
   return bwd_v<T, V>(g, tx, tdy, tdx, x, dy, gamma, dx, part_g, part_b,  \
-                     stream)
+                     streamed, stream)
   if (is_bf16) {
     switch (v) {
       case 8: FEDML_GN_BWD(__nv_bfloat16, 8);

@@ -18,8 +18,9 @@ normalizes every client with its own γ/β. Both kernels hold each sample in
 the shared memory of a thread-block cluster of up to 8 blocks, which sum
 the statistics together through distributed shared memory, so the forward
 reads x once and the backward x and dy once. The forward routes a sample
-whose x is more than 8 blocks hold to a streamed kernel that reads x twice;
-the backward refuses it. The backward writes per-sample f32 partials of
+whose x is more than 8 blocks hold to a streamed kernel that reads x twice,
+and the backward to one that reads x three times and dy twice (one block
+per sample; the same formulas). The backward writes per-sample f32 partials of
 dγ/dβ and a second kernel sums them per row in a fixed order (no atomics: a
 rerun gives the same bits).
 
@@ -50,16 +51,24 @@ MAX_CHANNELS = 4096
 _OP = "fedml_tpu_torch::"
 
 
+def _param_dtype(x):
+    """The dtype of γ/β and of the statistics: f32, or f64 for an f64 x,
+    which only the plain twins take (the tests' ``gradgradcheck``)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _check(x, gamma, groups, what):
     if x.dim() != 4:
         raise ValueError(f"{what}: x must be [R, M, S, C], got shape "
                          f"{tuple(x.shape)}")
     r, _, _, c = x.shape
-    if x.dtype not in DTYPES:
-        raise ValueError(f"{what}: dtype must be one of {DTYPES}, got "
+    dtypes = DTYPES + ((torch.float64,) if x.device.type == "cpu" else ())
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what}: dtype must be one of {dtypes}, got "
                          f"{x.dtype}")
-    if gamma.dtype != torch.float32 or tuple(gamma.shape) != (r, c):
-        raise ValueError(f"{what}: gamma/beta must be float32 [{r}, {c}], "
+    pdt = _param_dtype(x)
+    if gamma.dtype != pdt or tuple(gamma.shape) != (r, c):
+        raise ValueError(f"{what}: gamma/beta must be {pdt} [{r}, {c}], "
                          f"got {gamma.dtype} {tuple(gamma.shape)}")
     if groups <= 0 or c % groups:
         raise ValueError(f"{what}: groups {groups} must divide channels {c}")
@@ -93,8 +102,9 @@ def _view(t, shape):
 # --- plain twins ------------------------------------------------------------
 
 def _stats(x32, groups, eps):
-    """Per-(row, sample, group) mean and rstd in f32, broadcast back to
-    ``[R, M, 1, C]`` (each channel carries its group's stats)."""
+    """Per-(row, sample, group) mean and rstd in x32's dtype (f32 for the
+    kernels' types), broadcast back to ``[R, M, 1, C]`` (each channel
+    carries its group's stats)."""
     r, m, s, c = x32.shape
     xg = x32.reshape(r, m, s, groups, c // groups)
     denom = s * (c // groups)
@@ -110,7 +120,7 @@ def group_norm_fwd_plain(x, gamma, beta, groups: int, eps: float = EPS):
     """Plain twin of the forward kernel: ``x [R, M, S, C]``, ``gamma``/
     ``beta [R, C]`` f32 → y in x's dtype."""
     _check(x, gamma, groups, "group_norm_fwd")
-    x32 = x.float()
+    x32 = x.to(_param_dtype(x))
     mu, rstd = _stats(x32, groups, eps)
     y = (x32 - mu) * rstd
     y = y * gamma[:, None, None, :] + beta[:, None, None, :]
@@ -122,7 +132,7 @@ def group_norm_bwd_plain(x, dy, gamma, groups: int, eps: float = EPS):
     f32, dβ [R, C] f32)``, dγ/dβ summed over each row's M samples."""
     _check(x, gamma, groups, "group_norm_bwd")
     r, m, s, c = x.shape
-    x32, dy32 = x.float(), dy.float()
+    x32, dy32 = x.to(gamma.dtype), dy.to(gamma.dtype)
     mu, rstd = _stats(x32, groups, eps)
     xhat = (x32 - mu) * rstd
     dgamma = (dy32 * xhat).sum(dim=(1, 2))
@@ -160,7 +170,8 @@ def group_norm_fwd(x, gamma, beta, groups: int, eps: float = EPS):
 def group_norm_bwd(x, dy, gamma, groups: int, eps: float = EPS):
     """Backward kernels on CUDA tensors: the per-sample pass (dx and f32
     partials of dγ/dβ) and the per-row reduce → ``(dx, dγ [R, C],
-    dβ [R, C])``. Counts one launch of each."""
+    dβ [R, C])``. Counts one launch of each, and one streamed launch when
+    the sample was too large for a cluster."""
     _check(x, gamma, groups, "group_norm_bwd")
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_bwd launches on cuda, got {x.device}")
@@ -169,16 +180,17 @@ def group_norm_bwd(x, dy, gamma, groups: int, eps: float = EPS):
                          f"must match x {x.dtype} {tuple(x.shape)}")
     ext = extension()
     x, dy = _channels_innermost(x), _channels_innermost(dy)
-    dx, part_g, part_b = ext.group_norm_bwd(x, dy, gamma.contiguous(),
-                                            int(groups), float(eps))
+    dx, part_g, part_b, streamed = ext.group_norm_bwd(
+        x, dy, gamma.contiguous(), int(groups), float(eps))
     group_norm_bwd.launches += 1
+    group_norm_bwd.streamed += int(streamed)
     dgamma, dbeta = ext.group_norm_reduce(part_g, part_b, x.shape[0])
     group_norm_bwd.reduce_launches += 1
     return dx, dgamma, dbeta
 
 
 launch_counter(group_norm_fwd, "launches", "streamed")
-launch_counter(group_norm_bwd, "launches", "reduce_launches")
+launch_counter(group_norm_bwd, "launches", "reduce_launches", "streamed")
 
 
 # --- the ops: device dispatch, autograd, vmap --------------------------------
@@ -222,7 +234,13 @@ class _GroupNorm(torch.autograd.Function):
     generates has no ``setup_context``, so ``torch.func.grad`` refuses it.
     ``generate_vmap_rule`` batches the Function by running its body under
     ``vmap``, which reaches the ops' own vmap rules below: one launch per
-    call for every client."""
+    call for every client.
+
+    The backward is itself differentiable through
+    :class:`_GroupNormBackward` when a gradient of it is asked for (a
+    second derivative, as FedNAS's unrolled architecture step takes). A
+    first derivative alone runs the backward op under ``no_grad``, so it
+    records nothing and keeps nothing beyond x and γ."""
 
     generate_vmap_rule = True
 
@@ -239,9 +257,96 @@ class _GroupNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        with torch.no_grad():  # once differentiable: no double backward
-            dx, dgamma, dbeta = _bwd_op(x, dy, gamma, ctx.groups, ctx.eps)
+        if _differentiated(x, dy, gamma):
+            dx, dgamma, dbeta = _GroupNormBackward.apply(x, dy, gamma,
+                                                         ctx.groups, ctx.eps)
+        else:
+            with torch.no_grad():
+                dx, dgamma, dbeta = _bwd_op(x, dy, gamma, ctx.groups,
+                                            ctx.eps)
         return dx, dgamma, dbeta, None, None
+
+
+class _GroupNormBackward(torch.autograd.Function):
+    """The backward op as a differentiable function of (x, dy, γ). Its
+    gradient is what differentiating flax's GroupNorm twice gives in JAX
+    (XLA lowers it; no Pallas kernel computes it), written with J, the
+    Jacobian of x̂ in x, which is symmetric within a group, so that
+    ``dx = J·(dy·γ)`` and every J-product is the backward op again (the
+    kernel on the card). For cotangents u of dx and a, b of dγ, dβ:
+
+    - ``d dy = γ·Ju + a·x̂ + b``;
+    - ``d γ = Σ dy·Ju`` over samples and positions;
+    - ``d x = J(dy·a) − (rstd/n)·(x̂·Σ_g u·dx + dx·Σ_g u·x̂)
+      − rstd·mean_g(dy·γ·x̂)·Ju``, with Σ_g over a group's n elements.
+
+    Its own gradient is again torch ops and this Function, so every order
+    is exact."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, dy, gamma, groups, eps):
+        return _bwd_op(x, dy, gamma, groups, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dy, gamma, groups, eps = inputs
+        ctx.save_for_backward(x, dy, gamma, output[0])
+        ctx.groups, ctx.eps = groups, eps
+
+    @staticmethod
+    def backward(ctx, u, a, b):
+        x, dy, gamma, dx = ctx.saved_tensors
+        groups, eps = ctx.groups, ctx.eps
+        r, m, s, c = x.shape
+        cpg = c // groups
+        n = s * cpg
+        ju = _GroupNormBackward.apply(x, u.to(x.dtype), torch.ones_like(gamma),
+                                      groups, eps)[0]
+        jda = _GroupNormBackward.apply(x, dy, a, groups, eps)[0]
+        pdt = gamma.dtype
+        x32, dy32, dx32 = x.to(pdt), dy.to(pdt), dx.to(pdt)
+        u32, ju32 = u.to(pdt), ju.to(pdt)
+        mu, rstd = _stats(x32, groups, eps)
+        xhat = (x32 - mu) * rstd
+
+        def group_sum(t):  # [R, M, S, C] → per-group sum, per channel
+            g = t.sum(dim=2).reshape(r, m, groups, cpg).sum(dim=3)
+            return g[..., None].expand(r, m, groups, cpg).reshape(r, m, 1, c)
+
+        gam, a4, b4 = (t[:, None, None, :] for t in (gamma, a, b))
+        q = group_sum(u32 * dx32)
+        p = group_sum(u32 * xhat)
+        k = group_sum(dy32 * gam * xhat) / n
+        d_x = (jda.to(pdt) - (rstd / n) * (xhat * q + dx32 * p)
+               - rstd * k * ju32)
+        d_dy = gam * ju32 + a4 * xhat + b4
+        d_gamma = (dy32 * ju32).sum(dim=(1, 2))
+        return d_x.to(x.dtype), d_dy.to(dy.dtype), d_gamma, None, None
+
+
+def _differentiated(*tensors) -> bool:
+    """Whether the backward being run is itself differentiated: plain
+    autograd with ``create_graph`` and an operand that requires grad, or,
+    under ``torch.func``, an operand that requires grad at a ``grad``
+    level below the one running this backward (``grad`` of ``grad``). A
+    single ``torch.func.grad`` records every backward at its own level,
+    which nothing reads; that case is False."""
+    ft = torch._C._functorch
+    levels, bottom = [], False
+    for t in tensors:
+        while True:
+            if ft.is_gradtrackingtensor(t):
+                levels.append((ft.maybe_get_level(t), t.requires_grad))
+            elif not ft.is_batchedtensor(t):
+                bottom = bottom or t.requires_grad
+                break
+            t = ft.get_unwrapped(t)
+    if not levels:
+        return torch.is_grad_enabled() and bottom
+    top = max(level for level, _ in levels)
+    return bottom or any(rg for level, rg in levels if level < top)
 
 
 def _fold(t, bdim, size):
@@ -304,8 +409,9 @@ def group_norm(x, gamma, beta, groups: int, eps: float = EPS):
     Differentiable, and batched by ``torch.func.vmap`` into one launch.
     CUDA tensors run the kernels, CPU tensors the plain twins."""
     _check_public(x, gamma, groups)
-    y = _GroupNorm.apply(_as_nsc(x)[None], gamma.float()[None],
-                         beta.float()[None], int(groups), float(eps))
+    pdt = _param_dtype(x)
+    y = _GroupNorm.apply(_as_nsc(x)[None], gamma.to(pdt)[None],
+                         beta.to(pdt)[None], int(groups), float(eps))
     return y.view(x.shape)
 
 
@@ -314,8 +420,9 @@ def group_norm_plain(x, gamma, beta, groups: int, eps: float = EPS):
     through torch ops): what ``chip_smoke.py`` and the tests hold the
     kernels against."""
     _check_public(x, gamma, groups)
-    y = group_norm_fwd_plain(_as_nsc(x)[None], gamma.float()[None],
-                             beta.float()[None], int(groups), float(eps))
+    pdt = _param_dtype(x)
+    y = group_norm_fwd_plain(_as_nsc(x)[None], gamma.to(pdt)[None],
+                             beta.to(pdt)[None], int(groups), float(eps))
     return y.reshape(x.shape)
 
 

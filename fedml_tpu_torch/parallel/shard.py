@@ -93,6 +93,18 @@ def _robust_avg(aggregator, client_params, weights, params):
     return tree_map(lambda a, p: torch.where(any_ok, a, p), avg, params)
 
 
+def _in_layout_of(t, ref):
+    """``t`` with ``ref``'s strides. A round returns the params in the
+    layout they came in, as a captured round's static buffers keep them:
+    a 1x1 conv weight's update comes back with channels-last strides on
+    its size-1 dims, and cuDNN picks other convolution algorithms for such
+    a weight, so a host loop of rounds would sum in another order than
+    the captured rounds from its second round on."""
+    if t.stride() == ref.stride():
+        return t
+    return torch.empty_like(ref).copy_(t)
+
+
 def make_vmap_round(local_train, client_transform=None,
                     nan_guard: bool = False, aggregator=None,
                     corruptor=None):
@@ -132,6 +144,7 @@ def make_vmap_round(local_train, client_transform=None,
         else:
             avg = _robust_avg(aggregator, client_nets.params, weights,
                               net.params)
+        avg = tree_map(_in_layout_of, avg, net.params)
         lw = loss_weights / torch.clamp(loss_weights.sum(), min=1e-12)
         mean_loss = (losses * lw).sum()
         return NetState(avg, net.model_state), mean_loss

@@ -330,6 +330,14 @@ GN_MAIN_SHAPES = [((256, 1024, 16), 16), ((256, 1024, 64), 32),
 # resnet56_server's GroupNorm shapes at batch 32 (f32, the split family).
 GN_SPLIT_SHAPES = [((32,) + shape[1:], groups)
                    for shape, groups in GN_MAIN_SHAPES]
+# The simulator zoo's f32 shapes on the cluster route, 8 clients' rows: the
+# DARTS search net at batch 32 on 32 x 32 (the stem's 48 channels in 24
+# groups, one-channel groups at 16 and 32 channels), UNet at batch 8 on
+# 256 x 256, levels 2 and 3.
+GN_ZOO_SHAPES = [((256, 1024, 48), 24), ((256, 1024, 16), 16),
+                 ((256, 1024, 32), 32), ((256, 256, 32), 32),
+                 ((256, 256, 64), 32), ((256, 64, 64), 32),
+                 ((64, 4096, 64), 32), ((64, 1024, 128), 32)]
 
 
 def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
@@ -379,6 +387,8 @@ def _sum_order_bound(terms, chain):
     ((4, 1024, 128), 32, 1, torch.bfloat16, False),
     *[(s, g, 1, torch.float32, False) for s, g in GN_SPLIT_SHAPES],
     ((4096, 1024, 16), 16, 128, torch.float32, True),
+    *[(s, g, 8, torch.float32, inter) for s, g in GN_ZOO_SHAPES
+      for inter in (False, True)],
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
@@ -393,7 +403,8 @@ def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
     forward's clusters (CL 4 of 251 rows in bf16, CL 8 of 126 in f32), and
     the bf16 sample of 1024 x 128 takes CL 8. The f32 cases at batch 32
     are resnet56_server's shapes in the split family, and the 128 rows of
-    32 samples its stump's under the FedGKT client phase's vmap."""
+    32 samples its stump's under the FedGKT client phase's vmap. The f32
+    cases of 8 rows are FedNAS's and FedSeg's, in both layouts."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -497,7 +508,7 @@ def test_group_norm_cluster_plan(cuda, s, c, is_bf16, tensors, want_cl,
 def test_group_norm_fwd_streams_a_sample_larger_than_a_cluster_holds(cuda):
     """x past the shared memory of a cluster of 8 blocks (8192 x 64 f32, 2
     MB) takes the streamed route: chosen by shape, counted, and within the
-    twin's bound; the backward refuses the same sample."""
+    twin's bound; the backward streams the same sample, counted."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -509,18 +520,12 @@ def test_group_norm_fwd_streams_a_sample_larger_than_a_cluster_holds(cuda):
             gn.group_norm_fwd.streamed - s0) == (1, 1)
     torch.testing.assert_close(
         y, gn.group_norm_fwd_plain(x, gamma, beta, 32), rtol=1e-5, atol=1e-5)
-    with pytest.raises(RuntimeError, match="8192 x 64 elements"):
-        gn.group_norm_bwd(x, dy, gamma, 32)
-
-
-def test_group_norm_bwd_refuses_a_sample_larger_than_a_cluster_holds(cuda):
-    """x alone past the shared memory of a cluster of 8 blocks (400,000 x
-    64 f32, 102 MB) is refused, not run another way."""
-    from fedml_tpu_torch.ops import group_norm as gn
-
-    x = torch.zeros(1, 1, 400_000, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="400000 x 64 elements"):
-        gn.group_norm_bwd(x, x, torch.ones(1, 64, device=cuda), 32)
+    b0 = gn.group_norm_bwd.streamed
+    dx, _, _ = gn.group_norm_bwd(x, dy, gamma, 32)
+    assert gn.group_norm_bwd.streamed - b0 == 1
+    torch.testing.assert_close(
+        dx, gn.group_norm_bwd_plain(x, dy, gamma, 32)[0], rtol=1e-5,
+        atol=1e-5)
 
 
 def test_binding_checks_raise_with_numbers_in_the_message(cuda):
@@ -1396,3 +1401,188 @@ def test_captured_split_nn_segments_equal_the_eager_segments(cuda,
                  api.server_net.params, api.server_opt), want[:4])
     assert loss == float(want[4] / 4)
 
+
+
+# --- GroupNorm's streamed backward and second derivative; the simulator zoo -
+
+@pytest.mark.parametrize("shape,groups,rows,dtype,interleaved", [
+    ((16, 65536, 16), 16, 1, torch.float32, False),
+    ((16, 16384, 32), 32, 1, torch.float32, False),
+    ((4, 65536, 32), 32, 1, torch.bfloat16, False),
+    ((64, 65536, 16), 16, 8, torch.float32, True),
+    ((3, 20001, 64), 32, 1, torch.float32, False),
+    ((1, 400_000, 64), 32, 1, torch.float32, False),
+])
+def test_group_norm_streamed_backward_matches_plain_twin(
+        cuda, shape, groups, rows, dtype, interleaved):
+    """The backward's streamed route (a sample past a cluster: FedSeg's
+    UNet at 256 x 256, levels 0 and 1, in f32; a bf16 sample; the level-0
+    shape with 8 clients' rows interleaved; a ragged S; a 102 MB sample,
+    which the backward once refused) against the f32
+    twin: dx within one bf16 rounding or 1e-5, dγ/dβ within the sum-order
+    bound; counted once a launch as streamed; reruns bit-equal."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, dy, gamma, _ = _gn_inputs(shape, rows, dtype, g, cuda, interleaved)
+    b0, s0 = gn.group_norm_bwd.launches, gn.group_norm_bwd.streamed
+    got = gn.group_norm_bwd(x, dy, gamma, groups)
+    again = gn.group_norm_bwd(x, dy, gamma, groups)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_bwd.launches - b0,
+            gn.group_norm_bwd.streamed - s0) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dx, dgamma, dbeta = got
+    want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
+        x.float(), dy.float(), gamma, groups)
+    if dtype == torch.bfloat16:
+        ok, err = _within_bf16_ulp(dx, want_dx)
+        assert ok, err
+    else:
+        torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    r, m, s, c = x.shape
+    chain = s + m + 64
+    mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+    d32 = dy.float()
+    assert bool(((dgamma - want_dg).abs() <= _sum_order_bound(
+        d32 * (x.float() - mu) * rstd, chain)).all())
+    assert bool(((dbeta - want_db).abs() <= _sum_order_bound(
+        d32, chain)).all())
+
+
+def test_group_norm_second_derivative_through_the_kernels(cuda):
+    """grad of grad through ``group_norm`` on the card (the backward kernel
+    differentiated by ``_GroupNormBackward``, which launches it again)
+    against ordinary autograd through the plain twin, f32: x, γ and β
+    within 1e-4 of the largest."""
+    from torch.func import grad
+
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(8, 16, 16, 32, generator=g, device=cuda) * 2 + 0.5
+    t, w = (torch.randn(x.shape, generator=g, device=cuda) for _ in range(2))
+    gam = torch.rand(32, generator=g, device=cuda) + 0.5
+    bet = torch.randn(32, generator=g, device=cuda)
+
+    def second(fn):
+        def loss(x, g_, b_):
+            return ((fn(x, g_, b_, 16) - t) ** 3).sum()
+
+        def inner(x, g_, b_):
+            gx, gg, gb = grad(loss, argnums=(0, 1, 2))(x, g_, b_)
+            return (gx * w).sum() + (gg * g_).sum() + (gb * b_ * g_).sum()
+
+        return grad(inner, argnums=(0, 1, 2))(x, gam, bet)
+
+    b0 = gn.group_norm_bwd.launches
+    got = second(gn.group_norm)
+    assert gn.group_norm_bwd.launches - b0 >= 3
+    for a, b in zip(got, second(gn.group_norm_plain)):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+
+
+def _small_zoo(cuda, name, per_round=3):
+    """FedNAS over a small DARTS net, FedSeg over a small UNet, FedGAN over
+    the MNIST GAN, on seeded data on the card."""
+    import numpy as np
+
+    from fedml_tpu_torch.algos import (FedConfig, FedGanAPI, FedNASAPI,
+                                       FedSegAPI)
+    from fedml_tpu_torch.data import build_federated_arrays
+    from fedml_tpu_torch.models import create_model
+
+    rng = np.random.RandomState(0)
+    counts = (8, 6, 8, 4)
+    edges = np.concatenate([[0], np.cumsum(counts)])
+    parts = {i: np.arange(edges[i], edges[i + 1]) for i in range(4)}
+    gen = torch.Generator().manual_seed(0)
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=per_round,
+                    comm_round=3, epochs=1, batch_size=2, lr=0.01)
+    if name == "FedNASAPI":
+        x = rng.randn(26, 16, 16, 3).astype(np.float32)
+        y = rng.randint(0, 5, 26).astype(np.int32)
+        model = create_model("darts", num_classes=5, c=4, layers=3, steps=2,
+                             multiplier=2, device=cuda, generator=gen)
+        return FedNASAPI(model, build_federated_arrays(
+            x, y, parts, 2, device=cuda), None, cfg, device=cuda)
+    if name == "FedSegAPI":
+        x = rng.randn(26, 20, 20, 3).astype(np.float32)
+        y = rng.randint(0, 5, (26, 20, 20)).astype(np.int32)
+        y[rng.rand(*y.shape) < 0.2] = 255
+        model = create_model("unet", num_classes=5, base=8, levels=2,
+                             device=cuda, generator=gen)
+        return FedSegAPI(model, build_federated_arrays(
+            x, y, parts, 2, device=cuda), None, cfg, num_classes=5,
+            loss_mode="focal", device=cuda)
+    x = np.tanh(rng.randn(26, 28, 28, 1)).astype(np.float32)
+    model = create_model("mnist_gan", device=cuda, generator=gen)
+    return FedGanAPI(model, build_federated_arrays(
+        x, np.zeros(26, np.int32), parts, 2, device=cuda), cfg, device=cuda)
+
+
+@pytest.mark.parametrize("name", ["FedNASAPI", "FedSegAPI", "FedGanAPI"])
+def test_captured_extra_rounds_equal_the_eager_rounds(cuda, monkeypatch,
+                                                      name):
+    """FedNAS, FedSeg (focal, ignored pixels) and FedGAN: 3 captured fused
+    rounds (one capture) bit-equal to 3 eager ``run_round`` +
+    ``_server_update`` rounds, params and losses, under cuDNN's
+    deterministic mode; at full participation ``train_rounds_on_device(3)``
+    likewise (FedGAN's noise drawn inside the step from the replayed
+    round's key); 4 clients are FedNAS's case that needs a host loop to
+    keep the params' layout as the static buffers do
+    (``parallel/shard._in_layout_of``). FedSeg runs the GroupNorm forward
+    and backward equally
+    often, FedNAS's search fewer backwards (its arch step's gradient is
+    in the alphas alone); FedGAN has no GroupNorm."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    for per_round in (3, 4):
+        host = _small_zoo(cuda, name, per_round)
+        want = [_eager(host, r) for r in range(3)]
+        api = _small_zoo(cuda, name, per_round)
+        captures = CapturedStep.captures
+        fwd, bwd = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+        if per_round == 3:
+            got = [api.train_one_round(r)["train_loss"] for r in range(3)]
+        else:
+            got = api.train_rounds_on_device(3).tolist()
+        fwd = gn.group_norm_fwd.launches - fwd
+        bwd = gn.group_norm_bwd.launches - bwd
+        assert CapturedStep.captures == captures + 1
+        assert got == want
+        _assert_same_state(api, host)
+        if name == "FedGanAPI":
+            assert fwd == bwd == 0
+        elif name == "FedSegAPI":
+            assert fwd == bwd > 0
+        else:  # the arch step's gradient in the alphas skips the backward
+            assert fwd > bwd > 0  # of the GroupNorms before their first use
+
+
+def test_captured_unrolled_fednas_round_equals_the_eager_round(cuda,
+                                                               monkeypatch):
+    """The unrolled (second-order) search on the small DARTS net: one
+    captured round bit-equal to the eager round under cuDNN's
+    deterministic mode, and its alphas moved otherwise than the
+    first-order round's."""
+    from fedml_tpu_torch.algos import FedNASAPI
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    base = _small_zoo(cuda, "FedNASAPI")
+
+    def unrolled():
+        return FedNASAPI(base.model, base.train_fed, None, base.cfg,
+                         xi=0.02, unrolled=True, device=cuda)
+
+    host, api = unrolled(), unrolled()
+    want = _eager(host, 0)
+    assert api.train_one_round(0)["train_loss"] == want
+    _assert_same_state(api, host)
+    _eager(base, 0)
+    assert not torch.equal(base.net.params["alphas_normal"],
+                           api.net.params["alphas_normal"])
