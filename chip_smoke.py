@@ -32,6 +32,9 @@ Phases, each of which must pass or the script exits non-zero:
              the forward's streamed route on a sample past a cluster's
              shared memory; the split family's f32 shapes (resnet56_server
              at batch 32, the stump under the FedGKT client phase's vmap);
+             ResNet-18-GN's four f32 shapes at 10 clients' rows of 20
+             samples (64 to 512 channels in 32 groups, 32² to 4²), in both
+             layouts;
              the backward's streamed route (and the forward's) at FedSeg's
              UNet shapes at 256 x 256 in f32 and one bf16 shape, reruns
              bit-equal, timed at the path's level-0 shape; GroupNorm's
@@ -43,8 +46,9 @@ Phases, each of which must pass or the script exits non-zero:
              computes the card's bound for the same work; times the
              GroupNorm kernels at each training shape in the path's
              layout and sums launches x ms per local step against
-             launches x bound, and the same per resnet56_server step in
-             f32.
+             launches x bound, and the same per resnet56_server step and
+             per resnet18_gn local step in f32, with F.group_norm at
+             ResNet-18-GN's [10x20, 1024, 64].
 3. serve   — the serving path at full width: transformer_lm d_model 512,
              8 heads, 4 layers, T 2048 (flash attention), rank-8 adapters
              over all projections, a PersonalAdapterStore of 512 clients,
@@ -166,12 +170,15 @@ Phases, each of which must pass or the script exits non-zero:
              8 layers, 4 steps, multiplier 4; 705 GroupNorms a forward) on
              32 x 32 x 3, 16 clients x 128 samples, batch 32, 8 a round:
              (a) the captured round against an eager round from one
-             start under cuDNN's deterministic mode, bit-equal, 2 replayed
-             rounds by CUDA events with the GroupNorm launches counted
-             against the model's reckoning, one train_rounds_on_device
-             round, the genotype; the unrolled arch gradient through the
-             kernels against the plain twin's (and the first-order one's
-             distance from it), one unrolled round at 2 clients. FedSegAPI
+             start under cuDNN's deterministic mode, bit-equal, at 3
+             layers (the cut of the host's work: a normal cell and both
+             reductions); the full net captured once by
+             train_rounds_on_device, 2 replayed on-device rounds by CUDA
+             events with the GroupNorm launches counted against the
+             model's reckoning, the genotype; the unrolled arch gradient
+             through the kernels against the plain twin's (and the
+             first-order one's distance from it), one unrolled round at 1
+             client. FedSegAPI
              over UNet (21 classes, base 16, 3 levels) on 256 x 256 x 3
              with ignored pixels, 16 clients x 32, batch 8, 8 a round:
              (a), a counted replayed round whose streamed GroupNorm
@@ -181,7 +188,25 @@ Phases, each of which must pass or the script exits non-zero:
              over the MNIST GAN (latent 100, LayerNorm), 16 clients x 640,
              batch 64, 8 a round: (a), a replayed round, one on-device
              round, generate(16) in [-1, 1].
-10. adapter — the FedAdapter training path at full width: FedAdapterAPI
+10. models — the model zoo's first half. FedAvgAPI over resnet18_gn at
+             fed_cifar100's config (500 clients x 100 random 32 x 32 x 3
+             samples, 100 classes, 10 a round, batch 20, 1 epoch, sgd lr
+             0.1), built on the card by default: (a) bit-equal under
+             cuDNN's deterministic mode, a replayed round counted against
+             100 GroupNorm forwards and 100 backwards, 3 pipelined rounds,
+             a warm train_rounds_on_device(3) call (its capture apart) and
+             3 timed calls, counted. resnet56(norm="bn", dtype="bf16")
+             FedAvg at the primary config: the running stats after the
+             captured round bit-equal to the eager round's, moved from
+             their init, and equal to the sample-weighted mean of the
+             cohort's trained stats; one FedBNAPI round whose state stack
+             moves in the sampled rows only. The FEMNIST CNN (cnn with
+             dropout, 3400 clients x 40, batch 20, lr 0.1) and the
+             Shakespeare LSTM (rnn, 715 clients x 8 sequences of T 80,
+             batch 4, lr 1.0, pad id -1): each (a) and 2 replayed rounds.
+             The GroupNorm kernels' holds and times at ResNet-18-GN's f32
+             shapes run in the kernels phase.
+11. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -200,8 +225,9 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-11. report — a ``kernels`` JSON line, the card's name and power limit,
-             and as the last line ``{"ok": true, "device": {...}}``.
+12. report — each phase's seconds, a ``kernels`` JSON line, the card's
+             name and power limit, and as the last line ``{"ok": true,
+             "device": {...}}``.
 
 Weights are random, made from fixed seeds. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -394,12 +420,13 @@ VFL_LR, VFL_TOL = 0.01, 1e-5
 # The rest of the simulator zoo (exp/main_extra.py's algorithms), each at
 # its model's full width in f32 as the JAX models run. FedNAS: the DARTS
 # search net (c 16, 8 layers, 4 steps, multiplier 4: 705 GroupNorms a
-# forward) on 32 x 32 x 3, 10 classes, 16 clients x 128 samples, batch 32
-# (4 packed steps: h 2), 8 a round, weights lr 0.025, alphas lr 3e-4; the
+# forward) on 32 x 32 x 3, 10 classes, 16 clients x 64 samples, batch 32
+# (2 packed steps: h 1), 8 a round, weights lr 0.025, alphas lr 3e-4; the
 # unrolled (second-order) round with xi 0.025 at 2 clients a round of 64
-# samples each (the cuts: its lookahead keeps ~3x the first-order round's
-# activations, 47 GiB at 2 clients; one search step, since its eager round
-# is the host's dispatch of ~40 s a step). That round runs eagerly only: a
+# samples, one search step, at NAS_PIN_LAYERS cells (the cuts: its
+# lookahead keeps ~3x the first-order round's activations, 47 GiB at 2
+# clients and 8 cells; its eager round is the host's dispatch of ~45 s at
+# 8 cells on an H100 host). That round runs eagerly only: a
 # capture runs the step twice more (warm-up and capture, ~2.5x the eager
 # round's host time, past the phase's budget); the captured unrolled round
 # is held bit-equal to its eager round on a small DARTS net by
@@ -410,9 +437,18 @@ VFL_LR, VFL_TOL = 0.01, 1e-5
 # lost to zero cannot pass). On the CPU the same route through the twins
 # reads 1.1e-3 from plain autograd in f32 and 6.6e-16 in f64: f32
 # rounding, amplified through 705 GroupNorms of one-channel groups.
-NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 128, 32, 8
+# The phase's host time is bounded by cuts (an eager round or a capture
+# of the full net is the host's dispatch of ~30k ops a search step, ~3x
+# that for the second-order one, whatever the client count): 64 samples
+# a client, one search step a round (the train batch and the valid
+# batch); pin (a), captured against eager under cuDNN's deterministic
+# mode, and the unrolled (second-order) drives, the arch gradient's hold
+# and the eager round, at NAS_PIN_LAYERS cells (3: a normal cell and both
+# reductions, every op and edge kind); the full net captured once, by the
+# on-device tier, whose replays are counted and timed.
+NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 64, 32, 8
 NAS_LR, NAS_ARCH_LR, NAS_XI, NAS_UNROLLED_PER_ROUND = 0.025, 3e-4, 0.025, 2
-NAS_UNROLLED_PER_CLIENT = 64
+NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS = 64, 3
 NAS_GN, NAS_GRAD2_TOL = 705, 3e-2
 # FedSeg: UNet (21 classes, base 16, 3 levels: 14 GroupNorms a forward) on
 # 256 x 256 x 3 with 10% of the label pixels 255 (ignored), 16 clients x
@@ -423,6 +459,37 @@ SEG_SIDE, SEG_CLASSES, SEG_TEST, SEG_LR, SEG_IGNORED = 256, 21, 64, 0.01, 0.1
 # x 640 samples, batch 64, 8 a round, the two Adams' lr 2e-4.
 GAN_CLIENTS, GAN_PER_CLIENT, GAN_BATCH, GAN_PER_ROUND, GAN_LR = (16, 640, 64,
                                                                  8, 2e-4)
+
+# The model zoo's first half. ResNet-18-GN FedAvg at fed_cifar100's
+# published config (BASELINE.md:23, scripts/reproduce_baselines.sh:89-93):
+# 500 clients x 100 random 32 x 32 x 3 samples, 100 classes, 10 a round,
+# batch 20, 1 epoch (5 steps), sgd lr 0.1. Its GroupNorms at 10 clients x
+# 20 samples, f32, 32 groups: (shape [N, S, C], launches a forward) — the
+# stem and stage 1's four at 64 channels, then each stage's four and its
+# downsample's: 20 a forward, 100 forwards and 100 backwards a round.
+R18_CLIENTS, R18_PER_CLIENT, R18_BATCH, R18_PER_ROUND = 500, 100, 20, 10
+R18_LR, R18_CLASSES = 0.1, 100
+R18_GN = [((200, 1024, 64), 5), ((200, 256, 128), 5), ((200, 64, 256), 5),
+          ((200, 16, 512), 5)]
+R18_GN_FWD = sum(n for _, n in R18_GN)  # 20
+# Its shapes join the GroupNorm holds against the twin, f32, 10 clients'
+# rows, in both layouts (x interleaved as the vmapped conv hands it over,
+# and [R, M, S, C]).
+GN_CASES += [(shape, 32, 10, torch.float32, interleaved)
+             for shape, _ in R18_GN for interleaved in (True, False)]
+# The FEMNIST CNN (scripts/reproduce_baselines.sh:83-87: cnn, 3400
+# clients, 10 a round, batch 20, lr 0.1) on random 28 x 28 single-channel
+# images, 62 classes; cut to 40 samples a client (2 steps; FEMNIST's
+# clients hold ~226). The Shakespeare LSTM (:95-99: rnn, 715 clients, 10 a
+# round, batch 4, lr 1.0) on random ids of vocab 90 at T 80, labels with
+# LEAF's pad id -1 on the last 8 positions of every third sequence; cut to
+# 8 sequences a client (2 steps): its cell is ~10 launches a position and
+# layer, ~5,000 a step forward and backward, which the host dispatches
+# eagerly and the capture records.
+FEMNIST_CLIENTS, FEMNIST_PER_CLIENT, FEMNIST_BATCH = 3400, 40, 20
+FEMNIST_PER_ROUND, FEMNIST_LR, FEMNIST_CLASSES = 10, 0.1, 62
+SHAKE_CLIENTS, SHAKE_PER_CLIENT, SHAKE_BATCH, SHAKE_PER_ROUND = 715, 8, 4, 10
+SHAKE_LR, SHAKE_T, SHAKE_VOCAB, SHAKE_PAD = 1.0, 80, 90, -1
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -1096,6 +1163,54 @@ def phase_gn_kernels(peaks):
               f"({n_tail} launches): sum of launches x ms {ms:.4f} ms "
               f"against sum of launches x bound {bound:.4f} ms "
               f"({bound / ms:.2f} of it)", flush=True)
+    # ResNet-18-GN's f32 path: each shape with 10 clients' rows, x and dy
+    # interleaved, weighted by its launches a forward (a local step runs
+    # each once forward and once backward); the first shape also through
+    # F.group_norm on the same data in NCHW.
+    r18 = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    r18_main = {}
+    for (n, s, c), per_fwd in R18_GN:
+        xi, dyi, gi, bi = _gn_inputs((n, s, c), 10, torch.float32, g, True)
+        line = []
+        for kind, fn in (
+                ("fwd", lambda: gn.group_norm_fwd(xi, gi, bi, 32)),
+                ("bwd", lambda: gn.group_norm_bwd(xi, dyi, gi, 32))):
+            ms, bound = graph_ms(fn), _gn_bound(kind, xi, peaks)[0]
+            r18[kind][0] += per_fwd * ms
+            r18[kind][1] += per_fwd * bound
+            line.append(f"{kind} {ms:.4f} ms (bound {bound:.4f} ms, "
+                        f"{bound / ms:.2f} of it)")
+            if (n, s, c) == R18_GN[0][0]:
+                r18_main[kind] = (ms, bound)
+        if (n, s, c) == R18_GN[0][0]:
+            side = int(math.isqrt(s))
+            xl = xi.permute(1, 0, 2, 3).reshape(n, side, side, c).permute(
+                0, 3, 1, 2).contiguous()
+            dyl = dyi.permute(1, 0, 2, 3).reshape(n, side, side, c).permute(
+                0, 3, 1, 2).contiguous()
+            wl, bl = gi[0].clone(), bi[0].clone()
+            lib_f = graph_ms(lambda: F.group_norm(xl, 32, wl, bl, gn.EPS))
+            xr, wr, br = (t.clone().requires_grad_() for t in (xl, wl, bl))
+
+            def lib_fb():
+                yl = F.group_norm(xr, 32, wr, br, gn.EPS)
+                torch.autograd.grad(yl, (xr, wr, br), dyl)
+
+            lib_b = graph_ms(lib_fb) - graph_ms(
+                lambda: F.group_norm(xr, 32, wr, br, gn.EPS))
+            r18_main["lib"] = (lib_f, lib_b)
+            line.append(f"F.group_norm fwd {lib_f:.4f} ms, bwd {lib_b:.4f} "
+                        "ms (NCHW)")
+            del xl, dyl, xr
+        print(f"[kernels] group_norm resnet18_gn path [10x{n // 10}, {s}, "
+              f"{c}] g32 f32 interleaved, {per_fwd} launches a forward: "
+              + ", ".join(line), flush=True)
+        del xi, dyi, gi, bi
+    for kind, (ms, bound) in r18.items():
+        print(f"[kernels] group_norm_{kind} f32 per resnet18_gn local step "
+              f"({R18_GN_FWD} launches): sum of launches x ms {ms:.4f} ms "
+              f"against sum of launches x bound {bound:.4f} ms "
+              f"({bound / ms:.2f} of it)", flush=True)
     fwd_plain = time_ms(lambda: gn.group_norm_fwd_plain(x, gamma, beta,
                                                         groups))
     bwd_plain = time_ms(lambda: gn.group_norm_bwd_plain(x, dy, gamma,
@@ -1144,7 +1259,12 @@ def phase_gn_kernels(peaks):
             "split_bound_ms_per_server_step": split[kind][1],
             "streamed_ms": streamed_bwd[kind][0],
             "streamed_bound_ms": streamed_bwd[kind][1],
-            "streamed_shape": streamed_bwd["shape"]})
+            "streamed_shape": streamed_bwd["shape"],
+            "r18_shape": "[10x20, 1024, 64] f32 interleaved",
+            "r18_ms": r18_main[kind][0], "r18_bound_ms": r18_main[kind][1],
+            "r18_library_ms": r18_main["lib"][0 if kind == "fwd" else 1],
+            "r18_ms_per_step": r18[kind][0],
+            "r18_bound_ms_per_step": r18[kind][1]})
     return entries
 
 
@@ -1389,9 +1509,12 @@ def _net_copy(net):
 
 
 def _net_vec(net):
+    """The params and the trained state (BatchNorm's running stats) as one
+    f32 vector."""
     from fedml_tpu_torch.core.tree import tree_leaves
 
-    return torch.cat([t.float().flatten() for t in tree_leaves(net.params)])
+    return torch.cat([t.float().flatten() for t in
+                      tree_leaves(net.params) + tree_leaves(net.model_state)])
 
 
 def _snapshot(api):
@@ -3304,11 +3427,11 @@ def _alpha_free_norms(model):
 
 def _fednas_drives(card):
     """FedNAS at the DARTS search net's full width: the first-order search
-    (pin (a) under cuDNN's deterministic mode, 2 replayed rounds counted
-    against 705 GroupNorm forwards and backwards per search pass, one
-    on-device round, the genotype), the unrolled arch gradient through the
-    kernels against the plain twin's, and one unrolled round. Returns the
-    counted launches."""
+    (pin (a) under cuDNN's deterministic mode at NAS_PIN_LAYERS cells, the
+    full net's on-device round captured once and 2 replays counted against
+    705 GroupNorm forwards and backwards per search pass and timed, the
+    genotype), the unrolled arch gradient through the kernels against the
+    plain twin's, and one unrolled round. Returns the counted launches."""
     from fedml_tpu_torch.algos import FedConfig, FedNASAPI
     from fedml_tpu_torch.algos.fednas import make_fednas_local_search
     from fedml_tpu_torch.data import build_federated_arrays, partition_homo
@@ -3334,6 +3457,19 @@ def _fednas_drives(card):
                          epochs=1, batch_size=NAS_BATCH, lr=NAS_LR,
                          seed=SEED)
 
+    # Pin (a) at NAS_PIN_LAYERS cells: the captured round bit-equal to the
+    # eager one under cuDNN's deterministic mode.
+    small = darts(layers=NAS_PIN_LAYERS)
+    api = FedNASAPI(small, fed, None, cfg(NAS_PER_ROUND),
+                    arch_lr=NAS_ARCH_LR, device="cuda")
+    print(f"[{tag}] pin (a) at darts c 16, {NAS_PIN_LAYERS} layers "
+          f"({_norm_count(small)} GroupNorms a forward; the cut of the "
+          f"host's eager round and capture)", flush=True)
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+    del api, small
+    _free()
+
     model = darts()
     n_gn, frozen = _norm_count(model), _alpha_free_norms(model)
     half = fed.steps_per_epoch // 2
@@ -3355,31 +3491,21 @@ def _fednas_drives(card):
     api = FedNASAPI(model, fed, None, cfg(NAS_PER_ROUND),
                     arch_lr=NAS_ARCH_LR, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    with _cudnn_deterministic():
-        _hold_captured_round(api, 0, tag, runs=1)
-        fwd, bwd, red, fs, bs, copies, (med, _, _) = _zoo_counts(
-            lambda: _event_rounds(api, (1, 2), tag, samples))
-        print(f"[{tag}] 2 replayed rounds (captured in cuDNN's "
-              f"deterministic mode, as pin (a) holds them): GroupNorm "
-              f"launches fwd {fwd}, "
-              f"bwd {bwd}, reduce {red} (expected {2 * want_fwd}, "
-              f"{2 * want_bwd}, {2 * want_bwd}), streamed {fs}/{bs}, operand "
-              f"copies {copies}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
-        check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd
-              and fs == bs == 0,
-              f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
-              f"streamed {fs}/{bs}")
-    # The fused round's graph goes first: two graphs of this round do not
-    # fit beside what the earlier phases' allocations left. The on-device
-    # round is captured in cuDNN's default mode, and its replay is the
-    # round's time in that mode (a second capture of the fused round would
-    # cost its ~50 s of host dispatch again).
-    del api._graphs["fused"]
-    _free()
+    # The full net captured once (cuDNN's default mode), by the on-device
+    # tier; its replays are counted and timed.
     dev_ms, _ = _on_device_once(api, tag, samples)
-    dev_med = _on_device_replayed(api, tag, samples)
+    fwd, bwd, red, fs, bs, copies, times = _zoo_counts(
+        lambda: [_on_device_replayed(api, tag, samples) for _ in range(2)])
+    dev_med = statistics.median(times)
+    print(f"[{tag}] 2 replayed on-device rounds: GroupNorm launches fwd "
+          f"{fwd}, bwd {bwd}, reduce {red} (expected {2 * want_fwd}, "
+          f"{2 * want_bwd}, {2 * want_bwd}), streamed {fs}/{bs}, operand "
+          f"copies {copies}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd
+          and fs == bs == 0,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
+          f"streamed {fs}/{bs}")
     print(f"[{tag}] genotype from the averaged alphas: {api.genotype()}",
           flush=True)
     counted = [fwd, bwd]
@@ -3389,8 +3515,8 @@ def _fednas_drives(card):
     # The unrolled arch gradient through the kernels against the plain
     # twin's on one client's batches, beside the first-order gradient.
     tag = "extra/FedNASAPI unrolled"
-    plain = darts(gn_fn=group_norm_plain)
-    model = darts()
+    plain = darts(gn_fn=group_norm_plain, layers=NAS_PIN_LAYERS)
+    model = darts(layers=NAS_PIN_LAYERS)
     check(all(torch.equal(a, b) for a, b in zip(
         model.state_dict().values(), plain.state_dict().values())),
           f"{tag}: the twin's model has other weights")
@@ -3413,8 +3539,9 @@ def _fednas_drives(card):
                    for k in grads[b]) / top
 
     rel, fo = dist("kernels", "plain"), dist("first-order", "plain")
-    print(f"[{tag}] arch gradient (xi {NAS_XI}, one client's batch of "
-          f"{NAS_BATCH}; the three in "
+    print(f"[{tag}] arch gradient (xi {NAS_XI}, darts at {NAS_PIN_LAYERS} "
+          f"cells, {_norm_count(model)} GroupNorms a forward, one client's "
+          f"batch of {NAS_BATCH}; the three in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms): kernels vs the "
           f"plain twin max|d|/max {rel:.3e} "
           f"(bound {NAS_GRAD2_TOL:.0e}, and below a tenth of the "
@@ -3438,7 +3565,8 @@ def _fednas_drives(card):
         lambda: _eager_round(api, 0).item())
     ms = (time.perf_counter() - t0) * 1e3
     print(f"[{tag}] {NAS_UNROLLED_PER_ROUND} clients a round of "
-          f"{NAS_UNROLLED_PER_CLIENT} samples (the cuts: one search step), "
+          f"{NAS_UNROLLED_PER_CLIENT} samples at {NAS_PIN_LAYERS} cells (the "
+          f"cuts: one search step, the depth), "
           f"one eager round (run_round + _server_update; eager only, see "
           f"NAS_UNROLLED_PER_CLIENT): {ms:.1f} ms, loss "
           f"{loss:.4f}; GroupNorm launches fwd {fwd}, bwd {bwd} (the double "
@@ -3450,7 +3578,7 @@ def _fednas_drives(card):
           f"GroupNorm launches fwd {fwd} bwd {bwd}")
     del api, model, fed
     _free()
-    return counted, (med, dev_ms, samples, dev_med)
+    return counted, (dev_med, dev_ms, samples)
 
 
 def _unet_gn_plan(side, levels, base):
@@ -3629,10 +3757,8 @@ def phase_extra():
     nas, nas_t = _fednas_drives(card)
     seg, seg_t = _fedseg_drives(card)
     gan_t = _fedgan_drives(card)
-    print(f"[extra] FedNAS round {nas_t[0]:.1f} ms replayed in cuDNN's "
-          f"deterministic mode ({nas_t[2] / nas_t[0] * 1e3:.1f} samples/s), "
-          f"{nas_t[3]:.1f} ms on-device in its default mode "
-          f"({nas_t[2] / nas_t[3] * 1e3:.1f} samples/s), on-device call "
+    print(f"[extra] FedNAS round {nas_t[0]:.1f} ms on-device, replayed "
+          f"({nas_t[2] / nas_t[0] * 1e3:.1f} samples/s), on-device call "
           f"{nas_t[1]:.1f} ms with its capture; FedSeg round {seg_t[0]:.1f} "
           f"ms ({seg_t[1] / seg_t[0] * 1e3:.1f} samples/s); FedGAN round "
           f"{gan_t[0]:.1f} ms ({gan_t[2] / gan_t[0] * 1e3:.1f} samples/s); "
@@ -3642,6 +3768,254 @@ def phase_extra():
     return {"group_norm_fwd": nas[0] + seg[0],
             "group_norm_bwd": nas[1] + seg[1],
             "streamed": {"group_norm_fwd": seg[2], "group_norm_bwd": seg[3]}}
+
+
+def _r18_drive(card):
+    """ResNet-18-GN FedAvg at fed_cifar100's config, on the card by
+    default (``device=None``): pin (a) under cuDNN's deterministic mode
+    from one eager round, a replayed round counted against 100 GroupNorm
+    forwards and backwards, 3 pipelined rounds on the same graph, a warm
+    ``train_rounds_on_device(3)`` call in cuDNN's default mode (its capture
+    timed apart) and 3 timed calls, counted. Returns (fwd, bwd) launches
+    and (on-device round ms, samples a round)."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    tag = "models/resnet18_gn FedAvg"
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    n = R18_CLIENTS * R18_PER_CLIENT
+    x = rng.randn(n, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, R18_CLASSES, n).astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(n, R18_CLIENTS),
+                                 R18_BATCH, device="cuda")
+    del x, y
+    model = create_model("resnet18_gn", num_classes=R18_CLASSES,
+                         generator=torch.Generator().manual_seed(SEED))
+    check(next(model.parameters()).is_cuda,
+          f"{tag}: create_model(device=None) did not build on cuda")
+    cfg = FedConfig(client_num_in_total=R18_CLIENTS,
+                    client_num_per_round=R18_PER_ROUND, comm_round=3,
+                    epochs=1, batch_size=R18_BATCH, lr=R18_LR, seed=SEED)
+    api = FedAvgAPI(model, fed, None, cfg)
+    steps = fed.steps_per_epoch
+    want = steps * R18_GN_FWD
+    samples = R18_PER_ROUND * R18_PER_CLIENT
+    print(f"[{tag}] resnet18_gn f32 "
+          f"({sum(v.numel() for v in api.net.params.values())} params, "
+          f"{_norm_count(model)} GroupNorms a forward), {R18_CLIENTS} clients "
+          f"x {R18_PER_CLIENT} samples [32, 32, 3], {R18_CLASSES} classes, "
+          f"batch {R18_BATCH} ({steps} steps), {R18_PER_ROUND} a round, sgd "
+          f"lr {R18_LR}; GroupNorm launches a round by the model: fwd "
+          f"{want}, bwd {want}; set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(_norm_count(model) == R18_GN_FWD and steps == 5,
+          f"{tag}: {_norm_count(model)} GroupNorms, {steps} steps")
+    torch.cuda.reset_peak_memory_stats()
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+        fwd, bwd, (med, _, _) = _counted(
+            lambda: _event_rounds(api, (1,), tag, samples), tag, want, want)
+        _time_pipelined(api, 3, tag, samples, "samples")
+    # Timed as PERF.md §2 says: a warm call that captures, then the median
+    # of three calls of 3 rounds; in cuDNN's default mode.
+    t0 = time.perf_counter()
+    api.train_rounds_on_device(3).tolist()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[{tag}] train_rounds_on_device(3) warm call {warm_ms:.1f} ms, of "
+          f"which warm-up + capture "
+          f"{api._graphs['on_device'].capture_ms:.1f} ms", flush=True)
+    counts, dev_ms = _time_on_device(api, 3, tag, samples, "samples",
+                                     _zero_gn_counts, _gn_counts)
+    check(counts[0] == counts[1] == counts[2] == 9 * want
+          and counts[3] == counts[4] == 0,
+          f"{tag}: on-device GroupNorm launches (fwd, bwd, reduce, copies, "
+          f"streamed) {counts}, expected {9 * want} a kind")
+    print(f"[{tag}] on-device round {dev_ms:.2f} ms = "
+          f"{samples / dev_ms * 1e3:.1f} samples/s (replayed, deterministic "
+          f"mode: {med:.1f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+          flush=True)
+    del api, model, fed
+    _free()
+    return (fwd + counts[0], bwd + counts[1]), (dev_ms, samples)
+
+
+def _bn_drives(card):
+    """``resnet56(norm="bn", dtype="bf16")`` FedAvg at the primary config:
+    the running stats after the captured round bit-equal to an eager
+    round's (pin (a) under cuDNN's deterministic mode, params and stats),
+    moved from their init and equal to the sample-weighted mean of the
+    cohort's trained stats; then one FedBN round: the sampled clients'
+    rows of the state stack move, no other row does."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedBNAPI, FedConfig
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.tree import client_rows, tree_weighted_mean
+    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.parallel.shard import client_rngs
+
+    tag = "models/resnet56 BN FedAvg"
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+
+    def model():
+        return create_model("resnet56", num_classes=10, norm="bn",
+                            dtype="bf16", device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+
+    api = FedAvgAPI(model(), fed, None, cfg, device="cuda")
+    init = {k: v.clone() for k, v in api.net.model_state.items()}
+    print(f"[{tag}] resnet56 BatchNorm bf16 ({len(init) // 2} BatchNorms, "
+          f"{sum(v.numel() for v in init.values())} running-stat values), "
+          f"{TRAIN_CLIENTS} clients x {TRAIN_PER_CLIENT}, batch "
+          f"{TRAIN_BATCH}, {TRAIN_PER_ROUND} a round, sgd lr {TRAIN_LR}",
+          flush=True)
+    with _cudnn_deterministic():
+        # The cohort's trained stats from the round's start, key and cohort.
+        rnd = keys.split(api.rng)[1]
+        sub = gather_clients(fed, api._cohort_on_device(api.sample_round(0)))
+        trained, _ = api.local_train.run_clients(
+            api.net, sub.x, sub.y, sub.mask,
+            client_rngs(rnd, sub.x.shape[0], 0))
+        mean = tree_weighted_mean(trained.model_state, sub.counts.float())
+        del trained
+        _hold_captured_round(api, 0, tag, runs=1)
+    state = api.net.model_state
+    moved = sum(not torch.equal(state[k], v) for k, v in init.items())
+    off = max((state[k] - mean[k]).abs().max().item() for k in state)
+    print(f"[{tag}] running stats after the replayed round: {moved} of "
+          f"{len(init)} moved from their init; max|stats - the cohort's "
+          f"sample-weighted mean of its trained stats| {off:.3e} (must be "
+          f"0); {card}", flush=True)
+    check(moved == len(init) and off == 0.0,
+          f"{tag}: {moved} of {len(init)} stats moved, {off} from the mean")
+    with _cudnn_deterministic():
+        bn_ms, _, _ = _event_rounds(api, (1,), tag, TRAIN_PER_ROUND
+                                    * TRAIN_PER_CLIENT)
+    del api
+    _free()
+
+    tag = "models/resnet56 BN FedBN"
+    api = FedBNAPI(model(), fed, None, cfg, device="cuda")
+    before = {k: v.clone() for k, v in client_rows(api._states).items()}
+    idx = sorted(int(i) for i in api.sample_round(0))
+    t0 = time.perf_counter()
+    loss = api.train_one_round(0)["train_loss"]
+    ms = (time.perf_counter() - t0) * 1e3
+    after = client_rows(api._states)
+    changed = {c for k, v in after.items() for c in range(TRAIN_CLIENTS)
+               if not torch.equal(v[c], before[k][c])}
+    every = all(not torch.equal(v[c], before[k][c])
+                for k, v in after.items() for c in idx)
+    print(f"[{tag}] one round (captures; {ms:.1f} ms), loss {loss:.4f}: "
+          f"state-stack rows moved {sorted(changed)}, sampled {idx}; every "
+          f"stat of every sampled row moved: {every}", flush=True)
+    check(changed == set(idx) and every and math.isfinite(loss),
+          f"{tag}: rows {sorted(changed)} moved, sampled {idx}")
+    del api, fed
+    _free()
+    return bn_ms
+
+
+def _small_model_drive(tag, build, fed, cfg, samples, card, **kw):
+    """Pin (a) under cuDNN's deterministic mode from one eager round (its
+    ms and the capture's printed), then 2 replayed rounds by CUDA
+    events. Returns the replayed round's median ms."""
+    from fedml_tpu_torch.algos import FedAvgAPI
+
+    api = FedAvgAPI(build(), fed, None, cfg, device="cuda", **kw)
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+        med, _, _ = _event_rounds(api, (1, 2), tag, samples)
+    print(f"[{tag}] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
+          flush=True)
+    del api
+    _free()
+    return med
+
+
+def phase_models():
+    """The model zoo's first half on the card: ResNet-18-GN FedAvg at
+    fed_cifar100's config through the GroupNorm kernels, BatchNorm's
+    trained state through FedAvg and FedBN, the FEMNIST CNN and the
+    Shakespeare LSTM (see the constants). Returns {kernel name: launches
+    in the counted rounds}."""
+    import functools
+
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    (fwd, bwd), (r18_ms, r18_samples) = _r18_drive(card)
+    bn_ms = _bn_drives(card)
+
+    rng = np.random.RandomState(SEED)
+    n = FEMNIST_CLIENTS * FEMNIST_PER_CLIENT
+    fed = build_federated_arrays(
+        rng.randn(n, 28, 28).astype(np.float32),
+        rng.randint(0, FEMNIST_CLASSES, n).astype(np.int32),
+        partition_homo(n, FEMNIST_CLIENTS), FEMNIST_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=FEMNIST_CLIENTS,
+                    client_num_per_round=FEMNIST_PER_ROUND, comm_round=3,
+                    epochs=1, batch_size=FEMNIST_BATCH, lr=FEMNIST_LR,
+                    seed=SEED)
+    tag = "models/cnn FEMNIST"
+    print(f"[{tag}] cnn (CNNDropOut, 62 classes), {FEMNIST_CLIENTS} clients "
+          f"x {FEMNIST_PER_CLIENT} [28, 28] (cut from ~226), batch "
+          f"{FEMNIST_BATCH}, {FEMNIST_PER_ROUND} a round, lr {FEMNIST_LR}",
+          flush=True)
+    cnn_ms = _small_model_drive(
+        tag, lambda: create_model("cnn", num_classes=FEMNIST_CLASSES,
+                                  device="cuda", generator=torch.Generator()
+                                  .manual_seed(SEED)),
+        fed, cfg, FEMNIST_PER_ROUND * FEMNIST_PER_CLIENT, card)
+    del fed
+
+    n = SHAKE_CLIENTS * SHAKE_PER_CLIENT
+    ids = rng.randint(0, SHAKE_VOCAB, (n, SHAKE_T + 1)).astype(np.int32)
+    labels = ids[:, 1:].copy()
+    labels[::3, -8:] = SHAKE_PAD
+    fed = build_federated_arrays(ids[:, :-1], labels,
+                                 partition_homo(n, SHAKE_CLIENTS),
+                                 SHAKE_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=SHAKE_CLIENTS,
+                    client_num_per_round=SHAKE_PER_ROUND, comm_round=3,
+                    epochs=1, batch_size=SHAKE_BATCH, lr=SHAKE_LR, seed=SEED)
+    tag = "models/rnn Shakespeare"
+    print(f"[{tag}] rnn (embed 8, 2 x LSTM 256, vocab {SHAKE_VOCAB}), "
+          f"{SHAKE_CLIENTS} clients x {SHAKE_PER_CLIENT} sequences of T "
+          f"{SHAKE_T} (cut), batch {SHAKE_BATCH}, {SHAKE_PER_ROUND} a round, "
+          f"lr {SHAKE_LR}, seq_softmax_ce with pad id {SHAKE_PAD}",
+          flush=True)
+    rnn_ms = _small_model_drive(
+        tag, lambda: create_model("rnn", device="cuda",
+                                  generator=torch.Generator()
+                                  .manual_seed(SEED)),
+        fed, cfg, SHAKE_PER_ROUND * SHAKE_PER_CLIENT, card,
+        loss_fn=functools.partial(seq_softmax_ce, pad_id=SHAKE_PAD),
+        pad_id=SHAKE_PAD)
+    del fed
+    _free()
+    print(f"[models] ResNet-18-GN on-device round {r18_ms:.2f} ms "
+          f"({r18_samples / r18_ms * 1e3:.1f} samples/s); ResNet-56-BN bf16 "
+          f"round {bn_ms:.1f} ms replayed in deterministic mode; FEMNIST CNN "
+          f"round "
+          f"{cnn_ms:.1f} ms; Shakespeare LSTM round {rnn_ms:.1f} ms; "
+          f"GroupNorm launches counted fwd {fwd}, bwd {bwd}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
 
 
 class _SkipLastQTile:
@@ -3908,24 +4282,32 @@ def main() -> int:
     print(f"[setup] card {smi}; peaks for {sku}: bf16 {peaks[0] / 1e12:.0f}"
           f" TFLOP/s, fp32 {peaks[1] / 1e12:.0f} TFLOP/s, HBM "
           f"{peaks[2] / 1e12:.2f} TB/s", flush=True)
-    phase_build()
-    entries = ([phase_kernels(peaks)] + phase_flash_bwd_kernels(peaks)
-               + phase_gn_kernels(peaks))
-    launches = phase_serve()
-    launches.update(phase_train())
-    for name, n in phase_algos().items():
-        launches[name] += n
-    for name, n in phase_custom().items():
-        launches[name] += n
-    for name, n in phase_zoo().items():
-        launches[name] += n
-    for name, n in phase_split().items():
-        launches[name] += n
-    extra = phase_extra()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    timed("build", phase_build)
+    entries = ([timed("kernels", phase_kernels, peaks)]
+               + timed("flash_bwd", phase_flash_bwd_kernels, peaks)
+               + timed("gn", phase_gn_kernels, peaks))
+    launches = timed("serve", phase_serve)
+    launches.update(timed("train", phase_train))
+    for phase, fn in (("algos", phase_algos), ("custom", phase_custom),
+                      ("zoo", phase_zoo), ("split", phase_split)):
+        for name, n in timed(phase, fn).items():
+            launches[name] += n
+    extra = timed("extra", phase_extra)
     streamed = extra.pop("streamed")
     for name, n in extra.items():
         launches[name] += n
-    adapter = phase_adapter()
+    for name, n in timed("models", phase_models).items():
+        launches[name] += n
+    adapter = timed("adapter", phase_adapter)
     print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "
           f"adapter {adapter['flash_fwd']}", flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
@@ -3934,6 +4316,8 @@ def main() -> int:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in streamed:
             entry["streamed_launches"] = streamed[entry["name"]]
+    print(f"[phase] seconds: {json.dumps(seconds)}; total "
+          f"{sum(seconds.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

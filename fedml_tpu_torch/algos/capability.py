@@ -170,3 +170,16 @@ class ExcludedScanTiers:
     def train_rounds_on_device(self, *a, **k):
         raise NotImplementedError(refusal(type(self),
                                           "train_rounds_on_device"))
+
+
+def refuse_model_state(who: str, *modules) -> None:
+    """The guard of the classes whose rounds do not carry trained model
+    state yet (BatchNorm's running stats): a model with buffers is refused
+    by name, as its stats would silently stay at their init."""
+    for module in modules:
+        names = [n for n, _ in module.named_buffers()]
+        if names:
+            raise NotImplementedError(
+                f"{who} does not carry trained model state yet (the model "
+                f"has buffers, e.g. {names[0]!r}: norm='bn'); ROADMAP.md A2 "
+                "carries it through the FedAvg family only — use norm='gn'")

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from fedml_tpu_torch.algos.config import FedConfig
-from fedml_tpu_torch.algos.capability import refusal
+from fedml_tpu_torch.algos.capability import refusal, refuse_model_state
 from fedml_tpu_torch.algos.fedavg import refuse_unported
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
@@ -123,6 +123,7 @@ class DecentralizedAPI(FederatedLoop):
         self.cfg, self.mode = cfg, mode
         self.train_fed, self.test_global = train_fed, test_global
         self.model = model.to(self.device)
+        refuse_model_state("DecentralizedAPI", self.model)
         self.fns = model_fns(self.model)
         n = train_fed.num_clients
         W = topology.mixing_matrix()

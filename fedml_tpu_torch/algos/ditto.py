@@ -47,7 +47,8 @@ class DittoAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg for the global model + per-client personal models pulled
     toward the current global with strength ``lam``. The carry is the
     stack of the personal params (every personal model starts as the
-    global init); ``personal_nets`` is their ``[N, ...]`` view. A round
+    global init), with their model states (BatchNorm's running stats) in
+    a second stack; ``personal_nets`` is their ``[N, ...]`` view. A round
     reports the global train loss; ``evaluate_personalized`` is the
     personalization metric."""
 
@@ -56,12 +57,14 @@ class DittoAPI(RunStateCheckpoints, FedAvgAPI):
     def __init__(self, *args, lam: float = 0.1, **kw):
         self.lam = lam
         super().__init__(*args, **kw)
-        self._personal = client_stack(self.net.params,
-                                      self.train_fed.num_clients)
+        n = self.train_fed.num_clients
+        self._personal = NetState(client_stack(self.net.params, n),
+                                  client_stack(self.net.model_state, n))
 
     @property
     def personal_nets(self) -> NetState:
-        return NetState(client_rows(self._personal), self.net.model_state)
+        return NetState(client_rows(self._personal.params),
+                        client_rows(self._personal.model_state))
 
     def _personal_train(self):
         """The proximal personal trainer (the LIVE client lr)."""
@@ -87,11 +90,15 @@ class DittoAPI(RunStateCheckpoints, FedAvgAPI):
 
         def step(net, personal, x, y, mask, weights, key, idx, umask):
             avg, loss = round_fn(net, x, y, mask, weights, weights, key)
-            sub = NetState(gather_stacked(personal, idx), net.model_state)
+            sub = NetState(gather_stacked(personal.params, idx),
+                           gather_stacked(personal.model_state, idx))
             rngs = client_rngs(keys.fold_in(key, _PERSONAL_TAG), x.shape[0])
             trained, _ = personal_train.run_stacked(sub, x, y, mask, rngs,
                                                     anchor=avg.params)
-            personal = scatter_stacked(personal, idx, trained.params, umask)
+            personal = NetState(
+                scatter_stacked(personal.params, idx, trained.params, umask),
+                scatter_stacked(personal.model_state, idx,
+                                trained.model_state, umask))
             return (avg, personal), loss
 
         return step

@@ -2,18 +2,22 @@
 port of ``fedml_tpu/algos/fedbn.py``).
 
 Every normalization layer is left out of the aggregation: each client
-keeps its own norm scale and bias, the rest of the model federates as
-usual. Norm leaves are found by parameter NAME, whose dotted segments
-follow flax's module paths (``…Norm_2.GroupNorm_0.weight``), as the JAX
-package finds them by path. The per-client norm leaves are one client
-stack on the device (norm leaves only), and a round — one captured step
-of the "custom" carry protocol —
+keeps its own norm scale and bias (and BatchNorm's running stats), the
+rest of the model federates as usual. Norm leaves are found by parameter
+NAME, whose dotted segments follow flax's module paths
+(``…Norm_2.GroupNorm_0.weight``), as the JAX package finds them by path.
+The per-client norm leaves are one client stack on the device (norm
+leaves only), the per-client model state (the whole ``model_state``)
+another, and a round — one captured step of the "custom" carry protocol —
 
 1. grafts each sampled client's norm leaves into the broadcast global,
+   with the client's own model state,
 2. trains the cohort from those per-client starting nets,
 3. averages only the non-norm leaves into the new global (its norm leaves
-   stay at their init: they only seed clients),
-4. scatters the trained norm leaves back into the stack.
+   stay at their init: they only seed clients; its model state stays as
+   it was),
+4. scatters the trained norm leaves and model states back into the
+   stacks.
 
 Evaluation is per client by construction: a FedBN model is complete only
 with a client's own norms (``evaluate`` is ``evaluate_personalized``).
@@ -46,8 +50,9 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
     """FedAvg with client-local normalization layers. A model without
     norm layers is refused (FedBN on it would be FedAvg, almost surely a
     misconfiguration), as is ``nan_guard``, which its round does not
-    implement. The carry is the stack of the norm leaves; ``local_norms``
-    is its ``[N, ...]`` view."""
+    implement. The carry is ``(stack of the norm leaves, stack of the
+    model states)``; ``local_norms`` and ``local_state`` are their
+    ``[N, ...]`` views."""
 
     window_protocol = "custom"
 
@@ -63,8 +68,9 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
                 "FedBN needs a model with normalization layers "
                 "(GroupNorm/BatchNorm/LayerNorm); none found in the "
                 "parameter tree")
-        self._norms = client_stack(self._norm_leaves(self.net.params),
-                                   self.train_fed.num_clients)
+        n = self.train_fed.num_clients
+        self._norms = client_stack(self._norm_leaves(self.net.params), n)
+        self._states = client_stack(self.net.model_state, n)
 
     def _norm_leaves(self, params):
         return {k: v for k, v in params.items() if self._norm_mask[k]}
@@ -72,6 +78,10 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
     @property
     def local_norms(self):
         return client_rows(self._norms)
+
+    @property
+    def local_state(self):
+        return client_rows(self._states)
 
     def _graft(self, global_params, norms):
         """Per-client starting params ``[k, ...]``: the clients' norm
@@ -82,16 +92,18 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
                 for name, g in global_params.items()}
 
     def _build_fused_step(self):
-        """One FedBN round: the cohort's norm leaves gathered and grafted,
-        the cohort trained (``local_train``, the cfg's optimizer), the
-        non-norm leaves averaged, the trained norm leaves scattered back
-        (an empty sampled client's training is a no-op, and the mask
-        keeps its row as it was)."""
+        """One FedBN round: the cohort's norm leaves gathered and grafted
+        with its model states, the cohort trained (``local_train``, the
+        cfg's optimizer), the non-norm leaves averaged, the trained norm
+        leaves and states scattered back (an empty sampled client's
+        training is a no-op, and the mask keeps its rows as they were)."""
         local_train, mask_of = self.local_train, self._norm_mask
 
-        def step(net, norms, x, y, mask, weights, key, idx, umask):
+        def step(net, extra, x, y, mask, weights, key, idx, umask):
+            norms, states = extra
             sub = gather_stacked(norms, idx)
-            start = NetState(self._graft(net.params, sub), net.model_state)
+            start = NetState(self._graft(net.params, sub),
+                             gather_stacked(states, idx))
             rngs = client_rngs(key, x.shape[0], 0)
             trained, losses = local_train.run_stacked(start, x, y, mask,
                                                       rngs)
@@ -103,16 +115,17 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
                 for name, g in net.params.items()}
             norms = scatter_stacked(norms, idx,
                                     self._norm_leaves(trained.params), umask)
-            return (NetState(params, net.model_state), norms), \
+            states = scatter_stacked(states, idx, trained.model_state, umask)
+            return (NetState(params, net.model_state), (norms, states)), \
                 (losses * w).sum()
 
         return step
 
     def _window_carry_init(self):
-        return self._norms
+        return (self._norms, self._states)
 
     def _window_carry_commit(self, extra) -> None:
-        self._norms = extra
+        self._norms, self._states = extra
 
     def evaluate(self) -> Dict[str, float]:
         """The personalized per-client eval: the global net's norm leaves
@@ -121,12 +134,12 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
         return self.evaluate_personalized()
 
     def evaluate_personalized(self) -> Dict[str, float]:
-        """Each client's model (its OWN norms grafted into the global) on
-        its own local shard, sample-weighted (one vmapped pass over the
-        resident shards; streaming stores are not ported, ROADMAP.md
-        A9)."""
+        """Each client's model (its OWN norms grafted into the global, with
+        its own model state) on its own local shard, sample-weighted (one
+        vmapped pass over the resident shards; streaming stores are not
+        ported, ROADMAP.md A9)."""
         f = self.train_fed
         nets = NetState(self._graft(self.net.params, self.local_norms),
-                        self.net.model_state)
+                        self.local_state)
         return weighted_client_metrics(self._per_client_eval(
             nets, f.x, f.y, f.mask, net_dim=0))

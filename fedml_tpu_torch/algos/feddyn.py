@@ -86,11 +86,18 @@ class FedDynAPI(RunStateCheckpoints, FedAvgAPI):
                  - hh / alpha).to(w0.dtype),
                 w0),
             trained.params, h_new, net.params)
+        # The trained state (BatchNorm's running stats): FedAvg's
+        # sample-count-weighted mean, the old state when no client took
+        # part.
         w = weights.float()
         wns = w / torch.clamp(w.sum(), min=1e-12)
-        # The port's models keep no trained state: model_state passes (in
-        # JAX it is the sample-weighted mean of the trained states).
-        return (NetState(params, net.model_state), h_new, gk_new,
+        state = tree_map(
+            lambda s, old: torch.where(
+                any_ok,
+                torch.einsum("c,c...->...", wns, s.float()).to(s.dtype),
+                old),
+            trained.model_state, net.model_state)
+        return (NetState(params, state), h_new, gk_new,
                 (losses * wns).sum())
 
     def _feddyn_round_fn(self):

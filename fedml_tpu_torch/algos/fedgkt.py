@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
-from fedml_tpu_torch.algos.capability import ExcludedScanTiers
+from fedml_tpu_torch.algos.capability import (ExcludedScanTiers,
+                                              refuse_model_state)
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.fedopt import _scale_by_adam
 from fedml_tpu_torch.core import keys
@@ -77,11 +78,11 @@ class _DistillTrain(LocalTrain):
         super().__init__(apply_fn, optimizer, local_epochs)
         self.temperature = temperature
 
-    def step(self, params, opt_state, model_state, xb, yb, mb,
+    def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
              have_teacher=None):
         def masked_loss(p):
             (logits, _), _ = self.apply_fn(NetState(p, model_state), xb,
-                                           train=True)
+                                           train=True, rng=rng)
             per = softmax_ce(logits, yb[..., 0]) + have_teacher * kl_loss(
                 logits, yb[..., 1:], self.temperature)
             return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
@@ -91,7 +92,8 @@ class _DistillTrain(LocalTrain):
         nb = mb.sum()
         nonempty = nb > 0
         return (tree_select(nonempty, apply_updates(params, updates), params),
-                tree_select(nonempty, new_opt, opt_state), loss, nb)
+                tree_select(nonempty, new_opt, opt_state), model_state, loss,
+                nb)
 
 
 class FedGKTAPI(ExcludedScanTiers):
@@ -119,6 +121,7 @@ class FedGKTAPI(ExcludedScanTiers):
         self.cfg, self.train_fed, self.test_global = cfg, train_fed, test_global
         self.client_model = client_model.to(dev)
         self.server_model = server_model.to(dev)
+        refuse_model_state("FedGKTAPI", self.client_model, self.server_model)
         self.client_fns = model_fns(self.client_model)
         self.server_fns = model_fns(self.server_model)
         self.temperature, self.epochs_server = temperature, epochs_server

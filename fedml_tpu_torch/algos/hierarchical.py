@@ -100,19 +100,21 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
         the weighted mean or, with a composable ``cfg.aggregator``, the
         same robust statistic across the group partials, each group one
         vote and ``weight > 0`` its participation gate."""
-        stacked = tree_map(lambda *xs: torch.stack(xs),
-                           *[n.params for n in group_nets])
+        # The whole group nets, params and trained state, as JAX reduces
+        # the NetState.
+        joint = [{**n.params, **n.model_state} for n in group_nets]
+        stacked = tree_map(lambda *xs: torch.stack(xs), *joint)
         gw = torch.tensor(group_weights, dtype=torch.float32,
                           device=self.device)
         if self._aggregator.is_mean:
-            params = tree_weighted_mean(stacked, gw)
+            out = tree_weighted_mean(stacked, gw)
         else:
             agg = self._aggregator(stacked, gw)
             any_ok = (gw > 0).any()
-            params = tree_map(lambda a, p: torch.where(any_ok, a, p), agg,
-                              self.net.params)
-        # The port's models keep no trained state: model_state passes.
-        return NetState(params, self.net.model_state)
+            out = tree_map(lambda a, p: torch.where(any_ok, a, p), agg,
+                           {**self.net.params, **self.net.model_state})
+        return NetState({k: out[k] for k in self.net.params},
+                        {k: out[k] for k in self.net.model_state})
 
     def train_one_round(self, round_idx: int):
         self._check_resident()
@@ -145,7 +147,7 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
                     net_g, loss = step(net_g, idx_d, mask_d, rnd_rng)
                 # The step's buffers serve the next group of this size.
                 net_g = NetState(tree_map(torch.clone, net_g.params),
-                                 net_g.model_state)
+                                 tree_map(torch.clone, net_g.model_state))
                 losses.append(loss.clone())
                 if traced:
                     self._fence()

@@ -81,14 +81,15 @@ class FederatedLoop:
         """``eval_fn`` over a client-stacked layout (``x [C, S, B, ...]``),
         without gradients, vmapped so each step is one launch of each
         kernel for every client: ``net`` is one model (``net_dim=None``)
-        or per-client ``[C, ...]`` params (``net_dim=0``). Returns the
+        or per-client ``[C, ...]`` params and model state (``net_dim=0``).
+        Evaluation runs in eval mode, on the running stats. Returns the
         metrics as ``[C]`` tensors."""
-        state = net.model_state
 
-        def one(params, xc, yc, mc):
+        def one(params, state, xc, yc, mc):
             return self.eval_fn(NetState(params, state), xc, yc, mc)
 
-        return vmap(one, in_dims=(net_dim, 0, 0, 0))(net.params, x, y, mask)
+        return vmap(one, in_dims=(net_dim, net_dim, 0, 0, 0))(
+            net.params, net.model_state, x, y, mask)
 
     def evaluate_on_clients(self, arrays=None,
                             prefix: str = "clients_train"

@@ -58,7 +58,7 @@ def make_loss_at_global(apply_fn, loss_fn):
 def qffl_update(net, client_nets, F_global, losses, weights, loss_weights,
                 active, q: float, L: float):
     """The fair server update: ``(net', mean_loss)`` from the global
-    ``net``, the trained ``[C, ...]`` client params, ``F_global [C]``, the
+    ``net``, the trained ``[C, ...]`` client nets, ``F_global [C]``, the
     losses and weights ``[C]`` and the ``active [C]`` mask (weight > 0 and
     finite). ``F`` is clamped at 1e-12; an all-inactive round leaves the
     params as they were (numerator and the h-sum both vanish)."""
@@ -79,12 +79,21 @@ def qffl_update(net, client_nets, F_global, losses, weights, loss_weights,
         lambda w, d: (w.float() - torch.einsum("c,c...->...", coef, d)
                       / denom).to(w.dtype),
         net.params, deltas)
+    # The trained state (BatchNorm's running stats): the sample-count-
+    # weighted mean over the active clients, as FedAvg weights it; an
+    # all-diverged round keeps the previous stats (a zero-weight mean would
+    # zero them).
+    w_state = weights.float() * active
+    total_w = w_state.sum()
+    wn = w_state / torch.clamp(total_w, min=1e-12)
+    state = tree_map(
+        lambda s, old: torch.where(
+            total_w > 0,
+            torch.einsum("c,c...->...", wn, s.float()).to(s.dtype), old),
+        client_nets.model_state, net.model_state)
     lw = loss_weights * active
     lw = lw / torch.clamp(lw.sum(), min=1e-12)
-    # The port's models keep no trained state (JAX takes the
-    # sample-weighted mean of the clients' BatchNorm stats here, and keeps
-    # the old stats when every client diverged): model_state passes.
-    return NetState(new_params, net.model_state), (losses * lw).sum()
+    return NetState(new_params, state), (losses * lw).sum()
 
 
 def make_qffl_round(local_train, q: float, lr: float, apply_fn, loss_fn,

@@ -81,14 +81,20 @@ class ScaffoldAPI(RunStateCheckpoints, FedAvgAPI):
         w = weights.float()
         total_w = w.sum()
         wn_w = w / torch.clamp(total_w, min=1e-12)
-        avg = tree_map(lambda p: torch.einsum("c,c...->...", wn_w,
-                                              p.float()).to(p.dtype),
-                       trained.params)
-        params = tree_map(
-            lambda xg, a: (xg.float() * (1 - server_lr)
-                           + server_lr * a.float()).to(xg.dtype),
-            net.params, avg)
-        params = tree_select(total_w > 0, params, net.params)
+        # The whole net, params and trained state (BatchNorm's running
+        # stats), as JAX steps the NetState.
+
+        def server_step(xg, p):
+            a = torch.einsum("c,c...->...", wn_w, p.float()).to(p.dtype)
+            return (xg.float() * (1 - server_lr)
+                    + server_lr * a.float()).to(xg.dtype)
+
+        params = tree_select(total_w > 0,
+                             tree_map(server_step, net.params,
+                                      trained.params), net.params)
+        state = tree_select(total_w > 0,
+                            tree_map(server_step, net.model_state,
+                                     trained.model_state), net.model_state)
         total_active = active.sum()
         wn = active / torch.clamp(total_active, min=1e-12)
         frac = total_active / n_total
@@ -96,8 +102,7 @@ class ScaffoldAPI(RunStateCheckpoints, FedAvgAPI):
             lambda c, ckn, ck: c + frac * torch.einsum("c,c...->...", wn,
                                                        ckn - ck),
             c_server, ck_new, ck_sub)
-        # The port's models keep no trained state: model_state passes.
-        return (NetState(params, net.model_state), c_new, ck_new,
+        return (NetState(params, state), c_new, ck_new,
                 (losses * wn_w).sum())
 
     def _scaffold_round_fn(self):

@@ -28,7 +28,8 @@ from typing import Dict
 import torch
 from torch.func import grad_and_value, vmap
 
-from fedml_tpu_torch.algos.capability import ExcludedScanTiers
+from fedml_tpu_torch.algos.capability import (ExcludedScanTiers,
+                                              refuse_model_state)
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
@@ -73,6 +74,7 @@ class SplitNNAPI(ExcludedScanTiers):
         self.cfg, self.train_fed, self.test_global = cfg, train_fed, test_global
         self.client_model = client_model.to(dev)
         self.server_model = server_model.to(dev)
+        refuse_model_state("SplitNNAPI", self.client_model, self.server_model)
         self.client_fns = model_fns(self.client_model)
         self.server_fns = model_fns(self.server_model)
         self.loss_fn = loss_fn

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from fedml_tpu_torch.algos.capability import refuse_model_state
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import keys, mpc
 from fedml_tpu_torch.data.batching import gather_clients
@@ -55,6 +56,7 @@ class TurboAggregateAPI(FedAvgAPI):
     def __init__(self, *args, n_groups: int = 2, scale: int = 2 ** 16,
                  prime: int = mpc.DEFAULT_PRIME, **kwargs):
         super().__init__(*args, **kwargs)
+        refuse_model_state("TurboAggregateAPI", self.model)
         if self.cfg.compress != "none":
             raise ValueError(
                 "TurboAggregate's MPC path quantizes updates itself and "

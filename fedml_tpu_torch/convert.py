@@ -1,7 +1,8 @@
 """Weights carried across from a flax param tree: ``transformer_lm``, the
-CIFAR ResNets (``CifarResNet``), the split ResNets (``resnet_split``),
-``LogisticRegression``, the vertical-FL parties (``models/vfl.py``), the
-DARTS search and genotype networks, ``UNet`` and ``MNISTGan``.
+CIFAR ResNets (``CifarResNet``) and ``ResNetGN``, the split ResNets
+(``resnet_split``), ``LogisticRegression``, the vertical-FL parties
+(``models/vfl.py``), the DARTS search and genotype networks, ``UNet``,
+``MNISTGan``, the FedAvg CNNs and the LSTMs (``models/rnn.py``).
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
@@ -13,9 +14,16 @@ adapters)`` for the port's model:
 - ``Dense`` ``kernel [in, out]`` → ``weight [out, in]`` (transposed);
   ``Conv`` ``kernel`` HWIO → ``weight`` OIHW (a depthwise ``[k, k, 1,
   c]`` → ``[c, 1, k, k]``);
-  ``Embed`` ``embedding``, ``LayerNorm`` and ``GroupNorm`` ``scale`` →
-  ``weight``; ``bias`` stays ``bias``; a leaf at the root (DARTS's
-  ``alphas_normal``/``alphas_reduce``) keeps its name and layout;
+  ``Embed`` ``embedding``, ``LayerNorm``, ``GroupNorm`` and
+  ``BatchNorm`` ``scale`` → ``weight``; ``bias`` stays ``bias``; an LSTM
+  cell's gate kernels (``ii`` … ``ho``) transpose as ``Dense`` ones; a leaf
+  at the root (DARTS's ``alphas_normal``/``alphas_reduce``) keeps its name
+  and layout;
+- flax's ``batch_stats`` collection (BatchNorm's ``mean``/``var``) goes
+  through the same function: ``from_jax_params(variables["batch_stats"])``
+  gives the buffers of ``NetState.model_state`` under their dotted names
+  (``Norm_0.BatchNorm_0.mean``), and ``to_jax_params(model_state)`` gives
+  the collection back;
 - ``lora_*`` leaves are not module params: they come back as the adapter
   tree, nested and named as flax nests them, in f32 — so its flat vector
   (``core.flat.tree_to_vector_np``) equals JAX's ``tree_to_vector_np``.
@@ -35,7 +43,10 @@ import torch
 from fedml_tpu_torch.models.adapter import is_adapter_name, split_frozen
 
 _LEAF_TO_TORCH = {"kernel": "weight", "embedding": "weight",
-                  "scale": "weight", "bias": "bias"}
+                  "scale": "weight", "bias": "bias", "mean": "mean",
+                  "var": "var"}
+#: flax ``OptimizedLSTMCell``'s gate modules: ``Dense`` kernels by name.
+_LSTM_GATES = {f"{a}{g}" for a in "ih" for g in "ifgo"}
 
 
 def _walk(tree, prefix=()):
@@ -75,11 +86,13 @@ def _flax_leaf(module_path, torch_name):
     """The flax leaf name of ``<module>.<weight|bias>``: the module's own
     flax name says which kind of layer it is."""
     kind = module_path[-1].split("_")[0]
-    if torch_name == "bias":
-        return "bias"
+    if torch_name in ("bias", "mean", "var"):
+        return torch_name
+    if module_path[-1] in _LSTM_GATES:
+        return "kernel"
     return {"Dense": "kernel", "Conv": "kernel", "downsample": "kernel",
             "linear": "kernel", "Embed": "embedding", "LayerNorm": "scale",
-            "GroupNorm": "scale"}[kind]
+            "GroupNorm": "scale", "BatchNorm": "scale"}[kind]
 
 
 def to_jax_params(state_dict, adapters=None):

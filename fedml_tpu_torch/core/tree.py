@@ -71,7 +71,10 @@ def scatter_stacked(stacked, idx, values, umask):
     a gated write would then put two writes on one row, in an order CUDA
     leaves undefined, so a masked slot goes to the dustbin row instead,
     and the rows of real clients each take at most one write."""
-    dustbin = tree_leaves(stacked)[0].shape[0] - 1
+    leaves = tree_leaves(stacked)
+    if not leaves:  # an empty tree (a model without trained state)
+        return stacked
+    dustbin = leaves[0].shape[0] - 1
     target = torch.where(umask > 0, idx, torch.full_like(idx, dustbin))
     return tree_map(lambda old, new: old.index_copy_(0, target,
                                                      new.to(old.dtype)),

@@ -294,6 +294,15 @@ def _reductions(layers: int):
     return {layers // 3, 2 * layers // 3} - {0}
 
 
+def _refuse_bn(norm):
+    """The DARTS nets' BatchNorm waits for the next slice of ROADMAP.md A2
+    (the search net's BN statistics under FedNAS's bilevel step)."""
+    if norm == "bn":
+        raise NotImplementedError(
+            "norm='bn' of the DARTS nets is not ported yet (ROADMAP.md A2); "
+            "use 'gn'")
+
+
 class DartsNetwork(nn.Module):
     """The search network (the reference's model_search.py Network)."""
 
@@ -301,6 +310,7 @@ class DartsNetwork(nn.Module):
                  stem_multiplier=3, num_classes=10, norm="gn", gn_fn=None,
                  generator=None):
         super().__init__()
+        _refuse_bn(norm)
         if multiplier > steps:
             raise ValueError(
                 f"multiplier ({multiplier}) must be <= steps ({steps}): a "
@@ -422,6 +432,7 @@ class GenotypeNetwork(nn.Module):
     def __init__(self, genotype: Genotype, num_classes=10, c=36, layers=8,
                  stem_multiplier=3, norm="gn", gn_fn=None, generator=None):
         super().__init__()
+        _refuse_bn(norm)
         c_curr = stem_multiplier * c
         self.Conv_0 = Conv(3, c_curr, 3, generator=generator)
         self.Norm_0 = Norm(norm, c_curr, gn_fn=gn_fn)

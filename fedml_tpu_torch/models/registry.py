@@ -34,11 +34,13 @@ def create_model(name: str, **kwargs):
     raises without one); the tests pass ``device="cpu"``."""
     if name not in _REGISTRY:
         # Import side-effect registration; import errors propagate.
+        import fedml_tpu_torch.models.cnn  # noqa: F401
         import fedml_tpu_torch.models.darts  # noqa: F401
         import fedml_tpu_torch.models.gan  # noqa: F401
         import fedml_tpu_torch.models.lr  # noqa: F401
         import fedml_tpu_torch.models.resnet  # noqa: F401
         import fedml_tpu_torch.models.resnet_split  # noqa: F401
+        import fedml_tpu_torch.models.rnn  # noqa: F401
         import fedml_tpu_torch.models.transformer  # noqa: F401
         import fedml_tpu_torch.models.unet  # noqa: F401
         import fedml_tpu_torch.models.vfl  # noqa: F401

@@ -1,19 +1,31 @@
-"""CIFAR ResNets with GroupNorm (port of ``fedml_tpu/models/resnet.py``'s
-``CifarResNet`` family: ``resnet20``, ``resnet56``, ``resnet56_s2d``,
-``resnet110``).
+"""ResNets (port of ``fedml_tpu/models/resnet.py``): the CIFAR family
+``CifarResNet`` (``resnet20``, ``resnet56``, ``resnet56_s2d``,
+``resnet110``) and the ImageNet-style ``ResNetGN`` (``resnet10_gn`` …
+``resnet152_gn``, the fed_cifar100 row's ``resnet18_gn``).
 
 Module and parameter names follow the flax tree (``Conv_0``,
-``BottleneckBlock_3.Norm_2.GroupNorm_0.weight``, ``…downsample``), so
-``convert.from_jax_params`` maps the two one to one. Numerics follow flax:
+``BottleneckBlock_3.Norm_2.GroupNorm_0.weight``, ``…downsample``,
+``BasicBlock_1.Norm_0.BatchNorm_0.mean``), so ``convert.from_jax_params``
+maps the two one to one. Numerics follow flax:
 
 - convs and norms compute in the compute dtype (``dtype="bf16"``), with
   f32 parameters cast per call; the strided 3×3 conv pads (1, 1)
   explicitly, "SAME" on the 3×3 stem is padding 1, the 1×1 convs
-  (stride 2 on the downsample path included) pad nothing;
+  (stride 2 on the downsample path included) pad nothing; ``ResNetGN``'s
+  ImageNet stem (``small_input=False``) is a 7×7 stride-2 conv padded 3
+  and a 3×3 max-pool at stride 2 padded 1;
 - GroupNorm: eps 1e-6, f32 statistics, groups by :func:`norm_groups`;
   ``"gn"`` and ``"gn_fused"`` both run ``ops.group_norm`` (the
   hand-written kernel on the card — the port never calls
   ``F.group_norm``), ``"none"`` is the identity;
+- BatchNorm (``"bn"``) as flax's ``nn.BatchNorm(momentum=0.9)``: batch
+  statistics in f32 over (N, H, W) with ``var = max(E[x²] − E[x]², 0)``,
+  eps 1e-5, running stats ``0.9·ra + 0.1·batch`` with the biased
+  variance, kept as the buffers ``BatchNorm_0.mean``/``.var`` (flax's
+  ``batch_stats``). The module's ``training`` flag is flax's ``train``
+  (``trainer.local.model_fns`` sets it per call); in train mode the new
+  running stats are handed out as values (``new_buffers``), never
+  written in place, so the update composes with ``grad`` and ``vmap``;
 - the global mean is taken in f32 and the head ``Dense`` runs in f32.
 
 Inputs are NHWC, as in the JAX package. Inside, activations stay in
@@ -33,6 +45,9 @@ from torch import nn
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.models.registry import register_model, resolve_dtype
 from fedml_tpu_torch.ops.group_norm import EPS, group_norm
+
+#: flax ``nn.BatchNorm``'s defaults as the JAX package builds it.
+BN_MOMENTUM, BN_EPS = 0.9, 1e-5
 
 
 def norm_groups(c: int, groups: int = 32) -> int:
@@ -54,19 +69,21 @@ def _lecun_normal_(w, fan_in, generator):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias: OIHW f32 weight, computed in the
-    compute dtype."""
+    """flax ``nn.Conv``: OIHW f32 weight (and a zero-init bias with
+    ``bias=True``), computed in the compute dtype."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, dtype=None,
-                 generator=None):
+                 generator=None, bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         _lecun_normal_(self.weight, cin * k * k, generator)
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
 
     def forward(self, x):
         dt = self.dtype or x.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride,
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
                         self.padding)
 
 
@@ -79,11 +96,52 @@ class _GroupNormParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9)`` over the channel dim 1 of an
+    ``[N, C, ...]`` input: ``weight``/``bias`` (flax ``scale``/``bias``)
+    and the running ``mean``/``var`` buffers (flax ``batch_stats``). In
+    train mode it normalizes with the batch statistics and leaves the
+    updated running stats in ``new_buffers`` (read by
+    ``trainer.local.model_fns``); the buffers themselves are never
+    written. ``dtype`` is the output dtype (None: x's promoted with
+    f32)."""
+
+    def __init__(self, channels, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        self.dtype = dtype
+        self.new_buffers = None
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
+                              min=0.0)
+            m = BN_MOMENTUM
+            self.new_buffers = {"mean": m * self.mean + (1 - m) * mean,
+                                "var": m * self.var + (1 - m) * var}
+        else:
+            mean, var = self.mean, self.var
+        # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias
+        # in f32, cast to the compute dtype at the end.
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x.float() - mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
+        return y.to(self.dtype or torch.promote_types(x.dtype,
+                                                      torch.float32))
+
+
 class Norm(nn.Module):
     """``"gn"``/``"gn_fused"`` (GroupNorm through ``ops.group_norm``),
-    ``"none"`` (identity); ``"bn"`` is not ported yet. ``gn_fn`` swaps the
-    GroupNorm function (same signature as ``ops.group_norm``) — how the
-    card's check runs the model on the plain twin."""
+    ``"bn"`` (:class:`BatchNorm`), ``"none"`` (identity). ``gn_fn`` swaps
+    the GroupNorm function (same signature as ``ops.group_norm``) — how
+    the card's check runs the model on the plain twin."""
 
     def __init__(self, kind, channels, groups=32, dtype=None, gn_fn=None):
         super().__init__()
@@ -92,8 +150,8 @@ class Norm(nn.Module):
         if kind == "none":
             return
         if kind == "bn":
-            raise NotImplementedError(
-                "norm='bn' is not ported yet (ROADMAP.md A2); use 'gn'")
+            self.BatchNorm_0 = BatchNorm(channels, dtype)
+            return
         if kind not in ("gn", "gn_fused"):
             raise ValueError(f"unknown norm {kind!r}: expected gn, "
                              "gn_fused, none or bn")
@@ -103,6 +161,8 @@ class Norm(nn.Module):
     def forward(self, x):  # [N, C, H, W], channels-last memory
         if self.kind == "none":
             return x
+        if self.kind == "bn":
+            return self.BatchNorm_0(x)
         p = self.GroupNorm_0
         y = self.gn_fn(x.to(self.dtype or x.dtype).permute(0, 2, 3, 1),
                        p.weight, p.bias, self.num_groups, EPS)
@@ -226,10 +286,53 @@ class CifarResNet(nn.Module):
         return self.Dense_0(x)
 
 
-def _build(device, **kw):
+class ResNetGN(nn.Module):
+    """ImageNet-style ResNet (the reference's resnet_gn.py): a 64-channel
+    stem (3×3 "SAME" when ``small_input``, else 7×7 stride 2 and a 3×3
+    max-pool), four stages of ``64·2^i`` planes (stride 2 at the first
+    block of stages 2–4), the global mean in f32 and an f32 ``Dense``."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 block: str = "basic", num_classes: int = 100,
+                 norm: str = "gn", small_input: bool = True, dtype=None,
+                 gn_fn=None, generator=None):
+        super().__init__()
+        self.small_input, self.dtype = small_input, dtype
+        kw = dict(dtype=dtype, generator=generator)
+        self.Conv_0 = (Conv(3, 64, 3, 1, 1, **kw) if small_input
+                       else Conv(3, 64, 7, 2, 3, **kw))
+        self.Norm_0 = Norm(norm, 64, dtype=dtype, gn_fn=gn_fn)
+        blk = BasicBlock if block == "basic" else BottleneckBlock
+        self.blocks = []
+        cin = 64
+        for stage, n_blocks in enumerate(stage_sizes):
+            planes = 64 * 2 ** stage
+            for j in range(n_blocks):
+                strides = 2 if (stage > 0 and j == 0) else 1
+                name = f"{blk.__name__}_{len(self.blocks)}"
+                self.add_module(name, blk(cin, planes, strides, norm,
+                                          gn_fn=gn_fn, **kw))
+                self.blocks.append(name)
+                cin = planes * blk.expansion
+        self.Dense_0 = nn.Linear(cin, num_classes)
+        _lecun_normal_(self.Dense_0.weight, cin, generator)
+        nn.init.zeros_(self.Dense_0.bias)
+
+    def forward(self, x):  # x [B, H, W, 3]
+        x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+        x = F.relu(self.Norm_0(self.Conv_0(x)))
+        if not self.small_input:
+            x = F.max_pool2d(x, 3, 2, 1)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        x = x.float().mean(dim=(2, 3))
+        return self.Dense_0(x)
+
+
+def _build(device, cls=CifarResNet, **kw):
     dev = resolve_device(device)
     kw["dtype"] = resolve_dtype(kw.get("dtype"))
-    return CifarResNet(**kw).to(dev)
+    return cls(**kw).to(dev)
 
 
 @register_model("resnet56")
@@ -266,3 +369,55 @@ def resnet20(num_classes: int = 10, norm: str = "gn", dtype=None,
     return _build(device, layers=(2, 2, 2), num_classes=num_classes,
                   norm=norm, dtype=dtype, stem=stem, widths=widths,
                   gn_fn=gn_fn, generator=generator)
+
+
+# The ResNetGN factories take neither ``dtype`` nor ``norm``, as the JAX
+# package's do (f32, GroupNorm): both are swallowed by ``**_``.
+def _resnet_gn(stage_sizes, block, num_classes, device, gn_fn, generator):
+    return _build(device, ResNetGN, stage_sizes=stage_sizes, block=block,
+                  num_classes=num_classes, gn_fn=gn_fn, generator=generator)
+
+
+@register_model("resnet10_gn")
+def resnet10_gn(num_classes: int = 100, device=None, gn_fn=None,
+                generator=None, **_):
+    """One basic block per stage: the reduced-depth proxy of
+    ``resnet18_gn``."""
+    return _resnet_gn((1, 1, 1, 1), "basic", num_classes, device, gn_fn,
+                      generator)
+
+
+@register_model("resnet18_gn")
+def resnet18_gn(num_classes: int = 100, device=None, gn_fn=None,
+                generator=None, **_):
+    """The fed_cifar100 baseline's model (20 GroupNorms a forward)."""
+    return _resnet_gn((2, 2, 2, 2), "basic", num_classes, device, gn_fn,
+                      generator)
+
+
+@register_model("resnet34_gn")
+def resnet34_gn(num_classes: int = 100, device=None, gn_fn=None,
+                generator=None, **_):
+    return _resnet_gn((3, 4, 6, 3), "basic", num_classes, device, gn_fn,
+                      generator)
+
+
+@register_model("resnet50_gn")
+def resnet50_gn(num_classes: int = 100, device=None, gn_fn=None,
+                generator=None, **_):
+    return _resnet_gn((3, 4, 6, 3), "bottleneck", num_classes, device, gn_fn,
+                      generator)
+
+
+@register_model("resnet101_gn")
+def resnet101_gn(num_classes: int = 100, device=None, gn_fn=None,
+                 generator=None, **_):
+    return _resnet_gn((3, 4, 23, 3), "bottleneck", num_classes, device,
+                      gn_fn, generator)
+
+
+@register_model("resnet152_gn")
+def resnet152_gn(num_classes: int = 100, device=None, gn_fn=None,
+                 generator=None, **_):
+    return _resnet_gn((3, 8, 36, 3), "bottleneck", num_classes, device,
+                      gn_fn, generator)

@@ -32,12 +32,24 @@ def client_rngs(rng, n_local: int, offset: int = 0):
     return keys.fold_in(rng, slots)
 
 
-def client_finite_mask(client_params):
-    """``[C]`` float: 1.0 where every leaf of that client's model is
-    finite."""
+def client_finite_mask(client_nets):
+    """``[C]`` float: 1.0 where every leaf of that client's model (a tree,
+    or a ``NetState``: params and trained state) is finite."""
     flags = [torch.isfinite(leaf.reshape(leaf.shape[0], -1)).all(dim=1)
-             for leaf in tree_leaves(client_params)]
+             for leaf in _net_leaves(client_nets)]
     return torch.stack(flags).all(dim=0).float()
+
+
+def _net_leaves(net):
+    if isinstance(net, NetState):
+        return tree_leaves(net.params) + tree_leaves(net.model_state)
+    return tree_leaves(net)
+
+
+def _net_map(fn, *nets):
+    """``fn`` over the leaves of ``NetState``s of one structure."""
+    return NetState(tree_map(fn, *(n.params for n in nets)),
+                    tree_map(fn, *(n.model_state for n in nets)))
 
 
 #: fold_in children of a client's key for the corruptor's streams, disjoint
@@ -50,47 +62,52 @@ def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
     """Local training of the cohort, then the attack drill, the client
     transform and the NaN guard, in that order (the server's defenses see
     the corrupted updates): returns ``(client_nets, losses [C], finite
-    [C])``, with a diverged client's params and loss zeroed
-    (``torch.where``: NaN·0 is still NaN) and ``finite`` 0 for it (all
-    ones when the guard is off).
+    [C])``, with a diverged client's net (params and trained state) and
+    loss zeroed (``torch.where``: NaN·0 is still NaN) and ``finite`` 0
+    for it (all ones when the guard is off).
 
     ``corruptor(global_net, client_nets, adv, rngs) -> client_nets``
-    corrupts the slots where ``adv [C] > 0``, with per-client streams
-    ``fold_in(rng, 0xC0)``. ``client_transform(global_net, client_net) ->
-    client_net`` maps one client's trained net; it runs under ``vmap``
-    over the cohort."""
+    corrupts the params of the slots where ``adv [C] > 0``, with
+    per-client streams ``fold_in(rng, 0xC0)``. ``client_transform(
+    global_net, client_net) -> client_net`` maps one client's trained net
+    (params and state); it runs under ``vmap`` over the cohort."""
     client_nets, losses = local_train.run_clients(net, x, y, mask, rngs)
     if corruptor is not None:
         client_nets = corruptor(net, client_nets, adv,
                                 keys.fold_in(rngs, _CORRUPT_TAG))
     if client_transform is not None:
-        state = client_nets.model_state
+        def one(params, state):
+            out = client_transform(net, NetState(params, state))
+            return out.params, out.model_state
 
-        def one(params):
-            return client_transform(net, NetState(params, state)).params
-
-        client_nets = NetState(vmap(one)(client_nets.params), state)
+        client_nets = NetState(*vmap(one)(client_nets.params,
+                                          client_nets.model_state))
     if not nan_guard:
         return client_nets, losses, torch.ones_like(losses)
-    finite = client_finite_mask(client_nets.params)
+    finite = client_finite_mask(client_nets)
     ok = finite.bool()
-    params = tree_map(
+    client_nets = _net_map(
         lambda p: torch.where(ok.reshape((-1,) + (1,) * (p.dim() - 1)), p,
                               torch.zeros((), dtype=p.dtype,
                                           device=p.device)),
-        client_nets.params)
+        client_nets)
     losses = torch.where(torch.isfinite(losses), losses,
                          torch.zeros_like(losses))
-    return NetState(params, client_nets.model_state), losses, finite
+    return client_nets, losses, finite
 
 
-def _robust_avg(aggregator, client_params, weights, params):
-    """A non-mean aggregator's result, or the previous global model when
-    no client carries weight (order statistics over no participant would
-    leak their ±inf exclusion sentinels into the model)."""
-    avg = aggregator(client_params, weights)
+def _robust_avg(aggregator, client_nets, weights, net):
+    """A non-mean aggregator's result over the whole client net (params
+    and trained state, as JAX aggregates the ``NetState``), or the previous
+    global model when no client carries weight (order statistics over no
+    participant would leak their ±inf exclusion sentinels into the
+    model)."""
+    joint = aggregator({**client_nets.params, **client_nets.model_state},
+                       weights)
+    avg = NetState({k: joint[k] for k in client_nets.params},
+                   {k: joint[k] for k in client_nets.model_state})
     any_ok = (weights > 0).any()
-    return tree_map(lambda a, p: torch.where(any_ok, a, p), avg, params)
+    return _net_map(lambda a, p: torch.where(any_ok, a, p), avg, net)
 
 
 def _in_layout_of(t, ref):
@@ -112,16 +129,17 @@ def make_vmap_round(local_train, client_transform=None,
     (avg_net, mean_loss)`` over client-stacked ``[C, S, B, ...]`` inputs.
 
     ``weights [C]`` weight the model average, ``loss_weights [C]`` the
-    reported loss; padded slots carry 0 in both. ``nan_guard`` zero-weights
+    reported loss; padded slots carry 0 in both. The average is over the
+    whole client net, params and trained state (BatchNorm's running
+    stats), as JAX averages the ``NetState``. ``nan_guard`` zero-weights
     a client whose trained model is not finite, and keeps the previous
     model when every client is excluded.
 
     ``aggregator`` (``core/robust_agg``): ``None`` or an ``is_mean`` one
-    keeps the weighted mean; any other receives the client-stacked params
-    and the weights after the finite mask (the port's models keep no
-    per-client state, so the params are what is stacked). ``corruptor``
-    arms the attack drill: the round then takes a trailing ``adv [C]``
-    operand, the adversary mask."""
+    keeps the weighted mean; any other receives the client-stacked net
+    (params and state) and the weights after the finite mask.
+    ``corruptor`` arms the attack drill: the round then takes a trailing
+    ``adv [C]`` operand, the adversary mask."""
     if aggregator is not None and getattr(aggregator, "is_mean", False):
         aggregator = None
 
@@ -133,21 +151,22 @@ def make_vmap_round(local_train, client_transform=None,
         weights = weights * finite
         loss_weights = loss_weights * finite
         if aggregator is None:
-            avg = tree_weighted_mean(client_nets.params, weights)
+            avg = NetState(tree_weighted_mean(client_nets.params, weights),
+                           tree_weighted_mean(client_nets.model_state,
+                                              weights))
             if nan_guard:
                 # Every sampled client diverged: keep the previous global
                 # model (a zero-total weighted mean would silently zero the
-                # params).
+                # params and the running stats).
                 any_ok = weights.sum() > 0
-                avg = tree_map(lambda a, p: torch.where(any_ok, a, p), avg,
-                               net.params)
+                avg = _net_map(lambda a, p: torch.where(any_ok, a, p), avg,
+                               net)
         else:
-            avg = _robust_avg(aggregator, client_nets.params, weights,
-                              net.params)
-        avg = tree_map(_in_layout_of, avg, net.params)
+            avg = _robust_avg(aggregator, client_nets, weights, net)
+        avg = _net_map(_in_layout_of, avg, net)
         lw = loss_weights / torch.clamp(loss_weights.sum(), min=1e-12)
         mean_loss = (losses * lw).sum()
-        return NetState(avg, net.model_state), mean_loss
+        return avg, mean_loss
 
     if corruptor is not None:
         return round_core

@@ -16,7 +16,15 @@ epoch loss averaged over epochs.
 
 Random streams come from ``core.keys`` (a counter hash of (key, index)):
 not the JAX threefry bits, but the same structure, so slot ``i``'s shuffle
-key depends only on ``(epoch key, i)``.
+key depends only on ``(epoch key, i)`` and step ``s``'s key (dropout) is
+``fold_in(fold_in(fold_in(epoch key, 1), s), 0)``, as in JAX.
+
+Trained model state (BatchNorm's running stats) travels with the params in
+``NetState.model_state``: ``apply`` in train mode returns the new state as
+a value, the step takes it out of the loss as an aux, and the masked-step
+gate selects the whole net, so an all-masked batch leaves params,
+optimizer state and running stats untouched (JAX's ``mutable=`` apply and
+``tree_select`` over the ``NetState``).
 """
 
 from __future__ import annotations
@@ -47,7 +55,19 @@ class ModelFns(NamedTuple):
 
 def model_fns(module) -> ModelFns:
     """Functional interface of an ``nn.Module``: ``apply`` runs it through
-    ``functional_call`` on the given parameters."""
+    ``functional_call`` on the given parameters and buffers.
+
+    ``train`` is the module's ``training`` flag (set per call, as flax
+    passes ``train``). A module whose forward takes the step's key
+    declares ``takes_rng = True`` and gets ``rng`` in train mode (its
+    dropout). A submodule that updates buffers in train mode (BatchNorm)
+    leaves ``{buffer: value}`` in its ``new_buffers`` attribute; ``apply``
+    returns them, by their dotted names, as the new ``model_state`` (the
+    other buffers as given), so the update is a value under ``grad`` and
+    ``vmap``."""
+    stateful = [(name, m) for name, m in module.named_modules()
+                if hasattr(m, "new_buffers")]
+    takes_rng = getattr(module, "takes_rng", False)
 
     def init(*_) -> NetState:
         return NetState(
@@ -57,9 +77,20 @@ def model_fns(module) -> ModelFns:
                          for k, v in module.named_buffers()})
 
     def apply(net: NetState, x, train=False, rng=None):
+        if module.training != train:
+            module.train(train)
+        kw = {"rng": rng} if (takes_rng and train) else {}
         logits = functional_call(module, {**net.params, **net.model_state},
-                                 (x,))
-        return logits, net.model_state
+                                 (x,), kw)
+        if not (train and stateful and net.model_state):
+            return logits, net.model_state
+        state = dict(net.model_state)
+        for name, m in stateful:
+            if m.new_buffers is not None:
+                for k, v in m.new_buffers.items():
+                    state[f"{name}.{k}" if name else k] = v
+                m.new_buffers = None
+        return logits, state
 
     return ModelFns(init=init, apply=apply)
 
@@ -171,9 +202,11 @@ def seq_softmax_ce(logits, labels, pad_id: int = 0):
     """Per-example next-token CE for sequence models: ``logits [B, T, V]``,
     ``labels [B, T]``; the mean over the positions whose label is not
     ``pad_id`` (1 where a row is all padding)."""
+    # ignore_index: a pad id outside [0, V) (LEAF Shakespeare's -1) is a
+    # valid target for the masked positions, whose loss is dropped anyway.
     per_tok = F.cross_entropy(logits.flatten(0, -2).float(),
-                              labels.flatten().long(),
-                              reduction="none").view(labels.shape)
+                              labels.flatten().long(), reduction="none",
+                              ignore_index=pad_id).view(labels.shape)
     tok_mask = (labels != pad_id).to(per_tok.dtype)
     denom = torch.clamp(tok_mask.sum(-1), min=1.0)
     return (per_tok * tok_mask).sum(-1) / denom
@@ -206,23 +239,29 @@ class LocalTrain:
         self.local_epochs, self.loss_fn = local_epochs, loss_fn
         self.extra_grad_fn = extra_grad_fn
 
-    def _grad(self, params, model_state, xb, yb, mb):
-        """The gradient and value of the batch's masked mean loss."""
+    def _grad(self, params, model_state, xb, yb, mb, rng=None):
+        """The gradient and value of the batch's masked mean loss, and the
+        model state that the forward left (the loss's aux)."""
 
         def masked_loss(p):
-            logits, _ = self.apply_fn(NetState(p, model_state), xb,
-                                      train=True)
+            logits, new_state = self.apply_fn(NetState(p, model_state), xb,
+                                              train=True, rng=rng)
             per = self.loss_fn(logits, yb)
-            return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+            return ((per * mb).sum() / torch.clamp(mb.sum(), min=1.0),
+                    new_state)
 
-        return grad_and_value(masked_loss)(params)
+        grads, (loss, new_state) = grad_and_value(masked_loss,
+                                                  has_aux=True)(params)
+        return grads, loss, new_state
 
-    def step(self, params, opt_state, model_state, xb, yb, mb, anchor=None):
-        """One masked step; an all-masked batch returns its inputs.
-        ``extra_grad_fn(params, anchor)`` is added to the gradient before
-        the optimizer update (``anchor``: the params the client started
-        the round from)."""
-        grads, loss = self._grad(params, model_state, xb, yb, mb)
+    def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
+             anchor=None):
+        """One masked step; an all-masked batch returns its inputs (params,
+        optimizer state and model state). ``extra_grad_fn(params,
+        anchor)`` is added to the gradient before the optimizer update
+        (``anchor``: the params the client started the round from)."""
+        grads, loss, new_state = self._grad(params, model_state, xb, yb, mb,
+                                            rng)
         if self.extra_grad_fn is not None:
             grads = tree_map(torch.add, grads,
                              self.extra_grad_fn(params, anchor))
@@ -231,13 +270,15 @@ class LocalTrain:
         nb = mb.sum()
         nonempty = nb > 0
         return (tree_select(nonempty, new_params, params),
-                tree_select(nonempty, new_opt, opt_state), loss, nb)
+                tree_select(nonempty, new_opt, opt_state),
+                tree_select(nonempty, new_state, model_state), loss, nb)
 
     def _epochs(self, params, opt_state, model_state, x, y, mask, rng,
                 batched: bool, anchor=None, anchor_dim=None):
-        """The epoch/step loop shared by one client and the cohort;
-        ``anchor`` (batched along ``anchor_dim``) goes to ``extra_grad_fn``
-        at every step."""
+        """The epoch/step loop shared by one client and the cohort (whose
+        params, optimizer and model state are per client); ``anchor``
+        (batched along ``anchor_dim``) goes to ``extra_grad_fn`` at every
+        step. Returns ``(params, model_state, loss)``."""
         n_steps = mask.shape[-2]
         rng_pair = keys.split(rng)
         epoch_keys = keys.split(rng_pair[..., 1], self.local_epochs)
@@ -245,11 +286,13 @@ class LocalTrain:
         if batched:
             x_dim = x.dim() - 3  # client dim of a step's client-inner x
             step = vmap(self.step, in_dims=(
-                0, 0, None, x_dim, 0, 0,
+                0, 0, 0, x_dim, 0, 0, 0,
                 None if anchor is None else anchor_dim))
         epoch_losses = []
         for e in range(self.local_epochs):
-            perm = epoch_perm(mask, keys.fold_in(epoch_keys[..., e], 0))
+            epoch_key = epoch_keys[..., e]
+            perm = epoch_perm(mask, keys.fold_in(epoch_key, 0))
+            step_base = keys.fold_in(epoch_key, 1)
             ex, ey, em = (_take(a, perm, batched) for a in (x, y, mask))
             if batched:
                 # Client dim next to the channel dim: the vmapped convs then
@@ -258,22 +301,23 @@ class LocalTrain:
                 ey, em = ey.movedim(0, 1), em.movedim(0, 1)
             losses, ns = [], []
             for s in range(n_steps):
-                params, opt_state, loss, nb = step(
+                sub = keys.fold_in(keys.fold_in(step_base, s), 0)
+                params, opt_state, model_state, loss, nb = step(
                     params, opt_state, model_state, ex[s], ey[s], em[s],
-                    anchor)
+                    sub, anchor)
                 losses.append(loss)
                 ns.append(nb)
             losses, ns = torch.stack(losses), torch.stack(ns)
             epoch_losses.append((losses * ns).sum(0)
                                 / torch.clamp(ns.sum(0), min=1.0))
-        return params, torch.stack(epoch_losses).mean(0)
+        return params, model_state, torch.stack(epoch_losses).mean(0)
 
     def __call__(self, net: NetState, x, y, mask, rng):
         opt_state = self.optimizer.init(net.params)
-        params, loss = self._epochs(net.params, opt_state, net.model_state,
-                                    x, y, mask, rng, batched=False,
-                                    anchor=self._anchor(net.params))
-        return NetState(params, net.model_state), loss
+        params, state, loss = self._epochs(
+            net.params, opt_state, net.model_state, x, y, mask, rng,
+            batched=False, anchor=self._anchor(net.params))
+        return NetState(params, state), loss
 
     def _anchor(self, params):
         return params if self.extra_grad_fn is not None else None
@@ -281,15 +325,16 @@ class LocalTrain:
     def run_clients(self, net: NetState, x, y, mask, rngs):
         """The cohort: ``x [C, S, B, ...]``, ``y``/``mask [C, S, B]``,
         ``rngs [C]`` from one global ``net`` → (client nets with ``[C, ...]``
-        params, losses ``[C]``)."""
+        params and model state, losses ``[C]``)."""
         c = x.shape[0]
-        params = tree_map(lambda t: _per_client(t, c), net.params)
-        return self._run_cohort(NetState(params, net.model_state), x, y,
-                                mask, rngs, self._anchor(net.params), None)
+        nets = NetState(*(tree_map(lambda t: _per_client(t, c), tree)
+                          for tree in (net.params, net.model_state)))
+        return self._run_cohort(nets, x, y, mask, rngs,
+                                self._anchor(net.params), None)
 
     def run_stacked(self, nets: NetState, x, y, mask, rngs, anchor=None):
-        """The cohort from per-client starting nets (``[C, ...]`` params,
-        one shared ``model_state``), as :meth:`run_clients` takes it after
+        """The cohort from per-client starting nets (``[C, ...]`` params
+        and model state), as :meth:`run_clients` takes it after
         broadcasting the global net; the optimizer state starts fresh.
         ``extra_grad_fn`` is anchored at each client's own start, or at
         ``anchor``, one param tree for the whole cohort (Ditto's global
@@ -305,11 +350,10 @@ class LocalTrain:
         first = tree_map(lambda t: t[0], nets.params)
         opt_state = tree_map(lambda t: _per_client(t, c),
                              self.optimizer.init(first))
-        params, losses = self._epochs(nets.params, opt_state,
-                                      nets.model_state, x, y, mask, rngs,
-                                      batched=True, anchor=anchor,
-                                      anchor_dim=anchor_dim)
-        return NetState(params, nets.model_state), losses
+        params, state, losses = self._epochs(
+            nets.params, opt_state, nets.model_state, x, y, mask, rngs,
+            batched=True, anchor=anchor, anchor_dim=anchor_dim)
+        return NetState(params, state), losses
 
 
 class CorrectedLocalTrain(LocalTrain):
@@ -325,11 +369,15 @@ class CorrectedLocalTrain(LocalTrain):
                          local_epochs, loss_fn)
         self.step_update, self.with_step_count = step_update, with_step_count
 
-    def step(self, params, opt_state, model_state, xb, yb, mb, aux=None):
-        grads, loss = self._grad(params, model_state, xb, yb, mb)
+    def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
+             aux=None):
+        grads, loss, new_state = self._grad(params, model_state, xb, yb, mb,
+                                            rng)
         new_params = self.step_update(params, grads, aux)
         nb = mb.sum()
-        return tree_select(nb > 0, new_params, params), opt_state, loss, nb
+        nonempty = nb > 0
+        return (tree_select(nonempty, new_params, params), opt_state,
+                tree_select(nonempty, new_state, model_state), loss, nb)
 
     def _done(self, net, loss, mask):
         if not self.with_step_count:
@@ -341,9 +389,10 @@ class CorrectedLocalTrain(LocalTrain):
 
     def __call__(self, net: NetState, aux, x, y, mask, rng):
         """One client: ``(net', loss)``, and ``K`` with the step count."""
-        params, loss = self._epochs(net.params, {}, net.model_state, x, y,
-                                    mask, rng, batched=False, anchor=aux)
-        return self._done(NetState(params, net.model_state), loss, mask)
+        params, state, loss = self._epochs(
+            net.params, {}, net.model_state, x, y, mask, rng, batched=False,
+            anchor=aux)
+        return self._done(NetState(params, state), loss, mask)
 
     def run_clients(self, net: NetState, aux, x, y, mask, rngs,
                     aux_dim=0):
@@ -352,11 +401,12 @@ class CorrectedLocalTrain(LocalTrain):
         structure: FedDyn's ``(0, None)``). Returns ``(client nets, losses
         [C])`` and ``K [C]`` with the step count."""
         c = x.shape[0]
-        params = tree_map(lambda t: _per_client(t, c), net.params)
-        params, losses = self._epochs(params, {}, net.model_state, x, y,
-                                      mask, rngs, batched=True, anchor=aux,
-                                      anchor_dim=aux_dim)
-        return self._done(NetState(params, net.model_state), losses, mask)
+        params, state = (tree_map(lambda t: _per_client(t, c), tree)
+                         for tree in (net.params, net.model_state))
+        params, state, losses = self._epochs(
+            params, {}, state, x, y, mask, rngs, batched=True, anchor=aux,
+            anchor_dim=aux_dim)
+        return self._done(NetState(params, state), losses, mask)
 
 
 def make_corrected_local_train(apply_fn, local_epochs: int, loss_fn,

@@ -338,6 +338,10 @@ GN_ZOO_SHAPES = [((256, 1024, 48), 24), ((256, 1024, 16), 16),
                  ((256, 1024, 32), 32), ((256, 256, 32), 32),
                  ((256, 256, 64), 32), ((256, 64, 64), 32),
                  ((64, 4096, 64), 32), ((64, 1024, 128), 32)]
+# ResNet-18-GN's f32 shapes at fed_cifar100's cohort, 10 clients' rows
+# of 20 samples: 64 to 512 channels in 32 groups, 32² down to 4².
+GN_R18_SHAPES = [(200, 1024, 64), (200, 256, 128), (200, 64, 256),
+                 (200, 16, 512)]
 
 
 def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
@@ -389,6 +393,8 @@ def _sum_order_bound(terms, chain):
     ((4096, 1024, 16), 16, 128, torch.float32, True),
     *[(s, g, 8, torch.float32, inter) for s, g in GN_ZOO_SHAPES
       for inter in (False, True)],
+    *[(s, 32, 10, torch.float32, inter) for s in GN_R18_SHAPES
+      for inter in (False, True)],
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
@@ -404,7 +410,8 @@ def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
     the bf16 sample of 1024 x 128 takes CL 8. The f32 cases at batch 32
     are resnet56_server's shapes in the split family, and the 128 rows of
     32 samples its stump's under the FedGKT client phase's vmap. The f32
-    cases of 8 rows are FedNAS's and FedSeg's, in both layouts."""
+    cases of 8 rows are FedNAS's and FedSeg's, those of 10 rows
+    ResNet-18-GN's, in both layouts."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -952,10 +959,12 @@ def test_captured_fednova_rounds_follow_changing_operands(cuda, monkeypatch):
 # --- the "custom" carry protocol on the captured round -----------------------
 
 def _custom_leaves(api):
-    extra = api._window_carry_init()
-    parts = extra if isinstance(extra, tuple) else (extra,)
-    return torch.cat([t.float().flatten() for part in parts
-                      for t in part.values()])
+    """The carry (a tree: dicts, tuples, Ditto's ``NetState`` of personal
+    params and states) as one f32 vector."""
+    from fedml_tpu_torch.core.graph import _leaves
+
+    return torch.cat([t.float().flatten()
+                      for t in _leaves(api._window_carry_init())])
 
 
 def _eager_custom(api, r):
@@ -1586,3 +1595,92 @@ def test_captured_unrolled_fednas_round_equals_the_eager_round(cuda,
     _eager(base, 0)
     assert not torch.equal(base.net.params["alphas_normal"],
                            api.net.params["alphas_normal"])
+
+
+def _zoo_model_api(cuda, name, n_clients=4, per_client=8, batch=4):
+    """FedAvg over a model of the zoo's first half on small random data, 3
+    clients a round: ``resnet10_gn`` and ``resnet20(norm="bn")`` at widths
+    (4, 8, 16) on 16 x 16 images, ``cnn`` (dropout) on 28 x 28; sgd lr
+    0.05."""
+    import numpy as np
+
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    rng = np.random.RandomState(0)
+    n = n_clients * per_client
+    gen = torch.Generator().manual_seed(0)
+    if name == "cnn":
+        x = rng.randn(n, 28, 28).astype(np.float32)
+        model = create_model("cnn", device=cuda, generator=gen)
+    else:
+        x = rng.randn(n, 16, 16, 3).astype(np.float32)
+        model = (create_model("resnet10_gn", num_classes=10, device=cuda,
+                              generator=gen) if name == "resnet10_gn" else
+                 create_model("resnet20", widths=(4, 8, 16), norm="bn",
+                              num_classes=10, device=cuda, generator=gen))
+    y = rng.randint(0, 10, n).astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(n, n_clients), batch,
+                                 device=cuda)
+    cfg = FedConfig(client_num_in_total=n_clients, client_num_per_round=3,
+                    epochs=1, batch_size=batch, lr=0.05)
+    return FedAvgAPI(model, fed, None, cfg, device=cuda)
+
+
+def _net_state_vec(net):
+    from fedml_tpu_torch.core.tree import tree_leaves
+
+    return torch.cat([t.float().flatten() for t in
+                      tree_leaves(net.params) + tree_leaves(net.model_state)])
+
+
+@pytest.mark.parametrize("name", ["resnet10_gn", "resnet20_bn", "cnn"])
+def test_captured_zoo_model_rounds_equal_eager_rounds(cuda, monkeypatch,
+                                                      name):
+    """From one start and key: 3 captured rounds (one capture, 3 replays)
+    bit-equal to 3 eager rounds under cuDNN's deterministic mode, the
+    params AND the running stats, which a replay must advance (they are
+    new tensors every round, carried in the graph's static buffers);
+    ``resnet10_gn``'s GroupNorms on the kernels (12 forwards a step: the
+    stem, 8 in the blocks, 3 downsamples; 2 steps a round)."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _zoo_model_api(cuda, name)
+    start, key = _copy(api.net), api.rng.clone()
+    want = [_eager(api, r) for r in range(3)]
+    eager = _net_state_vec(api.net)
+    api.net, api.rng = _copy(start), key.clone()
+    captures, fwd = CapturedStep.captures, gn.group_norm_fwd.launches
+    got = [api.train_one_round(r)["train_loss"] for r in range(3)]
+    assert CapturedStep.captures == captures + 1
+    assert got == want and torch.equal(_net_state_vec(api.net), eager)
+    if name == "resnet20_bn":
+        moved = [not torch.equal(v, start.model_state[k])
+                 for k, v in api.net.model_state.items()]
+        assert moved and all(moved)
+    if name == "resnet10_gn":  # 3 replays and the capture's warm-up
+        assert gn.group_norm_fwd.launches - fwd == (3 + 1) * 2 * 12
+
+
+def test_dropout_masks_differ_across_replays(cuda, monkeypatch):
+    """The CNN's dropout draws from the step's key, which a replay copies
+    in: a replayed round from one start with another round key trains
+    otherwise, and with the same key bit-equal (the graph froze no
+    generator offset)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _zoo_model_api(cuda, "cnn")
+    api.sample_round = lambda r: [0, 1, 2]
+    start, key = _copy(api.net), api.rng.clone()
+    api.train_one_round(0)
+    first = _net_state_vec(api.net).clone()
+    api.net, api.rng = _copy(start), key.clone()
+    api.train_one_round(0)
+    again = _net_state_vec(api.net).clone()
+    api.net = _copy(start)  # api.rng has moved on: another round key
+    api.train_one_round(0)
+    other = _net_state_vec(api.net)
+    assert torch.equal(first, again) and not torch.equal(first, other)

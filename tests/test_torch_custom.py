@@ -313,15 +313,18 @@ def _carry_across(algo, api, japi):
     elif algo == "feddyn":
         extra = (tree(japi.server_h), _jax_stack_as_port(japi.client_grads))
     elif algo == "ditto":
-        extra = _jax_stack_as_port(japi.personal_nets.params)
+        extra = NetState(_jax_stack_as_port(japi.personal_nets.params), {})
     else:
-        extra = _jax_stack_as_port(japi.local_norms,
-                                   names=set(api._window_carry_init()))
+        extra = (_jax_stack_as_port(japi.local_norms,
+                                    names=set(api._window_carry_init()[0])),
+                 {})
     api._window_carry_commit(extra)
 
 
 def _carry_leaves(api):
     extra = api._window_carry_init()
+    if isinstance(extra, NetState):  # Ditto's personal params and states
+        extra = (extra.params, extra.model_state)
     return [t for part in (extra if isinstance(extra, tuple) else (extra,))
             for t in tree_leaves(part)]
 
@@ -532,7 +535,8 @@ def test_unsampled_and_empty_clients_keep_their_state(cls):
                       device="cpu"))
     api = cls(m, fed, None, cfg, device="cpu")
     rows = lambda: client_rows(  # noqa: E731
-        api._window_carry_init() if cls in (DittoAPI, FedBNAPI)
+        api._window_carry_init().params if cls is DittoAPI
+        else api._window_carry_init()[0] if cls is FedBNAPI
         else api._window_carry_init()[1])
     before = {k: v.clone() for k, v in rows().items()}
     sampled = set()

@@ -119,8 +119,8 @@ def test_all_masked_step_is_an_exact_no_op():
     opt = lt.optimizer.init(net.params)
     x = torch.randn(5, 8, 8, 3)
     y = torch.zeros(5, dtype=torch.long)
-    p1, o1, _, _ = lt.step(net.params, opt, {}, x, y, torch.ones(5))
-    p2, o2, loss, nb = lt.step(p1, o1, {}, x, y, torch.zeros(5))
+    p1, o1, _, _, _ = lt.step(net.params, opt, {}, x, y, torch.ones(5))
+    p2, o2, _, loss, nb = lt.step(p1, o1, {}, x, y, torch.zeros(5))
     assert float(nb) == 0.0 and int(o1["1"]["count"]) == 1
     for name in p1:
         assert torch.equal(p2[name], p1[name])
@@ -355,8 +355,9 @@ def test_fedavg_refuses_what_is_not_ported(monkeypatch):
     for name in ("train_rounds_windowed", "train_windowed"):
         with pytest.raises(NotImplementedError, match=f"{name}.*A5"):
             getattr(api, name)(2)
-    with pytest.raises(NotImplementedError, match="norm='bn'"):
-        _model(norm="bn")
+    from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+    with pytest.raises(NotImplementedError, match="im2col.*A5"):
+        CNNOriginalFedAvg(im2col=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FedAvgAPI(_model(), fed, None, cfg)

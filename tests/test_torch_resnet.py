@@ -170,10 +170,14 @@ def test_blocks_match_flax(block, cin, planes, strides):
 
 
 def test_norm_groups_policy_and_unported_bn():
+    """The group policy; ``norm="bn"`` builds BatchNorms
+    whose running stats are buffers under flax's ``batch_stats`` names
+    (tests/test_torch_batchnorm.py holds them against flax)."""
     assert [norm_groups(c) for c in (16, 48, 64, 72, 200)] == [16, 24, 32,
                                                               24, 25]
-    with pytest.raises(NotImplementedError, match="A2"):
-        create_model("resnet20", norm="bn", device="cpu")
+    bn = create_model("resnet20", norm="bn", device="cpu")
+    assert "Norm_0.BatchNorm_0.mean" in dict(bn.named_buffers())
+    assert not any(".GroupNorm_0." in k for k in bn.state_dict())
 
 
 def test_groupnorm_reads_channels_last_views(params, x):

@@ -114,7 +114,8 @@ def test_split_model_forward_matches_flax(name):
     the tails' logits from features, within 1e-4 of the output's scale
     (5e-4 for the 56- and 110-layer tails: 18 and 36 blocks of f32
     rounding compound through the one-channel groups of their first
-    stage). ``norm="bn"`` raises, citing A2."""
+    stage). ``norm="bn"`` builds the same model with BatchNorm, its
+    running stats as buffers under flax's ``batch_stats`` names."""
     rng = np.random.RandomState(1)
     tail = name in _TAILS
     x = rng.randn(2, 8, 8, 16 if tail else 3).astype(np.float32)
@@ -134,8 +135,10 @@ def test_split_model_forward_matches_flax(name):
     tol = 5e-4 if name in ("resnet56_server", "resnet110_server") else 1e-4
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=0, atol=tol * scale)
-    with pytest.raises(NotImplementedError, match="A2"):
-        create_model(name, norm="bn", device="cpu")
+    bn = create_model(name, norm="bn", device="cpu")
+    buffers = [k for k, _ in bn.named_buffers()]
+    assert buffers and all(k.endswith((".BatchNorm_0.mean",
+                                       ".BatchNorm_0.var")) for k in buffers)
 
 
 def test_stump_and_tail_gradients_match_flax():
