@@ -34,7 +34,10 @@ Phases, each of which must pass or the script exits non-zero:
              at batch 32, the stump under the FedGKT client phase's vmap);
              ResNet-18-GN's four f32 shapes at 10 clients' rows of 20
              samples (64 to 512 channels in 32 groups, 32² to 4²), in both
-             layouts;
+             layouts; the f32 flash forward, dq and dk/dv (the FMA
+             kernels) at the ViT drive's [256, 64, 4, 32] non-causal,
+             timed against their bound (bytes), their twins and SDPA's
+             forward and whole backward;
              the backward's streamed route (and the forward's) at FedSeg's
              UNet shapes at 256 x 256 in f32 and one bf16 shape, reruns
              bit-equal, timed at the path's level-0 shape; GroupNorm's
@@ -55,7 +58,13 @@ Phases, each of which must pass or the script exits non-zero:
              16 requests through ServeManager with decode. Launch counts
              and copies are zeroed just before and read just after (no
              copy); one batch's prefill is re-run with the plain attention
-             and held to a bf16 bound.
+             and held to a bf16 bound. The rollout gate over the same
+             plane: a candidate published under epoch 1, one mirrored
+             batch (the flash forward for the batch and for each arm),
+             promoted, then rolled back bit-equal; a NaN candidate
+             blocked; a coordinator restarted from its directory resumes
+             mid-promotion, refuses a publish under the dead epoch and
+             promotes; 36 flash launches counted.
 4. train   — the flagship training path at full width and depth:
              FedAvgAPI over resnet56 (GroupNorm, bf16 compute), 128
              clients x 256 CIFAR-shaped samples from seed 0, batch 32, 8
@@ -82,11 +91,13 @@ Phases, each of which must pass or the script exits non-zero:
              time by kernel, and shows, by name, that every forward ran on
              the cluster kernel.
 5. algos   — the algorithms on FedAvg's round at the train phase's
-             configuration: FedOptAPI adam (server lr 0.05): an eager
-             warm-up round, (a) with the server optimizer state held too,
-             (b) with the carried step count advanced by the rounds, and 3
-             timed train_rounds_on_device(3) calls; FedProxAPI (mu 0.01):
-             (a) and 3 replayed rounds; FedAvgRobustAPI (norm bound 5, the
+             configuration, every pin (a) and (b) from one eager run and
+             bit-equal: FedOptAPI adam (server lr 0.05): (a) with the
+             server optimizer state held too, (b) with the carried step
+             count advanced by the rounds, and 3 timed
+             train_rounds_on_device(3) calls (the api is kept for ckpt);
+             FedProxAPI (mu 0.01): (a) and 3 replayed rounds;
+             FedAvgRobustAPI (norm bound 5, the
              scale drill on one adversary forced into every round) with
              coord_median ((a) and 3 replayed rounds), trimmed_mean0.2,
              krum1 and geometric_median8 (each (a)), one profiled replayed
@@ -94,13 +105,14 @@ Phases, each of which must pass or the script exits non-zero:
              its round has beyond a mean round's (same clip and drill) at
              each kernel's mean time; FedNovaAPI on partition_dirichlet(
              alpha 0.5) of the same samples (gamma must change per round):
-             train_rounds_pipelined(3) against two loops of 3 eager
+             train_rounds_pipelined(3) against one loop of 3 eager
              rounds, then 3 counted replayed rounds, and
              train_rounds_on_device refused with its capability record's
              message. The GroupNorm launches are counted under replay (58
              per local step each) and added to the kernels line.
 6. custom  — the "custom" carry protocol at the same configuration:
-             FedAvgAPI's replayed rounds as the call's baseline, then
+             FedAvgAPI's replayed rounds as the call's baseline (kept for
+             the zoo phase; SCAFFOLD's api kept for ckpt), then
              ScaffoldAPI (server lr 1), FedDynAPI (alpha 0.01), DittoAPI
              (lambda 0.1) and FedBNAPI, each with (a) against its
              published step run uncaptured and 3 counted replayed rounds;
@@ -118,12 +130,14 @@ Phases, each of which must pass or the script exits non-zero:
              capture ms, the peak memory and the card's name and power
              limit. No GroupNorm operand copied.
 7. zoo     — the rest of the FedAvg-round family at the same
-             configuration: FedAvgAPI's replayed and on-device rounds as
-             the call's baseline; FedAcAPI (gamma 2) and ServerAvgAPI (beta
-             0.5), each an eager warm-up round, (a), (b) and 3 timed
-             train_rounds_on_device(3) calls, FedAc at gamma 1 within 1e-6
-             of FedAvg's round and ServerAvg at beta 0 bit-equal to
-             FedAvg's after 3 rounds; QFedAvgAPI (q 1): (a), 3 counted
+             configuration: the custom phase's FedAvg replayed rounds and
+             the train phase's on-device rounds as the call's baseline;
+             FedAcAPI (gamma 2) and ServerAvgAPI (beta 0.5), each (a) and
+             (b) from one eager run (bit-equal) and 3 timed
+             train_rounds_on_device(3) calls, FedAc at gamma 1 (an eager
+             round) within 1e-6 of FedAvg's round and ServerAvg at beta 0
+             bit-equal to FedAvg's after 3 rounds; QFedAvgAPI (q 1): (a)
+             from one eager round, 3 counted
              replayed rounds and the on-device tier with 928 GroupNorm
              forwards against 464 backwards a round (F_global's forward-
              only pass), F_global against an eager loss of the broadcast
@@ -225,7 +239,24 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-12. report — each phase's seconds, a ``kernels`` JSON line, the card's
+12. vit    — FedAvgAPI over the ViT (bench.py's vit_cifar_shaped:
+             patch 4, d_model 128, 4 heads, 4 layers, f32, 64 clients x
+             256 CIFAR-shaped class-conditional samples, batch 32, 8 a
+             round, sgd lr 0.01) with the f32 flash kernels as its
+             attention: an eager warm-up round, (a) and (b) bit-equal to
+             one eager run, 3 counted replayed rounds, 3 pipelined, 3
+             timed on-device calls (32 launches of each flash kernel a
+             round, one for all 8 clients), the replays' training loss
+             falling, a profiled round showing the FMA kernels by name.
+13. ckpt   — run checkpoints at full width, each resume bit-equal to
+             the straight run, restored into a fresh api and into the
+             captured one: FedAdam (the algos phase's api) on
+             train_rounds_on_device and on train_one_round, SCAFFOLD (the
+             custom phase's; its control stack) and FedAdapter (the
+             adapter phase's, a personalized cohort in its store); the
+             save, snapshot and restore ms and the bytes written.
+14. report — each phase's seconds, a ``kernels`` JSON line (each flash
+             kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
 
@@ -359,6 +390,10 @@ ROUND_LR = 1e-3
 # (bench.py:2951-2958) with flash attention at the model's max_len.
 ADAPTER_RANK, ADAPTER_CLIENTS, ADAPTER_PER_CLIENT = 16, 16, 8
 ADAPTER_BATCH, ADAPTER_PER_ROUND, ADAPTER_LR, ADAPTER_ROUNDS = 2, 8, 0.1, 3
+# The ViT drive's flash shape as one launch sees it: 8 clients x batch 32
+# (vmapped into the kernels' R), T 64 (32 x 32 at patch 4), 4 heads, D 32,
+# f32 (the FMA kernels of flash_fwd.cu / flash_bwd.cu), non-causal.
+VIT_FLASH = (256, 64, 4, 32, torch.float32, False)
 # Flash backward kernels vs the f32 twin on the same inputs, as a share of
 # max |want|: bf16 2e-2 (the kernels round dS and P to bf16 before the
 # products, as the TPU kernels do, and write bf16), f32 1e-4 (another
@@ -366,6 +401,7 @@ ADAPTER_BATCH, ADAPTER_PER_ROUND, ADAPTER_LR, ADAPTER_ROUNDS = 2, 8, 0.1, 3
 # slice's shape, 8 clients x batch 2.
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
+             VIT_FLASH,
              (2, 2048, 8, 64, torch.float32, True),
              (2, 2048, 8, 64, torch.bfloat16, False),
              (2, 1000, 8, 64, torch.float32, True),
@@ -490,6 +526,21 @@ FEMNIST_CLIENTS, FEMNIST_PER_CLIENT, FEMNIST_BATCH = 3400, 40, 20
 FEMNIST_PER_ROUND, FEMNIST_LR, FEMNIST_CLASSES = 10, 0.1, 62
 SHAKE_CLIENTS, SHAKE_PER_CLIENT, SHAKE_BATCH, SHAKE_PER_ROUND = 715, 8, 4, 10
 SHAKE_LR, SHAKE_T, SHAKE_VOCAB, SHAKE_PAD = 1.0, 80, 90, -1
+
+# The ViT drive: bench.py's vit_cifar_shaped (bench.py:2096-2107 and
+# _scan_bench's timing): vit patch 4, d_model 128, 4 heads, 4 layers, f32,
+# 10 classes, 64 clients x 256 CIFAR-shaped samples, batch 32 (8 local
+# steps), 8 clients a round, 1 epoch, sgd lr 0.01; the flash kernels as
+# its attention (flash_attention_out). The samples are class-conditional
+# Gaussian images (data/synthetic.py make_image_classification) rather
+# than bench.py's noise, so that the training loss can fall.
+VIT_CLIENTS, VIT_PER_CLIENT, VIT_BATCH, VIT_PER_ROUND = 64, 256, 32, 8
+VIT_LR, VIT_D, VIT_HEADS, VIT_LAYERS, VIT_PATCH, VIT_ROUNDS = (0.01, 128, 4,
+                                                               4, 4, 3)
+# The rollout drill's gate: a candidate N(0, ROLLOUT_NOISE) from the live
+# adapters mirrors within the relative tolerance; min shadow tokens as the
+# coordinator's default.
+ROLLOUT_NOISE, ROLLOUT_TOL = 1e-3, 0.02
 
 # Published dense peaks by SKU (NVIDIA data sheets): bf16 tensor-core
 # FLOP/s, fp32 non-tensor FLOP/s, HBM bytes/s.
@@ -645,7 +696,23 @@ FWD_CASES = [(8, 2048, 8, 64, torch.bfloat16, True),
              (2, 1024, 8, 32, torch.bfloat16, False),
              (2, 1024, 4, 128, torch.bfloat16, True),
              (2, 1000, 4, 128, torch.bfloat16, False),
-             (2, 1000, 8, 64, torch.float32, True)]
+             (2, 1000, 8, 64, torch.float32, True),
+             VIT_FLASH]
+
+
+def _vit_flash_inputs(g):
+    b, t, h, d, dtype, _ = VIT_FLASH
+    return [torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+            for _ in range(4)]
+
+
+def _vit_bytes_ops(peaks, nbytes, flops):
+    """The least time at the ViT shape (f32 on the FP32 pipes): bytes over
+    HBM and FLOPs over the fp32 rate, the larger of the two."""
+    _, fp32_peak, hbm = peaks
+    t_ops, t_bytes = flops / fp32_peak * 1e3, nbytes / hbm * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), t_ops, t_bytes
 
 
 def phase_kernels(peaks):
@@ -660,7 +727,7 @@ def phase_kernels(peaks):
                                                      flash_attention_plain)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    main_err = None
+    main_err = vit_err = None
     for b, t, h, d, dtype, causal in FWD_CASES:
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
                    .to(dtype) for _ in range(3))
@@ -679,6 +746,8 @@ def phase_kernels(peaks):
         check(math.isfinite(err_lse) and err_lse <= LSE_TOL,
               f"flash_fwd lse disagrees with plain: {err_lse} ({name})")
         main_err = err_o if main_err is None else main_err
+        if (b, t, h, d, dtype, causal) == VIT_FLASH:
+            vit_err = err_o
         del q, k, v, o, lse, po, plse
 
     # The kernel alone (one event pair around 20 launches, so the host's
@@ -717,6 +786,31 @@ def phase_kernels(peaks):
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                  "library_ms": library_ms}
         del q, k, v, q5, k5, v5, qt, kt, vt
+
+    # The ViT drive's f32 route at its shape, non-causal: the FMA kernel,
+    # the twin and SDPA's forward (a yardstick only).
+    q, k, v, _ = _vit_flash_inputs(g)
+    b, t, h, d, _, _ = VIT_FLASH
+    q5, k5, v5 = (x[None] for x in (q, k, v))
+    ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, False))
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, False),
+                       warmup=1, reps=5, inner=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    flops = 4 * b * h * d * t * t
+    nbytes = 4 * q.numel() * 4 + b * h * t * 4
+    bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops)
+    print(f"[kernels] flash_fwd_kernel (FMA) B={b} T={t} H={h} D={d} f32 "
+          f"full (the ViT's): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa forward {library_ms:.4f} ms; {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us by {by} "
+          f"(ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); "
+          f"{bound_ms / ms:.2f} of the bound", flush=True)
+    entry["vit_f32"] = {
+        "source": "fedml_tpu_torch/ops/csrc/flash_fwd.cu",
+        "shape": [b, t, h, d], "max_abs_err": vit_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+        "library_ms": library_ms}
     return entry
 
 
@@ -759,7 +853,7 @@ def phase_flash_bwd_kernels(peaks):
                                             o.float(), lse, do.float(),
                                             causal)
 
-    main_errs = None
+    main_errs = vit_errs = None
     for b, t, h, d, dtype, causal in BWD_CASES:
         q, k, v, o, lse, do = inputs(b, t, h, d, dtype, causal)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
@@ -768,6 +862,8 @@ def phase_flash_bwd_kernels(peaks):
         errs = _check_bwd(name, got, plain(q, k, v, o, lse, do, causal),
                           dtype)
         main_errs = main_errs or errs
+        if (b, t, h, d, dtype, causal) == VIT_FLASH:
+            vit_errs = errs
         del q, k, v, o, lse, do, got
 
     # q, k, v as views of one [B, T, 3·H·D] buffer (what MHA passes), and
@@ -867,6 +963,49 @@ def phase_flash_bwd_kernels(peaks):
           f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / library_ms:.2f}x "
           "sdpa's backward",
           flush=True)
+
+    # The ViT drive's f32 routes (the FMA kernels) at its shape,
+    # non-causal, against the twin and SDPA's whole backward.
+    b, t, h, d, dtype, _ = VIT_FLASH
+    q, k, v, do = _vit_flash_inputs(g)
+    o, lse = fa.flash_attention(q, k, v, causal=False)
+    q5, k5, v5, do5 = (x[None] for x in (q, k, v, do))
+    delta = (do5 * o[None]).sum(-1).transpose(-1, -2).contiguous()
+    args = (q5, k5, v5, do5, lse[None], delta, False)
+    dq_ms = time_ms(lambda: ext.flash_dq(*args))
+    dkv_ms = time_ms(lambda: ext.flash_dkv(*args))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, False), warmup=1, reps=5, inner=1)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+
+    def vit_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr)
+
+    def vit_fwd_bwd():
+        torch.autograd.grad(vit_fwd(), (qr, kr, vr), dot)
+
+    library_ms = graph_ms(vit_fwd_bwd) - graph_ms(vit_fwd)
+    elem = b * t * h * d * 4
+    rows = 2 * b * h * t * 4
+    for entry, kind, ms, products, nbytes in (
+            (entries[0], "dq", dq_ms, 3, 5 * elem + rows),
+            (entries[1], "dkv", dkv_ms, 4, 6 * elem + rows)):
+        flops = 2 * products * b * h * d * t * t
+        bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops)
+        print(f"[kernels] flash_{kind}_kernel (FMA) B={b} T={t} H={h} D={d} "
+              f"f32 full (the ViT's): kernel {ms:.4f} ms, plain backward "
+              f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB -> bound "
+              f"{bound_ms * 1e3:.2f} us by {by} (ops {t_ops * 1e3:.2f} us, "
+              f"bytes {t_bytes * 1e3:.2f} us); {bound_ms / ms:.2f} of the "
+              "bound", flush=True)
+        entry["vit_f32"] = {
+            "source": "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
+            "shape": [b, t, h, d],
+            "max_abs_err": vit_errs[0] if kind == "dq" else max(vit_errs[1:]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
     return entries
 
 
@@ -1414,6 +1553,108 @@ def phase_serve():
           f"decode {step_ms:.3f} ms per step of "
           f"{MAX_BATCH} rows = {MAX_BATCH * 1e3 / step_ms:.1f} tokens/s",
           flush=True)
+    launches["flash_fwd"] += _rollout_drill(fwd, store, glob, reqs_in)
+    return launches
+
+
+def _rollout_drill(fwd, store, glob, reqs_in):
+    """The rollout gate over the serving plane at T 2048: a candidate
+    published under epoch 1, shadow traffic mirrored through the plane
+    (the flash forward for the batch and for each arm), promoted, rolled
+    back bit-equal; a NaN candidate blocked; a coordinator restarted from
+    its directory resumes mid-promotion and refuses the dead epoch.
+    Returns the flash forward launches of the mirrored batches."""
+    import tempfile
+
+    from fedml_tpu_torch.core.flat import vector_to_tree_np
+    from fedml_tpu_torch.ops.flash_attention import flash_attention
+    from fedml_tpu_torch.serve import (RolloutCoordinator, ServeManager,
+                                       StaleEpochError)
+
+    t0 = time.perf_counter()
+    batch = reqs_in[:MAX_BATCH]
+
+    def manager():
+        return ServeManager(fwd, store, glob, seq_len=SEQ_LEN,
+                            max_batch=MAX_BATCH)
+
+    def drive(mgr):
+        """One mirrored micro-batch, served synchronously."""
+        reqs = [mgr.submit(cid, toks) for cid, toks in batch]
+        mgr.serve_batch([mgr._q.get_nowait() for _ in reqs])
+        for r in reqs:
+            r.result(timeout=600)
+
+    def live(mgr):
+        return mgr._vec(mgr.live_adapters())
+
+    def tree(vec):
+        return vector_to_tree_np(vec, fwd.spec)
+
+    flash_attention.launches = flash_attention.copies = 0
+    with tempfile.TemporaryDirectory() as directory:
+        mgr = manager()
+        co = RolloutCoordinator(mgr, directory=directory,
+                                regression_tol=ROLLOUT_TOL)
+        live0 = live(mgr).copy()
+        cand = live0 + np.random.default_rng(SEED + 1).normal(
+            0, ROLLOUT_NOISE, live0.shape).astype(np.float32)
+        v1 = co.publish(tree(cand), epoch=1)
+        drive(mgr)
+        verdict = co.try_promote()
+        print(f"[serve/rollout] candidate v{v1} (live + N(0, "
+              f"{ROLLOUT_NOISE})) under epoch 1, one mirrored batch: "
+              f"{verdict}", flush=True)
+        check(verdict["promoted"] and np.array_equal(live(mgr), cand),
+              f"the candidate did not go live: {verdict}")
+        t1 = time.perf_counter()
+        back = co.rollback()
+        rollback_ms = (time.perf_counter() - t1) * 1e3
+        same = np.array_equal(live(mgr), live0)
+        print(f"[serve/rollout] rollback to v{back} in {rollback_ms:.1f} ms"
+              f": live vector {'bit-equal' if same else 'DIFFERENT'} to the"
+              f" one before ({live0.size} f32)", flush=True)
+        check(back == 0 and same, "the rollback is not bit-equal")
+        co.publish(tree(np.full_like(live0, np.nan)), epoch=2)
+        drive(mgr)
+        verdict = co.try_promote()
+        print(f"[serve/rollout] NaN candidate under epoch 2: {verdict}",
+              flush=True)
+        check(not verdict["promoted"]
+              and verdict["reason"] == "candidate_ce_not_finite"
+              and np.array_equal(live(mgr), live0),
+              f"the poisoned candidate was not blocked: {verdict}")
+        co.discard()
+        v3 = co.publish(tree(cand), epoch=3)
+        co.close()  # dies mid-promotion
+        mgr2 = manager()
+        co2 = RolloutCoordinator(mgr2, directory=directory,
+                                 regression_tol=ROLLOUT_TOL)
+        staged = mgr2.shadow_scores()["candidate_version"]
+        check(co2.fence_epoch == 3 and co2.cand_version == v3 == staged,
+              f"restart: fence {co2.fence_epoch}, candidate "
+              f"{co2.cand_version}, staged {staged}; expected 3, v{v3}")
+        try:
+            co2.publish(tree(cand), epoch=3)
+        except StaleEpochError as exc:
+            print(f"[serve/rollout] restarted coordinator: fence epoch 3, "
+                  f"v{v3} staged again; a publish under epoch 3 refused: "
+                  f"{exc}", flush=True)
+        else:
+            raise SmokeFailure("a publish under the dead epoch went through")
+        drive(mgr2)
+        verdict = co2.try_promote()
+        check(verdict["promoted"] and np.array_equal(live(mgr2), cand),
+              f"the resumed promotion failed: {verdict}")
+        co2.close()
+    launches, copies = flash_attention.launches, flash_attention.copies
+    want = 3 * 3 * N_LAYERS  # 3 mirrored batches: the batch and 2 arms
+    print(f"[serve/rollout] resumed promotion of v{v3}: live bit-equal to "
+          f"the candidate; flash_fwd launches {launches} (expected {want}),"
+          f" copies {copies}; drill {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(launches == want and copies == 0,
+          f"rollout flash launches {launches}, copies {copies}")
     return launches
 
 
@@ -1599,11 +1840,12 @@ def _hold_captured_round(api, round_idx, tag, runs=2):
           f"the eager rounds {spread}, {loss_spread} from each other")
 
 
-def _hold_on_device_rounds(api, n, tag):
+def _hold_on_device_rounds(api, n, tag, loops=2):
     """Pin (b): ``train_rounds_on_device(n)`` — its first call warms up and
     captures — against ``n`` eager host-loop rounds fed the same cohorts,
     drawn from the same key chain, within the spread of two such host
-    loops (bit-equal when they are)."""
+    loops (bit-equal when they are). ``loops=1`` asks for bit-equality
+    with one host loop."""
     from fedml_tpu_torch.core import keys
 
     start = _snapshot(api)
@@ -1615,7 +1857,7 @@ def _hold_on_device_rounds(api, n, tag):
         cohort = api._device_cohort(pair[1])  # None: full participation
         cohorts.append(everyone if cohort is None else cohort)
     host = []
-    for _ in range(2):
+    for _ in range(loops):
         _restore(api, start)
         api.sample_round = lambda r: cohorts[r]
         try:
@@ -1629,7 +1871,7 @@ def _hold_on_device_rounds(api, n, tag):
     losses = api.train_rounds_on_device(n).tolist()
     first_ms = (time.perf_counter() - t0) * 1e3
     graph = api._graphs["on_device"]
-    spread, loss_spread = _spread(host)
+    spread, loss_spread = _spread(host) if loops > 1 else (0.0, 0.0)
     dist, loss_dist = _spread([host[0], (_state_vec(api), losses)])
     print(f"[{tag}] train_rounds_on_device({n}) warm call (captures): "
           f"{first_ms:.1f} ms, of which warm-up + capture "
@@ -1641,7 +1883,8 @@ def _hold_on_device_rounds(api, n, tag):
           f"the same cohorts: max|dparam| (params and carry) {dist:.3e}, "
           f"max|dloss| "
           f"{loss_dist:.3e}; host loop vs host loop {spread:.3e}, "
-          f"{loss_spread:.3e} (must be within it; "
+          f"{loss_spread:.3e}{' (one loop)' if loops == 1 else ''} (must "
+          f"be within it; "
           f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
           flush=True)
     check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
@@ -1739,9 +1982,11 @@ def _cifar_samples():
     return x, y
 
 
-def phase_train():
+def phase_train(shared=None):
     """ResNet-56-GN FedAvg through FedAvgAPI at the primary config;
-    returns {kernel name: launches in the timed rounds}."""
+    returns {kernel name: launches in the timed rounds}. The median
+    on-device round ms goes to ``shared["fedavg_on_device_ms"]``, the zoo
+    phase's baseline, when ``shared`` is given."""
     from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
     from fedml_tpu_torch.core.graph import CapturedStep
     from fedml_tpu_torch.core.sampling import sample_clients
@@ -1834,8 +2079,11 @@ def phase_train():
     # call) and is held to the host loop fed the same cohorts; then three
     # timed calls, each synced by fetching the losses.
     _hold_on_device_rounds(api, TRAIN_ROUNDS, "train")
-    launches, _ = _time_on_device(api, TRAIN_ROUNDS, "train", samples,
-                                  "samples", _zero_gn_counts, _gn_counts)
+    launches, on_device_ms = _time_on_device(
+        api, TRAIN_ROUNDS, "train", samples, "samples", _zero_gn_counts,
+        _gn_counts)
+    if shared is not None:
+        shared["fedavg_on_device_ms"] = on_device_ms
     fwd, bwd, red, copies, streamed = launches
     want = 3 * TRAIN_ROUNDS * steps * RESNET56_GN
     print(f"[train] GroupNorm launches in the timed on-device calls: fwd "
@@ -1988,12 +2236,14 @@ def _added_ms(rows, base):
     return ms, launches
 
 
-def phase_algos():
+def phase_algos(shared=None):
     """The algorithms on FedAvg's round at the primary config (ResNet-56-GN
     bf16, 128 x 256 samples, batch 32, 8 per round, sgd lr 0.1): FedAdam,
     FedProx, FedAvgRobust with each robust aggregator and the attack
-    drill, and FedNova on a Dirichlet split. Returns {kernel name:
-    launches in its counted rounds}."""
+    drill, and FedNova on a Dirichlet split; the pins hold the captured
+    rounds bit-equal to one eager run each. Returns {kernel name:
+    launches in its counted rounds}; FedAdam's api goes to
+    ``shared["fedadam"]`` when ``shared`` is given."""
     from fedml_tpu_torch.algos import (FedAvgRobustAPI, FedConfig,
                                        FedNovaAPI, FedOptAPI, FedProxAPI)
     from fedml_tpu_torch.algos.capability import refusal
@@ -2024,23 +2274,20 @@ def phase_algos():
         return cls(model, data, None, dataclasses.replace(cfg, **kw),
                    device="cuda")
 
-    # 1. FedAdam: pins (a) and (b), the step count carried, three timed
-    # on-device calls.
+    # 1. FedAdam: pins (a) and (b), each from one eager run (bit-equal),
+    # the step count carried, three timed on-device calls. The api is kept
+    # for the ckpt phase's resume pin.
     tag = "algos/fedadam"
     api = build(FedOptAPI, server_optimizer="adam", server_lr=ALGO_SERVER_LR)
 
     def adam_count():
         return int(api.server_opt_state["0"]["count"])
 
-    t0 = time.perf_counter()
-    warm = _eager_round(api, 0).item()
-    print(f"[{tag}] FedOptAPI adam, server lr {ALGO_SERVER_LR}; eager "
-          f"warm-up round {(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
-          f"{warm:.4f}, step count {adam_count()}", flush=True)
-    _hold_captured_round(api, 1, tag)
-    check(adam_count() == 2, f"step count {adam_count()} after 2 rounds")
+    print(f"[{tag}] FedOptAPI adam, server lr {ALGO_SERVER_LR}", flush=True)
+    _hold_captured_round(api, 0, tag, runs=1)
+    check(adam_count() == 1, f"step count {adam_count()} after 1 round")
     before = adam_count()
-    _hold_on_device_rounds(api, ALGO_ROUNDS, tag)
+    _hold_on_device_rounds(api, ALGO_ROUNDS, tag, loops=1)
     check(adam_count() == before + ALGO_ROUNDS,
           f"step count {adam_count()} after {ALGO_ROUNDS} on-device rounds "
           f"from {before}")
@@ -2059,6 +2306,8 @@ def phase_algos():
           f"step count {adam_count()} after {3 * ALGO_ROUNDS} rounds from "
           f"{before}")
     count(fwd, bwd)
+    if shared is not None:
+        shared["fedadam"] = api
     del api
     _free()
 
@@ -2066,7 +2315,7 @@ def phase_algos():
     tag = "algos/fedprox"
     api = build(FedProxAPI, fedprox_mu=ALGO_PROX_MU)
     print(f"[{tag}] FedProxAPI mu {ALGO_PROX_MU}", flush=True)
-    _hold_captured_round(api, 0, tag)
+    _hold_captured_round(api, 0, tag, runs=1)
     count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag, steps,
                             samples)[:2])
     del api
@@ -2090,7 +2339,7 @@ def phase_algos():
                   f"{api.adversary_clients.tolist()} in every round; "
                   f"cohort of round 0 {api.sample_round(0).tolist()}",
                   flush=True)
-            _hold_captured_round(api, 0, tag)
+            _hold_captured_round(api, 0, tag, runs=1)
         if spec == ALGO_AGGREGATORS[0]:
             count(*_replayed_rounds(api, range(1, 1 + ALGO_ROUNDS), tag,
                                     steps, samples)[:2])
@@ -2129,27 +2378,24 @@ def phase_algos():
     check(len(set(gammas)) == ALGO_ROUNDS and 1.0 not in gammas,
           f"FedNova's gamma does not change per round: {gammas}")
     start = _snapshot(api)
-    host, host_ms = [], []
-    for _ in range(2):
-        _restore(api, start)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = [_eager_round(api, r).item() for r in range(ALGO_ROUNDS)]
-        host_ms.append((time.perf_counter() - t0) * 1e3 / ALGO_ROUNDS)
-        host.append((_state_vec(api), losses))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [_eager_round(api, r).item() for r in range(ALGO_ROUNDS)]
+    host_ms = [(time.perf_counter() - t0) * 1e3 / ALGO_ROUNDS]
+    host = [(_state_vec(api), losses)]
     _restore(api, start)
     replays = CapturedStep.replays
     t0 = time.perf_counter()
     losses = api.train_rounds_pipelined(ALGO_ROUNDS)
     first_ms = (time.perf_counter() - t0) * 1e3
-    spread, loss_spread = _spread(host)
+    spread, loss_spread = 0.0, 0.0  # one eager loop: bit-equal
     dist, loss_dist = _spread([host[0], (_state_vec(api), losses)])
     print(f"[{tag}] eager rounds {' / '.join(f'{t:.1f}' for t in host_ms)} "
           f"ms each; train_rounds_pipelined({ALGO_ROUNDS}) first call "
           f"(captures) {first_ms:.1f} ms, of which warm-up + capture "
           f"{api._graphs['fused'].capture_ms:.1f} ms; vs the eager rounds: "
-          f"max|dparam| {dist:.3e}, max|dloss| {loss_dist:.3e}; eager vs "
-          f"eager {spread:.3e}, {loss_spread:.3e} (must be within it; "
+          f"max|dparam| {dist:.3e}, max|dloss| {loss_dist:.3e} (one eager "
+          f"loop: must be 0, {spread:.0e}, {loss_spread:.0e}; "
           f"{'bit-equal' if dist == loss_dist == 0 else 'not bit-equal'})",
           flush=True)
     check(CapturedStep.replays - replays == ALGO_ROUNDS,
@@ -2204,15 +2450,49 @@ def _mean_invariant(server, rows):
     return err, scale
 
 
-def phase_custom():
+def _fedavg_baseline(fed, cfg, tag, count):
+    """FedAvg from the seed at the primary config, the baseline of the
+    "custom" and zoo phases: round 0 captures, rounds 1-2 replay, rounds
+    3-5 replay counted and timed. Returns the nets after rounds 0, 2 and 5
+    (``r0``, ``r2``, ``r5``), the replayed median ms and the capture ms;
+    ``count(fwd, bwd)`` takes the GroupNorm launches."""
+    from fedml_tpu_torch.algos import FedAvgAPI
+    from fedml_tpu_torch.models import create_model
+
+    model = create_model("resnet56", num_classes=10, dtype="bf16",
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    api = FedAvgAPI(model, fed, None, cfg, device="cuda")
+    api.train_one_round(0)  # warm-up and capture
+    out = {"r0": _net_copy(api.net)}
+    for r in (1, 2):
+        api.train_one_round(r)
+    out["r2"] = _net_copy(api.net)
+    steps = fed.steps_per_epoch * cfg.epochs
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    fwd, bwd, med, _, copies = _replayed_rounds(api, range(3, 6), tag, steps,
+                                                samples)
+    check(copies == 0, f"{copies} GroupNorm operand copies")
+    count(fwd, bwd)
+    out.update(r5=_net_copy(api.net), replayed=med,
+               capture_ms=api._graphs["fused"].capture_ms)
+    del api
+    _free()
+    return out
+
+
+def phase_custom(shared=None):
     """The "custom" carry protocol at the primary config (ResNet-56-GN
     bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch, sgd lr 0.1):
     FedAvg's replayed rounds as the baseline of the same call, then
     SCAFFOLD, FedDyn, Ditto and FedBN, each with pin (a) against its
     published step run eagerly, replayed rounds counted and timed, and its
-    own pins. Returns {kernel name: launches in its counted rounds}."""
-    from fedml_tpu_torch.algos import (DittoAPI, FedAvgAPI, FedBNAPI,
-                                       FedConfig, FedDynAPI, ScaffoldAPI)
+    own pins. Returns {kernel name: launches in its counted rounds}; the
+    FedAvg baseline (``shared["fedavg"]``, which the zoo phase reuses) and
+    SCAFFOLD's api (``shared["scaffold"]``, for the ckpt phase) go to
+    ``shared`` when it is given."""
+    from fedml_tpu_torch.algos import (DittoAPI, FedBNAPI, FedConfig,
+                                       FedDynAPI, ScaffoldAPI)
     from fedml_tpu_torch.algos.capability import refusal
     from fedml_tpu_torch.algos.fedbn import norm_mask
     from fedml_tpu_torch.data import build_federated_arrays, partition_homo
@@ -2268,17 +2548,16 @@ def phase_custom():
 
     # 0. FedAvg from the same seed: the baseline of the call, and the
     # global rounds Ditto must reproduce bit for bit.
-    tag = "custom/fedavg"
-    api = build(FedAvgAPI)
-    api.train_one_round(0)  # warm-up and capture
-    for r in (1, 2):
-        api.train_one_round(r)
-    fedavg_vec3 = _net_vec(api.net).clone()
-    med, _ = replay(api, range(3, 6), tag)
-    fedavg_vec6 = _net_vec(api.net).clone()
-    summary["FedAvgAPI"] = (med, api._graphs["fused"].capture_ms, None)
-    del api
-    _free()
+    def count(fwd, bwd):
+        counted["group_norm_fwd"] += fwd
+        counted["group_norm_bwd"] += bwd
+
+    fedavg = _fedavg_baseline(fed, cfg, "custom/fedavg", count)
+    if shared is not None:
+        shared["fedavg"] = fedavg
+    fedavg_vec3 = _net_vec(fedavg["r2"])
+    fedavg_vec6 = _net_vec(fedavg["r5"])
+    summary["FedAvgAPI"] = (fedavg["replayed"], fedavg["capture_ms"], None)
 
     # 1-2. SCAFFOLD and FedDyn: (a), 3 replayed rounds and the same 3
     # rounds pipelined from one start, bit-equal; the server state is the
@@ -2317,6 +2596,8 @@ def phase_custom():
               f"{tag}: server state {err} from the clients' mean")
         refuses_on_device(api, tag)
         summary[cls.__name__] = (med, capture_ms, peak)
+        if shared is not None and cls is ScaffoldAPI:
+            shared["scaffold"] = api
         del api, start
         _free()
 
@@ -2468,17 +2749,19 @@ def _timed_rounds(api, rounds, tag, samples):
     return med, losses
 
 
-def phase_zoo():
+def phase_zoo(shared=None):
     """The rest of the FedAvg-round family at the primary config
     (ResNet-56-GN bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch,
-    sgd lr 0.1): FedAvg's replayed and on-device rounds as the call's
-    baseline, then FedAc, ServerAvg, q-FedAvg, hierarchical FL,
-    TurboAggregate, and DSGD and PushSum over the first 32 clients, each
-    with its pins, counted rounds and a line beside FedAvg's. Returns
+    sgd lr 0.1): FedAvg's replayed rounds as the call's baseline (the
+    "custom" phase's, ``shared["fedavg"]``, when given; its on-device
+    round the train phase's, ``shared["fedavg_on_device_ms"]``), then
+    FedAc, ServerAvg, q-FedAvg, hierarchical FL, TurboAggregate, and DSGD
+    and PushSum over the first 32 clients, each with its pins (bit-equal
+    to one eager run), counted rounds and a line beside FedAvg's. Returns
     {kernel name: launches in its counted rounds}."""
     from fedml_tpu_torch.algos import (DecentralizedAPI, FedAcAPI,
-                                       FedAvgAPI, FedConfig,
-                                       HierarchicalFedAvgAPI, QFedAvgAPI,
+                                       FedConfig, HierarchicalFedAvgAPI,
+                                       QFedAvgAPI,
                                        ServerAvgAPI, TurboAggregateAPI)
     from fedml_tpu_torch.algos.qfedavg import make_loss_at_global
     from fedml_tpu_torch.core.graph import CapturedStep
@@ -2524,9 +2807,6 @@ def phase_zoo():
     def build(cls, c=cfg, **kw):
         return cls(model(), fed, None, c, device="cuda", **kw)
 
-    def params_copy(api):
-        return {k: v.clone() for k, v in api.net.params.items()}
-
     def peak():
         return torch.cuda.max_memory_allocated() / 2**30
 
@@ -2536,44 +2816,24 @@ def phase_zoo():
     # 0. FedAvg from the same seed: the baseline of the call, and the
     # rounds that FedAc at gamma 1, ServerAvg at beta 0 and one-group
     # hierarchical FL are held to.
-    tag = "zoo/FedAvgAPI"
-    api = build(FedAvgAPI)
-    api.train_one_round(0)  # warm-up and capture
-    fedavg_r0 = params_copy(api)
-    for r in (1, 2):
-        api.train_one_round(r)
-    fedavg_r2 = params_copy(api)
-    fwd, bwd, med, _, copies = _replayed_rounds(api, range(3, 6), tag, steps,
-                                                samples)
-    check(copies == 0, f"{copies} GroupNorm operand copies")
-    count(fwd, bwd)
-    base["replayed"] = med
-    api.train_rounds_on_device(ZOO_ROUNDS)  # warm call: captures
-    (fwd, bwd, red, copies, streamed), base["on-device"] = _time_on_device(
-        api, ZOO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
-        _gn_counts)
-    check(fwd == bwd == red == 3 * ZOO_ROUNDS * per_round
-          and streamed == copies == 0, f"{tag}: on-device GroupNorm "
-          f"launches {fwd} {bwd} {red}, {streamed} streamed, {copies} copies")
-    count(fwd, bwd)
-    del api
-    _free()
+    shared = {} if shared is None else shared
+    fedavg = shared.get("fedavg") or _fedavg_baseline(
+        fed, cfg, "zoo/FedAvgAPI", count)
+    fedavg_r0, fedavg_r2 = fedavg["r0"].params, fedavg["r2"].params
+    base["replayed"] = fedavg["replayed"]
+    base["on-device"] = shared.get("fedavg_on_device_ms")
 
-    # 1-2. FedAc (gamma 2) and ServerAvg (beta 0.5, avg_start 0): an eager
-    # warm-up round, (a), (b) and three timed on-device calls.
+    # 1-2. FedAc (gamma 2) and ServerAvg (beta 0.5, avg_start 0): (a), (b)
+    # and three timed on-device calls.
     for cls, kw in ((FedAcAPI, dict(gamma=ZOO_FEDAC_GAMMA)),
                     (ServerAvgAPI, dict(avg_coef=ZOO_SAVG_BETA,
                                         avg_start=0))):
         tag = f"zoo/{cls.__name__}"
         api = build(cls, **kw)
-        t0 = time.perf_counter()
-        warm = _eager_round(api, 0).item()
-        print(f"[{tag}] {cls.__name__} {kw}; eager warm-up round "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss {warm:.4f}",
-              flush=True)
-        _hold_captured_round(api, 1, tag)
+        print(f"[{tag}] {cls.__name__} {kw}", flush=True)
+        _hold_captured_round(api, 0, tag, runs=1)
         capture_ms = api._graphs["fused"].capture_ms
-        _hold_on_device_rounds(api, ZOO_PIN_ROUNDS, tag)
+        _hold_on_device_rounds(api, ZOO_PIN_ROUNDS, tag, loops=1)
         mem = peak()
         (fwd, bwd, red, copies, streamed), med = _time_on_device(
             api, ZOO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
@@ -2592,14 +2852,16 @@ def phase_zoo():
         del api
         _free()
 
-    # FedAc at gamma 1 is FedAvg's round up to md - (md - avg); ServerAvg
-    # at beta 0 is FedAvg's rounds bit for bit.
+    # FedAc at gamma 1 is FedAvg's round up to md - (md - avg) (its round
+    # eager: no capture for one round); ServerAvg at beta 0 is FedAvg's
+    # rounds bit for bit.
     tag = "zoo/FedAcAPI"
     api = build(FedAcAPI, gamma=1.0)
-    api.train_one_round(0)
+    _eager_round(api, 0)
     rel = _rel(api.net.params, fedavg_r0)
-    print(f"[{tag}] gamma 1 (alpha {api.alpha}, beta {api.beta}): round 0 "
-          f"vs FedAvg's from the same start, key and cohort: max over "
+    print(f"[{tag}] gamma 1 (alpha {api.alpha}, beta {api.beta}): eager "
+          f"round 0 vs FedAvg's captured one from the same start, key and "
+          f"cohort: max over "
           f"leaves of max|d| / max|p| {rel:.3e} (bound {ZOO_REL_TOL:.0e}; "
           f"{'bit-equal' if rel == 0 else 'not bit-equal'})", flush=True)
     check(rel <= ZOO_REL_TOL, f"FedAc at gamma 1 is {rel} from FedAvg")
@@ -2625,7 +2887,7 @@ def phase_zoo():
     api = build(QFedAvgAPI, q=ZOO_Q)
     print(f"[{tag}] QFedAvgAPI q {ZOO_Q}, L = 1/lr = {1 / TRAIN_LR:g}",
           flush=True)
-    _hold_captured_round(api, 0, tag)
+    _hold_captured_round(api, 0, tag, runs=1)
     capture_ms, mem = api._graphs["fused"].capture_ms, peak()
     fwd, bwd, (med, _) = _counted(
         lambda: _timed_rounds(api, range(1, 4), tag, samples), tag,
@@ -2930,17 +3192,21 @@ def phase_zoo():
     del fed, fed32
     _free()
 
+    on_dev = base["on-device"]
     print(f"[zoo] FedAvgAPI: replayed round {base['replayed']:.1f} ms = "
           f"{samples / base['replayed'] * 1e3:.1f} samples/s, on-device "
-          f"{base['on-device']:.2f} ms = "
-          f"{samples / base['on-device'] * 1e3:.1f} samples/s; card {card}",
-          flush=True)
+          + (f"{on_dev:.2f} ms = {samples / on_dev * 1e3:.1f} samples/s (the "
+             "train phase's)" if on_dev else "not measured in this call")
+          + f"; card {card}", flush=True)
     for name, (tier, med, n, capture_ms, mem, fwd, bwd) in summary.items():
-        ref = base["on-device" if tier == "on-device" else "replayed"]
+        kind = "on-device" if tier == "on-device" else "replayed"
+        ref = base[kind]
+        beside = (f"{med - ref:+.2f} ms beside FedAvg's {ref:.2f} ms {kind}"
+                  " in this call" if ref else f"FedAvg's {kind} round not "
+                  "measured in this call")
         print(f"[zoo] {name}: {tier} round {med:.2f} ms = "
-              f"{n / med * 1e3:.1f} samples/s ({med - ref:+.2f} ms beside "
-              f"FedAvg's {ref:.2f} ms {'on-device' if tier == 'on-device' else 'replayed'}"
-              f" in this call); capture {capture_ms / 1e3:.2f} s, peak "
+              f"{n / med * 1e3:.1f} samples/s ({beside}); capture "
+              f"{capture_ms / 1e3:.2f} s, peak "
               f"device memory {mem:.2f} GiB; GroupNorm launches a round fwd "
               f"{fwd}, bwd {bwd}, none streamed, no operand copied; card "
               f"{card}", flush=True)
@@ -4059,23 +4325,16 @@ def _zero_flash_counts():
     fa.flash_attention_bwd.dkv_launches = 0
 
 
-def phase_adapter():
-    """FedAdapter training through FedAdapterAPI at the slice's config;
-    returns {kernel name: launches in the timed rounds}."""
+def _adapter_setup():
+    """The FedAdapter drive's data and config on the card, and
+    ``build(dtype, attn_fn)`` of its api over a new frozen-base model."""
     import functools
 
     from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
-    from fedml_tpu_torch.core.graph import CapturedStep
-    from fedml_tpu_torch.core.sampling import sample_clients
-    from fedml_tpu_torch.core.tree import tree_leaves, tree_map
-    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
-                                      partition_homo)
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
     from fedml_tpu_torch.models import create_model
-    from fedml_tpu_torch.trainer.local import NetState, seq_softmax_ce
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
 
-    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
-
-    t0 = time.perf_counter()
     rng = np.random.RandomState(SEED)  # bench.py _token_fed
     seqs = rng.randint(1, VOCAB, size=(ADAPTER_CLIENTS * ADAPTER_PER_CLIENT,
                                        SEQ_LEN + 1))
@@ -4099,6 +4358,24 @@ def phase_adapter():
         return FedAdapterAPI(model, fed, None, cfg, loss_fn=loss_fn,
                              device="cuda")
 
+    return fed, cfg, build
+
+
+def phase_adapter(shared=None):
+    """FedAdapter training through FedAdapterAPI at the slice's config;
+    returns {kernel name: launches in the timed rounds}. The api, with its
+    personalized cohort, goes to ``shared["adapter"]`` (the ckpt phase's
+    FedAdapter resume) when ``shared`` is given."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.core.tree import tree_leaves, tree_map
+    from fedml_tpu_torch.data import gather_clients
+    from fedml_tpu_torch.trainer.local import NetState
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    fed, cfg, build = _adapter_setup()
     api = build()
     prof = api.adapter_profile()
     steps = fed.steps_per_epoch * cfg.epochs
@@ -4264,7 +4541,280 @@ def phase_adapter():
         check(all(ran[n] == steps * N_LAYERS for n in SM90_KERNELS)
               and not any(ran[n] for n in fma),
               f"the profiled round's flash kernels: {ran}")
+    if shared is not None:
+        shared["adapter"], shared["adapter_build"] = api, build
     return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+
+
+def phase_vit():
+    """FedAvg over the ViT through the f32 flash kernels at bench.py's
+    vit_cifar_shaped config; returns {kernel name: launches in the counted
+    rounds}."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      make_image_classification,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.transformer import flash_attention_out
+
+    tag = "vit"
+    t0 = time.perf_counter()
+    x, y = make_image_classification(VIT_CLIENTS * VIT_PER_CLIENT,
+                                     (32, 32, 3), 10, seed=SEED)
+    fed = build_federated_arrays(x, y, partition_homo(len(x), VIT_CLIENTS),
+                                 VIT_BATCH, device="cuda")
+    del x, y
+    cfg = FedConfig(client_num_in_total=VIT_CLIENTS,
+                    client_num_per_round=VIT_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=VIT_BATCH, lr=VIT_LR, seed=SEED)
+    model = create_model("vit", num_classes=10, patch=VIT_PATCH,
+                         d_model=VIT_D, n_heads=VIT_HEADS,
+                         n_layers=VIT_LAYERS, attn_fn=flash_attention_out,
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    api = FedAvgAPI(model, fed, None, cfg, device="cuda")
+    steps = fed.steps_per_epoch * cfg.epochs
+    per_round = steps * VIT_LAYERS  # launches of each flash kernel
+    samples = VIT_PER_ROUND * VIT_PER_CLIENT * cfg.epochs
+    n_params = sum(v.numel() for v in api.net.params.values())
+    print(f"[{tag}] vit patch {VIT_PATCH}, d_model {VIT_D}, {VIT_HEADS} "
+          f"heads (D {VIT_D // VIT_HEADS}), {VIT_LAYERS} layers, T "
+          f"{(32 // VIT_PATCH) ** 2}, f32, flash ({n_params} params); "
+          f"{VIT_CLIENTS} clients x {VIT_PER_CLIENT} samples, batch "
+          f"{VIT_BATCH}, {VIT_PER_ROUND} a round, {steps} local steps, sgd "
+          f"lr {VIT_LR}; set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    warm = _eager_round(api, 0).item()
+    print(f"[{tag}] eager warm-up round {(time.perf_counter() - t0) * 1e3:.1f}"
+          f" ms, loss {warm:.4f}", flush=True)
+    # (a) The captured fused round bit-equal to its eager round (the flash
+    # kernels add without atomics).
+    _hold_captured_round(api, 1, tag, runs=1)
+    capture_ms = api._graphs["fused"].capture_ms
+
+    _zero_flash_counts()
+    replays = CapturedStep.replays
+    round_ms, losses = [], []
+    for r in range(2, VIT_ROUNDS + 2):
+        t0 = time.perf_counter()
+        losses.append(api.train_one_round(r)["train_loss"])  # syncs
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd, dq, dkv, copies = _flash_counts()
+    replays = CapturedStep.replays - replays
+    want = VIT_ROUNDS * per_round
+    print(f"[{tag}] train_one_round (replayed) "
+          f"{' / '.join(f'{t:.1f}' for t in round_ms)} ms (median "
+          f"{statistics.median(round_ms):.1f} ms); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; {replays} replays; "
+          f"flash launches fwd {fwd}, dq {dq}, dkv {dkv} (expected {want} "
+          f"each = {VIT_ROUNDS} rounds x {steps} steps x {VIT_LAYERS} "
+          f"layers, one launch for all {VIT_PER_ROUND} clients), copies "
+          f"{copies}", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(replays == VIT_ROUNDS, f"{replays} replays in {VIT_ROUNDS} rounds")
+    check(fwd == dq == dkv == want and copies == 0,
+          f"flash launches fwd {fwd} dq {dq} dkv {dkv}, copies {copies}; "
+          f"expected {want} each and no copy")
+    counted = {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+    _time_pipelined(api, VIT_ROUNDS, tag, samples, "samples")
+    # (b) The on-device rounds bit-equal to the eager host loop fed the
+    # same cohorts; three timed calls, counted.
+    _hold_on_device_rounds(api, 2, tag, loops=1)
+    (fwd, dq, dkv, copies), med = _time_on_device(
+        api, VIT_ROUNDS, tag, samples, "samples", _zero_flash_counts,
+        _flash_counts)
+    last = api.train_rounds_on_device(VIT_ROUNDS).tolist()
+    want = 3 * VIT_ROUNDS * per_round
+    print(f"[{tag}] flash launches in the timed on-device calls: fwd {fwd}, "
+          f"dq {dq}, dkv {dkv} (expected {want} each), copies {copies}; "
+          f"training loss of the replays: {losses[0]:.4f} (the first "
+          f"replayed round) -> {last[-1]:.4f} (the last on-device round)",
+          flush=True)
+    check(fwd == dq == dkv == want and copies == 0,
+          f"on-device flash launches fwd {fwd} dq {dq} dkv {dkv}, copies "
+          f"{copies}; expected {want}")
+    check(all(math.isfinite(v) for v in last) and last[-1] < losses[0],
+          f"the replays' training loss did not fall: {losses[0]} -> {last}")
+    for name, n in zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                       (fwd, dq, dkv)):
+        counted[name] += n
+    torch.cuda.reset_peak_memory_stats()
+    api.train_rounds_on_device(1)
+    print(f"[{tag}] on-device round {med:.2f} ms = "
+          f"{samples / med * 1e3:.1f} samples/s; capture (fused) "
+          f"{capture_ms:.1f} ms, (on-device) "
+          f"{api._graphs['on_device'].capture_ms:.1f} ms; peak device "
+          f"memory of a round {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; card {smi_line()}", flush=True)
+    fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    rows = _profile_round(lambda: api.train_rounds_on_device(1).tolist(),
+                          "on-device round (train_rounds_on_device(1))", tag,
+                          ("flash_",), "flash kernels", top=8)
+    if rows:  # f32 reaches the FMA kernels, never the tensor-core ones
+        ran = {n: sum(c for key, c, _ in rows if n in key)
+               for n in fma + SM90_KERNELS}
+        print(f"[{tag}] profiled round, launches by kernel name: {ran}",
+              flush=True)
+        check(all(ran[n] == per_round for n in fma)
+              and not any(ran[n] for n in SM90_KERNELS),
+              f"the profiled round's flash kernels: {ran}")
+    del api, fed
+    _free()
+    return counted
+
+
+def _run_leaves(api):
+    """What a resume must restore, as tensors: the net, the key, the
+    server optimizer state and the run state (client rows, not the
+    dustbin row)."""
+    from fedml_tpu_torch.core.graph import _leaves
+
+    extra = {k: v for k, v in api.checkpoint_extra_state().items()
+             if k not in ("personal_vecs", "personal_seen")}
+    return _leaves((api.net, api.rng, getattr(api, "server_opt_state", None),
+                    extra))
+
+
+def _same_run(a_leaves, api):
+    b_leaves = _run_leaves(api)
+    return len(a_leaves) == len(b_leaves) and all(
+        torch.equal(u, v) for u, v in zip(a_leaves, b_leaves))
+
+
+def _resume_pin(tag, api, fresh, tier, rounds=4):
+    """``rounds`` rounds of ``tier`` straight from ``api``'s state, against
+    half of them + save_run + restore_run into ``fresh()`` (a new api) and
+    into ``api`` itself (its captured static buffers) + the other half:
+    every leaf bit-equal. Returns (save ms with the write, snapshot ms of
+    an async save, restore ms, bytes)."""
+    import tempfile
+
+    from fedml_tpu_torch.obs import CheckpointManager, restore_run, save_run
+
+    def run(a, lo, hi):
+        if tier == "on_device":
+            a.train_rounds_on_device(hi - lo).tolist()
+        else:
+            for r in range(lo, hi):
+                a.train_one_round(r)
+
+    half = rounds // 2
+    start = _snapshot(api)
+    store = (api.personal_store().state_dict()
+             if getattr(api, "_personal_store", None) is not None else None)
+    run(api, 0, rounds)
+    want = [t.clone() for t in _run_leaves(api)]
+    want_store = (api.personal_store().state_dict() if store is not None
+                  else None)
+    _restore(api, start)
+    if store is not None:
+        api.personal_store().load_state_dict(store)
+    run(api, 0, half)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_run(mgr, api, half - 1, wait=False)
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(d, str(half - 1), "state.pt"))
+        results = []
+        for label, target in (("a fresh api", fresh()), ("the api", api)):
+            if target is api:  # its static buffers move past the step
+                run(api, half, half + 1)
+            if store is not None:
+                target.personal_store()  # the template of the store
+            t0 = time.perf_counter()
+            nxt = restore_run(mgr, target)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            check(nxt == half, f"{tag}: restore_run gave round {nxt}")
+            run(target, half, rounds)
+            same = _same_run(want, target)
+            if store is not None:
+                got = target.personal_store().state_dict()
+                same = same and all(np.array_equal(got[k], want_store[k])
+                                    for k in got)
+            results.append((label, same, restore_ms))
+            del target
+        mgr.close()
+    print(f"[{tag}] {tier}: {rounds} rounds straight vs {half} + save_run + "
+          f"restore_run + {half}: "
+          + "; ".join(f"into {label} {'bit-equal' if same else 'DIFFERENT'}"
+                      f" (restore {ms:.1f} ms)" for label, same, ms in results)
+          + f"; save {save_ms:.1f} ms with the write ({snap_ms:.1f} ms to "
+          f"the async save's return: the host snapshot), {nbytes} bytes",
+          flush=True)
+    check(all(same for _, same, _ in results),
+          f"{tag}: the resumed run differs from the straight one")
+    return save_ms, snap_ms, results[0][2], nbytes
+
+
+def phase_ckpt(shared=None):
+    """Run checkpoints at full width: (a) FedAdam on ResNet-56-GN bf16 at
+    the primary config on train_rounds_on_device and train_one_round, (b)
+    SCAFFOLD (its control stacks) on train_one_round, (c) FedAdapter at
+    its drive with a personalized cohort in the store; each bit-equal
+    after a resume. Reuses the algos, custom and adapter phases' apis from
+    ``shared`` (their captured tiers), else builds them."""
+    from fedml_tpu_torch.algos import (FedAdapterAPI, FedConfig, FedOptAPI,
+                                       ScaffoldAPI)
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    shared = {} if shared is None else shared
+
+    def resnet56():
+        return create_model("resnet56", num_classes=10, dtype="bf16",
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+
+    def primary(cls, **kw):
+        x, y = _cifar_samples()
+        fed = build_federated_arrays(x, y, partition_homo(
+            len(x), TRAIN_CLIENTS), TRAIN_BATCH, device="cuda")
+        cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                        client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                        epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                        seed=SEED, **kw)
+        return cls(resnet56(), fed, None, cfg, device="cuda")
+
+    def fresh_like(api):
+        return lambda: type(api)(resnet56(), api.train_fed, None, api.cfg,
+                                 device="cuda")
+
+    rows = []
+    api = shared.pop("fedadam", None) or primary(
+        FedOptAPI, server_optimizer="adam", server_lr=ALGO_SERVER_LR)
+    for tier in ("on_device", "fused"):
+        rows.append(("FedAdam " + tier, *_resume_pin(
+            "ckpt/fedadam", api, fresh_like(api), tier)))
+    del api
+    _free()
+    api = shared.pop("scaffold", None) or primary(ScaffoldAPI)
+    rows.append(("SCAFFOLD fused", *_resume_pin(
+        "ckpt/scaffold", api, fresh_like(api), "fused")))
+    del api
+    _free()
+    api, build = shared.pop("adapter", None), shared.pop("adapter_build",
+                                                          None)
+    if api is None:
+        build = _adapter_setup()[2]
+        api = build()
+        api.personalize_cohort(api.sample_round(0))
+    seen = int(api.personal_store().seen.sum())
+    rows.append((f"FedAdapter fused ({seen} personalized)", *_resume_pin(
+        "ckpt/fedadapter", api, build, "fused")))
+    del api, build
+    _free()
+    for name, save_ms, snap_ms, restore_ms, nbytes in rows:
+        print(f"[ckpt] {name}: save {save_ms:.1f} ms ({snap_ms:.1f} ms "
+              f"host snapshot), restore {restore_ms:.1f} ms, "
+              f"{nbytes / 1e6:.2f} MB written", flush=True)
+    return {}
 
 
 def main() -> int:
@@ -4296,10 +4846,15 @@ def main() -> int:
                + timed("flash_bwd", phase_flash_bwd_kernels, peaks)
                + timed("gn", phase_gn_kernels, peaks))
     launches = timed("serve", phase_serve)
-    launches.update(timed("train", phase_train))
-    for phase, fn in (("algos", phase_algos), ("custom", phase_custom),
-                      ("zoo", phase_zoo), ("split", phase_split)):
-        for name, n in timed(phase, fn).items():
+    # What a later phase reuses: the FedAvg baselines, and the apis (their
+    # captured tiers) that the ckpt phase resumes.
+    shared = {}
+    launches.update(timed("train", phase_train, shared))
+    for phase, fn, args in (("algos", phase_algos, (shared,)),
+                            ("custom", phase_custom, (shared,)),
+                            ("zoo", phase_zoo, (shared,)),
+                            ("split", phase_split, ())):
+        for name, n in timed(phase, fn, *args).items():
             launches[name] += n
     extra = timed("extra", phase_extra)
     streamed = extra.pop("streamed")
@@ -4307,13 +4862,19 @@ def main() -> int:
         launches[name] += n
     for name, n in timed("models", phase_models).items():
         launches[name] += n
-    adapter = timed("adapter", phase_adapter)
-    print(f"[report] flash_fwd launches: serve {launches['flash_fwd']}, "
-          f"adapter {adapter['flash_fwd']}", flush=True)
+    adapter = timed("adapter", phase_adapter, shared)
+    vit = timed("vit", phase_vit)
+    timed("ckpt", phase_ckpt, shared)
+    print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
+          f"adapter {adapter}, vit {vit}", flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
     launches.update(adapter)
+    for name, n in vit.items():
+        launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] in vit and "vit_f32" in entry:
+            entry["vit_f32"]["launches"] = vit[entry["name"]]
         if entry["name"] in streamed:
             entry["streamed_launches"] = streamed[entry["name"]]
     print(f"[phase] seconds: {json.dumps(seconds)}; total "

@@ -19,11 +19,11 @@ from typing import Dict
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.tree import (client_rows, client_stack,
                                        gather_stacked, scatter_stacked,
-                                       tree_map)
+                                       stack_of_rows, tree_map)
 from fedml_tpu_torch.parallel.shard import client_rngs
 from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
                                            make_local_train_fn)
@@ -43,7 +43,7 @@ def weighted_client_metrics(m) -> Dict[str, float]:
             "personal_loss_eval": float((m["loss"] * num).sum() / n)}
 
 
-class DittoAPI(RunStateCheckpoints, FedAvgAPI):
+class DittoAPI(FedAvgAPI):
     """FedAvg for the global model + per-client personal models pulled
     toward the current global with strength ``lam``. The carry is the
     stack of the personal params (every personal model starts as the
@@ -108,6 +108,15 @@ class DittoAPI(RunStateCheckpoints, FedAvgAPI):
 
     def _window_carry_commit(self, extra) -> None:
         self._personal = extra
+
+    # -- checkpoint/resume: the personal models are run state ---------------
+    def checkpoint_extra_state(self):
+        return {"personal_nets": self.personal_nets}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        nets = extra["personal_nets"]
+        self._personal = NetState(stack_of_rows(nets.params),
+                                  stack_of_rows(nets.model_state))
 
     def evaluate_personalized(self) -> Dict[str, float]:
         """Sample-weighted mean of each personal model's accuracy and loss

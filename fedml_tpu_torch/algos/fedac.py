@@ -36,19 +36,17 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import FedAvgAPI, RunStateCheckpoints
+from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.tree import tree_leaves, tree_map
 from fedml_tpu_torch.trainer.local import NetState
 
 
-class FedAcAPI(RunStateCheckpoints, FedAvgAPI):
+class FedAcAPI(FedAvgAPI):
     """FedAvg + round-level FedAc acceleration. ``gamma`` ≥ 1 scales the
     accelerated sequence's step in units of the round's aggregate local
     progress; ``alpha``/``beta`` override the FedAc-I couplings. All three
     are Python floats baked into the captured step: construct a new api to
     change them."""
-
-    run_state = "its (x, x_ag) acceleration sequences"
 
     def __init__(self, *args, gamma: float = 2.0, alpha: float = None,
                  beta: float = None, **kw):
@@ -109,13 +107,19 @@ class FedAcAPI(RunStateCheckpoints, FedAvgAPI):
             old_net, avg_net, self._fedac_state, None)
         return new_net
 
+    # -- checkpoint/resume: the sequences are run state ---------------------
+    def checkpoint_extra_state(self):
+        return {"fedac_x": self._fedac_state[0],
+                "fedac_x_ag": self._fedac_state[1]}
 
-class ServerAvgAPI(RunStateCheckpoints, FedAvgAPI):
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self._fedac_state = (extra["fedac_x"], extra["fedac_x_ag"])
+
+
+class ServerAvgAPI(FedAvgAPI):
     """FedAvg + server averaging: broadcast ``(1 − β)·avg + β·mean(past
     globals)``. ``avg_coef`` is β (0 = plain FedAvg); ``avg_start`` skips
     the first rounds (early models are far from the optimum)."""
-
-    run_state = "its running mean of past globals (acc, count, t)"
 
     def __init__(self, *args, avg_coef: float = 0.5, avg_start: int = 0,
                  **kw):
@@ -170,3 +174,12 @@ class ServerAvgAPI(RunStateCheckpoints, FedAvgAPI):
         new_net, self._savg_state = self._window_server_update()(
             old_net, avg_net, self._savg_state, None)
         return new_net
+
+    # -- checkpoint/resume: the running mean is run state -------------------
+    def checkpoint_extra_state(self):
+        acc, count, t = self._savg_state
+        return {"savg_acc": acc, "savg_count": count, "savg_t": t}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self._savg_state = (extra["savg_acc"], extra["savg_count"],
+                            extra["savg_t"])

@@ -17,11 +17,11 @@ Per-client personalized adapters live on the host in a
 the serving plane reads): :meth:`FedAdapterAPI.personalize_cohort` starts
 each client from a ditto-style interpolation toward the global adapters and
 runs the same local finetune; :meth:`FedAdapterAPI.evaluate_personalized`
-reports the personalized-vs-global quality.
+reports the personalized-vs-global quality. The store is run state:
+``obs/checkpoint.py``'s ``save_run`` keeps it once it was materialized.
 
-Not ported yet, and refused by name: the windowed tier (as for FedAvg),
-streaming stores, and checkpoints of the personal store (the port has no
-checkpoint format yet).
+Not ported yet, and refused by name: the windowed tier (as for FedAvg) and
+streaming stores.
 """
 
 from __future__ import annotations
@@ -42,10 +42,6 @@ from fedml_tpu_torch.trainer.local import NetState, softmax_ce
 #: fold_in child reserved for the personalization pass's per-client rng
 #: streams (disjoint from the trainer's slot streams), as in the JAX package.
 _PERSONAL_TAG = 0xADA77
-_NO_CHECKPOINTS = (
-    "FedAdapter checkpoints (the personal adapter store as run state) ride "
-    "the JAX package's orbax run checkpoints; the port has no checkpoint "
-    "format yet (ROADMAP.md A8)")
 
 
 class FedAdapterAPI(FedAvgAPI):
@@ -170,12 +166,22 @@ class FedAdapterAPI(FedAvgAPI):
             "personalized_delta": (tot["p_acc"] - tot["g_acc"]) / n,
         }
 
-    # -- checkpoints: the personal store is run state ----------------------
+    # -- checkpoint/resume: the personal adapter store is run state --------
     def checkpoint_extra_state(self):
-        raise NotImplementedError(_NO_CHECKPOINTS)
+        extra = dict(super().checkpoint_extra_state())
+        # Only a store that was ever materialized: personal_store()
+        # allocates the whole [N, D] stack (or creates the memmap spill
+        # file), which a run that never personalized must not pay at every
+        # checkpoint. A restore tolerates the absent key; to restore one,
+        # materialize the store first (it is the template).
+        if self._personal_store is not None:
+            extra.update(self._personal_store.state_dict())
+        return extra
 
     def load_checkpoint_extra_state(self, extra) -> None:
-        raise NotImplementedError(_NO_CHECKPOINTS)
+        super().load_checkpoint_extra_state(extra)
+        if extra and "personal_vecs" in extra:
+            self.personal_store().load_state_dict(extra)
 
 
 def _gather_shards(fed, idx) -> FederatedArrays:

@@ -79,24 +79,6 @@ def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
                 f"{defaults[name]!r}")
 
 
-class RunStateCheckpoints:
-    """Mixin of the classes that carry run state beyond the global net
-    (the "custom"-protocol client stacks, FedAc's sequences, ServerAvg's
-    running mean), which the JAX package's orbax run checkpoints hold; the
-    port has no checkpoint format yet. ``run_state`` names it."""
-
-    run_state = "its client-stacked state"
-
-    def checkpoint_extra_state(self):
-        raise NotImplementedError(
-            f"{type(self).__name__} checkpoints ({self.run_state} as run "
-            "state) need a checkpoint format, which the port does not "
-            "have yet (ROADMAP.md A8)")
-
-    def load_checkpoint_extra_state(self, extra) -> None:
-        self.checkpoint_extra_state()
-
-
 class FedAvgAPI(FederatedLoop):
     """Federated trainer on one card. ``model`` is an ``nn.Module`` whose
     own parameters are the initial global model (``api.net`` is public and
@@ -286,6 +268,16 @@ class FedAvgAPI(FederatedLoop):
 
     def _eval_net(self):
         return self.net
+
+    # --- checkpoint/resume (obs/checkpoint.py save_run / restore_run) ------
+    def checkpoint_extra_state(self):
+        """Run state beyond the net, the key and the server optimizer
+        state: none for FedAvg (the JAX package's oort utilities are not
+        ported, ROADMAP.md A5). A class with more overrides both hooks."""
+        return {}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        """Takes back what :meth:`checkpoint_extra_state` gave, restored."""
 
     # --- the carry protocol ------------------------------------------------
     def _window_server_update(self):

@@ -30,9 +30,10 @@ from typing import Dict
 import torch
 
 from fedml_tpu_torch.algos.ditto import weighted_client_metrics
-from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
+from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.tree import (client_rows, client_stack,
-                                       gather_stacked, scatter_stacked)
+                                       gather_stacked, scatter_stacked,
+                                       stack_of_rows)
 from fedml_tpu_torch.parallel.shard import client_rngs
 from fedml_tpu_torch.trainer.local import NetState
 
@@ -46,7 +47,7 @@ def norm_mask(params) -> Dict[str, bool]:
             for k in params}
 
 
-class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
+class FedBNAPI(FedAvgAPI):
     """FedAvg with client-local normalization layers. A model without
     norm layers is refused (FedBN on it would be FedAvg, almost surely a
     misconfiguration), as is ``nan_guard``, which its round does not
@@ -126,6 +127,15 @@ class FedBNAPI(RunStateCheckpoints, FedAvgAPI):
 
     def _window_carry_commit(self, extra) -> None:
         self._norms, self._states = extra
+
+    # -- checkpoint/resume: the local norms and states are run state --------
+    def checkpoint_extra_state(self):
+        return {"local_norms": self.local_norms,
+                "local_state": self.local_state}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self._norms = stack_of_rows(extra["local_norms"])
+        self._states = stack_of_rows(extra["local_state"])
 
     def evaluate(self) -> Dict[str, float]:
         """The personalized per-client eval: the global net's norm leaves

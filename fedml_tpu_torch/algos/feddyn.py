@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
-from fedml_tpu_torch.core.tree import client_rows, client_stack, tree_map
+from fedml_tpu_torch.algos.fedavg import FedAvgAPI
+from fedml_tpu_torch.core.tree import (client_rows, client_stack,
+                                       stack_of_rows, tree_map)
 from fedml_tpu_torch.parallel.shard import (make_fused_stateful_round_step,
                                             make_stateful_client_round)
 from fedml_tpu_torch.trainer.local import (NetState,
@@ -41,7 +42,7 @@ def make_feddyn_local_train(apply_fn, lr: float, alpha: float,
                                       step_update)
 
 
-class FedDynAPI(RunStateCheckpoints, FedAvgAPI):
+class FedDynAPI(FedAvgAPI):
     """FedAvg + dynamic regularization, plain-SGD clients only; ``alpha``
     the regularization strength (typically 0.01-0.1). The carry is
     ``(server_h, client stack of the g_k)``; ``client_grads`` is the
@@ -125,3 +126,11 @@ class FedDynAPI(RunStateCheckpoints, FedAvgAPI):
 
     def _window_carry_commit(self, extra) -> None:
         self.server_h, self._grads = extra
+
+    # -- checkpoint/resume: the corrections are run state -------------------
+    def checkpoint_extra_state(self):
+        return {"server_h": self.server_h, "client_grads": self.client_grads}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self.server_h = extra["server_h"]
+        self._grads = stack_of_rows(extra["client_grads"])

@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algos.fedavg import RunStateCheckpoints, FedAvgAPI
-from fedml_tpu_torch.core.tree import (client_rows, client_stack, tree_map,
-                                       tree_select)
+from fedml_tpu_torch.algos.fedavg import FedAvgAPI
+from fedml_tpu_torch.core.tree import (client_rows, client_stack,
+                                       stack_of_rows, tree_map, tree_select)
 from fedml_tpu_torch.parallel.shard import (make_fused_stateful_round_step,
                                             make_stateful_client_round)
 from fedml_tpu_torch.trainer.local import (NetState,
@@ -43,7 +43,7 @@ def make_scaffold_local_train(apply_fn, lr: float, local_epochs: int,
                                       step_update, with_step_count=True)
 
 
-class ScaffoldAPI(RunStateCheckpoints, FedAvgAPI):
+class ScaffoldAPI(FedAvgAPI):
     """FedAvg + control variates, plain-SGD clients only. The carry is
     ``(server_control, client stack of the controls)``; the controls are
     f32 zeros like the params at the start. ``client_controls`` is the
@@ -131,3 +131,12 @@ class ScaffoldAPI(RunStateCheckpoints, FedAvgAPI):
 
     def _window_carry_commit(self, extra) -> None:
         self.server_control, self._controls = extra
+
+    # -- checkpoint/resume: the controls are run state ----------------------
+    def checkpoint_extra_state(self):
+        return {"server_control": self.server_control,
+                "client_controls": self.client_controls}
+
+    def load_checkpoint_extra_state(self, extra) -> None:
+        self.server_control = extra["server_control"]
+        self._controls = stack_of_rows(extra["client_controls"])

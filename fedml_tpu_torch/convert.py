@@ -2,7 +2,8 @@
 CIFAR ResNets (``CifarResNet``) and ``ResNetGN``, the split ResNets
 (``resnet_split``), ``LogisticRegression``, the vertical-FL parties
 (``models/vfl.py``), the DARTS search and genotype networks, ``UNet``,
-``MNISTGan``, the FedAvg CNNs and the LSTMs (``models/rnn.py``).
+``MNISTGan``, the FedAvg CNNs, the LSTMs (``models/rnn.py``) and ``ViT``
+(its ``patch_embed`` conv and ``head`` dense named as flax names them).
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,
@@ -91,7 +92,8 @@ def _flax_leaf(module_path, torch_name):
     if module_path[-1] in _LSTM_GATES:
         return "kernel"
     return {"Dense": "kernel", "Conv": "kernel", "downsample": "kernel",
-            "linear": "kernel", "Embed": "embedding", "LayerNorm": "scale",
+            "linear": "kernel", "patch": "kernel", "head": "kernel",
+            "Embed": "embedding", "LayerNorm": "scale",
             "GroupNorm": "scale", "BatchNorm": "scale"}[kind]
 
 

@@ -8,7 +8,8 @@ last DUSTBIN row: :func:`scatter_stacked` routes the slots it must drop
 there, the port's form of JAX's out-of-bounds ``mode="drop"`` scatter.
 The write stays in place, deterministic and free of host syncs, so it can
 be captured in a CUDA graph; :func:`client_rows` is the ``[N, ...]``
-view of the clients."""
+view of the clients, and :func:`stack_of_rows` rebuilds a stack from
+checkpointed rows."""
 
 from __future__ import annotations
 
@@ -51,6 +52,12 @@ def client_stack(tree, n: int):
     ``[n + 1, ...]`` leaves (see the module docstring)."""
     return tree_map(lambda t: t.unsqueeze(0).expand(n + 1, *t.shape).clone(),
                     tree)
+
+
+def stack_of_rows(rows):
+    """The :func:`client_stack` of restored ``[N, ...]`` client rows: the
+    rows and a zero dustbin row (never read)."""
+    return tree_map(lambda t: torch.cat([t, torch.zeros_like(t[:1])]), rows)
 
 
 def client_rows(stack):

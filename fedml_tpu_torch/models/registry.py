@@ -44,6 +44,7 @@ def create_model(name: str, **kwargs):
         import fedml_tpu_torch.models.transformer  # noqa: F401
         import fedml_tpu_torch.models.unet  # noqa: F401
         import fedml_tpu_torch.models.vfl  # noqa: F401
+        import fedml_tpu_torch.models.vit  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

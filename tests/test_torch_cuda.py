@@ -30,6 +30,7 @@ def cuda():
     (torch.float32, 77, 3, 16, True),
     (torch.bfloat16, 130, 2, 32, False),
     (torch.float32, 200, 2, 128, True),
+    (torch.float32, 64, 4, 32, False),  # the ViT's shape: f32, full, D 32
     *[(torch.bfloat16, t, 2 if d == 128 else 4, d, causal)
       for t in (2048, 1000) for d in (16, 32, 64, 128)
       for causal in (True, False) if (t, d) != (2048, 64)],
@@ -136,7 +137,8 @@ FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
                    (2, 1000, 4, 64, torch.bfloat16, True),
                    (2, 77, 3, 64, torch.bfloat16, False),
                    (2, 1000, 2, 128, torch.bfloat16, True),
-                   (2, 77, 2, 128, torch.bfloat16, True)]
+                   (2, 77, 2, 128, torch.bfloat16, True),
+                   (256, 64, 4, 32, torch.float32, False)]  # the ViT's
 
 
 @pytest.mark.parametrize("b,t,h,d,dtype,causal", FLASH_BWD_CASES)
@@ -1684,3 +1686,140 @@ def test_dropout_masks_differ_across_replays(cuda, monkeypatch):
     api.train_one_round(0)
     other = _net_state_vec(api.net)
     assert torch.equal(first, again) and not torch.equal(first, other)
+
+
+# --- ViT, run checkpoints and the rollout gate -----------------------------------
+
+def _small_vit(cuda, cls=None, **kw):
+    """ViT d_model 64, 2 heads (D 32), 2 layers, 32 x 32 x 3 (T 64), f32,
+    the flash kernels as its attention; 4 clients x 8 images, batch 4 (2
+    local steps), 3 clients a round, sgd lr 0.01."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import (build_federated_arrays,
+                                      make_image_classification,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.transformer import flash_attention_out
+
+    x, y = make_image_classification(32, (32, 32, 3), 10, seed=0)
+    fed = build_federated_arrays(x, y, partition_homo(32, 4), 4, device=cuda)
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=3, epochs=1,
+                    batch_size=4, lr=0.01, **kw)
+    model = create_model("vit", d_model=64, n_heads=2, n_layers=2,
+                         attn_fn=flash_attention_out, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    return (cls or FedAvgAPI)(model, fed, None, cfg, device=cuda)
+
+
+def test_captured_vit_round_equals_the_eager_round(cuda, monkeypatch):
+    """The ViT through the f32 flash kernels (non-causal, D 32, T 64): the
+    captured fused round bit-equal to the eager round from one start, key
+    and cohort (the flash kernels add without atomics; cuDNN's patch conv
+    in deterministic mode), and a replayed round counting one launch of
+    each flash kernel per layer and local step for the whole cohort."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api = _small_vit(cuda)
+    start, key = _copy(api.net), api.rng.clone()
+    eager = _eager(api, 1), _vec(api.net)
+    api.net, api.rng = _copy(start), key.clone()
+    captures = CapturedStep.captures
+    loss = api.train_one_round(1)["train_loss"]
+    assert CapturedStep.captures == captures + 1
+    assert loss == eager[0] and torch.equal(_vec(api.net), eager[1])
+    counts = (flash_attention.launches, flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches, flash_attention.copies)
+    api.train_one_round(2)
+    torch.cuda.synchronize()
+    want = api.train_fed.steps_per_epoch * 2
+    got = (flash_attention.launches, flash_attention_bwd.dq_launches,
+           flash_attention_bwd.dkv_launches, flash_attention.copies)
+    assert tuple(b - a for a, b in zip(counts, got)) == (want, want, want, 0)
+
+
+@pytest.mark.parametrize("name", ["FedOptAPI", "ScaffoldAPI"])
+def test_resume_across_a_captured_tier_is_bit_exact(cuda, monkeypatch,
+                                                    tmp_path, name):
+    """4 captured rounds straight against 2 + save_run (async) +
+    restore_run + 2, restored both into a fresh api and into the api that
+    captured and replayed rounds past the checkpoint (its static buffers
+    must take the restored net, server optimizer state and client
+    stacks): every leaf bit-equal."""
+    import fedml_tpu_torch.algos as algos
+    from fedml_tpu_torch.obs import CheckpointManager, restore_run, save_run
+    from fedml_tpu_torch.obs.checkpoint import _walk
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cls = getattr(algos, name)
+    kw = (dict(server_optimizer="adam", server_lr=0.05)
+          if name == "FedOptAPI" else {})
+
+    def state(api):
+        return [t for _, t in _walk({
+            "net": api.net, "rng": api.rng,
+            "opt": getattr(api, "server_opt_state", None),
+            "extra": api.checkpoint_extra_state()})]
+
+    straight = _small_fedavg(cuda, cls, **kw)
+    for r in range(4):
+        straight.train_one_round(r)
+    api = _small_fedavg(cuda, cls, **kw)
+    for r in range(2):
+        api.train_one_round(r)
+    mgr = CheckpointManager(str(tmp_path))
+    save_run(mgr, api, 1, wait=False)
+    api.train_one_round(2)  # overwrites the static buffers in place
+    mgr.wait()
+    for target in (_small_fedavg(cuda, cls, **kw), api):
+        assert restore_run(mgr, target) == 2
+        for r in (2, 3):
+            target.train_one_round(r)
+        for a, b in zip(state(straight), state(target)):
+            assert torch.equal(a, b)
+
+
+def test_rollout_rollback_is_bit_equal_on_the_card(cuda, tmp_path):
+    """The serving plane on the card: a candidate published, mirrored and
+    promoted, then rolled back: the live vector bit-equal to the one
+    before; a restarted coordinator restores it."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.flat import vector_to_tree_np
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.adapter import adapter_model_fns
+    from fedml_tpu_torch.serve import (RolloutCoordinator, ServeForward,
+                                       ServeManager)
+
+    model = create_model("transformer_lm", vocab_size=64, d_model=64,
+                         n_heads=2, n_layers=2, max_len=32, adapter_rank=4,
+                         adapter_scope="all", device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    fns = adapter_model_fns(model)
+    glob = model.init_adapters(torch.Generator().manual_seed(1))
+    fwd = ServeForward(fns, glob, device=cuda)
+    mgr = ServeManager(fwd, None, glob, seq_len=16, max_batch=4, device=cuda)
+    co = RolloutCoordinator(mgr, directory=str(tmp_path), min_shadow_tokens=8,
+                            regression_tol=1e9)
+    before = mgr._vec(mgr.live_adapters()).copy()
+    cand = before + np.random.RandomState(0).normal(
+        0, 0.05, before.shape).astype(np.float32)
+    co.publish(vector_to_tree_np(cand, fwd.spec), epoch=1)
+    for _ in range(4):
+        req = mgr.submit(0, [1, 2, 3, 4, 5])
+        mgr.serve_batch([mgr._q.get_nowait()])
+        req.result(30)
+    assert co.try_promote()["promoted"]
+    assert np.array_equal(mgr._vec(mgr.live_adapters()), cand)
+    assert co.rollback() == 0
+    assert np.array_equal(mgr._vec(mgr.live_adapters()), before)
+    co.close()
+    mgr2 = ServeManager(fwd, None, glob, seq_len=16, max_batch=4,
+                        device=cuda)
+    co2 = RolloutCoordinator(mgr2, directory=str(tmp_path))
+    assert co2.live_version == 0 and co2.prev_version == 1
+    assert np.array_equal(mgr2._vec(mgr2.live_adapters()), before)
+    co2.close()

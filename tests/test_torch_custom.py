@@ -627,7 +627,9 @@ def _pair_small(cls):
 def test_on_device_and_windowed_tiers_refuse_with_the_record(cls):
     """The record of a "custom" class rides the fused tiers only: the
     on-device tier refuses with the record's reason (JAX's text for the
-    custom protocol), the windowed tier cites A5, checkpoints A8."""
+    custom protocol), the windowed tier cites A5; the checkpoint hooks
+    give the run state back through ``load_checkpoint_extra_state``
+    (``tests/test_torch_checkpoint.py`` pins the resume)."""
     api = _pair_small(cls)
     rec = api.capability()
     assert rec.protocol == "custom" and rec.custom_step
@@ -640,10 +642,10 @@ def test_on_device_and_windowed_tiers_refuse_with_the_record(cls):
                 exc.value)
     with pytest.raises(NotImplementedError, match="A5"):
         api.train_rounds_windowed(1)
-    for call in (api.checkpoint_extra_state,
-                 lambda: api.load_checkpoint_extra_state({})):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
+    extra = api.checkpoint_extra_state()
+    assert extra
+    api.load_checkpoint_extra_state(extra)
+    assert api.checkpoint_extra_state().keys() == extra.keys()
 
 
 def _refusal_text(jcls, cls, jkw=None, kw=None, nan_guard=False, **cfg):

@@ -939,8 +939,8 @@ def test_capability_records_match_the_support_matrix(name):
 def test_refused_tiers_raise_and_checkpoints_cite_a8(cls, kw):
     """Hierarchical FL's pipelined and on-device tiers raise the record's
     message (never an eager fallback); FedAc's and ServerAvg's
-    checkpoints refuse, citing ROADMAP.md A8, as the other classes with
-    run state do."""
+    checkpoint hooks give their run state under JAX's keys, and take it
+    back (tests/test_torch_checkpoint.py pins the resume)."""
     api = _lr_api(cls, **kw)
     if cls is HierarchicalFedAvgAPI:
         for tier, call in (("train_rounds_pipelined",
@@ -952,10 +952,11 @@ def test_refused_tiers_raise_and_checkpoints_cite_a8(cls, kw):
             assert str(exc.value) == refusal(cls, tier)
         assert not api._graphs
         return
-    for call in (api.checkpoint_extra_state,
-                 lambda: api.load_checkpoint_extra_state({})):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
+    extra = api.checkpoint_extra_state()
+    assert set(extra) == ({"fedac_x", "fedac_x_ag"} if cls is FedAcAPI
+                          else {"savg_acc", "savg_count", "savg_t"})
+    api.load_checkpoint_extra_state(extra)
+    assert api.checkpoint_extra_state().keys() == extra.keys()
 
 
 def test_turboaggregate_guards():
