@@ -255,7 +255,34 @@ Phases, each of which must pass or the script exits non-zero:
              custom phase's; its control stack) and FedAdapter (the
              adapter phase's, a personalized cohort in its store); the
              save, snapshot and restore ms and the bytes written.
-14. report — each phase's seconds, a ``kernels`` JSON line (each flash
+14. store  — the host-resident client store and the windowed tier. (a)
+             bench.py's FEMNIST-3400 streaming configuration, nothing cut:
+             the cnn over 3,400 writers (lognormal counts and U[0, 1)
+             samples from seed 0), 10 a round, batch 20, lr 0.1, in three
+             arms from one start and key, 32 rounds each for the pin and
+             16 timed: the resident layout (27 steps a writer, 5.8 GB on
+             the card) through train_rounds_pipelined, a FederatedStore
+             through train_rounds_pipelined with the cohort prefetcher,
+             and train_rounds_windowed at W 16; the three bit-equal (under
+             cuDNN's deterministic mode), each arm's rounds/s, real
+             samples/s, captures (one a step bucket, none after its
+             first), the data on the card, the H2D a window and the idle
+             share of a profiled window. (d) The same federation in 8
+             memmapped shards: a window byte-equal to the flat store's,
+             16 windowed rounds bit-equal to (a)'s, the RSS of each store.
+             (c) The windowed zoo (bench.py:688-797), each arm windowed
+             (W 16) against its own host loop, 32 rounds, params and
+             carry bit-equal: FedOpt adam over the cnn on 600 writers,
+             FedNova over lr on 300, FedDyn and SCAFFOLD over lr on 64.
+             (b) The flagship (train's config) from a store:
+             train_rounds_windowed(16, window=8) bit-equal to the resident
+             train_rounds_pipelined(16), the GroupNorm launches counted
+             in both (58 a local step of each kernel). (e) FedAdapter
+             (adapter's config) from a store: train_rounds_windowed(8,
+             window=4) bit-equal to the resident pipelined rounds, 16
+             launches of each flash kernel a round, no copy, the base
+             frozen.
+15. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -266,8 +293,10 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -537,6 +566,27 @@ SHAKE_LR, SHAKE_T, SHAKE_VOCAB, SHAKE_PAD = 1.0, 80, 90, -1
 VIT_CLIENTS, VIT_PER_CLIENT, VIT_BATCH, VIT_PER_ROUND = 64, 256, 32, 8
 VIT_LR, VIT_D, VIT_HEADS, VIT_LAYERS, VIT_PATCH, VIT_ROUNDS = (0.01, 128, 4,
                                                                4, 4, 3)
+# The store phase: bench.py's FEMNIST-3400 streaming configuration
+# (_synthetic_femnist_store, _femnist_3400_setup, bench_store_windowed;
+# bench.py:494-537, 644-686): the cnn (CNNDropOut, 62 classes) over 3,400
+# writers with lognormal(3.6, 0.7) sample counts from seed 0 (152,363
+# samples, 28 x 28 x 1 f32), 10 writers a round, batch 20, 1 epoch, sgd lr
+# 0.1, window 16; nothing cut. Each arm runs STORE_ROUNDS rounds for the
+# pin and STORE_TIMED more, timed.
+STORE_CLIENTS, STORE_BATCH, STORE_PER_ROUND, STORE_LR = 3400, 20, 10, 0.1
+STORE_WINDOW, STORE_ROUNDS, STORE_TIMED, STORE_SHARDS = 16, 32, 16, 8
+# Rounds of the resident arm under the profiler (27 local steps each).
+STORE_PROFILED = 4
+# The windowed zoo (bench.py:688-797): FedOpt (server adam, lr 0.01) over
+# the cnn on 600 writers from seed 1; FedNova over lr on 300 writers from
+# seed 2; FedDyn (alpha 0.05) and SCAFFOLD over lr on 64 writers from seed
+# 3, at lr 0.05.
+ZOO_STORE = (("FedOpt", "cnn", 600, 1, 0.1), ("FedNova", "lr", 300, 2, 0.1),
+             ("FedDyn", "lr", 64, 3, 0.05), ("SCAFFOLD", "lr", 64, 3, 0.05))
+# The flagship and FedAdapter from a store: windows of 8 and 4.
+FLAGSHIP_STORE_ROUNDS, FLAGSHIP_WINDOW = 16, 8
+ADAPTER_STORE_ROUNDS, ADAPTER_WINDOW = 8, 4
+
 # The rollout drill's gate: a candidate N(0, ROLLOUT_NOISE) from the live
 # adapters mirrors within the relative tolerance; min shadow tokens as the
 # coordinator's default.
@@ -1972,13 +2022,17 @@ class _SkipOneSamplePerRow:
                 db - part_b.view(rows, last + 1, -1)[:, last])
 
 
+@functools.lru_cache(maxsize=1)
 def _cifar_samples():
     """The primary config's data: 128 x 256 CIFAR-shaped samples and
-    labels from the seed (bench.py _synthetic_cifar_fed)."""
+    labels from the seed (bench.py _synthetic_cifar_fed), made once for
+    the eight phases that build on them (~3 s each time otherwise) and
+    read-only."""
     rng = np.random.RandomState(SEED)
     x = rng.randn(TRAIN_CLIENTS * TRAIN_PER_CLIENT, 32, 32, 3).astype(
         np.float32)
     y = rng.randint(0, 10, size=len(x)).astype(np.int32)
+    x.flags.writeable = y.flags.writeable = False
     return x, y
 
 
@@ -4817,6 +4871,529 @@ def phase_ckpt(shared=None):
     return {}
 
 
+def _synthetic_femnist(n_clients, seed):
+    """bench.py's _synthetic_femnist_store data: lognormal(3.6, 0.7) sample
+    counts (at least 1) from ``seed``, U[0, 1) 28 x 28 x 1 f32 samples, 62
+    classes; returns (x, y, client index lists)."""
+    rng = np.random.RandomState(seed)
+    counts = np.maximum(1, rng.lognormal(3.6, 0.7, n_clients).astype(int))
+    tot = int(counts.sum())
+    x = rng.rand(tot, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 62, tot).astype(np.int32)
+    edges = np.concatenate([[0], np.cumsum(counts)])
+    return x, y, {c: np.arange(edges[c], edges[c + 1])
+                  for c in range(n_clients)}
+
+
+def _rss_mb():
+    """The process's resident set in MB (``/proc/self/status`` VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def _cohort_mb(store, steps, k, rounds=1):
+    """Device MB of ``rounds`` cohorts of ``k`` clients at ``steps`` from
+    the store: x, int64 labels, the f32 mask and the int32 counts."""
+    per = (int(np.prod(store._sample_shape)) * store._sample_dtype.itemsize
+           + 8 + 4)
+    return rounds * (k * steps * store.batch_size * per + 4 * k) / 1e6
+
+
+def _real_samples(api, start, n):
+    counts = api._host_counts()
+    return api.cfg.epochs * sum(
+        int(counts[np.asarray(api.sample_round(r))].sum())
+        for r in range(start, start + n))
+
+
+def _graph_stats(api):
+    return [g for step in api._graphs.values() for g in step.graph_stats()]
+
+
+def _idle_share(run, label, tag):
+    """``run()`` under torch.profiler recording the device only: the wall
+    time, the device's busy time (the union of its kernels' and copies'
+    intervals, read from the profiler's raw events) and the idle share
+    1 - busy / wall. Returns the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda and e.duration_ns() > 0)
+    busy_ns, end = 0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy_ns += hi - max(lo, end)
+            end = hi
+    check(spans, f"{tag}: the profiler recorded no device activity")
+    idle = 1 - busy_ns / 1e6 / wall_ms
+    print(f"[{tag}] profiled {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ns / 1e6:.1f} ms over {len(spans)} kernels and copies "
+          f"(idle share {idle:.3f})", flush=True)
+    return idle
+
+
+def _store_arm(tag, label, api, run, n_pin, n_timed):
+    """One arm: ``run(start, n)`` trains rounds start..start+n-1. The pin's
+    rounds 0..n_pin-1 (the captures among them), then n_timed rounds timed
+    by the host clock to the losses' fetch (with ``n_timed`` 0, the pin's
+    rounds are timed, less the captures' ms). Fails if any graph was
+    captured more than once (a capture after its bucket's first). Returns
+    (params and carry after the pin, rounds/s, the losses)."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    c0 = CapturedStep.captures
+    t0 = time.perf_counter()
+    losses = run(0, n_pin)
+    pin_s = time.perf_counter() - t0
+    state = _state_vec(api)
+    stats = _graph_stats(api)
+    if n_timed:
+        samples = _real_samples(api, n_pin, n_timed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = run(n_pin, n_timed)
+        dt = time.perf_counter() - t0
+        stats = _graph_stats(api)
+    else:
+        n_timed, timed = n_pin, losses
+        samples = _real_samples(api, 0, n_pin)
+        dt = pin_s - sum(g["capture_ms"] for g in stats) / 1e3
+    captures = CapturedStep.captures - c0
+    check(all(math.isfinite(v) for v in losses + timed),
+          f"{tag} {label}: non-finite losses")
+    check(captures == len(stats), f"{tag} {label}: {captures} captures for "
+          f"{len(stats)} graphs: a spec was captured again")
+    graphs = ", ".join(
+        f"S {g['args'][0][1] if len(g['args'][0]) > 1 else '-'}: "
+        f"{g['capture_ms']:.0f} ms, {g['reserved'] / 2**20:.0f} MiB, "
+        f"{g['replays']} replays" for g in stats)
+    how = " (the pin less its captures)" if timed is losses else ""
+    print(f"[{tag}] {label}: pin {n_pin} rounds {pin_s:.2f} s; timed "
+          f"{n_timed} rounds {dt * 1e3:.1f} ms{how} = {n_timed / dt:.2f} "
+          f"rounds/s, "
+          f"{samples / dt:.1f} real samples/s; {captures} captures, one per "
+          f"graph ({graphs}); last losses "
+          f"{' '.join(f'{v:.4f}' for v in timed[-3:])}", flush=True)
+    return state, n_timed / dt, losses
+
+
+def _femnist_store_arms(card):
+    """(a) FEMNIST-3400: resident, store synced and store windowed from one
+    start and key, bit-equal after STORE_ROUNDS rounds; then (d) the same
+    federation in a sharded, memmapped store. Under cuDNN's deterministic
+    mode (f32 convolutions)."""
+    import tempfile
+
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.data import build_federated_arrays
+    from fedml_tpu_torch.data.directory import ShardedFederatedStore
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.models import create_model
+
+    tag = "store/femnist3400"
+    t0 = time.perf_counter()
+    x, y, parts = _synthetic_femnist(STORE_CLIENTS, SEED)
+    rss_data = _rss_mb()
+    store = FederatedStore(x, y, parts, STORE_BATCH, device="cuda")
+    rss_flat = _rss_mb() - rss_data
+    cfg = FedConfig(client_num_in_total=STORE_CLIENTS,
+                    client_num_per_round=STORE_PER_ROUND, comm_round=100_000,
+                    epochs=1, batch_size=STORE_BATCH, lr=STORE_LR, seed=SEED)
+
+    def build(fed):
+        model = create_model("cnn", num_classes=62, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        return FedAvgAPI(model, fed, None, cfg, device="cuda")
+
+    n_all = STORE_ROUNDS + STORE_TIMED + STORE_WINDOW
+    cohorts = [sample_clients(r, STORE_CLIENTS, STORE_PER_ROUND)
+               for r in range(n_all)]
+    buckets = [store.cohort_steps(c) for c in cohorts]
+    wins = [max(buckets[lo:lo + STORE_WINDOW])
+            for lo in range(0, n_all, STORE_WINDOW)]
+    steps_res = -(-int(store.counts.max()) // STORE_BATCH)
+    print(f"[{tag}] cnn (CNNDropOut, 62 classes), {STORE_CLIENTS} writers, "
+          f"{int(store.counts.sum())} samples (max {int(store.counts.max())} "
+          f"a writer), {STORE_PER_ROUND} a round, batch {STORE_BATCH}, lr "
+          f"{STORE_LR}, window {STORE_WINDOW}; host store "
+          f"{store.nbytes() / 1e6:.1f} MB (RSS +{rss_flat:.0f} MB); the "
+          f"rounds' buckets "
+          f"{dict(sorted(collections.Counter(buckets).items()))}, the "
+          f"windows' {wins}; resident layout {steps_res} steps a writer; "
+          f"set-up {time.perf_counter() - t0:.1f} s; cuDNN deterministic",
+          flush=True)
+    n_pin, n_timed = STORE_ROUNDS, STORE_TIMED
+    out = {}
+    with _cudnn_deterministic():
+        t0 = time.perf_counter()
+        fed = build_federated_arrays(x, y, parts, STORE_BATCH, device="cuda")
+        res_mb = sum(t.numel() * t.element_size() for t in
+                     (fed.x, fed.y, fed.mask, fed.counts)) / 1e6
+        print(f"[{tag}] resident layout built in "
+              f"{time.perf_counter() - t0:.1f} s: {res_mb:.1f} MB on the "
+              f"card", flush=True)
+        api = build(fed)
+
+        def pipelined(start, n):
+            return api.train_rounds_pipelined(n, start_round=start)
+
+        out["resident"] = _store_arm(tag, "resident, train_rounds_pipelined",
+                                     api, pipelined, n_pin, n_timed)
+        idle = {"resident": _idle_share(
+            lambda: pipelined(n_pin + n_timed, STORE_PROFILED),
+            f"resident: {STORE_PROFILED} pipelined rounds", tag)}
+        del api, fed
+        _free()
+        api = build(store)
+        out["synced"] = _store_arm(tag, "store synced, train_rounds_pipelined"
+                                   " with the cohort prefetcher", api,
+                                   pipelined, n_pin, n_timed)
+        synced_mb = np.mean([_cohort_mb(store, b, STORE_PER_ROUND)
+                             for b in buckets[n_pin:n_pin + n_timed]])
+        idle["synced"] = _idle_share(
+            lambda: pipelined(n_pin + n_timed, STORE_WINDOW),
+            f"store synced: {STORE_WINDOW} rounds", tag)
+        del api
+        _free()
+        api = build(store)
+        snap = {}
+
+        def windowed(start, n):
+            got = []
+            for lo in range(start, start + n, STORE_WINDOW):
+                got += api.train_rounds_windowed(STORE_WINDOW,
+                                                 start_round=lo,
+                                                 window=STORE_WINDOW)
+                if lo == 0:
+                    snap["w16"] = _state_vec(api)
+            return got
+
+        out["windowed"] = _store_arm(tag, f"store windowed, W {STORE_WINDOW}",
+                                     api, windowed, n_pin, n_timed)
+        win_mb = _cohort_mb(store, max(wins), STORE_PER_ROUND, STORE_WINDOW)
+        idle["windowed"] = _idle_share(
+            lambda: windowed(n_pin + n_timed, STORE_WINDOW),
+            f"store windowed: one window of {STORE_WINDOW}", tag)
+        del api
+        _free()
+        ref = out["resident"][0]
+        for arm in ("synced", "windowed"):
+            d = (out[arm][0] - ref).abs().max().item()
+            print(f"[{tag}] pin: {arm} vs resident params after {n_pin} "
+                  f"rounds max|d| {d:.3e} "
+                  f"({'bit-equal' if d == 0 else 'NOT bit-equal'})",
+                  flush=True)
+            check(torch.equal(out[arm][0], ref),
+                  f"{tag}: the {arm} arm is {d} from the resident arm")
+        rps = {arm: out[arm][1] for arm in out}
+        print(f"[{tag}] rounds/s resident {rps['resident']:.2f}, synced "
+              f"{rps['synced']:.2f}, windowed {rps['windowed']:.2f} "
+              f"(windowed / synced {rps['windowed'] / rps['synced']:.3f}); "
+              f"idle shares "
+              f"{json.dumps({k: round(v, 3) for k, v in idle.items()})}; "
+              f"data on the card: resident {res_mb:.1f} MB, a synced cohort "
+              f"{synced_mb:.2f} MB, the window's superbatch {win_mb:.1f} MB "
+              f"(= its H2D a window; synced: {synced_mb * STORE_WINDOW:.1f} "
+              f"MB a window of rounds); host store {store.nbytes() / 1e6:.1f}"
+              f" MB; {card}", flush=True)
+
+        # (d) The same federation in 8 memmapped shards.
+        rss0 = _rss_mb()
+        with tempfile.TemporaryDirectory(prefix="store_shards_") as tmp:
+            t0 = time.perf_counter()
+            sh = ShardedFederatedStore.from_flat(
+                x, y, parts, STORE_BATCH, num_shards=STORE_SHARDS,
+                spill_dir=tmp, device="cuda")
+            build_s = time.perf_counter() - t0
+            rss1 = _rss_mb()
+            idx2d = np.stack(cohorts[:STORE_WINDOW])
+            steps = wins[0]
+            a = sh.gather_window(idx2d, steps)
+            rss2 = _rss_mb()
+            b = store.gather_window(idx2d, steps)
+            same = all(torch.equal(getattr(a, f), getattr(b, f))
+                       for f in ("x", "y", "mask", "counts"))
+            check(same, f"{tag}: the sharded window differs from the flat "
+                  "store's")
+            del a, b
+            api = build(sh)
+            t0 = time.perf_counter()
+            api.train_rounds_windowed(STORE_WINDOW, window=STORE_WINDOW)
+            torch.cuda.synchronize()
+            sh_s = time.perf_counter() - t0
+            d = (_state_vec(api) - snap["w16"]).abs().max().item()
+            print(f"[{tag}] sharded store ({STORE_SHARDS} memmapped shards, "
+                  f"built in {build_s:.1f} s): gather_window of "
+                  f"[{STORE_WINDOW}, {STORE_PER_ROUND}] at S {steps} "
+                  f"byte-equal to the flat store's; {STORE_WINDOW} windowed "
+                  f"rounds {sh_s:.2f} s (its capture included), params max|d|"
+                  f" {d:.3e} from the flat windowed arm's after "
+                  f"{STORE_WINDOW} rounds; RSS: the flat store +{rss_flat:.0f}"
+                  f" MB, the sharded store +{rss1 - rss0:.0f} MB built and "
+                  f"+{rss2 - rss0:.0f} MB after one window's gather (its "
+                  f"{_cohort_mb(sh, steps, STORE_PER_ROUND, STORE_WINDOW):.0f}"
+                  f" MB of pinned staging included)", flush=True)
+            check(d == 0, f"{tag}: the sharded store's rounds are {d} from "
+                  "the flat store's")
+            del api, sh
+            _free()
+    return rps
+
+
+def _zoo_store_arms(card):
+    """(c) The windowed zoo: each arm's windowed rounds against its own host
+    loop (train_rounds_pipelined) from one start, params and carry
+    bit-equal."""
+    from fedml_tpu_torch.algos import (FedConfig, FedDynAPI, FedNovaAPI,
+                                       FedOptAPI, ScaffoldAPI)
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.models import create_model
+
+    classes = {"FedOpt": (FedOptAPI, {}, dict(server_optimizer="adam",
+                                              server_lr=0.01)),
+               "FedNova": (FedNovaAPI, {}, {}),
+               "FedDyn": (FedDynAPI, dict(alpha=0.05), {}),
+               "SCAFFOLD": (ScaffoldAPI, {}, {})}
+    rps = {}
+    for name, model_name, n_clients, seed, lr in ZOO_STORE:
+        tag = f"store/{name}"
+        cls, kw, cfg_kw = classes[name]
+        x, y, parts = _synthetic_femnist(n_clients, seed)
+        cfg = FedConfig(client_num_in_total=n_clients,
+                        client_num_per_round=STORE_PER_ROUND,
+                        comm_round=100_000, epochs=1,
+                        batch_size=STORE_BATCH, lr=lr, seed=SEED, **cfg_kw)
+
+        def build():
+            gen = torch.Generator().manual_seed(SEED)
+            model = (create_model("cnn", num_classes=62, device="cuda",
+                                  generator=gen) if model_name == "cnn" else
+                     create_model("lr", in_features=784, num_classes=62,
+                                  device="cuda", generator=gen))
+            return cls(model, FederatedStore(x, y, parts, STORE_BATCH,
+                                             device="cuda"),
+                       None, cfg, device="cuda", **kw)
+
+        print(f"[{tag}] {model_name} over {n_clients} writers from seed "
+              f"{seed}, lr {lr}, {kw or cfg_kw or ''}; window {STORE_WINDOW}",
+              flush=True)
+        with _cudnn_deterministic():
+            host, win = build(), build()
+            sh, rh, _ = _store_arm(
+                tag, "host loop", host,
+                lambda s, n: host.train_rounds_pipelined(n, start_round=s),
+                STORE_ROUNDS, 0)
+            sw, rw, _ = _store_arm(
+                tag, f"windowed, W {STORE_WINDOW}", win,
+                lambda s, n: win.train_rounds_windowed(
+                    n, start_round=s, window=STORE_WINDOW),
+                STORE_ROUNDS, 0)
+        d = (sh - sw).abs().max().item()
+        print(f"[{tag}] pin: params and carry ({sh.numel()} values) max|d| "
+              f"{d:.3e} ({'bit-equal' if d == 0 else 'NOT bit-equal'}); "
+              f"windowed / host-loop rounds/s {rw / rh:.3f}; {card}",
+              flush=True)
+        check(d == 0, f"{tag}: windowed rounds {d} from the host loop's")
+        rps[name] = (rh, rw)
+        del host, win, x, y
+        _free()
+    return rps
+
+
+def _flagship_store(card):
+    """(b) The flagship from a store: ResNet-56-GN bf16 at the primary
+    config, windowed (W 8) against the resident pipelined rounds from one
+    start, bit-equal; the GroupNorm launches counted in both."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.models import create_model
+
+    tag = "store/flagship"
+    x, y = _cifar_samples()
+    parts = partition_homo(len(x), TRAIN_CLIENTS)
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=100_000,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+
+    def build(fed):
+        model = create_model("resnet56", num_classes=10, dtype="bf16",
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        return FedAvgAPI(model, fed, None, cfg, device="cuda")
+
+    store = FederatedStore(x, y, parts, TRAIN_BATCH, device="cuda")
+    steps = TRAIN_PER_CLIENT // TRAIN_BATCH
+    n = FLAGSHIP_STORE_ROUNDS
+    samples = n * TRAIN_PER_ROUND * TRAIN_PER_CLIENT
+    counted = [0, 0]
+    states, rate = {}, {}
+    for arm, fed, run in (
+            ("resident pipelined",
+             build_federated_arrays(x, y, parts, TRAIN_BATCH, device="cuda"),
+             lambda api: api.train_rounds_pipelined(n)),
+            (f"store windowed W {FLAGSHIP_WINDOW}", store,
+             lambda api: api.train_rounds_windowed(n,
+                                                   window=FLAGSHIP_WINDOW))):
+        api = build(fed)
+        _zero_gn_counts()
+        c0 = CapturedStep.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = run(api)
+        dt = time.perf_counter() - t0
+        fwd, bwd, red, copies, streamed = _gn_counts()
+        caps = CapturedStep.captures - c0
+        want = (n + caps) * steps * RESNET56_GN
+        states[arm] = _net_vec(api.net)
+        rate[arm] = samples / dt
+        print(f"[{tag}] {arm}: {n} rounds {dt:.2f} s with {caps} capture(s) "
+              f"({samples / dt:.1f} samples/s, capture included); losses "
+              f"{losses[0]:.4f} .. {losses[-1]:.4f}; GroupNorm launches fwd "
+              f"{fwd}, bwd {bwd}, reduce {red} (expected {want} = ({n} rounds"
+              f" + {caps} warm-up) x {steps} steps x {RESNET56_GN}), streamed"
+              f" {streamed}, copies {copies}", flush=True)
+        check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite")
+        check(fwd == bwd == red == want, f"{tag} {arm}: GroupNorm launches "
+              f"{fwd} {bwd} {red}, expected {want}")
+        check(streamed == 0, f"{tag}: {streamed} forwards streamed")
+        counted[0] += fwd
+        counted[1] += bwd
+        del api, fed
+        _free()
+    a, b = states.values()
+    d = (a - b).abs().max().item()
+    print(f"[{tag}] pin: windowed vs resident params after {n} rounds "
+          f"max|d| {d:.3e} ({'bit-equal' if d == 0 else 'NOT bit-equal'}); "
+          f"{card}", flush=True)
+    check(d == 0, f"{tag}: the store's windowed rounds are {d} from the "
+          "resident pipelined rounds")
+    return {"group_norm_fwd": counted[0], "group_norm_bwd": counted[1]}
+
+
+def _adapter_store(card):
+    """(e) FedAdapter from a store at the adapter phase's config,
+    windowed (W 4) against the resident pipelined rounds from one start,
+    bit-equal; the flash launches counted in both."""
+
+    from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    tag = "store/adapter"
+    rng = np.random.RandomState(SEED)
+    seqs = rng.randint(1, VOCAB, size=(ADAPTER_CLIENTS * ADAPTER_PER_CLIENT,
+                                       SEQ_LEN + 1))
+    x, y = seqs[:, :SEQ_LEN].astype(np.int32), seqs[:, 1:].astype(np.int32)
+    parts = partition_homo(len(x), ADAPTER_CLIENTS)
+    cfg = FedConfig(client_num_in_total=ADAPTER_CLIENTS,
+                    client_num_per_round=ADAPTER_PER_ROUND,
+                    comm_round=100_000, epochs=1, batch_size=ADAPTER_BATCH,
+                    lr=ADAPTER_LR, seed=SEED, adapter_rank=ADAPTER_RANK)
+
+    def build(fed):
+        model = create_model(
+            "transformer_lm", vocab_size=VOCAB, d_model=D_MODEL,
+            n_heads=N_HEADS, n_layers=N_LAYERS, max_len=SEQ_LEN,
+            dtype="bf16", attn="flash", adapter_rank=ADAPTER_RANK,
+            adapter_scope="attn", device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        return FedAdapterAPI(model, fed, None, cfg, device="cuda",
+                             loss_fn=functools.partial(seq_softmax_ce,
+                                                       pad_id=0))
+
+    steps = ADAPTER_PER_CLIENT // ADAPTER_BATCH
+    n = ADAPTER_STORE_ROUNDS
+    tokens = n * ADAPTER_PER_ROUND * ADAPTER_PER_CLIENT * SEQ_LEN
+    counted = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    states = {}
+    for arm, fed, run in (
+            ("resident pipelined",
+             build_federated_arrays(x, y, parts, ADAPTER_BATCH,
+                                    device="cuda"),
+             lambda api: api.train_rounds_pipelined(n)),
+            (f"store windowed W {ADAPTER_WINDOW}",
+             FederatedStore(x, y, parts, ADAPTER_BATCH, device="cuda"),
+             lambda api: api.train_rounds_windowed(n,
+                                                   window=ADAPTER_WINDOW))):
+        api = build(fed)
+        base0 = [t.clone() for t in api.base.state_dict().values()]
+        _zero_flash_counts()
+        c0 = CapturedStep.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = run(api)
+        dt = time.perf_counter() - t0
+        fwd, dq, dkv, copies = _flash_counts()
+        caps = CapturedStep.captures - c0
+        want = (n + caps) * steps * N_LAYERS
+        states[arm] = _net_vec(api.net)
+        frozen = all(torch.equal(a, b) for a, b in
+                     zip(base0, api.base.state_dict().values()))
+        print(f"[{tag}] {arm}: {n} rounds {dt:.2f} s with {caps} capture(s) "
+              f"({tokens / dt:.0f} tokens/s, capture included); losses "
+              f"{losses[0]:.4f} .. {losses[-1]:.4f}; flash launches fwd "
+              f"{fwd}, dq {dq}, dkv {dkv} (expected {want} = ({n} rounds + "
+              f"{caps} warm-up) x {steps} steps x {N_LAYERS} layers), copies "
+              f"{copies}; frozen base unchanged: {frozen}", flush=True)
+        check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite")
+        check(fwd == dq == dkv == want, f"{tag} {arm}: flash launches "
+              f"{fwd} {dq} {dkv}, expected {want}")
+        check(copies == 0 and frozen, f"{tag}: {copies} copies, frozen "
+              f"base unchanged {frozen}")
+        for k, v in zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                        (fwd, dq, dkv)):
+            counted[k] += v
+        del api, fed
+        _free()
+    a, b = states.values()
+    d = (a - b).abs().max().item()
+    print(f"[{tag}] pin: windowed vs resident adapters after {n} rounds "
+          f"max|d| {d:.3e} ({'bit-equal' if d == 0 else 'NOT bit-equal'}); "
+          f"{card}", flush=True)
+    check(d == 0, f"{tag}: the store's windowed rounds are {d} from the "
+          "resident pipelined rounds")
+    return counted
+
+
+def phase_store():
+    """The host-resident client store and the windowed tier (see the
+    constants): (a) FEMNIST-3400's three arms and (d) its sharded store,
+    (c) the windowed zoo, (b) the flagship and (e) FedAdapter from a
+    store. Returns {kernel name: launches counted in (b) and (e)}."""
+    t_phase = time.perf_counter()
+    card = smi_line()
+    launches = {}
+    times = {}
+    for name, fn in (("a+d", _femnist_store_arms), ("c", _zoo_store_arms),
+                     ("b", _flagship_store), ("e", _adapter_store)):
+        t0 = time.perf_counter()
+        got = fn(card)
+        times[name] = time.perf_counter() - t0
+        if name in ("b", "e"):
+            launches.update(got)
+    secs = json.dumps({k: round(v, 1) for k, v in times.items()})
+    print(f"[store] drives' seconds {secs}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4865,11 +5442,12 @@ def main() -> int:
     adapter = timed("adapter", phase_adapter, shared)
     vit = timed("vit", phase_vit)
     timed("ckpt", phase_ckpt, shared)
+    store = timed("store", phase_store)
     print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
-          f"adapter {adapter}, vit {vit}", flush=True)
+          f"adapter {adapter}, vit {vit}, store {store}", flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
     launches.update(adapter)
-    for name, n in vit.items():
+    for name, n in list(vit.items()) + list(store.items()):
         launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

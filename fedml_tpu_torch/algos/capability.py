@@ -1,22 +1,22 @@
-"""Carry capability records of the FedAvg family (port of
-``fedml_tpu/algos/capability.py``'s ``record_for``, ``refusal`` and
-``ExcludedScanTiers``).
+"""Carry capability records of the algorithm zoo (port of
+``fedml_tpu/algos/capability.py``'s ``record_for``, ``refusal``,
+``ExcludedScanTiers``, ``zoo_records`` and ``render_matrix``).
 
 One record per algorithm class, derived from its declarations: the carry
-protocol (``window_protocol`` and the ``_window_*`` hooks) and which
-hooks of ``FedAvgAPI`` the class overrides; a standalone class with its
-own loop (``DecentralizedAPI``) declares its tiers in
-``capability_tiers``. A class that opts out says why in
-``window_exclusion``. Every round tier keys its guard on the record and
-refuses with :func:`refusal`, a message derived from it, never on a list
-of classes.
+protocol (``window_protocol`` and the ``_window_*`` hooks),
+``supports_streaming`` and which hooks of ``FedAvgAPI`` the class
+overrides; a standalone class with its own loop (``DecentralizedAPI``)
+declares its tiers in ``capability_tiers``. A class that opts out says
+why in ``window_exclusion``; ``window_carry`` describes the carry for the
+matrix. Every round tier keys its guard on the record and refuses with
+:func:`refusal`, a message derived from it, never on a list of classes.
 
 What differs from the JAX package's records: the port's host loop
 (``train_one_round``, ``train_rounds_pipelined``) replays the fused step
-and has no eager fallback, so ``fused`` stands for both tiers;
-and the port has no streaming store or windowed tier yet (ROADMAP.md A5,
-A9), so the record has no fields for them (the windowed tier refuses
-every class).
+and has no eager fallback, so ``pipelined`` equals ``fused`` (in the zoo
+JAX's two columns agree too: every "round" class has its pure form). The
+windowed tier replays the same fused step once per round of a window,
+fed from a ``FederatedStore`` superbatch.
 """
 
 from __future__ import annotations
@@ -26,22 +26,55 @@ from functools import lru_cache
 from typing import Optional
 
 
+#: (display name, module under fedml_tpu_torch.algos, class name): the
+#: zoo of the support matrix, in the JAX package's row order.
+ZOO = (
+    ("FedAvg", "fedavg", "FedAvgAPI"),
+    ("FedProx", "fedprox", "FedProxAPI"),
+    ("FedOpt", "fedopt", "FedOptAPI"),
+    ("FedAc", "fedac", "FedAcAPI"),
+    ("ServerAvg", "fedac", "ServerAvgAPI"),
+    ("q-FedAvg", "qfedavg", "QFedAvgAPI"),
+    ("FedNova", "fednova", "FedNovaAPI"),
+    ("FedAvgRobust", "robust", "FedAvgRobustAPI"),
+    ("SCAFFOLD", "scaffold", "ScaffoldAPI"),
+    ("FedDyn", "feddyn", "FedDynAPI"),
+    ("Ditto", "ditto", "DittoAPI"),
+    ("FedAdapter", "fedadapter", "FedAdapterAPI"),
+    ("FedBN", "fedbn", "FedBNAPI"),
+    ("FedGAN", "fedgan", "FedGanAPI"),
+    ("FedNAS", "fednas", "FedNASAPI"),
+    ("FedSeg", "fedseg", "FedSegAPI"),
+    ("TurboAggregate", "turboaggregate", "TurboAggregateAPI"),
+    ("HierarchicalFL", "hierarchical", "HierarchicalFedAvgAPI"),
+    ("Decentralized", "decentralized", "DecentralizedAPI"),
+    ("FedGKT", "fedgkt", "FedGKTAPI"),
+    ("SplitNN", "split_nn", "SplitNNAPI"),
+    ("VerticalFL", "vertical_fl", "VflAPI"),
+)
+
+
 @dataclass(frozen=True)
 class CarryCapability:
-    """One algorithm's declared and derived record. ``fused`` (the
-    replayed fused round of ``train_one_round`` and
-    ``train_rounds_pipelined``) and ``on_device`` are the tiers the class
-    can ever ride; a resident dataset is still checked per call."""
+    """One algorithm's declared and derived record. ``fused``,
+    ``pipelined`` (both replay the fused round), ``windowed`` and
+    ``on_device`` are the tiers the class can ever ride; the layout (a
+    store for the windowed tier, resident arrays for the on-device one)
+    is still checked per call."""
 
     algorithm: str
     protocol: Optional[str]       # "round" | "custom" | None
+    carry: str                    # the matrix's note on the carry
     excluded: Optional[str]       # the class's window_exclusion
     custom_round: bool            # round != run_round + _server_update
     custom_builders: bool         # round_fn not from the shared builder
     custom_step: bool             # provides its own _build_fused_step
     pure_server_update: bool      # a pure server update exists
     round_aux: bool               # per-round host-computed operands
+    streaming: bool               # supports FederatedStore cohorts
     fused: bool
+    pipelined: bool
+    windowed: bool
     on_device: bool
 
 
@@ -50,26 +83,29 @@ def record_for(cls) -> CarryCapability:
     """The capability record of an algorithm class (cached per class):
     derived from the hooks for a ``FedAvgAPI`` subclass; a standalone
     class with its own loop declares ``capability_tiers`` (``fused``,
-    ``pipelined``, ``on_device``), or rides no tier."""
+    ``pipelined``, ``windowed``, ``on_device``), or rides no tier."""
     from fedml_tpu_torch.algos.fedavg import FedAvgAPI
     from fedml_tpu_torch.algos.loop import FederatedLoop
 
-    excluded = getattr(cls, "window_exclusion", None)
     if not isinstance(cls, type):
         raise TypeError(f"{cls!r} is not an algorithm class")
+    name = getattr(cls, "capability_name", cls.__name__)
+    carry = getattr(cls, "window_carry", "—")
+    excluded = getattr(cls, "window_exclusion", None)
     if not issubclass(cls, FedAvgAPI):
         tiers = getattr(cls, "capability_tiers", {})
         proto = getattr(cls, "window_protocol", None)
         if proto is None and excluded is None:
             excluded = ("no carry capability record declared "
                         "(window_protocol=None and no window_exclusion)")
-        # The port's pipelined tier replays the fused step: "fused"
-        # answers for both.
         fused = bool(tiers.get("fused", False))
         return CarryCapability(
-            algorithm=cls.__name__, protocol=proto, excluded=excluded,
+            algorithm=name, protocol=proto, carry=carry, excluded=excluded,
             custom_round=True, custom_builders=True, custom_step=fused,
-            pure_server_update=False, round_aux=False, fused=fused,
+            pure_server_update=False, round_aux=False,
+            streaming=bool(getattr(cls, "supports_streaming", False)),
+            fused=fused, pipelined=bool(tiers.get("pipelined", False)),
+            windowed=bool(tiers.get("windowed", False)),
             on_device=bool(tiers.get("on_device", False)))
     proto = cls.window_protocol
     custom_round = (cls.train_one_round is not FedAvgAPI.train_one_round
@@ -81,7 +117,9 @@ def record_for(cls) -> CarryCapability:
     pure = (cls._server_update is FedAvgAPI._server_update
             or cls._window_server_update
             is not FedAvgAPI._window_server_update)
-    aux = cls._round_aux is not FederatedLoop._round_aux
+    aux = (cls._round_aux is not FederatedLoop._round_aux
+           or cls._window_scan_extras is not FedAvgAPI._window_scan_extras)
+    streaming = bool(cls.supports_streaming)
     fused = on_device = False
     if proto == "round":
         fused = not custom_round and pure
@@ -91,10 +129,11 @@ def record_for(cls) -> CarryCapability:
     elif proto == "custom":
         fused = custom_step
     return CarryCapability(
-        algorithm=cls.__name__, protocol=proto, excluded=excluded,
+        algorithm=name, protocol=proto, carry=carry, excluded=excluded,
         custom_round=custom_round, custom_builders=custom_builders,
         custom_step=custom_step, pure_server_update=pure, round_aux=aux,
-        fused=fused, on_device=on_device)
+        streaming=streaming, fused=fused, pipelined=fused,
+        windowed=fused and streaming, on_device=on_device)
 
 
 def refusal(cls, tier: str) -> str:
@@ -103,11 +142,19 @@ def refusal(cls, tier: str) -> str:
     its record that rules the tier out, reaches the user as it is."""
     rec = record_for(cls)
     name = cls.__name__
-    if (tier == "train_rounds_windowed" and rec.excluded
-            and rec.protocol is not None):
+    if (tier == "train_rounds_windowed" and not rec.windowed
+            and rec.excluded and rec.protocol is not None):
         # A class that rides other tiers but declares why the windowed
         # store tier does not apply (DecentralizedAPI's gossip).
         return f"{name} opts out of the windowed tier: {rec.excluded}"
+    if (tier == "train_rounds_windowed" and not rec.streaming
+            and (rec.fused or rec.custom_step)):
+        # The class rides the round tiers but keeps client data resident:
+        # the windowed tier is a store tier.
+        return (f"{name} declares supports_streaming=False; "
+                f"{tier} streams window superbatches from a "
+                "FederatedStore — use the resident on-device scan or "
+                "the per-round host loop")
     if rec.protocol is None:
         why = rec.excluded or "no reason declared"
         return (f"{name} opts out of the carry protocol "
@@ -129,10 +176,10 @@ def refusal(cls, tier: str) -> str:
                     "None")
         if tier == "train_rounds_on_device" and rec.round_aux:
             return (f"{name} feeds its round per-round host-computed aux "
-                    "operands (_round_aux), which the on-device round — "
-                    "drawing its cohort inside the captured step — has no "
-                    "slot for; use train_one_round or "
-                    "train_rounds_pipelined")
+                    "operands (_round_aux/_window_scan_extras), which "
+                    "the on-device scan — sampling inside the jit — has "
+                    "no slot for; use the windowed streaming scan or "
+                    "the host loop")
         return f"{name} does not ride {tier} (capability record: {rec})"
     if not rec.custom_step:
         return (f"{name} declares window_protocol='custom' but does not "
@@ -141,11 +188,8 @@ def refusal(cls, tier: str) -> str:
     if tier == "train_rounds_on_device":
         return (f"{name} carries client-stacked state through a custom "
                 "scan body; the on-device scan serves 'round'-protocol "
-                "algorithms — use train_one_round or "
-                "train_rounds_pipelined (the windowed streaming scan is "
-                "ROADMAP.md A5/A9)")
-    return (f"{name} carries client-stacked state through a custom step; "
-            f"{tier} serves 'round'-protocol algorithms")
+                "algorithms — use the windowed streaming scan")
+    return f"{name} does not ride {tier} (capability record: {rec})"
 
 
 class ExcludedScanTiers:
@@ -170,6 +214,47 @@ class ExcludedScanTiers:
     def train_rounds_on_device(self, *a, **k):
         raise NotImplementedError(refusal(type(self),
                                           "train_rounds_on_device"))
+
+
+def zoo_records():
+    """``[(display_name, cls, CarryCapability)]`` for the whole zoo, in
+    matrix order (imports every algorithm module)."""
+    import importlib
+
+    out = []
+    for name, module, clsname in ZOO:
+        mod = importlib.import_module(f"fedml_tpu_torch.algos.{module}")
+        cls = getattr(mod, clsname)
+        out.append((name, cls, record_for(cls)))
+    return out
+
+
+def _cell(flag: bool) -> str:
+    return "✓" if flag else "✗"
+
+
+def render_matrix() -> str:
+    """The algorithm × tier support matrix of the port, generated from the
+    records that the tier guards consume, in the JAX package's format."""
+    lines = [
+        "| algorithm | protocol | carry | pipelined | fused round | "
+        "windowed scan | on-device scan |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    excluded = []
+    for name, cls, rec in zoo_records():
+        proto = rec.protocol if rec.protocol else "—"
+        lines.append(
+            f"| {name} | {proto} | {rec.carry} | {_cell(rec.pipelined)} | "
+            f"{_cell(rec.fused)} | {_cell(rec.windowed)} | "
+            f"{_cell(rec.on_device)} |")
+        if rec.excluded:
+            excluded.append(f"- **{name}** — {rec.excluded}")
+    out = "\n".join(lines)
+    if excluded:
+        out += ("\n\nRecord-derived exclusions (the refusal each guard "
+                "raises):\n\n" + "\n".join(excluded))
+    return out
 
 
 def refuse_model_state(who: str, *modules) -> None:

@@ -98,6 +98,7 @@ class DecentralizedAPI(FederatedLoop):
     and ``evaluate_on_clients`` read."""
 
     window_protocol = "custom"
+    window_carry = "client-stacked models + push weights"
     window_exclusion = (
         "full-participation gossip over device-resident client stacks — "
         "no cohort ever streams from a store, so the windowed store tier "

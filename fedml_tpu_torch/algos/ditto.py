@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
@@ -43,6 +44,34 @@ def weighted_client_metrics(m) -> Dict[str, float]:
             "personal_loss_eval": float((m["loss"] * num).sum() / n)}
 
 
+def streamed_client_metrics(api, nets_of, chunk: int = 256
+                            ) -> Dict[str, float]:
+    """:func:`weighted_client_metrics` over a ``FederatedStore``: the
+    clients in host-gathered chunks, ``nets_of(idx)`` the chunk's
+    per-client nets (``[k, ...]`` leaves), so the device holds one chunk
+    of data and models at a time."""
+    store = api.train_fed
+    tot = {"acc": 0.0, "loss": 0.0, "n": 0.0}
+    for lo in range(0, store.num_clients, chunk):
+        idx = np.arange(lo, min(lo + chunk, store.num_clients))
+        sub = store.gather_cohort(idx)
+        m = api._per_client_eval(nets_of(idx), sub.x, sub.y, sub.mask,
+                                 net_dim=0)
+        num = m["num"]
+        tot["acc"] += float((m["accuracy"] * num).sum())
+        tot["loss"] += float((m["loss"] * num).sum())
+        tot["n"] += float(num.sum())
+    n = max(tot["n"], 1.0)
+    return {"personal_accuracy": tot["acc"] / n,
+            "personal_loss_eval": tot["loss"] / n}
+
+
+def rows_of(tree, idx):
+    """The ``idx`` rows of a ``[N, ...]`` tree (a dict of tensors)."""
+    sel = torch.as_tensor(idx, dtype=torch.int64)
+    return tree_map(lambda t: t.index_select(0, sel.to(t.device)), tree)
+
+
 class DittoAPI(FedAvgAPI):
     """FedAvg for the global model + per-client personal models pulled
     toward the current global with strength ``lam``. The carry is the
@@ -53,6 +82,7 @@ class DittoAPI(FedAvgAPI):
     personalization metric."""
 
     window_protocol = "custom"
+    window_carry = "personal-model stack"
 
     def __init__(self, *args, lam: float = 0.1, **kw):
         self.lam = lam
@@ -121,7 +151,11 @@ class DittoAPI(FedAvgAPI):
     def evaluate_personalized(self) -> Dict[str, float]:
         """Sample-weighted mean of each personal model's accuracy and loss
         on its OWN local shard (one vmapped pass over the resident
-        shards; streaming stores are not ported, ROADMAP.md A9)."""
+        shards; over a store, chunk by chunk)."""
+        if self._streaming:
+            nets = self.personal_nets
+            return streamed_client_metrics(self, lambda idx: NetState(
+                rows_of(nets.params, idx), rows_of(nets.model_state, idx)))
         f = self.train_fed
         return weighted_client_metrics(self._per_client_eval(
             self.personal_nets, f.x, f.y, f.mask, net_dim=0))

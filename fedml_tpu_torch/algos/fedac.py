@@ -48,6 +48,8 @@ class FedAcAPI(FedAvgAPI):
     are Python floats baked into the captured step: construct a new api to
     change them."""
 
+    window_carry = "(x, x_ag) acceleration sequences"
+
     def __init__(self, *args, gamma: float = 2.0, alpha: float = None,
                  beta: float = None, **kw):
         super().__init__(*args, **kw)
@@ -120,6 +122,8 @@ class ServerAvgAPI(FedAvgAPI):
     """FedAvg + server averaging: broadcast ``(1 − β)·avg + β·mean(past
     globals)``. ``avg_coef`` is β (0 = plain FedAvg); ``avg_start`` skips
     the first rounds (early models are far from the optimum)."""
+
+    window_carry = "running mean of past globals (acc, count, t)"
 
     def __init__(self, *args, avg_coef: float = 0.5, avg_start: int = 0,
                  **kw):

@@ -20,8 +20,9 @@ runs the same local finetune; :meth:`FedAdapterAPI.evaluate_personalized`
 reports the personalized-vs-global quality. The store is run state:
 ``obs/checkpoint.py``'s ``save_run`` keeps it once it was materialized.
 
-Not ported yet, and refused by name: the windowed tier (as for FedAvg) and
-streaming stores.
+Over a ``FederatedStore`` the rounds stream each cohort from the host,
+and the windowed tier replays the round W times per superbatch, as for
+FedAvg; personalization gathers its cohort from the store too.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.flat import stacked_tree_of, stacked_vectors_np
 from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
+from fedml_tpu_torch.data.store import FederatedStore
 from fedml_tpu_torch.models.adapter import (PersonalAdapterStore,
                                             adapter_model_fns, param_count)
 from fedml_tpu_torch.trainer.local import NetState, softmax_ce
@@ -56,6 +58,7 @@ class FedAdapterAPI(FedAvgAPI):
     is the weight of the global adapters in a personalization start."""
 
     _consumes_adapter_cfg = True
+    window_carry = "— (adapter tree is the net; base frozen off-scan)"
 
     def __init__(self, model, train_fed, test_global, cfg, mesh=None,
                  loss_fn=softmax_ce, pad_id: int = 0,
@@ -185,12 +188,14 @@ class FedAdapterAPI(FedAvgAPI):
 
 
 def _gather_shards(fed, idx) -> FederatedArrays:
-    """The cohort's ``[k, S, B, ...]`` shards of resident
-    ``FederatedArrays`` (streaming stores are not ported: ROADMAP.md A9)."""
+    """The cohort's ``[k, S, B, ...]`` shards: the device gather of
+    resident ``FederatedArrays``, the host gather of a store."""
+    if isinstance(fed, FederatedStore):
+        return fed.gather_cohort(np.asarray(idx))
     if not isinstance(fed, FederatedArrays):
-        raise NotImplementedError(
-            f"{type(fed).__name__}: only the resident FederatedArrays "
-            "layout is ported (streaming stores: ROADMAP.md A9)")
+        raise TypeError(
+            f"{type(fed).__name__}: expected FederatedArrays or a "
+            "FederatedStore")
     return gather_clients(fed, idx)
 
 

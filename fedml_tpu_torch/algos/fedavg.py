@@ -4,18 +4,26 @@
 Sampled clients are a leading tensor dim; each local step of the whole
 cohort runs under ``vmap`` (``parallel.shard.make_vmap_round``), and the
 new global model is the sample-weighted client average. Ported: the
-single-device, resident (``FederatedArrays``), ``client_selection=
-"random"`` case, with three tiers of rounds:
+single-device, ``client_selection="random"`` case, over a resident
+``FederatedArrays`` or a host-resident ``data.store.FederatedStore``
+(reference-scale client counts: the store puts each round's cohort on
+the card, prefetched on a worker thread while the previous round
+trains), with four tiers of rounds:
 
 - ``train_one_round`` (and ``train``): one FUSED round — the client
   gather, local training, the average and the server update as one step,
-  captured once as a CUDA graph and replayed each round
-  (``core/graph.py``; JAX: one donated dispatch per round);
+  captured as a CUDA graph and replayed each round (``core/graph.py``;
+  JAX: one donated dispatch per round). From a store the step takes the
+  prefetched cohort as its args, one graph per step bucket;
 - ``train_rounds_pipelined``: the same rounds without a host sync between
   them, the losses fetched once;
-- ``train_rounds_on_device``: one captured round with the cohort drawn on
-  the device from the round's key, replayed once per round (JAX: one
-  ``lax.scan`` over rounds).
+- ``train_rounds_windowed`` (and ``train_windowed``, store only): W
+  rounds' cohorts gathered as one superbatch, one copy per field, and the
+  same captured step replayed W times at the window's bucket, with no
+  host sync inside the window (JAX: one ``lax.scan`` over the window);
+- ``train_rounds_on_device`` (resident only): one captured round with
+  the cohort drawn on the device from the round's key, replayed once per
+  round (JAX: one ``lax.scan`` over rounds).
 
 On the CPU (``device="cpu"``) the same steps run eagerly. ``run_round``
 + ``_server_update`` stay as the eager reference procedure. Which tiers a
@@ -26,9 +34,9 @@ server update of the carry protocol, ``_round_aux`` (per-round operands
 computed on the host, passed to the captured steps as device tensors)
 and, for the "custom" protocol, a whole published step
 (``_build_fused_step``) over client-stacked state. ``cfg.aggregator``
-picks the server reduction (``core/robust_agg``). The windowed tier,
-meshes, streaming stores, other selection modes, compression and layouts
-are not ported yet: asking for any of them raises, by name.
+picks the server reduction (``core/robust_agg``). Meshes, other
+selection modes, compression and layouts are not ported yet: asking for
+any of them raises, by name.
 """
 
 from __future__ import annotations
@@ -41,12 +49,14 @@ import torch
 
 from fedml_tpu_torch.algos.capability import refusal
 from fedml_tpu_torch.algos.config import FedConfig
-from fedml_tpu_torch.algos.loop import FederatedLoop
+from fedml_tpu_torch.algos.loop import FederatedLoop, eval_segments
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.core.graph import CapturedStep
 from fedml_tpu_torch.core.robust_agg import make_aggregator
 from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
+from fedml_tpu_torch.data.store import (CohortPrefetcher, FederatedStore,
+                                        WindowPrefetcher)
 from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
                                             make_vmap_round)
 from fedml_tpu_torch.trainer.local import (make_client_optimizer,
@@ -68,6 +78,25 @@ UNPORTED_FIELDS = {
 _COHORT_TAG = 0x5A
 
 
+def plan_window_spans(buckets, window: int):
+    """Splits a run of rounds (each round's cohort step bucket) into spans
+    ``(offset, length, steps-or-None)`` in order: consecutive chunks of
+    exactly ``window`` rounds run windowed at the chunk's LARGEST bucket
+    (a smaller round's extra pad steps are exact no-ops), the remainder
+    (< window rounds) runs through the fused host round (``None``). So
+    the captures stay bounded by the distinct window buckets."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    spans, n = [], len(buckets)
+    lo = 0
+    while n - lo >= window:
+        spans.append((lo, window, max(buckets[lo:lo + window])))
+        lo += window
+    if lo < n:
+        spans.append((lo, n - lo, None))
+    return spans
+
+
 def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
     defaults = {f.name: f.default for f in dataclasses.fields(FedConfig)}
     for name, label in fields.items():
@@ -82,9 +111,10 @@ def refuse_unported(cfg, fields=UNPORTED_FIELDS, who="FedAvgAPI"):
 class FedAvgAPI(FederatedLoop):
     """Federated trainer on one card. ``model`` is an ``nn.Module`` whose
     own parameters are the initial global model (``api.net`` is public and
-    may be replaced); ``train_fed`` a ``FederatedArrays`` on ``device``
-    (``None`` → cuda); ``test_global`` an ``(x, y, mask)`` triple from
-    ``data.batching.batch_global`` or None. ``pad_id`` marks padding in
+    may be replaced); ``train_fed`` a ``FederatedArrays`` or a
+    ``FederatedStore`` on ``device`` (``None`` → cuda); ``test_global``
+    an ``(x, y, mask)`` triple from ``data.batching.batch_global`` or
+    None. ``pad_id`` marks padding in
     sequence labels (excluded from eval accuracy); it must match the pad
     id of a sequence ``loss_fn`` (``partial(seq_softmax_ce, pad_id=...)``).
 
@@ -99,6 +129,10 @@ class FedAvgAPI(FederatedLoop):
     #: (FedAdapterAPI); every other trainer class refuses the flag, which
     #: would otherwise silently train the dense model.
     _consumes_adapter_cfg = False
+
+    #: A class whose rounds read client-stacked data outside the cohort
+    #: sets this False: a store is then refused at construction.
+    supports_streaming = True
 
     #: How this algorithm rides the round tiers (the JAX package's carry
     #: protocol): "round" means its round is exactly ``run_round`` +
@@ -118,7 +152,13 @@ class FedAvgAPI(FederatedLoop):
                 "a client mesh is not ported yet (ROADMAP.md A11); the port "
                 "trains every client on one card")
         self.train_fed = train_fed
-        self._check_resident()
+        self._check_layout()
+        if self._streaming and not type(self).supports_streaming:
+            raise NotImplementedError(
+                f"{type(self).__name__} keeps per-client state device-"
+                "resident (or gathers clients on device) and does not "
+                "support FederatedStore streaming; use the resident "
+                "FederatedArrays layout")
         refuse_unported(cfg)
         if cfg.adapter_rank and not self._consumes_adapter_cfg:
             raise NotImplementedError(
@@ -320,21 +360,37 @@ class FedAvgAPI(FederatedLoop):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _check_resident(self) -> None:
-        """The rounds gather each cohort on the device from resident
-        ``FederatedArrays``; ``api.train_fed`` may be replaced later."""
-        if not isinstance(self.train_fed, FederatedArrays):
-            raise NotImplementedError(
-                f"train_fed of type {type(self.train_fed).__name__}: only "
-                "the resident FederatedArrays layout is ported (streaming "
-                "stores: ROADMAP.md A9)")
+    @property
+    def _streaming(self) -> bool:
+        """True when the cohorts stream from a host ``FederatedStore``."""
+        return isinstance(self.train_fed, FederatedStore)
+
+    def _check_layout(self) -> None:
+        """``api.train_fed`` (which may be replaced later) is resident
+        ``FederatedArrays`` or a ``FederatedStore``."""
+        if not isinstance(self.train_fed, (FederatedArrays, FederatedStore)):
+            raise TypeError(
+                f"train_fed of type {type(self.train_fed).__name__}: the "
+                "rounds take resident FederatedArrays or a FederatedStore")
+
+    def _host_counts(self) -> np.ndarray:
+        """The clients' sample counts on the host (fetched once per
+        resident dataset)."""
+        counts = self.train_fed.counts
+        if isinstance(counts, np.ndarray):
+            return counts
+        cached = getattr(self, "_counts_cache", None)
+        if cached is None or cached[0] is not counts:
+            cached = self._counts_cache = (counts, counts.cpu().numpy())
+        return cached[1]
 
     def _watched(self):
-        """What the captured steps read in place: the dataset and the
-        module's own tensors (FedAdapter's frozen base)."""
+        """What the captured steps read in place: the resident dataset and
+        the module's own tensors (FedAdapter's frozen base)."""
         fed = self.train_fed
-        return [fed.x, fed.y, fed.mask, fed.counts,
-                *self.model.parameters(), *self.model.buffers()]
+        data = ([] if self._streaming
+                else [fed.x, fed.y, fed.mask, fed.counts])
+        return [*data, *self.model.parameters(), *self.model.buffers()]
 
     def _captured(self, tier: str, build) -> CapturedStep:
         step = self._graphs.get(tier)
@@ -369,6 +425,45 @@ class FedAvgAPI(FederatedLoop):
         copied in at every replay."""
         return self._captured("fused", self._gather_step)
 
+    def _store_step(self):
+        """The published step fed a cohort from the store: ``((net, extra),
+        x, y, mask, counts, key, *aux) -> ((net', extra'), loss)``, the
+        weights ``counts`` (a "custom" step's aux is ``(idx,)``, its update
+        mask computed from ``counts`` on the device). The fused host round
+        and the windowed tier replay this one step, captured once per
+        step bucket."""
+        step = self._build_fused_step()
+        custom = self.window_protocol == "custom"
+
+        def store_step(carry, x, y, mask, counts, key, *aux):
+            if custom:
+                aux = (aux[0], (counts > 0).float())
+            return step(*carry, x, y, mask, counts.float(), key, *aux)
+
+        return store_step
+
+    def _stored_round_step(self) -> CapturedStep:
+        return self._captured("fused_store", self._store_step)
+
+    def _stream_cohort(self, round_idx: int, idx) -> FederatedArrays:
+        """The round's cohort from the host store (prefetched when it
+        could be), and the next round's gather and copy started on the
+        prefetcher's worker, to overlap this round's training."""
+        pf = getattr(self, "_cohort_prefetcher", None)
+        if pf is None or pf.store is not self.train_fed:
+            pf = self._cohort_prefetcher = CohortPrefetcher(self.train_fed)
+        sub = pf.get(round_idx, idx)
+        if round_idx + 1 < self.cfg.comm_round:
+            pf.prefetch(round_idx + 1, self.sample_round(round_idx + 1))
+        return sub
+
+    def _cohort(self, round_idx: int, idx) -> FederatedArrays:
+        """The round's sampled clients: the device gather of the resident
+        layout, or the (prefetched) host gather of the store."""
+        if self._streaming:
+            return self._stream_cohort(round_idx, idx)
+        return super()._cohort(round_idx, idx)
+
     def _cohort_on_device(self, idx) -> torch.Tensor:
         """The sampled cohort on the device without waiting for it."""
         if torch.is_tensor(idx):
@@ -392,18 +487,27 @@ class FedAvgAPI(FederatedLoop):
         Returns the round's loss, a device tensor that the next round
         overwrites. ``step``: another form of the step, e.g. the
         uncaptured :meth:`_gather_step`, the eager reference of a
-        "custom" round."""
-        self._check_resident()
+        "custom" round (from a store: of :meth:`_store_step`)."""
+        self._check_layout()
+        streaming = self._streaming
         if step is None:
-            step = self._fused_round_step()
+            step = (self._stored_round_step() if streaming
+                    else self._fused_round_step())
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
         self._last_round_key = rnd_rng
         idx = self.sample_round(round_idx)
         aux = self._round_aux(round_idx, idx)
-        (self.net, extra), loss = step(
-            (self.net, self._window_carry_init()),
-            self._cohort_on_device(idx), rnd_rng, *aux)
+        carry = (self.net, self._window_carry_init())
+        if streaming:
+            sub = self._stream_cohort(round_idx, idx)
+            if self.window_protocol == "custom":
+                aux = (self._cohort_on_device(idx),)
+            (self.net, extra), loss = step(carry, sub.x, sub.y, sub.mask,
+                                           sub.counts, rnd_rng, *aux)
+        else:
+            (self.net, extra), loss = step(
+                carry, self._cohort_on_device(idx), rnd_rng, *aux)
         self._window_carry_commit(extra)
         return loss
 
@@ -449,7 +553,13 @@ class FedAvgAPI(FederatedLoop):
         whose round takes per-round host operands (``_round_aux``) is
         refused by its record."""
         self._require("train_rounds_on_device", self.capability().on_device)
-        self._check_resident()
+        self._check_layout()
+        if self._streaming:
+            raise NotImplementedError(
+                "train_rounds_on_device needs the whole dataset device-"
+                "resident (the scan gathers clients on device each round); "
+                "FederatedStore streams cohorts from host — use the host "
+                "loop")
 
         def build():
             step = self._build_fused_step()
@@ -479,15 +589,134 @@ class FedAvgAPI(FederatedLoop):
         self._window_carry_commit(extra)
         return losses
 
-    def _unported(self, what):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md A5: the windowed tier, "
-            "with A9's streaming store); use train_one_round, "
-            "train_rounds_pipelined or train_rounds_on_device")
+    # --- the windowed tier: W replays per superbatch -----------------------
+    def _window_scan_extras(self, start_round: int, idx2d):
+        """The per-round trailing operands of a window as ``[W, ...]``
+        device tensors, sliced per replay: a "custom" step's cohort
+        indices ``[W, k]``; a "round" step's ``_round_aux`` of each round,
+        stacked (FedNova's q and γ, the attack drill's adversary mask)."""
+        if self.window_protocol == "custom":
+            return (self._to_device(np.asarray(idx2d, np.int64)),)
+        per_round = [self._round_aux(start_round + t, idx)
+                     for t, idx in enumerate(idx2d)]
+        return tuple(torch.stack(col) for col in zip(*per_round))
+
+    def _check_windowed_supported(self) -> None:
+        """The guard of the windowed tier, on the capability record, with
+        the JAX package's reasons."""
+        if self.window_protocol not in (None, "round", "custom"):
+            raise NotImplementedError(
+                f"unknown window_protocol {self.window_protocol!r}; "
+                "declare 'round', 'custom', or None")
+        cls = type(self)
+        if (self.window_protocol == "custom"
+                and cls._window_carry_init is not FedAvgAPI._window_carry_init
+                and cls._window_carry_commit
+                is FedAvgAPI._window_carry_commit):
+            raise NotImplementedError(
+                f"{cls.__name__} overrides _window_carry_init without "
+                "_window_carry_commit; the scanned-out carry would be "
+                "silently discarded")
+        self._require("train_rounds_windowed", self.capability().windowed)
+        self._check_layout()
+        if not self._streaming:
+            raise NotImplementedError(
+                "windowed execution streams window superbatches from a "
+                "FederatedStore; the resident layout already has the "
+                "stronger train_rounds_on_device scan")
+        if self.cfg.client_selection != "random":
+            raise NotImplementedError(
+                "windowed execution gathers the next W rounds' cohorts in "
+                "advance, which only seeded-random selection permits; "
+                "pow_d/oort depend on the current net — use the per-round "
+                "host loop")
 
     def train_rounds_windowed(self, n_rounds: int, start_round: int = 0,
                               window: int = 8):
-        self._unported("train_rounds_windowed")
+        """``n_rounds`` store-backed rounds, host syncs amortized over
+        windows of ``window`` rounds. Seeded-random selection makes every
+        upcoming cohort known, so each window's cohorts are gathered as ONE
+        ``[W, k, S, B, ...]`` superbatch (``FederatedStore.gather_window``,
+        its gather and copy overlapping the previous window's replays on
+        ``WindowPrefetcher``'s worker), and the store round's captured step
+        (:meth:`_store_step`, the fused host round's own) is replayed once
+        per round at the window's bucket, each round's slice copied into
+        its args on the device, its key from the host loop's
+        ``keys.split`` chain. No host sync inside a window; the carry is
+        committed after each window, and the losses fetched once.
+
+        The params and the carry are BIT-EQUAL to the host loop under the
+        same seeds (test-pinned): a round trained at the window's larger
+        bucket takes extra all-masked steps, which the trainer gates out,
+        and its shuffle is prefix-stable in the slot count
+        (``trainer.local.epoch_perm``). Remainder rounds (< window) run
+        through the fused host round. The captures stay bounded by the
+        distinct window buckets; ``api._window_stats`` records the split.
+        Returns the per-round losses."""
+        self._check_windowed_supported()
+        store = self.train_fed
+        cohorts = [np.asarray(self.sample_round(start_round + t))
+                   for t in range(n_rounds)]
+        spans = plan_window_spans([store.cohort_steps(idx)
+                                   for idx in cohorts], window)
+        scan_spans = [s for s in spans if s[2] is not None]
+        windowed = sum(s[1] for s in scan_spans)
+        self._window_stats = {"windows": len(scan_spans),
+                              "scanned_rounds": windowed,
+                              "host_rounds": n_rounds - windowed}
+        pf = getattr(self, "_window_prefetcher", None)
+        if pf is None or pf.store is not store:
+            pf = self._window_prefetcher = WindowPrefetcher(store)
+
+        def span_args(span):
+            off, length, steps = span
+            return (start_round + off,
+                    np.stack([cohorts[off + t] for t in range(length)]),
+                    steps)
+
+        if scan_spans:
+            pf.prefetch(*span_args(scan_spans[0]))
+        losses = []
+        for span in spans:
+            off, length, steps = span
+            if steps is None:
+                for t in range(length):
+                    losses.append(self._train_round_fused(
+                        start_round + off + t).clone())
+                continue
+            first, idx2d, _ = span_args(span)
+            batch = pf.get(first, idx2d, steps)
+            later = [s for s in scan_spans if s[0] > off]
+            if later:
+                pf.prefetch(*span_args(later[0]))
+            extras = self._window_scan_extras(first, idx2d)
+            step = self._stored_round_step()
+            carry = (self.net, self._window_carry_init())
+            for t in range(length):
+                pair = keys.split(self.rng)
+                self.rng, rnd_rng = pair[0], pair[1]
+                self._last_round_key = rnd_rng
+                carry, loss = step(carry, batch.x[t], batch.y[t],
+                                   batch.mask[t], batch.counts[t], rnd_rng,
+                                   *(e[t] for e in extras))
+                losses.append(loss.clone())
+            self.net, extra = carry
+            self._window_carry_commit(extra)
+        return torch.stack(losses).tolist() if losses else []
 
     def train_windowed(self, window: int = 8):
-        self._unported("train_windowed")
+        """The whole training loop (``train``'s history: eval every
+        ``frequency_of_the_test`` rounds and on the last) on the windowed
+        tier: the rounds between eval points run through
+        :meth:`train_rounds_windowed`, so a window never crosses a round
+        the host evaluates after."""
+        self._check_windowed_supported()
+        history = []
+        for lo, hi in eval_segments(self.cfg.comm_round,
+                                    self.cfg.frequency_of_the_test):
+            seg = self.train_rounds_windowed(hi - lo + 1, start_round=lo,
+                                             window=window)
+            for i, loss in enumerate(seg):
+                history.append({"round": lo + i, "train_loss": loss})
+            history[-1].update(self.evaluate())
+        return history

@@ -29,7 +29,8 @@ from typing import Dict
 
 import torch
 
-from fedml_tpu_torch.algos.ditto import weighted_client_metrics
+from fedml_tpu_torch.algos.ditto import (rows_of, streamed_client_metrics,
+                                         weighted_client_metrics)
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.tree import (client_rows, client_stack,
                                        gather_stacked, scatter_stacked,
@@ -56,6 +57,7 @@ class FedBNAPI(FedAvgAPI):
     ``[N, ...]`` views."""
 
     window_protocol = "custom"
+    window_carry = "client norm-leaf store + client model-state stack"
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -146,8 +148,13 @@ class FedBNAPI(FedAvgAPI):
     def evaluate_personalized(self) -> Dict[str, float]:
         """Each client's model (its OWN norms grafted into the global, with
         its own model state) on its own local shard, sample-weighted (one
-        vmapped pass over the resident shards; streaming stores are not
-        ported, ROADMAP.md A9)."""
+        vmapped pass over the resident shards; over a store, chunk by
+        chunk)."""
+        if self._streaming:
+            norms, states = self.local_norms, self.local_state
+            return streamed_client_metrics(self, lambda idx: NetState(
+                self._graft(self.net.params, rows_of(norms, idx)),
+                rows_of(states, idx)))
         f = self.train_fed
         nets = NetState(self._graft(self.net.params, self.local_norms),
                         self.local_state)

@@ -48,6 +48,8 @@ class FedDynAPI(FedAvgAPI):
     ``(server_h, client stack of the g_k)``; ``client_grads`` is the
     ``[N, ...]`` view of the stack."""
 
+    window_carry = "server h + client correction stack"
+
     window_protocol = "custom"
 
     def __init__(self, *args, alpha: float = 0.01, **kw):

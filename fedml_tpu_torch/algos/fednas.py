@@ -181,7 +181,7 @@ class FedNASAPI(FedAvgAPI):
         self._require_plain_sgd_round("FedNASAPI's bilevel search step")
         # Every client must pack >= 2 real steps: a 1-step client has h = 0,
         # trains nothing and keeps its full aggregation weight.
-        counts = train_fed.counts.cpu().numpy()
+        counts = self._host_counts()
         steps = np.ceil(np.maximum(counts, 1) / cfg.batch_size)
         if int(steps.min()) < 2:
             raise ValueError(

@@ -26,6 +26,8 @@ from fedml_tpu_torch.trainer.local import NetState
 
 
 class FedNovaAPI(FedAvgAPI):
+    window_carry = "— (per-round q-weights + γ ride the scanned aux slot)"
+
     def _local_steps(self, counts) -> np.ndarray:
         """τ_i = epochs × ceil(n_i / B): the trainer's shuffle keeps padding
         at the tail, so client i takes exactly that many optimizer steps.
@@ -44,16 +46,6 @@ class FedNovaAPI(FedAvgAPI):
         tau_eff = float((p * tau).sum())
         s = float((p / tau).sum())
         return counts / tau, np.float32(tau_eff * s)
-
-    def _host_counts(self) -> np.ndarray:
-        """The clients' sample counts on the host, fetched once per
-        dataset."""
-        counts = self.train_fed.counts
-        cached = getattr(self, "_counts_cache", None)
-        if cached is None or cached[0] is not counts:
-            cached = self._counts_cache = (counts,
-                                           counts.cpu().numpy())
-        return cached[1]
 
     def _round_aux(self, round_idx: int, idx):
         q, gamma = self._nova_operands(

@@ -121,6 +121,8 @@ class FedOptAPI(FedAvgAPI):
     ``server_lr``, ``server_momentum``) stepping on the pseudo-gradient.
     ``server_opt_state`` is the carry of the captured steps."""
 
+    window_carry = "server optimizer state"
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         cfg = self.cfg

@@ -16,6 +16,8 @@ class FedProxAPI(FedAvgAPI):
     """Only the local objective changes, so FedProx has no carry and rides
     every round tier FedAvg does."""
 
+    window_carry = "— (μ term lives in the local step)"
+
     def _build_local_train(self, optimizer, loss_fn):
         mu = self.cfg.fedprox_mu
 

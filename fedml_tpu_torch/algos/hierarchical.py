@@ -23,8 +23,10 @@ first order (the reference CI's invariant, CI-script-fedavg.sh:49-56).
   host ~1.6 s of dispatch on the card, so the group loop replays instead.
 
 The round is a host loop over a data-dependent set of groups: the class
-opts out of the carry protocol and rides no multi-round tier. Resident
-``FederatedArrays`` only (streaming stores: ROADMAP.md A9).
+opts out of the carry protocol and rides no multi-round tier. A
+``FederatedStore`` streams each group's padded cohort from the host
+(``_group_cohort``); its captured inner round then takes the cohort as
+its args, one graph per padded size and step bucket.
 """
 
 from __future__ import annotations
@@ -79,21 +81,39 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
         """The inner round of one group, uncaptured: ``step(net, idx
         [size], gmask [size], key) -> (net', loss)``, the cohort gathered
         on the device and weighted by its true counts times the pad
-        mask."""
+        mask. From a store: ``step(net, x, y, mask, counts, gmask, key)``
+        over the group's streamed cohort."""
         round_fn = self.round_fn
+
+        def fed_step(net, x, y, mask, counts, gmask, key):
+            weights = counts.float() * gmask
+            return round_fn(net, x, y, mask, weights, weights, key)
+
+        if self._streaming:
+            return fed_step
 
         def step(net, idx, gmask, key):
             sub = gather_clients(self.train_fed, idx)
-            weights = sub.counts.float() * gmask
-            return round_fn(net, sub.x, sub.y, sub.mask, weights, weights,
+            return fed_step(net, sub.x, sub.y, sub.mask, sub.counts, gmask,
                             key)
 
         return step
 
     def _group_step(self, size: int):
         """The captured inner round for groups padded to ``size``
-        clients, one capture per size."""
-        return self._captured(f"group{size}", self._group_round)
+        clients, one capture per size (and per step bucket from a
+        store)."""
+        tier = f"group{size}" + ("_store" if self._streaming else "")
+        return self._captured(tier, self._group_round)
+
+    def _group_cohort(self, g_idx_p):
+        """The group's padded cohort as step operands: its client indices
+        on the device (resident, gathered inside the step), or its
+        ``(x, y, mask, counts)`` from the store's host gather."""
+        if self._streaming:
+            sub = self.train_fed.gather_cohort(np.asarray(g_idx_p))
+            return (sub.x, sub.y, sub.mask, sub.counts)
+        return (self._cohort_on_device(g_idx_p),)
 
     def _global_reduce(self, group_nets, group_weights):
         """The sparse global step over the round's participating groups:
@@ -117,11 +137,11 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
                         {k: out[k] for k in self.net.model_state})
 
     def train_one_round(self, round_idx: int):
-        self._check_resident()
+        self._check_layout()
         tr = obs_trace.active()
         traced = tr is not obs_trace.NULL
         idx = np.asarray(self.sample_round(round_idx))
-        counts = self.train_fed.counts.cpu().numpy()
+        counts = self._host_counts()
         group_nets, group_weights, losses = [], [], []
         ck = obs_trace.corr(round=round_idx)
         for g in np.unique(self.group_ids[idx]):
@@ -133,7 +153,7 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
                 target *= 2
             g_idx_p, g_mask = pad_to_multiple(g_idx, target)
             step = self._group_step(target)
-            idx_d = self._cohort_on_device(g_idx_p)
+            cohort = self._group_cohort(g_idx_p)
             mask_d = self._to_device(g_mask)
             net_g = self.net
             # Stage 1: the group's inner rounds and their aggregation.
@@ -144,7 +164,7 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
                     # The flat host loop's key chain, in round order.
                     pair = keys.split(self.rng)
                     self.rng, rnd_rng = pair[0], pair[1]
-                    net_g, loss = step(net_g, idx_d, mask_d, rnd_rng)
+                    net_g, loss = step(net_g, *cohort, mask_d, rnd_rng)
                 # The step's buffers serve the next group of this size.
                 net_g = NetState(tree_map(torch.clone, net_g.params),
                                  tree_map(torch.clone, net_g.model_state))

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -14,6 +15,23 @@ from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.data.batching import gather_clients
 from fedml_tpu_torch.trainer.local import NetState
+
+
+def eval_segments(comm_round: int, frequency_of_the_test: int,
+                  start: int = 0):
+    """Splits ``[start, comm_round)`` into inclusive ``(lo, hi)`` spans,
+    each ending at a round that :meth:`FederatedLoop.train` evaluates
+    after (``round_idx % freq == 0`` or the last round): the windowed tier
+    plans its windows within them, so a window never runs past a point
+    where the host evaluates."""
+    freq = max(int(frequency_of_the_test), 1)
+    r = start
+    while r < comm_round:
+        e = r
+        while not (e % freq == 0 or e == comm_round - 1):
+            e += 1
+        yield r, e
+        r = e + 1
 
 
 class FederatedLoop:
@@ -42,15 +60,20 @@ class FederatedLoop:
 
     def sample_round(self, round_idx: int):
         """Reference-seeded sampling (``np.random.RandomState(round_idx)``,
-        FedAVGAggregator.py:90-99)."""
+        FedAVGAggregator.py:90-99). A sharded store's ``ClientDirectory``
+        draws it from its count metadata, the same stream."""
         sel = getattr(self.cfg, "client_selection", "random")
         if sel != "random":
             raise NotImplementedError(
                 f"client_selection={sel!r} is not ported yet (ROADMAP.md "
                 "A5); only 'random' is")
-        idx = sample_clients(round_idx, self.cfg.client_num_in_total,
-                             self.cfg.client_num_per_round)
-        return idx
+        directory = getattr(self.train_fed, "directory", None)
+        if directory is not None \
+                and directory.num_clients == self.cfg.client_num_in_total:
+            return directory.sample_cohort(round_idx,
+                                           self.cfg.client_num_per_round)
+        return sample_clients(round_idx, self.cfg.client_num_in_total,
+                              self.cfg.client_num_per_round)
 
     def _round_aux(self, round_idx: int, idx):
         """Trailing operands of ``round_fn`` beyond the standard seven,
@@ -59,9 +82,14 @@ class FederatedLoop:
         drill's adversary mask). Default: none."""
         return ()
 
+    def _cohort(self, round_idx: int, idx):
+        """The round's sampled clients, gathered on the device."""
+        return gather_clients(self.train_fed, idx)
+
     def run_round(self, round_idx: int):
-        """One sampled round, eagerly: gather the cohort on the device,
-        weight it by true sample counts, fresh round key (kept as
+        """One sampled round, eagerly: the cohort from ``_cohort`` (the
+        device gather, or a store's host gather), weighted by true sample
+        counts, fresh round key (kept as
         ``_last_round_key``: a randomized server update folds in from
         it). Returns ``(avg_net, mean_loss)`` without touching
         ``self.net``. With ``_server_update`` it is the reference
@@ -72,7 +100,7 @@ class FederatedLoop:
         self._last_round_key = rnd_rng
         idx = self.sample_round(round_idx)
         aux = self._round_aux(round_idx, idx)
-        sub = gather_clients(self.train_fed, idx)
+        sub = self._cohort(round_idx, idx)
         weights = sub.counts.float()
         return self.round_fn(self.net, sub.x, sub.y, sub.mask, weights,
                              weights, rnd_rng, *aux)
@@ -99,9 +127,12 @@ class FederatedLoop:
         ``FederatedArrays`` (``arrays``, default the training shards; the
         per-client test layout with ``prefix="clients_test"``): the
         sample-weighted means and the worst client's accuracy and loss,
-        clients without samples left out of the worst. Streaming stores
-        are not ported (ROADMAP.md A9)."""
+        clients without samples left out of the worst. Over a store, the
+        clients go through in host-gathered chunks
+        (:meth:`_evaluate_on_clients_streaming`)."""
         f = self.train_fed if arrays is None else arrays
+        if arrays is None and getattr(self, "_streaming", False):
+            return self._evaluate_on_clients_streaming(prefix)
         m = self._per_client_eval(self._eval_net(), f.x, f.y, f.mask)
         num = m["num"]
         n = torch.clamp(num.sum(), min=1.0)
@@ -116,6 +147,34 @@ class FederatedLoop:
             f"worst_client_{kind}_acc": float(worst_acc),
             f"worst_client_{kind}_loss": float(worst_loss),
         }
+
+    def _evaluate_on_clients_streaming(self, prefix: str,
+                                       chunk: int = 256) -> Dict[str, float]:
+        """:meth:`evaluate_on_clients` over a store: the clients in chunks
+        of ``chunk`` (the device holds one chunk at a time), the same
+        weighted means and worst-client figures."""
+        store = self.train_fed
+        net = self._eval_net()
+        tot_acc = tot_loss = tot_n = 0.0
+        worst_acc, worst_loss = float("inf"), float("-inf")
+        for lo in range(0, store.num_clients, chunk):
+            sub = store.gather_cohort(
+                np.arange(lo, min(lo + chunk, store.num_clients)))
+            m = self._per_client_eval(net, sub.x, sub.y, sub.mask)
+            num, acc, loss = (m[k].cpu().numpy()
+                              for k in ("num", "accuracy", "loss"))
+            present = num > 0
+            tot_acc += float((acc * num).sum())
+            tot_loss += float((loss * num).sum())
+            tot_n += float(num.sum())
+            if present.any():
+                worst_acc = min(worst_acc, float(acc[present].min()))
+                worst_loss = max(worst_loss, float(loss[present].max()))
+        n = max(tot_n, 1.0)
+        kind = prefix.split("_")[-1]
+        return {f"{prefix}_acc": tot_acc / n, f"{prefix}_loss": tot_loss / n,
+                f"worst_client_{kind}_acc": worst_acc,
+                f"worst_client_{kind}_loss": worst_loss}
 
     def evaluate(self) -> Dict[str, float]:
         if self.test_global is None:

@@ -120,6 +120,8 @@ class QFedAvgAPI(FedAvgAPI):
     """FedAvg with the q-FFL fair aggregation. ``q = 0`` is equal-weight
     FedAvg for the params; typical fair settings use q in [0.1, 5]."""
 
+    window_carry = "— (fair q-update baked into round_fn)"
+
     def __init__(self, *args, q: float = 1.0, **kw):
         # Before the base constructor, which builds the round.
         self.q = q

@@ -46,6 +46,9 @@ def attack_success_rate(api, x_targeted, y_target,
 
 
 class FedAvgRobustAPI(FedAvgAPI):
+
+    window_carry = ("— (round-keyed weak-DP noise; [W, C] adversary "
+                    "mask rides the scanned aux slot)")
     def __init__(self, *args, adversary_clients=None, **kwargs):
         super().__init__(*args, **kwargs)
         cfg = self.cfg

@@ -49,6 +49,8 @@ class ScaffoldAPI(FedAvgAPI):
     f32 zeros like the params at the start. ``client_controls`` is the
     ``[N, ...]`` view of the stack."""
 
+    window_carry = "server control + client-control stack"
+
     window_protocol = "custom"
 
     def __init__(self, *args, server_lr: float = 1.0, **kw):

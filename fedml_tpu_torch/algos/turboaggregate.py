@@ -76,28 +76,42 @@ class TurboAggregateAPI(FedAvgAPI):
     def _cohort_training(self):
         """The cohort's local training, uncaptured: ``step(net, idx, key)
         -> (net, (client params [C, ...], losses [C]))``, each client's
-        key ``fold_in(key, slot)``, the trained models not averaged."""
+        key ``fold_in(key, slot)``, the trained models not averaged. From
+        a store: ``step(net, x, y, mask, key)`` over the streamed
+        cohort."""
         local_train = self.local_train
+
+        def fed_step(net, x, y, mask, key):
+            rngs = client_rngs(key, x.shape[0])
+            nets, losses = local_train.run_clients(net, x, y, mask, rngs)
+            return net, (nets.params, losses)
+
+        if self._streaming:
+            return fed_step
 
         def step(net, idx, key):
             sub = gather_clients(self.train_fed, idx)
-            rngs = client_rngs(key, idx.shape[0])
-            nets, losses = local_train.run_clients(net, sub.x, sub.y,
-                                                   sub.mask, rngs)
-            return net, (nets.params, losses)
+            return fed_step(net, sub.x, sub.y, sub.mask, key)
 
         return step
 
     def _local_batch(self):
         """The captured cohort training; a new client lr drops it with the
         other captured steps."""
-        return self._captured("local_batch", self._cohort_training)
+        tier = "local_batch" + ("_store" if self._streaming else "")
+        return self._captured(tier, self._cohort_training)
 
     def _train_clients(self, idx, key):
         """The cohort's trained params ``{name: [C, ...]}`` and losses
-        ``[C]`` on the device (the captured step's buffers)."""
-        _, out = self._local_batch()(self.net, self._cohort_on_device(idx),
-                                     key)
+        ``[C]`` on the device (the captured step's buffers); from a store
+        the cohort is gathered on the host when the round needs it (the
+        round's host MPC dwarfs the gather)."""
+        if self._streaming:
+            sub = self.train_fed.gather_cohort(np.asarray(idx))
+            operands = (sub.x, sub.y, sub.mask)
+        else:
+            operands = (self._cohort_on_device(idx),)
+        _, out = self._local_batch()(self.net, *operands, key)
         return out
 
     def _secure_aggregate(self, flat: np.ndarray, wn: np.ndarray,
@@ -120,12 +134,12 @@ class TurboAggregateAPI(FedAvgAPI):
         return mpc.dequantize(total, self.scale, self.prime)
 
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
-        self._check_resident()
+        self._check_layout()
         tr = obs_trace.active()
         traced = tr is not obs_trace.NULL
         ck = obs_trace.corr(round=round_idx)
         idx = np.asarray(self.sample_round(round_idx))
-        counts = self.train_fed.counts.cpu().numpy()
+        counts = self._host_counts()
         weights = counts[idx].astype(np.float64)
         if self.dropout_mask is not None:
             weights[self.dropout_mask] = 0.0

@@ -19,14 +19,26 @@ tensors. On a CUDA device it
 
 The returned carry is the static buffers and ``out`` the graph's own
 output, so the next replay overwrites both, as JAX consumes donated
-buffers: clone what must outlive it. The step is captured again when the
-structure, shapes or dtypes of the carry or the args change, or when a
-tensor of ``watch()`` (what the step reads in place: the dataset, a frozen
-base) is another tensor than at capture. Unreachable objects are collected
+buffers: clone what must outlive it. One graph is kept per spec (the
+structure, shapes and dtypes of the carry and the args), as JAX keeps one
+executable per shape: a streamed cohort changes its step bucket from
+round to round, and each bucket is captured once and replayed after. The
+cache holds at most :data:`MAX_GRAPHS` graphs (the least recently used
+goes: power-of-two buckets from 1 to 128 steps);
+each graph has its own memory pool. Every graph is dropped when a tensor
+of ``watch()`` (what the step reads in place: the dataset, a frozen base)
+is another tensor than at capture. Unreachable objects are collected
 before a capture and the cyclic collector is paused during it (a dropped
 graph freed mid-capture would invalidate the capture). A capture or
 replay that fails raises :class:`GraphCaptureError`; the step never runs
 eagerly instead.
+
+A capture holds :data:`capture_lock`, which other threads take around
+the device work they issue beside the rounds (the store prefetchers'
+pinned allocations and host-to-device copies): a CUDA call from another
+thread in the middle of a capture in the default ``"global"`` mode would
+fail the capture or the call, so a capture waits out such work and the
+work waits out a capture.
 On the CPU the step runs eagerly: the tests ask for that with
 ``device="cpu"``.
 
@@ -40,14 +52,23 @@ and ``CapturedStep.replays`` count the helper's own work.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
+import threading
 import time
 
 import torch
 
 #: ``(owner, attribute)`` of every launch counter: the kernel wrappers'.
 _COUNTERS = []
+
+#: Taken by every capture and by device work that another thread issues
+#: beside the captured steps (the store prefetchers' copies).
+capture_lock = threading.RLock()
+
+#: Graphs a ``CapturedStep`` keeps, one per spec.
+MAX_GRAPHS = 8
 
 
 def launch_counter(owner, *names) -> None:
@@ -100,6 +121,14 @@ class GraphCaptureError(RuntimeError):
     """A step could not be captured or replayed as a CUDA graph."""
 
 
+class _Graph:
+    """One captured spec: the graph, its static carry, args and output,
+    what the capture added to the launch counters, and its cost."""
+
+    __slots__ = ("graph", "carry", "args", "out", "delta", "capture_ms",
+                 "reserved", "replays")
+
+
 class CapturedStep:
     """``step(carry, *args) -> (carry', out)`` captured once per spec and
     replayed on ``device`` (eager on the CPU). ``watch()`` returns the
@@ -111,39 +140,60 @@ class CapturedStep:
     def __init__(self, step, device, watch):
         self.step, self.device, self.watch = step, torch.device(device), watch
         self.capture_ms = None  # host ms of the last warm-up + capture
-        self._drop()
+        self._graphs = collections.OrderedDict()
+        self._watched = None
 
     def _drop(self) -> None:
-        self._key = self._graph = self._watched = None
-        self._carry = self._args = self._out = None
-        self._delta = []
+        self._graphs.clear()
+        self._watched = None
+
+    def graph_stats(self):
+        """One dict per cached graph: its args' shapes, the capture's host
+        ms, the bytes the device's caching allocator reserved over the
+        warm-up and capture (the graph's pool and static buffers) and its
+        replays."""
+        return [{"args": [tuple(t.shape) for t in _leaves(g.args)],
+                 "capture_ms": g.capture_ms, "reserved": g.reserved,
+                 "replays": g.replays} for g in self._graphs.values()]
 
     def __call__(self, carry, *args):
         if self.device.type != "cuda":
             return self.step(carry, *args)
-        watched = list(self.watch())
-        key = (_spec(carry), _spec(args),
-               [(t.data_ptr(), tuple(t.shape), t.dtype) for t in watched])
-        if key != self._key:
-            self._capture(carry, args, watched, key)
+        watched = [(t.data_ptr(), tuple(t.shape), t.dtype)
+                   for t in self.watch()]
+        if watched != self._watched:
+            self._drop()
+            self._watched = watched
+        key = repr((_spec(carry), _spec(args)))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(carry, args, key)
         else:
-            for dst, src in zip(_leaves(self._carry) + _leaves(self._args),
+            self._graphs.move_to_end(key)
+            for dst, src in zip(_leaves(g.carry) + _leaves(g.args),
                                 _leaves(carry) + _leaves(args)):
                 if src is not dst:
                     dst.copy_(src)
         try:
-            self._graph.replay()
+            g.graph.replay()
         except RuntimeError as exc:
             raise GraphCaptureError(
                 f"replay of the captured step failed: {exc}") from exc
         CapturedStep.replays += 1
-        if any(self._delta):
-            _set_counts([c + d for c, d in zip(_counts(), self._delta)])
-        return self._carry, self._out
+        g.replays += 1
+        if any(g.delta):
+            _set_counts([c + d for c, d in zip(_counts(), g.delta)])
+        return g.carry, g.out
 
-    def _capture(self, carry, args, watched, key) -> None:
-        self._drop()
+    def _capture(self, carry, args, key) -> _Graph:
+        while len(self._graphs) >= MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        with capture_lock:
+            return self._capture_locked(carry, args, key)
+
+    def _capture_locked(self, carry, args, key) -> _Graph:
         t0 = time.perf_counter()
+        reserved0 = torch.cuda.memory_reserved(self.device)
         s_carry = _map(torch.clone, carry)
         s_args = _map(torch.clone, args)
         current = torch.cuda.current_stream(self.device)
@@ -193,8 +243,12 @@ class CapturedStep:
             after = _counts()
             _set_counts(before)
         torch.cuda.synchronize(self.device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self._delta = [a - b for a, b in zip(after, before)]
-        self._graph, self._key, self._watched = graph, key, watched
-        self._carry, self._args, self._out = s_carry, s_args, out
+        g = _Graph()
+        g.graph, g.carry, g.args, g.out = graph, s_carry, s_args, out
+        g.delta = [a - b for a, b in zip(after, before)]
+        g.capture_ms = self.capture_ms = (time.perf_counter() - t0) * 1e3
+        g.reserved = torch.cuda.memory_reserved(self.device) - reserved0
+        g.replays = 0
+        self._graphs[key] = g
         CapturedStep.captures += 1
+        return g

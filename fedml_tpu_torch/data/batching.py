@@ -48,6 +48,33 @@ class FederatedArrays:
         return self.x.device
 
 
+@dataclasses.dataclass
+class WindowBatch:
+    """W rounds' cohorts stacked on a leading round dim: the superbatch
+    that the windowed tier moves in one host-to-device copy per field
+    (``data.store.FederatedStore.gather_window`` builds it). Round ``w``'s
+    slice is the ``FederatedArrays`` that the host loop would have
+    gathered for that round, at the window's step bucket."""
+
+    x: torch.Tensor  # [W, C, S, B, ...]
+    y: torch.Tensor  # [W, C, S, B] int64 labels
+    mask: torch.Tensor  # [W, C, S, B] float32
+    counts: torch.Tensor  # [W, C] int32 true sample counts
+
+    @property
+    def num_rounds(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_clients(self) -> int:
+        return self.x.shape[1]
+
+    def round_arrays(self, w: int) -> FederatedArrays:
+        """One round's cohort as a ``FederatedArrays`` (views)."""
+        return FederatedArrays(x=self.x[w], y=self.y[w], mask=self.mask[w],
+                               counts=self.counts[w])
+
+
 def build_federated_arrays(x: np.ndarray, y: np.ndarray,
                            client_indices: Dict[int, np.ndarray],
                            batch_size: int, max_steps: Optional[int] = None,

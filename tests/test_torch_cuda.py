@@ -1823,3 +1823,171 @@ def test_rollout_rollback_is_bit_equal_on_the_card(cuda, tmp_path):
     assert co2.live_version == 0 and co2.prev_version == 1
     assert np.array_equal(mgr2._vec(mgr2.live_adapters()), before)
     co2.close()
+
+
+# --- the host-resident client store and the windowed tier -------------------
+
+def _power_law_store_data(counts=(130, 17, 0, 30, 12, 25, 8, 21, 3, 0, 64,
+                                  5), shape=(28, 28, 1), seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tot = int(sum(counts))
+    x = rng.rand(tot, *shape).astype(np.float32)
+    y = rng.randint(0, 10, tot).astype(np.int32)
+    edges = np.concatenate([[0], np.cumsum(counts)])
+    return x, y, {c: np.arange(edges[c], edges[c + 1])
+                  for c in range(len(counts))}
+
+
+def _same_fields(a, b):
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("x", "y", "mask", "counts"))
+
+
+def test_pinned_store_gathers_equal_the_cpu_store(cuda):
+    """The store on the card (pinned host buffers filled in place, copies
+    on a copy stream the consumer waits on) gathers byte-equal to the CPU
+    store: cohorts, windows (twice at one shape: the staging buffers are
+    reused after their copy completed, and the first window keeps its
+    bytes) and both prefetchers; a sharded memmapped store too."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.directory import ShardedFederatedStore
+    from fedml_tpu_torch.data.store import (CohortPrefetcher,
+                                            FederatedStore, WindowPrefetcher)
+
+    x, y, parts = _power_law_store_data()
+    gpu = FederatedStore(x, y, parts, 8, device=cuda)
+    cpu = FederatedStore(x, y, parts, 8, device="cpu")
+    for idx in ([0, 1, 2], [2, 9], [4, 4, 7, 4], [5, 11]):
+        got = gpu.gather_cohort(idx)
+        assert got.x.is_cuda and _same_fields(got, cpu.gather_cohort(idx))
+    w1 = np.array([[0, 1, 2], [3, 4, 5]])
+    w2 = np.array([[6, 7, 8], [10, 11, 1]])
+    first = gpu.gather_window(w1, 32)
+    keep = first.x.clone()
+    second = gpu.gather_window(w2, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(first.x, keep)
+    assert _same_fields(first, cpu.gather_window(w1, 32))
+    assert _same_fields(second, cpu.gather_window(w2, 32))
+    pf, wpf = CohortPrefetcher(gpu), WindowPrefetcher(gpu)
+    pf.prefetch(3, [3, 4, 10])
+    wpf.prefetch(1, w2, 32)
+    assert _same_fields(pf.get(3, [3, 4, 10]), cpu.gather_cohort([3, 4, 10]))
+    assert _same_fields(wpf.get(1, w2, 32), cpu.gather_window(w2, 32))
+    sh = ShardedFederatedStore.from_flat(x, y, parts, 8, num_shards=5,
+                                         device=cuda)
+    assert _same_fields(sh.gather_window(w1, 32), cpu.gather_window(w1, 32))
+
+
+def _store_api(cuda, cls=None, **kw):
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.models import create_model
+
+    x, y, parts = _power_law_store_data()
+    cfg = FedConfig(client_num_in_total=12, client_num_per_round=4,
+                    comm_round=100, epochs=1, batch_size=4, lr=0.05,
+                    **{k: kw.pop(k) for k in list(kw)
+                       if k in FedConfig.__dataclass_fields__})
+    model = create_model("cnn", num_classes=10, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    return (cls or FedAvgAPI)(model, FederatedStore(x, y, parts, 4,
+                                                    device=cuda),
+                              None, cfg, device=cuda, **kw)
+
+
+@pytest.mark.parametrize("name", ["FedAvgAPI", "ScaffoldAPI", "FedOptAPI"])
+def test_windowed_rounds_equal_the_synced_loop_on_the_card(cuda, name):
+    """8 captured windowed rounds (W 3: two windows at their largest
+    bucket and two remainder rounds) bit-equal to 8 replayed synced
+    rounds from a store, params and carry, under cuDNN's deterministic
+    mode (f32 convolutions)."""
+    from fedml_tpu_torch import algos
+
+    cls = getattr(algos, name)
+    kw = dict(server_optimizer="adam", server_lr=0.01) \
+        if name == "FedOptAPI" else {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        host, win = _store_api(cuda, cls, **kw), _store_api(cuda, cls, **kw)
+        want = [host.train_one_round(r)["train_loss"] for r in range(8)]
+        got = win.train_rounds_windowed(8, window=3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(v == v for v in got)
+    for a, b in zip(_state_leaves(host), _state_leaves(win)):
+        assert torch.equal(a, b)
+    assert win._window_stats["host_rounds"] == 2
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-5
+
+
+def _state_leaves(api):
+    from fedml_tpu_torch.core.graph import _leaves
+
+    return _leaves(api.net.params) + _leaves(api._window_carry_init())
+
+
+def test_alternating_buckets_capture_once_each(cuda):
+    """8 rounds whose cohorts alternate between two step buckets capture
+    one graph per bucket and replay it after: no capture after a bucket's
+    first, each graph's pool its own."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    api = _store_api(cuda)
+    small, big = [1, 4, 5, 7], [0, 1, 4, 5]  # buckets 8 and 64 at batch 4
+    assert api.train_fed.cohort_steps(small) != \
+        api.train_fed.cohort_steps(big)
+    api.sample_round = lambda r: np.asarray(big if r % 2 else small)
+    c0 = CapturedStep.captures
+    losses = [api.train_one_round(r)["train_loss"] for r in range(8)]
+    step = api._graphs["fused_store"]
+    stats = step.graph_stats()
+    assert CapturedStep.captures - c0 == 2 == len(stats)
+    assert sorted(g["replays"] for g in stats) == [4, 4]
+    assert all(g["capture_ms"] > 0 for g in stats)
+    assert all(v == v for v in losses)
+
+
+def test_a_capture_while_a_prefetch_is_in_flight_succeeds(cuda):
+    """A window's gather and copy run on the prefetcher's worker while the
+    main thread captures a new bucket's round: the capture waits out the
+    worker's device work (``core.graph.capture_lock``), succeeds, and the
+    prefetched window equals a direct gather."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.store import FederatedStore, WindowPrefetcher
+
+    x, y, parts = _power_law_store_data(counts=(600,) * 40)
+    big = FederatedStore(x, y, parts, 4, device=cuda)
+    pf = WindowPrefetcher(big)
+    idx2d = np.arange(40).reshape(4, 10)
+    pf.prefetch(0, idx2d, 256)  # ~100 MB of host gather and copy
+    api = _store_api(cuda)
+    loss = api.train_one_round(0)["train_loss"]  # the first capture
+    got = pf.get(0, idx2d, 256)
+    assert loss == loss
+    assert _same_fields(got, big.gather_window(idx2d, 256))
+
+
+def test_a_worker_failure_surfaces_in_get(cuda):
+    """A failing window gather on the worker raises in ``get`` on the main
+    thread, and the prefetcher serves the next window."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.store import FederatedStore, WindowPrefetcher
+
+    x, y, parts = _power_law_store_data()
+    store = FederatedStore(x, y, parts, 8, device=cuda)
+    pf = WindowPrefetcher(store)
+    bad = np.array([[0, 1], [2, 3]])
+    pf.prefetch(0, bad, 1)
+    with pytest.raises(ValueError, match="forced steps 1 < cohort need"):
+        pf.get(0, bad, 1)
+    good = np.array([[3, 4], [5, 6]])
+    pf.prefetch(1, good, 8)
+    assert _same_fields(pf.get(1, good, 8), store.gather_window(good, 8))

@@ -625,22 +625,31 @@ def _pair_small(cls):
 
 @pytest.mark.parametrize("cls", CUSTOM)
 def test_on_device_and_windowed_tiers_refuse_with_the_record(cls):
-    """The record of a "custom" class rides the fused tiers only: the
-    on-device tier refuses with the record's reason (JAX's text for the
-    custom protocol), the windowed tier cites A5; the checkpoint hooks
-    give the run state back through ``load_checkpoint_extra_state``
+    """The record of a "custom" class rides the fused and windowed tiers:
+    the on-device tier refuses with the record's reason (JAX's text for
+    the custom protocol), the windowed tier refuses the resident layout
+    with JAX's reason (it streams from a store: ``tests/
+    test_torch_windowed.py`` pins it there); the checkpoint hooks give
+    the run state back through ``load_checkpoint_extra_state``
     (``tests/test_torch_checkpoint.py`` pins the resume)."""
+    from fedml_tpu.algos import capability as jax_capability
+
+    jcls = {c: j for c, j, _ in _ALGOS.values()}[cls]
     api = _pair_small(cls)
     rec = api.capability()
     assert rec.protocol == "custom" and rec.custom_step
-    assert rec.fused and not rec.on_device
+    assert rec.fused and rec.windowed and not rec.on_device
+    assert rec.windowed == jax_capability.record_for(jcls).windowed
     with pytest.raises(NotImplementedError) as exc:
         api.train_rounds_on_device(1)
-    assert str(exc.value) == refusal(cls, "train_rounds_on_device")
+    assert str(exc.value) == refusal(cls, "train_rounds_on_device") == \
+        jax_capability.refusal(jcls, "train_rounds_on_device")
     assert ("carries client-stacked state through a custom scan body; the "
             "on-device scan serves 'round'-protocol algorithms") in str(
                 exc.value)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError,
+                       match="windowed execution streams window "
+                       "superbatches from a FederatedStore"):
         api.train_rounds_windowed(1)
     extra = api.checkpoint_extra_state()
     assert extra
@@ -681,8 +690,10 @@ def test_corrected_sgd_refusals_match_jax(cls, jcls, case):
 def test_other_refusals():
     """FedBN refuses a norm-free model and ``nan_guard`` (with JAX's
     words); FedDyn an alpha ≤ 0; every custom class a non-mean
-    aggregator (its step keeps its own aggregation), a mesh (A11) and a
-    streaming store (A9)."""
+    aggregator (its step keeps its own aggregation) and a mesh (A11). A
+    streaming store is taken, as JAX takes it (Ditto's round from one
+    equals its resident round), and a ``train_fed`` that is neither
+    layout is refused by the round."""
     got, want = _refusal_text(JaxFedBNAPI, FedBNAPI)
     assert got == want and "normalization layers" in got
     with pytest.raises(ValueError, match="alpha must be > 0"):
@@ -694,9 +705,17 @@ def test_other_refusals():
             _lr_api(cls, aggregator="krum1")
         with pytest.raises(NotImplementedError, match="A11"):
             _lr_api(cls, mesh=object())
+    from fedml_tpu_torch.data.store import FederatedStore
+
+    x, y, parts = _replicated_task(seed=2)
+    streamed = _lr_api(DittoAPI)
+    streamed.train_fed = FederatedStore(x, y, parts, 4, device="cpu")
+    resident = _lr_api(DittoAPI)
+    assert streamed.train_one_round(0) == resident.train_one_round(0)
+    _assert_nets_equal(streamed.net, resident.net)
     api = _lr_api(DittoAPI)
     api.train_fed = object()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="object.*FederatedStore"):
         api.train_one_round(0)
     with pytest.raises(ValueError, match="nan_guard"):
         _pair_small_nan_guard()

@@ -246,7 +246,9 @@ def test_constructor_refusals(kw, err, match):
 def test_unported_tiers_and_checkpoints_raise_by_name():
     api = FedAdapterAPI(_model(), _fed(), None, _cfg(), loss_fn=LOSS,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="train_rounds_windowed"):
+    with pytest.raises(NotImplementedError,
+                       match="windowed execution streams window "
+                       "superbatches from a FederatedStore"):
         api.train_rounds_windowed(2)
     # Checkpoints are ported: a never-personalized run has no run state
     # to save and allocates no store (tests/test_torch_checkpoint.py).

@@ -231,18 +231,22 @@ _CLASSES = {"FedNAS": (FedNASAPI, JaxFedNASAPI),
 def test_capability_records_match_the_support_matrix(name):
     """Each class's record against JAX's and the matrix of
     ``docs/EXECUTION.md``: the "round" protocol, the fused, pipelined and
-    on-device tiers, the carry word for word; the windowed tier refused
-    citing A5."""
+    on-device tiers, the carry word for word; the windowed tier theirs by
+    inheritance (over a store), refusing the resident layout with JAX's
+    reason."""
     cls, jcls = _CLASSES[name]
     rec, jrec = record_for(cls), jax_capability.record_for(jcls)
     assert rec.protocol == jrec.protocol == "round"
     assert rec.fused == jrec.fused == jrec.pipelined is True
     assert rec.on_device == jrec.on_device is True
+    assert rec.windowed == jrec.windowed is True
     carry = getattr(jcls, "window_carry", "—")
     assert getattr(cls, "window_carry", "—") == carry
     with open(os.path.join(REPO, "docs", "EXECUTION.md")) as f:
         assert f"| {name} | round | {carry} | ✓ | ✓ | ✓ | ✓ |" in f.read()
     assert refusal(cls, "train_one_round").startswith(cls.__name__)
     if name == "FedNAS":
-        with pytest.raises(NotImplementedError, match="A5"):
+        with pytest.raises(NotImplementedError,
+                           match="windowed execution streams window "
+                           "superbatches from a FederatedStore"):
             _api().train_rounds_windowed(2)

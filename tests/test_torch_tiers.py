@@ -222,23 +222,60 @@ def test_tiers_refuse_a_server_update_without_its_pure_form(cls, match):
 
 
 def test_tiers_refuse_a_streaming_store_by_name():
-    """A store in place of resident ``FederatedArrays`` is refused at
-    construction and, when ``api.train_fed`` is replaced later, by every
-    tier, citing ROADMAP.md A9; the windowed tier cites A5."""
+    """Where the JAX package takes a ``FederatedStore`` the port takes
+    one: at construction, and on ``train_one_round`` and
+    ``train_rounds_pipelined``, whose rounds equal the resident ones
+    bit for bit. Where JAX refuses it the port refuses it with JAX's
+    words: ``train_rounds_on_device`` over a store, and
+    ``train_rounds_windowed`` over the resident layout. A ``train_fed``
+    that is neither layout is refused at construction and, when
+    ``api.train_fed`` is replaced later, by every tier."""
+    from fedml_tpu.data.store import FederatedStore as JaxFederatedStore
+    from fedml_tpu.models.lr import LogisticRegression
+    from fedml_tpu_torch.data.store import FederatedStore
+
+    x, y, parts = _task()
+    resident = _api()
+    streamed = _api(fed=FederatedStore(x, y, parts, 4, device="cpu"))
+    assert streamed.train_rounds_pipelined(2) == \
+        resident.train_rounds_pipelined(2)
+    for k in resident.net.params:
+        assert torch.equal(resident.net.params[k], streamed.net.params[k])
+    assert streamed.train_one_round(2)["round"] == 2
+    jcfg = JaxFedConfig(client_num_in_total=6, client_num_per_round=3,
+                        epochs=1, batch_size=4)
+    jstreamed = JaxFedAvgAPI(LogisticRegression(num_classes=4),
+                             JaxFederatedStore(x, y, parts, 4), None, jcfg)
+    jresident = JaxFedAvgAPI(LogisticRegression(num_classes=4),
+                             jax_batching.build_federated_arrays(x, y,
+                                                                 parts, 4),
+                             None, jcfg)
+    for port, jax_api, tier in ((streamed, jstreamed,
+                                 "train_rounds_on_device"),
+                                (resident, jresident,
+                                 "train_rounds_windowed")):
+        with pytest.raises(NotImplementedError) as jexc:
+            getattr(jax_api, tier)(2)
+        with pytest.raises(NotImplementedError) as exc:
+            getattr(port, tier)(2)
+        assert str(exc.value) == str(jexc.value)
+
     class _Store:
         pass
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(AttributeError):  # JAX: no batch_size to check
+        JaxFedAvgAPI(LogisticRegression(num_classes=4), _Store(), None,
+                     jcfg)
+    with pytest.raises(TypeError, match="_Store"):
         _api(fed=_Store())
     api = _api()
     api.train_fed = _Store()
     for tier in (lambda: api.train_one_round(0),
                  lambda: api.train_rounds_pipelined(2),
-                 lambda: api.train_rounds_on_device(2)):
-        with pytest.raises(NotImplementedError, match="_Store.*A9"):
+                 lambda: api.train_rounds_on_device(2),
+                 lambda: api.train_rounds_windowed(2)):
+        with pytest.raises(TypeError, match="_Store.*FederatedStore"):
             tier()
-    with pytest.raises(NotImplementedError, match="A5"):
-        api.train_rounds_windowed(2)
 
 
 def test_gather_clients_takes_a_device_index_tensor_as_it_is():

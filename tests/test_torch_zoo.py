@@ -669,8 +669,10 @@ def test_hierarchical_spans_and_empty_round():
 def test_hierarchical_refusals(field, val, match):
     """krum and the geometric median are refused with JAX's reason;
     ``group_reduce`` is refused (the port's A11); a bad
-    ``group_comm_round`` or ``group_ids`` is refused; a store is refused
-    citing A9."""
+    ``group_comm_round`` or ``group_ids`` is refused; a store is taken,
+    as JAX takes it (its group cohorts stream from the host, its round
+    bit-equal to the resident one), and a ``train_fed`` that is neither
+    layout is refused."""
     etype = ValueError if field == "group_comm_round" else \
         NotImplementedError
     with pytest.raises(etype, match=match):
@@ -679,11 +681,22 @@ def test_hierarchical_refusals(field, val, match):
     with pytest.raises(ValueError, match="one entry per client"):
         _lr_api(HierarchicalFedAvgAPI, group_ids=np.zeros(5, int))
 
+    from fedml_tpu_torch.data.store import FederatedStore
+
     class _Store:
         pass
 
     x, y, parts = _replicated_task()
-    with pytest.raises(NotImplementedError, match="A9"):
+    groups = np.arange(6) % 2
+    streamed, resident = (
+        HierarchicalFedAvgAPI(_lr_model(), fed, None, FedConfig(**_cfg()),
+                              group_ids=groups, device="cpu")
+        for fed in (FederatedStore(x, y, parts, 4, device="cpu"),
+                    build_federated_arrays(x, y, parts, 4, device="cpu")))
+    assert streamed.train_one_round(0) == resident.train_one_round(0)
+    for k, v in resident.net.params.items():
+        assert torch.equal(streamed.net.params[k], v)
+    with pytest.raises(TypeError, match="_Store"):
         HierarchicalFedAvgAPI(_lr_model(), _Store(), None,
                               FedConfig(**_cfg()),
                               group_ids=np.zeros(6, int), device="cpu")
