@@ -73,14 +73,15 @@ Phases, each of which must pass or the script exits non-zero:
              procedure), which tallies the forward's shapes; (a) from one
              start, key and cohort, the captured fused round
              (train_one_round, whose first call captures a CUDA graph)
-             held to the eager round within the spread of two eager rounds
-             (bit-equal when they are); 3 timed train_one_round rounds,
+             held to one eager round, bit-equal; 3 timed train_one_round
+             rounds,
              replayed, with the GroupNorm launch counts zeroed just before
              and read just after (58 forward, 58 backward and 58 reduce
              launches per local step, no forward streamed), and 3
              train_rounds_pipelined rounds timed together; (b) a warm
-             train_rounds_on_device(3) call, which captures, held to 3
-             eager host-loop rounds fed the same on-device cohorts, then 3
+             train_rounds_on_device(3) call, which captures, held to one
+             loop of 3 eager host-loop rounds fed the same on-device
+             cohorts (bit-equal), then 3
              timed calls (bench.py's timing), counted the same way. From
              one start, the kernel path against the plain GroupNorm twin:
              one local step in f32 and in bf16, and one round in f32 at lr
@@ -90,32 +91,66 @@ Phases, each of which must pass or the script exits non-zero:
              the device busy time and idle share; the latter the device
              time by kernel, and shows, by name, that every forward ran on
              the cluster kernel.
-5. algos   — the algorithms on FedAvg's round at the train phase's
+5. obs     — the observability layer on the main paths, and FedAvg
+             over StackOverflow-NWP at reference scale. (a) model_cost of
+             resnet56 bf16 (the GroupNorm kernels), the FEMNIST cnn, the
+             vit of vit_cifar_shaped (the f32 flash kernels) and
+             transformer_lm at d_model 512, 8 heads, 4 layers, bf16, T
+             2048 (the bf16 flash forward), each against a count by hand
+             within [1, 1.35] x, and counted again without its kernel's
+             flop formula (the difference equal to the formula's count by
+             hand, the kernel launched both times); (b) on the train
+             phase's api: RoundTimer around 8 fenced on-device rounds,
+             each phase within 5% or 1 ms of CUDA events around it, and
+             trace() around 2 rounds, its Chrome trace naming
+             gn_fwd_kernel, gn_bwd_kernel and gn_reduce_kernel 464 times a
+             round each; (c) 4 pipelined rounds in a strict sanitized()
+             region (no capture, no implicit host sync) under (d) the
+             donation audit, its peak within 0.25 of its baseline, and a
+             .item() in a region that must raise; (e) bench.py's
+             stackoverflow_342k, nothing cut: 342,477 clients'
+             make_stackoverflow_nwp in a FederatedStore, FedAvg over
+             RNNStackOverflow (embed 96, LSTM 670, vocab 10,004), 50 a
+             round, batch 16, lr 10^-0.5: every step bucket warmed (the
+             last in a strict region, which must raise SanitizerError),
+             4 synced and 4 windowed rounds from one start bit-equal,
+             round 0's loss within 0.5 of ln 10004, 16 synced and 16
+             windowed rounds (W 8) timed in strict regions, the host
+             gather, the RSS and the store's MB; (f) bench.py's
+             synthetic_1m: 1,048,576 clients in 64 memmapped shards
+             (make_stackoverflow_shard, seed 10,000 + s) in a temporary
+             directory, removed after, 16 synced rounds, rps_vs_342k and
+             peak_rss_ratio against (e). The store phase holds (c) on its
+             warm loops too: the FEMNIST-3400 synced and windowed loops
+             and FedOpt and SCAFFOLD windowed, each again in a strict
+             region.
+6. algos   — the algorithms on FedAvg's round at the train phase's
              configuration, every pin (a) and (b) from one eager run and
              bit-equal: FedOptAPI adam (server lr 0.05): (a) with the
              server optimizer state held too, (b) with the carried step
              count advanced by the rounds, and 3 timed
-             train_rounds_on_device(3) calls (the api is kept for ckpt);
-             FedProxAPI (mu 0.01): (a) and 3 replayed rounds;
+             train_rounds_on_device(2) calls (the api is kept for ckpt);
+             FedProxAPI (mu 0.01): (a) and 2 replayed rounds;
              FedAvgRobustAPI (norm bound 5, the
              scale drill on one adversary forced into every round) with
-             coord_median ((a) and 3 replayed rounds), trimmed_mean0.2,
+             coord_median ((a) and 2 replayed rounds), trimmed_mean0.2,
              krum1 and geometric_median8 (each (a)), one profiled replayed
              round each, and each aggregator's device ms as the launches
              its round has beyond a mean round's (same clip and drill) at
              each kernel's mean time; FedNovaAPI on partition_dirichlet(
              alpha 0.5) of the same samples (gamma must change per round):
-             train_rounds_pipelined(3) against one loop of 3 eager
-             rounds, then 3 counted replayed rounds, and
+             train_rounds_pipelined(2) against one loop of 2 eager
+             rounds, then 2 counted replayed rounds, and
              train_rounds_on_device refused with its capability record's
              message. The GroupNorm launches are counted under replay (58
              per local step each) and added to the kernels line.
-6. custom  — the "custom" carry protocol at the same configuration:
+7. custom  — the "custom" carry protocol at the same configuration:
              FedAvgAPI's replayed rounds as the call's baseline (kept for
              the zoo phase; SCAFFOLD's api kept for ckpt), then
              ScaffoldAPI (server lr 1), FedDynAPI (alpha 0.01), DittoAPI
              (lambda 0.1) and FedBNAPI, each with (a) against its
-             published step run uncaptured and 3 counted replayed rounds;
+             published step run uncaptured once (bit-equal) and 3
+             counted replayed rounds;
              SCAFFOLD and FedDyn also 3 train_rounds_pipelined rounds
              bit-equal to the replayed ones from one start, and the server
              state equal to the mean of the client stack; Ditto's global
@@ -129,20 +164,20 @@ Phases, each of which must pass or the script exits non-zero:
              its replayed round ms and samples/s beside FedAvg's, the
              capture ms, the peak memory and the card's name and power
              limit. No GroupNorm operand copied.
-7. zoo     — the rest of the FedAvg-round family at the same
+8. zoo     — the rest of the FedAvg-round family at the same
              configuration: the custom phase's FedAvg replayed rounds and
              the train phase's on-device rounds as the call's baseline;
              FedAcAPI (gamma 2) and ServerAvgAPI (beta 0.5), each (a) and
-             (b) from one eager run (bit-equal) and 3 timed
-             train_rounds_on_device(3) calls, FedAc at gamma 1 (an eager
+             (b) (one round) from one eager run (bit-equal) and 3 timed
+             train_rounds_on_device(2) calls, FedAc at gamma 1 (an eager
              round) within 1e-6 of FedAvg's round and ServerAvg at beta 0
              bit-equal to FedAvg's after 3 rounds; QFedAvgAPI (q 1): (a)
-             from one eager round, 3 counted
+             from one eager round, 2 counted
              replayed rounds and the on-device tier with 928 GroupNorm
              forwards against 464 backwards a round (F_global's forward-
              only pass), F_global against an eager loss of the broadcast
              net; HierarchicalFedAvgAPI (groups client % 4, 2 inner
-             rounds): 3 timed rounds over captured group steps (one per
+             rounds): 2 timed rounds over captured group steps (one per
              padded size, none captured while timed), one group against
              FedAvg's round, a coord_median round, krum refused, the
              pipelined and on-device tiers refused with the record's
@@ -151,13 +186,13 @@ Phases, each of which must pass or the script exits non-zero:
              aggregate against the f64 weighted mean of the same client
              stack (and with a client dropped); DecentralizedAPI dsgd and
              pushsum over the first 32 clients: (a) against the eager
-             gossip round, 3 counted replayed rounds with the clients'
+             gossip round, 2 counted replayed rounds with the clients'
              spread around the consensus net, the push weights' sum, and
-             train_rounds_pipelined(3) and train_rounds_on_device(3)
+             train_rounds_pipelined(2) and train_rounds_on_device(2)
              bit-equal to them from one start. A line per class beside
              FedAvg's with the capture, the peak memory, the GroupNorm
              launches a round and the card's name and power limit.
-8. split   — the model-split family at full width on the same data (128
+9. split   — the model-split family at full width on the same data (128
              clients x 256 samples, batch 32, 1 local epoch, lr 0.1), f32:
              FedGKTAPI over resnet5_56 + resnet56_server (T 3, server
              Adam lr 1e-3): (a) the captured client phase against two
@@ -166,8 +201,8 @@ Phases, each of which must pass or the script exits non-zero:
              server steps against the eager step (tail, Adam state with
              its count, loss sums), a warm round that captures the
              relabel step, (c) round 1's client loss with the teacher
-             against the same replay with have_teacher forced to 0, and 2
-             timed rounds split into client phase, server phase and
+             against the same replay with have_teacher forced to 0, and 1
+             timed round split into client phase, server phase and
              relabel by CUDA events, with the GroupNorm launches counted
              against the models' reckoning (116,784 forwards and 58,392
              backwards a round), none captured, none streamed;
@@ -179,7 +214,7 @@ Phases, each of which must pass or the script exits non-zero:
              features, 1,280 samples, batch 64, 5 epochs): per-batch
              losses within 1e-5 relative of its own CPU run from the same
              params, the accuracy risen.
-9. extra   — the rest of the simulator zoo (exp/main_extra.py) at full
+10. extra  — the rest of the simulator zoo (exp/main_extra.py) at full
              model width, f32: FedNASAPI over the DARTS search net (c 16,
              8 layers, 4 steps, multiplier 4; 705 GroupNorms a forward) on
              32 x 32 x 3, 16 clients x 128 samples, batch 32, 8 a round:
@@ -187,7 +222,7 @@ Phases, each of which must pass or the script exits non-zero:
              start under cuDNN's deterministic mode, bit-equal, at 3
              layers (the cut of the host's work: a normal cell and both
              reductions); the full net captured once by
-             train_rounds_on_device, 2 replayed on-device rounds by CUDA
+             train_rounds_on_device, 1 replayed on-device round by CUDA
              events with the GroupNorm launches counted against the
              model's reckoning, the genotype; the unrolled arch gradient
              through the kernels against the plain twin's (and the
@@ -202,7 +237,7 @@ Phases, each of which must pass or the script exits non-zero:
              over the MNIST GAN (latent 100, LayerNorm), 16 clients x 640,
              batch 64, 8 a round: (a), a replayed round, one on-device
              round, generate(16) in [-1, 1].
-10. models — the model zoo's first half. FedAvgAPI over resnet18_gn at
+11. models — the model zoo's first half. FedAvgAPI over resnet18_gn at
              fed_cifar100's config (500 clients x 100 random 32 x 32 x 3
              samples, 100 classes, 10 a round, batch 20, 1 epoch, sgd lr
              0.1), built on the card by default: (a) bit-equal under
@@ -220,7 +255,7 @@ Phases, each of which must pass or the script exits non-zero:
              batch 4, lr 1.0, pad id -1): each (a) and 2 replayed rounds.
              The GroupNorm kernels' holds and times at ResNet-18-GN's f32
              shapes run in the kernels phase.
-11. adapter — the FedAdapter training path at full width: FedAdapterAPI
+12. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -239,7 +274,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-12. vit    — FedAvgAPI over the ViT (bench.py's vit_cifar_shaped:
+13. vit    — FedAvgAPI over the ViT (bench.py's vit_cifar_shaped:
              patch 4, d_model 128, 4 heads, 4 layers, f32, 64 clients x
              256 CIFAR-shaped class-conditional samples, batch 32, 8 a
              round, sgd lr 0.01) with the f32 flash kernels as its
@@ -248,14 +283,14 @@ Phases, each of which must pass or the script exits non-zero:
              timed on-device calls (32 launches of each flash kernel a
              round, one for all 8 clients), the replays' training loss
              falling, a profiled round showing the FMA kernels by name.
-13. ckpt   — run checkpoints at full width, each resume bit-equal to
+14. ckpt   — run checkpoints at full width, each resume bit-equal to
              the straight run, restored into a fresh api and into the
              captured one: FedAdam (the algos phase's api) on
              train_rounds_on_device and on train_one_round, SCAFFOLD (the
              custom phase's; its control stack) and FedAdapter (the
              adapter phase's, a personalized cohort in its store); the
              save, snapshot and restore ms and the bytes written.
-14. store  — the host-resident client store and the windowed tier. (a)
+15. store  — the host-resident client store and the windowed tier. (a)
              bench.py's FEMNIST-3400 streaming configuration, nothing cut:
              the cnn over 3,400 writers (lognormal counts and U[0, 1)
              samples from seed 0), 10 a round, batch 20, lr 0.1, in three
@@ -282,7 +317,7 @@ Phases, each of which must pass or the script exits non-zero:
              window=4) bit-equal to the resident pipelined rounds, 16
              launches of each flash kernel a round, no copy, the base
              frozen.
-15. report — each phase's seconds, a ``kernels`` JSON line (each flash
+16. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -457,7 +492,7 @@ ADAPTER_BF16_FACTOR, ADAPTER_BF16_SLACK = 1.5, 1e-2
 ALGO_SERVER_LR, ALGO_PROX_MU, ALGO_NORM_BOUND = 0.05, 0.01, 5.0
 ALGO_AGGREGATORS = ("coord_median", "trimmed_mean0.2", "krum1",
                     "geometric_median8")
-NOVA_ALPHA, ALGO_ROUNDS = 0.5, 3
+NOVA_ALPHA, ALGO_ROUNDS = 0.5, 2
 # The "custom"-protocol algorithms at the JAX package's defaults: FedDyn's
 # alpha and Ditto's lambda (SCAFFOLD runs at server lr 1).
 CUSTOM_ALPHA, CUSTOM_LAM = 0.01, 0.1
@@ -472,14 +507,14 @@ CUSTOM_ALPHA, CUSTOM_LAM = 0.01, 0.1
 # one client's forward).
 ZOO_FEDAC_GAMMA, ZOO_SAVG_BETA, ZOO_Q = 2.0, 0.5, 1.0
 ZOO_GROUPS, ZOO_GROUP_ROUNDS, ZOO_TA_GROUPS = 4, 2, 3
-ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 32, 3, 2
+ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 32, 2, 1
 ZOO_REL_TOL, ZOO_FGLOBAL_TOL = 1e-6, 1e-2
 # The model-split family at the JAX package's defaults (temperature 3,
 # server Adam lr 1e-3, one server epoch) on the training data; pin (b)'s
 # server steps; VFL at the NUS-WIDE shape of load_two_party_nus_wide
 # (634 + 1000 features), its CPU run's per-batch losses within VFL_TOL
 # relative.
-GKT_T, GKT_SERVER_LR, GKT_PIN_STEPS = 3.0, 1e-3, 16
+GKT_T, GKT_SERVER_LR, GKT_PIN_STEPS, GKT_TIMED = 3.0, 1e-3, 16, 1
 VFL_DIMS, VFL_N, VFL_BATCH, VFL_REP, VFL_EPOCHS = (634, 1000), 1280, 64, 32, 5
 VFL_LR, VFL_TOL = 0.01, 1e-5
 # The rest of the simulator zoo (exp/main_extra.py's algorithms), each at
@@ -514,7 +549,7 @@ VFL_LR, VFL_TOL = 0.01, 1e-5
 NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 64, 32, 8
 NAS_LR, NAS_ARCH_LR, NAS_XI, NAS_UNROLLED_PER_ROUND = 0.025, 3e-4, 0.025, 2
 NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS = 64, 3
-NAS_GN, NAS_GRAD2_TOL = 705, 3e-2
+NAS_GN, NAS_GRAD2_TOL, NAS_REPLAYS = 705, 3e-2, 1
 # FedSeg: UNet (21 classes, base 16, 3 levels: 14 GroupNorms a forward) on
 # 256 x 256 x 3 with 10% of the label pixels 255 (ignored), 16 clients x
 # 32 samples, batch 8, 8 a round, lr 0.01; evaluate on 64 test images.
@@ -586,6 +621,34 @@ ZOO_STORE = (("FedOpt", "cnn", 600, 1, 0.1), ("FedNova", "lr", 300, 2, 0.1),
 # The flagship and FedAdapter from a store: windows of 8 and 4.
 FLAGSHIP_STORE_ROUNDS, FLAGSHIP_WINDOW = 16, 8
 ADAPTER_STORE_ROUNDS, ADAPTER_WINDOW = 8, 4
+
+# The obs phase. (a) model_cost at OBS_COST_BATCH samples (the LM at
+# OBS_LM_BATCH sequences of T 2048), held to a count by hand within
+# analytic <= got <= OBS_COST_BAND x analytic (tests/test_obs.py's band).
+# (b) RoundTimer around OBS_TIMER_ROUNDS fenced on-device flagship rounds,
+# each phase within OBS_TIMER_REL or OBS_TIMER_MS of its CUDA events; the
+# profiler's trace around OBS_TRACE_ROUNDS. (c)/(d) OBS_SAN_ROUNDS
+# pipelined flagship rounds in a strict sanitized() region under the
+# donation audit, its peak within OBS_AUDIT_SLACK of the baseline.
+OBS_COST_BATCH, OBS_LM_BATCH, OBS_COST_BAND = 8, 2, 1.35
+OBS_TIMER_ROUNDS, OBS_TRACE_ROUNDS, OBS_SAN_ROUNDS = 8, 2, 4
+OBS_TIMER_REL, OBS_TIMER_MS, OBS_AUDIT_SLACK = 0.05, 1.0, 0.25
+# (e) bench.py's stackoverflow_342k (bench.py:1960-1986), nothing cut:
+# make_stackoverflow_nwp(342,477, T 20, vocab 10,004) in a FederatedStore,
+# FedAvg over RNNStackOverflow (embed 96, LSTM 670), 50 clients a round,
+# batch 16, sgd lr 10^-0.5, seq_softmax_ce at pad id 0. The pin: SO_PIN
+# rounds synced against SO_PIN windowed from one start, bit-equal; then
+# SO_TIMED rounds of the synced loop and SO_TIMED of the windowed loop at
+# W SO_WINDOW (bench.py times 5 windows of >= 6 s); the host gather's ms
+# the median of SO_PROBES synchronous gathers of unvisited rounds. The
+# first round's mean loss within SO_LOSS_TOL of ln(vocab).
+# (f) bench.py's synthetic_1m (bench.py:2012-2094): 2^20 clients in 64
+# memmap-spilled shards, shard s made by make_stackoverflow_shard(seed
+# 10,000 + s), the model and round of (e), SO_TIMED synced rounds.
+SO_CLIENTS, SO_T, SO_VOCAB, SO_PER_ROUND, SO_BATCH = 342_477, 20, 10004, 50, 16
+SO_LR, SO_PIN, SO_TIMED, SO_WINDOW, SO_PROBES = 10 ** -0.5, 4, 16, 8, 10
+SO_LOSS_TOL, SO_1M_CLIENTS, SO_1M_SHARDS, SO_1M_SEED = (0.5, 1_048_576, 64,
+                                                         10_000)
 
 # The rollout drill's gate: a candidate N(0, ROLLOUT_NOISE) from the live
 # adapters mirrors within the relative tolerance; min shadow tokens as the
@@ -2093,7 +2156,7 @@ def phase_train(shared=None):
 
     # (a) The captured fused round against the eager one; its first call
     # captures the graph that train_one_round replays from then on.
-    _hold_captured_round(api, 1, "train")
+    _hold_captured_round(api, 1, "train", runs=1)
 
     samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
     _zero_gn_counts()
@@ -2132,12 +2195,13 @@ def phase_train(shared=None):
     # (b) train_rounds_on_device: its first call captures (bench.py's warm
     # call) and is held to the host loop fed the same cohorts; then three
     # timed calls, each synced by fetching the losses.
-    _hold_on_device_rounds(api, TRAIN_ROUNDS, "train")
+    _hold_on_device_rounds(api, TRAIN_ROUNDS, "train", loops=1)
     launches, on_device_ms = _time_on_device(
         api, TRAIN_ROUNDS, "train", samples, "samples", _zero_gn_counts,
         _gn_counts)
     if shared is not None:
         shared["fedavg_on_device_ms"] = on_device_ms
+        shared["flagship"] = api  # the obs phase's, its graphs captured
     fwd, bwd, red, copies, streamed = launches
     want = 3 * TRAIN_ROUNDS * steps * RESNET56_GN
     print(f"[train] GroupNorm launches in the timed on-device calls: fwd "
@@ -2581,7 +2645,7 @@ def phase_custom(shared=None):
         return med, losses
 
     def captured(api, tag):
-        _hold_captured_round(api, 0, tag)
+        _hold_captured_round(api, 0, tag, runs=1)
         return (api._graphs["fused"].capture_ms,
                 torch.cuda.max_memory_allocated() / 2**30)
 
@@ -3012,8 +3076,9 @@ def phase_zoo(shared=None):
           f"{CapturedStep.captures - captures} captures (padded group sizes "
           f"{sorted(sizes)}; warm-up + capture {capture_ms / 1e3:.2f} s)",
           flush=True)
-    # Timed: the first 3 later rounds whose padded sizes are captured.
-    rounds = [r for r in range(3, 200) if padded(r) <= sizes][:3]
+    # Timed: the first ZOO_ROUNDS later rounds whose padded sizes are
+    # captured.
+    rounds = [r for r in range(3, 200) if padded(r) <= sizes][:ZOO_ROUNDS]
     groups = [len(np.unique(gids[api.sample_round(r)])) for r in rounds]
     captures = CapturedStep.captures
     want = sum(groups) * ZOO_GROUP_ROUNDS * per_round
@@ -3467,8 +3532,8 @@ def phase_split():
           f"{without:.6f}", flush=True)
     check(with_t != without, f"{tag}: the teacher did not change the loss")
 
-    # Two timed rounds: the phases by CUDA events recorded behind each,
-    # the round by the host clock (it ends in a sync).
+    # GKT_TIMED timed rounds: the phases by CUDA events recorded behind
+    # each, the round by the host clock (it ends in a sync).
     marks = []
 
     def marked(fn):
@@ -3485,7 +3550,7 @@ def phase_split():
     _zero_gn_counts()
     captures, replays = CapturedStep.captures, CapturedStep.replays
     rows = []
-    for r in (1, 2):
+    for r in range(1, 1 + GKT_TIMED):
         marks.clear()
         begin = torch.cuda.Event(enable_timing=True)
         begin.record()
@@ -3508,17 +3573,19 @@ def phase_split():
     fwd, bwd, red, copies, streamed = _gn_counts()
     captures = CapturedStep.captures - captures
     replays = CapturedStep.replays - replays
-    print(f"[{tag}] 2 timed rounds: {replays} replays, {captures} captures; "
-          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
-          f"{2 * want_fwd}, {2 * want_bwd}, {2 * want_bwd}), streamed "
+    print(f"[{tag}] {GKT_TIMED} timed round(s): {replays} replays, "
+          f"{captures} captures; GroupNorm launches fwd {fwd}, bwd {bwd}, "
+          f"reduce {red} (expected {GKT_TIMED * want_fwd}, "
+          f"{GKT_TIMED * want_bwd}, {GKT_TIMED * want_bwd}), streamed "
           f"{streamed}, copies {copies}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; captures: "
           f"client phase {client_capture:.1f} ms, server step "
           f"{server_capture:.1f} ms, relabel {relabel_capture:.1f} ms; "
           f"{card}", flush=True)
-    check(captures == 0 and replays == 2 * (1 + 2 * cs),
-          f"{tag}: {captures} captures, {replays} replays in 2 rounds")
-    check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd,
+    check(captures == 0 and replays == GKT_TIMED * (1 + 2 * cs),
+          f"{tag}: {captures} captures, {replays} replays in {GKT_TIMED} "
+          "rounds")
+    check(fwd == GKT_TIMED * want_fwd and bwd == red == GKT_TIMED * want_bwd,
           f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red}")
     check(streamed == 0, f"{tag}: {streamed} GroupNorm forwards streamed")
     counted["group_norm_fwd"] += fwd
@@ -3815,15 +3882,17 @@ def _fednas_drives(card):
     # tier; its replays are counted and timed.
     dev_ms, _ = _on_device_once(api, tag, samples)
     fwd, bwd, red, fs, bs, copies, times = _zoo_counts(
-        lambda: [_on_device_replayed(api, tag, samples) for _ in range(2)])
+        lambda: [_on_device_replayed(api, tag, samples)
+                 for _ in range(NAS_REPLAYS)])
     dev_med = statistics.median(times)
-    print(f"[{tag}] 2 replayed on-device rounds: GroupNorm launches fwd "
-          f"{fwd}, bwd {bwd}, reduce {red} (expected {2 * want_fwd}, "
-          f"{2 * want_bwd}, {2 * want_bwd}), streamed {fs}/{bs}, operand "
+    print(f"[{tag}] {NAS_REPLAYS} replayed on-device round(s): GroupNorm "
+          f"launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
+          f"{NAS_REPLAYS * want_fwd}, {NAS_REPLAYS * want_bwd}, "
+          f"{NAS_REPLAYS * want_bwd}), streamed {fs}/{bs}, operand "
           f"copies {copies}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    check(fwd == 2 * want_fwd and bwd == red == 2 * want_bwd
-          and fs == bs == 0,
+    check(fwd == NAS_REPLAYS * want_fwd
+          and bwd == red == NAS_REPLAYS * want_bwd and fs == bs == 0,
           f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
           f"streamed {fs}/{bs}")
     print(f"[{tag}] genotype from the averaged alphas: {api.genotype()}",
@@ -3967,7 +4036,7 @@ def _fedseg_drives(card):
                     loss_mode="ce", device="cuda")
     torch.cuda.reset_peak_memory_stats()
     with _cudnn_deterministic():
-        _hold_captured_round(api, 0, tag)
+        _hold_captured_round(api, 0, tag, runs=1)
     api._graphs.clear()
     api.train_one_round(1)  # captures anew in cuDNN's default mode
     fwd, bwd, red, fs, bs, copies, (med, _, _) = _zoo_counts(
@@ -4050,7 +4119,7 @@ def _fedgan_drives(card):
           f"{GAN_PER_ROUND} a round, Adam lr {GAN_LR}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     with _cudnn_deterministic():
-        _hold_captured_round(api, 0, tag)
+        _hold_captured_round(api, 0, tag, runs=1)
     api._graphs.clear()
     api.train_one_round(1)  # captures anew in cuDNN's default mode
     med, _, _ = _event_rounds(api, (2,), tag, samples)
@@ -4885,15 +4954,6 @@ def _synthetic_femnist(n_clients, seed):
                   for c in range(n_clients)}
 
 
-def _rss_mb():
-    """The process's resident set in MB (``/proc/self/status`` VmRSS)."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS:"):
-                return int(line.split()[1]) / 1024
-    return float("nan")
-
-
 def _cohort_mb(store, steps, k, rounds=1):
     """Device MB of ``rounds`` cohorts of ``k`` clients at ``steps`` from
     the store: x, int64 labels, the f32 mask and the int32 counts."""
@@ -4988,6 +5048,22 @@ def _store_arm(tag, label, api, run, n_pin, n_timed):
     return state, n_timed / dt, losses
 
 
+def _sanitized_rerun(tag, label, run):
+    """The obs phase's (c) on a store loop: ``run()`` replays rounds whose
+    step buckets are captured already, in a strict sanitized() region
+    (transfer 'disallow'): no capture and no implicit host sync, or the
+    drive fails."""
+    from fedml_tpu_torch.obs import sanitized
+
+    t0 = time.perf_counter()
+    with sanitized() as rep:
+        losses = run()
+    print(f"[obs/sanitized] {tag} {label}: {len(losses)} rounds again in a "
+          f"strict sanitized() region: {rep.compiles} captures, no implicit "
+          f"host sync, {time.perf_counter() - t0:.2f} s", flush=True)
+    check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite")
+
+
 def _femnist_store_arms(card):
     """(a) FEMNIST-3400: resident, store synced and store windowed from one
     start and key, bit-equal after STORE_ROUNDS rounds; then (d) the same
@@ -5001,13 +5077,14 @@ def _femnist_store_arms(card):
     from fedml_tpu_torch.data.directory import ShardedFederatedStore
     from fedml_tpu_torch.data.store import FederatedStore
     from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.utils import rss_mb
 
     tag = "store/femnist3400"
     t0 = time.perf_counter()
     x, y, parts = _synthetic_femnist(STORE_CLIENTS, SEED)
-    rss_data = _rss_mb()
+    rss_data = rss_mb()
     store = FederatedStore(x, y, parts, STORE_BATCH, device="cuda")
-    rss_flat = _rss_mb() - rss_data
+    rss_flat = rss_mb() - rss_data
     cfg = FedConfig(client_num_in_total=STORE_CLIENTS,
                     client_num_per_round=STORE_PER_ROUND, comm_round=100_000,
                     epochs=1, batch_size=STORE_BATCH, lr=STORE_LR, seed=SEED)
@@ -5065,6 +5142,8 @@ def _femnist_store_arms(card):
         idle["synced"] = _idle_share(
             lambda: pipelined(n_pin + n_timed, STORE_WINDOW),
             f"store synced: {STORE_WINDOW} rounds", tag)
+        _sanitized_rerun(tag, "store synced", lambda: pipelined(
+            0, STORE_WINDOW))
         del api
         _free()
         api = build(store)
@@ -5086,6 +5165,9 @@ def _femnist_store_arms(card):
         idle["windowed"] = _idle_share(
             lambda: windowed(n_pin + n_timed, STORE_WINDOW),
             f"store windowed: one window of {STORE_WINDOW}", tag)
+        _sanitized_rerun(tag, f"store windowed, W {STORE_WINDOW}",
+                         lambda: api.train_rounds_windowed(
+                             STORE_WINDOW, window=STORE_WINDOW))
         del api
         _free()
         ref = out["resident"][0]
@@ -5110,18 +5192,18 @@ def _femnist_store_arms(card):
               f" MB; {card}", flush=True)
 
         # (d) The same federation in 8 memmapped shards.
-        rss0 = _rss_mb()
+        rss0 = rss_mb()
         with tempfile.TemporaryDirectory(prefix="store_shards_") as tmp:
             t0 = time.perf_counter()
             sh = ShardedFederatedStore.from_flat(
                 x, y, parts, STORE_BATCH, num_shards=STORE_SHARDS,
                 spill_dir=tmp, device="cuda")
             build_s = time.perf_counter() - t0
-            rss1 = _rss_mb()
+            rss1 = rss_mb()
             idx2d = np.stack(cohorts[:STORE_WINDOW])
             steps = wins[0]
             a = sh.gather_window(idx2d, steps)
-            rss2 = _rss_mb()
+            rss2 = rss_mb()
             b = store.gather_window(idx2d, steps)
             same = all(torch.equal(getattr(a, f), getattr(b, f))
                        for f in ("x", "y", "mask", "counts"))
@@ -5200,6 +5282,10 @@ def _zoo_store_arms(card):
                 lambda s, n: win.train_rounds_windowed(
                     n, start_round=s, window=STORE_WINDOW),
                 STORE_ROUNDS, 0)
+            if name in ("FedOpt", "SCAFFOLD"):
+                _sanitized_rerun(tag, f"windowed, W {STORE_WINDOW}",
+                                 lambda: win.train_rounds_windowed(
+                                     STORE_WINDOW, window=STORE_WINDOW))
         d = (sh - sw).abs().max().item()
         print(f"[{tag}] pin: params and carry ({sh.numel()} values) max|d| "
               f"{d:.3e} ({'bit-equal' if d == 0 else 'NOT bit-equal'}); "
@@ -5394,6 +5480,498 @@ def phase_store():
     return launches
 
 
+def _resnet56_flops(b):
+    """Two flops a MAC of every convolution of CifarResNet's ResNet-56 at
+    32 x 32 (the stem, each bottleneck's 1x1, 3x3 and 1x1 and its
+    downsample; full 3x3 taps, as FlopCounterMode counts them) and the
+    Dense head, for ``b`` samples."""
+    macs = 32 * 32 * 3 * 16 * 9
+    cin, h = 16, 32
+    for stage, planes in enumerate((16, 32, 64)):
+        for j in range(6):
+            stride = 2 if stage > 0 and j == 0 else 1
+            ho = h // stride
+            macs += h * h * cin * planes + ho * ho * planes * planes * 9
+            macs += ho * ho * planes * 4 * planes
+            if stride != 1 or cin != 4 * planes:
+                macs += ho * ho * cin * 4 * planes
+            cin, h = 4 * planes, ho
+    return 2 * b * (macs + cin * 10)
+
+
+def _transformer_flops(b, t, d, layers, tail):
+    """Two flops a MAC of a pre-LN transformer of ``layers`` blocks at
+    width ``d`` over ``b`` x ``t`` tokens: the qkv and out projections
+    (4d²), the 4x MLP (8d²) and attention's two products (2td) a token and
+    layer, plus ``tail`` MACs a token (the LM head's d·V)."""
+    return 2 * b * t * (layers * (12 * d * d + 2 * t * d) + tail)
+
+
+def _obs_costs(card):
+    """(a) model_cost of four models on the card, each held to its count
+    by hand, and counted again without the flop formula of its kernel:
+    returns the flash forward's launches."""
+    from torch.utils import flop_counter
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.transformer import flash_attention_out
+    from fedml_tpu_torch.obs import flops_str, model_cost
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+    flash_op = torch.ops.fedml_tpu_torch.flash_fwd
+    gn_op = torch.ops.fedml_tpu_torch.group_norm_fwd
+    b, lb, t = OBS_COST_BATCH, OBS_LM_BATCH, SEQ_LEN
+    gen = torch.Generator().manual_seed(SEED)
+    vit_t, vit_d = (32 // VIT_PATCH) ** 2, VIT_D
+    gn_elems = b * sum(n * s * c for (_, s, c), _, n in GN_STEP)
+    cases = [
+        ("resnet56 bf16 (GroupNorm kernels)",
+         lambda: create_model("resnet56", num_classes=10, dtype="bf16",
+                              device="cuda", generator=gen),
+         np.zeros((b, 32, 32, 3), np.float32), _resnet56_flops(b), gn_op,
+         7 * gn_elems, lambda: gn.group_norm_fwd.launches, RESNET56_GN),
+        ("cnn at FEMNIST's shape",
+         lambda: create_model("cnn", num_classes=62, device="cuda",
+                              generator=gen),
+         np.zeros((b, 28, 28, 1), np.float32),
+         2 * b * (26 * 26 * 32 * 9 + 24 * 24 * 64 * 32 * 9
+                  + 12 * 12 * 64 * 128 + 128 * 62), None, 0, None, 0),
+        (f"vit (vit_cifar_shaped, f32 flash kernels, T {vit_t})",
+         lambda: create_model("vit", num_classes=10, patch=VIT_PATCH,
+                              d_model=VIT_D, n_heads=VIT_HEADS,
+                              n_layers=VIT_LAYERS,
+                              attn_fn=flash_attention_out, device="cuda",
+                              generator=gen),
+         np.zeros((b, 32, 32, 3), np.float32),
+         _transformer_flops(b, vit_t, vit_d, VIT_LAYERS,
+                            3 * VIT_PATCH ** 2 * vit_d) + 2 * b * vit_d * 10,
+         flash_op, VIT_LAYERS * 4 * b * vit_t * vit_t * vit_d,
+         lambda: fa.flash_attention.launches, VIT_LAYERS),
+        (f"transformer_lm (transformer_fed_mfu's width, bf16 flash, T {t})",
+         lambda: create_model("transformer_lm", vocab_size=VOCAB,
+                              d_model=D_MODEL, n_heads=N_HEADS,
+                              n_layers=N_LAYERS, max_len=t, dtype="bf16",
+                              attn="flash", device="cuda", generator=gen),
+         np.ones((lb, t), np.int32),
+         _transformer_flops(lb, t, D_MODEL, N_LAYERS, D_MODEL * VOCAB),
+         flash_op, N_LAYERS * 4 * lb * t * t * D_MODEL,
+         lambda: fa.flash_attention.launches, N_LAYERS),
+    ]
+    flash = 0
+    for label, build, x, analytic, op, op_flops, launches, per_fwd in cases:
+        model = build()
+        n0 = launches() if launches else 0
+        t0 = time.perf_counter()
+        cost = model_cost(model, x)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = cost["flops"]
+        line = (f"[obs/cost] {label}: {flops_str(cost)}, {got:.6e} flops "
+                f"({got / analytic:.4f} x the count by hand {analytic:.6e}, "
+                f"band [1, {OBS_COST_BAND}]), {cost['bytes_accessed']:.4e} "
+                f"bytes unfused; {ms:.0f} ms")
+        check(analytic <= got <= OBS_COST_BAND * analytic,
+              f"{label}: model_cost {got} outside [{analytic}, "
+              f"{OBS_COST_BAND} x] of the count by hand")
+        if op is not None:
+            ran = launches() - n0
+            formula = flop_counter.flop_registry.pop(op)
+            try:
+                without = model_cost(model, x)["flops"]
+            finally:
+                flop_counter.flop_registry[op] = formula
+            ran2 = launches() - n0 - ran
+            line += (f"; without {op._qualified_op_name}'s flop formula "
+                     f"{without:.6e} (the formula's {got - without:.6e}, "
+                     f"by hand {op_flops:.6e}); kernel launches {ran} and "
+                     f"{ran2} (expected {per_fwd} a forward)")
+            check(got - without == op_flops,
+                  f"{label}: the formula counted {got - without}, by hand "
+                  f"{op_flops}")
+            check(ran == ran2 == per_fwd,
+                  f"{label}: {ran}, {ran2} launches, expected {per_fwd}")
+            if op is flash_op:
+                flash += ran + ran2
+        print(line + f"; {card}", flush=True)
+        del model
+    _free()
+    return flash
+
+
+def _flagship_api(shared):
+    """The train phase's FedAvg api (its fused and on-device rounds
+    captured), or one built and warmed here when the phase runs alone."""
+    if shared is not None and "flagship" in shared:
+        return shared.pop("flagship")
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
+    model = create_model("resnet56", num_classes=10, dtype="bf16",
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    api = FedAvgAPI(model, fed, None, cfg, device="cuda")
+    api.train_one_round(0)
+    api.train_rounds_on_device(1)
+    return api
+
+
+def _obs_flagship(api, card):
+    """(b) RoundTimer against CUDA events and the profiler's trace, (c) the
+    pipelined rounds in a strict sanitized() region with (d) the donation
+    audit, and the negative control of an implicit sync. Returns the
+    GroupNorm launches counted."""
+    import tempfile
+
+    from fedml_tpu_torch.obs import RoundTimer, donation_audit, sanitized
+    from fedml_tpu_torch.obs.timing import trace
+
+    tag = "obs/flagship"
+    steps = TRAIN_PER_CLIENT // TRAIN_BATCH
+    _zero_gn_counts()
+    timer, ev_ms, host_ms = RoundTimer(), [], []
+    torch.cuda.synchronize()  # each round's phase starts on an idle card
+    for _ in range(OBS_TIMER_ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with timer.phase("on_device_round"):
+            start.record()
+            losses = api.train_rounds_on_device(1)
+            end.record()
+            timer.fence(losses)
+        ev_ms.append(start.elapsed_time(end))
+        host_ms.append(timer.summary()["on_device_round"]["last_s"] * 1e3)
+    summ = timer.summary()["on_device_round"]
+    worst = max(abs(h - e) - max(OBS_TIMER_REL * e, OBS_TIMER_MS)
+                for h, e in zip(host_ms, ev_ms))
+    print(f"[{tag}] RoundTimer over {OBS_TIMER_ROUNDS} fenced on-device "
+          f"rounds: phase ms {' '.join(f'{v:.2f}' for v in host_ms)}; CUDA "
+          f"events ms {' '.join(f'{v:.2f}' for v in ev_ms)}; summary mean "
+          f"{summ['mean_s'] * 1e3:.2f} ms, total {summ['total_s'] * 1e3:.1f}"
+          f" ms, n {summ['n']}; flat_metrics {timer.flat_metrics()}; worst "
+          f"excess over max({OBS_TIMER_REL:.0%}, {OBS_TIMER_MS} ms) "
+          f"{worst:.3f} ms; {card}", flush=True)
+    check(summ["n"] == OBS_TIMER_ROUNDS and worst <= 0,
+          f"{tag}: RoundTimer phases {host_ms} vs CUDA events {ev_ms}")
+    with tempfile.TemporaryDirectory(prefix="obs_trace_") as log_dir:
+        t0 = time.perf_counter()
+        with trace(log_dir):
+            timer.fence(api.train_rounds_on_device(OBS_TRACE_ROUNDS))
+        files = os.listdir(log_dir)
+        check(len(files) == 1, f"{tag}: trace wrote {files}")
+        path = os.path.join(log_dir, files[0])
+        mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        secs = time.perf_counter() - t0
+    names = collections.Counter(
+        m.group(1) for m in (re.search(r"\b(gn_\w+_kernel)\b",
+                                       e.get("name", ""))
+                             for e in events if e.get("cat") == "kernel")
+        if m)
+    want = OBS_TRACE_ROUNDS * steps * RESNET56_GN
+    print(f"[{tag}] trace(log_dir) around {OBS_TRACE_ROUNDS} on-device "
+          f"rounds: one Chrome trace of {mb:.1f} MB, {len(events)} events "
+          f"({secs:.1f} s with the export and the read); GroupNorm kernels "
+          f"by name {dict(sorted(names.items()))} (expected {want} of "
+          f"gn_fwd_kernel, gn_bwd_kernel and gn_reduce_kernel)", flush=True)
+    check(names["gn_fwd_kernel"] == names["gn_bwd_kernel"] == want,
+          f"{tag}: the trace's GroupNorm kernels {dict(names)}")
+
+    with sanitized() as rep:
+        with donation_audit(api.net) as audit:
+            base = audit.sample()
+            for r in range(OBS_SAN_ROUNDS):
+                api.train_rounds_pipelined(1, start_round=100 + r)
+                audit.sample()
+    print(f"[{tag}] {OBS_SAN_ROUNDS} train_rounds_pipelined rounds in a "
+          f"strict sanitized() region (transfer 'disallow'): "
+          f"{rep.compiles} captures, no implicit host sync; donation audit "
+          f"peak {audit.peak:.3f} model copies against the baseline "
+          f"{base:.3f} (pin: baseline + {OBS_AUDIT_SLACK}; the copies: the "
+          f"fused and on-device graphs' static carries, one of them "
+          f"api.net, and the module's own parameters)", flush=True)
+    check(rep.compiles == 0 and audit.peak <= base + OBS_AUDIT_SLACK,
+          f"{tag}: {rep.compiles} captures, audit peak {audit.peak} vs "
+          f"baseline {base}")
+    fwd, bwd = _gn_counts()[:2]
+    want = (OBS_TIMER_ROUNDS + OBS_TRACE_ROUNDS + OBS_SAN_ROUNDS) * steps \
+        * RESNET56_GN
+    check(fwd == bwd == want, f"{tag}: GroupNorm launches {fwd}, {bwd}, "
+          f"expected {want}")
+    t = torch.ones(4, device="cuda")
+    try:
+        with sanitized():
+            t.sum().item()
+    except RuntimeError as e:
+        print(f"[{tag}] negative control: .item() in a sanitized() region "
+              f"raised RuntimeError ({str(e).splitlines()[0][:80]}); sync "
+              f"mode after it {torch.cuda.get_sync_debug_mode()}",
+              flush=True)
+    else:
+        raise SmokeFailure(f"{tag}: .item() passed a sanitized() region")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          f"{tag}: the sync debug mode was not restored")
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
+def _so_api(store, n_clients):
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    cfg = FedConfig(client_num_in_total=n_clients,
+                    client_num_per_round=SO_PER_ROUND, comm_round=100_000,
+                    epochs=1, batch_size=SO_BATCH, lr=SO_LR, seed=SEED)
+    model = create_model("rnn_stackoverflow", vocab_size=SO_VOCAB,
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    return FedAvgAPI(model, store, None, cfg, device="cuda",
+                     loss_fn=functools.partial(seq_softmax_ce, pad_id=0),
+                     pad_id=0)
+
+
+def _warm_buckets(api, store, tag, strict_last=False):
+    """bench.py's _warm_store_buckets: one round of the store's captured
+    step per step bucket a client can reach (a cohort of one client of
+    that bucket, repeated), so no capture lands in a timed loop. With
+    ``strict_last``, the largest bucket is warmed inside a strict
+    sanitized() region, which must raise SanitizerError (the negative
+    control of a new bucket in a steady loop). Returns {bucket: ms}."""
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.data.store import bucket_steps_for_counts
+    from fedml_tpu_torch.obs import SanitizerError, sanitized
+
+    buckets = bucket_steps_for_counts(store.counts, store.batch_size)
+    step = api._stored_round_step()
+    key = keys.key(SEED, device="cuda")  # its H2D copy outside the region
+    out = {}
+    levels = sorted(set(buckets.tolist()))
+    for i, bkt in enumerate(levels):
+        idx = np.full(SO_PER_ROUND, int(np.argmax(buckets == bkt)))
+
+        def warm():
+            sub = store.gather_cohort(idx)
+            carry = (api.net, api._window_carry_init())
+            (api.net, extra), loss = step(carry, sub.x, sub.y, sub.mask,
+                                          sub.counts, key)
+            api._window_carry_commit(extra)
+
+        t0 = time.perf_counter()
+        if strict_last and i == len(levels) - 1:
+            try:
+                with sanitized():
+                    warm()
+            except SanitizerError as e:
+                print(f"[{tag}] negative control: bucket {bkt} captured in "
+                      f"a strict sanitized() region raised SanitizerError "
+                      f"({str(e)[:96]}...)", flush=True)
+            else:
+                raise SmokeFailure(f"{tag}: a new bucket passed a strict "
+                                   "sanitized() region")
+        else:
+            warm()
+        torch.cuda.synchronize()
+        out[bkt] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _so_timed(api, store, tag, label, run, start, n):
+    """``run(start, n)`` in a strict sanitized() region, timed by the host
+    clock to its losses' fetch: (rounds/s, real samples/s, losses)."""
+    from fedml_tpu_torch.obs import sanitized
+
+    samples = sum(int(store.counts[np.asarray(api.sample_round(r))].sum())
+                  for r in range(start, start + n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sanitized() as rep:
+        losses = run(start, n)
+    dt = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in losses), f"{tag}: non-finite loss")
+    print(f"[{tag}] {label}: {n} rounds {dt * 1e3:.1f} ms = {n / dt:.2f} "
+          f"rounds/s, {samples / dt:.1f} real samples/s ({samples} "
+          f"sentences); strict sanitized(): {rep.compiles} captures, no "
+          f"implicit host sync; losses {losses[0]:.4f} .. {losses[-1]:.4f}",
+          flush=True)
+    return n / dt, samples / dt
+
+
+def _gather_probe(api, store):
+    """bench.py's _gather_overlap_probe: the median ms of a synchronous
+    cohort gather and copy of rounds the loops never visit."""
+    ts = []
+    for r in range(90_001, 90_001 + SO_PROBES):
+        idx = np.asarray(api.sample_round(r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.gather_cohort(idx)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _so_captures(api):
+    return {g["args"][0][1]: (round(g["capture_ms"]), g["replays"])
+            for g in _graph_stats(api)}
+
+
+def _so_342k(card):
+    """(e) bench.py's stackoverflow_342k on the card."""
+    from fedml_tpu_torch.data.store import FederatedStore
+    from fedml_tpu_torch.data.synthetic import make_stackoverflow_nwp
+    from fedml_tpu_torch.utils import rss_mb
+
+    tag = "obs/so342k"
+    rss0 = rss_mb()
+    t0 = time.perf_counter()
+    x, y, parts = make_stackoverflow_nwp(SO_CLIENTS, seq_len=SO_T,
+                                         vocab=SO_VOCAB)
+    store = FederatedStore(x, y, parts, SO_BATCH, device="cuda")
+    del x, y, parts
+    build_s = time.perf_counter() - t0
+    api = _so_api(store, SO_CLIENTS)
+    n_params = sum(v.numel() for v in api.net.params.values())
+    warm = _warm_buckets(api, store, tag, strict_last=True)
+    print(f"[{tag}] RNNStackOverflow (embed 96, LSTM 670, vocab {SO_VOCAB}; "
+          f"{n_params} params) over {store.num_clients} clients, "
+          f"{int(store.counts.sum())} sentences of T {SO_T} (at most "
+          f"{int(store.counts.max())} a client), {SO_PER_ROUND} a round, "
+          f"batch {SO_BATCH}, lr {SO_LR:.4f}; store built in {build_s:.1f} "
+          f"s, {store.nbytes() / 1e6:.1f} MB on the host; buckets warmed "
+          f"(ms, each a capture) {warm}; RSS {rss0:.0f} MB before the data",
+          flush=True)
+    snap = _snapshot(api)
+    synced = api.train_rounds_pipelined(SO_PIN)
+    a = _state_vec(api)
+    _restore(api, snap)
+    windowed = api.train_rounds_windowed(SO_PIN, window=SO_PIN)
+    b = _state_vec(api)
+    d = (a - b).abs().max().item()
+    first = synced[0]
+    print(f"[{tag}] pin: {SO_PIN} synced vs {SO_PIN} windowed rounds (W "
+          f"{SO_PIN}) from one start: params max|d| {d:.3e} "
+          f"({'bit-equal' if d == 0 else 'NOT bit-equal'}), losses "
+          f"{synced} / {windowed}; round 0's mean loss {first:.4f} against "
+          f"ln {SO_VOCAB} = {math.log(SO_VOCAB):.4f}", flush=True)
+    check(d == 0 and synced == windowed,
+          f"{tag}: windowed rounds {d} from the synced ones")
+    check(math.isfinite(first)
+          and abs(first - math.log(SO_VOCAB)) <= SO_LOSS_TOL,
+          f"{tag}: round 0's loss {first}")
+    rps, sps = _so_timed(api, store, tag, "synced loop "
+                         "(train_rounds_pipelined, cohort prefetcher)",
+                         lambda s, n: api.train_rounds_pipelined(
+                             n, start_round=s), SO_PIN, SO_TIMED)
+    wrps, wsps = _so_timed(api, store, tag, f"windowed loop, W {SO_WINDOW}",
+                           lambda s, n: api.train_rounds_windowed(
+                               n, start_round=s, window=SO_WINDOW),
+                           SO_PIN + SO_TIMED, SO_TIMED)
+    gather_ms = _gather_probe(api, store)
+    rss1 = rss_mb()
+    print(f"[{tag}] rounds/s synced {rps:.2f}, windowed {wrps:.2f} "
+          f"(windowed / synced {wrps / rps:.3f}); host gather {gather_ms:.2f}"
+          f" ms a round (x rounds/s = {gather_ms * rps / 1e3:.3f} of a synced"
+          f" round); RSS {rss0:.0f} -> {rss1:.0f} MB; host store "
+          f"{store.nbytes() / 1e6:.1f} MB; captures by bucket (ms, replays) "
+          f"{_so_captures(api)}; {card}", flush=True)
+    del api, store
+    _free()
+    return {"rps": rps, "rss": rss1, "sps": sps}
+
+
+def _so_1m(card, ref):
+    """(f) bench.py's synthetic_1m on the card: 2^20 clients in 64
+    memmapped shards in a temporary directory, removed afterwards."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.data.directory import ShardedFederatedStore
+    from fedml_tpu_torch.data.synthetic import make_stackoverflow_shard
+    from fedml_tpu_torch.utils import rss_mb
+
+    tag = "obs/so1m"
+    c, g = SO_1M_CLIENTS, SO_1M_SHARDS
+    sizes = [c // g + (1 if s < c % g else 0) for s in range(g)]
+    spill = tempfile.mkdtemp(prefix="so1m_")
+    try:
+        rss0 = rss_mb()
+        t0 = time.perf_counter()
+        store = ShardedFederatedStore.from_shard_builder(
+            lambda s: make_stackoverflow_shard(sizes[s], seq_len=SO_T,
+                                               vocab=SO_VOCAB,
+                                               seed=SO_1M_SEED + s),
+            g, batch_size=SO_BATCH, spill_dir=spill, device="cuda")
+        build_s, build_rss = time.perf_counter() - t0, rss_mb()
+        dir_mb = sum(os.path.getsize(os.path.join(spill, f))
+                     for f in os.listdir(spill)) / 1e6
+        api = _so_api(store, c)
+        warm = _warm_buckets(api, store, tag)
+        rps, sps = _so_timed(api, store, tag, "synced loop "
+                             "(train_rounds_pipelined, cohort prefetcher)",
+                             lambda s, n: api.train_rounds_pipelined(
+                                 n, start_round=s), 0, SO_TIMED)
+        gather_ms = _gather_probe(api, store)
+        rss1 = rss_mb()
+        print(f"[{tag}] {store.num_clients} clients in {g} memmapped shards"
+              f" ({int(store.counts.sum())} sentences), built in "
+              f"{build_s:.1f} s, build RSS {build_rss:.0f} MB (+"
+              f"{build_rss - rss0:.0f}); disk {store.nbytes() / 1e6:.1f} MB "
+              f"(spill directory {dir_mb:.1f} MB), directory "
+              f"{store.directory.nbytes() / 1e6:.2f} MB; buckets warmed "
+              f"{warm}; rounds/s {rps:.2f} (rps_vs_342k "
+              f"{rps / ref['rps']:.3f}), {sps:.1f} real samples/s; "
+              f"peak_rss_ratio {rss1 / ref['rss']:.3f} ({rss1:.0f} / "
+              f"{ref['rss']:.0f} MB); host gather {gather_ms:.2f} ms a "
+              f"round; captures by bucket {_so_captures(api)}; {card}",
+              flush=True)
+        check(store.num_clients == c and store.memmapped,
+              f"{tag}: {store.num_clients} clients, memmapped "
+              f"{store.memmapped}")
+        del api, store
+        _free()
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    check(not os.path.exists(spill), f"{tag}: {spill} left behind")
+
+
+def phase_obs(shared=None):
+    """The observability layer on the main paths, and StackOverflow-NWP
+    FedAvg at 342,477 and 1,048,576 clients (see the constants): (a) the
+    model costs, (b)-(d) on the flagship (the train phase's api from
+    ``shared``, else built here), (e) and (f). Returns {kernel name:
+    launches counted}."""
+    t_phase = time.perf_counter()
+    card = smi_line()
+    times = {}
+    t0 = time.perf_counter()
+    flash = _obs_costs(card)
+    times["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    api = _flagship_api(shared)
+    launches = _obs_flagship(api, card)
+    del api
+    _free()
+    times["b-d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = _so_342k(card)
+    times["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _so_1m(card, ref)
+    times["f"] = time.perf_counter() - t0
+    launches["flash_fwd"] = flash
+    secs = json.dumps({k: round(v, 1) for k, v in times.items()})
+    print(f"[obs] parts' seconds {secs}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5427,6 +6005,8 @@ def main() -> int:
     # captured tiers) that the ckpt phase resumes.
     shared = {}
     launches.update(timed("train", phase_train, shared))
+    for name, n in timed("obs", phase_obs, shared).items():
+        launches[name] += n
     for phase, fn, args in (("algos", phase_algos, (shared,)),
                             ("custom", phase_custom, (shared,)),
                             ("zoo", phase_zoo, (shared,)),

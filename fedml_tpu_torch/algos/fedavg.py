@@ -57,6 +57,7 @@ from fedml_tpu_torch.core.robust_agg import make_aggregator
 from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
 from fedml_tpu_torch.data.store import (CohortPrefetcher, FederatedStore,
                                         WindowPrefetcher)
+from fedml_tpu_torch.obs.sanitizer import planned_transfer
 from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
                                             make_vmap_round)
 from fedml_tpu_torch.trainer.local import (make_client_optimizer,
@@ -474,11 +475,15 @@ class FedAvgAPI(FederatedLoop):
         """A host array on the device without waiting for it: through
         pinned memory and a non-blocking copy (the caching host allocator
         keeps the pinned buffer until the copy is done), so the replays
-        already queued keep running."""
+        already queued keep running. Every per-round staging copy of the
+        host loop and the windowed tier goes through here (the cohort,
+        FedNova's q and γ, the drill's adversary mask, a "custom" step's
+        indices), marked as planned for ``obs.sanitizer.sanitized``."""
         t = torch.tensor(host)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        with planned_transfer():
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
 
     def _train_round_fused(self, round_idx: int, step=None):
         """One host-loop round through the fused step: ``run_round``'s
@@ -514,7 +519,8 @@ class FedAvgAPI(FederatedLoop):
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
         self._require("train_one_round", self.capability().fused)
         loss = self._train_round_fused(round_idx)
-        return {"round": round_idx, "train_loss": float(loss)}
+        with planned_transfer():  # the synced loop's one fetch a round
+            return {"round": round_idx, "train_loss": float(loss)}
 
     def train_rounds_pipelined(self, n_rounds: int, start_round: int = 0):
         """``n_rounds`` host-loop rounds back to back WITHOUT a host sync
@@ -525,7 +531,8 @@ class FedAvgAPI(FederatedLoop):
         self._require("train_rounds_pipelined", self.capability().fused)
         losses = [self._train_round_fused(r).clone()
                   for r in range(start_round, start_round + n_rounds)]
-        return torch.stack(losses).tolist() if losses else []
+        with planned_transfer():  # the loop's one host sync, by design
+            return torch.stack(losses).tolist() if losses else []
 
     # --- on-device rounds: one captured round, replayed per round ----------
     def _device_cohort(self, key) -> Optional[torch.Tensor]:
@@ -702,7 +709,8 @@ class FedAvgAPI(FederatedLoop):
                 losses.append(loss.clone())
             self.net, extra = carry
             self._window_carry_commit(extra)
-        return torch.stack(losses).tolist() if losses else []
+        with planned_transfer():  # the loop's one host sync, by design
+            return torch.stack(losses).tolist() if losses else []
 
     def train_windowed(self, window: int = 8):
         """The whole training loop (``train``'s history: eval every

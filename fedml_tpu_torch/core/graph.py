@@ -186,9 +186,14 @@ class CapturedStep:
         return g.carry, g.out
 
     def _capture(self, carry, args, key) -> _Graph:
+        # A capture is the port's compile: its own device syncs are
+        # planned, and ``obs.sanitizer`` counts the capture instead. (A
+        # local import: the sanitizer imports this module.)
+        from fedml_tpu_torch.obs.sanitizer import planned_transfer
+
         while len(self._graphs) >= MAX_GRAPHS:
             self._graphs.popitem(last=False)
-        with capture_lock:
+        with capture_lock, planned_transfer():
             return self._capture_locked(carry, args, key)
 
     def _capture_locked(self, carry, args, key) -> _Graph:

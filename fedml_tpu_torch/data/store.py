@@ -406,9 +406,11 @@ class CohortPrefetcher:
         t.start()
 
     def get(self, round_idx: int, indices) -> FederatedArrays:
+        # Stale rounds' workers are waited out too, so that none of them
+        # lands its cohort after the drop below.
         with self._lock:
-            t = self._pending.get(round_idx)
-        if t is not None:
+            waits = [t for r, t in self._pending.items() if r <= round_idx]
+        for t in waits:
             t.join()
         with self._lock:
             hit = self._ready.pop(round_idx, None)
@@ -458,9 +460,9 @@ class WindowPrefetcher:
         t.start()
 
     def get(self, key: int, window_indices, steps: int) -> WindowBatch:
-        with self._lock:
-            t = self._pending.get(key)
-        if t is not None:
+        with self._lock:  # stale windows' workers too, as CohortPrefetcher
+            waits = [t for k, t in self._pending.items() if k <= key]
+        for t in waits:
             t.join()
         with self._lock:
             hit = self._done.pop(key, None)

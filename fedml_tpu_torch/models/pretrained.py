@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fedml_tpu_torch.convert import from_jax_params, to_jax_params
+from fedml_tpu_torch import convert  # a module: convert imports models
 from fedml_tpu_torch.trainer.local import NetState
 
 _SEP = "::"
@@ -29,11 +29,12 @@ def _jax_params(params):
     nested adapter tree (FedAdapter's net) as ``lora_*`` leaves."""
     flat = {k: v for k, v in params.items() if not isinstance(v, dict)}
     nested = {k: v for k, v in params.items() if isinstance(v, dict)}
-    return to_jax_params(flat, nested)
+    return convert.to_jax_params(flat, nested)
 
 
 def _jax_state(model_state):
-    return {"batch_stats": to_jax_params(model_state)} if model_state else {}
+    return ({"batch_stats": convert.to_jax_params(model_state)}
+            if model_state else {})
 
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -103,9 +104,11 @@ def load_params(net: NetState, path: str) -> NetState:
                 f"checkpoint {path!r} has {len(leftover)} entries the model "
                 f"does not use (first: {sorted(leftover)[:3]}) — wrong "
                 "architecture?")
-    state_dict, adapters = from_jax_params(_unflatten(got, "params"))
+    state_dict, adapters = convert.from_jax_params(
+        _unflatten(got, "params"))
     params = {**state_dict, **adapters}
     stats = _unflatten(got, "state").get("batch_stats", {})
-    model_state = from_jax_params(stats)[0] if stats else {}
+    model_state = (convert.from_jax_params(stats)[0] if stats
+                   else {})
     return NetState(_like(net.params, params),
                     _like(net.model_state, model_state))

@@ -1,10 +1,15 @@
-"""Span tracing (port of ``fedml_tpu/obs/trace.py``'s tracer half, which
-is stdlib-only; copied so the port imports nothing of ``fedml_tpu``).
+"""Span tracing and the flight recorder (port of
+``fedml_tpu/obs/trace.py``, which is stdlib-only; copied so the port
+imports nothing of ``fedml_tpu``).
 
 - :class:`SpanTracer` collects complete ("X") events over an injected
   monotonic clock and dumps Chrome trace-event JSON or JSONL.
 - :data:`NULL` / :class:`NullTracer` is the disabled path: ``active()``
   returns it when nothing is installed, and every call is a no-op.
+- :func:`tracing_to` installs a tracer for a block and dumps its two files
+  into a run directory on exit.
+- :class:`FlightRecorder` is a bounded ring of recent control-plane events,
+  dumped whole as JSONL on a trigger.
 - :func:`corr` is the correlation key that spans of one round share
   (hierarchical FL's ``reduce.stage1`` and ``reduce.stage2``).
 
@@ -17,10 +22,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import threading
 import time
-from typing import Dict, List
+from collections import deque
+from typing import Dict, List, Optional
+
+log = logging.getLogger(__name__)
 
 
 def corr(epoch=None, round=None, sender=None, task_seq=None) -> Dict[str, int]:
@@ -214,3 +223,73 @@ class SpanTracer:
             for ev in self.events():
                 f.write(json.dumps(ev) + "\n")
         return path
+
+
+@contextlib.contextmanager
+def tracing_to(run_dir: Optional[str], clock=time.perf_counter,
+               max_events: int = 200_000, suffix: str = ""):
+    """Install a :class:`SpanTracer` for the body and dump
+    ``trace<suffix>.chrome.json`` + ``trace<suffix>.jsonl`` into
+    ``run_dir`` on exit — the one-liner the runners use (``suffix``
+    disambiguates multi-process runs sharing one run_dir, e.g.
+    ``.rank2`` per cross-silo rank). A falsy ``run_dir`` yields the
+    :data:`NULL` tracer and touches nothing (the disabled path)."""
+    if not run_dir:
+        yield NULL
+        return
+    tracer = SpanTracer(clock=clock, max_events=max_events)
+    with using(tracer):
+        try:
+            yield tracer
+        finally:
+            try:
+                tracer.dump_chrome(
+                    os.path.join(run_dir, f"trace{suffix}.chrome.json"))
+                tracer.dump_jsonl(
+                    os.path.join(run_dir, f"trace{suffix}.jsonl"))
+            except (OSError, TypeError, ValueError) as e:
+                # Diagnostics must not fail the run: TypeError/ValueError
+                # cover a non-JSON-serializable span arg (span(**args)
+                # accepts arbitrary values) raised by json.dump AT
+                # TEARDOWN — after the federation already succeeded.
+                log.warning("could not dump trace artifacts to %s: %s",
+                            run_dir, e)
+
+
+class FlightRecorder:
+    """Bounded ring of recent control-plane events. ``record`` is a deque
+    append; ``dump`` rewrites the whole ring as JSONL (small: ``capacity``
+    lines), so each trigger leaves a complete picture of the run's last
+    ``capacity`` events on disk. A dump failure logs and returns None —
+    the recorder is a diagnostic, never a new way to crash the control
+    plane."""
+
+    def __init__(self, capacity: int = 512, clock=time.monotonic,
+                 path: Optional[str] = None):
+        self.clock = clock
+        self.path = path
+        self._lock = threading.Lock()
+        self._events: deque = deque(maxlen=int(capacity))
+
+    def record(self, kind: str, **fields) -> None:
+        ev = {"t": round(float(self.clock()), 6), "kind": kind, **fields}
+        with self._lock:
+            self._events.append(ev)
+
+    def snapshot(self) -> List[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def dump(self, path: Optional[str] = None) -> Optional[str]:
+        path = path or self.path
+        if not path:
+            return None
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            with open(path, "w") as f:
+                for ev in self.snapshot():
+                    f.write(json.dumps(ev) + "\n")
+            return path
+        except (OSError, TypeError, ValueError) as e:
+            log.warning("flight recorder dump to %s failed: %s", path, e)
+            return None

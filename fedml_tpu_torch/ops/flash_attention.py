@@ -47,6 +47,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from fedml_tpu_torch.core.graph import launch_counter
 from fedml_tpu_torch.ops.build import extension
@@ -235,6 +236,16 @@ def _(q, k, v, causal):
 @_bwd_op.register_fake
 def _(q, k, v, o, lse, do, causal):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.fedml_tpu_torch.flash_fwd)
+def _fwd_flops(q, k, v, causal, out_shape=None, **_) -> int:
+    """The forward's two products, ``S = q·kᵀ`` and ``o = P·v``, over the
+    full ``T_q × T_k`` square (what ``FlopCounterMode`` counts for SDPA;
+    a causal call does about half of it), so ``obs.flops.model_cost``
+    counts the kernel."""
+    r, b, t_q, h, d = q
+    return 4 * r * b * h * t_q * k[2] * d
 
 
 class _FlashAttention(torch.autograd.Function):

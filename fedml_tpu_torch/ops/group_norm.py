@@ -40,7 +40,10 @@ replayed CUDA graph of a step counts the launches that it replays.
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from fedml_tpu_torch.core.graph import launch_counter
 from fedml_tpu_torch.ops.build import extension
@@ -225,6 +228,15 @@ def _(x, gamma, beta, groups, eps):
 def _(x, dy, gamma, groups, eps):
     return (torch.empty_like(x), torch.empty_like(gamma),
             torch.empty_like(gamma))
+
+
+@register_flop_formula(torch.ops.fedml_tpu_torch.group_norm_fwd)
+def _fwd_flops(x, gamma, beta, groups, eps, out_shape=None, **_) -> int:
+    """The forward's elementwise work, 7 per element of x: the group sums
+    of x and x² (3), the normalisation ``(x − μ)·rstd`` (2) and the
+    affine ``γ·x̂ + β`` (2); the per-group terms are left out. So
+    ``obs.flops.model_cost`` counts the kernel."""
+    return 7 * math.prod(x)
 
 
 class _GroupNorm(torch.autograd.Function):

@@ -1991,3 +1991,144 @@ def test_a_worker_failure_surfaces_in_get(cuda):
     good = np.array([[3, 4], [5, 6]])
     pf.prefetch(1, good, 8)
     assert _same_fields(pf.get(1, good, 8), store.gather_window(good, 8))
+
+
+# --- the observability layer on the card -------------------------------------
+
+def test_sanitized_traps_a_sync_and_passes_pinned_copies(cuda):
+    """In a region: ``.item()`` raises where it happens and the sync mode is
+    restored after; inside ``planned_transfer`` it passes; a pinned
+    ``non_blocking`` copy passes, from this thread and from the store's
+    prefetch worker (its gather's pinned copies), and ``RoundTimer.fence``
+    passes."""
+    from fedml_tpu_torch.data.store import CohortPrefetcher, FederatedStore
+    from fedml_tpu_torch.obs import RoundTimer, planned_transfer, sanitized
+
+    x, y, parts = _power_law_store_data()
+    store = FederatedStore(x, y, parts, 8, device=cuda)
+    store.gather_cohort([0, 1])  # the copy stream and the pinned pool
+    pf = CohortPrefetcher(store)
+    t = torch.ones(3, device=cuda)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with sanitized():
+            t.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    host = torch.arange(4096.0).pin_memory()
+    with sanitized() as rep:
+        with planned_transfer():
+            assert t.sum().item() == 3.0
+        dev = host.to(cuda, non_blocking=True)
+        pf.prefetch(0, [2, 3, 5])
+        sub = pf.get(0, [2, 3, 5])
+        timer = RoundTimer()
+        with timer.phase("copy"):
+            timer.fence((dev, sub.x))
+    assert rep.compiles == 0
+    assert torch.equal(dev.cpu(), host)
+    assert _same_fields(sub, store.gather_cohort([2, 3, 5]))
+
+
+def test_compile_count_rises_once_for_one_capture(cuda):
+    """A captured step: its first call captures (+1), a replay adds
+    nothing, a new shape (a new step bucket) captures once more, and a
+    strict region around that capture raises ``SanitizerError``."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+    from fedml_tpu_torch.obs import SanitizerError, compile_count, sanitized
+
+    step = CapturedStep(lambda carry, x: (carry + x.sum(), x * 2), cuda,
+                        lambda: [])
+    carry = torch.zeros((), device=cuda)
+    n0 = compile_count()
+    carry, _ = step(carry, torch.ones(4, device=cuda))
+    assert compile_count() == n0 + 1
+    with sanitized() as rep:
+        carry, _ = step(carry, torch.ones(4, device=cuda))
+    assert rep.compiles == 0 and compile_count() == n0 + 1
+    with pytest.raises(SanitizerError, match="bucket"):
+        with sanitized():
+            carry, _ = step(carry, torch.ones(8, device=cuda))
+    assert compile_count() == n0 + 2
+    assert carry.item() == 16.0
+
+
+def test_flop_formulas_count_the_kernels_on_the_card(cuda):
+    """``model_cost`` on the card launches the kernels and counts them: a
+    bf16 ``transformer_lm`` at T 256 through the flash forward counts as
+    the dense model does, and a GroupNorm 7 flops an element."""
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs import model_cost
+    from fedml_tpu_torch.ops.group_norm import group_norm, group_norm_fwd
+
+    kw = dict(vocab_size=512, d_model=128, n_heads=2, n_layers=2,
+              max_len=256, dtype="bf16", device=cuda)
+    x = torch.ones(2, 256, dtype=torch.int32)
+    n = flash_attention.launches
+    flash = model_cost(create_model("transformer_lm", attn="flash", **kw), x)
+    assert flash_attention.launches == n + 2
+    dense = model_cost(create_model("transformer_lm", **kw), x)
+    assert flash["flops"] == dense["flops"] > 0
+
+    class Net(torch.nn.Module):
+        def forward(self, x):
+            return group_norm(x, torch.ones(64, device=cuda),
+                              torch.zeros(64, device=cuda), 32)
+
+    n = group_norm_fwd.launches
+    xg = torch.zeros(8, 16, 16, 64, device=cuda, dtype=torch.bfloat16)
+    assert model_cost(Net(), xg)["flops"] == 7 * xg.numel()
+    assert group_norm_fwd.launches == n + 1
+
+
+def test_round_timer_fence_waits_for_a_long_kernel(cuda):
+    """A phase around a ~50 ms device sleep: fenced, it lasts at least the
+    sleep's event-timed length; unfenced, the host returns long before."""
+    from fedml_tpu_torch.obs import RoundTimer
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    assert sleep_s > 5e-3
+    t = RoundTimer()
+    marker = torch.zeros(1, device=cuda)
+    with t.phase("unfenced"):
+        torch.cuda._sleep(50_000_000)
+    torch.cuda.synchronize()
+    with t.phase("fenced"):
+        torch.cuda._sleep(50_000_000)
+        t.fence({"out": [marker]})
+    s = t.summary()
+    assert s["fenced"]["last_s"] >= 0.9 * sleep_s
+    assert s["unfenced"]["last_s"] < 0.5 * sleep_s
+
+
+@pytest.mark.parametrize("name", ["FedAvgAPI", "ScaffoldAPI", "FedOptAPI"])
+def test_steady_store_loops_are_clean_under_the_sanitizer(cuda, name):
+    """After their buckets' warm-up, the synced store loop
+    (``train_rounds_pipelined`` with the cohort prefetcher) and the
+    windowed loop replay the same rounds in strict ``disallow`` regions:
+    no capture, no implicit sync (SCAFFOLD's cohort indices and FedOpt's
+    server state included); the donation audit of the pipelined rounds
+    holds within 0.25 of its baseline."""
+    from fedml_tpu_torch import algos
+    from fedml_tpu_torch.obs import donation_audit, sanitized
+
+    cls = getattr(algos, name)
+    kw = dict(server_optimizer="adam", server_lr=0.01) \
+        if name == "FedOptAPI" else {}
+    synced, win = _store_api(cuda, cls, **kw), _store_api(cuda, cls, **kw)
+    synced.train_rounds_pipelined(8)
+    win.train_rounds_windowed(8, window=4)
+    with sanitized() as rep:
+        with donation_audit(synced.net) as audit:
+            base = audit.sample()
+            for r in range(0, 8, 2):
+                synced.train_rounds_pipelined(2, start_round=r)
+                audit.sample()
+        losses = win.train_rounds_windowed(8, window=4)
+    assert rep.compiles == 0
+    assert all(v == v for v in losses)
+    assert audit.peak <= base + 0.25, (audit.peak, base)
