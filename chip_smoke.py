@@ -192,8 +192,9 @@ Phases, each of which must pass or the script exits non-zero:
              bit-equal to them from one start. A line per class beside
              FedAvg's with the capture, the peak memory, the GroupNorm
              launches a round and the card's name and power limit.
-9. split   — the model-split family at full width on the same data (128
-             clients x 256 samples, batch 32, 1 local epoch, lr 0.1), f32:
+9. split   — the model-split family at full width on the same data (the
+             first 32 of its clients x 256 samples, batch 32, 1 local
+             epoch, lr 0.1), f32:
              FedGKTAPI over resnet5_56 + resnet56_server (T 3, server
              Adam lr 1e-3): (a) the captured client phase against two
              eager client phases from one start (stumps, losses, client
@@ -204,24 +205,25 @@ Phases, each of which must pass or the script exits non-zero:
              against the same replay with have_teacher forced to 0, and 1
              timed round split into client phase, server phase and
              relabel by CUDA events, with the GroupNorm launches counted
-             against the models' reckoning (116,784 forwards and 58,392
+             against the models' reckoning (29,232 forwards and 14,616
              backwards a round), none captured, none streamed;
              SplitNNAPI over resnet_split_bottom + resnet56_server: client
              0's captured segment against two eager ones, the other rows
              of the stack unchanged by it, a warm cycle after which every
-             row moved and a timed cycle (61,440 GroupNorm launches of
+             row moved and a timed cycle (15,360 GroupNorm launches of
              each kind); VflAPI at the NUS-WIDE shape (634 + 1000
              features, 1,280 samples, batch 64, 5 epochs): per-batch
              losses within 1e-5 relative of its own CPU run from the same
              params, the accuracy risen.
 10. extra  — the rest of the simulator zoo (exp/main_extra.py) at full
              model width, f32: FedNASAPI over the DARTS search net (c 16,
-             8 layers, 4 steps, multiplier 4; 705 GroupNorms a forward) on
+             5 layers, 4 steps, multiplier 4; 447
+             GroupNorms a forward) on
              32 x 32 x 3, 16 clients x 128 samples, batch 32, 8 a round:
              (a) the captured round against an eager round from one
-             start under cuDNN's deterministic mode, bit-equal, at 3
-             layers (the cut of the host's work: a normal cell and both
-             reductions); the full net captured once by
+             start under cuDNN's deterministic mode, bit-equal, at 2
+             layers (the cut of the host's work: a normal cell and a
+             reduction); the full net captured once by
              train_rounds_on_device, 1 replayed on-device round by CUDA
              events with the GroupNorm launches counted against the
              model's reckoning, the genotype; the unrolled arch gradient
@@ -317,7 +319,45 @@ Phases, each of which must pass or the script exits non-zero:
              window=4) bit-equal to the resident pipelined rounds, 16
              launches of each flash kernel a round, no copy, the base
              frozen.
-16. report — each phase's seconds, a ``kernels`` JSON line (each flash
+16. knobs  — BatchNorm's last refusals and FedAvgAPI's knobs.
+             (a) norm="bn" where the port refused it before: FedGKT over
+             resnet5_56 + resnet56_server and SplitNN over
+             resnet_split_bottom + resnet56_server (f32, 8 clients),
+             DecentralizedAPI (DSGD, 16 clients) and TurboAggregate (8 a
+             round) over resnet56 bf16, FedNAS over the DARTS search net
+             at the extra phase's pin size (2 cells)
+             and FedGAN's BatchNorm1d generator at its sizes: each captured
+             step bit-equal to its uncaptured run from one start under
+             cuDNN's deterministic mode, every running-stat buffer moved.
+             (b) On the flagship (train's config): pow_d over 16
+             candidates, 3 rounds resident and 3 from a FederatedStore,
+             bit-equal, each cohort the 8 highest losses of a plain
+             (uncaptured) eval, GroupNorm launches counted (the captured
+             eval's forwards beside the round's); oort, 4 rounds through
+             the host round (the round captured as its own step, the
+             server update and the utilities on the host), utilities
+             written for the cohort only, round 1 exploiting, a run
+             checkpoint after round 1 resumed bit-equal; the pipelined,
+             windowed and on-device tiers refused. (c) topk0.05 and q8: 2
+             train_one_round rounds fed the on-device tier's cohorts
+             bit-equal to train_rounds_on_device(2); topk1.0 bit-equal
+             to plain FedAvg; a round's q8 client deltas on their
+             255-level grids; FedAdapter (adapter's config) under pow_d
+             (16 candidates) and topk0.05, 2 rounds with the flash
+             launches counted. (d) The physical widths of the card's
+             layout policy and of JAX's; bench.py's cnn_mfu_levers (16 x
+             64, batch 16, 8 a round, 10 accuracy rounds; fp32, bf16 and
+             im2col arms: samples/s, accuracy, final loss, deltas) and
+             layout_fused_round (64 x 128, batch 20, 10 a round, cnn
+             widths 120/120: auto against none), nothing cut; a
+             GroupNorm CifarResNet at widths 20/40/80, stem 20 (resnet20
+             depth, f32, lr 1e-3) under compute_layout="auto" against
+             "none": the GroupNorm launches at the padded widths counted,
+             the logical params within LAYOUT_F32_TOL, the physical
+             client nets' pad entries exactly 0; the GroupNorm kernels at
+             its padded widths (cluster and streamed routes) against the
+             logical call and the plain twin, pad channels exactly 0.
+17. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -371,13 +411,17 @@ GN_STEP = [((256, 1024, 16), 16, 13), ((256, 1024, 64), 32, 7),
 RESNET56_GN = sum(n for _, _, n in GN_STEP)  # 58
 # The split family's f32 GroupNorms: resnet56_server's 57 a step at batch
 # 32 (shape [N, S, C], groups, launches a step), and the stump's under the
-# FedGKT client phase's vmap (128 clients' rows of 32 samples, x
+# FedGKT client phase's vmap (SPLIT_CLIENTS clients' rows of 32 samples, x
 # interleaved as the vmapped conv hands it over; 3 a step).
 SPLIT_TAIL_STEP = [((32, 1024, 16), 16, 12), ((32, 1024, 64), 32, 7),
                    ((32, 1024, 32), 32, 1), ((32, 256, 32), 32, 11),
                    ((32, 256, 128), 32, 7), ((32, 256, 64), 32, 1),
                    ((32, 64, 64), 32, 11), ((32, 64, 256), 32, 7)]
-SPLIT_STUMP = ((4096, 1024, 16), 16, 128)
+# The split phase's cohort: the first 32 of the flagship's 128 clients (the
+# cut that pays for the knobs phase; FedGKT's server phase replays its step
+# once per client batch).
+SPLIT_CLIENTS = 32
+SPLIT_STUMP = ((SPLIT_CLIENTS * 32, 1024, 16), 16, SPLIT_CLIENTS)
 # The simulator zoo's f32 GroupNorms on the cluster route, 8 clients' rows
 # (shape [N, S, C], groups as norm_groups gives them): the DARTS search net
 # at batch 32 on 32 x 32 (the stem's 48 channels in 24 groups of 2, the
@@ -507,7 +551,7 @@ CUSTOM_ALPHA, CUSTOM_LAM = 0.01, 0.1
 # one client's forward).
 ZOO_FEDAC_GAMMA, ZOO_SAVG_BETA, ZOO_Q = 2.0, 0.5, 1.0
 ZOO_GROUPS, ZOO_GROUP_ROUNDS, ZOO_TA_GROUPS = 4, 2, 3
-ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 32, 2, 1
+ZOO_GOSSIP_CLIENTS, ZOO_ROUNDS, ZOO_PIN_ROUNDS = 16, 2, 1
 ZOO_REL_TOL, ZOO_FGLOBAL_TOL = 1e-6, 1e-2
 # The model-split family at the JAX package's defaults (temperature 3,
 # server Adam lr 1e-3, one server epoch) on the training data; pin (b)'s
@@ -519,8 +563,9 @@ VFL_DIMS, VFL_N, VFL_BATCH, VFL_REP, VFL_EPOCHS = (634, 1000), 1280, 64, 32, 5
 VFL_LR, VFL_TOL = 0.01, 1e-5
 # The rest of the simulator zoo (exp/main_extra.py's algorithms), each at
 # its model's full width in f32 as the JAX models run. FedNAS: the DARTS
-# search net (c 16, 8 layers, 4 steps, multiplier 4: 705 GroupNorms a
-# forward) on 32 x 32 x 3, 10 classes, 16 clients x 64 samples, batch 32
+# search net (c 16, NAS_LAYERS layers, 4 steps, multiplier 4: 447
+# GroupNorms a forward; the depth cut from 8 to pay for the knobs phase)
+# on 32 x 32 x 3, 10 classes, 16 clients x 64 samples, batch 32
 # (2 packed steps: h 1), 8 a round, weights lr 0.025, alphas lr 3e-4; the
 # unrolled (second-order) round with xi 0.025 at 2 clients a round of 64
 # samples, one search step, at NAS_PIN_LAYERS cells (the cuts: its
@@ -536,20 +581,21 @@ VFL_LR, VFL_TOL = 0.01, 1e-5
 # first-order gradient's own distance from it (so a second derivative
 # lost to zero cannot pass). On the CPU the same route through the twins
 # reads 1.1e-3 from plain autograd in f32 and 6.6e-16 in f64: f32
-# rounding, amplified through 705 GroupNorms of one-channel groups.
+# rounding, amplified through the GroupNorms of one-channel groups.
 # The phase's host time is bounded by cuts (an eager round or a capture
 # of the full net is the host's dispatch of ~30k ops a search step, ~3x
 # that for the second-order one, whatever the client count): 64 samples
 # a client, one search step a round (the train batch and the valid
 # batch); pin (a), captured against eager under cuDNN's deterministic
 # mode, and the unrolled (second-order) drives, the arch gradient's hold
-# and the eager round, at NAS_PIN_LAYERS cells (3: a normal cell and both
-# reductions, every op and edge kind); the full net captured once, by the
-# on-device tier, whose replays are counted and timed.
+# and the eager round, at NAS_PIN_LAYERS cells (2: a normal cell and a
+# reduction, every op and edge kind); the full net
+# captured once, by the on-device tier, whose replays are counted and
+# timed.
 NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 64, 32, 8
 NAS_LR, NAS_ARCH_LR, NAS_XI, NAS_UNROLLED_PER_ROUND = 0.025, 3e-4, 0.025, 2
-NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS = 64, 3
-NAS_GN, NAS_GRAD2_TOL, NAS_REPLAYS = 705, 3e-2, 1
+NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS, NAS_LAYERS = 64, 2, 5
+NAS_GN, NAS_GRAD2_TOL, NAS_REPLAYS = 447, 3e-2, 1
 # FedSeg: UNet (21 classes, base 16, 3 levels: 14 GroupNorms a forward) on
 # 256 x 256 x 3 with 10% of the label pixels 255 (ignored), 16 clients x
 # 32 samples, batch 8, 8 a round, lr 0.01; evaluate on 64 test images.
@@ -3267,7 +3313,7 @@ def phase_zoo(shared=None):
                 losses.append(api.train_one_round(r)["train_loss"])
                 round_ms.append((time.perf_counter() - t0) * 1e3)
                 cons = api.consensus_net().params
-                debiased = api._debiased()
+                debiased = api._debiased().params
                 spreads.append(max((debiased[k] - v[None]).abs().max().item()
                                    for k, v in cons.items()))
             return statistics.median(round_ms), round_ms, losses
@@ -3364,10 +3410,12 @@ def _cudnn_deterministic():
 
 
 def _hold_pin(tag, what, eager, got):
-    """``got`` against the first of two ``eager`` runs, each a list of
-    tensors: within the eager runs' own spread, which under
-    ``_cudnn_deterministic`` is 0, so bit-equal. Returns the distance."""
-    spread = max((a - b).abs().max().item() for a, b in zip(*eager))
+    """``got`` against the first of the ``eager`` runs (one or two), each
+    a list of tensors: within the eager runs' own spread, which under
+    ``_cudnn_deterministic`` is 0, so bit-equal (one run: bit-equal).
+    Returns the distance."""
+    spread = (max((a - b).abs().max().item() for a, b in zip(*eager))
+              if len(eager) > 1 else 0.0)
     dist = max((a - b).abs().max().item() for a, b in zip(eager[0], got))
     print(f"[{tag}] {what}: captured vs eager max|d| {dist:.3e}; eager vs "
           f"eager {spread:.3e} (must be within it; "
@@ -3377,38 +3425,38 @@ def _hold_pin(tag, what, eager, got):
     return dist
 
 
-def _gkt_pins(api, tag):
+def _gkt_pins(api, tag, runs=2):
     """FedGKT's pins (a) and (b) from the api's state: (a) the captured
-    client phase against two eager ones from one start (stumps, losses,
-    client logits, the features), (b) the first GKT_PIN_STEPS replayed
-    server steps on those features against the eager step (the tail,
-    the Adam state and its count, the loss sums)."""
+    client phase against ``runs`` eager ones from one start (stumps,
+    losses, client logits, the features), (b) the first GKT_PIN_STEPS
+    replayed server steps on those features against the eager step (the
+    tail, the Adam state and its count, the loss sums). ``runs=1`` asks
+    for bit-equality with one eager run."""
     from fedml_tpu_torch.core import keys
     from fedml_tpu_torch.core.graph import CapturedStep, _map
-    from fedml_tpu_torch.trainer.local import NetState
 
     clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
     # (a)
-    start = clone(api.client_nets.params)
+    start = clone(api.client_nets)
     key = keys.fold_in(api.rng, 0xA)
     phase = api._build_client_phase()
     eager, feats0 = [], None
-    for run in range(2):
+    for run in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, losses = phase(clone(start), api._flags[0], key)
+        nets, losses = phase(clone(start), api._flags[0], key)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if feats0 is None:
             feats0 = api.feats.clone()
-        eager.append([_tree_vec(params), losses.clone(),
+        eager.append([_tree_vec(nets), losses.clone(),
                       api.client_logits.clone(),
                       (api.feats - feats0).abs().amax().reshape(1)])
         print(f"[{tag}] eager client phase {run}: {ms:.1f} ms", flush=True)
-    api.client_nets = NetState(clone(start), {})
+    api.client_nets = clone(start)
     captures = CapturedStep.captures
     losses = api._run_client_phase(key)
-    got = [_tree_vec(api.client_nets.params), losses.clone(),
+    got = [_tree_vec(api.client_nets), losses.clone(),
            api.client_logits.clone(),
            (api.feats - feats0).abs().amax().reshape(1)]
     _hold_pin(tag, "(a) client phase (stumps, losses, client logits, "
@@ -3418,13 +3466,13 @@ def _gkt_pins(api, tag):
 
     # (b) the first GKT_PIN_STEPS replayed server steps against the eager
     # step from one start (the features above).
-    sstart = (clone(api.server_net.params), clone(api.server_state),
+    sstart = (clone(api.server_net), clone(api.server_state),
               torch.zeros(2, device="cuda"),
               torch.zeros((), dtype=torch.int64, device="cuda"),
               keys.fold_in(api.rng, 0xB))
     sstep = api._build_server_step()
     eager = []
-    for _ in range(2):
+    for _ in range(runs):
         carry = clone(sstart)
         for _ in range(GKT_PIN_STEPS):
             carry, _ = sstep(carry)
@@ -3442,8 +3490,9 @@ def _gkt_pins(api, tag):
 
 
 def phase_split():
-    """The model-split family at full width on the training data (128
-    clients x 256 CIFAR-shaped samples, batch 32, 1 local epoch, lr 0.1):
+    """The model-split family at full width on the training data (the first
+    SPLIT_CLIENTS clients x 256 CIFAR-shaped samples, batch 32, 1 local
+    epoch, lr 0.1):
     FedGKTAPI over resnet5_56 + resnet56_server (f32, GroupNorm) with its
     pins and timed rounds, SplitNNAPI over resnet_split_bottom +
     resnet56_server with its pins and a timed cycle, and VflAPI at the
@@ -3461,11 +3510,13 @@ def phase_split():
     t_phase = time.perf_counter()
     card = smi_line()
     x, y = _cifar_samples()
-    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+    m = SPLIT_CLIENTS * TRAIN_PER_CLIENT
+    fed = build_federated_arrays(x[:m], y[:m], partition_homo(m,
+                                                              SPLIT_CLIENTS),
                                  TRAIN_BATCH, device="cuda")
     del x, y
-    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
-                    client_num_per_round=TRAIN_CLIENTS, comm_round=1,
+    cfg = FedConfig(client_num_in_total=SPLIT_CLIENTS,
+                    client_num_per_round=SPLIT_CLIENTS, comm_round=1,
                     epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
     n_c, n_s = fed.num_clients, fed.steps_per_epoch
     cs = n_c * n_s
@@ -3495,8 +3546,8 @@ def phase_split():
           f"T {GKT_T}, server Adam lr {GKT_SERVER_LR}; features "
           f"{list(api.feats.shape)} f32 ({api.feats.numel() * 4 / 2**30:.2f}"
           f" GiB), read by a device index; GroupNorm launches a round by the "
-          f"models: fwd {want_fwd}, bwd {want_bwd} (reckoned 116784, "
-          f"58392)", flush=True)
+          f"models: fwd {want_fwd}, bwd {want_bwd} (reckoned 29232, "
+          f"14616)", flush=True)
 
     # Pins (a) and (b) under cuDNN's deterministic mode; their captures
     # are then dropped, and the warm round captures the steps anew in
@@ -3594,7 +3645,7 @@ def phase_split():
     # Where a server step's time goes: 16 replays under the profiler.
     n_prof = min(16, cs)
     step = api._graphs["server"]
-    carry = (api.server_net.params, api.server_state,
+    carry = (api.server_net, api.server_state,
              torch.zeros(2, device="cuda"),
              torch.zeros((), dtype=torch.int64, device="cuda"),
              keys.fold_in(api.rng, 0xD))
@@ -3614,15 +3665,15 @@ def phase_split():
     bottom, tail = models("resnet_split_bottom")
     per_step = _norm_count(bottom) + _norm_count(tail)
     api = SplitNNAPI(bottom, tail, fed, None, cfg, device="cuda")
-    start = (clone(api.client_nets.params), clone(api.client_opts),
-             clone(api.server_net.params), clone(api.server_opt),
+    start = (clone(api.client_nets), clone(api.client_opts),
+             clone(api.server_net), clone(api.server_opt),
              torch.zeros((), device="cuda"))
     key = keys.split(keys.fold_in(api.rng, 0xC), n_c)[0]
     seg = api._build_segment()
 
     def row0(carry):
         nets, opts, top, opt_t, loss = carry
-        return [_tree_vec({k: v[0] for k, v in nets.items()}),
+        return [_tree_vec(_map(lambda t: t[0], nets)),
                 _tree_vec(_map(lambda t: t[0], opts)), _tree_vec(top),
                 _tree_vec(opt_t), loss.reshape(1)]
 
@@ -3635,8 +3686,8 @@ def phase_split():
         carry, _ = step(clone(start), api._ids[0], key)
     _hold_pin(tag, "client 0's segment (its bottom and momentum, the top "
               "and its momentum, the loss)", eager, row0(carry))
-    others = all(torch.equal(carry[0][k][1:], start[0][k][1:])
-                 for k in start[0])
+    others = all(torch.equal(carry[0].params[k][1:], start[0].params[k][1:])
+                 for k in start[0].params)
     print(f"[{tag}] rows 1..{n_c} of the stack (the dustbin too) unchanged "
           f"by client 0's segment: {others}", flush=True)
     check(others, f"{tag}: a segment wrote another client's row")
@@ -3667,7 +3718,7 @@ def phase_split():
           f"timed cycle {cycle_ms:.1f} ms = {samples / cycle_ms * 1e3:.1f} "
           f"samples/s, loss {m['train_loss']:.4f}; {replays} replays; "
           f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} (expected "
-          f"{want} each; reckoned 61440), streamed {streamed}, copies "
+          f"{want} each; reckoned 15360), streamed {streamed}, copies "
           f"{copies}; segment captured in {seg_capture:.1f} ms; peak device "
           f"memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}",
@@ -3816,7 +3867,7 @@ def _fednas_drives(card):
     """FedNAS at the DARTS search net's full width: the first-order search
     (pin (a) under cuDNN's deterministic mode at NAS_PIN_LAYERS cells, the
     full net's on-device round captured once and 2 replays counted against
-    705 GroupNorm forwards and backwards per search pass and timed, the
+    NAS_GN GroupNorm forwards and backwards per search pass and timed, the
     genotype), the unrolled arch gradient through the kernels against the
     plain twin's, and one unrolled round. Returns the counted launches."""
     from fedml_tpu_torch.algos import FedConfig, FedNASAPI
@@ -3857,7 +3908,7 @@ def _fednas_drives(card):
     del api, small
     _free()
 
-    model = darts()
+    model = darts(layers=NAS_LAYERS)
     n_gn, frozen = _norm_count(model), _alpha_free_norms(model)
     half = fed.steps_per_epoch // 2
     # A search step runs the net forward and backward twice (the arch
@@ -3867,7 +3918,7 @@ def _fednas_drives(card):
     want_fwd = 2 * half * n_gn
     want_bwd = half * (2 * n_gn - frozen)
     samples = NAS_PER_ROUND * 2 * half * NAS_BATCH
-    print(f"[{tag}] darts c 16, 8 layers, 4 steps ({n_gn} GroupNorms a "
+    print(f"[{tag}] darts c 16, {NAS_LAYERS} layers, 4 steps ({n_gn} GroupNorms a "
           f"forward, reckoned {NAS_GN}; {frozen} of them before the alphas' "
           f"first use), {NAS_CLIENTS} clients x {NAS_PER_CLIENT} samples, "
           f"batch {NAS_BATCH} ({half} search steps a round), {NAS_PER_ROUND} "
@@ -5972,6 +6023,864 @@ def phase_obs(shared=None):
     return launches
 
 
+# --- knobs: BatchNorm's last refusals and FedAvgAPI's knobs ---------------
+# (a) the A2 tail's drives: the split family at 8 clients (the split phase
+# takes 32), DecentralizedAPI over 16 of the flagship's
+# clients (the zoo phase takes 32), TurboAggregate at the flagship's 8 a
+# round, FedNAS at the extra phase's pin net (NAS_PIN_LAYERS cells) and
+# FedGAN at its sizes, all with norm="bn".
+KNOB_SPLIT_CLIENTS, KNOB_GOSSIP_CLIENTS = 8, 16
+# (b) selection on the flagship: pow_d over 16 candidates, 3 rounds
+# resident and 3 from the store; oort 4 rounds, checkpointed after 2.
+KNOB_POW_D, KNOB_POW_D_ROUNDS, KNOB_OORT_ROUNDS = 16, 3, 4
+# (c) compression: 2 rounds of each codec on both tiers.
+KNOB_COMPRESS, KNOB_COMPRESS_ROUNDS = ("topk0.05", "q8"), 2
+# (d) bench.py's cnn_mfu_levers (bench.py:2290-2367: 16 clients x 64, batch
+# 16, 8 a round, 10 accuracy rounds, lr 0.1) and layout_fused_round
+# (bench.py:2388: 64 x 128, batch 20, 10 a round, widths 120/120, lr 0.05),
+# nothing cut; each arm timed over KNOB_TIMED synced rounds. The
+# mis-sized GroupNorm ResNet of tests/test_layout.py (widths 20/40/80, stem
+# 20; depth resnet20's 2-2-2), f32 at ROUND_LR on the flagship data.
+LEVERS = dict(clients=16, per_client=64, batch=16, per_round=8,
+              acc_rounds=10, lr=0.1)
+LAYOUT_BENCH = dict(clients=64, per_client=128, batch=20, per_round=10,
+                    widths=(120, 120), lr=0.05)
+KNOB_TIMED = 20
+MIS_WIDTHS, MIS_STEM, MIS_LAYERS = (20, 40, 80), 20, (2, 2, 2)
+# The mis-sized ResNet's logical params under compute_layout="auto" against
+# "none" after 2 f32 rounds at lr 1e-3: cuDNN may pick other convolution
+# algorithms at the padded widths, which sum in other orders; 1e-5 of the
+# params' scale (the two rounds move them by ~1e-3).
+LAYOUT_F32_TOL = 1e-5
+
+
+def _bit_equal(tag, what, want, got):
+    """Two lists of tensors, bit for bit."""
+    dist = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(want, got))
+    print(f"[{tag}] {what}: max|d| {dist:.3e} (must be bit-equal)",
+          flush=True)
+    check(dist == 0, f"{tag}: {what} is {dist} apart")
+
+
+def _stats_moved(tag, before, after, rows=None):
+    """Every running-stat buffer moved from ``before`` (each of ``rows``
+    client rows, when given)."""
+    moved = 0
+    for k, v in before.items():
+        now = after[k]
+        if rows is None:
+            moved += not torch.equal(v, now)
+        else:
+            moved += all(not torch.equal(v[c], now[c]) for c in range(rows))
+    print(f"[{tag}] running stats moved from their init: {moved} of "
+          f"{len(before)} buffers{'' if rows is None else f' (every one of {rows} client rows)'}",
+          flush=True)
+    check(before and moved == len(before),
+          f"{tag}: {len(before) - moved} buffers did not move")
+
+
+def _clone_state(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+def _knob_split(card, x, y):
+    """FedGKT over resnet5_56 + resnet56_server and SplitNN over
+    resnet_split_bottom + resnet56_server, all norm="bn", f32, at
+    KNOB_SPLIT_CLIENTS clients of the flagship data."""
+    from fedml_tpu_torch.algos import FedConfig, FedGKTAPI, SplitNNAPI
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.graph import _leaves, _map
+    from fedml_tpu_torch.core.tree import client_rows
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import NetState
+
+    n = KNOB_SPLIT_CLIENTS
+    m = n * TRAIN_PER_CLIENT
+    fed = build_federated_arrays(x[:m], y[:m], partition_homo(m, n),
+                                 TRAIN_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=n, client_num_per_round=n,
+                    comm_round=1, epochs=1, batch_size=TRAIN_BATCH,
+                    lr=TRAIN_LR, seed=SEED)
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+
+    def models(stump):
+        gen = torch.Generator().manual_seed(SEED)
+        return (create_model(stump, num_classes=10, norm="bn",
+                             device="cuda", generator=gen),
+                create_model("resnet56_server", num_classes=10, norm="bn",
+                             device="cuda", generator=gen))
+
+    tag = "knobs/FedGKTAPI-bn"
+    api = FedGKTAPI(*models("resnet5_56"), fed, None, cfg,
+                    temperature=GKT_T, server_lr=GKT_SERVER_LR,
+                    device="cuda")
+    c0 = _clone_state(api.client_nets.model_state)
+    s0 = _clone_state(api.server_net.model_state)
+    print(f"[{tag}] {n} clients x {TRAIN_PER_CLIENT} (the split phase "
+          f"takes {SPLIT_CLIENTS}), resnet5_56 + resnet56_server, "
+          f"norm='bn', f32; {len(c0)} stump buffers a client, {len(s0)} "
+          f"tail buffers", flush=True)
+    with _cudnn_deterministic():
+        _gkt_pins(api, tag, runs=1)
+        api.client_nets = NetState(api.client_nets.params, clone(c0))
+        api.server_net = NetState(api.server_net.params, clone(s0))
+        out = api.train_one_round(0)
+    print(f"[{tag}] round 0: client loss {out['client_loss']:.4f}, server "
+          f"loss {out['server_loss']:.4f}", flush=True)
+    _stats_moved(tag, c0, api.client_nets.model_state, rows=n)
+    _stats_moved(tag, s0, api.server_net.model_state)
+    del api
+    _free()
+
+    tag = "knobs/SplitNNAPI-bn"
+    api = SplitNNAPI(*models("resnet_split_bottom"), fed, None, cfg,
+                     device="cuda")
+    c0 = _clone_state(api.client_nets.model_state)
+    s0 = _clone_state(api.server_net.model_state)
+    start = (clone(api.client_nets), clone(api.client_opts),
+             clone(api.server_net), clone(api.server_opt),
+             torch.zeros((), device="cuda"))
+    key = keys.split(keys.fold_in(api.rng, 0xC), n)[0]
+    with _cudnn_deterministic():
+        want, _ = api._build_segment()(clone(start), api._ids[0], key)
+        got, _ = api._segment_step()(clone(start), api._ids[0], key)
+        _bit_equal(tag, "client 0's segment captured vs eager (the "
+                   "stacks' params, running stats and momenta, the top)",
+                   _leaves(want), _leaves(got))
+        api._graphs.clear()
+        loss = api.train_one_epoch(0)["train_loss"]
+    print(f"[{tag}] one relay cycle over {n} clients: loss {loss:.4f}; "
+          f"{card}", flush=True)
+    check(math.isfinite(loss), f"{tag}: loss {loss}")
+    _stats_moved(tag, {k: v[:n] for k, v in c0.items()},
+                 client_rows(api.client_nets.model_state), rows=n)
+    _stats_moved(tag, s0, api.server_net.model_state)
+    del api
+    _free()
+
+
+def _knob_zoo_bn(card, x, y):
+    """DecentralizedAPI (DSGD) over resnet56(norm="bn", bf16) at
+    KNOB_GOSSIP_CLIENTS clients and TurboAggregate at the flagship's 8 a
+    round: each captured round bit-equal to its uncaptured one from one
+    start, the running stats moved."""
+    from fedml_tpu_torch.algos import (DecentralizedAPI, FedConfig,
+                                       TurboAggregateAPI)
+    from fedml_tpu_torch.core.graph import _leaves, _map
+    from fedml_tpu_torch.core.topology import SymmetricTopologyManager
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    def model():
+        return create_model("resnet56", num_classes=10, norm="bn",
+                            dtype="bf16", device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+
+    clone = lambda tree: _map(torch.clone, tree)  # noqa: E731
+    n = KNOB_GOSSIP_CLIENTS
+    m = n * TRAIN_PER_CLIENT
+    fed = build_federated_arrays(x[:m], y[:m], partition_homo(m, n),
+                                 TRAIN_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=n, client_num_per_round=n,
+                    comm_round=1, epochs=1, batch_size=TRAIN_BATCH,
+                    lr=TRAIN_LR, seed=SEED)
+    tag = "knobs/DecentralizedAPI-dsgd-bn"
+    api = DecentralizedAPI(model(), fed, None, cfg,
+                           SymmetricTopologyManager(n, neighbor_num=4,
+                                                    seed=SEED),
+                           device="cuda")
+    start = (clone(api.nets), api.push_weights.clone(), api.rng.clone())
+    with _cudnn_deterministic():
+        api._round_step = api._gossip_step  # the uncaptured round
+        eager_loss = api.train_one_round(0)["train_loss"]
+        del api._round_step
+        want = _leaves(api.nets) + [api.push_weights]
+        api.nets, api.push_weights, api.rng = (clone(start[0]),
+                                               start[1].clone(),
+                                               start[2].clone())
+        loss = api.train_one_round(0)["train_loss"]
+    _bit_equal(tag, f"the captured round vs the uncaptured one ({n} "
+               "clients' params and running stats, push weights)",
+               want + [torch.tensor(eager_loss)],
+               _leaves(api.nets) + [api.push_weights, torch.tensor(loss)])
+    _stats_moved(tag, start[0].model_state, api.nets.model_state, rows=n)
+    del api
+    _free()
+
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    tcfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                     client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
+                     epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                     seed=SEED)
+    tag = "knobs/TurboAggregateAPI-bn"
+    apis = [TurboAggregateAPI(model(), fed, None, tcfg,
+                              n_groups=ZOO_TA_GROUPS, device="cuda")
+            for _ in range(2)]
+    apis[0]._local_batch = apis[0]._cohort_training  # uncaptured
+    s0 = _clone_state(apis[1].net.model_state)
+    with _cudnn_deterministic():
+        losses = [a.train_one_round(0)["train_loss"] for a in apis]
+    _bit_equal(tag, "the round with its cohort training captured vs "
+               "uncaptured (the MPC aggregate of params and running stats)",
+               _leaves(apis[0].net) + [torch.tensor(losses[0])],
+               _leaves(apis[1].net) + [torch.tensor(losses[1])])
+    _stats_moved(tag, s0, apis[1].net.model_state)
+    print(f"[{tag}] round 0 loss {losses[1]:.4f}; {card}", flush=True)
+    del apis
+    _free()
+
+
+def _knob_extra_bn(card):
+    """FedNAS over darts(norm="bn") at NAS_PIN_LAYERS cells and FedGAN with
+    the BatchNorm1d generator at the extra phase's sizes: pin (a) from one
+    eager run under cuDNN's deterministic mode, the stats moved."""
+    from fedml_tpu_torch.algos import FedConfig, FedGanAPI, FedNASAPI
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(NAS_CLIENTS * NAS_PER_CLIENT, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, 10, len(x)).astype(np.int32)
+    fed = build_federated_arrays(x, y, partition_homo(len(x), NAS_CLIENTS),
+                                 NAS_BATCH, device="cuda")
+    tag = "knobs/FedNASAPI-bn"
+    model = create_model("darts", num_classes=10, norm="bn",
+                         layers=NAS_PIN_LAYERS, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    api = FedNASAPI(model, fed, None, FedConfig(
+        client_num_in_total=NAS_CLIENTS, client_num_per_round=NAS_PER_ROUND,
+        comm_round=3, epochs=1, batch_size=NAS_BATCH, lr=NAS_LR, seed=SEED),
+        arch_lr=NAS_ARCH_LR, device="cuda")
+    s0 = _clone_state(api.net.model_state)
+    print(f"[{tag}] darts c 16, {NAS_PIN_LAYERS} layers, norm='bn' "
+          f"({len(s0)} buffers), {NAS_CLIENTS} clients x {NAS_PER_CLIENT}, "
+          f"batch {NAS_BATCH}, {NAS_PER_ROUND} a round", flush=True)
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+    _stats_moved(tag, s0, api.net.model_state)
+    del api, model, fed
+    _free()
+
+    tag = "knobs/FedGanAPI-bn"
+    n = GAN_CLIENTS * GAN_PER_CLIENT
+    gx = np.tanh(rng.randn(n, 28, 28, 1)).astype(np.float32)
+    fed = build_federated_arrays(gx, np.zeros(n, np.int32),
+                                 partition_homo(n, GAN_CLIENTS), GAN_BATCH,
+                                 device="cuda")
+    api = FedGanAPI(create_model("mnist_gan", norm="bn", device="cuda",
+                                 generator=torch.Generator()
+                                 .manual_seed(SEED)),
+                    fed, FedConfig(client_num_in_total=GAN_CLIENTS,
+                                   client_num_per_round=GAN_PER_ROUND,
+                                   comm_round=3, epochs=1,
+                                   batch_size=GAN_BATCH, lr=GAN_LR,
+                                   seed=SEED), device="cuda")
+    s0 = _clone_state(api.net.model_state)
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+    _stats_moved(tag, s0, api.net.model_state)
+    img = api.generate(16)
+    check(bool(torch.isfinite(img).all()), f"{tag}: generate not finite")
+    print(f"[{tag}] generate(16) in eval mode (the running stats): "
+          f"{tuple(img.shape)}; {card}", flush=True)
+    del api, fed
+    _free()
+
+
+def _flagship_build(fed, **kw):
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.models import create_model
+
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=100,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                    **kw)
+    model = create_model("resnet56", num_classes=10, dtype="bf16",
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    return FedAvgAPI(model, fed, None, cfg, device="cuda")
+
+
+def _refused_with(tag, what, call, want):
+    try:
+        call()
+    except NotImplementedError as exc:
+        check(want in str(exc), f"{tag}: {what} refusal: {exc}")
+        print(f"[{tag}] {what} refused: {exc}", flush=True)
+    else:
+        raise SmokeFailure(f"{tag}: {what} ran")
+
+
+def _knob_selection(card, fed, store):
+    """(b) pow_d and oort on the flagship. Returns the GroupNorm launches
+    counted in the resident pow_d rounds."""
+    import tempfile
+
+    from fedml_tpu_torch.core.sampling import sample_clients_weighted
+    from fedml_tpu_torch.obs.checkpoint import (CheckpointManager,
+                                                restore_run, save_run)
+
+    tag = "knobs/pow_d"
+    runs = {}
+    counted = [0, 0]
+    for arm, data in (("resident", fed), ("store", store)):
+        api = _flagship_build(data, client_selection="pow_d",
+                              pow_d_candidates=KNOB_POW_D)
+        cohorts, losses, held = [], [], 0
+        with _cudnn_deterministic():
+            for r in range(KNOB_POW_D_ROUNDS):
+                if arm == "resident":
+                    cand = sample_clients_weighted(
+                        r, TRAIN_CLIENTS, KNOB_POW_D, api._host_counts())
+                    _, plain = api._eval_losses_step(False)(
+                        api.net, torch.as_tensor(cand, device="cuda").long())
+                    plain = plain.double().cpu().numpy()
+                    want = set(cand[np.argsort(-plain, kind="stable")[
+                        :TRAIN_PER_ROUND]].tolist())
+                if arm == "resident" and r > 0:
+                    _zero_gn_counts()
+                t0 = time.perf_counter()
+                losses.append(api.train_one_round(r)["train_loss"])
+                ms = (time.perf_counter() - t0) * 1e3
+                if arm == "resident" and r > 0:
+                    fwd, bwd, red, copies, streamed = _gn_counts()
+                    counted[0] += fwd
+                    counted[1] += bwd
+                    print(f"[{tag}] {arm} round {r}: {ms:.1f} ms; "
+                          f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce "
+                          f"{red} (the candidates' eval, then the round: "
+                          f"fwd = 2 x bwd), streamed {streamed}", flush=True)
+                    check(fwd == 2 * bwd == 2 * red and streamed == 0
+                          and copies == 0, f"{tag}: GroupNorm launches "
+                          f"{fwd}/{bwd}/{red}")
+                got = [int(i) for i in api._sample_cache[1]]
+                cohorts.append(got)
+                if arm == "resident":
+                    check(set(got) == want, f"{tag}: round {r} cohort {got}"
+                          f", the plain eval's top {sorted(want)}")
+                    held += 1
+        runs[arm] = (cohorts, losses, _net_vec(api.net))
+        print(f"[{tag}] {arm}: cohorts {cohorts}; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}"
+              + (f"; each cohort the {TRAIN_PER_ROUND} highest losses of "
+                 f"the {KNOB_POW_D} candidates by a plain (uncaptured) eval"
+                 if held else ""), flush=True)
+        _refused_with(tag, "train_rounds_pipelined",
+                      lambda: api.train_rounds_pipelined(1), "pow_d")
+        if arm == "resident":
+            _refused_with(tag, "train_rounds_on_device",
+                          lambda: api.train_rounds_on_device(1),
+                          "loss-biased selection (pow_d/oort) needs the "
+                          "host loop")
+        else:
+            _refused_with(tag, "train_rounds_windowed",
+                          lambda: api.train_rounds_windowed(2, window=2),
+                          "only seeded-random selection permits")
+        del api
+        _free()
+    (ca, la, va), (cb, lb, vb) = runs["resident"], runs["store"]
+    check(ca == cb, f"{tag}: store cohorts {cb}, resident {ca}")
+    _bit_equal(tag, "store vs resident after 3 rounds (params, losses)",
+               [va, torch.tensor(la)], [vb, torch.tensor(lb)])
+
+    tag = "knobs/oort"
+    api = _flagship_build(fed, client_selection="oort")
+    with _cudnn_deterministic():
+        api.train_one_round(0)
+        first = [int(i) for i in api._sample_cache[1]]
+        seen = set(np.flatnonzero(api._oort_last >= 0).tolist())
+        check(seen == set(first) and bool(
+            (api._oort_utility[first] > 0).all()) and not bool(
+            api._oort_utility[api._oort_last < 0].any()),
+              f"{tag}: utilities written outside the cohort {first}")
+        api.train_one_round(1)
+        second = [int(i) for i in api._sample_cache[1]]
+        exploited = len(set(second) & set(first))
+        print(f"[{tag}] round 0 cohort {first} (explored; utilities written "
+              f"for these {len(first)} only), round 1 cohort {second} "
+              f"({exploited} exploited)", flush=True)
+        check(exploited >= TRAIN_PER_ROUND - math.ceil(
+            api.cfg.oort_epsilon * TRAIN_PER_ROUND),
+              f"{tag}: round 1 exploited {exploited}")
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            save_run(mgr, api, 1)
+            t0 = time.perf_counter()
+            straight = [api.train_one_round(r)["train_loss"]
+                        for r in range(2, KNOB_OORT_ROUNDS)]
+            oort_ms = ((time.perf_counter() - t0) * 1e3
+                       / (KNOB_OORT_ROUNDS - 2))
+            want = [_net_vec(api.net), torch.tensor(straight),
+                    torch.from_numpy(api._oort_utility.copy()),
+                    torch.from_numpy(api._oort_last.copy())]
+            check(restore_run(mgr, api) == 2, f"{tag}: resume round")
+            mgr.close()
+            again = [api.train_one_round(r)["train_loss"]
+                     for r in range(2, KNOB_OORT_ROUNDS)]
+    host = api._graphs["host"]
+    print(f"[{tag}] {KNOB_OORT_ROUNDS} rounds through the host round (its "
+          f"step captured once: {host.capture_ms:.1f} ms of warm-up + "
+          f"capture; the server update and the utilities on the host); "
+          f"losses {' '.join(f'{v:.4f}' for v in straight)} after the "
+          f"checkpoint, {oort_ms:.1f} ms a round (host clock, synced by "
+          f"its loss and the utilities' fetch; cuDNN deterministic)",
+          flush=True)
+    _bit_equal(tag, "rounds 2-3 resumed from the run checkpoint after "
+               "round 1 vs straight (params, losses, utilities, last seen)",
+               want, [_net_vec(api.net), torch.tensor(again),
+                      torch.from_numpy(api._oort_utility.copy()),
+                      torch.from_numpy(api._oort_last.copy())])
+    _refused_with(tag, "train_rounds_pipelined",
+                  lambda: api.train_rounds_pipelined(1),
+                  "oort updates per-client utilities after every round")
+    _refused_with(tag, "train_rounds_on_device",
+                  lambda: api.train_rounds_on_device(1),
+                  "loss-biased selection (pow_d/oort) needs the host loop")
+    del api
+    _free()
+    sapi = _flagship_build(store, client_selection="oort")
+    _refused_with(tag, "train_rounds_windowed",
+                  lambda: sapi.train_rounds_windowed(2, window=2),
+                  "only seeded-random selection permits")
+    del sapi
+    print(f"[knobs] selection done; {card}", flush=True)
+    return counted
+
+
+def _knob_compress(card, fed):
+    """(c) topk0.05 and q8 on the flagship: train_one_round fed the
+    on-device tier's cohorts vs train_rounds_on_device from one start, bit
+    for bit; topk1.0 vs plain FedAvg; q8 deltas on their grid."""
+    from torch.func import vmap
+
+    from fedml_tpu_torch.core import compression as tc
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.data import gather_clients
+    from fedml_tpu_torch.parallel.shard import client_rngs
+    from fedml_tpu_torch.trainer.local import NetState
+
+    n = KNOB_COMPRESS_ROUNDS
+    for comp in KNOB_COMPRESS:
+        tag = f"knobs/compress-{comp}"
+        api = _flagship_build(fed, compress=comp)
+        start = _snapshot(api)
+        rng, cohorts = start[1].clone(), []
+        for _ in range(n):
+            pair = keys.split(rng)
+            rng = pair[0]
+            cohorts.append(api._device_cohort(pair[1]))
+        with _cudnn_deterministic():
+            api.sample_round = lambda r: cohorts[r]
+            host, host_ms = [], []
+            try:
+                for r in range(n):
+                    t0 = time.perf_counter()
+                    host.append(api.train_one_round(r)["train_loss"])
+                    host_ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                del api.sample_round
+            want = [_net_vec(api.net), torch.tensor(host)]
+            _restore(api, start)
+            dev = api.train_rounds_on_device(n).tolist()
+        _bit_equal(tag, f"{n} train_one_round rounds fed the on-device "
+                   f"cohorts {[c.tolist() for c in cohorts]} vs "
+                   f"train_rounds_on_device({n}) (params, losses)", want,
+                   [_net_vec(api.net), torch.tensor(dev)])
+        print(f"[{tag}] train_one_round {' / '.join(f'{t:.1f}' for t in host_ms)}"
+              f" ms (the first captures; host clock, synced by its loss; "
+              f"cuDNN deterministic); losses "
+              f"{' '.join(f'{v:.4f}' for v in host)}", flush=True)
+        if comp.startswith("q"):
+            idx = cohorts[0]
+            sub = gather_clients(fed, idx)
+            key = keys.split(start[1])[1]
+            trained, _ = api.local_train.run_clients(
+                api.net, sub.x, sub.y, sub.mask, client_rngs(key, len(idx)))
+            transform = api._client_transform()
+            qkeys = keys.fold_in(client_rngs(key, len(idx)), 0x7F)
+            with torch.no_grad():
+                out = vmap(lambda p, s, k: transform(
+                    api.net, NetState(p, s), k).params)(
+                    trained.params, trained.model_state, qkeys)
+            g = tc.tree_to_vector(api.net.params)
+            worst, n_levels = 0.0, 0
+            for c in range(len(idx)):
+                delta = tc.tree_to_vector({k: v[c] for k, v in out.items()}
+                                          ) - g
+                levels = delta / (delta.abs().max() / 127)
+                worst = max(worst, (levels - levels.round()).abs().max()
+                            .item())
+                n_levels = max(n_levels, int(levels.round().unique().numel()))
+            print(f"[{tag}] the {len(idx)} client deltas of a round on "
+                  f"their 255-level grids: max |level - round(level)| "
+                  f"{worst:.3e} (f32 rounding of g + q·s), at most "
+                  f"{n_levels} distinct levels", flush=True)
+            check(worst < 0.05 and n_levels <= 255,
+                  f"{tag}: deltas off the grid by {worst}")
+        del api
+        _free()
+    tag = "knobs/compress-topk1.0"
+    outs = []
+    with _cudnn_deterministic():
+        for comp in ("none", "topk1.0"):
+            api = _flagship_build(fed, compress=comp)
+            loss = _eager_round(api, 0)
+            outs.append([_net_vec(api.net), loss])
+            del api
+            _free()
+    _bit_equal(tag, "topk1.0 vs plain FedAvg, one eager round from one "
+               "start (params, loss)", *outs)
+    print(f"[knobs] compression done; {card}", flush=True)
+
+
+def _knob_adapter(card):
+    """FedAdapter at transformer_fed_mfu's width under pow_d (d 16) and
+    topk0.05: a warm round, then 2 rounds with the flash launches
+    counted."""
+    import functools
+
+    from fedml_tpu_torch.algos import FedAdapterAPI, FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    tag = "knobs/FedAdapter-pow_d-topk"
+    rng = np.random.RandomState(SEED)
+    seqs = rng.randint(1, VOCAB, size=(ADAPTER_CLIENTS * ADAPTER_PER_CLIENT,
+                                       SEQ_LEN + 1))
+    fed = build_federated_arrays(seqs[:, :SEQ_LEN].astype(np.int32),
+                                 seqs[:, 1:].astype(np.int32),
+                                 partition_homo(len(seqs), ADAPTER_CLIENTS),
+                                 ADAPTER_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=ADAPTER_CLIENTS,
+                    client_num_per_round=ADAPTER_PER_ROUND, comm_round=100,
+                    epochs=1, batch_size=ADAPTER_BATCH, lr=ADAPTER_LR,
+                    seed=SEED, adapter_rank=ADAPTER_RANK,
+                    client_selection="pow_d", pow_d_candidates=KNOB_POW_D,
+                    compress="topk0.05")
+    model = create_model(
+        "transformer_lm", vocab_size=VOCAB, d_model=D_MODEL,
+        n_heads=N_HEADS, n_layers=N_LAYERS, max_len=SEQ_LEN, dtype="bf16",
+        attn="flash", adapter_rank=ADAPTER_RANK, adapter_scope="attn",
+        device="cuda", generator=torch.Generator().manual_seed(SEED))
+    api = FedAdapterAPI(model, fed, None, cfg,
+                        loss_fn=functools.partial(seq_softmax_ce, pad_id=0),
+                        device="cuda")
+    api.train_one_round(0)  # captures the round and the candidates' eval
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    losses = [api.train_one_round(r)["train_loss"] for r in (1, 2)]
+    round_ms = (time.perf_counter() - t0) * 1e3 / 2
+    fwd, dq, dkv, copies = _flash_counts()
+    steps = ADAPTER_PER_CLIENT // ADAPTER_BATCH
+    want_train = 2 * steps * N_LAYERS
+    print(f"[{tag}] d_model {D_MODEL}, {N_HEADS} heads, {N_LAYERS} layers, "
+          f"bf16, rank {ADAPTER_RANK} on attn, T {SEQ_LEN}, pow_d over "
+          f"{KNOB_POW_D} candidates, topk0.05: 2 rounds, {round_ms:.1f} ms a "
+          f"round (host clock, the candidates' eval and the fetch of their "
+          f"losses included), losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; flash launches fwd "
+          f"{fwd}, dq {dq}, dkv {dkv} (expected dq = dkv = {want_train}, fwd "
+          f"= {want_train} + the candidates' eval {want_train}), copies "
+          f"{copies}; {card}", flush=True)
+    check(dq == dkv == want_train and fwd == 2 * want_train and copies == 0,
+          f"{tag}: flash launches {fwd}/{dq}/{dkv}, copies {copies}")
+    check(all(math.isfinite(v) for v in losses), f"{tag}: {losses}")
+    del api, model, fed
+    _free()
+    return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+
+
+def _levers_data():
+    """bench.py:2318-2335: the brighter-blob task, train and test."""
+    rng = np.random.RandomState(11)
+    n = LEVERS["clients"] * LEVERS["per_client"]
+    b = LEVERS["batch"]
+    x = rng.rand(n, 28, 28, 1).astype(np.float32) * 0.1
+    y = rng.randint(0, 2, n).astype(np.int32)
+    for i in range(n):
+        r0 = 4 if y[i] == 0 else 18
+        x[i, r0:r0 + 6, 8:20, 0] += 1.0
+    xt = rng.rand(256, 28, 28, 1).astype(np.float32) * 0.1
+    yt = rng.randint(0, 2, 256).astype(np.int32)
+    for i in range(256):
+        r0 = 4 if yt[i] == 0 else 18
+        xt[i, r0:r0 + 6, 8:20, 0] += 1.0
+    test = (torch.from_numpy(xt.reshape(-1, b, 28, 28, 1)).cuda(),
+            torch.from_numpy(yt.reshape(-1, b)).long().cuda(),
+            torch.ones(256 // b, b, device="cuda"))
+    return x, y, test
+
+
+def _timed_sps(api, r0, samples_per_round):
+    """KNOB_TIMED synced train_one_round rounds after r0: samples/s by the
+    host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(r0, r0 + KNOB_TIMED):
+        api.train_one_round(r)
+    return KNOB_TIMED * samples_per_round / (time.perf_counter() - t0)
+
+
+def _knob_layouts(card, fed):
+    """(d) the CNN levers, the layout A/B, the padded GroupNorm ResNet and
+    the GroupNorm kernels at its padded widths. Returns the GroupNorm
+    launches counted."""
+    from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
+    from fedml_tpu_torch.data import (build_federated_arrays, gather_clients,
+                                      partition_homo)
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+    from fedml_tpu_torch.models.resnet import CifarResNet
+    from fedml_tpu_torch.ops import group_norm as gn
+    from fedml_tpu_torch.parallel import layout as tl
+    from fedml_tpu_torch.parallel.shard import client_rngs
+
+    # The policies' physical widths.
+    jax_pol = tl.LayoutPolicy()
+    card_pol = tl.LayoutPolicy(lane=tl.CARD_LANE, sublane=tl.CARD_SUBLANE)
+    for name, widths in (("flagship resnet56 (stem 16)", (16, 16, 32, 64)),
+                         ("cnn", (32, 64)), ("cnn widths", (120, 120)),
+                         ("mis-sized resnet (stem 20)", (20, 20, 40, 80))):
+        print(f"[knobs/layout] {name} {widths}: the card's policy (lane "
+              f"{card_pol.lane}, sublane {card_pol.sublane}) "
+              f"{tuple(tl.pad_width(c, card_pol) for c in widths)}, JAX's "
+              f"(lane {jax_pol.lane}) "
+              f"{tuple(tl.pad_width(c, jax_pol) for c in widths)} (before "
+              f"GroupNorm quanta)", flush=True)
+    flagship = tl.compute_layout(create_model(
+        "resnet56", device="cuda"), torch.zeros(2, 32, 32, 3))
+    check(flagship.is_identity, "the flagship's layout pads")
+
+    # bench.py's cnn_mfu_levers.
+    tag = "knobs/cnn_mfu_levers"
+    x, y, test = _levers_data()
+    lfed = build_federated_arrays(x, y, partition_homo(len(x),
+                                                       LEVERS["clients"]),
+                                  LEVERS["batch"], device="cuda")
+    spr = LEVERS["per_round"] * LEVERS["per_client"]
+    arms = {}
+    for arm, kw in (("fp32", {}), ("bf16", {"client_step_dtype": "bf16"}),
+                    ("im2col", {"compute_layout": "im2col"})):
+        cfg = FedConfig(client_num_in_total=LEVERS["clients"],
+                        client_num_per_round=LEVERS["per_round"],
+                        comm_round=100_000, epochs=1,
+                        batch_size=LEVERS["batch"], lr=LEVERS["lr"],
+                        frequency_of_the_test=1000, seed=SEED, **kw)
+        model = CNNOriginalFedAvg(num_classes=2, generator=torch.Generator()
+                                  .manual_seed(SEED)).cuda()
+        api = FedAvgAPI(model, lfed, test, cfg, device="cuda")
+        for r in range(LEVERS["acc_rounds"]):
+            loss = api.train_one_round(r)["train_loss"]
+        acc = api.evaluate()["accuracy"]
+        sps = _timed_sps(api, LEVERS["acc_rounds"], spr)
+        arms[arm] = (sps, acc, loss)
+        print(f"[{tag}] {arm}: {sps:.1f} samples/s over {KNOB_TIMED} synced "
+              f"rounds, accuracy {acc:.4f} after {LEVERS['acc_rounds']} "
+              f"rounds, final train loss {loss:.5f}", flush=True)
+        check(math.isfinite(loss), f"{tag}: {arm} loss {loss}")
+        del api, model
+        _free()
+    for arm in ("bf16", "im2col"):
+        print(f"[{tag}] {arm} vs fp32: speedup "
+              f"{arms[arm][0] / arms['fp32'][0]:.3f}, accuracy delta "
+              f"{arms[arm][1] - arms['fp32'][1]:+.4f}, loss delta "
+              f"{arms[arm][2] - arms['fp32'][2]:+.5f}; {card}", flush=True)
+
+    # bench.py's layout_fused_round: the layout A/B.
+    tag = "knobs/layout_fused_round"
+    lb = LAYOUT_BENCH
+    rng = np.random.RandomState(3)
+    lx = rng.rand(lb["clients"] * lb["per_client"], 28, 28, 1).astype(
+        np.float32)
+    ly = rng.randint(0, 62, len(lx)).astype(np.int32)
+    lfed = build_federated_arrays(lx, ly, partition_homo(len(lx),
+                                                         lb["clients"]),
+                                  lb["batch"], device="cuda")
+    rate = {}
+    for arm in ("none", "auto"):
+        cfg = FedConfig(client_num_in_total=lb["clients"],
+                        client_num_per_round=lb["per_round"],
+                        comm_round=100_000, epochs=1, batch_size=lb["batch"],
+                        lr=lb["lr"], compute_layout=arm, seed=SEED)
+        model = CNNOriginalFedAvg(num_classes=62, widths=lb["widths"],
+                                  generator=torch.Generator()
+                                  .manual_seed(SEED)).cuda()
+        api = FedAvgAPI(model, lfed, None, cfg, device="cuda")
+        if arm == "auto":
+            check(api._layout is not None
+                  and api._layout.physical_model.widths == (128, 128),
+                  f"{tag}: the layout's widths")
+        api.train_one_round(0)
+        rate[arm] = _timed_sps(api, 1, lb["per_round"] * lb["per_client"])
+        del api, model
+        _free()
+    print(f"[{tag}] cnn widths {lb['widths']} -> (128, 128): none "
+          f"{rate['none']:.1f}, auto {rate['auto']:.1f} samples/s (ratio "
+          f"{rate['auto'] / rate['none']:.3f}; f32, TF32 off); {card}",
+          flush=True)
+
+    # The mis-sized GroupNorm ResNet through the kernels at padded widths.
+    tag = "knobs/layout-gn"
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND, comm_round=100,
+                    epochs=1, batch_size=TRAIN_BATCH, lr=ROUND_LR, seed=SEED)
+    outs, counted = {}, [0, 0]
+    for arm in ("none", "auto"):
+        model = CifarResNet(layers=MIS_LAYERS, num_classes=10,
+                            widths=MIS_WIDTHS, stem_width=MIS_STEM,
+                            generator=torch.Generator().manual_seed(SEED)
+                            ).cuda()
+        n_gn = _norm_count(model)
+        api = FedAvgAPI(model, fed, None, dataclasses.replace(
+            cfg, compute_layout=arm), device="cuda")
+        start = _net_copy(api.net)
+        with _cudnn_deterministic():
+            api.train_one_round(0)
+            _zero_gn_counts()
+            loss = api.train_one_round(1)["train_loss"]
+            fwd, bwd, red, copies, streamed = _gn_counts()
+        steps = TRAIN_PER_CLIENT // TRAIN_BATCH
+        print(f"[{tag}] {arm}: round 1 (replayed) loss {loss:.6f}; "
+              f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} "
+              f"(expected {steps * n_gn} each), streamed {streamed}, copies "
+              f"{copies}", flush=True)
+        check(fwd == bwd == red == steps * n_gn and streamed == copies == 0,
+              f"{tag}: {arm} GroupNorm launches {fwd}/{bwd}/{red}")
+        counted[0] += fwd
+        counted[1] += bwd
+        outs[arm] = (_net_vec(api.net), _net_vec(start), loss)
+        if arm == "auto":
+            lay = api._layout
+            phys = lay.physical_model
+            widths = (phys.Norm_0.GroupNorm_0.weight.shape[0],
+                      *(getattr(phys, f"BottleneckBlock_{i}").Norm_0
+                        .GroupNorm_0.weight.shape[0]
+                        for i in range(0, 6, 2)))
+            groups = (phys.Norm_0.num_groups,
+                      *(getattr(phys, f"BottleneckBlock_{i}").Norm_0
+                        .num_groups for i in range(0, 6, 2)))
+            print(f"[{tag}] the card's policy pads stem/stages "
+                  f"{(MIS_STEM, *MIS_WIDTHS)} -> {widths}, GroupNorm groups "
+                  f"{groups} (the logical groups' size kept)", flush=True)
+            idx = torch.arange(TRAIN_PER_ROUND, device="cuda")
+            sub = gather_clients(fed, idx)
+            with _cudnn_deterministic():
+                pnet, _ = api.local_train.inner.run_clients(
+                    lay.pad(api.net), sub.x, sub.y, sub.mask,
+                    client_rngs(api.rng, TRAIN_PER_ROUND))
+            again = lay.pad(lay.unpad(pnet))
+            zero = all(torch.equal(pnet.params[k], again.params[k])
+                       for k in pnet.params)
+            print(f"[{tag}] the physical client nets after a local epoch of "
+                  f"{TRAIN_PER_ROUND} clients: every pad entry exactly 0: "
+                  f"{zero}", flush=True)
+            check(zero, f"{tag}: a pad entry moved")
+        del api, model
+        _free()
+    (va, sa, la), (vb, sb, lb_) = outs["none"], outs["auto"]
+    check(torch.equal(sa, sb), f"{tag}: the two arms start apart")
+    dist = (va - vb).abs().max().item()
+    scale = va.abs().max().item()
+    upd = (va - sa).abs().max().item()
+    print(f"[{tag}] auto vs none after 2 f32 rounds at lr {ROUND_LR}: "
+          f"max|dparam| {dist:.3e} (params' scale {scale:.3f}, the rounds' "
+          f"largest update {upd:.3e}; bound {LAYOUT_F32_TOL:.0e} x scale; "
+          f"{'bit-equal' if dist == 0 else 'not bit-equal'}), losses "
+          f"{la:.6f} / {lb_:.6f}", flush=True)
+    check(dist <= LAYOUT_F32_TOL * scale, f"{tag}: auto is {dist} from none")
+
+    # The GroupNorm kernels at the padded widths: the logical channels
+    # against the logical call, the pad channels exactly 0, against the
+    # plain twins; the cluster route (CIFAR 32²) and the streamed one.
+    tag = "knobs/gn-padded"
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for n, s, c, cp, groups, dtype in (
+            (256, 1024, 20, 24, 20, torch.bfloat16),
+            (256, 64, 80, 96, 20, torch.bfloat16),
+            (256, 1024, 20, 24, 20, torch.float32),
+            (2, 65536, 20, 24, 20, torch.float32)):
+        x = torch.randn(1, n, s, c, generator=g, device="cuda").to(dtype)
+        dy = torch.randn(1, n, s, c, generator=g, device="cuda").to(dtype)
+        gam = torch.rand(1, c, generator=g, device="cuda") + 0.5
+        bet = torch.randn(1, c, generator=g, device="cuda")
+        pad = cp - c
+        xp, dyp, gp, bp = (torch.nn.functional.pad(t, (0, pad))
+                           for t in (x, dy, gam, bet))
+        gpad = cp // (c // groups)
+        fs, bs = gn.group_norm_fwd.streamed, gn.group_norm_bwd.streamed
+        y = gn.group_norm_fwd(xp, gp, bp, gpad)
+        dx, dgam, dbet = gn.group_norm_bwd(xp, dyp, gp, gpad)
+        streamed = (gn.group_norm_fwd.streamed - fs,
+                    gn.group_norm_bwd.streamed - bs)
+        y0 = gn.group_norm_fwd(x, gam, bet, groups)
+        dx0, dg0, db0 = gn.group_norm_bwd(x, dy, gam, groups)
+        pad_zero = all(not t[..., c:].any() for t in (y, dx, dgam, dbet))
+        same = [torch.equal(a[..., :c], b) for a, b in
+                ((y, y0), (dx, dx0), (dgam, dg0), (dbet, db0))]
+        diff = max((a[..., :c].float() - b.float()).abs().max().item()
+                   for a, b in ((y, y0), (dx, dx0)))
+        wy = gn.group_norm_fwd_plain(xp.float(), gp, bp, gpad)
+        wdx, _, _ = gn.group_norm_bwd_plain(xp.float(), dyp.float(), gp,
+                                            gpad)
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        err = max(((a.float() - b) / b.abs().max()).abs().max().item()
+                  for a, b in ((y, wy), (dx, wdx)))
+        print(f"[{tag}] [{n}, {s}, {c} -> {cp}] {str(dtype)[6:]}, groups "
+              f"{groups} -> {gpad}: streamed launches fwd/bwd {streamed}; "
+              f"pad channels of y, dx, dgamma, dbeta exactly 0: {pad_zero}; "
+              f"logical channels bit-equal to the logical call (y, dx, "
+              f"dgamma, dbeta): {same} (max|d| {diff:.3e}); vs the plain "
+              f"twin max|d|/max {err:.3e} (bound {tol:.0e})", flush=True)
+        check(pad_zero and err <= tol, f"{tag}: padded GroupNorm")
+        check((s > 4096) == (streamed[0] > 0) == (streamed[1] > 0),
+              f"{tag}: routes {streamed}")
+    print(f"[knobs] layouts done; {card}", flush=True)
+    return counted
+
+
+def phase_knobs():
+    """FedAvgAPI's knobs and BatchNorm's last refusals (see the
+    constants): (a) the A2 tail's six drives, (b) selection, (c)
+    compression and FedAdapter under pow_d + topk, (d) layouts and the
+    bf16 step. Returns {kernel name: launches counted}."""
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.data.store import FederatedStore
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    times = {}
+    x, y = _cifar_samples()
+    t0 = time.perf_counter()
+    _knob_split(card, x, y)
+    _knob_zoo_bn(card, x, y)
+    _knob_extra_bn(card)
+    times["a"] = time.perf_counter() - t0
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    store = FederatedStore(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                           TRAIN_BATCH, device="cuda")
+    t0 = time.perf_counter()
+    gn_b = _knob_selection(card, fed, store)
+    times["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _knob_compress(card, fed)
+    launches = _knob_adapter(card)
+    times["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gn_d = _knob_layouts(card, fed)
+    times["d"] = time.perf_counter() - t0
+    launches["group_norm_fwd"] = gn_b[0] + gn_d[0]
+    launches["group_norm_bwd"] = gn_b[1] + gn_d[1]
+    secs = json.dumps({k: round(v, 1) for k, v in times.items()})
+    print(f"[knobs] parts' seconds {secs}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6023,11 +6932,14 @@ def main() -> int:
     vit = timed("vit", phase_vit)
     timed("ckpt", phase_ckpt, shared)
     store = timed("store", phase_store)
+    knobs = timed("knobs", phase_knobs)
     print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
-          f"adapter {adapter}, vit {vit}, store {store}", flush=True)
+          f"adapter {adapter}, vit {vit}, store {store}, knobs {knobs}",
+          flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
     launches.update(adapter)
-    for name, n in list(vit.items()) + list(store.items()):
+    for name, n in (list(vit.items()) + list(store.items())
+                    + list(knobs.items())):
         launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

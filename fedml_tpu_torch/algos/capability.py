@@ -11,12 +11,14 @@ why in ``window_exclusion``; ``window_carry`` describes the carry for the
 matrix. Every round tier keys its guard on the record and refuses with
 :func:`refusal`, a message derived from it, never on a list of classes.
 
-What differs from the JAX package's records: the port's host loop
-(``train_one_round``, ``train_rounds_pipelined``) replays the fused step
-and has no eager fallback, so ``pipelined`` equals ``fused`` (in the zoo
-JAX's two columns agree too: every "round" class has its pure form). The
-windowed tier replays the same fused step once per round of a window,
-fed from a ``FederatedStore`` superbatch.
+The records are the JAX package's. A "round" class with a host-side
+``_server_update`` and no pure form has no fused step, but its host loop
+(``train_one_round``, ``train_rounds_pipelined``) still runs: the round
+function captured as its own step, then the server update on the host
+side (``FedAvgAPI``'s host round); only the windowed and on-device tiers,
+which fold the pure update between replays, refuse it. The windowed tier
+replays the fused step once per round of a window, fed from a
+``FederatedStore`` superbatch.
 """
 
 from __future__ import annotations
@@ -56,11 +58,12 @@ ZOO = (
 
 @dataclass(frozen=True)
 class CarryCapability:
-    """One algorithm's declared and derived record. ``fused``,
-    ``pipelined`` (both replay the fused round), ``windowed`` and
+    """One algorithm's declared and derived record. ``fused`` (the fused
+    round step), ``pipelined`` (the host loop without a sync: the fused
+    step, or the host round where there is none), ``windowed`` and
     ``on_device`` are the tiers the class can ever ride; the layout (a
     store for the windowed tier, resident arrays for the on-device one)
-    is still checked per call."""
+    and oort selection are still checked per call."""
 
     algorithm: str
     protocol: Optional[str]       # "round" | "custom" | None
@@ -120,19 +123,23 @@ def record_for(cls) -> CarryCapability:
     aux = (cls._round_aux is not FederatedLoop._round_aux
            or cls._window_scan_extras is not FedAvgAPI._window_scan_extras)
     streaming = bool(cls.supports_streaming)
-    fused = on_device = False
+    fused = pipelined = on_device = False
     if proto == "round":
         fused = not custom_round and pure
+        # The host round applies _server_update on the host side, so an
+        # impure override rides the pipelined loop too; only a custom
+        # round refuses (its own procedure would be silently dropped).
+        pipelined = not custom_round
         # The on-device round draws its cohort inside the captured step:
         # a host-computed per-round operand has no slot there.
         on_device = fused and not aux
     elif proto == "custom":
-        fused = custom_step
+        fused = pipelined = custom_step
     return CarryCapability(
         algorithm=name, protocol=proto, carry=carry, excluded=excluded,
         custom_round=custom_round, custom_builders=custom_builders,
         custom_step=custom_step, pure_server_update=pure, round_aux=aux,
-        streaming=streaming, fused=fused, pipelined=fused,
+        streaming=streaming, fused=fused, pipelined=pipelined,
         windowed=fused and streaming, on_device=on_device)
 
 
@@ -255,16 +262,3 @@ def render_matrix() -> str:
         out += ("\n\nRecord-derived exclusions (the refusal each guard "
                 "raises):\n\n" + "\n".join(excluded))
     return out
-
-
-def refuse_model_state(who: str, *modules) -> None:
-    """The guard of the classes whose rounds do not carry trained model
-    state yet (BatchNorm's running stats): a model with buffers is refused
-    by name, as its stats would silently stay at their init."""
-    for module in modules:
-        names = [n for n, _ in module.named_buffers()]
-        if names:
-            raise NotImplementedError(
-                f"{who} does not carry trained model state yet (the model "
-                f"has buffers, e.g. {names[0]!r}: norm='bn'); ROADMAP.md A2 "
-                "carries it through the FedAvg family only — use norm='gn'")

@@ -12,7 +12,9 @@ Parity:
 All n clients' models are ONE client-stacked tree ``[n, ...]`` on the
 card; local training runs the cohort under ``vmap`` (one launch of each
 kernel per layer and step for all n), and a whole gossip exchange is one
-f32 product ``W @ stack`` per leaf. One round is one captured step with
+f32 product ``W @ stack`` per leaf of the whole client net, its params
+and its trained state (BatchNorm's running stats mix as JAX mixes the
+``NetState``). One round is one captured step with
 the stacks ``(nets, push_weights)`` as its carry: ``train_one_round``
 replays it, ``train_rounds_pipelined`` replays it without a sync between
 rounds, and ``train_rounds_on_device`` replays it once per round with the
@@ -26,7 +28,7 @@ from typing import Dict
 import torch
 
 from fedml_tpu_torch.algos.config import FedConfig
-from fedml_tpu_torch.algos.capability import refusal, refuse_model_state
+from fedml_tpu_torch.algos.capability import refusal
 from fedml_tpu_torch.algos.fedavg import refuse_unported
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
@@ -55,13 +57,19 @@ def _debias_tree(stacked, omega):
 def make_gossip_round(local_train, W, mode: str):
     """``round_fn(nets, omega, x, y, mask, rng) -> (nets', omega', loss)``
     over the whole federation: ``nets`` a NetState with ``[n, ...]``
-    params, ``omega [n]`` the push weights, ``W [n, n]`` f32 the mixing
-    matrix (column-stochastic for ``"pushsum"``)."""
+    params and trained state, ``omega [n]`` the push weights, ``W [n, n]``
+    f32 the mixing matrix (column-stochastic for ``"pushsum"``). Params
+    and state are gossiped (and de-biased) alike, as JAX treats the whole
+    ``NetState``."""
 
     def mix(stacked):
         return tree_map(
             lambda p: torch.matmul(W, p.float().reshape(p.shape[0], -1))
             .reshape(p.shape).to(p.dtype), stacked)
+
+    def net_map(fn, *nets):
+        return NetState(tree_map(fn, *(n.params for n in nets)),
+                        tree_map(fn, *(n.model_state for n in nets)))
 
     def round_fn(nets, omega, x, y, mask, rng):
         rngs = client_rngs(rng, x.shape[0], 0)
@@ -69,17 +77,16 @@ def make_gossip_round(local_train, W, mode: str):
             # Train at the de-biased iterate x = z/ω, fold the update back
             # into z-space (Δz = ω·Δx), then gossip z and ω with the
             # column-stochastic matrix.
-            xs = _debias_tree(nets.params, omega)
-            trained, losses = local_train.run_stacked(
-                NetState(xs, nets.model_state), x, y, mask, rngs)
-            z = tree_map(
+            xs = net_map(lambda p: p / _per_client(omega, p), nets)
+            trained, losses = local_train.run_stacked(xs, x, y, mask, rngs)
+            z = net_map(
                 lambda zl, xl, tl: zl + _per_client(omega, xl) * (tl - xl),
-                nets.params, xs, trained.params)
-            return (NetState(mix(z), nets.model_state), W @ omega,
+                nets, xs, trained)
+            return (NetState(mix(z.params), mix(z.model_state)), W @ omega,
                     losses.mean())
         trained, losses = local_train.run_stacked(nets, x, y, mask, rngs)
-        return (NetState(mix(trained.params), nets.model_state), omega,
-                losses.mean())
+        return (NetState(mix(trained.params), mix(trained.model_state)),
+                omega, losses.mean())
 
     return round_fn
 
@@ -124,7 +131,6 @@ class DecentralizedAPI(FederatedLoop):
         self.cfg, self.mode = cfg, mode
         self.train_fed, self.test_global = train_fed, test_global
         self.model = model.to(self.device)
-        refuse_model_state("DecentralizedAPI", self.model)
         self.fns = model_fns(self.model)
         n = train_fed.num_clients
         W = topology.mixing_matrix()
@@ -142,26 +148,32 @@ class DecentralizedAPI(FederatedLoop):
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
         net0 = self.fns.init(torch.Generator().manual_seed(cfg.seed))
         # Every client starts from the same model (as the reference does),
-        # each in a row of its own: the stack is written in place.
-        self.nets = NetState(
-            tree_map(lambda p: p.unsqueeze(0).repeat(
-                n, *([1] * p.dim())), net0.params),
-            net0.model_state)
+        # each in a row of its own (its params and its running stats): the
+        # stack is written in place.
+        def rows(tree):
+            return tree_map(lambda p: p.unsqueeze(0).repeat(
+                n, *([1] * p.dim())), tree)
+
+        self.nets = NetState(rows(net0.params), rows(net0.model_state))
         self.push_weights = torch.ones(n, dtype=torch.float32,
                                        device=self.device)
         self._step = None
 
-    def _debiased(self):
-        """PushSum's estimate x_i = z_i / w_i; DSGD's params as they are."""
+    def _debiased(self) -> NetState:
+        """PushSum's estimate x_i = z_i / w_i (params and state); DSGD's
+        nets as they are."""
         if self.mode == "dsgd":
-            return self.nets.params
-        return _debias_tree(self.nets.params, self.push_weights)
+            return self.nets
+        return NetState(_debias_tree(self.nets.params, self.push_weights),
+                        _debias_tree(self.nets.model_state,
+                                     self.push_weights))
 
     def consensus_net(self) -> NetState:
-        """The uniform average over clients, the quantity decentralized SGD
-        drives to the optimum."""
-        return NetState(tree_map(lambda p: p.mean(0), self._debiased()),
-                        self.nets.model_state)
+        """The uniform average over clients (params and state), the
+        quantity decentralized SGD drives to the optimum."""
+        net = self._debiased()
+        return NetState(tree_map(lambda p: p.mean(0), net.params),
+                        tree_map(lambda p: p.mean(0), net.model_state))
 
     def _eval_net(self):
         return self.consensus_net()

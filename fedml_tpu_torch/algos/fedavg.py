@@ -4,11 +4,18 @@
 Sampled clients are a leading tensor dim; each local step of the whole
 cohort runs under ``vmap`` (``parallel.shard.make_vmap_round``), and the
 new global model is the sample-weighted client average. Ported: the
-single-device, ``client_selection="random"`` case, over a resident
-``FederatedArrays`` or a host-resident ``data.store.FederatedStore``
-(reference-scale client counts: the store puts each round's cohort on
-the card, prefetched on a worker thread while the previous round
-trains), with four tiers of rounds:
+single-device case, over a resident ``FederatedArrays`` or a
+host-resident ``data.store.FederatedStore`` (reference-scale client
+counts: the store puts each round's cohort on the card, prefetched on a
+worker thread while the previous round trains), with its knobs:
+``client_selection`` (``random``, ``pow_d``: the highest-loss of ``d``
+count-weighted candidates, scored by one captured eval; ``oort``: utility
+selection from the in-round training losses), ``compress`` (``topk<r>``
+and ``q<bits>`` applied to each client's delta inside the round),
+``compute_layout`` (``auto``: a channel-padded client step; ``im2col``:
+the CNN's stem as a GEMM; ``parallel/layout.py``) and
+``client_step_dtype`` (``bf16`` client compute over f32 params), and
+four tiers of rounds:
 
 - ``train_one_round`` (and ``train``): one FUSED round — the client
   gather, local training, the average and the server update as one step,
@@ -26,7 +33,12 @@ trains), with four tiers of rounds:
   round (JAX: one ``lax.scan`` over rounds).
 
 On the CPU (``device="cpu"``) the same steps run eagerly. ``run_round``
-+ ``_server_update`` stay as the eager reference procedure. Which tiers a
++ ``_server_update`` stay as the eager reference procedure. A class whose
+round has no fused step (a ``_server_update`` without its pure form;
+oort's three-output round) trains through the HOST round of
+``train_one_round``: the round captured as its own step (the cohort
+gather, the training and the average), then ``_server_update`` on the
+host side, then oort's utility update. Which tiers a
 subclass rides is its capability record's answer (``algos/capability``);
 the hooks the algorithm zoo builds on are ``_build_local_train``,
 ``_client_transform``, ``_corruptor``, ``_make_vmap_round``, the pure
@@ -34,9 +46,9 @@ server update of the carry protocol, ``_round_aux`` (per-round operands
 computed on the host, passed to the captured steps as device tensors)
 and, for the "custom" protocol, a whole published step
 (``_build_fused_step``) over client-stacked state. ``cfg.aggregator``
-picks the server reduction (``core/robust_agg``). Meshes, other
-selection modes, compression and layouts are not ported yet: asking for
-any of them raises, by name.
+picks the server reduction (``core/robust_agg``). Meshes and the fields of
+:data:`UNPORTED_FIELDS` are not ported yet: asking for any of them
+raises, by name.
 """
 
 from __future__ import annotations
@@ -51,16 +63,24 @@ from fedml_tpu_torch.algos.capability import refusal
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.loop import FederatedLoop, eval_segments
 from fedml_tpu_torch.core import keys
+from fedml_tpu_torch.core.compression import (_check_bits, dequantize,
+                                              quantize_stochastic,
+                                              topk_compress, tree_spec,
+                                              tree_to_vector, vector_to_tree)
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.core.graph import CapturedStep
 from fedml_tpu_torch.core.robust_agg import make_aggregator
+from fedml_tpu_torch.core.sampling import sample_clients_weighted
 from fedml_tpu_torch.data.batching import FederatedArrays, gather_clients
 from fedml_tpu_torch.data.store import (CohortPrefetcher, FederatedStore,
                                         WindowPrefetcher)
 from fedml_tpu_torch.obs.sanitizer import planned_transfer
+from fedml_tpu_torch.parallel.layout import (compute_layout, im2col_layout,
+                                             step_dtype_model,
+                                             wrap_local_train)
 from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
                                             make_vmap_round)
-from fedml_tpu_torch.trainer.local import (make_client_optimizer,
+from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
                                            make_eval_fn, make_local_train_fn,
                                            model_fns, softmax_ce)
 
@@ -69,8 +89,6 @@ from fedml_tpu_torch.trainer.local import (make_client_optimizer,
 #: non-default value is refused at construction.
 UNPORTED_FIELDS = {
     "remat": "A3", "dp_clip": "A3", "dp_noise_multiplier": "A3",
-    "client_selection": "A5", "compress": "A5", "compute_layout": "A5",
-    "client_step_dtype": "A5",
     "wire_codec": "A10", "ingest_workers": "A10",
     "group_reduce": "A11",
 }
@@ -160,6 +178,7 @@ class FedAvgAPI(FederatedLoop):
                 "resident (or gathers clients on device) and does not "
                 "support FederatedStore streaming; use the resident "
                 "FederatedArrays layout")
+        self._check_step_cfg(cfg)
         refuse_unported(cfg)
         if cfg.adapter_rank and not self._consumes_adapter_cfg:
             raise NotImplementedError(
@@ -196,10 +215,87 @@ class FedAvgAPI(FederatedLoop):
         self._client_lr = cfg.lr
         #: The captured steps by tier, dropped when the round changes.
         self._graphs: Dict[str, CapturedStep] = {}
+        self._setup_client_step(cfg)
         self._build_round(cfg.lr)
         self.eval_fn = make_eval_fn(self.fns.apply, loss_fn, pad_id)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
         self.net = self.fns.init(torch.Generator().manual_seed(cfg.seed))
+        self._sample_cache = None
+        if cfg.client_selection == "oort":
+            rec = self.capability()
+            if (rec.custom_round or rec.custom_step
+                    or self.window_protocol != "round"):
+                # The utility update lives in FedAvgAPI's round; a custom
+                # round that skipped it would silently degenerate oort to
+                # pure exploration (uniform sampling).
+                raise NotImplementedError(
+                    f"{type(self).__name__} runs a custom round (capability "
+                    "record) and would skip oort's per-round utility "
+                    "update; oort serves the FedAvg family's shared round "
+                    "only")
+            n = cfg.client_num_in_total
+            self._oort_utility = np.zeros(n, np.float64)
+            self._oort_last = np.full(n, -1, np.int64)
+
+    def _check_step_cfg(self, cfg) -> None:
+        """The guards of ``compute_layout`` and ``client_step_dtype``, with
+        the JAX package's words: both wrap the shared
+        ``_build_local_train``, and a layout's padded leaves would take DP
+        noise in their pad block."""
+        custom_trainer = (type(self)._build_local_train
+                          is not FedAvgAPI._build_local_train)
+        layout = cfg.compute_layout or "none"
+        if layout != "none":
+            if layout not in ("auto", "im2col"):
+                raise ValueError(
+                    f"cfg.compute_layout={layout!r}: expected 'none', "
+                    "'auto' or 'im2col'")
+            if custom_trainer:
+                raise NotImplementedError(
+                    f"{type(self).__name__} builds its own local trainer; "
+                    "cfg.compute_layout wraps the shared "
+                    "_build_local_train only (the flag would otherwise be "
+                    "silently inert)")
+            if cfg.dp_noise_multiplier > 0:
+                raise NotImplementedError(
+                    "cfg.compute_layout cannot compose with DP noise "
+                    "(dp_noise_multiplier > 0): the per-parameter noise "
+                    "draw shapes follow the physical layout, which breaks "
+                    "the padded-vs-logical exactness contract — run DP-SGD "
+                    "at the logical layout")
+        dtype = cfg.client_step_dtype or "fp32"
+        if dtype not in ("fp32", "bf16"):
+            raise ValueError(
+                f"cfg.client_step_dtype={dtype!r}: expected 'fp32' or "
+                "'bf16'")
+        if dtype == "bf16" and custom_trainer:
+            raise NotImplementedError(
+                f"{type(self).__name__} builds its own local trainer; "
+                "cfg.client_step_dtype wraps the shared _build_local_train "
+                "only (the flag would otherwise be silently inert)")
+
+    def _setup_client_step(self, cfg) -> None:
+        """The client step's physical model: the compute layout's twin
+        (``_layout``, ``None`` when the policy pads nothing) and the bf16
+        step's clone of it (``_step_fns``). Everything above the step keeps
+        the logical model."""
+        self._layout = self._step_fns = None
+        base = self.model
+        layout = cfg.compute_layout or "none"
+        if layout != "none":
+            fed = self.train_fed
+            sample = (fed.example_input() if self._streaming
+                      else fed.x[0, 0])
+            built = (im2col_layout(self.model, sample) if layout == "im2col"
+                     else compute_layout(self.model, sample))
+            if not built.is_identity:
+                self._layout = built
+                base = built.physical_model
+        if (cfg.client_step_dtype or "fp32") == "bf16":
+            self._step_fns = model_fns(step_dtype_model(base,
+                                                        torch.bfloat16))
+        elif self._layout is not None:
+            self._step_fns = model_fns(base)
 
     def _check_aggregator(self, name) -> None:
         """The guard on a non-mean ``cfg.aggregator``. A class that runs
@@ -248,21 +344,90 @@ class FedAvgAPI(FederatedLoop):
 
     # --- hooks the algorithms override -------------------------------------
     def _build_local_train(self, optimizer, loss_fn):
-        """The local trainer; FedProx adds its proximal gradient here."""
-        return make_local_train_fn(self.fns.apply, optimizer,
-                                   self.cfg.epochs, loss_fn)
+        """The local trainer; FedProx adds its proximal gradient here. The
+        shared one runs the client step's physical model (a layout's twin,
+        a bf16 clone) behind the logical-shape contract."""
+        if self._step_fns is None:
+            return make_local_train_fn(self.fns.apply, optimizer,
+                                       self.cfg.epochs, loss_fn)
+        inner = make_local_train_fn(self._step_fns.apply, optimizer,
+                                    self.cfg.epochs, loss_fn)
+        if self._layout is None:
+            return inner
+        return wrap_local_train(inner, self._layout)
 
     def _make_vmap_round(self, local_train, transform, guard):
         """The round builder; FedNova wraps its normalized averaging
-        around it."""
-        return make_vmap_round(local_train, client_transform=transform,
-                               nan_guard=guard, aggregator=self._aggregator,
-                               corruptor=self._corruptor())
+        around it. Under oort the round also returns the clients' in-round
+        training losses (the utility observable)."""
+        return make_vmap_round(
+            local_train, client_transform=transform, nan_guard=guard,
+            aggregator=self._aggregator, corruptor=self._corruptor(),
+            with_client_losses=self.cfg.client_selection == "oort")
 
     def _client_transform(self):
         """``(global_net, client_net) -> client_net`` applied to each
-        trained client before aggregation (robust clipping), or None."""
-        return None
+        trained client before aggregation: the compression of
+        ``cfg.compress`` (a class that replaces the hook, robust clipping,
+        refuses ``cfg.compress``)."""
+        return self._compress_transform()
+
+    def _compress_transform(self):
+        """``cfg.compress`` as the transform of each client's delta inside
+        the round (simulated communication-constrained FL): ``topk<r>``
+        keeps the top ``r`` fraction of the flattened delta's entries by
+        magnitude (``torch.topk`` under the round's ``vmap``), the others
+        at the global model's values; ``q<bits>``
+        quantizes it stochastically (unbiased), on the client's stream
+        ``fold_in(rng, 0x7F)`` (the three-argument transform). The trained
+        state (BatchNorm's stats) passes as it is."""
+        name = self.cfg.compress or "none"
+        if name == "none":
+            return None
+        if name.startswith("topk"):
+            try:
+                ratio = float(name[len("topk"):])
+            except ValueError:
+                raise ValueError(
+                    f"cfg.compress={name!r}: expected 'topk<ratio>' with a "
+                    "numeric ratio, e.g. 'topk0.05'") from None
+            if not 0 < ratio <= 1:
+                raise ValueError(f"topk ratio must be in (0, 1], got {ratio}")
+
+            def transform(global_net, client_net):
+                gvec = tree_to_vector(global_net.params)
+                cvec = tree_to_vector(client_net.params)
+                k = max(1, int(round(ratio * gvec.shape[0])))
+                _, idx, _ = topk_compress(cvec - gvec, k)
+                # The client's own values where the delta is kept (JAX adds
+                # the kept deltas back to the global vector: the same up to
+                # one rounding), so topk1.0 is the plain round exactly.
+                kept = gvec.scatter(0, idx, torch.gather(cvec, 0, idx))
+                return NetState(vector_to_tree(kept,
+                                               tree_spec(global_net.params)),
+                                client_net.model_state)
+
+            return transform
+        if name.startswith("q"):
+            try:
+                bits = int(name[1:])
+            except ValueError:
+                raise ValueError(f"cfg.compress={name!r}: expected "
+                                 "'q<bits>', e.g. 'q8'") from None
+            _check_bits(bits)  # at construction, not at the first round
+
+            def transform(global_net, client_net, rng):
+                gvec = tree_to_vector(global_net.params)
+                delta = tree_to_vector(client_net.params) - gvec
+                q, scale = quantize_stochastic(delta, bits, rng)
+                return NetState(vector_to_tree(gvec + dequantize(q, scale),
+                                               tree_spec(global_net.params)),
+                                client_net.model_state)
+
+            transform.wants_rng = True
+            return transform
+        raise ValueError(f"cfg.compress={name!r}: simulator rounds support "
+                         "'topk<ratio>' or 'q<bits>'")
 
     def _corruptor(self):
         """The device-side attack drill (``UpdateCorruptor.device_fn()``),
@@ -288,16 +453,30 @@ class FedAvgAPI(FederatedLoop):
         holds its own lr-dependent steps drops them here."""
 
     def _require_plain_sgd_round(self, what: str) -> None:
-        """The constructor guard of the corrected-SGD algorithms (SCAFFOLD,
-        FedDyn): their own local step is plain SGD plus the correction, so
-        a config knob that the generic trainer would honor is refused, not
-        dropped (the JAX package's guard, over the fields the port has; the
-        unported ones are refused earlier, by ``refuse_unported``)."""
-        if self.cfg.client_optimizer != "sgd":
+        """The constructor guard of the algorithms whose local step is their
+        own (SCAFFOLD, FedDyn: plain SGD plus the correction; FedNAS,
+        FedGAN): a config knob that the generic trainer would honor is
+        refused, not dropped (the JAX package's guard, over the fields the
+        port has; the unported ones are refused earlier, by
+        ``refuse_unported``)."""
+        cfg = self.cfg
+        if cfg.client_optimizer != "sgd":
             raise ValueError(
                 f"{what} applies to plain SGD local steps; got "
-                f"client_optimizer={self.cfg.client_optimizer!r}")
-        bad = ["grad_clip"] if self.cfg.grad_clip else []
+                f"client_optimizer={cfg.client_optimizer!r}")
+        unsupported = {
+            "grad_clip": cfg.grad_clip,
+            "compress": cfg.compress if cfg.compress != "none" else None,
+            # Their trainers are built outside _build_local_train, where
+            # the layout and the bf16 step are wired.
+            "compute_layout": (cfg.compute_layout
+                               if cfg.compute_layout != "none" else None),
+            "client_step_dtype": (cfg.client_step_dtype
+                                  if cfg.client_step_dtype not in ("fp32",
+                                                                   "")
+                                  else None),
+        }
+        bad = [k for k, v in unsupported.items() if v]
         if self._nan_guard:
             bad.append("nan_guard")
         if bad:
@@ -313,12 +492,21 @@ class FedAvgAPI(FederatedLoop):
     # --- checkpoint/resume (obs/checkpoint.py save_run / restore_run) ------
     def checkpoint_extra_state(self):
         """Run state beyond the net, the key and the server optimizer
-        state: none for FedAvg (the JAX package's oort utilities are not
-        ported, ROADMAP.md A5). A class with more overrides both hooks."""
+        state: oort's utilities and last-seen rounds (host arrays), else
+        none. A class with more overrides both hooks."""
+        if self.cfg.client_selection == "oort":
+            return {"oort_utility": self._oort_utility,
+                    "oort_last": self._oort_last}
         return {}
 
     def load_checkpoint_extra_state(self, extra) -> None:
-        """Takes back what :meth:`checkpoint_extra_state` gave, restored."""
+        """Takes back what :meth:`checkpoint_extra_state` gave, restored
+        (and forgets the memoized cohort: it was drawn from other
+        state)."""
+        self._sample_cache = None
+        if extra and "oort_utility" in extra:
+            self._oort_utility = np.array(extra["oort_utility"])
+            self._oort_last = np.array(extra["oort_last"])
 
     # --- the carry protocol ------------------------------------------------
     def _window_server_update(self):
@@ -448,13 +636,19 @@ class FedAvgAPI(FederatedLoop):
 
     def _stream_cohort(self, round_idx: int, idx) -> FederatedArrays:
         """The round's cohort from the host store (prefetched when it
-        could be), and the next round's gather and copy started on the
-        prefetcher's worker, to overlap this round's training."""
+        could be), and, under seeded-random selection, the next round's
+        gather and copy started on the prefetcher's worker, to overlap
+        this round's training (pow_d and oort depend on the net the round
+        produces)."""
         pf = getattr(self, "_cohort_prefetcher", None)
         if pf is None or pf.store is not self.train_fed:
             pf = self._cohort_prefetcher = CohortPrefetcher(self.train_fed)
         sub = pf.get(round_idx, idx)
-        if round_idx + 1 < self.cfg.comm_round:
+        # Oort's fallback utility eval reads this instead of a second
+        # host gather of the same cohort.
+        self._stream_last = (round_idx, np.asarray(idx), sub)
+        if (self.cfg.client_selection == "random"
+                and round_idx + 1 < self.cfg.comm_round):
             pf.prefetch(round_idx + 1, self.sample_round(round_idx + 1))
         return sub
 
@@ -464,6 +658,155 @@ class FedAvgAPI(FederatedLoop):
         if self._streaming:
             return self._stream_cohort(round_idx, idx)
         return super()._cohort(round_idx, idx)
+
+    # --- client selection: random, pow_d, oort ---------------------------
+    def sample_round(self, round_idx: int):
+        """The round's cohort (client indices): the reference's seeded
+        draw, Power-of-Choice (``pow_d``, Cho et al. 2020: ``d``
+        candidates drawn by data fraction, the current global model
+        evaluated on their shards, the ``client_num_per_round`` highest
+        losses kept) or Oort (:meth:`_sample_oort`). Memoized per round:
+        pow_d and oort depend on the current net, so a class that samples
+        again mid-round (Ditto's personal step) must see the cohort the
+        round trained."""
+        cached = self._sample_cache
+        if cached is not None and cached[0] == round_idx:
+            return cached[1]
+        idx = self._sample_round_uncached(round_idx)
+        self._sample_cache = (round_idx, idx)
+        return idx
+
+    def _sample_round_uncached(self, round_idx: int):
+        cfg = self.cfg
+        if cfg.client_selection == "random":
+            return super().sample_round(round_idx)
+        if cfg.client_selection == "oort":
+            return self._sample_oort(round_idx)
+        if cfg.client_selection != "pow_d":
+            raise ValueError(
+                f"unknown client_selection {cfg.client_selection!r}; use "
+                "'random', 'pow_d' or 'oort'")
+        d = cfg.pow_d_candidates or 2 * cfg.client_num_per_round
+        d = min(d, cfg.client_num_in_total)
+        m = min(cfg.client_num_per_round, cfg.client_num_in_total)
+        if d < m:
+            raise ValueError(
+                f"pow_d needs at least client_num_per_round candidates "
+                f"(d={d} < m={m}); raise --pow_d_candidates")
+        directory = getattr(self.train_fed, "directory", None)
+        if (directory is not None
+                and directory.num_clients == cfg.client_num_in_total):
+            candidates = directory.sample_cohort_weighted(round_idx, d)
+        else:
+            candidates = sample_clients_weighted(
+                round_idx, cfg.client_num_in_total, d, self._host_counts())
+        losses = (self._cohort_losses_store(candidates) if self._streaming
+                  else self._cohort_losses_resident(candidates))
+        order = np.argsort(-losses, kind="stable")[:m]
+        return candidates[np.sort(order)]
+
+    def _eval_losses_step(self, store: bool):
+        """The candidates' eval as one captured step (JAX jits it): ``step(
+        net, idx) -> (net, losses [d])`` with the gather inside (resident),
+        or ``step(net, x, y, mask) -> (net, losses)`` over a host-gathered
+        cohort (store)."""
+        def losses_of(net, x, y, mask):
+            return net, self._per_client_eval(net, x, y, mask)["loss"]
+
+        if store:
+            return losses_of
+
+        def gathered(net, idx):
+            sub = gather_clients(self.train_fed, idx)
+            return losses_of(net, sub.x, sub.y, sub.mask)
+
+        return gathered
+
+    def _fetch_losses(self, losses) -> np.ndarray:
+        with planned_transfer():  # the selection's one fetch
+            return losses.double().cpu().numpy()
+
+    def _cohort_losses_resident(self, idx) -> np.ndarray:
+        """The current global model's loss on each client of ``idx`` (the
+        resident layout): gather and vmapped eval captured as one step.
+        Shared by pow_d's candidates and oort's fallback."""
+        step = self._captured("cohort_eval",
+                              lambda: self._eval_losses_step(False))
+        _, losses = step(self._eval_net(), self._cohort_on_device(idx))
+        return self._fetch_losses(losses)
+
+    def _cohort_losses_store(self, idx, sub=None) -> np.ndarray:
+        """:meth:`_cohort_losses_resident` over a store: the cohort gathered
+        on the host (or ``sub``, already gathered), then the captured
+        vmapped eval (one graph per step bucket)."""
+        if sub is None:
+            sub = self.train_fed.gather_cohort(np.asarray(idx))
+        step = self._captured("cohort_eval_store",
+                              lambda: self._eval_losses_step(True))
+        _, losses = step(self._eval_net(), sub.x, sub.y, sub.mask)
+        return self._fetch_losses(losses)
+
+    def _sample_oort(self, round_idx: int):
+        """Oort's epsilon-greedy utility selection (Lai et al., OSDI'21).
+        Exploit: the highest-utility clients seen before, utility = the
+        observed in-round training loss x sqrt(n_i) plus
+        ``oort_staleness_coef · sqrt(rounds since seen)``. Explore: a
+        seeded-uniform draw over the never-seen clients; once they run
+        short, over the seen clients outside the exploit set, so the
+        epsilon slice keeps exploring. Deterministic given the round index
+        and the history."""
+        cfg = self.cfg
+        n = cfg.client_num_in_total
+        k = min(cfg.client_num_per_round, n)
+        seen = self._oort_last >= 0
+        rs = np.random.RandomState(round_idx)
+        n_exploit = min(k - int(np.ceil(cfg.oort_epsilon * k)),
+                        int(seen.sum()))
+        n_explore = k - n_exploit
+        chosen = []
+        if n_exploit:
+            staleness = np.sqrt(np.maximum(round_idx - self._oort_last, 0))
+            score = np.where(
+                seen,
+                self._oort_utility + cfg.oort_staleness_coef * staleness,
+                -np.inf)
+            chosen.append(np.argsort(-score, kind="stable")[:n_exploit])
+        if n_explore:
+            unseen_pool = np.flatnonzero(~seen)
+            take_unseen = min(len(unseen_pool), n_explore)
+            if take_unseen:
+                chosen.append(rs.choice(unseen_pool, take_unseen,
+                                        replace=False))
+            rest = n_explore - take_unseen
+            if rest:
+                exploited = (chosen[0] if n_exploit
+                             else np.array([], np.int64))
+                pool = np.setdiff1d(np.flatnonzero(seen), exploited)
+                chosen.append(rs.choice(pool, rest, replace=False))
+        return np.sort(np.concatenate(chosen).astype(np.int32))
+
+    def _update_oort_state(self, round_idx: int, idx) -> None:
+        """Refresh the trained cohort's utilities from the round's IN-ROUND
+        training losses (``_round_client_losses``, the round's third
+        output under oort); a round without them (a class whose round is
+        built otherwise) falls back to one eval of the new global model on
+        the cohort's shards. A non-finite loss counts as 0."""
+        idx = np.asarray(idx)
+        captured = getattr(self, "_round_client_losses", None)
+        if captured is not None:
+            self._round_client_losses = None  # one round's observable
+            losses = self._fetch_losses(captured)
+            losses = np.where(np.isfinite(losses), losses, 0.0)
+        elif self._streaming:
+            last = getattr(self, "_stream_last", None)
+            sub = (last[2] if last is not None and last[0] == round_idx
+                   and np.array_equal(last[1], idx) else None)
+            losses = self._cohort_losses_store(idx, sub)
+        else:
+            losses = self._cohort_losses_resident(idx)
+        counts = self._host_counts()[idx].astype(np.float64)
+        self._oort_utility[idx] = losses * np.sqrt(np.maximum(counts, 1))
+        self._oort_last[idx] = round_idx
 
     def _cohort_on_device(self, idx) -> torch.Tensor:
         """The sampled cohort on the device without waiting for it."""
@@ -516,9 +859,72 @@ class FedAvgAPI(FederatedLoop):
         self._window_carry_commit(extra)
         return loss
 
+    # --- the host round: the round captured, the server update on the host
+    def _host_round_step(self):
+        """``round_fn`` with the cohort in front, captured as its own step
+        (JAX jits ``run_round``'s round): ``step(net, idx, key, *aux) ->
+        (net, out)`` gathering on the device, or ``step(net, x, y, mask,
+        counts, key, *aux)`` over a streamed cohort. ``out`` is the round's
+        ``(avg, loss[, client losses])``; the carry comes back as given,
+        the old net for the server update."""
+        round_fn = self.round_fn
+
+        def fed_step(net, x, y, mask, counts, key, *aux):
+            w = counts.float()
+            return net, round_fn(net, x, y, mask, w, w, key, *aux)
+
+        if self._streaming:
+            return fed_step
+
+        def gather_step(net, idx, key, *aux):
+            sub = gather_clients(self.train_fed, idx)
+            return fed_step(net, sub.x, sub.y, sub.mask, sub.counts, key,
+                            *aux)
+
+        return gather_step
+
+    def _train_round_host(self, round_idx: int):
+        """One round of JAX's host procedure: ``run_round``'s prelude, the
+        captured round (:meth:`_host_round_step`), ``_server_update`` on
+        the host side, then oort's utility update. Returns the loss, a
+        device tensor that the next round overwrites."""
+        self._check_layout()
+        streaming = self._streaming
+        step = self._captured("host_store" if streaming else "host",
+                              self._host_round_step)
+        pair = keys.split(self.rng)
+        self.rng, rnd_rng = pair[0], pair[1]
+        self._last_round_key = rnd_rng
+        idx = self.sample_round(round_idx)
+        aux = self._round_aux(round_idx, idx)
+        if streaming:
+            sub = self._stream_cohort(round_idx, idx)
+            old, out = step(self.net, sub.x, sub.y, sub.mask, sub.counts,
+                            rnd_rng, *aux)
+        else:
+            old, out = step(self.net, self._cohort_on_device(idx), rnd_rng,
+                            *aux)
+        avg, loss = self._unpack_round(out)
+        self.net = self._server_update(old, avg)
+        if self.cfg.client_selection == "oort":
+            self._update_oort_state(round_idx, idx)
+        return loss
+
+    def _uses_fused_round(self) -> bool:
+        """Whether the host loop replays the fused step (else the host
+        round): the record's fused step, and not oort's three-output
+        round."""
+        return (self.capability().fused
+                and self.cfg.client_selection != "oort")
+
     def train_one_round(self, round_idx: int) -> Dict[str, float]:
-        self._require("train_one_round", self.capability().fused)
-        loss = self._train_round_fused(round_idx)
+        if self._uses_fused_round():
+            loss = self._train_round_fused(round_idx)
+        else:
+            rec = self.capability()
+            self._require("train_one_round", rec.protocol != "custom"
+                          and not rec.custom_round)
+            loss = self._train_round_host(round_idx)
         with planned_transfer():  # the synced loop's one fetch a round
             return {"round": round_idx, "train_loss": float(loss)}
 
@@ -527,9 +933,22 @@ class FedAvgAPI(FederatedLoop):
         between them: each round's replay is queued as soon as its cohort
         is on the device, and the losses are fetched once at the end.
         Per-round semantics are those of ``train_one_round`` in a loop
-        (test-pinned bit-equal); no evaluation."""
-        self._require("train_rounds_pipelined", self.capability().fused)
-        losses = [self._train_round_fused(r).clone()
+        (test-pinned bit-equal); no evaluation. Oort is refused: its
+        utility update needs each round's losses on the host."""
+        self._require("train_rounds_pipelined", self.capability().pipelined)
+        if self.cfg.client_selection == "oort":
+            raise NotImplementedError(
+                "oort updates per-client utilities after every round "
+                "(train_one_round); the pipelined loop skips that hook — "
+                "use the per-round loop")
+        if self.cfg.client_selection == "pow_d":
+            raise NotImplementedError(
+                "pow_d scores its candidates with the current net every "
+                "round, a host sync between rounds that the pipelined loop "
+                "exists to avoid — use the per-round loop")
+        run = (self._train_round_fused if self._uses_fused_round()
+               else self._train_round_host)
+        losses = [run(r).clone()
                   for r in range(start_round, start_round + n_rounds)]
         with planned_transfer():  # the loop's one host sync, by design
             return torch.stack(losses).tolist() if losses else []
@@ -567,6 +986,10 @@ class FedAvgAPI(FederatedLoop):
                 "resident (the scan gathers clients on device each round); "
                 "FederatedStore streams cohorts from host — use the host "
                 "loop")
+        if self.cfg.client_selection != "random":
+            raise NotImplementedError(
+                "train_rounds_on_device samples uniformly on device; "
+                "loss-biased selection (pow_d/oort) needs the host loop")
 
         def build():
             step = self._build_fused_step()

@@ -17,7 +17,10 @@ drawn inside the step from the port's counter keys (``keys.normal`` on
 tensor), so a captured round draws anew each replay. The random streams
 differ from JAX's by design (threefry), so :class:`GanLocalTrain` takes
 the noise and the epoch permutation as seams that the parity tests feed
-with JAX's draws.
+with JAX's draws. A BatchNorm generator (``norm="bn"``) carries its
+running stats as JAX does: each of its train-mode forwards (the fake
+batch of D's step, then G's own step) updates them, and the round
+averages them with the params; ``generate`` reads them in eval mode.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from fedml_tpu_torch.algos.fedopt import _scale_by_adam
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.tree import tree_select
 from fedml_tpu_torch.trainer.local import (NetState, _chain, _scale, _take,
-                                           apply_updates, epoch_perm)
+                                           apply_updates, epoch_perm,
+                                           model_fns)
 
 
 def _sub(params, prefix):
@@ -67,18 +71,21 @@ class GanLocalTrain:
         self.adam = _chain(_scale_by_adam(0.9, 0.999, 1e-8), _scale(-lr))
         self.noise = noise or keys.normal
         self.perm = perm or epoch_perm
+        self._gen_apply = model_fns(module.netg).apply
 
-    def _gen(self, pg, z):
-        return functional_call(self.module.netg, pg, (z,))
+    def _gen(self, pg, sg, z):
+        """G's train-mode forward: the fake batch and G's new state."""
+        return self._gen_apply(NetState(pg, sg), z, train=True)
 
     def _disc(self, pd, x):
         return functional_call(self.module.netd, pd, (x,))
 
-    def step(self, pg, pd, d_state, g_state, xb, mb, per_step):
+    def step(self, pg, pd, sg, d_state, g_state, xb, mb, per_step):
         nb = torch.clamp(mb.sum(), min=1.0)
         b = xb.shape[0]
-        fake = self._gen(pg, self.noise(keys.fold_in(per_step, 0),
-                                        (b, self.latent_dim))).detach()
+        fake, sg_d = self._gen(pg, sg, self.noise(keys.fold_in(per_step, 0),
+                                                  (b, self.latent_dim)))
+        fake = fake.detach()
 
         def d_loss(pd_):
             per = _bce(self._disc(pd_, xb), 1.0) + _bce(
@@ -91,20 +98,23 @@ class GanLocalTrain:
         zg = self.noise(keys.fold_in(per_step, 1), (b, self.latent_dim))
 
         def g_loss(pg_):
-            per = _bce(self._disc(pd_new, self._gen(pg_, zg)), 1.0)
-            return (per * mb).sum() / nb
+            fake_g, sg_g = self._gen(pg_, sg_d, zg)
+            per = _bce(self._disc(pd_new, fake_g), 1.0)
+            return (per * mb).sum() / nb, sg_g
 
-        gg, gl = grad_and_value(g_loss)(pg)
+        gg, (gl, sg_new) = grad_and_value(g_loss, has_aux=True)(pg)
         upd, new_g = self.adam.update(gg, g_state, pg)
         pg_new = apply_updates(pg, upd)
         nonempty = mb.sum() > 0
         return (tree_select(nonempty, pg_new, pg),
                 tree_select(nonempty, pd_new, pd),
+                tree_select(nonempty, sg_new, sg),
                 tree_select(nonempty, new_d, d_state),
                 tree_select(nonempty, new_g, g_state), dl + gl, mb.sum())
 
-    def _train(self, params, x, mask, rng):
+    def _train(self, params, state, x, mask, rng):
         pg, pd = _sub(params, "netg."), _sub(params, "netd.")
+        sg = _sub(state, "netg.")
         d_state, g_state = self.adam.init(pd), self.adam.init(pg)
         pair = keys.split(rng)
         epoch_keys = keys.split(pair[..., 1], self.local_epochs)
@@ -117,8 +127,8 @@ class GanLocalTrain:
             step_base = keys.fold_in(epoch_key, 1)
             losses, ns = [], []
             for s in range(mask.shape[0]):
-                pg, pd, d_state, g_state, loss, n = self.step(
-                    pg, pd, d_state, g_state, ex[s], em[s],
+                pg, pd, sg, d_state, g_state, loss, n = self.step(
+                    pg, pd, sg, d_state, g_state, ex[s], em[s],
                     keys.fold_in(step_base, steps[s]))
                 losses.append(loss)
                 ns.append(n)
@@ -127,18 +137,23 @@ class GanLocalTrain:
                                                                   min=1.0))
         new = {**{"netg." + k: v for k, v in pg.items()},
                **{"netd." + k: v for k, v in pd.items()}}
-        return {k: new[k] for k in params}, torch.stack(epoch_losses).mean()
+        new_state = {"netg." + k: v for k, v in sg.items()}
+        return ({k: new[k] for k in params}, {k: new_state[k] for k in state},
+                torch.stack(epoch_losses).mean())
 
     def __call__(self, net: NetState, x, y, mask, rng):
-        params, loss = self._train(net.params, x, mask, rng)
-        return NetState(params, net.model_state), loss
+        params, state, loss = self._train(net.params, net.model_state, x,
+                                          mask, rng)
+        return NetState(params, state), loss
 
     def run_clients(self, net: NetState, x, y, mask, rngs):
         """The cohort (``x [C, S, B, ...]``, ``rngs [C]``) from one global
-        ``net`` → (client nets with ``[C, ...]`` params, losses ``[C]``)."""
-        params, losses = vmap(self._train, in_dims=(None, 0, 0, 0))(
-            net.params, x, mask, rngs)
-        return NetState(params, net.model_state), losses
+        ``net`` → (client nets with ``[C, ...]`` params and G's state,
+        losses ``[C]``)."""
+        params, state, losses = vmap(self._train,
+                                     in_dims=(None, None, 0, 0, 0))(
+            net.params, net.model_state, x, mask, rngs)
+        return NetState(params, state), losses
 
 
 def make_gan_local_train(module, lr: float, local_epochs: int,
@@ -184,5 +199,6 @@ class FedGanAPI(FedAvgAPI):
             pair = keys.split(self.rng)
             self.rng, key = pair[0], pair[1]
         z = keys.normal(key, (n, self.latent_dim))
-        return functional_call(self.model.netg,
-                               _sub(self.net.params, "netg."), (z,))
+        net = NetState(_sub(self.net.params, "netg."),
+                       _sub(self.net.model_state, "netg."))
+        return model_fns(self.model.netg).apply(net, z, train=False)[0]

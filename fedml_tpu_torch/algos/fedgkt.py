@@ -30,8 +30,13 @@ index (``index_select``, one batch a step), so a replay copies no
 operand.
 
 Round 0 has no server logits: the KL term is gated by ``have_teacher``
-(the reference branches on an empty logits dict). The class rides no
-multi-round tier (``ExcludedScanTiers``: the record's refusals).
+(the reference branches on an empty logits dict). Trained model state
+(BatchNorm's running stats, ``norm="bn"``) is threaded as JAX threads it:
+each client's stump carries its own stats beside its params (``[C, ...]``
+in ``client_nets.model_state``), each training step keeps the stats its
+forward left, and the sweep reads them in eval mode; the tail's stats
+ride the server step's carry. The class rides no multi-round tier
+(``ExcludedScanTiers``: the record's refusals).
 """
 
 from __future__ import annotations
@@ -42,8 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value, vmap
 
-from fedml_tpu_torch.algos.capability import (ExcludedScanTiers,
-                                              refuse_model_state)
+from fedml_tpu_torch.algos.capability import ExcludedScanTiers
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.fedopt import _scale_by_adam
 from fedml_tpu_torch.core import keys
@@ -81,19 +85,20 @@ class _DistillTrain(LocalTrain):
     def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
              have_teacher=None):
         def masked_loss(p):
-            (logits, _), _ = self.apply_fn(NetState(p, model_state), xb,
-                                           train=True, rng=rng)
+            (logits, _), state = self.apply_fn(NetState(p, model_state), xb,
+                                               train=True, rng=rng)
             per = softmax_ce(logits, yb[..., 0]) + have_teacher * kl_loss(
                 logits, yb[..., 1:], self.temperature)
-            return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+            return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0), state
 
-        grads, loss = grad_and_value(masked_loss)(params)
+        grads, (loss, new_state) = grad_and_value(masked_loss,
+                                                  has_aux=True)(params)
         updates, new_opt = self.optimizer.update(grads, opt_state, params)
         nb = mb.sum()
         nonempty = nb > 0
         return (tree_select(nonempty, apply_updates(params, updates), params),
-                tree_select(nonempty, new_opt, opt_state), model_state, loss,
-                nb)
+                tree_select(nonempty, new_opt, opt_state),
+                tree_select(nonempty, new_state, model_state), loss, nb)
 
 
 class FedGKTAPI(ExcludedScanTiers):
@@ -121,7 +126,6 @@ class FedGKTAPI(ExcludedScanTiers):
         self.cfg, self.train_fed, self.test_global = cfg, train_fed, test_global
         self.client_model = client_model.to(dev)
         self.server_model = server_model.to(dev)
-        refuse_model_state("FedGKTAPI", self.client_model, self.server_model)
         self.client_fns = model_fns(self.client_model)
         self.server_fns = model_fns(self.server_model)
         self.temperature, self.epochs_server = temperature, epochs_server
@@ -141,8 +145,12 @@ class FedGKTAPI(ExcludedScanTiers):
 
         self.rng = keys.split(keys.key(cfg.seed, dev), 3)[0]
         gen = torch.Generator().manual_seed(cfg.seed)
-        self.client_nets = NetState(stacked_init(self.client_model, C, gen),
-                                    {})
+        # Each client its own draw of the stump, every client's running
+        # stats at their init.
+        self.client_nets = NetState(
+            stacked_init(self.client_model, C, gen),
+            {k: b.detach().unsqueeze(0).repeat(C, *([1] * b.dim()))
+             for k, b in self.client_model.named_buffers()})
         self.server_net = self.server_fns.init()
         self.server_state = self.server_opt.init(self.server_net.params)
 
@@ -172,30 +180,32 @@ class FedGKTAPI(ExcludedScanTiers):
         return step
 
     def _build_client_phase(self):
-        """``phase(params, have_teacher, key) -> (params', losses [C])``:
-        every client's training from its own stump (``params`` ``[C, ...]``)
-        and the sweep that writes ``feats`` and ``client_logits``."""
+        """``phase(nets, have_teacher, key) -> (nets', losses [C])``: every
+        client's training from its own stump (``nets``: ``[C, ...]`` params
+        and running stats) and the sweep, in eval mode, that writes
+        ``feats`` and ``client_logits``."""
         apply, trainer = self.client_fns.apply, self._trainer
         fed, S = self.train_fed, self.n_steps
 
-        def stump(p, xb):
-            return apply(NetState(p, {}), xb, train=False)[0]
+        def stump(p, state, xb):
+            return apply(NetState(p, state), xb, train=False)[0]
 
-        sweep = vmap(stump, in_dims=(0, 3))
+        sweep = vmap(stump, in_dims=(0, 0, 3))
 
-        def phase(params, have_teacher, key):
+        def phase(nets, have_teacher, key):
             y = torch.cat([fed.y.float()[..., None], self.server_logits], -1)
             nets, losses = trainer._run_cohort(
-                NetState(params, {}), fed.x, y, fed.mask,
-                keys.split(key, self.n_clients), have_teacher, None)
+                nets, fed.x, y, fed.mask, keys.split(key, self.n_clients),
+                have_teacher, None)
             with torch.no_grad():
                 for s in range(S):
                     # The client dim next to the channels, as in training.
                     logits, feats = sweep(
-                        nets.params, fed.x[:, s].movedim(0, -2).contiguous())
+                        nets.params, nets.model_state,
+                        fed.x[:, s].movedim(0, -2).contiguous())
                     self.feats[:, s].copy_(feats.permute(0, 1, 3, 4, 2))
                     self.client_logits[:, s].copy_(logits)
-            return nets.params, losses
+            return nets, losses
 
         return phase
 
@@ -214,48 +224,56 @@ class FedGKTAPI(ExcludedScanTiers):
                 take(self.client_logits), take(fed.y), take(fed.mask))
 
     def _build_server_step(self):
-        """``step((params, opt_state, acc, idx, step_base)) -> (carry',
-        None)``: one Adam step of the tail on batch ``idx`` with CE + KL
-        against the client logits; ``acc`` += (loss · n, n); ``idx`` + 1."""
+        """``step((net, opt_state, acc, idx, step_base)) -> (carry', None)``:
+        one Adam step of the tail (params and running stats) on batch
+        ``idx`` with CE + KL against the client logits; ``acc`` += (loss ·
+        n, n); ``idx`` + 1."""
         apply, opt, T = self.server_fns.apply, self.server_opt, \
             self.temperature
 
         def step(carry):
-            params, opt_state, acc, idx, step_base = carry
+            net, opt_state, acc, idx, step_base = carry
+            params = net.params
             fb, clb, yb, mb = self._batch(idx)
             sub = keys.fold_in(step_base, idx)
 
             def masked_loss(p):
-                logits, _ = apply(NetState(p, {}), fb, train=True, rng=sub)
+                logits, state = apply(NetState(p, net.model_state), fb,
+                                      train=True, rng=sub)
                 per = softmax_ce(logits, yb) + kl_loss(logits, clb, T)
-                return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+                return ((per * mb).sum() / torch.clamp(mb.sum(), min=1.0),
+                        state)
 
-            grads, loss = grad_and_value(masked_loss)(params)
+            grads, (loss, state) = grad_and_value(masked_loss,
+                                                  has_aux=True)(params)
             updates, new_opt = opt.update(grads, opt_state, params)
             nb = mb.sum()
             nonempty = nb > 0
-            params = tree_select(nonempty, apply_updates(params, updates),
-                                 params)
+            net = NetState(
+                tree_select(nonempty, apply_updates(params, updates),
+                            params),
+                tree_select(nonempty, state, net.model_state))
             opt_state = tree_select(nonempty, new_opt, opt_state)
             acc = acc + torch.stack([loss * nb, nb])
-            return (params, opt_state, acc, idx + 1, step_base), None
+            return (net, opt_state, acc, idx + 1, step_base), None
 
         return step
 
     def _build_relabel_step(self):
-        """``step((params, idx)) -> ((params, idx + 1), None)``: the
-        trained tail's logits of batch ``idx`` into ``server_logits``."""
+        """``step((net, idx)) -> ((net, idx + 1), None)``: the trained
+        tail's logits (eval mode) of batch ``idx`` into
+        ``server_logits``."""
         apply = self.server_fns.apply
         cs = self.n_clients * self.n_steps
 
         def step(carry):
-            params, idx = carry
+            net, idx = carry
             fb = self._batch(idx)[0]
             with torch.no_grad():
-                logits, _ = apply(NetState(params, {}), fb, train=False)
+                logits, _ = apply(net, fb, train=False)
             self.server_logits.view(cs, self.batch, -1).index_copy_(
                 0, idx[None], logits[None])
-            return (params, idx + 1), None
+            return (net, idx + 1), None
 
         return step
 
@@ -267,9 +285,8 @@ class FedGKTAPI(ExcludedScanTiers):
         """The captured client phase: the stumps trained, the features and
         client logits written. Returns the clients' losses ``[C]``."""
         step = self._captured("client", self._build_client_phase)
-        params, losses = step(self.client_nets.params,
-                              self._flags[int(self.have_teacher)], key)
-        self.client_nets = NetState(params, self.client_nets.model_state)
+        self.client_nets, losses = step(
+            self.client_nets, self._flags[int(self.have_teacher)], key)
         return losses
 
     def _run_server_phase(self, key):
@@ -277,17 +294,17 @@ class FedGKTAPI(ExcludedScanTiers):
         batches in order; returns the mean of the epochs' sample-weighted
         losses (a device tensor)."""
         step = self._captured("server", self._build_server_step)
-        params, opt_state = self.server_net.params, self.server_state
+        net, opt_state = self.server_net, self.server_state
         epoch_losses = []
         for e in range(self.epochs_server):
-            carry = (params, opt_state,
+            carry = (net, opt_state,
                      torch.zeros(2, device=self.device), self._step_index(),
                      keys.fold_in(key, e))
             for _ in range(self.n_clients * self.n_steps):
                 carry, _ = step(carry)
-            params, opt_state, acc = carry[:3]
+            net, opt_state, acc = carry[:3]
             epoch_losses.append(acc[0] / torch.clamp(acc[1], min=1.0))
-        self.server_net = NetState(params, self.server_net.model_state)
+        self.server_net = net
         self.server_state = opt_state
         return torch.stack(epoch_losses).mean()
 
@@ -295,7 +312,7 @@ class FedGKTAPI(ExcludedScanTiers):
         """The replayed relabel step over the C·S batches: the next round's
         teacher logits in ``server_logits``."""
         step = self._captured("relabel", self._build_relabel_step)
-        carry = (self.server_net.params, self._step_index())
+        carry = (self.server_net, self._step_index())
         for _ in range(self.n_clients * self.n_steps):
             carry, _ = step(carry)
 
@@ -320,13 +337,15 @@ class FedGKTAPI(ExcludedScanTiers):
             return {}
         client_apply, server_apply = (self.client_fns.apply,
                                       self.server_fns.apply)
-        stumps = vmap(lambda p, xb: client_apply(NetState(p, {}), xb)[0][1],
-                      in_dims=(0, None))
+        stumps = vmap(lambda p, st, xb: client_apply(NetState(p, st),
+                                                     xb)[0][1],
+                      in_dims=(0, 0, None))
         c = self.n_clients
         correct = torch.zeros(c, device=self.device)
         n = torch.zeros((), device=self.device)
         for xb, yb, mb in zip(*self.test_global):
-            feats = stumps(self.client_nets.params, xb)
+            feats = stumps(self.client_nets.params,
+                           self.client_nets.model_state, xb)
             logits, _ = server_apply(self.server_net, feats.flatten(0, 1))
             hit = (logits.view(c, xb.shape[0], -1).argmax(-1) == yb).float()
             correct += (hit * mb).sum(-1)

@@ -17,7 +17,10 @@ holds no client's split. The first-order arch step takes the gradient in
 the alphas alone (JAX takes it in every param and masks the weights'
 part off: the same numbers); the unrolled step differentiates through
 the lookahead ``w − ξ·∇w L_train(w, α)``, which needs GroupNorm's second
-derivative (``ops.group_norm``).
+derivative (``ops.group_norm``). A BatchNorm search net (``norm="bn"``)
+threads its running stats as JAX does: every forward reads the client's
+stats, and only the weight step's forward writes them (the architecture
+step's forwards, and the lookahead's, leave them as they were).
 """
 
 from __future__ import annotations
@@ -50,10 +53,12 @@ class FedNASLocalSearch:
         self.xi, self.local_epochs, self.unrolled = xi, local_epochs, unrolled
 
     def _loss(self, params, model_state, xb, yb, mb):
-        logits, _ = self.apply_fn(NetState(params, model_state), xb,
-                                  train=True)
+        """The batch's masked mean CE, and the model state its forward
+        left."""
+        logits, state = self.apply_fn(NetState(params, model_state), xb,
+                                      train=True)
         per = softmax_ce(logits, yb)
-        return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+        return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0), state
 
     def _split(self, params):
         return ({k: v for k, v in params.items() if k in ALPHA_KEYS},
@@ -71,24 +76,27 @@ class FedNASLocalSearch:
         def val_loss(a):
             w = weights
             if self.unrolled:
-                gw = grad(self._loss_in_weights(a, model_state, xt, yt, mt))(
-                    w)
+                gw, _ = grad(self._loss_in_weights(a, model_state, xt, yt,
+                                                   mt), has_aux=True)(w)
                 w = {k: w[k] - self.xi * gw[k] for k in w}
-            return self._loss({**a, **w}, model_state, xv, yv, mv)
+            return self._loss({**a, **w}, model_state, xv, yv, mv)[0]
 
         return grad(val_loss)(alphas)
 
     def step(self, params, model_state, xt, yt, mt, xv, yv, mv, active):
-        """One bilevel step of one client; ``active`` gates it."""
+        """One bilevel step of one client; ``active`` gates it. Returns
+        the params, the model state of the weight step's forward, the
+        loss and the step's sample count."""
         ga = self.arch_grad(params, model_state, xt, yt, mt, xv, yv, mv)
         alphas, weights = self._split(params)
         alphas = {k: alphas[k] - self.lr_a * ga[k] for k in alphas}
-        gw, loss = grad_and_value(self._loss_in_weights(
-            alphas, model_state, xt, yt, mt))(weights)
+        gw, (loss, new_state) = grad_and_value(self._loss_in_weights(
+            alphas, model_state, xt, yt, mt), has_aux=True)(weights)
         weights = {k: weights[k] - self.lr_w * gw[k] for k in weights}
         new = {k: alphas[k] if k in alphas else weights[k] for k in params}
         ns = torch.where(active, mt.sum(), torch.zeros_like(loss))
-        return tree_select(active, new, params), loss, ns
+        return (tree_select(active, new, params),
+                tree_select(active, new_state, model_state), loss, ns)
 
     def _search(self, params, model_state, x, y, mask, batched: bool):
         n_steps = mask.shape[-2]
@@ -107,7 +115,7 @@ class FedNASLocalSearch:
                 return a.index_select(0, i.reshape(1))[0]
         step = self.step
         if batched:
-            step = vmap(self.step, in_dims=(0, None, -2, 0, 0, -2, 0, 0, 0))
+            step = vmap(self.step, in_dims=(0, 0, -2, 0, 0, -2, 0, 0, 0))
 
         def inputs(i):
             xb = at(x, i)
@@ -124,28 +132,30 @@ class FedNASLocalSearch:
                 xt, yt, mt = inputs(i)
                 xv, yv, mv = inputs(torch.clamp(h + i, max=n_steps - 1))
                 active = (i < h) & (mt.sum(-1) > 0)
-                params, loss, n = step(params, model_state, xt, yt, mt, xv,
-                                       yv, mv, active)
+                params, model_state, loss, n = step(
+                    params, model_state, xt, yt, mt, xv, yv, mv, active)
                 losses.append(loss)
                 ns.append(n)
             losses, ns = torch.stack(losses), torch.stack(ns)
             epoch_losses.append((losses * ns).sum(0)
                                 / torch.clamp(ns.sum(0), min=1.0))
-        return params, torch.stack(epoch_losses).mean(0)
+        return params, model_state, torch.stack(epoch_losses).mean(0)
 
     def __call__(self, net: NetState, x, y, mask, rng):
-        params, loss = self._search(net.params, net.model_state, x, y, mask,
-                                    batched=False)
-        return NetState(params, net.model_state), loss
+        params, state, loss = self._search(net.params, net.model_state, x,
+                                           y, mask, batched=False)
+        return NetState(params, state), loss
 
     def run_clients(self, net: NetState, x, y, mask, rngs):
         """The cohort (``x [C, S, B, ...]``) from one global ``net`` →
-        (client nets with ``[C, ...]`` params, losses ``[C]``)."""
+        (client nets with ``[C, ...]`` params and model state, losses
+        ``[C]``)."""
         c = x.shape[0]
-        params = {k: _per_client(t, c) for k, t in net.params.items()}
-        params, losses = self._search(params, net.model_state, x, y, mask,
-                                      batched=True)
-        return NetState(params, net.model_state), losses
+        params, state = ({k: _per_client(t, c) for k, t in tree.items()}
+                         for tree in (net.params, net.model_state))
+        params, state, losses = self._search(params, state, x, y, mask,
+                                             batched=True)
+        return NetState(params, state), losses
 
 
 def make_fednas_local_search(apply_fn, lr_w: float, lr_a: float, xi: float,

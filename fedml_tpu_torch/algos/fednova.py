@@ -58,10 +58,11 @@ class FedNovaAPI(FedAvgAPI):
 
         def round_fn(net, x, y, mask, weights, loss_weights, rng, q, gamma):
             # Aggregate with the τ-normalized q, report the loss with the
-            # true sample counts, then interpolate by γ.
-            avg, loss = base(net, x, y, mask, q, loss_weights, rng)
+            # true sample counts, then interpolate by γ; a further output
+            # (oort's client losses) passes through.
+            avg, loss, *rest = base(net, x, y, mask, q, loss_weights, rng)
             new_params = tree_map(lambda w, a: w - gamma * (w - a),
                                   net.params, avg.params)
-            return NetState(new_params, avg.model_state), loss
+            return (NetState(new_params, avg.model_state), loss, *rest)
 
         return round_fn

@@ -61,12 +61,15 @@ class FederatedLoop:
     def sample_round(self, round_idx: int):
         """Reference-seeded sampling (``np.random.RandomState(round_idx)``,
         FedAVGAggregator.py:90-99). A sharded store's ``ClientDirectory``
-        draws it from its count metadata, the same stream."""
+        draws it from its count metadata, the same stream. Loss-biased
+        selection is ``FedAvgAPI``'s; a class that lands here refuses it
+        rather than silently sampling uniformly."""
         sel = getattr(self.cfg, "client_selection", "random")
         if sel != "random":
             raise NotImplementedError(
-                f"client_selection={sel!r} is not ported yet (ROADMAP.md "
-                "A5); only 'random' is")
+                f"client_selection={sel!r} is not supported by "
+                f"{type(self).__name__}; only the FedAvg family implements "
+                "loss-biased selection")
         directory = getattr(self.train_fed, "directory", None)
         if directory is not None \
                 and directory.num_clients == self.cfg.client_num_in_total:
@@ -92,9 +95,10 @@ class FederatedLoop:
         counts, fresh round key (kept as
         ``_last_round_key``: a randomized server update folds in from
         it). Returns ``(avg_net, mean_loss)`` without touching
-        ``self.net``. With ``_server_update`` it is the reference
-        procedure that the captured fused and on-device rounds are held
-        to."""
+        ``self.net``; a round built with ``with_client_losses`` keeps its
+        third output, the clients' losses, as ``_round_client_losses``.
+        With ``_server_update`` it is the reference procedure that the
+        captured rounds are held to."""
         pair = keys.split(self.rng)
         self.rng, rnd_rng = pair[0], pair[1]
         self._last_round_key = rnd_rng
@@ -102,8 +106,18 @@ class FederatedLoop:
         aux = self._round_aux(round_idx, idx)
         sub = self._cohort(round_idx, idx)
         weights = sub.counts.float()
-        return self.round_fn(self.net, sub.x, sub.y, sub.mask, weights,
-                             weights, rnd_rng, *aux)
+        return self._unpack_round(self.round_fn(
+            self.net, sub.x, sub.y, sub.mask, weights, weights, rnd_rng,
+            *aux))
+
+    def _unpack_round(self, out):
+        """A round's ``(avg, loss)``; a third output (the in-round client
+        losses of ``with_client_losses``) is kept as
+        ``_round_client_losses``."""
+        if len(out) == 3:
+            avg, loss, self._round_client_losses = out
+            return avg, loss
+        return out
 
     def _per_client_eval(self, net, x, y, mask, net_dim=None):
         """``eval_fn`` over a client-stacked layout (``x [C, S, B, ...]``),

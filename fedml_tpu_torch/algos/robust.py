@@ -64,6 +64,13 @@ class FedAvgRobustAPI(FedAvgAPI):
         self.adversary_clients = np.asarray(
             list(adversary_clients) if adversary_clients is not None else [],
             np.int64)
+        if cfg.compress and cfg.compress != "none":
+            # The client transform here is the norm clip: cfg.compress
+            # would be silently dropped.
+            raise ValueError(
+                "FedAvgRobustAPI's client transform is the robust norm "
+                "clip; combining it with simulated compression is not "
+                "supported — drop cfg.compress or use plain FedAvg")
 
     def sample_round(self, round_idx: int):
         """Every ``attack_freq``-th round the adversary clients join the

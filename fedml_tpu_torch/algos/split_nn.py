@@ -14,7 +14,9 @@ momentum 0.9)`` (the reference's client.py:18-19, lr from the config).
 The top and its momentum are one carry through the whole ring: the order
 matters, since the top moves between clients. The bottoms and their
 momenta live in client stacks ``[N + 1, ...]`` (``core/tree.py``, the
-last row a dustbin). One client's SEGMENT — gather its row, run its S
+last row a dustbin), each client's trained state (BatchNorm's running
+stats) beside its params; the top's state rides with the top, as JAX
+threads ``model_state`` through both nets. One client's SEGMENT — gather its row, run its S
 joint steps in order, scatter the row back — is one captured step whose
 client index is a device tensor, replayed N times in ring order 0…N−1 by
 ``train_one_epoch``. An empty client's write goes to the dustbin. The
@@ -28,8 +30,7 @@ from typing import Dict
 import torch
 from torch.func import grad_and_value, vmap
 
-from fedml_tpu_torch.algos.capability import (ExcludedScanTiers,
-                                              refuse_model_state)
+from fedml_tpu_torch.algos.capability import ExcludedScanTiers
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
@@ -74,7 +75,6 @@ class SplitNNAPI(ExcludedScanTiers):
         self.cfg, self.train_fed, self.test_global = cfg, train_fed, test_global
         self.client_model = client_model.to(dev)
         self.server_model = server_model.to(dev)
-        refuse_model_state("SplitNNAPI", self.client_model, self.server_model)
         self.client_fns = model_fns(self.client_model)
         self.server_fns = model_fns(self.server_model)
         self.loss_fn = loss_fn
@@ -85,9 +85,12 @@ class SplitNNAPI(ExcludedScanTiers):
         self.rng = keys.split(keys.key(cfg.seed, dev), 3)[0]
         rows = stacked_init(self.client_model,
                             n, torch.Generator().manual_seed(cfg.seed))
-        # Each client its own weights, plus the dustbin row.
+        # Each client its own weights (and its running stats at their
+        # init), plus the dustbin row.
         self.client_nets = NetState(
-            tree_map(lambda t: torch.cat([t, t[:1]]), rows), {})
+            tree_map(lambda t: torch.cat([t, t[:1]]), rows),
+            client_stack({k: b.detach() for k, b in
+                          self.client_model.named_buffers()}, n))
         self.client_opts = client_stack(
             self.opt.init(tree_map(lambda t: t[0], rows)), n)
         self.server_net = self.server_fns.init()
@@ -100,42 +103,55 @@ class SplitNNAPI(ExcludedScanTiers):
         return [fed.x, fed.y, fed.mask, fed.counts]
 
     def _joint_step(self, bottom, opt_b, top, opt_t, xb, yb, mb, key):
-        """One minibatch through the cut: the masked mean loss, one backward
-        through both nets, both optimizer steps; an all-masked batch
-        leaves every tree as it was."""
+        """One minibatch through the cut (``bottom``/``top``: NetStates):
+        the masked mean loss, one backward through both nets, both
+        optimizer steps, the running stats each forward left; an
+        all-masked batch leaves every tree as it was."""
         client_apply, server_apply = (self.client_fns.apply,
                                       self.server_fns.apply)
 
         def joint_loss(bp, tp):
-            acts, _ = client_apply(NetState(bp, {}), xb, train=True, rng=key)
-            logits, _ = server_apply(NetState(tp, {}), acts, train=True,
-                                     rng=key)
+            acts, b_state = client_apply(NetState(bp, bottom.model_state),
+                                         xb, train=True, rng=key)
+            logits, t_state = server_apply(NetState(tp, top.model_state),
+                                           acts, train=True, rng=key)
             per = self.loss_fn(logits, yb)
-            return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+            return ((per * mb).sum() / torch.clamp(mb.sum(), min=1.0),
+                    (b_state, t_state))
 
-        (gb, gt), loss = grad_and_value(joint_loss, argnums=(0, 1))(bottom,
-                                                                   top)
-        ub, opt_b2 = self.opt.update(gb, opt_b, bottom)
-        ut, opt_t2 = self.opt.update(gt, opt_t, top)
+        (gb, gt), (loss, (b_state, t_state)) = grad_and_value(
+            joint_loss, argnums=(0, 1), has_aux=True)(bottom.params,
+                                                      top.params)
+        ub, opt_b2 = self.opt.update(gb, opt_b, bottom.params)
+        ut, opt_t2 = self.opt.update(gt, opt_t, top.params)
         nb = mb.sum()
         ok = nb > 0
-        return (tree_select(ok, apply_updates(bottom, ub), bottom),
-                tree_select(ok, opt_b2, opt_b),
-                tree_select(ok, apply_updates(top, ut), top),
+        bottom = NetState(
+            tree_select(ok, apply_updates(bottom.params, ub), bottom.params),
+            tree_select(ok, b_state, bottom.model_state))
+        top = NetState(
+            tree_select(ok, apply_updates(top.params, ut), top.params),
+            tree_select(ok, t_state, top.model_state))
+        return (bottom, tree_select(ok, opt_b2, opt_b), top,
                 tree_select(ok, opt_t2, opt_t), loss, nb)
 
     def _build_segment(self):
         """``segment((nets, opts, top, opt_t, loss_sum), c, key) -> (carry',
         None)``: client ``c``'s turn (``c`` 0-d int64 on the device), its
-        row of the stacks written in place; ``loss_sum`` += its
+        row of the stacks (params, running stats, momentum) written in
+        place; ``nets`` and ``top`` are NetStates; ``loss_sum`` += its
         sample-weighted loss."""
         fed = self.train_fed
+
+        def row(stack, idx):
+            return tree_map(lambda t: t[0], gather_stacked(stack, idx))
 
         def segment(carry, c, key):
             nets, opts, top, opt_t, loss_sum = carry
             idx = c[None]
-            bottom = tree_map(lambda t: t[0], gather_stacked(nets, idx))
-            opt_b = tree_map(lambda t: t[0], gather_stacked(opts, idx))
+            bottom = NetState(row(nets.params, idx),
+                              row(nets.model_state, idx))
+            opt_b = row(opts, idx)
             x, y, m = (t.index_select(0, idx)[0]
                        for t in (fed.x, fed.y, fed.mask))
             step_keys = keys.split(key, x.shape[0])
@@ -147,8 +163,10 @@ class SplitNNAPI(ExcludedScanTiers):
                 losses.append(loss)
                 ns.append(nb)
             umask = (fed.counts.index_select(0, idx) > 0).float()
-            scatter_stacked(nets, idx, tree_map(lambda t: t[None], bottom),
-                            umask)
+            for stack, new in ((nets.params, bottom.params),
+                               (nets.model_state, bottom.model_state)):
+                scatter_stacked(stack, idx, tree_map(lambda t: t[None], new),
+                                umask)
             scatter_stacked(opts, idx, tree_map(lambda t: t[None], opt_b),
                             umask)
             losses, ns = torch.stack(losses), torch.stack(ns)
@@ -170,14 +188,12 @@ class SplitNNAPI(ExcludedScanTiers):
         self.rng = pair[0]
         client_keys = keys.split(pair[1], self.n_clients)
         step = self._segment_step()
-        carry = (self.client_nets.params, self.client_opts,
-                 self.server_net.params, self.server_opt,
-                 torch.zeros((), device=self.device))
+        carry = (self.client_nets, self.client_opts, self.server_net,
+                 self.server_opt, torch.zeros((), device=self.device))
         for c in range(self.n_clients):
             carry, _ = step(carry, self._ids[c], client_keys[c])
-        nets, self.client_opts, top, self.server_opt, loss_sum = carry
-        self.client_nets = NetState(nets, self.client_nets.model_state)
-        self.server_net = NetState(top, self.server_net.model_state)
+        (self.client_nets, self.client_opts, self.server_net,
+         self.server_opt, loss_sum) = carry
         return {"epoch": epoch_idx,
                 "train_loss": float(loss_sum / self.n_clients)}
 
@@ -192,15 +208,17 @@ class SplitNNAPI(ExcludedScanTiers):
             return {}
         client_apply, server_apply = (self.client_fns.apply,
                                       self.server_fns.apply)
-        bottoms = vmap(lambda p, xb: client_apply(NetState(p, {}), xb)[0],
-                       in_dims=(0, None))
+        bottoms = vmap(lambda p, st, xb: client_apply(NetState(p, st),
+                                                      xb)[0],
+                       in_dims=(0, 0, None))
         rows = client_rows(self.client_nets.params)
+        states = client_rows(self.client_nets.model_state)
         c = self.n_clients
         tot_loss = torch.zeros(c, device=self.device)
         tot_hit = torch.zeros(c, device=self.device)
         n = torch.zeros((), device=self.device)
         for xb, yb, mb in zip(*self.test_global):
-            acts = bottoms(rows, xb)
+            acts = bottoms(rows, states, xb)
             logits, _ = server_apply(self.server_net, acts.flatten(0, 1))
             logits = logits.view(c, xb.shape[0], -1)
             per = self.loss_fn(logits.flatten(0, 1),

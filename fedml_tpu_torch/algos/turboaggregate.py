@@ -14,7 +14,9 @@ the server adds the group sums and dequantizes. The sum of all shares is
 the sum of the secrets mod p, so the aggregate is the weighted mean up to
 the 1/scale quantization, and it does not depend on the shares drawn. A
 dropped client contributes nothing and its weight leaves the
-normalization.
+normalization. The secret is the whole client net, its params and its
+trained state (BatchNorm's running stats), as JAX ravels the
+``NetState``.
 
 On the card the cohort's local training is one captured step that returns
 the client stack (no average); the stack comes to the host in one copy,
@@ -30,7 +32,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from fedml_tpu_torch.algos.capability import refuse_model_state
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core import keys, mpc
 from fedml_tpu_torch.data.batching import gather_clients
@@ -56,7 +57,6 @@ class TurboAggregateAPI(FedAvgAPI):
     def __init__(self, *args, n_groups: int = 2, scale: int = 2 ** 16,
                  prime: int = mpc.DEFAULT_PRIME, **kwargs):
         super().__init__(*args, **kwargs)
-        refuse_model_state("TurboAggregateAPI", self.model)
         if self.cfg.compress != "none":
             raise ValueError(
                 "TurboAggregate's MPC path quantizes updates itself and "
@@ -75,16 +75,17 @@ class TurboAggregateAPI(FedAvgAPI):
 
     def _cohort_training(self):
         """The cohort's local training, uncaptured: ``step(net, idx, key)
-        -> (net, (client params [C, ...], losses [C]))``, each client's
-        key ``fold_in(key, slot)``, the trained models not averaged. From
-        a store: ``step(net, x, y, mask, key)`` over the streamed
-        cohort."""
+        -> (net, (client nets [C, ...], losses [C]))``, each client's
+        key ``fold_in(key, slot)``, the trained models not averaged, their
+        params and trained state (BatchNorm's running stats) in one dict
+        by name. From a store: ``step(net, x, y, mask, key)`` over the
+        streamed cohort."""
         local_train = self.local_train
 
         def fed_step(net, x, y, mask, key):
             rngs = client_rngs(key, x.shape[0])
             nets, losses = local_train.run_clients(net, x, y, mask, rngs)
-            return net, (nets.params, losses)
+            return net, ({**nets.params, **nets.model_state}, losses)
 
         if self._streaming:
             return fed_step
@@ -102,8 +103,9 @@ class TurboAggregateAPI(FedAvgAPI):
         return self._captured(tier, self._cohort_training)
 
     def _train_clients(self, idx, key):
-        """The cohort's trained params ``{name: [C, ...]}`` and losses
-        ``[C]`` on the device (the captured step's buffers); from a store
+        """The cohort's trained nets (``{name: [C, ...]}``, params and
+        state) and losses ``[C]`` on the device (the captured step's
+        buffers); from a store
         the cohort is gathered on the host when the round needs it (the
         round's host MPC dwarfs the gather)."""
         if self._streaming:
@@ -147,7 +149,7 @@ class TurboAggregateAPI(FedAvgAPI):
         self.rng, rnd = pair[0], pair[1]
         with tr.span("turbo.train", cat="round", corr=ck,
                      clients=len(idx)):
-            params, losses = self._train_clients(idx, rnd)
+            nets, losses = self._train_clients(idx, rnd)
             if traced:
                 self._fence()
         wsum = weights.sum()
@@ -156,11 +158,12 @@ class TurboAggregateAPI(FedAvgAPI):
             # FedAvg semantics keep the previous global model).
             return {"round": round_idx, "train_loss": float("nan")}
         wn = weights / wsum
-        names = list(params)
+        leaves = [(tree, k) for tree in ("params", "model_state")
+                  for k in getattr(self.net, tree)]
         with tr.span("turbo.d2h", cat="round", corr=ck):
             # One copy of the whole stack to the host, in f64 there.
-            stack = torch.cat([params[k].reshape(len(idx), -1).float()
-                               for k in names], 1).cpu()
+            stack = torch.cat([nets[k].reshape(len(idx), -1).float()
+                               for _, k in leaves], 1).cpu()
             flat = stack.numpy().astype(np.float64)
             host_losses = losses.cpu().numpy().astype(np.float64)
         # The share stream comes from secret randomness, the api's key
@@ -175,12 +178,12 @@ class TurboAggregateAPI(FedAvgAPI):
                      values=int(flat.size), groups=self.n_groups):
             avg_flat = self._secure_aggregate(flat, wn, share_rng)
         avg = torch.from_numpy(avg_flat.astype(np.float32)).to(self.device)
-        new, off = {}, 0
-        for k in names:
-            ref = self.net.params[k]
+        new, off = {"params": {}, "model_state": {}}, 0
+        for tree, k in leaves:
+            ref = getattr(self.net, tree)[k]
             n = ref.numel()
-            new[k] = avg[off:off + n].view(ref.shape).to(ref.dtype)
+            new[tree][k] = avg[off:off + n].view(ref.shape).to(ref.dtype)
             off += n
-        self.net = NetState(new, self.net.model_state)
+        self.net = NetState(new["params"], new["model_state"])
         return {"round": round_idx,
                 "train_loss": float(np.sum(host_losses * wn))}

@@ -17,7 +17,10 @@ to one. Numerics follow flax:
 - a depthwise conv (``feature_group_count=c_in``) is a grouped conv with
   weight ``[c_in, 1, k, k]``;
 - GroupNorm through ``ops.group_norm`` (eps 1e-6, groups by
-  ``norm_groups``), f32 throughout, as the JAX model has no compute dtype.
+  ``norm_groups``), f32 throughout, as the JAX model has no compute dtype;
+  ``norm="bn"`` is ``models/resnet.BatchNorm`` (flax's ``BatchNorm(
+  momentum=0.9)``), whose running stats come out of ``model_fns``'s
+  train-mode apply as values (FedNAS threads them, ``algos/fednas.py``).
 
 Inputs are NHWC, as in the JAX package; inside, activations are NCHW.
 """
@@ -294,15 +297,6 @@ def _reductions(layers: int):
     return {layers // 3, 2 * layers // 3} - {0}
 
 
-def _refuse_bn(norm):
-    """The DARTS nets' BatchNorm waits for the next slice of ROADMAP.md A2
-    (the search net's BN statistics under FedNAS's bilevel step)."""
-    if norm == "bn":
-        raise NotImplementedError(
-            "norm='bn' of the DARTS nets is not ported yet (ROADMAP.md A2); "
-            "use 'gn'")
-
-
 class DartsNetwork(nn.Module):
     """The search network (the reference's model_search.py Network)."""
 
@@ -310,7 +304,6 @@ class DartsNetwork(nn.Module):
                  stem_multiplier=3, num_classes=10, norm="gn", gn_fn=None,
                  generator=None):
         super().__init__()
-        _refuse_bn(norm)
         if multiplier > steps:
             raise ValueError(
                 f"multiplier ({multiplier}) must be <= steps ({steps}): a "
@@ -432,7 +425,6 @@ class GenotypeNetwork(nn.Module):
     def __init__(self, genotype: Genotype, num_classes=10, c=36, layers=8,
                  stem_multiplier=3, norm="gn", gn_fn=None, generator=None):
         super().__init__()
-        _refuse_bn(norm)
         c_curr = stem_multiplier * c
         self.Conv_0 = Conv(3, c_curr, 3, generator=generator)
         self.Norm_0 = Norm(norm, c_curr, gn_fn=gn_fn)

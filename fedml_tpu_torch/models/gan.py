@@ -8,8 +8,10 @@ FedGAN averages.
 Names follow flax (``netg.Dense_3``, ``netg.LayerNorm_1``), so
 ``convert.from_jax_params`` maps the trees one to one. LayerNorm is
 flax's: eps 1e-6 (torch's default is 1e-5), ``scale`` → ``weight``.
-``norm="bn"`` (BatchNorm1d, the reference's strict parity) is not ported
-yet.
+``norm="bn"`` (BatchNorm1d, the reference's strict parity) is
+``models/resnet.BatchNorm``, flax's ``BatchNorm(momentum=0.9)``
+(``netg.BatchNorm_<i>``): batch statistics in train mode, its running
+stats handed out as values, read in eval mode.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from torch import nn
 
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.models.registry import register_model
-from fedml_tpu_torch.models.resnet import _lecun_normal_
+from fedml_tpu_torch.models.resnet import BatchNorm, _lecun_normal_
 
 LN_EPS = 1e-6
 
@@ -49,25 +51,25 @@ class Generator(nn.Module):
     def __init__(self, input_size=100, out_pixels=784, norm="ln",
                  generator=None):
         super().__init__()
-        if norm == "bn":
-            raise NotImplementedError(
-                "norm='bn' is not ported yet (ROADMAP.md A2); use 'ln'")
-        if norm != "ln":
+        if norm not in ("ln", "bn"):
             raise ValueError(f"unknown norm {norm!r}: expected ln or bn")
         self.side = int(out_pixels ** 0.5)
         widths = (128, 256, 512, 1024)
         self.Dense_0 = _dense(input_size, widths[0], generator)
+        self.norms = []
         for i in range(3):
             setattr(self, f"Dense_{i + 1}",
                     _dense(widths[i], widths[i + 1], generator))
-            setattr(self, f"LayerNorm_{i}", LayerNorm(widths[i + 1]))
+            name = f"{'BatchNorm' if norm == 'bn' else 'LayerNorm'}_{i}"
+            setattr(self, name, (BatchNorm if norm == "bn" else LayerNorm)(
+                widths[i + 1]))
+            self.norms.append(name)
         self.Dense_4 = _dense(widths[-1], out_pixels, generator)
 
     def forward(self, z):
         x = F.leaky_relu(self.Dense_0(z), 0.2)
-        for i in range(3):
-            x = getattr(self, f"LayerNorm_{i}")(getattr(self,
-                                                        f"Dense_{i + 1}")(x))
+        for i, name in enumerate(self.norms):
+            x = getattr(self, name)(getattr(self, f"Dense_{i + 1}")(x))
             x = F.leaky_relu(x, 0.2)
         x = self.Dense_4(x).tanh()
         return x.reshape(z.shape[0], self.side, self.side, 1)

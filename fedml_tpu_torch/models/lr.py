@@ -26,10 +26,18 @@ class LogisticRegression(nn.Module):
     def __init__(self, in_features: int, num_classes: int = 10, dtype=None,
                  generator=None):
         super().__init__()
+        self.config = dict(in_features=in_features,
+                           num_classes=num_classes, dtype=dtype)
         self.dtype = resolve_dtype(dtype)
         self.linear = nn.Linear(in_features, num_classes)
         _lecun_normal_(self.linear.weight, in_features, generator)
         nn.init.zeros_(self.linear.bias)
+
+    def clone(self, **changes):
+        """The same model with ``changes`` to its fields (freshly
+        initialized, on the same device)."""
+        dev = self.linear.weight.device
+        return type(self)(**{**self.config, **changes}).to(dev)
 
     def forward(self, x):
         x = x.reshape(x.shape[0], -1)

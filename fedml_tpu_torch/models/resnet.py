@@ -141,9 +141,16 @@ class Norm(nn.Module):
     """``"gn"``/``"gn_fused"`` (GroupNorm through ``ops.group_norm``),
     ``"bn"`` (:class:`BatchNorm`), ``"none"`` (identity). ``gn_fn`` swaps
     the GroupNorm function (same signature as ``ops.group_norm``) — how
-    the card's check runs the model on the plain twin."""
+    the card's check runs the model on the plain twin.
 
-    def __init__(self, kind, channels, groups=32, dtype=None, gn_fn=None):
+    ``logical_channels`` (the padded twins of ``parallel/layout.py``): the
+    group size is the LOGICAL channel count's, so the logical channels
+    keep their groups and the zero pad channels fill whole extra groups,
+    which normalize to exactly zero; a padded count that is not a multiple
+    of that size is refused. 0: the channels are logical."""
+
+    def __init__(self, kind, channels, groups=32, dtype=None, gn_fn=None,
+                 logical_channels=0):
         super().__init__()
         self.kind, self.dtype = kind, dtype
         self.gn_fn = gn_fn or group_norm
@@ -155,7 +162,15 @@ class Norm(nn.Module):
         if kind not in ("gn", "gn_fused"):
             raise ValueError(f"unknown norm {kind!r}: expected gn, "
                              "gn_fused, none or bn")
-        self.num_groups = norm_groups(channels, groups)
+        c_log = logical_channels or channels
+        cpg = c_log // norm_groups(c_log, groups)
+        if channels % cpg:
+            raise ValueError(
+                f"padded channel count {channels} is not a multiple of the "
+                f"logical group size {cpg} (logical {c_log} channels): "
+                "pad channels in whole-group quanta or the logical "
+                "statistics change (parallel/layout.py pads accordingly)")
+        self.num_groups = channels // cpg
         self.GroupNorm_0 = _GroupNormParams(channels)
 
     def forward(self, x):  # [N, C, H, W], channels-last memory
@@ -170,25 +185,31 @@ class Norm(nn.Module):
 
 
 class BottleneckBlock(nn.Module):
+    """``logical_planes`` (padded twins): the logical width ``planes`` was
+    padded up from, handed to every Norm; 0: ``planes`` is logical."""
+
     expansion = 4
 
     def __init__(self, cin, planes, strides=1, norm="gn", dtype=None,
-                 gn_fn=None, generator=None):
+                 gn_fn=None, generator=None, logical_planes=0):
         super().__init__()
         out = planes * self.expansion
+        lp = logical_planes
         kw = dict(dtype=dtype, generator=generator)
         nk = dict(dtype=dtype, gn_fn=gn_fn)
         self.Conv_0 = Conv(cin, planes, 1, **kw)
-        self.Norm_0 = Norm(norm, planes, **nk)
+        self.Norm_0 = Norm(norm, planes, logical_channels=lp, **nk)
         # Explicit (1, 1) padding: torch's conv3x3 grid at stride 2 too.
         self.Conv_1 = Conv(planes, planes, 3, strides, 1, **kw)
-        self.Norm_1 = Norm(norm, planes, **nk)
+        self.Norm_1 = Norm(norm, planes, logical_channels=lp, **nk)
         self.Conv_2 = Conv(planes, out, 1, **kw)
-        self.Norm_2 = Norm(norm, out, **nk)
+        self.Norm_2 = Norm(norm, out, logical_channels=lp * self.expansion,
+                           **nk)
         self.has_downsample = strides != 1 or cin != out
         if self.has_downsample:
             self.downsample = Conv(cin, out, 1, strides, 0, **kw)
-            self.Norm_3 = Norm(norm, out, **nk)
+            self.Norm_3 = Norm(norm, out,
+                               logical_channels=lp * self.expansion, **nk)
 
     def forward(self, x):
         y = F.relu(self.Norm_0(self.Conv_0(x)))
@@ -236,27 +257,42 @@ def space_to_depth(x, block: int = 2):
 class CifarResNet(nn.Module):
     """CIFAR-style 3-stage bottleneck ResNet over RGB images.
     ``stem="s2d"``: 2×2 space-to-depth input (3 → 12 channels) with stage
-    widths doubled. ``widths`` overrides the stage widths. (The JAX
-    model's ``stem_width`` and ``logical_*`` fields serve the lane-padded
-    layouts of ``parallel/layout.py``, which is not ported.)"""
+    widths doubled. ``widths`` and ``stem_width`` override the stage
+    widths and the stem's channels; ``logical_widths``/``logical_stem``
+    mark a padded physical twin (``parallel/layout.py``): the logical
+    widths its norms keep the groups of. :meth:`clone` builds the same
+    net with some fields changed."""
 
     def __init__(self, layers: Sequence[int] = (6, 6, 6),
                  num_classes: int = 10, norm: str = "gn", dtype=None,
                  stem: str = "conv", widths=None, gn_fn=None,
-                 generator=None):
+                 generator=None, stem_width: int = 0, logical_widths=None,
+                 logical_stem: int = 0):
         super().__init__()
-        self.stem, self.dtype = stem, dtype
-        stem_ch, widths = self.stage_widths(stem, widths)
+        self.config = dict(layers=tuple(layers), num_classes=num_classes,
+                           norm=norm, dtype=dtype, stem=stem,
+                           widths=tuple(widths) if widths else None,
+                           gn_fn=gn_fn, stem_width=stem_width,
+                           logical_widths=(tuple(logical_widths)
+                                           if logical_widths else None),
+                           logical_stem=logical_stem)
+        self.stem, self.dtype, self.norm = stem, dtype, norm
+        self.num_classes = num_classes
+        stem_ch, widths = self.stage_widths(stem, widths, stem_width)
+        log_w = tuple(logical_widths) if logical_widths else (0,) * len(
+            widths)
         cin = 3 * 4 if stem == "s2d" else 3
         kw = dict(dtype=dtype, generator=generator)
         self.Conv_0 = Conv(cin, stem_ch, 3, 1, 1, **kw)
-        self.Norm_0 = Norm(norm, stem_ch, dtype=dtype, gn_fn=gn_fn)
+        self.Norm_0 = Norm(norm, stem_ch, dtype=dtype, gn_fn=gn_fn,
+                           logical_channels=logical_stem)
         cin, i = stem_ch, 0
         for stage, (planes, n_blocks) in enumerate(zip(widths, layers)):
             for j in range(n_blocks):
                 strides = 2 if (stage > 0 and j == 0) else 1
                 blk = BottleneckBlock(cin, planes, strides, norm,
-                                      gn_fn=gn_fn, **kw)
+                                      gn_fn=gn_fn,
+                                      logical_planes=log_w[stage], **kw)
                 self.add_module(f"BottleneckBlock_{i}", blk)
                 cin, i = planes * BottleneckBlock.expansion, i + 1
         self.n_blocks = i
@@ -265,15 +301,22 @@ class CifarResNet(nn.Module):
         nn.init.zeros_(self.Dense_0.bias)
 
     @staticmethod
-    def stage_widths(stem="conv", widths=None):
-        """(stem channels, per-stage widths) of the stem kind."""
+    def stage_widths(stem="conv", widths=None, stem_width=0):
+        """(stem channels, per-stage widths) of the stem kind, after the
+        overrides."""
         if stem == "s2d":
             default, stem_ch = (32, 64, 128), 32
         elif stem == "conv":
             default, stem_ch = (16, 32, 64), 16
         else:
             raise ValueError(f"unknown stem {stem!r}: expected conv|s2d")
-        return stem_ch, tuple(widths) if widths else default
+        return stem_width or stem_ch, tuple(widths) if widths else default
+
+    def clone(self, **changes):
+        """The same net with ``changes`` to its fields, on the same device
+        (freshly initialized)."""
+        dev = next(self.parameters()).device
+        return type(self)(**{**self.config, **changes}).to(dev)
 
     def forward(self, x):  # x [B, H, W, C]
         if self.stem == "s2d":

@@ -52,9 +52,11 @@ def _net_map(fn, *nets):
                     tree_map(fn, *(n.model_state for n in nets)))
 
 
-#: fold_in children of a client's key for the corruptor's streams, disjoint
-#: from the streams its training consumed (as in the JAX package).
+#: fold_in children of a client's key for the corruptor's and the client
+#: transform's streams, disjoint from each other and from the streams its
+#: training consumed (as in the JAX package).
 _CORRUPT_TAG = 0xC0
+_TRANSFORM_TAG = 0x7F
 
 
 def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
@@ -70,18 +72,30 @@ def run_clients_guarded(local_train, client_transform, nan_guard, net, x, y,
     corrupts the params of the slots where ``adv [C] > 0``, with
     per-client streams ``fold_in(rng, 0xC0)``. ``client_transform(
     global_net, client_net) -> client_net`` maps one client's trained net
-    (params and state); it runs under ``vmap`` over the cohort."""
+    (params and state); it runs under ``vmap`` over the cohort. A
+    transform marked ``wants_rng = True`` (stochastic quantization) is
+    called ``(global_net, client_net, rng)`` with the client's stream
+    ``fold_in(rng, 0x7F)``."""
     client_nets, losses = local_train.run_clients(net, x, y, mask, rngs)
     if corruptor is not None:
         client_nets = corruptor(net, client_nets, adv,
                                 keys.fold_in(rngs, _CORRUPT_TAG))
     if client_transform is not None:
-        def one(params, state):
-            out = client_transform(net, NetState(params, state))
-            return out.params, out.model_state
+        if getattr(client_transform, "wants_rng", False):
+            def one(params, state, rng):
+                out = client_transform(net, NetState(params, state), rng)
+                return out.params, out.model_state
 
-        client_nets = NetState(*vmap(one)(client_nets.params,
-                                          client_nets.model_state))
+            client_nets = NetState(*vmap(one)(
+                client_nets.params, client_nets.model_state,
+                keys.fold_in(rngs, _TRANSFORM_TAG)))
+        else:
+            def one(params, state):
+                out = client_transform(net, NetState(params, state))
+                return out.params, out.model_state
+
+            client_nets = NetState(*vmap(one)(client_nets.params,
+                                              client_nets.model_state))
     if not nan_guard:
         return client_nets, losses, torch.ones_like(losses)
     finite = client_finite_mask(client_nets)
@@ -124,7 +138,7 @@ def _in_layout_of(t, ref):
 
 def make_vmap_round(local_train, client_transform=None,
                     nan_guard: bool = False, aggregator=None,
-                    corruptor=None):
+                    corruptor=None, with_client_losses: bool = False):
     """``round_fn(net, x, y, mask, weights, loss_weights, rng) ->
     (avg_net, mean_loss)`` over client-stacked ``[C, S, B, ...]`` inputs.
 
@@ -139,7 +153,9 @@ def make_vmap_round(local_train, client_transform=None,
     keeps the weighted mean; any other receives the client-stacked net
     (params and state) and the weights after the finite mask.
     ``corruptor`` arms the attack drill: the round then takes a trailing
-    ``adv [C]`` operand, the adversary mask."""
+    ``adv [C]`` operand, the adversary mask. ``with_client_losses`` adds a
+    third output, the clients' in-round training losses ``[C]`` (oort's
+    utility observable)."""
     if aggregator is not None and getattr(aggregator, "is_mean", False):
         aggregator = None
 
@@ -166,6 +182,8 @@ def make_vmap_round(local_train, client_transform=None,
         avg = _net_map(_in_layout_of, avg, net)
         lw = loss_weights / torch.clamp(loss_weights.sum(), min=1e-12)
         mean_loss = (losses * lw).sum()
+        if with_client_losses:
+            return avg, mean_loss, losses
         return avg, mean_loss
 
     if corruptor is not None:

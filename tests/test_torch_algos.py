@@ -457,8 +457,6 @@ def test_fednova_operands_change_per_round_and_reach_the_step():
 @pytest.mark.parametrize("field,val,label", [
     ("remat", True, "A3"), ("dp_clip", 1.0, "A3"),
     ("dp_noise_multiplier", 1.0, "A3"),
-    ("client_selection", "pow_d", "A5"), ("compress", "q8", "A5"),
-    ("compute_layout", "auto", "A5"), ("client_step_dtype", "bf16", "A5"),
     ("wire_codec", "int8", "A10"), ("ingest_workers", 2, "A10"),
     ("group_reduce", True, "A11"),
 ])

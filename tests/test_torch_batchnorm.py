@@ -35,7 +35,6 @@ from fedml_tpu.trainer.local import model_fns as jax_model_fns
 from fedml_tpu_torch.algos import (FedAvgAPI, FedAvgRobustAPI, FedBNAPI,
                                    FedConfig, FedDynAPI,
                                    HierarchicalFedAvgAPI, QFedAvgAPI)
-from fedml_tpu_torch.algos.capability import refuse_model_state
 from fedml_tpu_torch.convert import (from_jax_params,
                                      stacked_from_jax_params, to_jax_params)
 from fedml_tpu_torch.core import keys
@@ -372,8 +371,26 @@ def test_evaluation_reads_the_running_stats():
 
 
 def test_classes_without_a_state_carry_refuse_bn():
+    """The classes that refused a BatchNorm model before they carried its
+    state now train one: a ``DecentralizedAPI`` round over the BN ResNet
+    keeps each client's running stats in a row of its own (``[n, ...]``),
+    moves them from where they started, and its consensus net averages
+    them (params and state, as JAX's ``consensus_net``)."""
+    from fedml_tpu_torch.algos import DecentralizedAPI
+    from fedml_tpu_torch.core.topology import SymmetricTopologyManager
+
     model, _ = _bn_model()
-    with pytest.raises(NotImplementedError, match="model state.*A2"):
-        refuse_model_state("SplitNNAPI", model)
-    refuse_model_state("SplitNNAPI", create_model("resnet20", widths=WIDTHS,
-                                                  device="cpu"))
+    x, y, parts = _task(COUNTS, BATCH)
+    n = len(COUNTS)
+    cfg = FedConfig(**{**_cfg(), "client_num_per_round": n})
+    api = DecentralizedAPI(model, build_federated_arrays(
+        x, y, parts, BATCH, device="cpu"), None, cfg,
+        SymmetricTopologyManager(n, neighbor_num=2), device="cpu")
+    before = {k: v.clone() for k, v in api.nets.model_state.items()}
+    assert before and all(v.shape[0] == n for v in before.values())
+    api.train_one_round(0)
+    assert any(not torch.equal(api.nets.model_state[k], v)
+               for k, v in before.items())
+    cons = api.consensus_net().model_state
+    for k, v in api.nets.model_state.items():
+        torch.testing.assert_close(cons[k], v.mean(0))

@@ -1315,16 +1315,16 @@ def test_captured_fedgkt_steps_equal_the_eager_steps(cuda, monkeypatch):
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
 
-    start = clone(api.client_nets.params)
+    start = clone(api.client_nets)
     key = keys.fold_in(api.rng, 1)
     phase = api._build_client_phase()
     for flag in (0, 1):
         want = phase(clone(start), api._flags[flag], key)
         want_out = (api.feats.clone(), api.client_logits.clone())
-        api.client_nets = NetState(clone(start), {})
+        api.client_nets = clone(start)
         api.have_teacher = bool(flag)
         got = api._run_client_phase(key)
-        assert same((api.client_nets.params, got), want)
+        assert same((api.client_nets, got), want)
         assert same((api.feats, api.client_logits), want_out)
         if flag == 0:
             loss_without = got.clone()
@@ -1332,7 +1332,7 @@ def test_captured_fedgkt_steps_equal_the_eager_steps(cuda, monkeypatch):
             assert not torch.equal(got, loss_without)
     assert api._graphs["client"] is not None
     cs = api.n_clients * api.n_steps
-    carry0 = (clone(api.server_net.params), clone(api.server_state),
+    carry0 = (clone(api.server_net), clone(api.server_state),
               torch.zeros(2, device=cuda),
               torch.zeros((), dtype=torch.int64, device=cuda),
               keys.fold_in(api.rng, 2))
@@ -1352,7 +1352,7 @@ def test_captured_fedgkt_steps_equal_the_eager_steps(cuda, monkeypatch):
         carry, _ = relabel(carry)
     want_logits = api.server_logits.clone()
     api.server_logits.zero_()
-    api.server_net = NetState(want[0], {})
+    api.server_net = want[0]
     api._run_relabel()
     assert torch.equal(api.server_logits, want_logits)
     # A round under replay: the stump's 3 GroupNorms in training and the
@@ -1385,8 +1385,8 @@ def test_captured_split_nn_segments_equal_the_eager_segments(cuda,
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
 
-    start = (clone(api.client_nets.params), clone(api.client_opts),
-             clone(api.server_net.params), clone(api.server_opt),
+    start = (clone(api.client_nets), clone(api.client_opts),
+             clone(api.server_net), clone(api.server_opt),
              torch.zeros((), device=cuda))
     ks = keys.split(keys.fold_in(api.rng, 3), 4)
     seg = api._build_segment()
@@ -1396,20 +1396,20 @@ def test_captured_split_nn_segments_equal_the_eager_segments(cuda,
         want, _ = seg(want, api._ids[c], ks[c])
         got, _ = step(got, api._ids[c], ks[c])
         assert same(got, want)
-        for k, v in got[0].items():
-            assert torch.equal(v[3:], start[0][k][3:])
+        for k, v in got[0].params.items():
+            assert torch.equal(v[3:], start[0].params[k][3:])
     pair = keys.split(api.rng)
     ring = keys.split(pair[1], 4)
-    want = (clone(api.client_nets.params), clone(api.client_opts),
-            clone(api.server_net.params), clone(api.server_opt),
+    want = (clone(api.client_nets), clone(api.client_opts),
+            clone(api.server_net), clone(api.server_opt),
             torch.zeros((), device=cuda))
     for c in range(4):
         want, _ = seg(want, api._ids[c], ring[c])
     captures = CapturedStep.captures
     loss = api.train_one_epoch(0)["train_loss"]
     assert CapturedStep.captures == captures
-    assert same((api.client_nets.params, api.client_opts,
-                 api.server_net.params, api.server_opt), want[:4])
+    assert same((api.client_nets, api.client_opts,
+                 api.server_net, api.server_opt), want[:4])
     assert loss == float(want[4] / 4)
 
 
@@ -2132,3 +2132,182 @@ def test_steady_store_loops_are_clean_under_the_sanitizer(cuda, name):
     assert rep.compiles == 0
     assert all(v == v for v in losses)
     assert audit.peak <= base + 0.25, (audit.peak, base)
+
+
+# --- FedAvgAPI's knobs: padded GroupNorm widths, compression, the host
+# round, selection, layouts, bf16 --------------------------------------------
+
+# (N, S, logical C, padded C, logical groups, dtype): the GroupNorm widths
+# of the mis-sized ResNet (widths 20/40/80, stem 20) under the layout,
+# 20 -> 24 (one-channel groups: 24 groups) and 80 -> 96 (groups of 4: 24),
+# at CIFAR's 32² and 8², f32 and bf16 on the cluster route; and 20 -> 24
+# on a sample past a cluster (the streamed routes).
+GN_PADDED = [(8, 1024, 20, 24, 20, torch.float32),
+             (8, 64, 80, 96, 20, torch.float32),
+             (8, 1024, 20, 24, 20, torch.bfloat16),
+             (8, 64, 80, 96, 20, torch.bfloat16),
+             (2, 65536, 20, 24, 20, torch.float32)]
+
+
+@pytest.mark.parametrize("n,s,c,cp,groups,dtype", GN_PADDED)
+def test_group_norm_kernels_at_padded_widths(cuda, n, s, c, cp, groups,
+                                             dtype):
+    """x and dy padded with zero channels, γ/β with zeros, the padded
+    count in groups of the logical size: the kernels against the plain
+    twins on the padded inputs (y and dx within one bf16 rounding or
+    1e-5); y, dx, dγ and dβ exactly 0 on the pad channels; the logical
+    channels against the logical call within one bf16 ulp or 1e-5 (not
+    bit-equal: the kernels' vector width and thread-to-channel map follow
+    the channel count, so the per-channel sums over S run in another
+    order); the streamed routes taken by the sample past a cluster."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, dy, gamma, beta = _gn_inputs((n, s, c), 1, dtype, g, cuda)
+    pad = cp - c
+    xp = torch.nn.functional.pad(x, (0, pad))
+    dyp = torch.nn.functional.pad(dy, (0, pad))
+    gp, bp = (torch.nn.functional.pad(t, (0, pad)) for t in (gamma, beta))
+    gpad = cp // (c // groups)
+    fs, bs = gn.group_norm_fwd.streamed, gn.group_norm_bwd.streamed
+    y = gn.group_norm_fwd(xp, gp, bp, gpad)
+    dx, dgamma, dbeta = gn.group_norm_bwd(xp, dyp, gp, gpad)
+    y_log = gn.group_norm_fwd(x, gamma, beta, groups)
+    dx_log, dg_log, db_log = gn.group_norm_bwd(x, dy, gamma, groups)
+    torch.cuda.synchronize()
+    streamed = s > 4096  # 6.3 MB of f32 a sample: past a cluster
+    assert (gn.group_norm_fwd.streamed - fs > 0) == streamed
+    assert (gn.group_norm_bwd.streamed - bs > 0) == streamed
+    for t in (y, dx):
+        assert torch.equal(t[..., c:], torch.zeros_like(t[..., c:]))
+    assert not dgamma[:, c:].any() and not dbeta[:, c:].any()
+    want_y = gn.group_norm_fwd_plain(xp.float(), gp, bp, gpad)
+    want_dx, _, _ = gn.group_norm_bwd_plain(xp.float(), dyp.float(), gp,
+                                            gpad)
+    for got, want in ((y, want_y), (dx, want_dx)):
+        if dtype == torch.bfloat16:
+            ok, err = _within_bf16_ulp(got, want)
+            assert ok, err
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for got, want in ((y[..., :c], y_log), (dx[..., :c], dx_log)):
+        # Two kernel outputs, each one rounding of its f32 value: in bf16
+        # within one ulp of each other (2^-7 of the value at most).
+        err = (got.float() - want.float()).abs()
+        lim = (want.float().abs() * (2.0 ** -7 if dtype == torch.bfloat16
+                                     else 1e-5)
+               + 1e-5 * want.float().abs().max())
+        assert bool((err <= lim).all()), err.max().item()
+    chain = s + n + 64
+    mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+    for got, want, terms in (
+            (dgamma[:, :c], dg_log, dy.float() * (x.float() - mu) * rstd),
+            (dbeta[:, :c], db_log, dy.float())):
+        assert bool(((got - want).abs() <= 2 * _sum_order_bound(
+            terms, chain)).all())
+
+
+def _knob_api(cuda, per_round=3, **cfg_kw):
+    return _small_fedavg(cuda, per_round=per_round, **cfg_kw)
+
+
+@pytest.mark.parametrize("compress", ["topk0.05", "q8"])
+def test_compressed_rounds_captured_equal_eager(cuda, monkeypatch, compress):
+    """``torch.topk`` (under the round's vmap) and the q8 transform (its
+    per-client streams from the round's key) inside a captured round: 2
+    captured fused rounds bit-equal to 2 eager rounds (``run_round`` +
+    ``_server_update``) under ``cudnn.deterministic``; every q8 client
+    delta on its 255-level grid."""
+    from fedml_tpu_torch.core import compression as tc
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.trainer.local import NetState
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    fused, eager = (_knob_api(cuda, compress=compress) for _ in range(2))
+    for r in range(2):
+        assert fused.train_one_round(r)["train_loss"] == _eager(eager, r)
+    _assert_same_state(fused, eager)
+    if compress == "q8":
+        t = fused._client_transform()
+        g = fused.net
+        c = NetState({k: v + 0.01 * torch.randn_like(v)
+                      for k, v in g.params.items()}, {})
+        out = t(g, c, keys.key(3, cuda))
+        delta = tc.tree_to_vector(out.params) - tc.tree_to_vector(g.params)
+        raw = tc.tree_to_vector(c.params) - tc.tree_to_vector(g.params)
+        levels = delta / (raw.abs().max() / 127)
+        assert float((levels - levels.round()).abs().max()) < 1e-2
+
+
+def test_topk_one_is_plain_fedavg_on_the_card(cuda, monkeypatch):
+    """``topk1.0`` keeps every client value: 2 captured rounds bit-equal
+    to plain FedAvg's."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    plain, full = _knob_api(cuda), _knob_api(cuda, compress="topk1.0")
+    for r in range(2):
+        assert plain.train_one_round(r) == full.train_one_round(r)
+    _assert_same_state(plain, full)
+
+
+def test_host_round_and_selection_on_the_card(cuda, monkeypatch):
+    """The host round (oort's three-output round) is a captured step:
+    3 rounds of oort bit-equal to 3 eager ``run_round`` +
+    ``_server_update`` rounds with the same utility updates; pow_d's
+    candidate eval is one captured step, its cohort the same as the
+    eager eval's."""
+    from fedml_tpu_torch.core.graph import CapturedStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    api, ref = (_knob_api(cuda, per_round=2, client_selection="oort")
+                for _ in range(2))
+    for r in range(3):
+        loss = api.train_one_round(r)["train_loss"]
+        assert loss == _eager(ref, r)
+        ref._update_oort_state(r, ref.sample_round(r))
+    _assert_same_state(api, ref)
+    assert (api._oort_utility == ref._oort_utility).all()
+    assert "host" in api._graphs and api._graphs["host"].graph_stats()
+    pow_d = _knob_api(cuda, per_round=2, client_selection="pow_d",
+                      pow_d_candidates=4)
+    captures = CapturedStep.captures
+    idx = pow_d.sample_round(0)
+    assert CapturedStep.captures == captures + 1
+    fed = pow_d.train_fed
+    losses = {int(c): float(pow_d.eval_fn(pow_d.net, fed.x[c], fed.y[c],
+                                          fed.mask[c])["loss"])
+              for c in range(4)}
+    top = sorted(losses, key=losses.get, reverse=True)[:2]
+    assert sorted(int(i) for i in idx) == sorted(top)
+
+
+def test_im2col_stem_against_the_5x5_conv_on_the_card(cuda):
+    """The im2col stem (``F.unfold`` + a 1x1 conv) against the 5x5 stem on
+    the card, f32 with TF32 off: the forward within the CNN family's
+    tolerance (rtol 1e-4, atol 1e-5), and in bf16 within 2 bf16 ulps."""
+    from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+    from fedml_tpu_torch.parallel.layout import im2col_layout
+    from fedml_tpu_torch.trainer.local import model_fns
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in (None, torch.bfloat16):
+            model = CNNOriginalFedAvg(num_classes=10, dtype=dtype,
+                                      generator=torch.Generator()
+                                      .manual_seed(0)).to(cuda)
+            layout = im2col_layout(model, torch.zeros(4, 28, 28, 1))
+            net = model_fns(model).init()
+            x = torch.randn(16, 28, 28, 1, device=cuda)
+            want = model_fns(model).apply(net, x)[0].float()
+            got = model_fns(layout.physical_model).apply(layout.pad(net),
+                                                         x)[0].float()
+            if dtype is None:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+            else:
+                lim = want.abs() * 2.0 ** -7 + 1e-2 * want.abs().max()
+                assert bool(((got - want).abs() <= lim).all())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

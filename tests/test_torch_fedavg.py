@@ -341,13 +341,23 @@ def test_fedavg_evaluation_matches_jax(e2e):
 def test_fedavg_refuses_what_is_not_ported(monkeypatch):
     x, y, parts = _task()
     fed = batching.build_federated_arrays(x, y, parts, 32, device="cpu")
-    for field, val in (("group_reduce", True), ("client_selection", "pow_d"),
-                       ("compress", "q8"), ("dp_clip", 1.0),
-                       ("client_step_dtype", "bf16")):
+    for field, val in (("group_reduce", True), ("dp_clip", 1.0)):
         cfg = FedConfig(client_num_in_total=6, batch_size=32,
                         **{field: val})
         with pytest.raises(NotImplementedError, match=f"cfg.{field}"):
             FedAvgAPI(_model(), fed, None, cfg, device="cpu")
+    # FedAvgAPI's knobs are ported: a value outside their set is refused
+    # by value, as JAX refuses it.
+    for field, val in (("compress", "zip"), ("compute_layout", "lanes"),
+                       ("client_step_dtype", "fp16")):
+        cfg = FedConfig(client_num_in_total=6, batch_size=32,
+                        **{field: val})
+        with pytest.raises(ValueError, match=field.split("_")[-1]):
+            FedAvgAPI(_model(), fed, None, cfg, device="cpu")
+    cfg = FedConfig(client_num_in_total=6, batch_size=32,
+                    client_selection="fedcs")
+    with pytest.raises(ValueError, match="client_selection"):
+        FedAvgAPI(_model(), fed, None, cfg, device="cpu").sample_round(0)
     cfg = FedConfig(client_num_in_total=6, batch_size=32)
     with pytest.raises(NotImplementedError, match="mesh"):
         FedAvgAPI(_model(), fed, None, cfg, mesh=object(), device="cpu")
@@ -358,8 +368,8 @@ def test_fedavg_refuses_what_is_not_ported(monkeypatch):
                            "superbatches from a FederatedStore"):
             getattr(api, name)(2)
     from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
-    with pytest.raises(NotImplementedError, match="im2col.*A5"):
-        CNNOriginalFedAvg(im2col=True)
+    assert CNNOriginalFedAvg(im2col=True).Conv_0.weight.shape == (32, 25, 1,
+                                                                  1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FedAvgAPI(_model(), fed, None, cfg)

@@ -228,11 +228,20 @@ def test_tiers_agree_and_generate():
 
 
 def test_refusals(monkeypatch):
-    """``norm='bn'`` cites A2; a non-sgd client optimizer and gradient
-    clipping are refused as JAX refuses them; without a CUDA device the
-    model and the class raise unless asked for the CPU."""
-    with pytest.raises(NotImplementedError, match="A2"):
-        create_model("mnist_gan", norm="bn", device="cpu")
+    """``norm='bn'`` builds the BatchNorm1d generator (its running stats
+    the model's buffers) and an unknown norm is refused; a non-sgd client
+    optimizer, gradient clipping and the compute knobs are refused as JAX
+    refuses them; without a CUDA device the model and the class raise
+    unless asked for the CPU."""
+    bn = create_model("mnist_gan", norm="bn", device="cpu")
+    assert sorted(k for k, _ in bn.named_buffers()) == sorted(
+        f"netg.BatchNorm_{i}.{s}" for i in range(3) for s in ("mean", "var"))
+    with pytest.raises(ValueError, match="unknown norm"):
+        create_model("mnist_gan", norm="gn", device="cpu")
+    with pytest.raises(ValueError, match="compress"):
+        _api(compress="topk0.1")
+    with pytest.raises(NotImplementedError, match="own local trainer"):
+        _api(compute_layout="auto")
     for kw, what in ((dict(client_optimizer="adam"), "plain SGD"),
                      (dict(grad_clip=1.0), "grad_clip")):
         with pytest.raises(ValueError, match=what):

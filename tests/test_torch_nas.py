@@ -259,12 +259,15 @@ def test_derive_genotype_and_dot_match_jax(steps, multiplier):
 
 
 def test_refusals(monkeypatch):
-    """``norm='bn'`` cites A2; multiplier > steps is refused as JAX
-    refuses it; without a CUDA device the registry entries raise unless
-    ``device='cpu'``."""
-    with pytest.raises(NotImplementedError, match="A2"):
-        create_model("darts", c=4, layers=2, steps=2, multiplier=2,
-                     norm="bn", device="cpu")
+    """``norm='bn'`` builds the BatchNorm search net (its running stats
+    the model's buffers, a mean and a var per norm); multiplier > steps is
+    refused as JAX refuses it; without a CUDA device the registry entries
+    raise unless ``device='cpu'``."""
+    bn = create_model("darts", c=4, layers=2, steps=2, multiplier=2,
+                      norm="bn", device="cpu")
+    names = [k for k, _ in bn.named_buffers()]
+    assert names and len(names) == 2 * sum(
+        1 for k, _ in bn.named_parameters() if k.endswith("BatchNorm_0.weight"))
     with pytest.raises(ValueError, match="multiplier"):
         create_model("darts", steps=2, multiplier=3, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -213,10 +213,23 @@ class _NoProtocol(FedAvgAPI):
     (_NoProtocol, "window_protocol=None"),
 ])
 def test_tiers_refuse_a_server_update_without_its_pure_form(cls, match):
-    api = _api(cls=cls)
-    for tier in (lambda: api.train_one_round(0),
-                 lambda: api.train_rounds_pipelined(2),
-                 lambda: api.train_rounds_on_device(2)):
+    """A class without the pure form of its server update (or without the
+    protocol) has no fused step. As in JAX, ``train_one_round`` runs the
+    host round (the round captured as its own step, then
+    ``_server_update`` on the host side), bit-equal to ``run_round`` +
+    ``_server_update``; the pipelined loop rides it where the record
+    allows (a "round" class), and the tiers that fold the pure update
+    between replays refuse, with the record's reason."""
+    api, host = _api(cls=cls), _api(cls=cls)
+    assert api.train_one_round(0)["train_loss"] == _host_rounds(host, [0])[0]
+    _assert_nets_equal(api.net, host.net)
+    tiers = [lambda: api.train_rounds_on_device(2)]
+    if cls is _ImpureServer:
+        assert api.train_rounds_pipelined(2, 1) == _host_rounds(host, [1, 2])
+        _assert_nets_equal(api.net, host.net)
+    else:
+        tiers.append(lambda: api.train_rounds_pipelined(2))
+    for tier in tiers:
         with pytest.raises(NotImplementedError, match=match):
             tier()
 

@@ -973,11 +973,18 @@ def test_refused_tiers_raise_and_checkpoints_cite_a8(cls, kw):
 
 
 def test_turboaggregate_guards():
-    """The JAX guards that the port keeps: ``compress`` is refused (by
-    the port's own A5 refusal, before TurboAggregate's), a mesh is
-    refused (A11)."""
-    with pytest.raises(NotImplementedError, match="compress.*A5"):
+    """The JAX guards that the port keeps: ``compress`` is refused with
+    TurboAggregate's own JAX message (its MPC bypasses the client
+    transform), a mesh is refused (A11)."""
+    with pytest.raises(ValueError) as exc:
         _lr_api(TurboAggregateAPI, compress="topk0.1")
+    x, y, parts = _replicated_task()
+    with pytest.raises(ValueError) as jexc:
+        JaxTurboAggregateAPI(JaxLogisticRegression(num_classes=4),
+                             jax_batching.build_federated_arrays(
+                                 x, y, parts, 4), None,
+                             JaxFedConfig(**_cfg(compress="topk0.1")))
+    assert str(exc.value) == str(jexc.value)
     x, y, parts = _replicated_task()
     with pytest.raises(NotImplementedError, match="A11"):
         TurboAggregateAPI(_lr_model(), build_federated_arrays(
