@@ -102,7 +102,7 @@ Phases, each of which must pass or the script exits non-zero:
              hand, the kernel launched both times); (b) on the train
              phase's api: RoundTimer around 8 fenced on-device rounds,
              each phase within 5% or 1 ms of CUDA events around it, and
-             trace() around 2 rounds, its Chrome trace naming
+             trace() around 1 round, its Chrome trace naming
              gn_fwd_kernel, gn_bwd_kernel and gn_reduce_kernel 464 times a
              round each; (c) 4 pipelined rounds in a strict sanitized()
              region (no capture, no implicit host sync) under (d) the
@@ -125,9 +125,11 @@ Phases, each of which must pass or the script exits non-zero:
              and FedOpt and SCAFFOLD windowed, each again in a strict
              region.
 6. algos   — the algorithms on FedAvg's round at the train phase's
-             configuration, every pin (a) and (b) from one eager run and
-             bit-equal: FedOptAPI adam (server lr 0.05): (a) with the
-             server optimizer state held too, (b) with the carried step
+             configuration with 64 samples a client (2 local steps;
+             since PR 18, as in the custom and zoo phases), every pin
+             (a) and (b) from one eager run and bit-equal: FedOptAPI
+             adam (server lr 0.05): (a) with the server optimizer state
+             held too, (b) with the carried step
              count advanced by the rounds, and 3 timed
              train_rounds_on_device(2) calls (the api is kept for ckpt);
              FedProxAPI (mu 0.01): (a) and 2 replayed rounds;
@@ -357,7 +359,46 @@ Phases, each of which must pass or the script exits non-zero:
              client nets' pad entries exactly 0; the GroupNorm kernels at
              its padded widths (cluster and streamed routes) against the
              logical call and the plain twin, pad channels exactly 0.
-17. report — each phase's seconds, a ``kernels`` JSON line (each flash
+17. dp     — DP-SGD and remat at full width. First the cli phase's
+             files are written and its north-star command started as a
+             subprocess, which runs beside this phase (host-bound
+             captures) and the cli phase's in-process runs; every timed
+             replay of both phases waits until it has ended. (a) The
+             flagship (train's config) under DP-SGD (clip 1.0, noise
+             multiplier 1.1): the captured round against one eager round
+             from one start under cuDNN's deterministic mode, bit-equal;
+             one step of the round-0 cohort's per-example gradients under
+             vmap (R = 256 single-sample GroupNorm rows): each clipped
+             norm at most clip x (1 + 1e-3), their noiseless mean within
+             2e-2 of the plain batch gradient; the GroupNorm kernels
+             against their twins at ResNet-56's eight shapes with R = 256
+             single-sample rows; later a counted replayed round (58
+             launches of each GroupNorm kernel a local step) with its
+             ms. (b) The flagship with remat and without, from one start
+             under deterministic cuDNN: each captured with its peak
+             memory and graph pool; later their second rounds replayed
+             and timed, bit-equal, 116 GroupNorm forwards a local step
+             against 58. (c) FedAdapter (adapter's config) under DP-SGD:
+             captured, the same per-step holds through the flash kernels;
+             later a counted replayed round (16 launches of each flash
+             kernel).
+18. cli    — the experiment CLI. (a) CIFAR-10 python-pickle batches of
+             seeded random uint8 images at the real size (50,000 +
+             10,000) in a temporary directory; (b) the north-star
+             command ``python -m fedml_tpu_torch.exp.main_fedavg --model
+             resnet56 --dataset cifar10 --partition_method hetero
+             --partition_alpha 0.5 --client_num_in_total 10
+             --client_num_per_round 10 --batch_size 64 --lr 0.03`` with
+             ``--epochs 5 -> 1`` and ``--comm_round 100 -> 2`` as a
+             subprocess (started by the dp phase), its last line parsed
+             and train_loss finite; (c) in process, through
+             ``main(argv)``, exp.run's FedAvg with ``--dp_clip 1.0
+             --dp_noise_multiplier 1.1 --remat`` on the same files (1,000
+             clients of 50, 2 a round, 1 round) and ``main_centralized``
+             with ``--dp_clip`` on 1,280 + 256 images; (d) the GroupNorm
+             launches of (b) (written by the subprocess at exit) and of
+             (c); then the dp phase's timed replays.
+19. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -376,6 +417,7 @@ import importlib
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -401,6 +443,8 @@ LOGITS_TOL = 0.25
 # Training configuration: bench.py's primary (bench_cifar_resnet56).
 TRAIN_CLIENTS, TRAIN_PER_CLIENT, TRAIN_BATCH, TRAIN_PER_ROUND = 128, 256, 32, 8
 TRAIN_LR, TRAIN_ROUNDS = 0.1, 3
+# The algos, custom and zoo phases' samples a client (2 local steps).
+FAMILY_PER_CLIENT = 64
 # ResNet-56's GroupNorms at 8 clients x 32 samples: (shape [N, S, C],
 # groups, forward (and backward) launches per local step), as the train
 # phase tallies them in its warm-up round.
@@ -677,7 +721,9 @@ ADAPTER_STORE_ROUNDS, ADAPTER_WINDOW = 8, 4
 # pipelined flagship rounds in a strict sanitized() region under the
 # donation audit, its peak within OBS_AUDIT_SLACK of the baseline.
 OBS_COST_BATCH, OBS_LM_BATCH, OBS_COST_BAND = 8, 2, 1.35
-OBS_TIMER_ROUNDS, OBS_TRACE_ROUNDS, OBS_SAN_ROUNDS = 8, 2, 4
+# One traced round: the profiler has dropped the tail of a 2-round
+# trace's ~116,000 events on the card.
+OBS_TIMER_ROUNDS, OBS_TRACE_ROUNDS, OBS_SAN_ROUNDS = 8, 1, 4
 OBS_TIMER_REL, OBS_TIMER_MS, OBS_AUDIT_SLACK = 0.05, 1.0, 0.25
 # (e) bench.py's stackoverflow_342k (bench.py:1960-1986), nothing cut:
 # make_stackoverflow_nwp(342,477, T 20, vocab 10,004) in a FederatedStore,
@@ -2145,6 +2191,17 @@ def _cifar_samples():
     return x, y
 
 
+def _family_samples():
+    """The round-family phases' data (algos, custom, zoo): the primary
+    config's first FAMILY_PER_CLIENT samples of each of its 128 clients'
+    shares (2 local steps a round at batch 32 instead of 8; cut in PR 18
+    to pay for the dp and cli phases: a capture and an eager round cost
+    host dispatch per step)."""
+    x, y = _cifar_samples()
+    n = TRAIN_CLIENTS * FAMILY_PER_CLIENT
+    return x[:n], y[:n]
+
+
 def phase_train(shared=None):
     """ResNet-56-GN FedAvg through FedAvgAPI at the primary config;
     returns {kernel name: launches in the timed rounds}. The median
@@ -2402,7 +2459,7 @@ def _added_ms(rows, base):
 
 def phase_algos(shared=None):
     """The algorithms on FedAvg's round at the primary config (ResNet-56-GN
-    bf16, 128 x 256 samples, batch 32, 8 per round, sgd lr 0.1): FedAdam,
+    bf16, 128 x 64 samples, batch 32, 8 per round, sgd lr 0.1): FedAdam,
     FedProx, FedAvgRobust with each robust aggregator and the attack
     drill, and FedNova on a Dirichlet split; the pins hold the captured
     rounds bit-equal to one eager run each. Returns {kernel name:
@@ -2417,14 +2474,14 @@ def phase_algos(shared=None):
     from fedml_tpu_torch.models import create_model
 
     t_phase = time.perf_counter()
-    x, y = _cifar_samples()
+    x, y = _family_samples()
     fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
                                  TRAIN_BATCH, device="cuda")
     cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
                     client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
                     epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
     steps = fed.steps_per_epoch * cfg.epochs
-    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    samples = TRAIN_PER_ROUND * FAMILY_PER_CLIENT * cfg.epochs
     counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
 
     def count(fwd, bwd):
@@ -2615,11 +2672,13 @@ def _mean_invariant(server, rows):
 
 
 def _fedavg_baseline(fed, cfg, tag, count):
-    """FedAvg from the seed at the primary config, the baseline of the
-    "custom" and zoo phases: round 0 captures, rounds 1-2 replay, rounds
-    3-5 replay counted and timed. Returns the nets after rounds 0, 2 and 5
-    (``r0``, ``r2``, ``r5``), the replayed median ms and the capture ms;
-    ``count(fwd, bwd)`` takes the GroupNorm launches."""
+    """FedAvg from the seed at the round-family config, the baseline of
+    the "custom" and zoo phases: round 0 captures, rounds 1-2 replay,
+    rounds 3-5 replay counted and timed, then a warm and 3 timed
+    ``train_rounds_on_device(ZOO_ROUNDS)`` calls. Returns the nets after
+    rounds 0, 2 and 5 (``r0``, ``r2``, ``r5``), the replayed and the
+    on-device median ms and the capture ms; ``count(fwd, bwd)`` takes the
+    GroupNorm launches."""
     from fedml_tpu_torch.algos import FedAvgAPI
     from fedml_tpu_torch.models import create_model
 
@@ -2633,13 +2692,18 @@ def _fedavg_baseline(fed, cfg, tag, count):
         api.train_one_round(r)
     out["r2"] = _net_copy(api.net)
     steps = fed.steps_per_epoch * cfg.epochs
-    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    samples = TRAIN_PER_ROUND * FAMILY_PER_CLIENT * cfg.epochs
     fwd, bwd, med, _, copies = _replayed_rounds(api, range(3, 6), tag, steps,
                                                 samples)
     check(copies == 0, f"{copies} GroupNorm operand copies")
     count(fwd, bwd)
     out.update(r5=_net_copy(api.net), replayed=med,
                capture_ms=api._graphs["fused"].capture_ms)
+    api.train_rounds_on_device(ZOO_ROUNDS)  # warm-up and capture
+    (fwd, bwd, _, _, _), out["on_device"] = _time_on_device(
+        api, ZOO_ROUNDS, tag, samples, "samples", _zero_gn_counts,
+        _gn_counts)
+    count(fwd, bwd)
     del api
     _free()
     return out
@@ -2647,7 +2711,7 @@ def _fedavg_baseline(fed, cfg, tag, count):
 
 def phase_custom(shared=None):
     """The "custom" carry protocol at the primary config (ResNet-56-GN
-    bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch, sgd lr 0.1):
+    bf16, 128 x 64 samples, batch 32, 8 per round, 1 epoch, sgd lr 0.1):
     FedAvg's replayed rounds as the baseline of the same call, then
     SCAFFOLD, FedDyn, Ditto and FedBN, each with pin (a) against its
     published step run eagerly, replayed rounds counted and timed, and its
@@ -2664,7 +2728,7 @@ def phase_custom(shared=None):
 
     t_phase = time.perf_counter()
     card = smi_line()
-    x, y = _cifar_samples()
+    x, y = _family_samples()
     fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
                                  TRAIN_BATCH, device="cuda")
     del x, y
@@ -2672,7 +2736,7 @@ def phase_custom(shared=None):
                     client_num_per_round=TRAIN_PER_ROUND, comm_round=1,
                     epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
     steps = fed.steps_per_epoch * cfg.epochs
-    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    samples = TRAIN_PER_ROUND * FAMILY_PER_CLIENT * cfg.epochs
     counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
     summary = {}
 
@@ -2915,7 +2979,7 @@ def _timed_rounds(api, rounds, tag, samples):
 
 def phase_zoo(shared=None):
     """The rest of the FedAvg-round family at the primary config
-    (ResNet-56-GN bf16, 128 x 256 samples, batch 32, 8 per round, 1 epoch,
+    (ResNet-56-GN bf16, 128 x 64 samples, batch 32, 8 per round, 1 epoch,
     sgd lr 0.1): FedAvg's replayed rounds as the call's baseline (the
     "custom" phase's, ``shared["fedavg"]``, when given; its on-device
     round the train phase's, ``shared["fedavg_on_device_ms"]``), then
@@ -2941,7 +3005,7 @@ def phase_zoo(shared=None):
 
     t_phase = time.perf_counter()
     card = smi_line()
-    x, y = _cifar_samples()
+    x, y = _family_samples()
     parts = partition_homo(len(x), TRAIN_CLIENTS)
     fed = build_federated_arrays(x, y, parts, TRAIN_BATCH, device="cuda")
     fed32 = build_federated_arrays(
@@ -2953,7 +3017,7 @@ def phase_zoo(shared=None):
                     epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED)
     steps = fed.steps_per_epoch * cfg.epochs
     per_round = steps * RESNET56_GN  # GroupNorm launches a cohort training
-    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * cfg.epochs
+    samples = TRAIN_PER_ROUND * FAMILY_PER_CLIENT * cfg.epochs
     counted = {"group_norm_fwd": 0, "group_norm_bwd": 0}
     summary = {}  # class: (tier, median round ms, samples, capture ms,
     #                       peak GiB, GroupNorm fwd / bwd a round)
@@ -2985,7 +3049,7 @@ def phase_zoo(shared=None):
         fed, cfg, "zoo/FedAvgAPI", count)
     fedavg_r0, fedavg_r2 = fedavg["r0"].params, fedavg["r2"].params
     base["replayed"] = fedavg["replayed"]
-    base["on-device"] = shared.get("fedavg_on_device_ms")
+    base["on-device"] = fedavg["on_device"]
 
     # 1-2. FedAc (gamma 2) and ServerAvg (beta 0.5, avg_start 0): (a), (b)
     # and three timed on-device calls.
@@ -3128,7 +3192,7 @@ def phase_zoo(shared=None):
     groups = [len(np.unique(gids[api.sample_round(r)])) for r in rounds]
     captures = CapturedStep.captures
     want = sum(groups) * ZOO_GROUP_ROUNDS * per_round
-    trained = TRAIN_PER_ROUND * TRAIN_PER_CLIENT * ZOO_GROUP_ROUNDS
+    trained = TRAIN_PER_ROUND * FAMILY_PER_CLIENT * ZOO_GROUP_ROUNDS
     fwd, bwd, (med, _) = _counted(
         lambda: _timed_rounds(api, rounds, tag, trained), tag, want, want)
     count(fwd, bwd)
@@ -3251,7 +3315,7 @@ def phase_zoo(shared=None):
 
     # 6. DSGD and PushSum over the first 32 clients, every client every
     # round.
-    gsamples = ZOO_GOSSIP_CLIENTS * TRAIN_PER_CLIENT * cfg.epochs
+    gsamples = ZOO_GOSSIP_CLIENTS * FAMILY_PER_CLIENT * cfg.epochs
     gcfg = dataclasses.replace(cfg, client_num_in_total=ZOO_GOSSIP_CLIENTS,
                                client_num_per_round=ZOO_GOSSIP_CLIENTS)
     for mode, topo in (
@@ -3291,7 +3355,7 @@ def phase_zoo(shared=None):
         first_ms = (time.perf_counter() - t0) * 1e3
         capture_ms, mem = api._step.capture_ms, peak()
         dist, loss_dist = _spread([eager, (state(), [loss])])
-        print(f"[{tag}] {ZOO_GOSSIP_CLIENTS} clients x {TRAIN_PER_CLIENT} "
+        print(f"[{tag}] {ZOO_GOSSIP_CLIENTS} clients x {FAMILY_PER_CLIENT} "
               f"samples, {type(topo).__name__}({ZOO_GOSSIP_CLIENTS}, "
               f"neighbor_num={topo.neighbor_num}, seed={SEED}); eager round "
               f"{eager_ms:.1f} ms; the captured round's first call "
@@ -3360,8 +3424,8 @@ def phase_zoo(shared=None):
     on_dev = base["on-device"]
     print(f"[zoo] FedAvgAPI: replayed round {base['replayed']:.1f} ms = "
           f"{samples / base['replayed'] * 1e3:.1f} samples/s, on-device "
-          + (f"{on_dev:.2f} ms = {samples / on_dev * 1e3:.1f} samples/s (the "
-             "train phase's)" if on_dev else "not measured in this call")
+          + (f"{on_dev:.2f} ms = {samples / on_dev * 1e3:.1f} samples/s"
+             if on_dev else "not measured in this call")
           + f"; card {card}", flush=True)
     for name, (tier, med, n, capture_ms, mem, fwd, bwd) in summary.items():
         kind = "on-device" if tier == "on-device" else "replayed"
@@ -4947,7 +5011,7 @@ def phase_ckpt(shared=None):
                             generator=torch.Generator().manual_seed(SEED))
 
     def primary(cls, **kw):
-        x, y = _cifar_samples()
+        x, y = _family_samples()
         fed = build_federated_arrays(x, y, partition_homo(
             len(x), TRAIN_CLIENTS), TRAIN_BATCH, device="cuda")
         cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
@@ -6294,10 +6358,11 @@ def _flagship_build(fed, **kw):
     from fedml_tpu_torch.algos import FedAvgAPI, FedConfig
     from fedml_tpu_torch.models import create_model
 
-    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
-                    client_num_per_round=TRAIN_PER_ROUND, comm_round=100,
-                    epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
-                    **kw)
+    cfg = FedConfig(**{**dict(client_num_in_total=TRAIN_CLIENTS,
+                              client_num_per_round=TRAIN_PER_ROUND,
+                              comm_round=100, epochs=1,
+                              batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                              seed=SEED), **kw})
     model = create_model("resnet56", num_classes=10, dtype="bf16",
                          device="cuda",
                          generator=torch.Generator().manual_seed(SEED))
@@ -6743,7 +6808,7 @@ def _knob_layouts(card, fed):
             _zero_gn_counts()
             loss = api.train_one_round(1)["train_loss"]
             fwd, bwd, red, copies, streamed = _gn_counts()
-        steps = TRAIN_PER_CLIENT // TRAIN_BATCH
+        steps = fed.steps_per_epoch
         print(f"[{tag}] {arm}: round 1 (replayed) loss {loss:.6f}; "
               f"GroupNorm launches fwd {fwd}, bwd {bwd}, reduce {red} "
               f"(expected {steps * n_gn} each), streamed {streamed}, copies "
@@ -6859,6 +6924,8 @@ def phase_knobs():
     _knob_zoo_bn(card, x, y)
     _knob_extra_bn(card)
     times["a"] = time.perf_counter() - t0
+    # (b)-(d) at the round family's depth (2 local steps; PR 18's cut).
+    x, y = _family_samples()
     fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
                                  TRAIN_BATCH, device="cuda")
     store = FederatedStore(x, y, partition_homo(len(x), TRAIN_CLIENTS),
@@ -6879,6 +6946,440 @@ def phase_knobs():
     print(f"[knobs] parts' seconds {secs}; phase "
           f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
     return launches
+
+
+# DP-SGD, remat and the experiment CLI (the dp and cli phases): DP at the
+# JAX package's CLI example (clip 1.0, noise multiplier 1.1).
+DP_CLIP, DP_NOISE = 1.0, 1.1
+# A noiseless DP step (no clip, no noise) is the plain step but for
+# rounding, so the mean of one step's per-example gradients is held to the
+# batch gradient at the same params: in bf16 each per-example weight
+# gradient is rounded to bf16 before the f32 sum, where the batch
+# gradient is rounded once (a resnet20 at widths 8/16/32 on the CPU read
+# up to 7.6e-3 a leaf). Whole rounds cannot be held so: at lr 1e-3 an
+# update is below a bf16 ulp of most weights, and rounding flips in the
+# bf16 weights then decide the next step (0.15 of the update after 2 such
+# steps on the CPU, 0.92 after a round on the card).
+DP_NOISELESS_TOL = 2e-2
+# Each clipped example's norm: at most clip, up to the f32 rounding of
+# the factor clip / ||g|| and of the norm itself.
+DP_NORM_SLACK = 1e-3
+# The documented north-star command (fedml_tpu_torch/exp/__init__.py)
+# with --epochs 5 -> 1 and --comm_round 100 -> 2 (the cuts), on CIFAR-10
+# python-pickle batches of seeded random uint8 images at the real size.
+CLI_TRAIN, CLI_TEST = 50000, 10000
+CLI_NORTH_STAR = ["--model", "resnet56", "--dataset", "cifar10",
+                  "--partition_method", "hetero", "--partition_alpha", "0.5",
+                  "--client_num_in_total", "10",
+                  "--client_num_per_round", "10", "--batch_size", "64",
+                  "--lr", "0.03", "--epochs", "1", "--comm_round", "2"]
+CLI_CUTS = {"--epochs": (5, 1), "--comm_round": (100, 2)}
+# The in-process runs: exp.run's DP + remat FedAvg over the same files at
+# 1,000 clients of 50 (2 steps of batch 32, 2 a round, 1 round), and the
+# centralized baseline under DP on 1,280 + 256 images (20 steps of 64).
+CLI_DP_RUN = ["--model", "resnet56", "--dataset", "cifar10",
+              "--partition_method", "homo", "--client_num_in_total", "1000",
+              "--client_num_per_round", "2", "--batch_size", "32",
+              "--lr", "0.03", "--epochs", "1", "--comm_round", "1",
+              "--dp_clip", str(DP_CLIP), "--dp_noise_multiplier",
+              str(DP_NOISE), "--remat"]
+CLI_CENTRAL_TRAIN, CLI_CENTRAL_TEST = 1280, 256
+CLI_CENTRAL = ["--model", "resnet56", "--dataset", "cifar10",
+               "--batch_size", "64", "--lr", "0.03", "--epochs", "1",
+               "--comm_round", "1", "--dp_clip", str(DP_CLIP),
+               "--dp_noise_multiplier", str(DP_NOISE)]
+# Runs the north-star module as ``python -m`` does and, at exit, writes
+# the process's GroupNorm launch counts to stderr (stdout's last line
+# stays the run's JSON).
+CLI_WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "from fedml_tpu_torch.ops import group_norm as gn\n"
+    "atexit.register(lambda: print('GN_COUNTS ' + json.dumps(["
+    "gn.group_norm_fwd.launches, gn.group_norm_bwd.launches, "
+    "gn.group_norm_bwd.reduce_launches]), file=sys.stderr, flush=True))\n"
+    "runpy.run_module('fedml_tpu_torch.exp.main_fedavg', "
+    "run_name='__main__', alter_sys=True)\n")
+
+
+def _write_cifar(root, n_train, n_test, seed):
+    """CIFAR-10's python-pickle batches (data_batch_1..5, test_batch) of
+    seeded random uint8 images; returns the bytes written."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    sizes = [n_train // 5] * 5 + [n_test]
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    total = 0
+    for name, n in zip(names, sizes):
+        data = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({b"data": data,
+                         b"labels": rng.integers(0, 10, n).tolist()}, f)
+        total += data.nbytes
+    return total
+
+
+def _start_north_star(tag):
+    """(a) and the start of (b): the CIFAR-10 files in a temporary
+    directory and the north-star command as a subprocess. Returns the
+    run's state (directory, files, process, start time)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cifar_")
+    data_dir = os.path.join(tmp, "cifar-10-batches-py")
+    nbytes = _write_cifar(data_dir, CLI_TRAIN, CLI_TEST, SEED)
+    small_dir = os.path.join(tmp, "cifar-small")
+    _write_cifar(small_dir, CLI_CENTRAL_TRAIN, CLI_CENTRAL_TEST, SEED + 1)
+    print(f"[{tag}] (a) CIFAR-10 pickles: {CLI_TRAIN} + {CLI_TEST} seeded "
+          f"uint8 images ({nbytes / 2**20:.1f} MiB) in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms", flush=True)
+    argv = CLI_NORTH_STAR + ["--data_dir", data_dir]
+    cuts = ", ".join(f"{k} {a} -> {b}" for k, (a, b) in CLI_CUTS.items())
+    print(f"[{tag}] (b) python -m fedml_tpu_torch.exp.main_fedavg "
+          f"{' '.join(argv)} (cut from the documented command: {cuts}); "
+          "it runs beside the dp phase's captures and holds and the cli "
+          "phase's in-process runs, and the timed replays wait for it",
+          flush=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_WRAPPER] + argv,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {"tmp": tmp, "data_dir": data_dir, "small_dir": small_dir,
+            "proc": proc, "t0": time.perf_counter()}
+
+
+def _finish_north_star(run, tag):
+    """(b)'s end: waits for the subprocess, parses its last line (the last
+    round's metrics) and its GroupNorm counts. Returns (fwd, bwd)."""
+    proc = run.pop("proc")
+    out, err = proc.communicate(timeout=900)
+    sub_s = time.perf_counter() - run["t0"]
+    lines = out.strip().splitlines()
+    print(f"[{tag}] (b) exit {proc.returncode} after {sub_s:.1f} s; its "
+          "last lines:", flush=True)
+    for line in lines[-3:]:
+        print(f"[{tag}]   {line[:400]}", flush=True)
+    if proc.returncode != 0:
+        print(err[-4000:], flush=True)
+    check(proc.returncode == 0 and lines,
+          f"{tag}: the north-star command exited {proc.returncode}")
+    last = json.loads(lines[-1])
+    counts = [json.loads(line.split(" ", 1)[1]) for line in err.splitlines()
+              if line.startswith("GN_COUNTS ")]
+    check(len(counts) == 1, f"{tag}: no GroupNorm counts from (b)")
+    fwd, bwd, red = counts[0]
+    print(f"[{tag}] (b) train_loss {last['train_loss']:.4f}, test loss "
+          f"{last.get('loss')}, accuracy {last.get('accuracy')}, round "
+          f"{last.get('time/round_s')} s; GroupNorm launches fwd {fwd}, bwd "
+          f"{bwd}, reduce {red}", flush=True)
+    check(math.isfinite(last["train_loss"]),
+          f"{tag}: north-star train_loss {last['train_loss']}")
+    check(fwd > 0 and bwd > 0, f"{tag}: the north-star run launched no "
+          "GroupNorm kernel")
+    return fwd, bwd
+
+
+def _stop_north_star(run):
+    import shutil
+
+    proc = run.pop("proc", None)
+    if proc is not None:
+        proc.kill()
+        proc.communicate()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def _rel_tree(a, b):
+    """|a - b| / |b| over every leaf of two trees."""
+    from fedml_tpu_torch.core.tree import tree_leaves
+
+    num = sum(float(((x.float() - y.float()) ** 2).sum())
+              for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    den = sum(float((y.float() ** 2).sum()) for y in tree_leaves(b))
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def _dp_step_holds(api, tag, what, clip=True):
+    """One local step of the round-0 cohort at the api's params, the
+    clients under ``vmap`` as the round runs them: each example's
+    gradient (``dp_per_example``, through the kernels at their
+    per-example shapes), then (1) each clipped norm at most clip x (1 +
+    DP_NORM_SLACK) and (2) their noiseless mean against the plain batch
+    gradient (``_grad`` of a LocalTrain without DP) within
+    DP_NOISELESS_TOL. These launches hold the path, and are not counted
+    in the kernels line."""
+    from torch.func import vmap
+
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.tree import tree_leaves, tree_map
+    from fedml_tpu_torch.trainer.local import make_local_train_fn
+
+    lt, net, fed = api.local_train, api.net, api.train_fed
+    plain = make_local_train_fn(lt.apply_fn, lt.optimizer, 1, lt.loss_fn)
+    idx = torch.as_tensor(api.sample_round(0), device=api.device)
+    xb, yb, mb = fed.x[idx, 0], fed.y[idx, 0], fed.mask[idx, 0]
+    rngs = keys.fold_in(keys.key(SEED, api.device),
+                        torch.arange(len(idx), device=api.device))
+
+    def one(x, y, m, rng):
+        per, _ = lt.dp_per_example(net.params, net.model_state, x, y, rng)
+        norm = torch.sqrt(sum(g.flatten(1).float().square().sum(1)
+                              for g in tree_leaves(per)))
+        mean = tree_map(lambda g: torch.tensordot(m, g, dims=1)
+                        / torch.clamp(m.sum(), min=1.0), per)
+        batch, _, _ = plain._grad(net.params, net.model_state, x, y, m, rng)
+        return lt.dp_clip_scale(per, m) * norm, norm, mean, batch
+
+    gn0, fl0 = _gn_counts()[:2], _flash_counts()[:3]
+    clipped, raw, mean, batch = vmap(one)(xb, yb, mb, rngs)
+    launches = tuple(b - a for a, b in zip(gn0 + fl0, _gn_counts()[:2]
+                                           + _flash_counts()[:3]))
+    d = _rel_tree(mean, batch)
+    top = clipped.max().item()
+    print(f"[{tag}] {what}: one step's per-example gradients, "
+          f"{len(idx)} clients x {xb.shape[1]} examples under vmap: raw "
+          f"norms {raw.min().item():.3f}..{raw.max().item():.3f}, clipped "
+          f"max {top:.6f} (clip {lt.dp_clip}); their noiseless mean vs the "
+          f"batch gradient |d| / |g| {d:.3e} (tol {DP_NOISELESS_TOL}); "
+          f"launches GroupNorm fwd/bwd {launches[:2]}, flash fwd/dq/dkv "
+          f"{launches[2:]}", flush=True)
+    if clip:
+        check(top <= lt.dp_clip * (1 + DP_NORM_SLACK),
+              f"{tag}: a clipped example norm {top} exceeds {lt.dp_clip}")
+    check(d <= DP_NOISELESS_TOL, f"{tag}: {what}: the noiseless DP step is "
+          f"{d} from the plain step")
+
+
+def _dp_gn_rows_hold(tag):
+    """The GroupNorm kernels against their plain twins at ResNet-56's
+    eight shapes as the DP step hands them over: R = 256 single-sample
+    rows (8 clients x 32 examples, each row its client's gamma/beta),
+    bf16."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    worst = 0.0
+    for (n, s, c), groups, _ in GN_STEP:
+        x, dy, gamma, beta = _gn_inputs((n, s, c), n, torch.bfloat16, g)
+        y = gn.group_norm_fwd(x, gamma, beta, groups)
+        dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+        torch.cuda.synchronize()
+        want_y = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
+        want_dx, want_dg, want_db = gn.group_norm_bwd_plain(
+            x.float(), dy.float(), gamma, groups)
+        ey, ok_y = _gn_err(y, want_y, torch.bfloat16)
+        edx, ok_dx = _gn_err(dx, want_dx, torch.bfloat16)
+        mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+        chain = s + 64
+        lim_g = chain * 2.0 ** -24 * (dy.float() * (x.float() - mu) * rstd
+                                      ).abs().sum(dim=(1, 2)) + 1e-7
+        lim_b = chain * 2.0 ** -24 * dy.float().abs().sum(dim=(1, 2)) + 1e-7
+        ok_p = bool(((dgamma - want_dg).abs() <= lim_g).all()
+                    and ((dbeta - want_db).abs() <= lim_b).all())
+        worst = max(worst, ey, edx)
+        check(ok_y and ok_dx and ok_p, f"{tag}: group_norm kernels disagree "
+              f"with plain at [{n}x1, {s}, {c}] R{n}")
+    print(f"[{tag}] group_norm fwd/bwd vs plain at the 8 ResNet-56 shapes "
+          f"with R = 256 single-sample rows (bf16): max|d| {worst:.3e} "
+          f"within 2^-8 rel + 1e-5 of scale, dgamma/dbeta within the "
+          f"sum-order bound", flush=True)
+
+
+def _adapter_build(**kw):
+    """A FedAdapterAPI at the adapter phase's configuration, with ``kw``
+    replacing config fields."""
+    import functools
+
+    from fedml_tpu_torch.algos import FedAdapterAPI
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    fed, cfg, _ = _adapter_setup()
+    model = create_model(
+        "transformer_lm", vocab_size=VOCAB, d_model=D_MODEL,
+        n_heads=N_HEADS, n_layers=N_LAYERS, max_len=SEQ_LEN, dtype="bf16",
+        attn="flash", adapter_rank=ADAPTER_RANK, adapter_scope="attn",
+        device="cuda", generator=torch.Generator().manual_seed(SEED))
+    return FedAdapterAPI(model, fed, None, dataclasses.replace(cfg, **kw),
+                         loss_fn=functools.partial(seq_softmax_ce, pad_id=0),
+                         device="cuda")
+
+
+def phase_dp():
+    """DP-SGD and remat at full width, with the north-star CLI command
+    started as a subprocess first (the cli phase waits for it): (a) the
+    flagship under DP-SGD, (b) under remat, (c) FedAdapter under DP-SGD,
+    their captures and holds. The timed replays run in the cli phase
+    after the subprocess ended. Returns the state the cli phase takes."""
+    state = {"card": smi_line(), "launches": collections.Counter()}
+    state["cli"] = _start_north_star("cli")
+    try:
+        _dp_captures(state)
+    except BaseException:
+        _stop_north_star(state["cli"])
+        raise
+    return state
+
+
+def _dp_captures(state):
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+
+    tag = "dp"
+    x, y = _cifar_samples()
+    fed = build_federated_arrays(x, y, partition_homo(len(x), TRAIN_CLIENTS),
+                                 TRAIN_BATCH, device="cuda")
+    del x, y
+    # (a) DP-SGD on the flagship: pin (a) under deterministic cuDNN (its
+    # peak over warm-up and capture printed), the per-step holds.
+    api = _flagship_build(fed, dp_clip=DP_CLIP, dp_noise_multiplier=DP_NOISE)
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+    state["dp_api"] = api
+    _dp_step_holds(api, tag, "flagship DP-SGD")
+    _dp_gn_rows_hold(tag)
+    # (b) remat: the plain and the remat api captured from one start under
+    # deterministic cuDNN; their second rounds replay in the cli phase.
+    with _cudnn_deterministic():
+        for name, kw in (("plain", {}), ("remat", {"remat": True})):
+            api = _flagship_build(fed, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            api.train_one_round(0)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[remat] {name}: round 0 captured in "
+                  f"{api._graphs['fused'].capture_ms:.1f} ms; peak memory "
+                  f"over warm-up + capture {peak / 2**30:.2f} GiB",
+                  flush=True)
+            state[name + "_api"] = api
+            state[name + "_peak"] = peak
+    # (c) DP-SGD on FedAdapter: round 0 captured, the per-step holds (the
+    # flash kernels under the per-example vmap).
+    api = _adapter_build(dp_clip=DP_CLIP, dp_noise_multiplier=DP_NOISE)
+    t0 = time.perf_counter()
+    api.train_one_round(0)
+    print(f"[{tag}] FedAdapter DP-SGD (clip {DP_CLIP}, z {DP_NOISE}): round "
+          f"0 (capture) {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    _dp_step_holds(api, tag, "FedAdapter DP-SGD")
+    state["adapter_api"] = api
+
+
+def _dp_timed(state):
+    """The dp phase's timed replays, after the north-star subprocess
+    ended: the DP flagship round (58 launches of each GroupNorm kernel a
+    local step), remat's and the plain round's second rounds (bit-equal;
+    116 forwards a step against 58), the FedAdapter DP round (16 launches
+    of each flash kernel)."""
+    card, launches = state["card"], state["launches"]
+    steps = TRAIN_PER_CLIENT // TRAIN_BATCH
+    samples = TRAIN_PER_ROUND * TRAIN_PER_CLIENT
+    api = state.pop("dp_api")
+    fwd, bwd, med, _, copies = _replayed_rounds(api, [1], "dp", steps,
+                                                samples)
+    launches.update(group_norm_fwd=fwd, group_norm_bwd=bwd)
+    print(f"[dp] DP-SGD flagship (clip {DP_CLIP}, z {DP_NOISE}): replayed "
+          f"round {med:.1f} ms, GroupNorm operand copies {copies} a round; "
+          f"{card}", flush=True)
+    del api
+    out = {}
+    for name in ("plain", "remat"):
+        api = state.pop(name + "_api")
+        _zero_gn_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = api.train_one_round(1)["train_loss"]
+        ms = (time.perf_counter() - t0) * 1e3
+        fwd, bwd, red, copies, streamed = _gn_counts()
+        peak = state.pop(name + "_peak")
+        out[name] = (_net_vec(api.net).clone(), ms, fwd, bwd, loss)
+        print(f"[remat] {name}: replayed round {ms:.1f} ms, loss "
+              f"{loss:.4f}; GroupNorm launches fwd {fwd} ({fwd // steps} a "
+              f"step), bwd {bwd}, reduce {red}, streamed {streamed}; peak "
+              f"memory over warm-up + capture {peak / 2**30:.2f} GiB; "
+              f"{card}", flush=True)
+        check(streamed == 0, f"remat: {streamed} forwards streamed")
+        launches.update(group_norm_fwd=fwd, group_norm_bwd=bwd)
+        del api
+    dist = (out["plain"][0] - out["remat"][0]).abs().max().item()
+    print(f"[remat] remat vs plain after 2 rounds from one start: max|d| "
+          f"{dist:.3e} ({'bit-equal' if dist == 0 else 'NOT bit-equal'}); "
+          f"round {out['remat'][1]:.1f} / {out['plain'][1]:.1f} ms = "
+          f"{out['remat'][1] / out['plain'][1]:.3f}x; GroupNorm forwards a "
+          f"step {out['remat'][2] // steps} / {out['plain'][2] // steps}",
+          flush=True)
+    check(dist == 0 and out["remat"][4] == out["plain"][4],
+          f"remat: {dist} from the plain round")
+    check(out["remat"][2] == 2 * out["plain"][2] == 2 * steps * RESNET56_GN
+          and out["remat"][3] == out["plain"][3] == steps * RESNET56_GN,
+          f"remat: GroupNorm launches remat {out['remat'][2:4]}, plain "
+          f"{out['plain'][2:4]}")
+    api = state.pop("adapter_api")
+    _zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = api.train_one_round(1)["train_loss"]
+    ms = (time.perf_counter() - t0) * 1e3
+    fwd, dq, dkv, copies = _flash_counts()
+    want = ADAPTER_PER_CLIENT // ADAPTER_BATCH * N_LAYERS
+    print(f"[dp] FedAdapter DP-SGD: replayed round {ms:.1f} ms, loss "
+          f"{loss:.4f}; flash launches fwd {fwd}, dq {dq}, dkv {dkv} "
+          f"(expected {want} each), copies {copies}; {card}", flush=True)
+    check(math.isfinite(loss), f"dp: non-finite adapter loss {loss}")
+    check(fwd == dq == dkv == want and copies == 0,
+          f"dp: flash launches {fwd}, {dq}, {dkv}, copies {copies}")
+    launches.update(flash_fwd=fwd, flash_dq=dq, flash_dkv=dkv)
+    del api
+    _free()
+
+
+def phase_cli(state):
+    """The experiment CLI on the card: (c) exp.run's DP + remat FedAvg and
+    the DP centralized baseline in process, through main(argv), while (b)
+    the north-star subprocess (started by the dp phase) runs; then (b)'s
+    result and (d) the GroupNorm launches of (b) and (c); then the dp
+    phase's timed replays. Returns {kernel name: launches of both
+    phases}."""
+    from fedml_tpu_torch.exp import main_centralized
+
+    # ``fedml_tpu_torch.exp.run`` the attribute is the function run();
+    # the module is imported by name.
+    exp_run = importlib.import_module("fedml_tpu_torch.exp.run")
+
+    tag, run, launches = "cli", state["cli"], state["launches"]
+    try:
+        _zero_gn_counts()
+        t0 = time.perf_counter()
+        hist = exp_run.main(CLI_DP_RUN + ["--data_dir", run["data_dir"]],
+                            algorithm="FedAvg")
+        fwd, bwd, *_ = _gn_counts()
+        print(f"[{tag}] (c) exp.run --algorithm FedAvg "
+              f"{' '.join(CLI_DP_RUN)}: {time.perf_counter() - t0:.1f} s, "
+              f"last round {hist[-1]}; GroupNorm launches fwd {fwd}, bwd "
+              f"{bwd}", flush=True)
+        check(math.isfinite(hist[-1]["train_loss"]),
+              f"{tag}: exp.run DP loss {hist[-1]}")
+        check(fwd > 0 and bwd > 0, f"{tag}: exp.run launched no GroupNorm "
+              "kernel")
+        launches.update(group_norm_fwd=fwd, group_norm_bwd=bwd)
+        _zero_gn_counts()
+        t0 = time.perf_counter()
+        _, chist = main_centralized.main(CLI_CENTRAL
+                                         + ["--data_dir", run["small_dir"]])
+        fwd, bwd, *_ = _gn_counts()
+        print(f"[{tag}] (c) main_centralized {' '.join(CLI_CENTRAL)} on "
+              f"{CLI_CENTRAL_TRAIN} + {CLI_CENTRAL_TEST} images: "
+              f"{time.perf_counter() - t0:.1f} s, {chist[-1]}; GroupNorm "
+              f"launches fwd {fwd}, bwd {bwd}", flush=True)
+        check(math.isfinite(chist[-1]["train_loss"]),
+              f"{tag}: centralized DP loss {chist[-1]}")
+        check(fwd > 0 and bwd > 0, f"{tag}: the centralized run launched no "
+              "GroupNorm kernel")
+        launches.update(group_norm_fwd=fwd, group_norm_bwd=bwd)
+        fwd, bwd = _finish_north_star(run, tag)
+        launches.update(group_norm_fwd=fwd, group_norm_bwd=bwd)
+    finally:
+        _stop_north_star(run)
+    _dp_timed(state)
+    return dict(launches)
 
 
 def main() -> int:
@@ -6933,13 +7434,15 @@ def main() -> int:
     timed("ckpt", phase_ckpt, shared)
     store = timed("store", phase_store)
     knobs = timed("knobs", phase_knobs)
+    dp = timed("dp", phase_dp)
+    cli = timed("cli", phase_cli, dp)
     print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
-          f"adapter {adapter}, vit {vit}, store {store}, knobs {knobs}",
-          flush=True)
+          f"adapter {adapter}, vit {vit}, store {store}, knobs {knobs}, "
+          f"dp and cli {cli}", flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
     launches.update(adapter)
     for name, n in (list(vit.items()) + list(store.items())
-                    + list(knobs.items())):
+                    + list(knobs.items()) + list(cli.items())):
         launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

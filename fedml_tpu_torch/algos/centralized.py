@@ -10,7 +10,8 @@ from __future__ import annotations
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
 from fedml_tpu_torch.trainer.local import (make_client_optimizer,
-                                           make_eval_fn, make_local_train_fn,
+                                           make_eval_fn,
+                                           make_local_train_fn_from_cfg,
                                            model_fns, softmax_ce)
 
 
@@ -30,8 +31,8 @@ class CentralizedTrainer:
         self.fns = model_fns(self.model)
         optimizer = make_client_optimizer(cfg.client_optimizer, cfg.lr,
                                           cfg.wd)
-        self.train_fn = make_local_train_fn(self.fns.apply, optimizer,
-                                            cfg.epochs, loss_fn)
+        self.train_fn = make_local_train_fn_from_cfg(self.fns.apply,
+                                                     optimizer, cfg, loss_fn)
         self.eval_fn = make_eval_fn(self.fns.apply, loss_fn)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]
         self.net = None

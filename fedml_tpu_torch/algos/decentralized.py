@@ -29,7 +29,6 @@ import torch
 
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.algos.capability import refusal
-from fedml_tpu_torch.algos.fedavg import refuse_unported
 from fedml_tpu_torch.algos.loop import FederatedLoop
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.device import resolve_device
@@ -40,7 +39,8 @@ from fedml_tpu_torch.core.tree import tree_map
 from fedml_tpu_torch.data.batching import FederatedArrays
 from fedml_tpu_torch.parallel.shard import client_rngs
 from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
-                                           make_eval_fn, make_local_train_fn,
+                                           make_eval_fn,
+                                           make_local_train_fn_from_cfg,
                                            model_fns, softmax_ce)
 
 
@@ -119,11 +119,6 @@ class DecentralizedAPI(FederatedLoop):
                  mode: str = "dsgd", loss_fn=softmax_ce, device=None):
         if mode not in ("dsgd", "pushsum"):
             raise ValueError(f"unknown decentralized mode {mode!r}")
-        # The fields of JAX's make_local_train_fn_from_cfg that the port's
-        # trainer does not have yet.
-        refuse_unported(cfg, {f: "A3" for f in ("remat", "dp_clip",
-                                                "dp_noise_multiplier")},
-                        who="DecentralizedAPI")
         self.device = resolve_device(device)
         if train_fed.device.type != self.device.type:
             raise ValueError(f"train_fed lies on {train_fed.device}, the "
@@ -141,8 +136,8 @@ class DecentralizedAPI(FederatedLoop):
             dtype=torch.float32, device=self.device)
         optimizer = make_client_optimizer(cfg.client_optimizer, cfg.lr,
                                           cfg.wd)
-        local_train = make_local_train_fn(self.fns.apply, optimizer,
-                                          cfg.epochs, loss_fn)
+        local_train = make_local_train_fn_from_cfg(self.fns.apply, optimizer,
+                                                   cfg, loss_fn)
         self.round_fn = make_gossip_round(local_train, self.W, mode)
         self.eval_fn = make_eval_fn(self.fns.apply, loss_fn)
         self.rng = keys.split(keys.key(cfg.seed, self.device))[0]

@@ -27,7 +27,7 @@ from fedml_tpu_torch.core.tree import (client_rows, client_stack,
                                        stack_of_rows, tree_map)
 from fedml_tpu_torch.parallel.shard import client_rngs
 from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
-                                           make_local_train_fn)
+                                           make_local_train_fn_from_cfg)
 
 #: fold_in child of the ROUND key for the personal step's per-client
 #: streams (never split off ``self.rng``), disjoint from the trainer's
@@ -106,8 +106,8 @@ class DittoAPI(FedAvgAPI):
         def prox(params, w_global):
             return tree_map(lambda v, w: lam * (v - w), params, w_global)
 
-        return make_local_train_fn(self.fns.apply, optimizer, cfg.epochs,
-                                   self._loss_fn, extra_grad_fn=prox)
+        return make_local_train_fn_from_cfg(self.fns.apply, optimizer, cfg,
+                                            self._loss_fn, extra_grad_fn=prox)
 
     def _build_fused_step(self):
         """One Ditto round: the standard global round (``round_fn``), then

@@ -81,14 +81,14 @@ from fedml_tpu_torch.parallel.layout import (compute_layout, im2col_layout,
 from fedml_tpu_torch.parallel.shard import (make_fused_round_step,
                                             make_vmap_round)
 from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
-                                           make_eval_fn, make_local_train_fn,
+                                           make_eval_fn,
+                                           make_local_train_fn_from_cfg,
                                            model_fns, softmax_ce)
 
 #: FedConfig fields that the JAX FedAvgAPI reads and the port does not
 #: implement yet, each with the ROADMAP.md queue that ports it; a
 #: non-default value is refused at construction.
 UNPORTED_FIELDS = {
-    "remat": "A3", "dp_clip": "A3", "dp_noise_multiplier": "A3",
     "wire_codec": "A10", "ingest_workers": "A10",
     "group_reduce": "A11",
 }
@@ -348,10 +348,10 @@ class FedAvgAPI(FederatedLoop):
         shared one runs the client step's physical model (a layout's twin,
         a bf16 clone) behind the logical-shape contract."""
         if self._step_fns is None:
-            return make_local_train_fn(self.fns.apply, optimizer,
-                                       self.cfg.epochs, loss_fn)
-        inner = make_local_train_fn(self._step_fns.apply, optimizer,
-                                    self.cfg.epochs, loss_fn)
+            return make_local_train_fn_from_cfg(self.fns.apply, optimizer,
+                                                self.cfg, loss_fn)
+        inner = make_local_train_fn_from_cfg(self._step_fns.apply, optimizer,
+                                             self.cfg, loss_fn)
         if self._layout is None:
             return inner
         return wrap_local_train(inner, self._layout)
@@ -456,9 +456,7 @@ class FedAvgAPI(FederatedLoop):
         """The constructor guard of the algorithms whose local step is their
         own (SCAFFOLD, FedDyn: plain SGD plus the correction; FedNAS,
         FedGAN): a config knob that the generic trainer would honor is
-        refused, not dropped (the JAX package's guard, over the fields the
-        port has; the unported ones are refused earlier, by
-        ``refuse_unported``)."""
+        refused, not dropped (the JAX package's guard)."""
         cfg = self.cfg
         if cfg.client_optimizer != "sgd":
             raise ValueError(
@@ -466,6 +464,8 @@ class FedAvgAPI(FederatedLoop):
                 f"client_optimizer={cfg.client_optimizer!r}")
         unsupported = {
             "grad_clip": cfg.grad_clip,
+            "dp_clip": cfg.dp_clip,
+            "dp_noise_multiplier": cfg.dp_noise_multiplier,
             "compress": cfg.compress if cfg.compress != "none" else None,
             # Their trainers are built outside _build_local_train, where
             # the layout and the bf16 step are wired.

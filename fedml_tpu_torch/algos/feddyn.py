@@ -27,7 +27,7 @@ from fedml_tpu_torch.trainer.local import (NetState,
 
 
 def make_feddyn_local_train(apply_fn, lr: float, alpha: float,
-                            local_epochs: int, loss_fn):
+                            local_epochs: int, loss_fn, remat: bool = False):
     """``local_train(net, (g_k, global_params), x, y, mask, rng) -> (net',
     loss)``: SGD whose every step is ``p - lr (g - g_k + alpha (p -
     w_global))``, in that order."""
@@ -39,7 +39,7 @@ def make_feddyn_local_train(apply_fn, lr: float, alpha: float,
             params, grads, g_k, global_params)
 
     return make_corrected_local_train(apply_fn, local_epochs, loss_fn,
-                                      step_update)
+                                      step_update, remat=remat)
 
 
 class FedDynAPI(FedAvgAPI):
@@ -106,7 +106,7 @@ class FedDynAPI(FedAvgAPI):
     def _feddyn_round_fn(self):
         local_train = make_feddyn_local_train(
             self.fns.apply, self._client_lr, self.alpha, self.cfg.epochs,
-            self._loss_fn)
+            self._loss_fn, remat=self.cfg.remat)
 
         def body(net, h, gk_sub, x, y, mask, weights, rngs):
             trained, losses = local_train.run_clients(

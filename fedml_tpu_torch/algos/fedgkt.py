@@ -86,7 +86,8 @@ class _DistillTrain(LocalTrain):
              have_teacher=None):
         def masked_loss(p):
             (logits, _), state = self.apply_fn(NetState(p, model_state), xb,
-                                               train=True, rng=rng)
+                                               train=True,
+                                               rng=keys.fold_in(rng, 0))
             per = softmax_ce(logits, yb[..., 0]) + have_teacher * kl_loss(
                 logits, yb[..., 1:], self.temperature)
             return (per * mb).sum() / torch.clamp(mb.sum(), min=1.0), state

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from fedml_tpu_torch.algos.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.tree import tree_map
-from fedml_tpu_torch.trainer.local import make_local_train_fn
+from fedml_tpu_torch.trainer.local import make_local_train_fn_from_cfg
 
 
 class FedProxAPI(FedAvgAPI):
@@ -24,7 +24,6 @@ class FedProxAPI(FedAvgAPI):
         def prox_grad(params, global_params):
             return tree_map(lambda p, g: mu * (p - g), params, global_params)
 
-        return make_local_train_fn(self.fns.apply, optimizer,
-                                   self.cfg.epochs, loss_fn,
-                                   extra_grad_fn=prox_grad if mu > 0
-                                   else None)
+        return make_local_train_fn_from_cfg(
+            self.fns.apply, optimizer, self.cfg, loss_fn,
+            extra_grad_fn=prox_grad if mu > 0 else None)

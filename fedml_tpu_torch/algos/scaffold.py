@@ -30,7 +30,7 @@ from fedml_tpu_torch.trainer.local import (NetState,
 
 
 def make_scaffold_local_train(apply_fn, lr: float, local_epochs: int,
-                              loss_fn):
+                              loss_fn, remat: bool = False):
     """``local_train(net, correction, x, y, mask, rng) -> (net', loss,
     K)``: plain SGD with the correction ``c - c_k`` added to every
     gradient; ``K`` the true number of non-empty steps."""
@@ -40,7 +40,8 @@ def make_scaffold_local_train(apply_fn, lr: float, local_epochs: int,
                         params, grads, correction)
 
     return make_corrected_local_train(apply_fn, local_epochs, loss_fn,
-                                      step_update, with_step_count=True)
+                                      step_update, remat=remat,
+                                      with_step_count=True)
 
 
 class ScaffoldAPI(FedAvgAPI):
@@ -109,7 +110,8 @@ class ScaffoldAPI(FedAvgAPI):
 
     def _scaffold_round_fn(self):
         local_train = make_scaffold_local_train(
-            self.fns.apply, self._client_lr, self.cfg.epochs, self._loss_fn)
+            self.fns.apply, self._client_lr, self.cfg.epochs, self._loss_fn,
+            remat=self.cfg.remat)
 
         def body(net, c_server, ck_sub, x, y, mask, weights, rngs):
             corrections = tree_map(lambda c, ck: c[None] - ck, c_server,

@@ -1,6 +1,7 @@
 """Federated partitioners (host-side numpy; port of
-``fedml_tpu/data/partition.py``'s ``partition_homo`` and
-``partition_dirichlet``). All return ``{client_id: sample indices}``."""
+``fedml_tpu/data/partition.py``): uniform, label-Dirichlet and power-law
+splits, and the per-client class histogram. The partitioners return
+``{client_id: sample indices}``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import numpy as np
 
 def partition_homo(n_samples: int, n_clients: int,
                    seed: int = 0) -> Dict[int, np.ndarray]:
-    """Uniform split of a seeded permutation (cifar10/data_loader.py:118-121)."""
+    """Uniform split of a seeded permutation
+    (cifar10/data_loader.py:118-121)."""
     rng = np.random.RandomState(seed)
     idxs = rng.permutation(n_samples)
     return {i: np.sort(part)
@@ -61,3 +63,49 @@ def partition_dirichlet(labels: np.ndarray, n_clients: int, alpha: float,
         rng.shuffle(arr)
         out[j] = arr
     return out
+
+
+def partition_power_law(
+    n_samples: int,
+    n_clients: int,
+    seed: int = 0,
+    sigma: float = 2.0,
+    min_size: int = 2,
+) -> Dict[int, np.ndarray]:
+    """Heavy-tailed client sizes drawn from a lognormal, normalised to cover
+    the dataset once (LEAF-style power-law split)."""
+    rng = np.random.RandomState(seed)
+    # min_size must be feasible; otherwise relax it to an even split.
+    min_size = min(min_size, n_samples // n_clients)
+    raw = rng.lognormal(mean=0.0, sigma=sigma, size=n_clients) + 1e-9
+    sizes = np.maximum((raw / raw.sum() * n_samples).astype(int), min_size)
+    # Fix rounding drift so sizes sum exactly to n_samples. Increments go to
+    # the largest clients first; decrements stop at min_size (always feasible
+    # because n_clients * min_size <= n_samples).
+    drift = n_samples - int(sizes.sum())
+    order = np.argsort(-sizes)
+    i = 0
+    while drift != 0:
+        j = order[i % n_clients]
+        step = 1 if drift > 0 else -1
+        if sizes[j] + step >= min_size:
+            sizes[j] += step
+            drift -= step
+        i += 1
+    idxs = rng.permutation(n_samples)
+    out, pos = {}, 0
+    for j in range(n_clients):
+        out[j] = np.sort(idxs[pos : pos + sizes[j]])
+        pos += sizes[j]
+    return out
+
+
+def record_data_stats(labels: np.ndarray,
+                      net_dataidx_map: Dict[int, np.ndarray]):
+    """Per-client class histogram (noniid_partition.py:98-102)."""
+    labels = np.asarray(labels).ravel()
+    stats = {}
+    for client, idxs in net_dataidx_map.items():
+        unq, counts = np.unique(labels[idxs], return_counts=True)
+        stats[client] = {int(u): int(c) for u, c in zip(unq, counts)}
+    return stats

@@ -25,6 +25,14 @@ a value, the step takes it out of the loss as an aux, and the masked-step
 gate selects the whole net, so an all-masked batch leaves params,
 optimizer state and running stats untouched (JAX's ``mutable=`` apply and
 ``tree_select`` over the ``NetState``).
+
+``dp_clip`` > 0 makes each step example-level DP-SGD (Abadi et al. 2016):
+per-example gradients (a ``vmap`` of ``grad_and_value`` over the batch,
+inside the cohort's ``vmap``), each clipped to L2 norm ``dp_clip``, their
+masked sum plus ``N(0, (dp_noise_multiplier · dp_clip)²)`` per parameter,
+over the batch's real-sample count; the model state is not updated.
+Accounting: ``core.privacy.PrivacyAccountant``. ``remat`` recomputes the
+forward in the backward (``trainer/remat.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.tree import tree_leaves, tree_map, tree_select
+from fedml_tpu_torch.trainer.remat import checkpoint
 
 
 @dataclasses.dataclass
@@ -227,32 +236,110 @@ def epoch_perm(mask, epoch_key):
     return torch.argsort(u + (1.0 - flat) * 2.0, dim=-1, stable=True)
 
 
+def dp_noise_normal(noise_key, grads):
+    """The DP noise of one step: for leaf ``i`` of ``grads`` (in the
+    tree's order), standard normals of its shape from the ``i``-th of
+    ``keys.split(noise_key, n_leaves)`` (JAX: ``jax.random.split(
+    noise_rng, n_leaves)`` and ``jax.random.normal`` per leaf). A
+    ``dp_noise`` seam of :func:`make_local_train_fn` takes the same
+    arguments and returns a tree of draws of ``grads``' structure."""
+    leaf_keys = keys.split(noise_key, len(tree_leaves(grads)))
+    index = iter(range(leaf_keys.shape[-1]))
+    return tree_map(lambda g: keys.normal(leaf_keys[..., next(index)],
+                                          g.shape, g.dtype), grads)
+
+
 class LocalTrain:
     """``local_train(net, x, y, mask, rng) -> (net', mean_loss)`` for one
     client (``x [S, B, ...]``, ``y``/``mask [S, B]``, ``rng`` a key), and
     :meth:`run_clients` for a whole cohort at once (every operand with a
-    leading client dim), which runs each step under ``vmap``."""
+    leading client dim), which runs each step under ``vmap``.
+
+    A step's key ``rng`` is ``fold_in(step base, s)``: its dropout key is
+    ``fold_in(rng, 0)`` and its DP noise key ``fold_in(rng, 1)``."""
 
     def __init__(self, apply_fn, optimizer: Optimizer, local_epochs: int,
-                 loss_fn=softmax_ce, extra_grad_fn=None):
+                 loss_fn=softmax_ce, extra_grad_fn=None, remat: bool = False,
+                 dp_clip: float = 0.0, dp_noise_multiplier: float = 0.0,
+                 dp_noise=dp_noise_normal):
         self.apply_fn, self.optimizer = apply_fn, optimizer
         self.local_epochs, self.loss_fn = local_epochs, loss_fn
         self.extra_grad_fn = extra_grad_fn
+        self.remat = remat
+        self.dp_clip = dp_clip if dp_clip and dp_clip > 0 else 0.0
+        self.dp_noise_multiplier = dp_noise_multiplier
+        self.dp_noise = dp_noise
 
     def _grad(self, params, model_state, xb, yb, mb, rng=None):
         """The gradient and value of the batch's masked mean loss, and the
-        model state that the forward left (the loss's aux)."""
+        model state that the forward left (the loss's aux); under DP the
+        noisy clipped mean of the per-example gradients, and the model
+        state as it was."""
+        if self.dp_clip:
+            return self._dp_grad(params, model_state, xb, yb, mb, rng)
+        apply_fn, loss_fn = self.apply_fn, self.loss_fn
 
-        def masked_loss(p):
-            logits, new_state = self.apply_fn(NetState(p, model_state), xb,
-                                              train=True, rng=rng)
-            per = self.loss_fn(logits, yb)
+        def masked_loss(p, model_state, xb, yb, mb, sub):
+            logits, new_state = apply_fn(NetState(p, model_state), xb,
+                                         train=True, rng=sub)
+            per = loss_fn(logits, yb)
             return ((per * mb).sum() / torch.clamp(mb.sum(), min=1.0),
                     new_state)
 
-        grads, (loss, new_state) = grad_and_value(masked_loss,
-                                                  has_aux=True)(params)
+        if self.remat:
+            masked_loss = checkpoint(masked_loss)
+        sub = None if rng is None else keys.fold_in(rng, 0)
+        grads, (loss, new_state) = grad_and_value(masked_loss, has_aux=True)(
+            params, model_state, xb, yb, mb, sub)
         return grads, loss, new_state
+
+    def dp_per_example(self, params, model_state, xb, yb, rng):
+        """Each example's gradient (``[B, ...]`` leaves) and loss ``[B]``
+        at ``params``: a ``vmap`` of ``grad_and_value`` over the batch,
+        each example with its own key from ``keys.split`` of the step's
+        dropout key (one shared key would correlate the dropout masks)."""
+        apply_fn, loss_fn = self.apply_fn, self.loss_fn
+
+        def example_loss(p, model_state, xe, ye, key):
+            logits, _ = apply_fn(NetState(p, model_state), xe[None],
+                                 train=True, rng=key)
+            return loss_fn(logits, ye[None])[0], {}
+
+        if self.remat:  # wrap before differentiation, as JAX does
+            example_loss = checkpoint(example_loss)
+        ex_keys = keys.split(keys.fold_in(rng, 0), xb.shape[0])
+        per_grads, (losses, _) = vmap(
+            grad_and_value(example_loss, has_aux=True),
+            in_dims=(None, None, 0, 0, 0))(params, model_state, xb, yb,
+                                           ex_keys)
+        return per_grads, losses
+
+    def dp_clip_scale(self, per_grads, mb):
+        """Each example's factor ``min(1, clip / max(‖g‖, 1e-12)) · mb``
+        (``[B]``): its clipped, masked share of the sum."""
+        sq = sum(g.flatten(1).square().sum(1)
+                 for g in tree_leaves(per_grads))
+        return torch.clamp(self.dp_clip / torch.clamp(torch.sqrt(sq),
+                                                      min=1e-12),
+                           max=1.0) * mb
+
+    def _dp_grad(self, params, model_state, xb, yb, mb, rng):
+        """JAX's ``_dp_batch_grad``: the per-example gradients, each
+        clipped to L2 norm ``dp_clip``, their masked sum plus
+        ``dp_noise_multiplier · dp_clip`` times the step's normals per
+        leaf, over ``max(Σ mb, 1)``."""
+        clip, z = self.dp_clip, self.dp_noise_multiplier
+        per_grads, losses = self.dp_per_example(params, model_state, xb, yb,
+                                                rng)
+        scale = self.dp_clip_scale(per_grads, mb)
+        summed = tree_map(lambda g: torch.tensordot(scale, g, dims=1),
+                          per_grads)
+        if z and z > 0:
+            noise = self.dp_noise(keys.fold_in(rng, 1), summed)
+            summed = tree_map(lambda g, n: g + (z * clip) * n, summed, noise)
+        denom = torch.clamp(mb.sum(), min=1.0)
+        grads = tree_map(lambda g: g / denom, summed)
+        return grads, (losses * mb).sum() / denom, model_state
 
     def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
              anchor=None):
@@ -301,10 +388,9 @@ class LocalTrain:
                 ey, em = ey.movedim(0, 1), em.movedim(0, 1)
             losses, ns = [], []
             for s in range(n_steps):
-                sub = keys.fold_in(keys.fold_in(step_base, s), 0)
                 params, opt_state, model_state, loss, nb = step(
                     params, opt_state, model_state, ex[s], ey[s], em[s],
-                    sub, anchor)
+                    keys.fold_in(step_base, s), anchor)
                 losses.append(loss)
                 ns.append(nb)
             losses, ns = torch.stack(losses), torch.stack(ns)
@@ -364,9 +450,9 @@ class CorrectedLocalTrain(LocalTrain):
     a per-client tree that rides the loop's anchor slot."""
 
     def __init__(self, apply_fn, local_epochs: int, loss_fn, step_update,
-                 with_step_count: bool):
+                 with_step_count: bool, remat: bool = False):
         super().__init__(apply_fn, Optimizer(lambda p: {}, None),
-                         local_epochs, loss_fn)
+                         local_epochs, loss_fn, remat=remat)
         self.step_update, self.with_step_count = step_update, with_step_count
 
     def step(self, params, opt_state, model_state, xb, yb, mb, rng=None,
@@ -410,7 +496,8 @@ class CorrectedLocalTrain(LocalTrain):
 
 
 def make_corrected_local_train(apply_fn, local_epochs: int, loss_fn,
-                               step_update, with_step_count: bool = False
+                               step_update, remat: bool = False,
+                               with_step_count: bool = False
                                ) -> CorrectedLocalTrain:
     """The shared corrected-SGD client trainer of algorithms whose step
     needs per-client inputs that ``extra_grad_fn`` cannot carry
@@ -418,10 +505,10 @@ def make_corrected_local_train(apply_fn, local_epochs: int, loss_fn,
     is ``step_update(params, grads, aux) -> params'``, so the algorithm
     keeps its own arithmetic order. ``local_train(net, aux, x, y, mask,
     rng) -> (net', loss)``, plus the true step count ``K`` when
-    ``with_step_count``; ``run_clients`` runs a cohort. JAX's ``remat``
-    is not ported yet (ROADMAP.md A3; ``cfg.remat`` is refused)."""
+    ``with_step_count``; ``run_clients`` runs a cohort. ``remat``
+    recomputes the forward in the backward (``trainer/remat.py``)."""
     return CorrectedLocalTrain(apply_fn, local_epochs, loss_fn, step_update,
-                               with_step_count)
+                               with_step_count, remat)
 
 
 def _per_client(t, c: int):
@@ -447,20 +534,38 @@ def make_local_train_fn(apply_fn, optimizer: Optimizer, local_epochs: int,
                         loss_fn=softmax_ce, extra_grad_fn=None,
                         remat: bool = False,
                         dp_clip: float = 0.0,
-                        dp_noise_multiplier: float = 0.0) -> LocalTrain:
+                        dp_noise_multiplier: float = 0.0,
+                        dp_noise=dp_noise_normal) -> LocalTrain:
     """Build ``local_train(net, x, y, mask, rng) -> (net', mean_loss)``,
     always reshuffling each epoch. ``extra_grad_fn(params,
     global_params) -> grads`` is added to every step's gradient before the
     optimizer update, on the same masked-step gate (FedProx's proximal
     term); ``global_params`` are the params the round started from.
-    ``remat`` and DP-SGD are not ported yet."""
-    for flag, val in (("remat", remat), ("dp_clip", dp_clip),
-                      ("dp_noise_multiplier", dp_noise_multiplier)):
-        if val:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md A3)")
+
+    ``remat`` recomputes the forward during the backward
+    (``trainer/remat.py``); the result is bit-equal. ``dp_clip`` > 0 makes
+    each step DP-SGD (the module docstring); ``dp_noise(noise_key,
+    grads) -> draws`` is the seam of its standard normals
+    (:func:`dp_noise_normal`)."""
     return LocalTrain(apply_fn, optimizer, local_epochs, loss_fn,
-                      extra_grad_fn)
+                      extra_grad_fn, remat=remat, dp_clip=dp_clip,
+                      dp_noise_multiplier=dp_noise_multiplier,
+                      dp_noise=dp_noise)
+
+
+def make_local_train_fn_from_cfg(apply_fn, optimizer: Optimizer, cfg,
+                                 loss_fn=softmax_ce, extra_grad_fn=None,
+                                 dp_noise=dp_noise_normal) -> LocalTrain:
+    """The ``FedConfig``-driven builder. Every call site that takes a
+    config builds through it, so that each training field of the config
+    (epochs, remat, DP clipping and noise) takes effect everywhere:
+    threading the fields by hand is how ``dp_clip`` silently becomes a
+    no-op on a forgotten path."""
+    return make_local_train_fn(
+        apply_fn, optimizer, cfg.epochs, loss_fn, extra_grad_fn,
+        remat=cfg.remat, dp_clip=getattr(cfg, "dp_clip", 0.0),
+        dp_noise_multiplier=getattr(cfg, "dp_noise_multiplier", 0.0),
+        dp_noise=dp_noise)
 
 
 def make_eval_fn(apply_fn, loss_fn=softmax_ce, pad_id: int = 0):

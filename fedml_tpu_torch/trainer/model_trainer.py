@@ -13,9 +13,8 @@ masked, reshuffled epochs of the federated rounds) and the evaluation its
 shape. A trainer runs on ``device`` (``None`` → cuda, through
 ``core.device.resolve_device``): the model is moved there and batches are
 packed there. Its keys come from ``core.keys``: ``key(seed + id)``,
-split once per ``train`` call. ``remat``, ``dp_clip`` and
-``dp_noise_multiplier`` are not ported yet (ROADMAP.md A3) and are
-refused by name when set.
+split once per ``train`` call. ``args.remat``, ``args.dp_clip`` and
+``args.dp_noise_multiplier`` reach the train loop as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,10 +34,6 @@ from fedml_tpu_torch.trainer.local import (NetState, make_client_optimizer,
                                            model_fns, seq_softmax_ce,
                                            softmax_ce)
 
-#: Trainer arguments of the JAX package that the port refuses when set.
-UNPORTED_ARGS = ("remat", "dp_clip", "dp_noise_multiplier")
-
-
 def sigmoid_bce(logits, labels):
     """Per-example multi-label BCE (tag prediction: labels are multi-hot
     [B, C]); mean over labels per sample."""
@@ -53,12 +48,6 @@ class ModelTrainer(abc.ABC):
     index (model_trainer.py:10 set_id)."""
 
     def __init__(self, model, args=None, device=None):
-        for name in UNPORTED_ARGS:
-            if getattr(args, name, None):
-                raise NotImplementedError(
-                    f"args.{name}={getattr(args, name)!r} is not ported yet "
-                    f"to the PyTorch ModelTrainer (ROADMAP.md A3); leave it "
-                    f"unset")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.fns = model_fns(self.model)
@@ -120,8 +109,11 @@ class ModelTrainer(abc.ABC):
             getattr(args, "wd", 0.0),
         )
         epochs = getattr(args, "epochs", 1)
-        self._local = make_local_train_fn(self.fns.apply, opt, epochs,
-                                          loss_fn)
+        self._local = make_local_train_fn(
+            self.fns.apply, opt, epochs, loss_fn,
+            remat=getattr(args, "remat", False),
+            dp_clip=getattr(args, "dp_clip", 0.0),
+            dp_noise_multiplier=getattr(args, "dp_noise_multiplier", 0.0))
         self._eval = make_eval_fn(self.fns.apply, loss_fn, pad_id=pad_id)
         self._rng = keys.key(getattr(args, "seed", 0) + self.id,
                              device=self.device)

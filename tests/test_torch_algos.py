@@ -461,6 +461,11 @@ def test_fednova_operands_change_per_round_and_reach_the_step():
     ("group_reduce", True, "A11"),
 ])
 def test_unported_fields_cite_their_queue(field, val, label):
+    if label == "A3":
+        # Ported since A3 landed: the field reaches the local trainer.
+        api = _lr_api(FedAvgAPI, _lr_fed(), **{field: val})
+        assert getattr(api.local_train, field) == val
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"cfg\.{field}=.*ROADMAP\.md {label}\)"):
         _lr_api(FedAvgAPI, _lr_fed(), **{field: val})

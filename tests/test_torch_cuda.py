@@ -2311,3 +2311,95 @@ def test_im2col_stem_against_the_5x5_conv_on_the_card(cuda):
                 assert bool(((got - want).abs() <= lim).all())
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_dp_step_on_the_card_against_its_cpu_twin(cuda, monkeypatch):
+    """One DP-SGD local training (2 steps, noise from the port's keys) of
+    the small GroupNorm ResNet on the card, through the kernels and under
+    the cohort's vmap, against the same training on the CPU (the plain
+    twins): within 1e-4 of the update's norm (f32, TF32 off; other conv
+    and reduction orders)."""
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.trainer.local import (make_client_optimizer,
+                                               make_local_train_fn,
+                                               model_fns)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    api = _small_fedavg(cuda)
+    fed = api.train_fed
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = api.model.to(dev)
+        fns = model_fns(model)
+        lt = make_local_train_fn(fns.apply, make_client_optimizer("sgd", 0.1),
+                                 1, dp_clip=0.5, dp_noise_multiplier=1.1)
+        net = fns.init()
+        rngs = keys.fold_in(keys.key(5, dev), torch.arange(3, device=dev))
+        nets, losses = lt.run_clients(net, fed.x[:3].to(dev),
+                                      fed.y[:3].to(dev),
+                                      fed.mask[:3].to(dev), rngs)
+        out[dev.type] = (tree_map(lambda t: t.cpu(), nets.params),
+                         losses.cpu(), tree_map(lambda t: t.cpu(),
+                                                net.params))
+    (g, gl, start), (c, cl, _) = out["cuda"], out["cpu"]
+    num = sum(float(((g[k] - c[k]) ** 2).sum()) for k in g)
+    den = sum(float(((c[k] - start[k][None]) ** 2).sum()) for k in c)
+    assert (num / den) ** 0.5 <= 1e-4
+    assert torch.allclose(gl, cl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dp", [False, True], ids=["plain", "dp"])
+def test_remat_captured_rounds_bit_equal_on_the_card(cuda, monkeypatch, dp):
+    """remat under a captured step: 2 captured fused rounds with remat
+    bit-equal to 2 without it (cuDNN deterministic), with and without
+    DP-SGD; the forward's GroupNorm launches doubled, the backward's
+    not."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    kw = dict(dp_clip=0.5, dp_noise_multiplier=1.1) if dp else {}
+    plain, remat = _knob_api(cuda, **kw), _knob_api(cuda, remat=True, **kw)
+    counts = {}
+    for name, api in (("plain", plain), ("remat", remat)):
+        api.train_one_round(0)
+        fwd, bwd = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+        api.train_one_round(1)
+        counts[name] = (gn.group_norm_fwd.launches - fwd,
+                        gn.group_norm_bwd.launches - bwd)
+    _assert_same_state(plain, remat)
+    assert counts["remat"][0] == 2 * counts["plain"][0] > 0
+    assert counts["remat"][1] == counts["plain"][1]
+
+
+def test_group_norm_kernels_at_single_sample_rows(cuda):
+    """The DP step's GroupNorm shapes: ResNet-56's eight shapes with R =
+    256 single-sample rows (8 clients x 32 examples, each row its own
+    gamma/beta), bf16, against the plain twins; reruns bit-equal."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    for (n, s, c), groups in GN_MAIN_SHAPES:
+        x = (torch.randn(n, 1, s, c, device=cuda, generator=g) * 2 + 0.5
+             ).to(torch.bfloat16)
+        dy = torch.randn(n, 1, s, c, device=cuda, generator=g).to(
+            torch.bfloat16)
+        gamma = torch.rand(n, c, device=cuda, generator=g) + 0.5
+        beta = torch.randn(n, c, device=cuda, generator=g)
+        y = gn.group_norm_fwd(x, gamma, beta, groups)
+        assert torch.equal(y, gn.group_norm_fwd(x, gamma, beta, groups))
+        dx, dgamma, dbeta = gn.group_norm_bwd(x, dy, gamma, groups)
+        want = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
+        wdx, wdg, wdb = gn.group_norm_bwd_plain(x.float(), dy.float(),
+                                                gamma, groups)
+        for got, ref in ((y, want), (dx, wdx)):
+            err = (got.float() - ref).abs()
+            lim = ref.abs() * 2.0 ** -8 + 1e-5 * ref.abs().max()
+            assert bool((err <= lim).all()), err.max().item()
+        mu, rstd = gn._stats(x.float(), groups, gn.EPS)
+        chain = s + 64
+        assert bool(((dgamma - wdg).abs() <= _sum_order_bound(
+            dy.float() * (x.float() - mu) * rstd, chain)).all())
+        assert bool(((dbeta - wdb).abs() <= _sum_order_bound(
+            dy.float(), chain)).all())

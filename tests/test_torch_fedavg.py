@@ -341,7 +341,7 @@ def test_fedavg_evaluation_matches_jax(e2e):
 def test_fedavg_refuses_what_is_not_ported(monkeypatch):
     x, y, parts = _task()
     fed = batching.build_federated_arrays(x, y, parts, 32, device="cpu")
-    for field, val in (("group_reduce", True), ("dp_clip", 1.0)):
+    for field, val in (("group_reduce", True), ("wire_codec", "int8")):
         cfg = FedConfig(client_num_in_total=6, batch_size=32,
                         **{field: val})
         with pytest.raises(NotImplementedError, match=f"cfg.{field}"):

@@ -7,8 +7,8 @@ params carried across with ``convert.from_jax_params``), trained for three
 batch an epoch: the two packages' shuffle bits then only reorder a batch,
 whose masked mean loss does not depend on the order beyond f32 rounding.
 The losses, the params and the metrics are held within 1e-5. Also the A3
-refusals by name, the ABC's surface, pre-packed input and the device
-resolution.
+arguments reaching the train loop, the ABC's surface, pre-packed input and
+the device resolution.
 """
 
 import types
@@ -170,14 +170,17 @@ def test_prepacked_input_equals_batch_lists():
 @pytest.mark.parametrize("flag,value", [("remat", True), ("dp_clip", 1.0),
                                         ("dp_noise_multiplier", 0.5)])
 def test_a3_arguments_refused_by_name(flag, value):
+    """Ported since A3 landed: each argument reaches the train loop, as
+    JAX threads it (unset: JAX's defaults, False and 0.0)."""
     model = create_model("lr", in_features=4, num_classes=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"args\.{flag}=.*A3"):
-        tmt.ClassificationTrainer(model, _args(**{flag: value}),
+    t = tmt.ClassificationTrainer(model, _args(**{flag: value}),
                                   device="cpu")
-    # Unset (JAX's defaults: False, 0.0) is accepted.
-    tmt.ClassificationTrainer(model, _args(remat=False, dp_clip=0.0,
-                                           dp_noise_multiplier=0.0),
-                              device="cpu")
+    assert getattr(t._local, flag) == value
+    t = tmt.ClassificationTrainer(model, _args(remat=False, dp_clip=0.0,
+                                               dp_noise_multiplier=0.0),
+                                  device="cpu")
+    assert (t._local.remat, t._local.dp_clip,
+            t._local.dp_noise_multiplier) == (False, 0.0, 0.0)
 
 
 def test_trainer_abc_surface_and_device(monkeypatch):
