@@ -358,10 +358,13 @@ std::tuple<torch::Tensor, bool> group_norm_fwd(torch::Tensor x,
   return std::make_tuple(y, streamed);
 }
 
-// The cluster plan of a sample of S x C elements on the current device, with
-// `tensors` tensors to hold (1: the forward, 2: the backward): (CL, rows per
-// block, tensors resident, shared memory bytes per block), all 0 when x
-// does not fit.
+// The plans of a sample of S x C elements on the current device, with
+// `tensors` tensors to hold (1: the forward, 2: the backward): the cluster
+// route's (CL, rows per block, tensors resident, shared memory bytes per
+// block), all 0 when x does not fit in a cluster of 8, then the streamed
+// route's (CL, rows of the block that owns the most, resident rows of x a
+// block, resident rows of dy a block, shared memory bytes per block,
+// clusters the card runs at once) for such a sample, else 0s.
 std::vector<int64_t> group_norm_plan(int64_t S, int64_t C, bool is_bf16,
                                      int64_t tensors) {
   TORCH_CHECK(S > 0 && C > 0 && S * C <= 2147483647LL && C <= 4096 &&
@@ -370,14 +373,14 @@ std::vector<int64_t> group_norm_plan(int64_t S, int64_t C, bool is_bf16,
               std::to_string(C), ", tensors ", std::to_string(tensors));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  long long out[4];
+  long long out[10];
   if (err == cudaSuccess)
     err = fedml_tpu_torch::group_norm_plan(
         static_cast<int>(S), static_cast<int>(C), is_bf16,
         static_cast<int>(tensors), dev, out);
   TORCH_CHECK(err == cudaSuccess, "group_norm_plan: ",
               cudaGetErrorString(err));
-  return {out[0], out[1], out[2], out[3]};
+  return std::vector<int64_t>(out, out + 10);
 }
 
 // (dx, dγ partials, dβ partials, whether the streamed route ran): the route
@@ -467,9 +470,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "GroupNorm forward: (x [R,M,S,C], gamma, beta [R,C], groups, eps) -> "
         "(y, whether the streamed route ran)");
   m.def("group_norm_plan", &group_norm_plan,
-        "GroupNorm cluster plan: (S, C, is_bf16, tensors) -> [CL, rows per "
-        "block, tensors resident, shared memory bytes per block], 0s if x "
-        "does not fit");
+        "GroupNorm plans: (S, C, is_bf16, tensors) -> [CL, rows per block, "
+        "tensors resident, shared memory bytes per block] of the cluster "
+        "route (0s if x does not fit in a cluster of 8), then [CL, rows a "
+        "block, resident rows of x, resident rows of dy, shared memory bytes, "
+        "clusters at once] of the streamed route (0s unless x does not fit)");
   m.def("group_norm_bwd", &group_norm_bwd,
         "GroupNorm backward: (x, dy [R,M,S,C], gamma [R,C], groups, eps) -> "
         "(dx, dgamma partials [R*M,C], dbeta partials [R*M,C], whether the "

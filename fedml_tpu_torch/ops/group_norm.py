@@ -17,12 +17,14 @@ a plain call; under ``vmap`` the client dim becomes R, so one launch
 normalizes every client with its own γ/β. Both kernels hold each sample in
 the shared memory of a thread-block cluster of up to 8 blocks, which sum
 the statistics together through distributed shared memory, so the forward
-reads x once and the backward x and dy once. The forward routes a sample
-whose x is more than 8 blocks hold to a streamed kernel that reads x twice,
-and the backward to one that reads x three times and dy twice (one block
-per sample; the same formulas). The backward writes per-sample f32 partials of
-dγ/dβ and a second kernel sums them per row in a fixed order (no atomics: a
-rerun gives the same bits).
+reads x once and the backward x and dy once. A sample whose x is more than
+8 blocks hold (FedSeg's U-Net at 256²) takes the streamed route: a cluster
+of 16 blocks, one to an SM, where the card schedules it (else 8), each
+holding as many of its rows as fit and reading the rest from device memory
+in each pass; the backward keeps x first, then what fits of dy (the same
+formulas; ``csrc/group_norm.cu`` says how the rows are dealt and read). The
+backward writes per-sample f32 partials of dγ/dβ and a second kernel sums
+them per row in a fixed order (no atomics: a rerun gives the same bits).
 
 Routes: the ops ``fedml_tpu_torch::group_norm_fwd``/``group_norm_bwd``
 run the kernels for CUDA tensors and the plain twins
@@ -30,8 +32,9 @@ run the kernels for CUDA tensors and the plain twins
 tensors; there is no other route and no fallback. ``group_norm_fwd
 .launches``, ``group_norm_bwd.launches`` and ``group_norm_bwd
 .reduce_launches`` count kernel launches, and ``group_norm_fwd.streamed``
-the forward's launches that took the streamed route (the kernel chooses it
-by shape before the launch, never on an error); ``group_norm.copies``
+and ``group_norm_bwd.streamed`` the launches that took the streamed route
+(chosen by shape before the launch, never on an error; a plan that finds no
+cluster raises, as a failed launch does); ``group_norm.copies``
 counts every copy of an operand on the way to the kernels: an input whose
 channel dim was not contiguous, or whose dims could not be merged or
 folded as a view. The counters are registered with ``core/graph.py``, so a

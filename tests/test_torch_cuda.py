@@ -497,12 +497,13 @@ def test_group_norm_kernels_are_deterministic(cuda):
 ])
 def test_group_norm_cluster_plan(cuda, s, c, is_bf16, tensors, want_cl,
                                  ragged):
-    """The cluster plan by shape: CL, rows per block (ragged when CL does
-    not divide S), and a block's shared memory within the card's."""
+    """The cluster plan by shape (the plan's first four fields): CL, rows
+    per block (ragged when CL does not divide S), and a block's shared
+    memory within the card's."""
     from fedml_tpu_torch.ops.build import extension
 
-    cl, rows, resident, smem = extension().group_norm_plan(s, c, is_bf16,
-                                                           tensors)
+    cl, rows, resident, smem = extension().group_norm_plan(
+        s, c, is_bf16, tensors)[:4]
     assert cl == want_cl
     if cl:
         assert rows == -(-s // cl) and (s % rows != 0) == ragged
@@ -1414,22 +1415,36 @@ def test_captured_split_nn_segments_equal_the_eager_segments(cuda,
 
 
 
-# --- GroupNorm's streamed backward and second derivative; the simulator zoo -
+# --- GroupNorm's streamed route and second derivative; the simulator zoo ---
 
-@pytest.mark.parametrize("shape,groups,rows,dtype,interleaved", [
+# Samples past a cluster of 8 blocks, which take the streamed route (shape
+# [N, S, C], groups, rows of γ/β, dtype, interleaved): FedSeg's UNet at
+# 256 x 256, levels 0 and 1, in f32; a bf16 sample; the level-0 shape with
+# 8 clients' rows interleaved; S 20001 and 30001, which the cluster's
+# granules of rows do not divide (30001 all resident); a 102 MB sample,
+# which the backward once refused; one sample alone (R·M = 1, every block of
+# the cluster on it); 17 channels (vectors of 1) and a client-interleaved
+# view of 18 (vectors of 2); 4096 channels, of which a block holds 4 rows.
+GN_STREAMED_CASES = [
     ((16, 65536, 16), 16, 1, torch.float32, False),
     ((16, 16384, 32), 32, 1, torch.float32, False),
     ((4, 65536, 32), 32, 1, torch.bfloat16, False),
     ((64, 65536, 16), 16, 8, torch.float32, True),
     ((3, 20001, 64), 32, 1, torch.float32, False),
     ((1, 400_000, 64), 32, 1, torch.float32, False),
-])
+    ((1, 65536, 16), 16, 1, torch.float32, False),
+    ((2, 30001, 16), 16, 1, torch.float32, False),
+    ((2, 32768, 17), 17, 1, torch.float32, False),
+    ((4, 32768, 18), 6, 2, torch.float32, True),
+    ((2, 128, 4096), 32, 1, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("shape,groups,rows,dtype,interleaved",
+                         GN_STREAMED_CASES)
 def test_group_norm_streamed_backward_matches_plain_twin(
         cuda, shape, groups, rows, dtype, interleaved):
-    """The backward's streamed route (a sample past a cluster: FedSeg's
-    UNet at 256 x 256, levels 0 and 1, in f32; a bf16 sample; the level-0
-    shape with 8 clients' rows interleaved; a ragged S; a 102 MB sample,
-    which the backward once refused) against the f32
+    """The backward's streamed route at GN_STREAMED_CASES against the f32
     twin: dx within one bf16 rounding or 1e-5, dγ/dβ within the sum-order
     bound; counted once a launch as streamed; reruns bit-equal."""
     from fedml_tpu_torch.ops import group_norm as gn
@@ -1459,6 +1474,57 @@ def test_group_norm_streamed_backward_matches_plain_twin(
         d32 * (x.float() - mu) * rstd, chain)).all())
     assert bool(((dbeta - want_db).abs() <= _sum_order_bound(
         d32, chain)).all())
+
+
+@pytest.mark.parametrize("shape,groups,rows,dtype,interleaved",
+                         GN_STREAMED_CASES)
+def test_group_norm_streamed_forward_matches_plain_twin(
+        cuda, shape, groups, rows, dtype, interleaved):
+    """The forward's streamed route at GN_STREAMED_CASES against the f32
+    twin: y within one bf16 rounding or 1e-5, in x's strides; counted once
+    a launch as streamed; reruns bit-equal."""
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, _, gamma, beta = _gn_inputs(shape, rows, dtype, g, cuda, interleaved)
+    f0, s0 = gn.group_norm_fwd.launches, gn.group_norm_fwd.streamed
+    y = gn.group_norm_fwd(x, gamma, beta, groups)
+    again = gn.group_norm_fwd(x, gamma, beta, groups)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_fwd.launches - f0,
+            gn.group_norm_fwd.streamed - s0) == (2, 2)
+    assert torch.equal(y, again) and y.stride() == x.stride()
+    want = gn.group_norm_fwd_plain(x.float(), gamma, beta, groups)
+    if dtype == torch.bfloat16:
+        ok, err = _within_bf16_ulp(y, want)
+        assert ok, err
+    else:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,c,is_bf16", [(65536, 16, False),
+                                         (16384, 32, False),
+                                         (65536, 32, True), (30001, 16, False),
+                                         (128, 4096, False)])
+def test_group_norm_streamed_plan(cuda, s, c, is_bf16):
+    """The streamed route's plan (the plan's trailing fields) for a sample
+    past a cluster of 8: a cluster of 8 or 16 whose blocks own every row,
+    resident rows of x then dy within a block's rows (dy only once all of
+    x is resident), shared memory within the card's opt-in, and at least
+    one such cluster on the card at once."""
+    from fedml_tpu_torch.ops.build import extension
+
+    props = torch.cuda.get_device_properties(cuda)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    for tensors in (1, 2):
+        plan = extension().group_norm_plan(s, c, is_bf16, tensors)
+        assert len(plan) == 10 and plan[:4] == [0, 0, 0, 0]
+        cl, rows, res_x, res_dy, smem, active = plan[4:]
+        assert cl in (8, 16) and active >= 1
+        assert rows * cl >= s and 0 <= res_x <= rows
+        assert 0 <= res_dy <= rows and (res_dy == 0 or res_x == rows)
+        assert res_dy == 0 or tensors == 2
+        assert 0 < smem <= limit
 
 
 def test_group_norm_second_derivative_through_the_kernels(cuda):

@@ -114,6 +114,66 @@ def test_vmap_grad_with_per_client_gamma_matches_jax_and_a_loop():
             torch.testing.assert_close(a[i], w, rtol=1e-6, atol=1e-6)
 
 
+# FedSeg's U-Net at 256² (base 16), levels 0 and 1 at N 2: the shapes at
+# which the kernels take their streamed route on the card (a sample past
+# what a cluster of 8 blocks holds).
+STREAMED_SHAPES = [((2, 256, 256, 16), 16), ((2, 128, 128, 32), 32)]
+
+
+def _assert_grads_close(got, want):
+    """dx within 5e-5 (the file's bound); dγ and dβ, sums over every
+    sample and position (131,072 products here), within 5e-5 of their
+    largest |value|."""
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=5e-5, atol=5e-5)
+    for a, w in zip(got[1:], want[1:]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0,
+                                   atol=5e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("shape,groups", STREAMED_SHAPES)
+def test_streamed_shapes_match_jax(shape, groups):
+    """At the streamed route's shapes: y within 2e-5 of JAX's, and the
+    grads of sum(sin(y)) as ``_assert_grads_close`` holds them."""
+    x, g, b = _inputs(shape, 7)
+    xj, gj, bj = jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)
+    want_y = np.asarray(jax_group_norm(xj, gj, bj, groups))
+    got_y = gn.group_norm(*_t(x, g, b), groups)
+    np.testing.assert_allclose(got_y.numpy(), want_y, rtol=2e-5, atol=2e-5)
+
+    def jloss(x, g, b):
+        return jnp.sum(jnp.sin(jax_group_norm(x, g, b, groups)))
+
+    def tloss(x, g, b):
+        return torch.sin(gn.group_norm(x, g, b, groups)).sum()
+
+    _assert_grads_close(grad(tloss, argnums=(0, 1, 2))(*_t(x, g, b)),
+                        jax.grad(jloss, argnums=(0, 1, 2))(xj, gj, bj))
+
+
+def test_streamed_shape_under_vmap_with_per_client_gamma_matches_jax():
+    """Level 1 of FedSeg's U-Net under ``vmap(grad)`` over 2 clients of 2
+    samples, each client with its own γ/β (``[2 x 2, 16384, 32]`` at the
+    ops): against ``jax.vmap(jax.grad)`` as ``_assert_grads_close`` holds
+    them."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 2, 128, 128, 32).astype(np.float32)
+    g = (rng.rand(2, 32) + 0.5).astype(np.float32)
+    b = rng.randn(2, 32).astype(np.float32)
+
+    def jloss(x, g, b):
+        return jnp.sum(jnp.sin(jax_group_norm(x, g, b, 32)))
+
+    def tloss(x, g, b):
+        return torch.sin(gn.group_norm(x, g, b, 32)).sum()
+
+    want = jax.vmap(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    got = vmap(grad(tloss, argnums=(0, 1, 2)))(*_t(x, g, b))
+    _assert_grads_close(got, want)
+
+
 def test_backward_twin_equals_autograd_of_the_forward_twin():
     """The explicit backward twin (what the bwd kernel computes) against
     autograd through the plain forward, with R = 2 rows of γ: 1e-5."""
