@@ -17,10 +17,11 @@ Phases, each of which must pass or the script exits non-zero:
              the flash forward (bf16: the tensor-core kernel; f32: the FMA
              one) at the serving shape (B 8, T 2048, 8 heads, D 64) causal
              and full, at a ragged T, at D 16, 32 and 128, and in f32; the
-             flash backward (bf16: the tensor-core kernels; f32: the FMA
-             ones) at the FedAdapter slice's shape (8 clients x batch 2, T
-             2048, 8 heads, D 64, bf16, causal), in f32 at T 2048 and 1000,
-             without the mask, at a ragged T, at D 16, 32 and 128, on views
+             flash backward (bf16: the tensor-core kernels; f32: the
+             split-TF32 ones) at the FedAdapter slice's shape (8 clients x
+             batch 2, T 2048, 8 heads, D 64, bf16, causal), in f32 at T
+             2048 and 1000, without the mask, at a ragged T, at D 16, 32
+             and 128 (f32 too at D 16 and 128), on views
              of one qkv buffer and under vmap with the clients next to T
              (the trainer's layout); the GroupNorm forward and backward at
              the eight shapes that ResNet-56's training path gives them,
@@ -34,9 +35,11 @@ Phases, each of which must pass or the script exits non-zero:
              at batch 32, the stump under the FedGKT client phase's vmap);
              ResNet-18-GN's four f32 shapes at 10 clients' rows of 20
              samples (64 to 512 channels in 32 groups, 32² to 4²), in both
-             layouts; the f32 flash forward, dq and dk/dv (the FMA
-             kernels) at the ViT drive's [256, 64, 4, 32] non-causal,
-             timed against their bound (bytes), their twins and SDPA's
+             layouts; the f32 flash forward (the FMA kernel), dq with δ
+             folded in and dk/dv (the split-TF32 kernels) at the ViT
+             drive's [256, 64, 4, 32] non-causal, timed against their
+             bounds (bytes; the backward's also beside the bound with
+             its products on the FP32 pipes), their twins and SDPA's
              forward and whole backward;
              the streamed route past a cluster of 8 blocks (clusters of
              16 where the card schedules them), backward and forward, at
@@ -273,9 +276,9 @@ Phases, each of which must pass or the script exits non-zero:
              counts zeroed just before and read just after (16 per round
              of each of the three kernels, 0 copies), 3 pipelined rounds,
              (b) and 3 timed on-device calls; the frozen base bitwise unchanged and the
-             adapters moved; from one start, one local step in f32 through
-             the FMA backward kernels against the plain twin, and one in
-             bf16 through the tensor-core kernels held to the f32 twin's
+             adapters moved; from one start, one local step in f32
+             through the split-TF32 backward kernels against the plain
+             twin, and one in bf16 through the tensor-core kernels held to the f32 twin's
              step beside the bf16 twin's, each of which must also tell a
              planted fault (dk/dv skipping the last Q tile) from the twin;
              one personalize_cohort of a round's clients and
@@ -290,7 +293,9 @@ Phases, each of which must pass or the script exits non-zero:
              one eager run, 3 counted replayed rounds, 3 pipelined, 3
              timed on-device calls (32 launches of each flash kernel a
              round, one for all 8 clients), the replays' training loss
-             falling, a profiled round showing the FMA kernels by name.
+             falling, a profiled round showing the f32 kernels by name
+             (the FMA forward, the split-TF32 dq and dk/dv; no bf16
+             tensor-core kernel and no FMA backward kernel).
 14. ckpt   — run checkpoints at full width, each resume bit-equal to
              the straight run, restored into a fresh api and into the
              captured one: FedAdam (the algos phase's api) on
@@ -416,6 +421,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import importlib
 import json
@@ -565,7 +571,8 @@ ADAPTER_RANK, ADAPTER_CLIENTS, ADAPTER_PER_CLIENT = 16, 16, 8
 ADAPTER_BATCH, ADAPTER_PER_ROUND, ADAPTER_LR, ADAPTER_ROUNDS = 2, 8, 0.1, 3
 # The ViT drive's flash shape as one launch sees it: 8 clients x batch 32
 # (vmapped into the kernels' R), T 64 (32 x 32 at patch 4), 4 heads, D 32,
-# f32 (the FMA kernels of flash_fwd.cu / flash_bwd.cu), non-causal.
+# f32 (the FMA forward of flash_fwd.cu, the split-TF32 backward of
+# flash_bwd.cu), non-causal.
 VIT_FLASH = (256, 64, 4, 32, torch.float32, False)
 # Flash backward kernels vs the f32 twin on the same inputs, as a share of
 # max |want|: bf16 2e-2 (the kernels round dS and P to bf16 before the
@@ -578,6 +585,8 @@ BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
              (2, 2048, 8, 64, torch.float32, True),
              (2, 2048, 8, 64, torch.bfloat16, False),
              (2, 1000, 8, 64, torch.float32, True),
+             (2, 77, 3, 16, torch.float32, False),
+             (2, 200, 2, 128, torch.float32, True),
              (2, 1000, 8, 64, torch.bfloat16, True),
              (2, 1024, 8, 16, torch.bfloat16, True),
              (2, 1024, 8, 32, torch.bfloat16, True),
@@ -841,6 +850,12 @@ def graph_ms(fn) -> float:
 
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
                 "flash_dkv_sm90_kernel")
+# The f32 route: the FMA forward and the split-TF32 backward (mma.sync
+# m16n8k8, SASS HMMA.1688.F32.TF32); the FMA backward kernels it replaced.
+F32_KERNELS = ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+               "flash_dkv_tf32_kernel")
+TF32_KERNELS = F32_KERNELS[1:]
+OLD_F32_KERNELS = ("flash_dq_kernel", "flash_dkv_kernel")
 
 
 def phase_build():
@@ -848,8 +863,10 @@ def phase_build():
     GroupNorm kernel's registers, stack and local memory (``cuobjdump
     -res-usage``) and its count of HGMMA (``wgmma``) instructions
     (``cuobjdump -sass``), and fails unless each of the four head dims of
-    every tensor-core kernel has HGMMA and neither stack nor local memory
-    (no spills), nor any GroupNorm kernel (the streamed ones included);
+    every tensor-core kernel has HGMMA, and of each split-TF32 kernel
+    ``HMMA.1688.F32.TF32``, and neither stack nor local memory (no
+    spills), nor any GroupNorm kernel (the streamed ones included), and
+    unless the FMA backward kernels are gone;
     prints the GroupNorm kernels' cluster plans at the training path's
     shapes and the streamed route's plans at FedSeg's (CL, resident rows a
     block, shared memory), each within the card's opt-in."""
@@ -866,25 +883,28 @@ def phase_build():
         return subprocess.run([tool, flag, lib], capture_output=True,
                               text=True, timeout=300, check=True).stdout
 
-    hgmma, fn = {}, None
+    hgmma, hmma, fn = {}, {}, None
     for line in dump("-sass").splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
         elif fn and "HGMMA" in line:
             hgmma[fn] = hgmma.get(fn, 0) + 1
+        elif fn and "HMMA.1688.F32.TF32" in line:
+            hmma[fn] = hmma.get(fn, 0) + 1
     fn, spills = None, {}  # -res-usage prints "Function <name>:", then usage
     for line in dump("-res-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         res = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
         if m:
             fn = m.group(1)
-        kernel = fn and re.search(r"(?:flash|gn)_\w+?_kernel(?:\w*?Li\d+E)?",
-                                  fn)
+        kernel = fn and re.search(
+            r"(?:flash|gn)_\w+?_kernel(?:\w*?Li\d+E(?:Li\d+E|Lb[01]E)*)?", fn)
         if kernel and "REG" in res:
             print(f"[build] {kernel.group(0)}: REG {res['REG']} STACK "
                   f"{res.get('STACK')} LOCAL {res.get('LOCAL')}; HGMMA "
-                  f"{hgmma.get(fn, 0)}", flush=True)
+                  f"{hgmma.get(fn, 0)}, HMMA.1688.F32.TF32 "
+                  f"{hmma.get(fn, 0)}", flush=True)
             spills[fn] = int(res.get("STACK", 0)) + int(res.get("LOCAL", 0))
             fn = None
     for kernel in SM90_KERNELS:
@@ -895,6 +915,20 @@ def phase_build():
         spilled = [f for f, n in spills.items() if kernel in f and n]
         check(not spilled, f"{kernel}: stack or local memory (spills) in "
               f"{spilled}")
+    for kernel in TF32_KERNELS:  # one tile a head, or a walk; 4 head dims
+        counts = [n for f, n in hmma.items() if kernel in f]
+        dims = {m.group(1) for f in hmma if kernel in f
+                for m in [re.search(rf"{kernel}ILi(\d+)E", f)] if m}
+        check(len(counts) == 8 and all(n > 0 for n in counts)
+              and dims == {"16", "32", "64", "128"},
+              f"{kernel}: HMMA.1688.F32.TF32 counts {counts} (head dims "
+              f"{sorted(dims)}) in {lib}, expected eight instantiations on "
+              "the tensor cores")
+        spilled = [f for f, n in spills.items() if kernel in f and n]
+        check(not spilled, f"{kernel}: stack or local memory (spills) in "
+              f"{spilled}")
+    stale = [f for f in spills if any(k in f for k in OLD_F32_KERNELS)]
+    check(not stale, f"the FMA backward kernels are still built: {stale}")
     spilled = [f for f, n in spills.items() if n and any(
         k in f for k in ("gn_fwd_kernel", "gn_bwd_kernel", "gn_reduce",
                          "gn_fwd_streamed_kernel", "gn_bwd_streamed_kernel"))]
@@ -949,11 +983,16 @@ def _vit_flash_inputs(g):
             for _ in range(4)]
 
 
-def _vit_bytes_ops(peaks, nbytes, flops):
-    """The least time at the ViT shape (f32 on the FP32 pipes): bytes over
-    HBM and FLOPs over the fp32 rate, the larger of the two."""
-    _, fp32_peak, hbm = peaks
-    t_ops, t_bytes = flops / fp32_peak * 1e3, nbytes / hbm * 1e3
+def _vit_bytes_ops(peaks, nbytes, flops, passes=3):
+    """The least time at the ViT shape: bytes over HBM against the
+    operations, the larger of the two. The f32 forward runs on the FP32
+    pipes (``passes=0``: flops over the fp32 rate); the split-TF32 backward
+    does each product in 3 TF32 passes, over the TF32 rate, half the bf16
+    rate on Hopper (495 of 989 TFLOP/s on the SXM part)."""
+    bf16_peak, fp32_peak, hbm = peaks
+    t_ops = (passes * flops / (bf16_peak / 2) if passes else
+             flops / fp32_peak) * 1e3
+    t_bytes = nbytes / hbm * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), t_ops, t_bytes
 
@@ -1042,7 +1081,7 @@ def phase_kernels(peaks):
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4 * b * h * d * t * t
     nbytes = 4 * q.numel() * 4 + b * h * t * 4
-    bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops)
+    bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops, 0)
     print(f"[kernels] flash_fwd_kernel (FMA) B={b} T={t} H={h} D={d} f32 "
           f"full (the ViT's): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"sdpa forward {library_ms:.4f} ms; {flops / 1e9:.3f} GFLOP, "
@@ -1207,16 +1246,21 @@ def phase_flash_bwd_kernels(peaks):
           "sdpa's backward",
           flush=True)
 
-    # The ViT drive's f32 routes (the FMA kernels) at its shape,
-    # non-causal, against the twin and SDPA's whole backward.
+    # The ViT drive's f32 route (the split-TF32 kernels) at its shape,
+    # non-causal: dq with δ folded in, dk/dv fed that δ, and the two as the
+    # whole f32 backward, against the twin and SDPA's whole backward.
     b, t, h, d, dtype, _ = VIT_FLASH
     q, k, v, do = _vit_flash_inputs(g)
     o, lse = fa.flash_attention(q, k, v, causal=False)
-    q5, k5, v5, do5 = (x[None] for x in (q, k, v, do))
-    delta = (do5 * o[None]).sum(-1).transpose(-1, -2).contiguous()
-    args = (q5, k5, v5, do5, lse[None], delta, False)
-    dq_ms = time_ms(lambda: ext.flash_dq(*args))
-    dkv_ms = time_ms(lambda: ext.flash_dkv(*args))
+    q5, k5, v5, do5, o5 = (x[None] for x in (q, k, v, do, o))
+    lse5 = lse[None]
+    _, delta = ext.flash_dq(q5, k5, v5, do5, o5, lse5, False)
+    dq_ms = time_ms(lambda: ext.flash_dq(q5, k5, v5, do5, o5, lse5, False))
+    dkv_ms = time_ms(lambda: ext.flash_dkv(q5, k5, v5, do5, lse5, delta,
+                                           False))
+    whole_ms = time_ms(lambda: ext.flash_dkv(
+        q5, k5, v5, do5, lse5,
+        ext.flash_dq(q5, k5, v5, do5, o5, lse5, False)[1], False))
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, False), warmup=1, reps=5, inner=1)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -1230,25 +1274,35 @@ def phase_flash_bwd_kernels(peaks):
 
     library_ms = graph_ms(vit_fwd_bwd) - graph_ms(vit_fwd)
     elem = b * t * h * d * 4
-    rows = 2 * b * h * t * 4
+    rows = 2 * b * h * t * 4  # lse and δ, f32
     for entry, kind, ms, products, nbytes in (
-            (entries[0], "dq", dq_ms, 3, 5 * elem + rows),
+            (entries[0], "dq", dq_ms, 3, 6 * elem + rows),
             (entries[1], "dkv", dkv_ms, 4, 6 * elem + rows)):
         flops = 2 * products * b * h * d * t * t
         bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops)
-        print(f"[kernels] flash_{kind}_kernel (FMA) B={b} T={t} H={h} D={d} "
-              f"f32 full (the ViT's): kernel {ms:.4f} ms, plain backward "
-              f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms; "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB -> bound "
-              f"{bound_ms * 1e3:.2f} us by {by} (ops {t_ops * 1e3:.2f} us, "
-              f"bytes {t_bytes * 1e3:.2f} us); {bound_ms / ms:.2f} of the "
-              "bound", flush=True)
+        fp32_ms = max(flops / peaks[1] * 1e3, t_bytes)
+        print(f"[kernels] flash_{kind}_tf32_kernel B={b} T={t} H={h} D={d} "
+              f"f32 full (the ViT's{', with δ' if kind == 'dq' else ''}): "
+              f"kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms, sdpa "
+              f"backward {library_ms:.4f} ms; {flops / 1e9:.3f} GFLOP in 3 "
+              f"TF32 passes, {nbytes / 1e6:.2f} MB -> bound "
+              f"{bound_ms * 1e3:.2f} us by {by} (3 x ops at the TF32 rate "
+              f"{t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); "
+              f"{bound_ms / ms:.2f} of the bound; the bound with the "
+              f"products on the FP32 pipes {fp32_ms * 1e3:.2f} us",
+              flush=True)
         entry["vit_f32"] = {
             "source": "fedml_tpu_torch/ops/csrc/flash_bwd.cu",
             "shape": [b, t, h, d],
             "max_abs_err": vit_errs[0] if kind == "dq" else max(vit_errs[1:]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": library_ms}
+    print(f"[kernels] the whole f32 backward (δ + dq + dk/dv) B={b} T={t} "
+          f"H={h} D={d} full: {whole_ms:.4f} ms back to back ({dq_ms:.4f} + "
+          f"{dkv_ms:.4f} alone) against SDPA's whole backward "
+          f"{library_ms:.4f} ms: {library_ms / whole_ms:.2f}x; card "
+          f"{smi_line()}", flush=True)
+    entries[0]["vit_f32"]["whole_bwd_ms"] = whole_ms
     return entries
 
 
@@ -1941,6 +1995,17 @@ def _zero_gn_counts():
     gn.group_norm_fwd.streamed = 0
 
 
+def _pad_profile():
+    """Holds a profiler's window open, the card idle, for the port's
+    ``TRACE_PAD_S`` (``obs/timing.py``): the profiler drops the kernels
+    whose timestamps it moves outside its window, and the launch counts
+    read from a profile are held exact."""
+    from fedml_tpu_torch.obs.timing import TRACE_PAD_S
+
+    torch.cuda.synchronize()
+    time.sleep(TRACE_PAD_S)
+
+
 def _profile_round(run, label, tag="train", kernels=("gn_",),
                    what="GroupNorm kernels", top=12):
     """``run()`` — one replayed round — under torch.profiler, which names
@@ -1956,10 +2021,12 @@ def _profile_round(run, label, tag="train", kernels=("gn_",),
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_profile()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _pad_profile()
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -4590,9 +4657,9 @@ def phase_models():
 
 class _SkipLastQTile:
     """Planted fault for the adapter step checks: the extension with its
-    dk/dv kernels (the FMA one for f32, the tensor-core one for bf16) fed a
-    dO whose last 64 rows are zero, as if the kernel had skipped the last Q
-    tile."""
+    dk/dv kernels (the split-TF32 one for f32, the tensor-core one for
+    bf16) fed a dO whose last 64 rows are zero, as if the kernel had
+    skipped the last Q tile."""
 
     def __init__(self, ext):
         self._ext = ext
@@ -4757,7 +4824,7 @@ def phase_adapter(shared=None):
     check(moved > 0, "the adapters did not move")
 
     # Kernels vs the plain twin from one start and keys: one local step of
-    # a sampled cohort in f32 (the FMA kernels) and in bf16 (the tensor-core
+    # a sampled cohort in f32 (the f32 kernels) and in bf16 (the tensor-core
     # kernels, the main path's), each again with a fault planted in dk/dv.
     def twin_fn(q, k, v, causal):
         return fa.flash_attention_plain(q, k, v, causal)[0]
@@ -4827,7 +4894,7 @@ def phase_adapter(shared=None):
     check(bool(seen[cohort].all()) and int(seen.sum()) == len(cohort),
           f"personal store rows seen {np.flatnonzero(seen)}, expected "
           f"{sorted(cohort)}")
-    fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    f32 = F32_KERNELS + OLD_F32_KERNELS
     flash = ("flash_fwd", "flash_dq", "flash_dkv")
     _profile_round(lambda: api.train_rounds_on_device(1).tolist(),
                    "on-device round (train_rounds_on_device(1))", "adapter",
@@ -4835,15 +4902,15 @@ def phase_adapter(shared=None):
     rows = _profile_round(lambda: api.train_one_round(ADAPTER_ROUNDS + 2),
                           "replayed fused round (train_one_round)",
                           "adapter", flash, "flash kernels")
-    if rows:  # the bf16 round reaches the tensor-core kernels, never FMA
+    if rows:  # the bf16 round reaches the tensor-core kernels, never f32's
         ran = {n: sum(c for key, c, _ in rows if n in key)
-               for n in SM90_KERNELS + fma}
+               for n in SM90_KERNELS + f32}
         dev = {n: round(sum(ms for key, _, ms in rows if n in key), 3)
-               for n in SM90_KERNELS + fma}
+               for n in SM90_KERNELS + f32}
         print(f"[adapter] profiled round, launches by kernel name: {ran}; "
               f"device ms: {dev}", flush=True)
         check(all(ran[n] == steps * N_LAYERS for n in SM90_KERNELS)
-              and not any(ran[n] for n in fma),
+              and not any(ran[n] for n in f32),
               f"the profiled round's flash kernels: {ran}")
     if shared is not None:
         shared["adapter"], shared["adapter_build"] = api, build
@@ -4952,17 +5019,16 @@ def phase_vit():
           f"{api._graphs['on_device'].capture_ms:.1f} ms; peak device "
           f"memory of a round {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; card {smi_line()}", flush=True)
-    fma = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
     rows = _profile_round(lambda: api.train_rounds_on_device(1).tolist(),
                           "on-device round (train_rounds_on_device(1))", tag,
                           ("flash_",), "flash kernels", top=8)
-    if rows:  # f32 reaches the FMA kernels, never the tensor-core ones
+    if rows:  # f32 reaches the f32 kernels, never the tensor-core or old ones
         ran = {n: sum(c for key, c, _ in rows if n in key)
-               for n in fma + SM90_KERNELS}
+               for n in F32_KERNELS + SM90_KERNELS + OLD_F32_KERNELS}
         print(f"[{tag}] profiled round, launches by kernel name: {ran}",
               flush=True)
-        check(all(ran[n] == per_round for n in fma)
-              and not any(ran[n] for n in SM90_KERNELS),
+        check(all(ran[n] == per_round for n in F32_KERNELS)
+              and not any(ran[n] for n in SM90_KERNELS + OLD_F32_KERNELS),
               f"the profiled round's flash kernels: {ran}")
     del api, fed
     _free()
@@ -5163,10 +5229,12 @@ def _idle_share(run, label, tag):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _pad_profile()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        _pad_profile()
     cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
                    for e in prof.profiler.kineto_results.events()
@@ -7449,6 +7517,7 @@ def phase_cli(state):
 
 
 def main() -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)

@@ -36,6 +36,26 @@ def _warn_once(key: str, msg: str, *args) -> None:
         log.warning(msg, *args)
 
 
+# The profiler keeps only the device activities whose timestamps, moved
+# onto the host's clock, fall inside its window. On an H100 that move put
+# a FedAvg round's kernels about 20 ms late in one of 12 unpadded traces
+# and about 20 ms early in another, and the kernels at that end of the
+# body were dropped from the trace; short sessions lost kernels outright.
+# ``trace`` holds the window open this long, the card idle, on each side
+# of the body (20 padded traces of the round then held every kernel).
+TRACE_PAD_S = 0.1
+
+
+def _pad_window(cuda: bool) -> None:
+    """Waits for the card's queued work, then ``TRACE_PAD_S`` more, inside
+    the profiler's window (a planned wait: ``obs.sanitizer`` lets it pass).
+    Only on a card already in use: a CPU-only trace gets no pad."""
+    if cuda and torch.cuda.is_initialized():
+        with planned_transfer():
+            torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def _cuda_devices(tree, out: set) -> set:
     """The CUDA devices of the tensors in ``tree`` (dicts, sequences,
     dataclasses; other leaves ignored)."""
@@ -120,13 +140,16 @@ def trace(log_dir: str):
     """Profiles the body with ``torch.profiler`` (CPU activity, and CUDA
     activity when a card is present) and writes its Chrome trace to
     ``log_dir/trace_<pid>_<ns>.json`` (Perfetto / ``chrome://tracing``;
-    kernels appear by name). Runs the body untraced, with one warning per
-    process, when the profiler cannot start, and warns once when the
-    trace cannot be written."""
+    kernels appear by name). On a card the window reaches ``TRACE_PAD_S``
+    past each end of the body, so that no kernel of the body falls out of
+    it. Runs the body untraced, with one warning per process, when the
+    profiler cannot start, and warns once when the trace cannot be
+    written."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     prof = None
     try:
@@ -139,10 +162,13 @@ def trace(log_dir: str):
                    "WITHOUT a trace; no artifacts will land in %r",
                    type(e).__name__, e, log_dir)
     try:
+        if prof is not None:
+            _pad_window(cuda)
         yield
     finally:
         if prof is not None:
             try:
+                _pad_window(cuda)
                 prof.__exit__(None, None, None)
                 os.makedirs(log_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(

@@ -24,10 +24,11 @@ cudaError_t flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
                                   bool causal, cudaStream_t stream,
                                   int* encode_status);
 cudaError_t flash_dq_launch(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse,
-                            const float* delta, void* dq, const long long* sq,
-                            const long long* sk, const long long* sv,
-                            const long long* sdo, int R, int B, int T_len,
+                            const void* dout, const void* o,
+                            const float* lse, float* delta, void* dq,
+                            const long long* sq, const long long* sk,
+                            const long long* sv, const long long* sdo,
+                            const long long* so, int R, int B, int T_len,
                             int H, int D, bool causal, cudaStream_t stream);
 cudaError_t flash_dkv_launch(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
@@ -99,12 +100,11 @@ void strides4(const torch::Tensor& t, long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = t.stride(i);
 }
 
-// The FMA kernels (flash_fwd.cu, flash_bwd.cu) take f32 only; bf16 has
-// flash_*_sm90.
+// The f32 kernels (flash_fwd.cu on the FP32 pipes, flash_bwd.cu in split
+// TF32) take f32 only; bf16 has flash_*_sm90.
 void check_f32(const torch::Tensor& q, const char* what) {
   TORCH_CHECK(q.scalar_type() == torch::kFloat32, what,
-              ": the FMA kernels take float32 only (bfloat16 goes to the "
-              "tensor-core kernels)");
+              ": takes float32 only (bfloat16 goes to the *_sm90 kernels)");
 }
 
 std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
@@ -130,47 +130,64 @@ std::vector<torch::Tensor> flash_fwd(torch::Tensor q, torch::Tensor k,
   return {o, lse};
 }
 
-// The backward's extra operands: dO like q, lse and delta contiguous f32
-// [R, B, H, T].
+// The backward's extra operands: dO (and O) like q, lse (and delta)
+// contiguous f32 [R, B, H, T].
+void check_like_q(const torch::Tensor& q, const torch::Tensor& x,
+                  const char* name, const char* what) {
+  TORCH_CHECK(x.device() == q.device() && x.sizes() == q.sizes() &&
+                  x.scalar_type() == q.scalar_type() && x.stride(4) == 1,
+              what, ": ", name, " must match q in device, shape and dtype, "
+              "with the head dim contiguous");
+}
+
+void check_rows(const torch::Tensor& q, const torch::Tensor& t,
+                const char* what) {
+  const std::vector<int64_t> rows{q.size(0), q.size(1), q.size(3), q.size(2)};
+  TORCH_CHECK(t.device() == q.device() && t.scalar_type() == torch::kFloat32 &&
+                  t.sizes() == c10::IntArrayRef(rows) && t.is_contiguous(),
+              what, ": lse and delta must be contiguous float32 [R, B, H, T]");
+}
+
 void check_flash_bwd(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, const torch::Tensor& dout,
                      const torch::Tensor& lse, const torch::Tensor& delta,
                      const char* what) {
   check_flash(q, k, v, what);
-  TORCH_CHECK(dout.device() == q.device() && dout.sizes() == q.sizes() &&
-                  dout.scalar_type() == q.scalar_type() &&
-                  dout.stride(4) == 1,
-              what, ": dO must match q in device, shape and dtype, with the "
-              "head dim contiguous");
-  const std::vector<int64_t> rows{q.size(0), q.size(1), q.size(3), q.size(2)};
-  for (const auto* t : {&lse, &delta})
-    TORCH_CHECK(t->device() == q.device() &&
-                    t->scalar_type() == torch::kFloat32 &&
-                    t->sizes() == c10::IntArrayRef(rows) && t->is_contiguous(),
-                what, ": lse and delta must be contiguous float32 [R, B, H, T]");
+  check_like_q(q, dout, "dO", what);
+  check_rows(q, lse, what);
+  check_rows(q, delta, what);
 }
 
-torch::Tensor flash_dq(torch::Tensor q, torch::Tensor k, torch::Tensor v,
-                       torch::Tensor dout, torch::Tensor lse,
-                       torch::Tensor delta, bool causal) {
-  check_flash_bwd(q, k, v, dout, lse, delta, "flash_dq");
-  check_f32(q, "flash_dq");
+// (dq, delta): the dq kernel computes delta = rowsum(dO∘O) of its rows and
+// writes it for flash_dkv, which the caller launches next on this stream.
+std::vector<torch::Tensor> flash_dq(torch::Tensor q, torch::Tensor k,
+                                    torch::Tensor v, torch::Tensor dout,
+                                    torch::Tensor o, torch::Tensor lse,
+                                    bool causal) {
+  const char* what = "flash_dq";
+  check_flash(q, k, v, what);
+  check_f32(q, what);
+  check_like_q(q, dout, "dO", what);
+  check_like_q(q, o, "O", what);
+  check_rows(q, lse, what);
   const c10::cuda::CUDAGuard guard(q.device());
   auto dq = torch::empty(q.sizes(), q.options());
-  long long sq[4], sk[4], sv[4], sdo[4];
+  auto delta = torch::empty(lse.sizes(), lse.options());
+  long long sq[4], sk[4], sv[4], sdo[4], so[4];
   strides4(q, sq);
   strides4(k, sk);
   strides4(v, sv);
   strides4(dout, sdo);
+  strides4(o, so);
   const cudaError_t err = fedml_tpu_torch::flash_dq_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), o.data_ptr(),
       lse.data_ptr<float>(), delta.data_ptr<float>(), dq.data_ptr(), sq, sk,
-      sv, sdo, q.size(0), q.size(1), q.size(2), q.size(3), q.size(4), causal,
-      at::cuda::getCurrentCUDAStream());
+      sv, sdo, so, q.size(0), q.size(1), q.size(2), q.size(3), q.size(4),
+      causal, at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "flash_dq: set-up failed: ",
               cudaGetErrorString(err));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return dq;
+  return {dq, delta};
 }
 
 std::vector<torch::Tensor> flash_dkv(torch::Tensor q, torch::Tensor k,
@@ -455,11 +472,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash-attention forward on the tensor cores (bf16): (q, k, v "
         "[R,B,T,H,D], causal) -> (o [R,B,T,H,D], lse [R,B,H,T])");
   m.def("flash_dq", &flash_dq,
-        "flash-attention dq, FMA (f32): (q, k, v, dO [R,B,T,H,D], lse, "
-        "delta [R,B,H,T], causal) -> dq");
+        "flash-attention dq in split TF32 (f32): (q, k, v, dO, O "
+        "[R,B,T,H,D], lse [R,B,H,T], causal) -> (dq, delta [R,B,H,T])");
   m.def("flash_dkv", &flash_dkv,
-        "flash-attention dk/dv, FMA (f32): (q, k, v, dO [R,B,T,H,D], lse, "
-        "delta [R,B,H,T], causal) -> (dk, dv)");
+        "flash-attention dk/dv in split TF32 (f32): (q, k, v, dO "
+        "[R,B,T,H,D], lse, delta [R,B,H,T] from flash_dq, causal) -> (dk, "
+        "dv)");
   m.def("flash_dq_sm90", &flash_dq_sm90,
         "flash-attention dq on the tensor cores (bf16): (q, k, v, dO "
         "[R,B,T,H,D], lse, delta [R,B,H,T], causal) -> dq");

@@ -10,21 +10,24 @@ and the row log-sum-exp ``lse [B, H, T]`` f32 (the TPU kernel's 8-row
 sublane copy of lse is dropped); the backward recomputes
 ``P = exp(S − lse)`` and gives ``dq = scale·dS·K``, ``dk = scale·dSᵀ·Q``,
 ``dv = Pᵀ·dO`` with ``dS = P∘(dO·Vᵀ − δ)`` and ``δ = rowsum(dO∘O)``, which
-is computed here with torch ops in f32, as ``_bwd`` computes it outside
-its kernels.
+``_bwd`` computes outside its kernels: in f32 the dq kernel computes it
+from the dO and O tiles it holds and hands it to the dk/dv kernel; in bf16
+torch ops compute it before the kernels.
 
 The CUDA kernels for bf16 run on the tensor cores with ``wgmma`` and TMA:
 ``csrc/flash_fwd_sm90.cu`` (the forward) and ``csrc/flash_bwd_sm90.cu``
-(dq and dk/dv). f32 runs on the FP32 pipes with FMA, since the tensor
-cores have no full-f32 product: ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``. Each route is chosen by dtype alone. The kernels
-read q, k, v (and dO) as
+(dq and dk/dv). The f32 forward runs on the FP32 pipes with FMA
+(``csrc/flash_fwd.cu``); the f32 backward on the tensor cores in split
+TF32, three TF32 passes a product that keep f32's accuracy
+(``csrc/flash_bwd.cu``). Each route is chosen by dtype alone. The kernels
+read q, k, v (and dO, O) as
 ``[R, B, T, H, D]`` at any stride with D at stride 1, so MHA's views of
 one qkv buffer need no copy; the tensor-core kernels also need every base
-and stride a multiple of 16 bytes, as TMA reads them. R is 1 for a plain
-call; under ``vmap`` the client dim becomes R, so one launch serves every
-client. All are bound by operations — see the notes at the top of the
-sources.
+and stride a multiple of 16 bytes, as TMA reads them (the f32 backward
+reads a head's rows in 16-byte pieces where their base and stride allow,
+else in 4-byte pieces, so it takes any such view in place). R is 1 for a plain call; under ``vmap`` the
+client dim becomes R, so one launch serves every client. What bounds each
+is noted at the top of its source.
 
 Routes: the ops ``fedml_tpu_torch::flash_fwd``/``flash_bwd`` run the
 kernels for CUDA tensors and the plain twins (:func:`flash_attention_plain`,
@@ -174,21 +177,25 @@ def _launch_fwd(q, k, v, causal: bool):
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool):
-    """δ in f32 with torch ops, then the dq kernel and the dk/dv kernel:
-    bf16 operands reach the tensor-core kernels (``flash_bwd_sm90.cu``),
-    f32 operands the FMA kernels (``flash_bwd.cu``), by dtype alone."""
+    """The dq kernel, then the dk/dv kernel, by dtype alone. bf16 operands
+    reach the tensor-core kernels (``flash_bwd_sm90.cu``) after δ in f32
+    with torch ops; f32 operands the split-TF32 kernels (``flash_bwd.cu``),
+    whose dq kernel computes δ from dO and O and hands it to dk/dv."""
     ext = extension()
     do = _head_dim_contiguous(do)
     if not lse.is_contiguous():
         flash_attention.copies += 1
         lse = lse.contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(-1, -2).contiguous()
     if q.dtype == torch.bfloat16:
+        delta = (do.float() * o.float()).sum(-1).transpose(-1, -2)
+        delta = delta.contiguous()
         q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
-        dq_fn, dkv_fn = ext.flash_dq_sm90, ext.flash_dkv_sm90
+        dq = ext.flash_dq_sm90(q, k, v, do, lse, delta, bool(causal))
+        dkv_fn = ext.flash_dkv_sm90
     else:
-        dq_fn, dkv_fn = ext.flash_dq, ext.flash_dkv
-    dq = dq_fn(q, k, v, do, lse, delta, bool(causal))
+        dq, delta = ext.flash_dq(q, k, v, do, _head_dim_contiguous(o), lse,
+                                 bool(causal))
+        dkv_fn = ext.flash_dkv
     flash_attention_bwd.dq_launches += 1
     dk, dv = dkv_fn(q, k, v, do, lse, delta, bool(causal))
     flash_attention_bwd.dkv_launches += 1
@@ -342,8 +349,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False):
     log-sum-exp algebra): ``[B, T, H, D]`` q, k, v, o, do and
     ``lse [B, H, T]`` → ``(dq, dk, dv)``. CUDA tensors launch the dq and
     the dk/dv kernel (one count each): in bf16 the tensor-core kernels
-    ``flash_dq_sm90_kernel`` and ``flash_dkv_sm90_kernel``, in f32 the FMA
-    kernels ``flash_dq_kernel`` and ``flash_dkv_kernel``. CPU tensors run
+    ``flash_dq_sm90_kernel`` and ``flash_dkv_sm90_kernel``, in f32 the
+    split-TF32 kernels ``flash_dq_tf32_kernel`` (which also computes δ)
+    and ``flash_dkv_tf32_kernel``. CPU tensors run
     :func:`flash_attention_bwd_plain`."""
     _check_bwd(q, k, v, o, lse, do)
     grads = _bwd_op(q[None], k[None], v[None], o[None], lse[None], do[None],

@@ -121,8 +121,10 @@ def _scaled_err(got, want):
 
 # The slice's shape (8 clients x batch 2, T 2048, 8 heads, D 64), f32 at
 # T 2048, bf16 without the mask, a ragged T, and the other head dims. f32
-# reaches the FMA kernels; bf16 the tensor-core kernels, at every head dim
-# with and without the mask, and at the ragged T 77 and 1000.
+# reaches the split-TF32 kernels (one tile at T 64, with and without the
+# mask, and one row past it at T 65); bf16 the tensor-core kernels, at
+# every head dim with and without the mask, and at the ragged T 77 and
+# 1000.
 FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
                    (2, 2048, 4, 64, torch.float32, True),
                    (2, 1024, 4, 64, torch.bfloat16, False),
@@ -138,7 +140,9 @@ FLASH_BWD_CASES = [(16, 2048, 8, 64, torch.bfloat16, True),
                    (2, 77, 3, 64, torch.bfloat16, False),
                    (2, 1000, 2, 128, torch.bfloat16, True),
                    (2, 77, 2, 128, torch.bfloat16, True),
-                   (256, 64, 4, 32, torch.float32, False)]  # the ViT's
+                   (256, 64, 4, 32, torch.float32, False),  # the ViT's
+                   (2, 64, 4, 32, torch.float32, True),
+                   (2, 65, 4, 32, torch.float32, False)]  # one tile's edge
 
 
 @pytest.mark.parametrize("b,t,h,d,dtype,causal", FLASH_BWD_CASES)
@@ -229,6 +233,92 @@ def test_flash_bwd_bf16_copies_a_view_tma_cannot_take(cuda):
     want = flash_attention_bwd(q.contiguous(), k, v, o, lse, do, causal=True)
     assert flash_attention.copies == copies + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+VIT_FLASH = (256, 64, 4, 32)  # the ViT's launch: 8 clients x batch 32
+
+
+def test_flash_bwd_f32_reruns_are_bit_equal_at_the_vit_shape(cuda):
+    """The split-TF32 kernels sum in a fixed order with no atomics: two
+    runs at the ViT's shape give the same bits."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, do, o, lse = _bwd_inputs(*VIT_FLASH, torch.float32, False, g,
+                                      cuda)
+    a = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    b = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_bwd_f32_reads_strided_views(cuda):
+    """f32 q, k, v as views into one [B, T, 3·H·D] buffer (16-byte rows at
+    a stride of 3·H·D): the same bits as contiguous inputs, and no copy
+    counted."""
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    qkv = torch.randn(2, 300, 3 * 4 * 32, generator=g, device=cuda)
+    q, k, v = (z.reshape(2, 300, 4, 32) for z in qkv.split(128, dim=-1))
+    do = torch.randn(2, 300, 4, 32, generator=g, device=cuda)
+    o, lse = flash_attention(q, k, v, causal=True)
+    copies = flash_attention.copies
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert flash_attention.copies == copies
+    want = flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                               o, lse, do, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_f32_reads_a_misaligned_view_in_place(cuda):
+    """f32 q, k, v, dO and O at an odd offset into buffers whose T stride
+    (385 floats) is no multiple of 16 bytes: read with 4-byte copies inside
+    the kernels, no copy counted, the same bits as contiguous inputs, and
+    within 1e-4 of max |want| of the twin."""
+    from fedml_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+
+    def odd_view(x=None):
+        buf = torch.randn(2, 300, 3 * 4 * 32 + 1, generator=g, device=cuda)
+        view = buf[..., 1:129].unflatten(-1, (4, 32))
+        if x is not None:
+            view.copy_(x)
+        return view
+
+    q, k, v, do = (odd_view() for _ in range(4))
+    o, lse = flash_attention(q, k, v, causal=True)
+    o = odd_view(o)
+    assert q.data_ptr() % 16 and q.stride(1) % 4
+    copies = flash_attention.copies
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.copies == copies
+    dense = [x.contiguous() for x in (q, k, v, o)]
+    want = flash_attention_bwd(*dense, lse, do.contiguous(), causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plain = flash_attention_bwd_plain(*dense, lse, do.contiguous(), True)
+    for name, a, w in zip(("dq", "dk", "dv"), got, plain):
+        assert _scaled_err(a, w) <= 1e-4, (name, _scaled_err(a, w))
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [(*VIT_FLASH, False),
+                                            (2, 77, 3, 16, True)])
+def test_flash_dq_f32_writes_delta(cuda, b, t, h, d, causal):
+    """δ that the f32 dq kernel writes for dk/dv: rowsum(dO∘O) as
+    [R, B, H, T], within 1e-6 of the sum in f64."""
+    from fedml_tpu_torch.ops.build import extension
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q, k, v, do, o, lse = _bwd_inputs(b, t, h, d, torch.float32, causal, g,
+                                      cuda)
+    dq, delta = extension().flash_dq(q[None], k[None], v[None], do[None],
+                                     o[None], lse[None], causal)
+    torch.cuda.synchronize()
+    want = (do.double() * o.double()).sum(-1).transpose(1, 2)
+    assert delta.shape == (1, b, h, t) and delta.is_contiguous()
+    assert (delta[0].double() - want).abs().max().item() <= 1e-6
 
 
 @pytest.mark.parametrize("t,h,d", [(256, 4, 32), (2048, 8, 64)])

@@ -24,6 +24,7 @@ import json
 import logging
 import os
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -263,6 +264,17 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     events = json.loads((tmp_path / "prof" / files[0]).read_text())[
         "traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+
+
+def test_trace_pads_its_window_only_on_a_card(tmp_path, monkeypatch):
+    # The pad that keeps a card's kernels inside the profiler's window is
+    # not paid by a CPU-only trace: a pad of 30 s would show in the time.
+    monkeypatch.setattr(timing, "TRACE_PAD_S", 30.0)
+    t0 = time.perf_counter()
+    with timing.trace(str(tmp_path / "prof")):
+        torch.ones(8).sum()
+    assert time.perf_counter() - t0 < 30.0
+    assert len(os.listdir(tmp_path / "prof")) == 1
 
 
 # --- model_cost --------------------------------------------------------------
