@@ -14,9 +14,11 @@ Phases, each of which must pass or the script exits non-zero:
              GroupNorm kernels' cluster plans (blocks per sample, shared
              memory per block).
 2. kernels — each kernel against its plain PyTorch twin on the card:
-             the flash forward (bf16: the tensor-core kernel; f32: the FMA
-             one) at the serving shape (B 8, T 2048, 8 heads, D 64) causal
-             and full, at a ragged T, at D 16, 32 and 128, and in f32; the
+             the flash forward (bf16: the tensor-core kernel; f32: the
+             split-TF32 one, one tile a head and a walk) at the serving
+             shape (B 8, T 2048, 8 heads, D 64) causal and full, at a
+             ragged T, at D 16, 32 and 128, and in f32 (one tile and a
+             walk at D 16 and 128 too); the
              flash backward (bf16: the tensor-core kernels; f32: the
              split-TF32 ones) at the FedAdapter slice's shape (8 clients x
              batch 2, T 2048, 8 heads, D 64, bf16, causal), in f32 at T
@@ -35,12 +37,14 @@ Phases, each of which must pass or the script exits non-zero:
              at batch 32, the stump under the FedGKT client phase's vmap);
              ResNet-18-GN's four f32 shapes at 10 clients' rows of 20
              samples (64 to 512 channels in 32 groups, 32² to 4²), in both
-             layouts; the f32 flash forward (the FMA kernel), dq with δ
-             folded in and dk/dv (the split-TF32 kernels) at the ViT
-             drive's [256, 64, 4, 32] non-causal, timed against their
-             bounds (bytes; the backward's also beside the bound with
-             its products on the FP32 pipes), their twins and SDPA's
-             forward and whole backward;
+             layouts; the f32 flash forward, dq with δ folded in and
+             dk/dv (the split-TF32 kernels) at the ViT drive's
+             [256, 64, 4, 32] non-causal, and the forward also at the f32
+             adapter step's [2, 2048, 8, 64] causal, timed against their
+             bounds (bytes or 3 TF32 passes of operations; the
+             backward's also beside the bound with its products on the
+             FP32 pipes), their twins and SDPA's f32 forward and whole
+             backward;
              the streamed route past a cluster of 8 blocks (clusters of
              16 where the card schedules them), backward and forward, at
              FedSeg's UNet shapes at 256 x 256 in f32, one bf16 shape, one
@@ -294,8 +298,8 @@ Phases, each of which must pass or the script exits non-zero:
              timed on-device calls (32 launches of each flash kernel a
              round, one for all 8 clients), the replays' training loss
              falling, a profiled round showing the f32 kernels by name
-             (the FMA forward, the split-TF32 dq and dk/dv; no bf16
-             tensor-core kernel and no FMA backward kernel).
+             (the split-TF32 forward, dq and dk/dv; no bf16 tensor-core
+             kernel and no FMA kernel).
 14. ckpt   — run checkpoints at full width, each resume bit-equal to
              the straight run, restored into a fresh api and into the
              captured one: FedAdam (the algos phase's api) on
@@ -571,8 +575,8 @@ ADAPTER_RANK, ADAPTER_CLIENTS, ADAPTER_PER_CLIENT = 16, 16, 8
 ADAPTER_BATCH, ADAPTER_PER_ROUND, ADAPTER_LR, ADAPTER_ROUNDS = 2, 8, 0.1, 3
 # The ViT drive's flash shape as one launch sees it: 8 clients x batch 32
 # (vmapped into the kernels' R), T 64 (32 x 32 at patch 4), 4 heads, D 32,
-# f32 (the FMA forward of flash_fwd.cu, the split-TF32 backward of
-# flash_bwd.cu), non-causal.
+# f32 (the split-TF32 kernels of flash_fwd.cu and flash_bwd.cu),
+# non-causal.
 VIT_FLASH = (256, 64, 4, 32, torch.float32, False)
 # Flash backward kernels vs the f32 twin on the same inputs, as a share of
 # max |want|: bf16 2e-2 (the kernels round dS and P to bf16 before the
@@ -850,12 +854,11 @@ def graph_ms(fn) -> float:
 
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
                 "flash_dkv_sm90_kernel")
-# The f32 route: the FMA forward and the split-TF32 backward (mma.sync
-# m16n8k8, SASS HMMA.1688.F32.TF32); the FMA backward kernels it replaced.
-F32_KERNELS = ("flash_fwd_kernel", "flash_dq_tf32_kernel",
+# The f32 route: the split-TF32 forward, dq and dk/dv (mma.sync m16n8k8,
+# SASS HMMA.1688.F32.TF32); the FMA kernels they replaced.
+F32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel",
                "flash_dkv_tf32_kernel")
-TF32_KERNELS = F32_KERNELS[1:]
-OLD_F32_KERNELS = ("flash_dq_kernel", "flash_dkv_kernel")
+OLD_F32_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
 def phase_build():
@@ -866,7 +869,7 @@ def phase_build():
     every tensor-core kernel has HGMMA, and of each split-TF32 kernel
     ``HMMA.1688.F32.TF32``, and neither stack nor local memory (no
     spills), nor any GroupNorm kernel (the streamed ones included), and
-    unless the FMA backward kernels are gone;
+    unless the FMA kernels are gone;
     prints the GroupNorm kernels' cluster plans at the training path's
     shapes and the streamed route's plans at FedSeg's (CL, resident rows a
     block, shared memory), each within the card's opt-in."""
@@ -915,7 +918,7 @@ def phase_build():
         spilled = [f for f, n in spills.items() if kernel in f and n]
         check(not spilled, f"{kernel}: stack or local memory (spills) in "
               f"{spilled}")
-    for kernel in TF32_KERNELS:  # one tile a head, or a walk; 4 head dims
+    for kernel in F32_KERNELS:  # one tile a head, or a walk; 4 head dims
         counts = [n for f, n in hmma.items() if kernel in f]
         dims = {m.group(1) for f in hmma if kernel in f
                 for m in [re.search(rf"{kernel}ILi(\d+)E", f)] if m}
@@ -928,7 +931,7 @@ def phase_build():
         check(not spilled, f"{kernel}: stack or local memory (spills) in "
               f"{spilled}")
     stale = [f for f in spills if any(k in f for k in OLD_F32_KERNELS)]
-    check(not stale, f"the FMA backward kernels are still built: {stale}")
+    check(not stale, f"the FMA kernels are still built: {stale}")
     spilled = [f for f, n in spills.items() if n and any(
         k in f for k in ("gn_fwd_kernel", "gn_bwd_kernel", "gn_reduce",
                          "gn_fwd_streamed_kernel", "gn_bwd_streamed_kernel"))]
@@ -963,8 +966,9 @@ def phase_build():
 
 
 # Flash forward cases (B, T, H, D, dtype, causal): bf16 reaches the
-# tensor-core kernel, f32 the FMA one. The first is the serving prefill's
-# shape; the slice's FedAdapter shape is B 16.
+# tensor-core kernel, f32 the split-TF32 one (one tile a head at T <= 64,
+# else a walk). The first is the serving prefill's shape; the slice's
+# FedAdapter shape is B 16.
 FWD_CASES = [(8, 2048, 8, 64, torch.bfloat16, True),
              (8, 2048, 8, 64, torch.bfloat16, False),
              (2, 1000, 8, 64, torch.bfloat16, True),
@@ -974,7 +978,14 @@ FWD_CASES = [(8, 2048, 8, 64, torch.bfloat16, True),
              (2, 1024, 4, 128, torch.bfloat16, True),
              (2, 1000, 4, 128, torch.bfloat16, False),
              (2, 1000, 8, 64, torch.float32, True),
-             VIT_FLASH]
+             VIT_FLASH,
+             (2, 64, 4, 16, torch.float32, False),
+             (2, 50, 4, 128, torch.float32, True),
+             (2, 130, 2, 16, torch.float32, False),
+             (2, 200, 2, 128, torch.float32, True)]
+# The f32 forward timed at the ViT drive's launch and at the f32 adapter
+# step's (FedAdapter's T 2048, D 64, causal, at batch 2).
+F32_FWD_TIMED = [VIT_FLASH[:4] + (False,), (2, 2048, 8, 64, True)]
 
 
 def _vit_flash_inputs(g):
@@ -983,15 +994,13 @@ def _vit_flash_inputs(g):
             for _ in range(4)]
 
 
-def _vit_bytes_ops(peaks, nbytes, flops, passes=3):
-    """The least time at the ViT shape: bytes over HBM against the
-    operations, the larger of the two. The f32 forward runs on the FP32
-    pipes (``passes=0``: flops over the fp32 rate); the split-TF32 backward
-    does each product in 3 TF32 passes, over the TF32 rate, half the bf16
-    rate on Hopper (495 of 989 TFLOP/s on the SXM part)."""
-    bf16_peak, fp32_peak, hbm = peaks
-    t_ops = (passes * flops / (bf16_peak / 2) if passes else
-             flops / fp32_peak) * 1e3
+def _vit_bytes_ops(peaks, nbytes, flops):
+    """The least time of an f32 flash kernel: bytes over HBM against the
+    operations, the larger of the two. The split-TF32 kernels do each
+    product in 3 TF32 passes, over the TF32 rate, half the bf16 rate on
+    Hopper (495 of 989 TFLOP/s on the SXM part)."""
+    bf16_peak, _, hbm = peaks
+    t_ops = 3 * flops / (bf16_peak / 2) * 1e3
     t_bytes = nbytes / hbm * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), t_ops, t_bytes
@@ -1009,7 +1018,7 @@ def phase_kernels(peaks):
                                                      flash_attention_plain)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    main_err = vit_err = None
+    main_err = None
     for b, t, h, d, dtype, causal in FWD_CASES:
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
                    .to(dtype) for _ in range(3))
@@ -1028,8 +1037,6 @@ def phase_kernels(peaks):
         check(math.isfinite(err_lse) and err_lse <= LSE_TOL,
               f"flash_fwd lse disagrees with plain: {err_lse} ({name})")
         main_err = err_o if main_err is None else main_err
-        if (b, t, h, d, dtype, causal) == VIT_FLASH:
-            vit_err = err_o
         del q, k, v, o, lse, po, plse
 
     # The kernel alone (one event pair around 20 launches, so the host's
@@ -1069,30 +1076,54 @@ def phase_kernels(peaks):
                  "library_ms": library_ms}
         del q, k, v, q5, k5, v5, qt, kt, vt
 
-    # The ViT drive's f32 route at its shape, non-causal: the FMA kernel,
-    # the twin and SDPA's forward (a yardstick only).
-    q, k, v, _ = _vit_flash_inputs(g)
-    b, t, h, d, _, _ = VIT_FLASH
-    q5, k5, v5 = (x[None] for x in (q, k, v))
-    ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, False))
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, False),
-                       warmup=1, reps=5, inner=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flops = 4 * b * h * d * t * t
-    nbytes = 4 * q.numel() * 4 + b * h * t * 4
-    bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops, 0)
-    print(f"[kernels] flash_fwd_kernel (FMA) B={b} T={t} H={h} D={d} f32 "
-          f"full (the ViT's): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa forward {library_ms:.4f} ms; {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us by {by} "
-          f"(ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} us); "
-          f"{bound_ms / ms:.2f} of the bound", flush=True)
-    entry["vit_f32"] = {
-        "source": "fedml_tpu_torch/ops/csrc/flash_fwd.cu",
-        "shape": [b, t, h, d], "max_abs_err": vit_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-        "library_ms": library_ms}
+    # The f32 route (the split-TF32 kernel) at the ViT drive's shape, full,
+    # and at the f32 adapter step's, causal: the kernel (also replayed from
+    # a CUDA graph: the card's time without the host's dispatch), the twin
+    # and SDPA's f32 forward (a yardstick only).
+    for b, t, h, d, causal in F32_FWD_TIMED:
+        if (b, t, h, d) == VIT_FLASH[:4]:
+            q, k, v, _ = _vit_flash_inputs(g)
+        else:
+            q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g)
+                       for _ in range(3))
+        q5, k5, v5 = (x[None] for x in (q, k, v))
+        o, lse = ext.flash_fwd(q5, k5, v5, causal)
+        o2, lse2 = ext.flash_fwd(q5, k5, v5, causal)
+        po, plse = flash_attention_plain(q, k, v, causal)
+        err = (o[0] - po).abs().max().item()
+        check(err <= O_TOL[torch.float32] and (lse[0] - plse).abs().max()
+              .item() <= LSE_TOL, f"flash_fwd f32 disagrees with plain at "
+              f"{(b, t, h, d, causal)}: o {err}")
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"flash_fwd f32 reruns differ at {(b, t, h, d, causal)}")
+        del o, lse, o2, lse2, po, plse
+        ms = time_ms(lambda: ext.flash_fwd(q5, k5, v5, causal))
+        replay_ms = graph_ms(lambda: ext.flash_fwd(q5, k5, v5, causal))
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal),
+                           warmup=1, reps=5, inner=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        flops = 4 * b * h * d * (t * (t + 1) // 2 if causal else t * t)
+        nbytes = 4 * q.numel() * 4 + b * h * t * 4
+        bound_ms, by, t_ops, t_bytes = _vit_bytes_ops(peaks, nbytes, flops)
+        print(f"[kernels] flash_fwd_tf32_kernel B={b} T={t} H={h} D={d} f32 "
+              f"{'causal' if causal else 'full'}: kernel {ms:.4f} ms "
+              f"(replayed {replay_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+              f"forward {library_ms:.4f} ms; max|o-plain| {err:.3e}; "
+              f"{flops / 1e9:.3f} GFLOP in 3 TF32 passes, "
+              f"{nbytes / 1e6:.2f} MB -> bound {bound_ms * 1e3:.2f} us by "
+              f"{by} (ops {t_ops * 1e3:.2f} us, bytes {t_bytes * 1e3:.2f} "
+              f"us); {bound_ms / ms:.2f} of the bound; card {smi_line()}",
+              flush=True)
+        row = {"source": "fedml_tpu_torch/ops/csrc/flash_fwd.cu",
+               "shape": [b, t, h, d], "causal": causal, "max_abs_err": err,
+               "ms": ms, "replay_ms": replay_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": by,
+               "library_ms": library_ms}
+        entry["vit_f32" if (b, t, h, d) == VIT_FLASH[:4] else
+              "adapter_f32"] = row
+        del q, k, v, q5, k5, v5, qt, kt, vt
     return entry
 
 

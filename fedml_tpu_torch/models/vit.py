@@ -13,12 +13,12 @@ running stats to average. Names follow flax (``patch_embed``,
 
 ``attn_fn(q, k, v, causal=...) -> o`` is the attention, dense by default
 as in the JAX model; ``models.transformer.flash_attention_out`` runs the
-hand-written flash kernels (f32 here: the FMA forward of
-``ops/csrc/flash_fwd.cu`` and the split-TF32 backward of
-``flash_bwd.cu``). The token count is fixed
-at construction from ``image_size`` (the JAX model reads it from its
-init's input). Dropout after the position embedding draws its masks from
-the step's key, as ``models/cnn.py``'s does.
+hand-written flash kernels (f32 here: the split-TF32 tensor-core
+forward of ``ops/csrc/flash_fwd.cu`` and backward of ``flash_bwd.cu``).
+The token count is fixed at construction from ``image_size`` (the JAX
+model reads it from its init's input). Dropout after the position
+embedding draws its masks from the step's key, as ``models/cnn.py``'s
+does.
 """
 
 from __future__ import annotations

@@ -100,8 +100,8 @@ void strides4(const torch::Tensor& t, long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = t.stride(i);
 }
 
-// The f32 kernels (flash_fwd.cu on the FP32 pipes, flash_bwd.cu in split
-// TF32) take f32 only; bf16 has flash_*_sm90.
+// The f32 kernels (flash_fwd.cu and flash_bwd.cu, in split TF32 on the
+// tensor cores) take f32 only; bf16 has flash_*_sm90.
 void check_f32(const torch::Tensor& q, const char* what) {
   TORCH_CHECK(q.scalar_type() == torch::kFloat32, what,
               ": takes float32 only (bfloat16 goes to the *_sm90 kernels)");
@@ -466,8 +466,8 @@ std::vector<torch::Tensor> group_norm_reduce(torch::Tensor part_g,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_fwd", &flash_fwd,
-        "flash-attention forward, FMA (f32): (q, k, v [R,B,T,H,D], causal) "
-        "-> (o [R,B,T,H,D], lse [R,B,H,T])");
+        "flash-attention forward in split TF32 (f32): (q, k, v [R,B,T,H,D], "
+        "causal) -> (o [R,B,T,H,D], lse [R,B,H,T])");
   m.def("flash_fwd_sm90", &flash_fwd_sm90,
         "flash-attention forward on the tensor cores (bf16): (q, k, v "
         "[R,B,T,H,D], causal) -> (o [R,B,T,H,D], lse [R,B,H,T])");

@@ -70,13 +70,6 @@ namespace {
 
 using namespace flash;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows of a 64-row tile
-
-template <int D>
-constexpr int tile_floats() {
-  return BM * tile_pitch<D>();
-}
-
 // dq: δ of the block's rows, then tiles [Q][dO][K0][V0][K1 | O][V1]; one
 // stage (5 tiles) when the walk is one tile long.
 template <int D>
@@ -94,97 +87,6 @@ template <int D>
 constexpr int dkv_smem_bytes(int stages) {
   return (2 * tile_floats<D>() + stages * dkv_stage_floats<D>()) *
          static_cast<int>(sizeof(float));
-}
-
-// acc[nb] += A·Bᵀ over the D columns of two tiles: A the warp's 16 rows
-// (`a` at its first), B rows [8·nb, 8·nb + 8) of `b`. S = Q·Kᵀ and dP = dO·Vᵀ
-// in dq; Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in dk/dv.
-template <int D, int NB>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[NB][4],
-                                             const float* a, const float* b,
-                                             int g, int t) {
-  constexpr int P = tile_pitch<D>();
-#pragma unroll 1
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    const float* pa = a + g * P + kk * 8 + t;
-    split_tf32(pa[0], ah[0], al[0]);
-    split_tf32(pa[8 * P], ah[1], al[1]);
-    split_tf32(pa[4], ah[2], al[2]);
-    split_tf32(pa[8 * P + 4], ah[3], al[3]);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const float* pb = b + (nb * 8 + g) * P + kk * 8 + t;
-      uint32_t bh[2], bl[2];
-      split_tf32(pb[0], bh[0], bl[0]);
-      split_tf32(pb[4], bh[1], bl[1]);
-      mma_3xtf32(acc[nb], ah, al, bh, bl);
-    }
-  }
-}
-
-// acc[dn] += C·B: C an accumulator tile in registers (the warp's 16 rows by
-// 8·NB columns), B rows [0, 8·NB) of `b` by its D columns. dq += dS·K in
-// dq; dv += P̃ᵀ·dO and dk += dSᵀ·Q in dk/dv. C's fragment is the A fragment
-// under the permuted k index.
-template <int D, int NB>
-__device__ __forceinline__ void frag_by_rows(float (&acc)[D / 8][4],
-                                             const float (&c)[NB][4],
-                                             const float* b, int g, int t) {
-  constexpr int P = tile_pitch<D>();
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    uint32_t ah[4], al[4];
-    split_tf32(c[nb][0], ah[0], al[0]);
-    split_tf32(c[nb][2], ah[1], al[1]);
-    split_tf32(c[nb][1], ah[2], al[2]);
-    split_tf32(c[nb][3], ah[3], al[3]);
-    const float* pb = b + (nb * 8 + 2 * t) * P + g;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      uint32_t bh[2], bl[2];
-      split_tf32(pb[dn * 8], bh[0], bl[0]);
-      split_tf32(pb[dn * 8 + P], bh[1], bl[1]);
-      mma_3xtf32(acc[dn], ah, al, bh, bl);
-      // At D 128 the accumulators fill the registers: keep the compiler
-      // from hoisting later columns' loads (and their splits) above here.
-      if constexpr (D >= 128) asm volatile("" ::: "memory");
-    }
-  }
-}
-
-// acc += part, element by element, and part = 0: a walked tile's sums join
-// the running sums in f32 adds rounded to nearest.
-template <int D>
-__device__ __forceinline__ void add_tile(float (&acc)[D / 8][4],
-                                         float (&part)[D / 8][4]) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[dn][e] += part[dn][e];
-      part[dn][e] = 0.f;
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void zero_tile(float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-}
-
-// One row of a contiguous [.., T, H, D] output (`out` at its start) from
-// an accumulator tile: element 8·dn + 2t + j is acc[dn][2·half + j]·mul.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out,
-                                           const float (&acc)[D / 8][4],
-                                           int half, float mul, int t) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    *reinterpret_cast<float2*>(out + dn * 8 + 2 * t) =
-        make_float2(acc[dn][2 * half] * mul, acc[dn][2 * half + 1] * mul);
 }
 
 // NB: the 8-column blocks of S and dP formed at a time (fewer at a larger
@@ -632,8 +534,6 @@ cudaError_t launch_d(const BwdArgs& a, int D, bool dkv, cudaStream_t stream) {
       return cudaErrorInvalidValue;
   }
 }
-
-Strides strides(const long long* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const long long* sq,

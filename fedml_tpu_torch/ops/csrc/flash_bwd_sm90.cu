@@ -4,8 +4,7 @@
 //
 // Replaces fedml_tpu/ops/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (the Pallas TPU kernels reached through _bwd) for bf16 operands; f32
-// operands keep the FMA kernels of flash_bwd.cu, since the tensor cores have
-// no full-f32 product. Same arithmetic as the TPU kernels: S = (Q·Kᵀ)·scale
+// operands take the split-TF32 kernels of flash_bwd.cu. Same arithmetic as the TPU kernels: S = (Q·Kᵀ)·scale
 // with scale = 1/√D, causal mask NEG_INF = -1e30, P = exp(S − lse),
 // dP = dO·Vᵀ, dS = P∘(dP − δ) rounded to bf16 before the products that use
 // it, P rounded to bf16 before P̃ᵀ·dO; dq = scale·dS·K, dk = scale·dSᵀ·Q,
@@ -17,8 +16,8 @@
 // (S, dP, dS·K) and dk/dv four (Sᵀ, dPᵀ, P̃ᵀ·dO, dSᵀ·Q): 103.1 and 137.5
 // GFLOP against ~170 and ~200 MB of operands, far above the card's ~295
 // bf16 operations per byte, so both are bound by operations, at the bf16
-// tensor-core rate (989 TFLOP/s). The FMA kernels of flash_bwd.cu reached
-// ~23 TFLOP/s; what this design does about each thing that held them back:
+// tensor-core rate (989 TFLOP/s). The FMA kernels it replaced for bf16
+// reached ~23 TFLOP/s; what this design does about each thing that held them back:
 // 1. No tensor cores: every product here is a wgmma (m64nNk16, bf16 in, f32
 //    sums), issued by one warpgroup per block.
 // 2. Operands widened to f32 in shared memory by scalar loads: Q, K, V and

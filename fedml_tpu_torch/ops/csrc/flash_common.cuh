@@ -1,7 +1,7 @@
-// Shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu): tile
-// sizes, element conversions, the strided [R, B, T, H, D] operand view, and
-// the split-TF32 tensor-core product and cp.async tile copies of the f32
-// backward.
+// Shared by the f32 flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
+// tile sizes, the strided [R, B, T, H, D] operand view, the split-TF32
+// tensor-core product (mma.sync m16n8k8), cp.async tile copies, and the
+// fragment helpers that feed one product's accumulator to the next.
 //
 // Every operand of the three kernels is read through its strides over
 // (R, B, T, H) with D at stride 1. R is an outer batch dim with a stride of
@@ -15,40 +15,23 @@
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fedml_tpu_torch {
 namespace flash {
 
-constexpr int BM = 64;        // query rows per tile
-constexpr int BN = 64;        // key rows per tile
-constexpr int NT = 256;       // threads: 16 row groups x 16 column groups
-constexpr int LDP = BN + 16;  // pitch of a [64][64] tile in shared memory:
-                              // the two row groups of a warp hit disjoint banks
+constexpr int BM = 64;             // query rows per tile
+constexpr int BN = 64;             // key rows per tile
+constexpr int kThreads = 128;      // 4 warps x 16 rows of a 64-row tile
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
-
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   long long r, b, t, h;
 };
+
+inline Strides strides(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3]};
+}
 
 // The (r, b, h) of grid row `bh` = (r·B + b)·H + h, and the base pointer of
 // that (r, b, h) in an operand read through strides `s`.
@@ -66,30 +49,18 @@ struct Head {
   }
 };
 
-// Rows [row0, row0 + 64) of one head into a [64][D + 1] f32 tile (odd pitch:
-// 16 rows at one column fall in 16 banks); rows at or past T_len read 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long stride_t, int row0,
-                                          int T_len) {
-  for (int idx = threadIdx.x; idx < BM * D; idx += NT) {
-    const int r = idx / D, d = idx - (idx / D) * D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + d] = row < T_len ? to_float(src[row * stride_t + d])
-                                       : 0.f;
-  }
-}
-
 // --- split TF32 on the tensor cores -----------------------------------------
 //
 // x ≈ hi + lo with hi = tf32(x) and lo = tf32(x − hi), both rounded to
-// nearest, ties away (cvt.rna); a·b ≈ hi_a·hi_b + hi_a·lo_b + lo_a·hi_b with
-// f32 sums keeps about 2⁻²¹ of |a·b| where one TF32 pass keeps 2⁻¹¹.
+// nearest, ties away; a·b ≈ hi_a·hi_b + hi_a·lo_b + lo_a·hi_b with f32 sums
+// keeps about 2⁻²¹ of |a·b| where one TF32 pass keeps 2⁻¹¹.
 
+// x rounded to TF32 on its bit pattern: half a TF32 ulp added to the
+// magnitude, the 13 low mantissa bits cleared. For every finite x these are
+// the bits of cvt.rna.tf32.f32, which sm_90a expands into several more
+// instructions (NaN and infinity handling) than this add and mask.
 __device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
@@ -157,6 +128,11 @@ constexpr int tile_pitch() {
   return D + 4;
 }
 
+template <int D>
+constexpr int tile_floats() {
+  return BM * tile_pitch<D>();
+}
+
 // Whether a head's rows can be copied in 16-byte pieces: its base and its T
 // stride multiples of 16 bytes (D is a multiple of 4).
 __device__ __forceinline__ bool rows_16b(const float* base,
@@ -196,6 +172,101 @@ __device__ __forceinline__ void cp_tile(float* dst, const float* src,
                   in ? 4 : 0);
     }
   }
+}
+
+// --- fragments of one warp's 16 rows ---------------------------------------
+
+// acc[nb] += A·Bᵀ over the D columns of two tiles: A the warp's 16 rows
+// (`a` at its first), B rows [8·nb, 8·nb + 8) of `b`. S = Q·Kᵀ in the
+// forward; S = Q·Kᵀ and dP = dO·Vᵀ in dq; Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in
+// dk/dv.
+template <int D, int NB>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[NB][4],
+                                             const float* a, const float* b,
+                                             int g, int t) {
+  constexpr int P = tile_pitch<D>();
+#pragma unroll 1
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    const float* pa = a + g * P + kk * 8 + t;
+    split_tf32(pa[0], ah[0], al[0]);
+    split_tf32(pa[8 * P], ah[1], al[1]);
+    split_tf32(pa[4], ah[2], al[2]);
+    split_tf32(pa[8 * P + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const float* pb = b + (nb * 8 + g) * P + kk * 8 + t;
+      uint32_t bh[2], bl[2];
+      split_tf32(pb[0], bh[0], bl[0]);
+      split_tf32(pb[4], bh[1], bl[1]);
+      mma_3xtf32(acc[nb], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc[dn] += C·B: C an accumulator tile in registers (the warp's 16 rows by
+// 8·NB columns), B rows [0, 8·NB) of `b` by its D columns. O += P·V in the
+// forward; dq += dS·K in dq; dv += P̃ᵀ·dO and dk += dSᵀ·Q in dk/dv. C's
+// fragment is the A fragment under the permuted k index: k t ↔ column 2t,
+// k t + 4 ↔ column 2t + 1, with B's rows read under the same permutation.
+template <int D, int NB>
+__device__ __forceinline__ void frag_by_rows(float (&acc)[D / 8][4],
+                                             const float (&c)[NB][4],
+                                             const float* b, int g, int t) {
+  constexpr int P = tile_pitch<D>();
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    uint32_t ah[4], al[4];
+    split_tf32(c[nb][0], ah[0], al[0]);
+    split_tf32(c[nb][2], ah[1], al[1]);
+    split_tf32(c[nb][1], ah[2], al[2]);
+    split_tf32(c[nb][3], ah[3], al[3]);
+    const float* pb = b + (nb * 8 + 2 * t) * P + g;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      uint32_t bh[2], bl[2];
+      split_tf32(pb[dn * 8], bh[0], bl[0]);
+      split_tf32(pb[dn * 8 + P], bh[1], bl[1]);
+      mma_3xtf32(acc[dn], ah, al, bh, bl);
+      // At D 128 the accumulators fill the registers: keep the compiler
+      // from hoisting later columns' loads (and their splits) above here.
+      if constexpr (D >= 128) asm volatile("" ::: "memory");
+    }
+  }
+}
+
+// acc += part, element by element, and part = 0: a walked tile's sums join
+// the running sums in f32 adds rounded to nearest.
+template <int D>
+__device__ __forceinline__ void add_tile(float (&acc)[D / 8][4],
+                                         float (&part)[D / 8][4]) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[dn][e] += part[dn][e];
+      part[dn][e] = 0.f;
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_tile(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+}
+
+// One row of a contiguous [.., T, H, D] output (`out` at its start) from
+// an accumulator tile: element 8·dn + 2t + j is acc[dn][2·half + j]·mul.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[D / 8][4],
+                                           int half, float mul, int t) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+    *reinterpret_cast<float2*>(out + dn * 8 + 2 * t) =
+        make_float2(acc[dn][2 * half] * mul, acc[dn][2 * half + 1] * mul);
 }
 
 }  // namespace flash

@@ -3,8 +3,8 @@
 // log-sum-exp.
 //
 // Replaces fedml_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas TPU
-// kernel reached through _fwd) for bf16 operands; f32 operands keep the FMA
-// kernel of flash_fwd.cu, since the tensor cores have no full-f32 product.
+// kernel reached through _fwd) for bf16 operands; f32 operands take the
+// split-TF32 kernel of flash_fwd.cu.
 // Same arithmetic as the TPU kernel, up to exp: S = (Q·Kᵀ)·scale with
 // scale = 1/√D, the causal mask at NEG_INF = -1e30, a running row max m and
 // sum l in f32, P rounded to bf16 before P·V (p.astype(v.dtype)) while l
@@ -19,8 +19,8 @@
 // H = 8, D = 64, causal) the two products Q·Kᵀ and P·V are 68.7 GFLOP
 // against ~34 MB of operands, far above the card's ~295 bf16 operations
 // per byte, so it is bound by operations at the bf16 tensor-core rate (989
-// TFLOP/s). The FMA kernel of flash_fwd.cu reached ~22 TFLOP/s on the FP32
-// pipes; what this design does about what held it back:
+// TFLOP/s). The FMA kernel it replaced for bf16 reached ~22 TFLOP/s on the
+// FP32 pipes; what this design does about what held it back:
 // 1. No tensor cores: both products are wgmma (m64nNk16, bf16 in, f32
 //    sums), issued by one warpgroup per block.
 // 2. Operands widened to f32 in shared memory by scalar loads: Q, K and V

@@ -16,16 +16,16 @@ torch ops compute it before the kernels.
 
 The CUDA kernels for bf16 run on the tensor cores with ``wgmma`` and TMA:
 ``csrc/flash_fwd_sm90.cu`` (the forward) and ``csrc/flash_bwd_sm90.cu``
-(dq and dk/dv). The f32 forward runs on the FP32 pipes with FMA
-(``csrc/flash_fwd.cu``); the f32 backward on the tensor cores in split
-TF32, three TF32 passes a product that keep f32's accuracy
-(``csrc/flash_bwd.cu``). Each route is chosen by dtype alone. The kernels
-read q, k, v (and dO, O) as
+(dq and dk/dv). The f32 kernels run on the tensor cores in split TF32,
+three TF32 passes a product that keep f32's accuracy: the forward in
+``csrc/flash_fwd.cu``, the backward in ``csrc/flash_bwd.cu``. Each route
+is chosen by dtype alone. The kernels read q, k, v (and dO, O) as
 ``[R, B, T, H, D]`` at any stride with D at stride 1, so MHA's views of
-one qkv buffer need no copy; the tensor-core kernels also need every base
-and stride a multiple of 16 bytes, as TMA reads them (the f32 backward
-reads a head's rows in 16-byte pieces where their base and stride allow,
-else in 4-byte pieces, so it takes any such view in place). R is 1 for a plain call; under ``vmap`` the
+one qkv buffer need no copy; the bf16 kernels also need every base and
+stride a multiple of 16 bytes, as TMA reads them (the f32 kernels read a
+head's rows in 16-byte pieces where their base and stride allow, else in
+4-byte pieces, so they take any such view in place). R is 1 for a plain
+call; under ``vmap`` the
 client dim becomes R, so one launch serves every client. What bounds each
 is noted at the top of its source.
 
@@ -163,8 +163,8 @@ def _tma_ready(t):
 
 def _launch_fwd(q, k, v, causal: bool):
     """The forward kernel by dtype alone: bf16 operands reach the
-    tensor-core kernel (``flash_fwd_sm90.cu``), f32 operands the FMA kernel
-    (``flash_fwd.cu``)."""
+    tensor-core kernel (``flash_fwd_sm90.cu``), f32 operands the split-TF32
+    kernel (``flash_fwd.cu``)."""
     ext = extension()
     if q.dtype == torch.bfloat16:
         q, k, v = (_tma_ready(t) for t in (q, k, v))
@@ -336,7 +336,7 @@ def flash_attention(q, k, v, causal: bool = False):
     TPU tuning (VMEM block sizes) and are not carried over; the CUDA
     kernels fix their own tiles. CUDA tensors launch the kernel (and count
     one launch): in bf16 the tensor-core ``flash_fwd_sm90_kernel``, in f32
-    the FMA ``flash_fwd_kernel``. CPU tensors run
+    the split-TF32 ``flash_fwd_tf32_kernel``. CPU tensors run
     :func:`flash_attention_plain`."""
     _check(q, k, v)
     o, lse = _FlashAttention.apply(q[None], k[None], v[None], bool(causal))

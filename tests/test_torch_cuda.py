@@ -34,13 +34,22 @@ def cuda():
     *[(torch.bfloat16, t, 2 if d == 128 else 4, d, causal)
       for t in (2048, 1000) for d in (16, 32, 64, 128)
       for causal in (True, False) if (t, d) != (2048, 64)],
+    # f32 on one tile a head at every head dim, full at T 64 and causal at
+    # a ragged T 50, and the walk's three shapes.
+    *[(torch.float32, t, 4, d, causal)
+      for d in (16, 32, 64, 128) for t, causal in ((64, False), (50, True))
+      if (t, d) != (64, 32)],
+    (torch.float32, 2048, 8, 64, True),
+    (torch.float32, 1000, 8, 64, True),
+    (torch.float32, 130, 2, 16, False),
 ])
 def test_flash_kernel_matches_plain_twin(cuda, dtype, t, h, d, causal):
     """The kernel against the f32 twin on the same inputs: o within 2e-2
     (bf16: the kernel rounds P to bf16 before P·V) or 1e-4 (f32), lse
     within 1e-3; ragged T and every head dim included, bf16 (the
     tensor-core kernel) at every head dim with and without the mask at
-    T 2048 and 1000."""
+    T 2048 and 1000, f32 (the split-TF32 kernel) in both of its builds
+    at every head dim."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, t, h, d, device=cuda, generator=g).to(dtype)
                for _ in range(3))
@@ -104,6 +113,40 @@ def test_flash_fwd_bf16_copies_a_view_tma_cannot_take(cuda):
     want = flash_attention(q.contiguous(), k, v, causal=True)
     assert flash_attention.copies == copies + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_fwd_f32_reruns_are_bit_equal_at_the_vit_shape(cuda):
+    """The split-TF32 forward sums in a fixed order with no atomics: two
+    runs at the ViT's launch (8 clients x batch 32, T 64, 4 heads, D 32)
+    give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    q, k, v = (torch.randn(256, 64, 4, 32, device=cuda, generator=g)
+               for _ in range(3))
+    a = flash_attention(q, k, v)
+    b = flash_attention(q, k, v)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_fwd_f32_reads_a_misaligned_view_in_place(cuda):
+    """f32 q, k, v at an odd offset into buffers whose T stride (385
+    floats) is no multiple of 16 bytes: read with 4-byte copies inside the
+    kernel, no copy counted, the same bits as contiguous inputs, and
+    within 1e-4 (o) and 1e-3 (lse) of the twin."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    q, k, v = (torch.randn(2, 300, 3 * 4 * 32 + 1, generator=g,
+                           device=cuda)[..., 1:129].unflatten(-1, (4, 32))
+               for _ in range(3))
+    assert q.data_ptr() % 16 and q.stride(1) % 4
+    copies = flash_attention.copies
+    o, lse = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.copies == copies
+    dense = [x.contiguous() for x in (q, k, v)]
+    co, clse = flash_attention(*dense, causal=True)
+    assert torch.equal(o, co) and torch.equal(lse, clse)
+    po, plse = flash_attention_plain(*dense, True)
+    assert (o - po).abs().max().item() <= 1e-4
+    assert (lse - plse).abs().max().item() <= 1e-3
 
 
 def _bwd_inputs(b, t, h, d, dtype, causal, gen, device):

@@ -1,16 +1,20 @@
-"""The arithmetic of the port's f32 flash backward
-(``fedml_tpu_torch/ops/csrc/flash_bwd.cu``), emulated in plain torch on
-the CPU and held against the JAX package's Pallas kernels (``_bwd`` in
-interpret mode, as tests/test_torch_flash_backward.py runs them).
+"""The arithmetic of the port's f32 flash kernels
+(``fedml_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``), emulated
+in plain torch on the CPU and held against the JAX package's Pallas
+kernels (``_fwd`` and ``_bwd`` in interpret mode, as
+tests/test_torch_flash_backward.py runs them).
 
 The kernels run every product on the tensor cores as three TF32 passes,
 ``a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi`` with ``a_hi = tf32(a)`` and
 ``a_lo = tf32(a − a_hi)``, where tf32 rounds to nearest, ties away from
-zero, at 10 mantissa bits (``cvt.rna.tf32.f32``); the dq kernel computes
+zero, at 10 mantissa bits (the bits of ``cvt.rna.tf32.f32``, which the
+kernels form with an integer add and mask, as ``tf32`` below does); the
+forward runs an online softmax over 64-key tiles; the dq kernel computes
 δ = rowsum(dO∘O) from the dO and O it holds. The emulation below does the
-same with whole matrices; it lives in this file and on no path. Inputs are
-made with numpy from a seed. On the card the kernels themselves are held
-against the plain twin (tests/test_torch_cuda.py, chip_smoke.py)."""
+same with whole matrices (the forward tile by tile); it lives in this file
+and on no path. Inputs are made with numpy from a seed. On the card the
+kernels themselves are held against the plain twin
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import math
 
@@ -55,6 +59,32 @@ def mm_split(a, b):
 def mm_one(a, b):
     """a @ b in one TF32 pass."""
     return tf32(a) @ tf32(b)
+
+
+def emulated_fwd(q, k, v, causal, mm, blk=64):
+    """The forward kernel over ``[BH, T, D]`` f32: an online softmax over
+    ``blk``-key tiles, each product through ``mm``, each tile's P·V added
+    to the rescaled running O in f32; (o, lse)."""
+    t, d = q.shape[1:]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    m = torch.full((*q.shape[:2], 1), NEG_INF)
+    l = torch.zeros(*q.shape[:2], 1)
+    acc = torch.zeros_like(q)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, blk):
+        kt, vt = k[:, k0:k0 + blk], v[:, k0:k0 + blk]
+        s = mm(q, kt.transpose(1, 2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+            s = s.masked_fill(cols > rows, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + mm(p, vt)
+        m = m_new
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    return acc / l_safe, (m + torch.log(l_safe))[..., 0]
 
 
 def emulated_bwd(q, k, v, o, lse, do, causal, mm):
@@ -129,3 +159,27 @@ def test_split_tf32_bwd_matches_jax_kernels(b, t, h, d, causal, blk):
         if mm is mm_split:
             for g, e in zip(("dq", "dk", "dv"), errs):
                 assert e <= 1e-4, (g, e)
+
+
+@pytest.mark.parametrize("b,t,h,d,causal,blk", [
+    (4, 64, 4, 32, False, 64),  # the ViT's launch, B cut from 256 to 4
+    (2, 200, 2, 64, True, 40),  # a ragged walk over 64-key tiles
+])
+def test_split_tf32_fwd_matches_jax_kernels(b, t, h, d, causal, blk):
+    """o and lse of the emulated split-TF32 forward against JAX's ``_fwd``:
+    o within 1e-4 of max |want|, lse within 1e-3 (the kernel's bounds on
+    the card); the one-pass TF32 distance is printed beside it."""
+    rng = np.random.RandomState(21)
+    q, k, v = (rng.randn(b * h, t, d).astype(np.float32) for _ in range(3))
+    o, lse = _fwd(*map(jnp.asarray, (q, k, v)), 1.0 / d ** 0.5, causal, blk,
+                  blk)
+    want_o, want_lse = np.asarray(o), np.asarray(lse)[:, 0, :]
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    for mm, name in ((mm_split, "split TF32"), (mm_one, "one TF32 pass")):
+        got_o, got_lse = emulated_fwd(*args, causal, mm)
+        err_o = np.abs(got_o.numpy() - want_o).max() / np.abs(want_o).max()
+        err_lse = np.abs(got_lse.numpy() - want_lse).max()
+        print(f"{name} [{b}x{h}, {t}, {d}] causal={causal}: max|o-jax|/"
+              f"max|jax| {err_o:.3e}, max|lse-jax| {err_lse:.3e}")
+        if mm is mm_split:
+            assert err_o <= 1e-4 and err_lse <= 1e-3, (err_o, err_lse)
