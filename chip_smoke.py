@@ -229,7 +229,7 @@ Phases, each of which must pass or the script exits non-zero:
              params, the accuracy risen.
 10. extra  — the rest of the simulator zoo (exp/main_extra.py) at full
              model width, f32: FedNASAPI over the DARTS search net (c 16,
-             5 layers, 4 steps, multiplier 4; 447
+             3 layers, 4 steps, multiplier 4; 275
              GroupNorms a forward) on
              32 x 32 x 3, 16 clients x 128 samples, batch 32, 8 a round:
              (a) the captured round against an eager round from one
@@ -270,7 +270,24 @@ Phases, each of which must pass or the script exits non-zero:
              batch 4, lr 1.0, pad id -1): each (a) and 2 replayed rounds.
              The GroupNorm kernels' holds and times at ResNet-18-GN's f32
              shapes run in the kernels phase.
-12. adapter — the FedAdapter training path at full width: FedAdapterAPI
+12. cv     — the cross-silo CV zoo (BASELINE.md:30-42): FedAvgAPI over
+             mobilenet (alpha 1), vgg11_gn (classifier 4096),
+             mobilenet_v3 (LARGE) and efficientnet (b0), each f32 with
+             GroupNorm at full width, built on the card by default; 10
+             clients x 128 seeded 32 x 32 x 3 samples (cut from ~5,000),
+             10 classes, all 10 a round, batch 64 (2 steps), sgd lr
+             0.001. Each: (a) bit-equal under cuDNN's deterministic mode,
+             a replayed round counted against 2 x its GroupNorms
+             (operand copies printed), one forward + backward through the
+             kernels against the plain twin with the same weights (the
+             logits within 1e-4, the gradient within twice the twin's own
+             move under a 1e-7 input perturbation), a warm
+             train_rounds_on_device(3) call (its capture and peak memory
+             apart) and 3 timed calls, counted; MobileNet's layouts
+             probed and one on-device call profiled (idle share, its five
+             costliest kernels). The GroupNorm kernels at these models'
+             new shapes are held in the kernels phase.
+13. adapter — the FedAdapter training path at full width: FedAdapterAPI
              over transformer_lm vocab 10004, d_model 512, 8 heads, 4
              layers, bf16, flash attention, LoRA rank 16 on the attention
              projections, T 2048; 16 clients x 8 random-token sequences,
@@ -289,7 +306,7 @@ Phases, each of which must pass or the script exits non-zero:
              evaluate_personalized on them. The profiled rounds as in the
              train phase; by name, the forward and backward ran on the
              tensor-core kernels only.
-13. vit    — FedAvgAPI over the ViT (bench.py's vit_cifar_shaped:
+14. vit    — FedAvgAPI over the ViT (bench.py's vit_cifar_shaped:
              patch 4, d_model 128, 4 heads, 4 layers, f32, 64 clients x
              256 CIFAR-shaped class-conditional samples, batch 32, 8 a
              round, sgd lr 0.01) with the f32 flash kernels as its
@@ -300,14 +317,14 @@ Phases, each of which must pass or the script exits non-zero:
              falling, a profiled round showing the f32 kernels by name
              (the split-TF32 forward, dq and dk/dv; no bf16 tensor-core
              kernel and no FMA kernel).
-14. ckpt   — run checkpoints at full width, each resume bit-equal to
+15. ckpt   — run checkpoints at full width, each resume bit-equal to
              the straight run, restored into a fresh api and into the
              captured one: FedAdam (the algos phase's api) on
              train_rounds_on_device and on train_one_round, SCAFFOLD (the
              custom phase's; its control stack) and FedAdapter (the
              adapter phase's, a personalized cohort in its store); the
              save, snapshot and restore ms and the bytes written.
-15. store  — the host-resident client store and the windowed tier. (a)
+16. store  — the host-resident client store and the windowed tier. (a)
              bench.py's FEMNIST-3400 streaming configuration, nothing cut:
              the cnn over 3,400 writers (lognormal counts and U[0, 1)
              samples from seed 0), 10 a round, batch 20, lr 0.1, in three
@@ -334,7 +351,7 @@ Phases, each of which must pass or the script exits non-zero:
              window=4) bit-equal to the resident pipelined rounds, 16
              launches of each flash kernel a round, no copy, the base
              frozen.
-16. knobs  — BatchNorm's last refusals and FedAvgAPI's knobs.
+17. knobs  — BatchNorm's last refusals and FedAvgAPI's knobs.
              (a) norm="bn" where the port refused it before: FedGKT over
              resnet5_56 + resnet56_server and SplitNN over
              resnet_split_bottom + resnet56_server (f32, 8 clients),
@@ -372,7 +389,7 @@ Phases, each of which must pass or the script exits non-zero:
              client nets' pad entries exactly 0; the GroupNorm kernels at
              its padded widths (cluster and streamed routes) against the
              logical call and the plain twin, pad channels exactly 0.
-17. dp     — DP-SGD and remat at full width. First the cli phase's
+18. dp     — DP-SGD and remat at full width. First the cli phase's
              files are written and its north-star command started as a
              subprocess, which runs beside this phase (host-bound
              captures) and the cli phase's in-process runs; every timed
@@ -395,7 +412,7 @@ Phases, each of which must pass or the script exits non-zero:
              captured, the same per-step holds through the flash kernels;
              later a counted replayed round (16 launches of each flash
              kernel).
-18. cli    — the experiment CLI. (a) CIFAR-10 python-pickle batches of
+19. cli    — the experiment CLI. (a) CIFAR-10 python-pickle batches of
              seeded random uint8 images at the real size (50,000 +
              10,000) in a temporary directory; (b) the north-star
              command ``python -m fedml_tpu_torch.exp.main_fedavg --model
@@ -404,14 +421,20 @@ Phases, each of which must pass or the script exits non-zero:
              --client_num_per_round 10 --batch_size 64 --lr 0.03`` with
              ``--epochs 5 -> 1`` and ``--comm_round 100 -> 2`` as a
              subprocess (started by the dp phase), its last line parsed
-             and train_loss finite; (c) in process, through
+             and train_loss finite; (e) beside it, the cross-silo
+             MobileNet row ``--model mobilenet --dataset cifar10
+             --partition_method hetero --partition_alpha 0.5
+             --client_num_in_total 10 --client_num_per_round 10
+             --batch_size 64 --lr 0.001`` with ``--epochs 20 -> 1`` and
+             ``--comm_round 100 -> 1`` on the same files, the same way;
+             (c) in process, through
              ``main(argv)``, exp.run's FedAvg with ``--dp_clip 1.0
              --dp_noise_multiplier 1.1 --remat`` on the same files (1,000
              clients of 50, 2 a round, 1 round) and ``main_centralized``
              with ``--dp_clip`` on 1,280 + 256 images; (d) the GroupNorm
-             launches of (b) (written by the subprocess at exit) and of
-             (c); then the dp phase's timed replays.
-19. report — each phase's seconds, a ``kernels`` JSON line (each flash
+             launches of (b) and (e) (written by the subprocesses at exit)
+             and of (c); then the dp phase's timed replays.
+20. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -641,8 +664,9 @@ VFL_DIMS, VFL_N, VFL_BATCH, VFL_REP, VFL_EPOCHS = (634, 1000), 1280, 64, 32, 5
 VFL_LR, VFL_TOL = 0.01, 1e-5
 # The rest of the simulator zoo (exp/main_extra.py's algorithms), each at
 # its model's full width in f32 as the JAX models run. FedNAS: the DARTS
-# search net (c 16, NAS_LAYERS layers, 4 steps, multiplier 4: 447
-# GroupNorms a forward; the depth cut from 8 to pay for the knobs phase)
+# search net (c 16, NAS_LAYERS layers, 4 steps, multiplier 4: 275
+# GroupNorms a forward, a normal cell and two reductions; the depth cut
+# from 8 to 5 to pay for the knobs phase, and to 3 for the cv phase)
 # on 32 x 32 x 3, 10 classes, 16 clients x 64 samples, batch 32
 # (2 packed steps: h 1), 8 a round, weights lr 0.025, alphas lr 3e-4; the
 # unrolled (second-order) round with xi 0.025 at 2 clients a round of 64
@@ -672,8 +696,8 @@ VFL_LR, VFL_TOL = 0.01, 1e-5
 # timed.
 NAS_CLIENTS, NAS_PER_CLIENT, NAS_BATCH, NAS_PER_ROUND = 16, 64, 32, 8
 NAS_LR, NAS_ARCH_LR, NAS_XI, NAS_UNROLLED_PER_ROUND = 0.025, 3e-4, 0.025, 2
-NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS, NAS_LAYERS = 64, 2, 5
-NAS_GN, NAS_GRAD2_TOL, NAS_REPLAYS = 447, 3e-2, 1
+NAS_UNROLLED_PER_CLIENT, NAS_PIN_LAYERS, NAS_LAYERS = 64, 2, 3
+NAS_GN, NAS_GRAD2_TOL, NAS_REPLAYS = 275, 3e-2, 1
 # FedSeg: UNet (21 classes, base 16, 3 levels: 14 GroupNorms a forward) on
 # 256 x 256 x 3 with 10% of the label pixels 255 (ignored), 16 clients x
 # 32 samples, batch 8, 8 a round, lr 0.01; evaluate on 64 test images.
@@ -714,6 +738,35 @@ FEMNIST_CLIENTS, FEMNIST_PER_CLIENT, FEMNIST_BATCH = 3400, 40, 20
 FEMNIST_PER_ROUND, FEMNIST_LR, FEMNIST_CLASSES = 10, 0.1, 62
 SHAKE_CLIENTS, SHAKE_PER_CLIENT, SHAKE_BATCH, SHAKE_PER_ROUND = 715, 8, 4, 10
 SHAKE_LR, SHAKE_T, SHAKE_VOCAB, SHAKE_PAD = 1.0, 80, 90, -1
+# The cross-silo CV zoo (BASELINE.md:30-42, the reference's
+# benchmark/README.md:103-111): LDA alpha 0.5, 10 clients, all 10 a round,
+# batch 64, sgd lr 0.001; each model at full width, f32, norm "gn", on
+# seeded CIFAR-10-shaped [32, 32, 3] samples with 10 classes. Cut to 128
+# samples a client (2 steps; a client holds ~5,000), 1 epoch (20), equal
+# clients (no LDA split) and 1 captured + 3 x 3 timed rounds (100).
+CV_MODELS = ("mobilenet", "vgg11_gn", "mobilenet_v3", "efficientnet")
+CV_CLIENTS, CV_PER_CLIENT, CV_BATCH, CV_LR = 10, 128, 64, 1e-3
+CV_CUTS = ("128 samples a client (~5,000), 1 epoch (20), equal clients "
+           "(LDA alpha 0.5), 1 + 9 timed rounds (100)")
+# Their GroupNorms a forward (each one launch for the cohort under vmap).
+CV_NORMS = {"mobilenet": 27, "vgg11_gn": 8, "mobilenet_v3": 47,
+            "efficientnet": 49}
+# One forward + backward through the kernels against the same weights on
+# the plain twin: the logits and the gradient as one vector, |d| / |want|.
+# The two sum each GroupNorm's statistics in other orders (~1e-6
+# relative). The logits are held within CV_TWIN_TOL; the gradient within
+# CV_SPREAD x the twin's own move under a 1e-7 (relative) perturbation of
+# the input, and at least CV_TWIN_TOL: MobileNet's f32 gradient is
+# ill-conditioned (its stem's 32 one-channel groups; on the CPU the twin's
+# f32 gradient lies 1.2e-3 from its f64 one and moves 4.7e-3 under such a
+# perturbation), as the split family's holds found for their nets.
+CV_TWIN_TOL, CV_SPREAD = 1e-4, 2.0
+# The GroupNorm shapes these models bring, f32, the cohort's 10 rows of
+# 64 samples, in both layouts: (S, C, groups).
+CV_GN = [(1024, 96, 32), (256, 72, 24), (64, 88, 22), (16, 480, 32),
+         (16, 672, 32), (4, 960, 32), (4, 1280, 32)]
+GN_CASES += [((640, s, c), groups, 10, torch.float32, interleaved)
+             for s, c, groups in CV_GN for interleaved in (True, False)]
 
 # The ViT drive: bench.py's vit_cifar_shaped (bench.py:2096-2107 and
 # _scan_bench's timing): vit patch 4, d_model 128, 4 heads, 4 layers, f32,
@@ -742,8 +795,9 @@ STORE_PROFILED = 4
 # 3, at lr 0.05.
 ZOO_STORE = (("FedOpt", "cnn", 600, 1, 0.1), ("FedNova", "lr", 300, 2, 0.1),
              ("FedDyn", "lr", 64, 3, 0.05), ("SCAFFOLD", "lr", 64, 3, 0.05))
-# The flagship and FedAdapter from a store: windows of 8 and 4.
-FLAGSHIP_STORE_ROUNDS, FLAGSHIP_WINDOW = 16, 8
+# The flagship and FedAdapter from a store: windows of 8 and 4 (the
+# flagship's 16 rounds cut to one window for the cv phase).
+FLAGSHIP_STORE_ROUNDS, FLAGSHIP_WINDOW = 8, 8
 ADAPTER_STORE_ROUNDS, ADAPTER_WINDOW = 8, 4
 
 # The obs phase. (a) model_cost at OBS_COST_BATCH samples (the LM at
@@ -4686,6 +4740,209 @@ def phase_models():
     return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
 
 
+def _cv_twin_hold(tag, name, model, fed, card):
+    """One forward and backward on client 0's first batch through the
+    kernels, against the same weights with ``gn_fn`` = the plain twin, and
+    the twin again on that batch perturbed by 1e-7 (relative): |d| / |want|
+    of the logits and of the gradient, each as one vector. Uncounted (the
+    counts are zeroed before each counted run)."""
+    import torch.nn.functional as F
+    from torch.func import functional_call, grad_and_value
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.group_norm import group_norm_plain
+
+    twin = create_model(name, num_classes=10,
+                        generator=torch.Generator().manual_seed(SEED),
+                        gn_fn=group_norm_plain)
+    twin.load_state_dict(model.state_dict())
+    x, y = fed.x[0, 0], fed.y[0, 0].long()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    nudged = x * (1 + 1e-7 * torch.randn(x.shape, generator=g,
+                                         device="cuda"))
+    key = torch.zeros((), dtype=torch.int64, device="cuda")
+    out = {}
+    with _cudnn_deterministic():
+        for arm, m, xb in (("kernels", model, x), ("twin", twin, x),
+                           ("nudged", twin, nudged)):
+            m.train()
+            kw = {"rng": key} if getattr(m, "takes_rng", False) else {}
+            params = dict(m.named_parameters())
+
+            def loss(p, m=m, kw=kw, xb=xb):
+                logits = functional_call(m, p, (xb,), kw)
+                return F.cross_entropy(logits, y), logits
+
+            grads, (_, logits) = grad_and_value(loss, has_aux=True)(params)
+            out[arm] = (logits.detach(), torch.cat(
+                [t.flatten() for t in grads.values()]))
+    torch.cuda.synchronize()
+
+    def rel(a, i):
+        return ((out[a][i] - out["twin"][i]).norm()
+                / out["twin"][i].norm()).item()
+
+    d_logits, d_grad, spread = rel("kernels", 0), rel("kernels", 1), rel(
+        "nudged", 1)
+    lim = max(CV_TWIN_TOL, CV_SPREAD * spread)
+    print(f"[{tag}] one forward + backward on a batch of {x.shape[0]}: "
+          f"kernels vs the plain twin, same weights, |d| / |want| logits "
+          f"{d_logits:.3e} (tol {CV_TWIN_TOL:.0e}), gradient {d_grad:.3e} "
+          f"(tol {lim:.3e}: the twin's gradient moves {spread:.3e} under a "
+          f"1e-7 input perturbation, logits {rel('nudged', 0):.3e})",
+          flush=True)
+    check(d_logits <= CV_TWIN_TOL and d_grad <= lim,
+          f"{tag}: kernels {d_logits}, {d_grad} from the plain twin (gradient "
+          f"tol {lim})")
+    del twin
+    return d_logits, d_grad, spread
+
+
+def _cv_layouts(tag, model, fed):
+    """Which memory format reaches the GroupNorms: the NHWC input's NCHW
+    view, after flax's SAME pad (``models/layers.pad_same``), after the
+    stem conv and after a depthwise conv fed a channels-last input
+    (channels-last: the kernels read it with no copy)."""
+    from fedml_tpu_torch.models.layers import pad_same
+
+    cl = torch.channels_last
+    x = fed.x[0, 0].permute(0, 3, 1, 2)
+    dw = model.DepthwiseSeparable_0.Conv_0
+    h = torch.randn(x.shape[0], dw.weight.shape[0], 32, 32,
+                    device="cuda").to(memory_format=cl)
+    with torch.no_grad():
+        got = [x, pad_same(x, 3), model.Conv_0(x), dw(h)]
+    cl_in, cl_pad, cl_stem, cl_dw = (t.is_contiguous(memory_format=cl)
+                                     for t in got)
+    print(f"[{tag}] channels-last? input {cl_in}, after the SAME pad "
+          f"{cl_pad}, the stem conv's output {cl_stem}, a depthwise conv's "
+          f"output from a channels-last input {cl_dw}", flush=True)
+
+
+def _cv_drive(name, fed, cfg, card, profile=False):
+    """FedAvg over one CV model on the card by default (``device=None``):
+    pin (a) under cuDNN's deterministic mode from one eager round, a
+    replayed round counted against the model's GroupNorms (their operand
+    copies printed), the kernels against the plain twin, a warm ``train_rounds_on_device(3)`` in cuDNN's
+    default mode (its capture timed apart) and 3 timed calls, counted; with
+    ``profile``, one profiled on-device call. Returns (fwd, bwd) launches
+    and the numbers of the summary line."""
+    from fedml_tpu_torch.algos import FedAvgAPI
+    from fedml_tpu_torch.models import create_model
+
+    tag = f"cv/{name} FedAvg"
+    model = create_model(name, num_classes=10,
+                         generator=torch.Generator().manual_seed(SEED))
+    check(next(model.parameters()).is_cuda,
+          f"{tag}: create_model(device=None) did not build on cuda")
+    api = FedAvgAPI(model, fed, None, cfg)
+    steps = fed.steps_per_epoch
+    norms = _norm_count(model)
+    want = steps * norms
+    samples = CV_CLIENTS * CV_PER_CLIENT
+    params = sum(v.numel() for v in api.net.params.values())
+    print(f"[{tag}] {name} f32 ({params} params, {norms} GroupNorms a "
+          f"forward), {CV_CLIENTS} clients x {CV_PER_CLIENT} [32, 32, 3], 10 "
+          f"classes, batch {CV_BATCH} ({steps} steps), all {CV_CLIENTS} a "
+          f"round, sgd lr {CV_LR}; GroupNorm launches a round by the model: "
+          f"fwd {want}, bwd {want}", flush=True)
+    check(norms == CV_NORMS[name] and steps == 2,
+          f"{tag}: {norms} GroupNorms, {steps} steps")
+    with _cudnn_deterministic():
+        _hold_captured_round(api, 0, tag, runs=1)
+        capture_ms = api._graphs["fused"].capture_ms
+        _zero_gn_counts()
+        med, _, _ = _event_rounds(api, (1,), tag, samples)
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    print(f"[{tag}] replayed round: GroupNorm launches fwd {fwd}, bwd {bwd}, "
+          f"reduce {red} (expected {want} each), streamed {streamed}, "
+          f"operand copies {copies}", flush=True)
+    check(fwd == bwd == red == want and streamed == 0,
+          f"{tag}: GroupNorm launches fwd {fwd} bwd {bwd} reduce {red} "
+          f"streamed {streamed}, expected {want}")
+    if profile:
+        _cv_layouts(tag, model, fed)
+    twin = _cv_twin_hold(tag, name, model, fed, card)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api.train_rounds_on_device(3).tolist()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    od_capture_ms = api._graphs["on_device"].capture_ms
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] train_rounds_on_device(3) warm call {warm_ms:.1f} ms, "
+          f"of which warm-up + capture {od_capture_ms:.1f} ms; peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    counts, dev_ms = _time_on_device(api, 3, tag, samples, "samples",
+                                     _zero_gn_counts, _gn_counts)
+    print(f"[{tag}] GroupNorm launches in the 9 timed rounds: fwd "
+          f"{counts[0]}, bwd {counts[1]}, reduce {counts[2]}, copies "
+          f"{counts[3]}, streamed {counts[4]} (expected {9 * want} a kind)",
+          flush=True)
+    check(counts[0] == counts[1] == counts[2] == 9 * want
+          and counts[3] == 9 * copies and counts[4] == 0,
+          f"{tag}: on-device GroupNorm launches (fwd, bwd, reduce, copies, "
+          f"streamed) {counts}, expected {9 * want} a kind and "
+          f"{9 * copies} copies")
+    if profile:
+        _profile_round(lambda: api.train_rounds_on_device(3),
+                       f"{name} train_rounds_on_device(3) (3 rounds, "
+                       "captured in cuDNN's default mode)", tag, top=5)
+    row = dict(params=params, round_ms=dev_ms,
+               samples_s=samples / dev_ms * 1e3, replayed_ms=med,
+               capture_ms=capture_ms, on_device_capture_ms=od_capture_ms,
+               peak_gib=peak / 2**30, twin=twin)
+    print(f"[{tag}] on-device round {dev_ms:.2f} ms = "
+          f"{row['samples_s']:.1f} samples/s (replayed, deterministic mode: "
+          f"{med:.1f} ms); captures {capture_ms:.1f} ms (fused round) and "
+          f"{od_capture_ms:.1f} ms (3 on-device rounds); peak device memory "
+          f"{row['peak_gib']:.2f} GiB; {card}", flush=True)
+    del api, model
+    _free()
+    return (fwd + counts[0], bwd + counts[1]), row
+
+
+def phase_cv():
+    """The cross-silo CV zoo on the card: FedAvg over MobileNet, VGG-11-GN,
+    MobileNetV3 (LARGE) and EfficientNet-b0 at BASELINE.md's cross-silo
+    config (see the constants), each through ``_cv_drive``; MobileNet's
+    round profiled (its depthwise convs are grouped convs of 10 x C
+    groups under the round's vmap). Returns {kernel name: launches in the
+    counted rounds}."""
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    rng = np.random.RandomState(SEED)
+    n = CV_CLIENTS * CV_PER_CLIENT
+    fed = build_federated_arrays(
+        rng.randn(n, 32, 32, 3).astype(np.float32),
+        rng.randint(0, 10, n).astype(np.int32),
+        partition_homo(n, CV_CLIENTS), CV_BATCH, device="cuda")
+    cfg = FedConfig(client_num_in_total=CV_CLIENTS,
+                    client_num_per_round=CV_CLIENTS, comm_round=3, epochs=1,
+                    batch_size=CV_BATCH, lr=CV_LR, seed=SEED)
+    print(f"[cv] BASELINE.md:30-33's cross-silo config, cut: {CV_CUTS}",
+          flush=True)
+    fwd = bwd = 0
+    rows = {}
+    for name in CV_MODELS:
+        (f, b), rows[name] = _cv_drive(name, fed, cfg, card,
+                                       profile=name == "mobilenet")
+        fwd, bwd = fwd + f, bwd + b
+    del fed
+    _free()
+    print("[cv] summary (on-device round ms, samples/s, capture ms of the "
+          "fused round, peak GiB, params): " + "; ".join(
+              f"{k} {r['round_ms']:.2f} ms, {r['samples_s']:.1f}/s, "
+              f"{r['capture_ms']:.1f} ms, {r['peak_gib']:.2f} GiB, "
+              f"{r['params']}" for k, r in rows.items())
+          + f"; GroupNorm launches counted fwd {fwd}, bwd {bwd}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
 class _SkipLastQTile:
     """Planted fault for the adapter step checks: the extension with its
     dk/dv kernels (the split-TF32 one for f32, the tensor-core one for
@@ -6267,14 +6524,15 @@ KNOB_COMPRESS, KNOB_COMPRESS_ROUNDS = ("topk0.05", "q8"), 2
 # (d) bench.py's cnn_mfu_levers (bench.py:2290-2367: 16 clients x 64, batch
 # 16, 8 a round, 10 accuracy rounds, lr 0.1) and layout_fused_round
 # (bench.py:2388: 64 x 128, batch 20, 10 a round, widths 120/120, lr 0.05),
-# nothing cut; each arm timed over KNOB_TIMED synced rounds. The
+# nothing cut but the timing: each arm timed over KNOB_TIMED synced rounds
+# (20 before the cv phase). The
 # mis-sized GroupNorm ResNet of tests/test_layout.py (widths 20/40/80, stem
 # 20; depth resnet20's 2-2-2), f32 at ROUND_LR on the flagship data.
 LEVERS = dict(clients=16, per_client=64, batch=16, per_round=8,
               acc_rounds=10, lr=0.1)
 LAYOUT_BENCH = dict(clients=64, per_client=128, batch=20, per_round=10,
                     widths=(120, 120), lr=0.05)
-KNOB_TIMED = 20
+KNOB_TIMED = 10
 MIS_WIDTHS, MIS_STEM, MIS_LAYERS = (20, 40, 80), 20, (2, 2, 2)
 # The mis-sized ResNet's logical params under compute_layout="auto" against
 # "none" after 2 f32 rounds at lr 1e-3: cuDNN may pick other convolution
@@ -7139,6 +7397,15 @@ CLI_NORTH_STAR = ["--model", "resnet56", "--dataset", "cifar10",
                   "--client_num_per_round", "10", "--batch_size", "64",
                   "--lr", "0.03", "--epochs", "1", "--comm_round", "2"]
 CLI_CUTS = {"--epochs": (5, 1), "--comm_round": (100, 2)}
+# The cross-silo MobileNet row of BASELINE.md:30-42 through the same CLI
+# and files, run beside the north-star command: 20 epochs -> 1 and 100
+# rounds -> 1 (the cuts).
+CLI_MOBILENET = ["--model", "mobilenet", "--dataset", "cifar10",
+                 "--partition_method", "hetero", "--partition_alpha", "0.5",
+                 "--client_num_in_total", "10",
+                 "--client_num_per_round", "10", "--batch_size", "64",
+                 "--lr", "0.001", "--epochs", "1", "--comm_round", "1"]
+CLI_MOBILENET_CUTS = {"--epochs": (20, 1), "--comm_round": (100, 1)}
 # The in-process runs: exp.run's DP + remat FedAvg over the same files at
 # 1,000 clients of 50 (2 steps of batch 32, 2 a round, 1 round), and the
 # centralized baseline under DP on 1,280 + 256 images (20 steps of 64).
@@ -7184,9 +7451,10 @@ def _write_cifar(root, n_train, n_test, seed):
 
 
 def _start_north_star(tag):
-    """(a) and the start of (b): the CIFAR-10 files in a temporary
-    directory and the north-star command as a subprocess. Returns the
-    run's state (directory, files, process, start time)."""
+    """(a) and the start of (b) and (e): the CIFAR-10 files in a temporary
+    directory, the north-star command and the cross-silo MobileNet row as
+    subprocesses. Returns the run's state (directory, files, processes,
+    start time)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -7198,57 +7466,66 @@ def _start_north_star(tag):
     print(f"[{tag}] (a) CIFAR-10 pickles: {CLI_TRAIN} + {CLI_TEST} seeded "
           f"uint8 images ({nbytes / 2**20:.1f} MiB) in "
           f"{(time.perf_counter() - t0) * 1e3:.0f} ms", flush=True)
-    argv = CLI_NORTH_STAR + ["--data_dir", data_dir]
-    cuts = ", ".join(f"{k} {a} -> {b}" for k, (a, b) in CLI_CUTS.items())
-    print(f"[{tag}] (b) python -m fedml_tpu_torch.exp.main_fedavg "
-          f"{' '.join(argv)} (cut from the documented command: {cuts}); "
-          "it runs beside the dp phase's captures and holds and the cli "
-          "phase's in-process runs, and the timed replays wait for it",
-          flush=True)
-    proc = subprocess.Popen(
-        [sys.executable, "-c", CLI_WRAPPER] + argv,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    return {"tmp": tmp, "data_dir": data_dir, "small_dir": small_dir,
-            "proc": proc, "t0": time.perf_counter()}
+    run = {"tmp": tmp, "data_dir": data_dir, "small_dir": small_dir,
+           "procs": {}}
+    for label, argv, cut in (("(b)", CLI_NORTH_STAR, CLI_CUTS),
+                             ("(e)", CLI_MOBILENET, CLI_MOBILENET_CUTS)):
+        argv = argv + ["--data_dir", data_dir]
+        cuts = ", ".join(f"{k} {a} -> {b}" for k, (a, b) in cut.items())
+        print(f"[{tag}] {label} python -m fedml_tpu_torch.exp.main_fedavg "
+              f"{' '.join(argv)} (cut from the documented command: {cuts}); "
+              "it runs beside the dp phase's captures and holds and the cli "
+              "phase's in-process runs, and the timed replays wait for it",
+              flush=True)
+        run["procs"][label] = subprocess.Popen(
+            [sys.executable, "-c", CLI_WRAPPER] + argv,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    run["t0"] = time.perf_counter()
+    return run
 
 
 def _finish_north_star(run, tag):
-    """(b)'s end: waits for the subprocess, parses its last line (the last
-    round's metrics) and its GroupNorm counts. Returns (fwd, bwd)."""
-    proc = run.pop("proc")
-    out, err = proc.communicate(timeout=900)
-    sub_s = time.perf_counter() - run["t0"]
-    lines = out.strip().splitlines()
-    print(f"[{tag}] (b) exit {proc.returncode} after {sub_s:.1f} s; its "
-          "last lines:", flush=True)
-    for line in lines[-3:]:
-        print(f"[{tag}]   {line[:400]}", flush=True)
-    if proc.returncode != 0:
-        print(err[-4000:], flush=True)
-    check(proc.returncode == 0 and lines,
-          f"{tag}: the north-star command exited {proc.returncode}")
-    last = json.loads(lines[-1])
-    counts = [json.loads(line.split(" ", 1)[1]) for line in err.splitlines()
-              if line.startswith("GN_COUNTS ")]
-    check(len(counts) == 1, f"{tag}: no GroupNorm counts from (b)")
-    fwd, bwd, red = counts[0]
-    print(f"[{tag}] (b) train_loss {last['train_loss']:.4f}, test loss "
-          f"{last.get('loss')}, accuracy {last.get('accuracy')}, round "
-          f"{last.get('time/round_s')} s; GroupNorm launches fwd {fwd}, bwd "
-          f"{bwd}, reduce {red}", flush=True)
-    check(math.isfinite(last["train_loss"]),
-          f"{tag}: north-star train_loss {last['train_loss']}")
-    check(fwd > 0 and bwd > 0, f"{tag}: the north-star run launched no "
-          "GroupNorm kernel")
-    return fwd, bwd
+    """(b)'s and (e)'s end: waits for each subprocess, parses its last line
+    (the last round's metrics) and its GroupNorm counts. Returns (fwd,
+    bwd) summed over both."""
+    total_fwd = total_bwd = 0
+    while run["procs"]:
+        label, proc = next(iter(run["procs"].items()))
+        out, err = proc.communicate(timeout=900)
+        del run["procs"][label]
+        sub_s = time.perf_counter() - run["t0"]
+        lines = out.strip().splitlines()
+        print(f"[{tag}] {label} exit {proc.returncode} after {sub_s:.1f} s; "
+              "its last lines:", flush=True)
+        for line in lines[-3:]:
+            print(f"[{tag}]   {line[:400]}", flush=True)
+        if proc.returncode != 0:
+            print(err[-4000:], flush=True)
+        check(proc.returncode == 0 and lines,
+              f"{tag}: the command {label} exited {proc.returncode}")
+        last = json.loads(lines[-1])
+        counts = [json.loads(line.split(" ", 1)[1])
+                  for line in err.splitlines()
+                  if line.startswith("GN_COUNTS ")]
+        check(len(counts) == 1, f"{tag}: no GroupNorm counts from {label}")
+        fwd, bwd, red = counts[0]
+        print(f"[{tag}] {label} train_loss {last['train_loss']:.4f}, test "
+              f"loss {last.get('loss')}, accuracy {last.get('accuracy')}, "
+              f"round {last.get('time/round_s')} s; GroupNorm launches fwd "
+              f"{fwd}, bwd {bwd}, reduce {red}", flush=True)
+        check(math.isfinite(last["train_loss"]),
+              f"{tag}: {label} train_loss {last['train_loss']}")
+        check(fwd > 0 and bwd > 0, f"{tag}: the command {label} launched no "
+              "GroupNorm kernel")
+        total_fwd, total_bwd = total_fwd + fwd, total_bwd + bwd
+    return total_fwd, total_bwd
 
 
 def _stop_north_star(run):
     import shutil
 
-    proc = run.pop("proc", None)
-    if proc is not None:
+    for proc in run.pop("procs", {}).values():
         proc.kill()
         proc.communicate()
     shutil.rmtree(run["tmp"], ignore_errors=True)
@@ -7594,6 +7871,8 @@ def main() -> int:
     for name, n in extra.items():
         launches[name] += n
     for name, n in timed("models", phase_models).items():
+        launches[name] += n
+    for name, n in timed("cv", phase_cv).items():
         launches[name] += n
     adapter = timed("adapter", phase_adapter, shared)
     vit = timed("vit", phase_vit)

@@ -2,8 +2,12 @@
 CIFAR ResNets (``CifarResNet``) and ``ResNetGN``, the split ResNets
 (``resnet_split``), ``LogisticRegression``, the vertical-FL parties
 (``models/vfl.py``), the DARTS search and genotype networks, ``UNet``,
-``MNISTGan``, the FedAvg CNNs, the LSTMs (``models/rnn.py``) and ``ViT``
-(its ``patch_embed`` conv and ``head`` dense named as flax names them).
+``MNISTGan``, the FedAvg CNNs, the LSTMs (``models/rnn.py``), ``ViT``
+(its ``patch_embed`` conv and ``head`` dense named as flax names them)
+and the cross-silo CV zoo: ``MobileNetV1`` (``DepthwiseSeparable_12``),
+``VGG`` (with BatchNorm's ``batch_stats``), ``MobileNetV3``
+(``MobileBlock_3/SqueezeExcite_0/Dense_1``) and ``EfficientNet``
+(``MBConv_15/Conv_2``).
 
 :func:`from_jax_params` takes the flax tree as a nested dict of numpy
 arrays (with or without ``lora_*`` leaves) and returns ``(base_state_dict,

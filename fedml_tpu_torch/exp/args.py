@@ -524,26 +524,16 @@ UNPORTED_FLAGS = {
     "group_reduce": (False, "A11"),
     "wire_codec": ("none", "A10"), "ingest_workers": (0, "A10"),
 }
-#: Models of the JAX registry that the port has not ported yet (A12).
-UNPORTED_MODELS = ("mobilenet", "mobilenet_v3", "efficientnet", "vgg")
-
-
 def reject_unported_flags(args, who: str = "the PyTorch CLI") -> None:
     """Refuse, by name, each flag of :data:`UNPORTED_FLAGS` set away from
-    its default and each model of :data:`UNPORTED_MODELS`, citing the
-    ROADMAP.md queue that ports it (the CLI's ``refuse_unported``)."""
+    its default, citing the ROADMAP.md queue that ports it (the CLI's
+    ``refuse_unported``)."""
     for name, (default, label) in UNPORTED_FLAGS.items():
         val = getattr(args, name, default)
         if val != default:
             raise NotImplementedError(
                 f"--{name} {val!r} is not ported yet to {who} (ROADMAP.md "
                 f"{label}); leave it at {default!r}")
-    model = getattr(args, "model", None)
-    if model in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"--model {model} is not ported yet to {who} (ROADMAP.md A12); "
-            f"the port's models: lr, cnn, rnn, rnn_stackoverflow, "
-            f"transformer_lm, the resnets")
 
 
 def trace_dir_from(args) -> "str | None":

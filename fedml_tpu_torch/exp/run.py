@@ -152,8 +152,8 @@ def run(args, algorithm: str = "FedAvg"):
                                     reject_unported_flags)
 
     reject_async_tier_flags(args, algorithm)
-    # The client mesh (A11), the wire codec and the ingest pool (A10)
-    # and the A12 models: not ported yet, refused with their queue.
+    # The client mesh (A11), the wire codec and the ingest pool (A10):
+    # not ported yet, refused with their queue.
     reject_unported_flags(args)
     reject_ingest_pool_flag(args, algorithm)
     reject_agg_shards_flag(args, algorithm)

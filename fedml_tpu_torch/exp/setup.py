@@ -17,7 +17,6 @@ from fedml_tpu_torch.data.batching import batch_global
 from fedml_tpu_torch.data.loaders import (FederatedDataset,
                                           load_data as _load_data,
                                           to_federated_arrays)
-from fedml_tpu_torch.exp.args import UNPORTED_MODELS
 from fedml_tpu_torch.models import create_model
 
 
@@ -49,15 +48,13 @@ def load_data(args) -> FederatedDataset:
 def create_model_for(args, fed: FederatedDataset):
     """main_fedavg.py:354-390's (model, dataset) switch: lr for
     mnist/stackoverflow_lr, cnn for femnist, resnet18_gn for fed_cifar100,
-    rnn for the shakespeares, rnn_stackoverflow for nwp, resnet56 for the
-    cross-silo CV datasets; on ``args.device``, weights from a generator
-    seeded with ``args.seed``. The JAX registry's MobileNets,
-    EfficientNet and VGG are refused (ROADMAP.md A12)."""
+    rnn for the shakespeares, rnn_stackoverflow for nwp, resnet56/mobilenet
+    for the cross-silo CV datasets; on ``args.device``, weights from a
+    generator seeded with ``args.seed``. Any other registered name gets
+    only ``num_classes``, as in JAX: ``mobilenet`` is α 1 with GroupNorm,
+    ``mobilenet_v3`` LARGE, ``efficientnet`` b0 with ``small_input``, and
+    an unknown name (``vgg``) raises the registry's ``KeyError``."""
     name = args.model
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"--model {name} is not ported yet to the PyTorch CLI "
-            "(ROADMAP.md A12)")
     ds, ncls = args.dataset, fed.class_num
     kw = dict(device=getattr(args, "device", None),
               generator=torch.Generator().manual_seed(args.seed))

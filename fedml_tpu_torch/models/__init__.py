@@ -3,9 +3,10 @@ adapters, the CIFAR ResNets (GroupNorm or BatchNorm) and the ImageNet-style
 ``resnet*_gn``, the split ResNet pair of FedGKT and split learning,
 logistic regression, the FedAvg CNNs, the Shakespeare and StackOverflow
 LSTMs, the vertical-FL party models, the DARTS search and genotype networks
-of FedNAS, FedSeg's UNet, FedGAN's MNIST GAN and the ViT classifier,
-created through :func:`create_model`; ``torch_convert`` loads reference
-torch CIFAR-ResNet checkpoints, and ``save_params`` / ``load_params``
+of FedNAS, FedSeg's UNet, FedGAN's MNIST GAN, the ViT classifier and the
+cross-silo CV zoo (``mobilenet``, ``vgg11`` … ``vgg19_gn``,
+``mobilenet_v3``, ``efficientnet``), created through :func:`create_model`;
+``torch_convert`` loads reference torch CIFAR-ResNet checkpoints, and ``save_params`` / ``load_params``
 (``pretrained``) write and read a model's weights in the JAX package's
 ``.npz`` layout."""
 

@@ -10,7 +10,7 @@ Module and parameter names follow flax's auto-names (``SearchCell_3``,
 order flax creates them, so ``convert.from_jax_params`` maps the trees one
 to one. Numerics follow flax:
 
-- ``padding="SAME"`` is flax's: ``(low, high)`` from :func:`same_pad`,
+- ``padding="SAME"`` is flax's: ``(low, high)`` from ``layers.same_pad``,
   asymmetric at stride 2 on even sizes (a 3×3 conv at H 32 pads (0, 1)),
   applied with ``F.pad``; max pool pads with −inf, avg pool counts the
   padded cells (flax's ``count_include_pad=True``);
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.core.device import resolve_device
+from fedml_tpu_torch.models.layers import Conv, Named, pad_same
 from fedml_tpu_torch.models.registry import register_model
 from fedml_tpu_torch.models.resnet import Norm, _lecun_normal_
 
@@ -50,30 +51,6 @@ PRIMITIVES = (
 )
 
 
-def same_pad(size: int, k: int, stride: int = 1,
-             dilation: int = 1) -> Tuple[int, int]:
-    """flax's (XLA's) ``padding="SAME"`` for one spatial dim: the output
-    has ``ceil(size / stride)`` positions, and the padding they need is
-    split with the odd cell at the high end."""
-    out = -(-size // stride)
-    span = (k - 1) * dilation + 1
-    total = max((out - 1) * stride + span - size, 0)
-    return total // 2, total - total // 2
-
-
-def pad_same(x, k: int, stride: int = 1, dilation: int = 1,
-             value: float = 0.0):
-    """``x [N, C, H, W]`` padded for a SAME window of ``k``. (Always an
-    explicit pad: a conv's own padding would keep a channels-last input
-    channels-last, whose double backward under ``vmap`` torch does not
-    implement.)"""
-    (ht, hb), (wl, wr) = (same_pad(x.shape[d], k, stride, dilation)
-                          for d in (2, 3))
-    if ht or hb or wl or wr:
-        x = F.pad(x, (wl, wr, ht, hb), value=value)
-    return x
-
-
 def max_pool_same(x, stride: int):
     """flax ``max_pool(x, (3, 3), strides, padding="SAME")``."""
     return F.max_pool2d(pad_same(x, 3, stride, value=-float("inf")), 3,
@@ -86,42 +63,7 @@ def avg_pool_same(x, stride: int):
     return F.avg_pool2d(pad_same(x, 3, stride), 3, stride)
 
 
-class Conv(nn.Module):
-    """flax ``nn.Conv`` with ``padding="SAME"``: OIHW weight (``[c_in /
-    groups]`` input channels), optional bias."""
-
-    def __init__(self, cin, cout, k, stride=1, dilation=1, groups=1,
-                 bias=False, generator=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
-        _lecun_normal_(self.weight, cin // groups * k * k, generator)
-        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
-        self.k, self.stride, self.dilation, self.groups = (k, stride,
-                                                           dilation, groups)
-
-    def forward(self, x):
-        x = pad_same(x, self.k, self.stride, self.dilation)
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
-                        self.dilation, self.groups)
-
-
-class _Named(nn.Module):
-    """Submodules named as flax names them: ``<Kind>_<n>``, counted per
-    kind in creation order."""
-
-    def __init__(self):
-        super().__init__()
-        self._counts = {}
-
-    def named(self, kind: str, module: nn.Module) -> str:
-        n = self._counts.get(kind, 0)
-        self._counts[kind] = n + 1
-        name = f"{kind}_{n}"
-        self.add_module(name, module)
-        return name
-
-
-class ReLUConvNorm(_Named):
+class ReLUConvNorm(Named):
     def __init__(self, cin, cout, k=1, stride=1, norm="gn", gn_fn=None,
                  generator=None):
         super().__init__()
@@ -132,7 +74,7 @@ class ReLUConvNorm(_Named):
         return self.Norm_0(self.Conv_0(F.relu(x)))
 
 
-class SepConv(_Named):
+class SepConv(Named):
     """Depthwise-separable conv twice (the reference's SepConv)."""
 
     def __init__(self, cin, cout, k, stride, norm="gn", gn_fn=None,
@@ -154,7 +96,7 @@ class SepConv(_Named):
         return x
 
 
-class DilConv(_Named):
+class DilConv(Named):
     """Dilated (2) depthwise-separable conv (the reference's DilConv)."""
 
     def __init__(self, cin, cout, k, stride, norm="gn", gn_fn=None,
@@ -169,7 +111,7 @@ class DilConv(_Named):
         return self.Norm_0(self.Conv_1(self.Conv_0(F.relu(x))))
 
 
-class FactorizedReduce(_Named):
+class FactorizedReduce(Named):
     """Stride-2 reduce of a skip edge: two 1×1 stride-2 convs, the second on
     x shifted by one row and column (padded back on odd sizes so that both
     give ``ceil(H / 2)``), concatenated."""
@@ -192,7 +134,7 @@ class FactorizedReduce(_Named):
         return self.Norm_0(torch.cat([a, b], dim=1))
 
 
-def _op(cell: _Named, name: str, c: int, stride: int, norm, gn_fn, gen):
+def _op(cell: Named, name: str, c: int, stride: int, norm, gn_fn, gen):
     """The module of op ``name`` added to ``cell``: its flax name, or None
     for the ops without parameters (pools, identity skip)."""
     if name in ("max_pool_3x3", "avg_pool_3x3") or (
@@ -221,7 +163,7 @@ def _run_op(cell, name: str, module, x, stride: int):
     return getattr(cell, module)(x)
 
 
-class MixedOp(_Named):
+class MixedOp(Named):
     """The softmax-weighted sum of every candidate op on one edge. The
     ``none`` op is zeros of the output's shape, ``ceil(H / s)``: its term
     is 0 and is left out of the sum (JAX adds ``w[0]·0``, which changes no
@@ -246,7 +188,7 @@ def n_edges(steps: int) -> int:
     return sum(2 + i for i in range(steps))
 
 
-def _preprocess(cell: _Named, c_pp, c_p, c, reduction_prev, norm, gn_fn,
+def _preprocess(cell: Named, c_pp, c_p, c, reduction_prev, norm, gn_fn,
                 gen):
     if reduction_prev:
         p0 = cell.named("FactorizedReduce",
@@ -259,7 +201,7 @@ def _preprocess(cell: _Named, c_pp, c_p, c, reduction_prev, norm, gn_fn,
     return p0, p1
 
 
-class SearchCell(_Named):
+class SearchCell(Named):
     """DARTS cell: ``steps`` intermediate nodes with a mixed edge from every
     predecessor; the output is the concat of the last ``multiplier``."""
 
@@ -384,7 +326,7 @@ def derive_genotype(alphas_normal, alphas_reduce, steps: int = 4,
     return Genotype(parse(alphas_normal), concat, parse(alphas_reduce), concat)
 
 
-class GenotypeCell(_Named):
+class GenotypeCell(Named):
     """Discrete cell of a searched genotype (the retraining model, the
     reference's darts/model.py Cell): each intermediate node sums its two
     chosen ops; the output is the concat of the genotype's concat nodes."""

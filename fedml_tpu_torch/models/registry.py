@@ -36,14 +36,18 @@ def create_model(name: str, **kwargs):
         # Import side-effect registration; import errors propagate.
         import fedml_tpu_torch.models.cnn  # noqa: F401
         import fedml_tpu_torch.models.darts  # noqa: F401
+        import fedml_tpu_torch.models.efficientnet  # noqa: F401
         import fedml_tpu_torch.models.gan  # noqa: F401
         import fedml_tpu_torch.models.lr  # noqa: F401
+        import fedml_tpu_torch.models.mobilenet  # noqa: F401
+        import fedml_tpu_torch.models.mobilenet_v3  # noqa: F401
         import fedml_tpu_torch.models.resnet  # noqa: F401
         import fedml_tpu_torch.models.resnet_split  # noqa: F401
         import fedml_tpu_torch.models.rnn  # noqa: F401
         import fedml_tpu_torch.models.transformer  # noqa: F401
         import fedml_tpu_torch.models.unet  # noqa: F401
         import fedml_tpu_torch.models.vfl  # noqa: F401
+        import fedml_tpu_torch.models.vgg  # noqa: F401
         import fedml_tpu_torch.models.vit  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.core.device import resolve_device
-from fedml_tpu_torch.models.darts import Conv as SameConv
+from fedml_tpu_torch.models.layers import Conv as SameConv
 from fedml_tpu_torch.models.registry import register_model
 from fedml_tpu_torch.models.resnet import Conv, Norm
 

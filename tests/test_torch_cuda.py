@@ -477,6 +477,14 @@ GN_ZOO_SHAPES = [((256, 1024, 48), 24), ((256, 1024, 16), 16),
 # of 20 samples: 64 to 512 channels in 32 groups, 32² down to 4².
 GN_R18_SHAPES = [(200, 1024, 64), (200, 256, 128), (200, 64, 256),
                  (200, 16, 512)]
+# The cross-silo CV zoo's new f32 shapes at 32 px, 10 clients' rows of 64
+# samples: EfficientNet-b0's 96 channels in groups of 3 at 32², MobileNetV3's
+# 72 in 24 groups, SMALL's 88 in 22, LARGE's 480 and 672 at 4², 960 and
+# EfficientNet's 1280 at 2² (S = 4).
+GN_CV_SHAPES = [((640, 1024, 96), 32), ((640, 256, 72), 24),
+                ((640, 64, 88), 22), ((640, 16, 480), 32),
+                ((640, 16, 672), 32), ((640, 4, 960), 32),
+                ((640, 4, 1280), 32)]
 
 
 def _gn_inputs(shape, rows, dtype, gen, device, interleaved=False):
@@ -530,6 +538,8 @@ def _sum_order_bound(terms, chain):
       for inter in (False, True)],
     *[(s, 32, 10, torch.float32, inter) for s in GN_R18_SHAPES
       for inter in (False, True)],
+    *[(s, g, 10, torch.float32, inter) for s, g in GN_CV_SHAPES
+      for inter in (False, True)],
 ])
 def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
                                              dtype, interleaved):
@@ -546,7 +556,8 @@ def test_group_norm_kernels_match_plain_twin(cuda, shape, groups, rows,
     are resnet56_server's shapes in the split family, and the 128 rows of
     32 samples its stump's under the FedGKT client phase's vmap. The f32
     cases of 8 rows are FedNAS's and FedSeg's, those of 10 rows
-    ResNet-18-GN's, in both layouts."""
+    ResNet-18-GN's and the cross-silo CV zoo's (groups of 3 to 40
+    channels, S down to 4), in both layouts."""
     from fedml_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device=cuda).manual_seed(0)

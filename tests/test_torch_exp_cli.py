@@ -4,9 +4,10 @@ package's (``fedml_tpu/exp``).
 The flags are JAX's plus ``--device`` (``cuda`` by default), so one argv
 gives both packages the same ``FedConfig``; ``round_lr`` is the same
 schedule; ``create_model_for`` builds each supported (model, dataset) pair
-with JAX's parameter count; every flag and model the port has not ported
-is refused by name with its ROADMAP.md queue, and the guards that JAX's
-runner raises itself keep JAX's words. ``run`` over ``--model lr
+with JAX's parameter count, the registry holds every name of JAX's (an
+unknown one raises JAX's ``KeyError``); every flag the port has not
+ported is refused by name with its ROADMAP.md queue, and the guards that
+JAX's runner raises itself keep JAX's words. ``run`` over ``--model lr
 --dataset synthetic_1_1`` with full participation and a batch that holds
 each client whole (the epoch shuffles then only reorder a sum) gives JAX's
 history within 1e-5, starting from JAX's weights (``create_model_for`` is
@@ -115,7 +116,9 @@ def _jax_count(module, x0):
     ("cnn", "femnist"), ("rnn", "shakespeare"), ("rnn", "fed_shakespeare"),
     ("rnn_stackoverflow", "stackoverflow_nwp"), ("resnet56", "cifar10"),
     ("resnet20", "cifar100"), ("resnet18_gn", "fed_cifar100"),
-    ("transformer_lm", "shakespeare")])
+    ("transformer_lm", "shakespeare"), ("mobilenet", "cifar10"),
+    ("mobilenet_v3", "cifar100"), ("efficientnet", "cinic10"),
+    ("vgg11", "cifar10"), ("vgg16_bn", "cifar10"), ("vgg19_gn", "cifar100")])
 def test_create_model_for_counts_jax_params(model, dataset):
     argv = ["--model", model, "--dataset", dataset, "--device", "cpu",
             "--synthetic_samples", "64", "--client_num_in_total", "3"]
@@ -148,13 +151,32 @@ def test_unported_flags_refused_by_name(flag, value, label):
         _refused(argv, match, main_centralized.main)
 
 
-@pytest.mark.parametrize("model", port_args.UNPORTED_MODELS)
-def test_unported_models_refused_by_name(model):
-    argv = ["--model", model, "--dataset", "cifar10", "--device", "cpu"]
-    _refused(argv, rf"--model {model} .*ROADMAP\.md A12")
-    args = port_args.parse_args(argv)
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_setup.create_model_for(args, None)
+def test_registry_holds_every_jax_name():
+    import fedml_tpu.models.registry as jax_registry
+    import fedml_tpu_torch.models.registry as port_registry
+
+    for reg in (jax_registry, port_registry):
+        with pytest.raises(KeyError):
+            reg.create_model("no such model")
+    assert sorted(port_registry._REGISTRY) == sorted(jax_registry._REGISTRY)
+
+
+def test_unknown_model_vgg_raises_jax_key_error():
+    """``--model vgg`` (no such registry name: VGG registers ``vgg11`` …
+    ``vgg19_gn``) fails in both packages with the same ``KeyError``."""
+    argv = ["--model", "vgg", "--dataset", "cifar10", "--synthetic_samples",
+            "64", "--client_num_in_total", "3"]
+    args = port_args.parse_args(argv + ["--device", "cpu"])
+    fed = port_setup.load_data(args)
+    with pytest.raises(KeyError) as want:
+        jax_setup.create_model_for(jax_args.parse_args(argv), fed)
+    with pytest.raises(KeyError) as got:
+        port_setup.create_model_for(args, fed)
+    assert "unknown model 'vgg'" in str(want.value)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(KeyError) as run_got:
+        port_run.run(args)
+    assert str(run_got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("extra", [

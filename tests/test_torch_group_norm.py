@@ -18,12 +18,16 @@ from fedml_tpu_torch.ops import group_norm as gn
 
 # The five shapes of tests/test_group_norm.py:21-27, then the eight
 # (S, C, groups) that ResNet-56's GroupNorms give the kernels on CIFAR
-# (S = 32², 16², 8²), at N 2.
+# (S = 32², 16², 8²), then seven of the cross-silo CV zoo's at 32 px (groups
+# of 3, 3, 4, 15, 21, 30 and 40 channels, 2×2 maps at the heads), at N 2.
 SHAPES = [((6, 8, 8, 32), 32), ((4, 4, 4, 64), 32), ((3, 2, 2, 128), 32),
           ((5, 7, 48), 8), ((9, 16), 4),
           ((2, 32, 32, 16), 16), ((2, 32, 32, 64), 32), ((2, 32, 32, 32), 32),
           ((2, 16, 16, 32), 32), ((2, 16, 16, 128), 32),
-          ((2, 16, 16, 64), 32), ((2, 8, 8, 64), 32), ((2, 8, 8, 256), 32)]
+          ((2, 16, 16, 64), 32), ((2, 8, 8, 64), 32), ((2, 8, 8, 256), 32),
+          ((2, 32, 32, 96), 32), ((2, 16, 16, 72), 24), ((2, 8, 8, 88), 22),
+          ((2, 4, 4, 480), 32), ((2, 4, 4, 672), 32), ((2, 2, 2, 960), 32),
+          ((2, 2, 2, 1280), 32)]
 
 
 @pytest.fixture(autouse=True, scope="module")

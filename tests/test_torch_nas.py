@@ -24,6 +24,7 @@ from fedml_tpu_torch.convert import from_jax_params, to_jax_params
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.data import build_federated_arrays
 from fedml_tpu_torch.models import darts as td
+from fedml_tpu_torch.models.layers import same_pad
 from fedml_tpu_torch.trainer.local import NetState
 
 TOL = 1e-5  # f32 forward: max |Δ| against max |want|, other conv orders
@@ -58,8 +59,8 @@ def test_same_pad_is_xlas(size):
                            (5, 2, 1), (3, 2, 2), (5, 2, 2), (5, 1, 2)):
         span = (k - 1) * dil + 1
         want = jax.lax.padtype_to_pads((size,), (span,), (stride,), "SAME")
-        assert td.same_pad(size, k, stride, dil) == tuple(want[0])
-    assert td.same_pad(32, 3, 2) == (0, 1) and td.same_pad(32, 5, 2) == (1, 2)
+        assert same_pad(size, k, stride, dil) == tuple(want[0])
+    assert same_pad(32, 3, 2) == (0, 1) and same_pad(32, 5, 2) == (1, 2)
 
 
 def _op_pair(name, stride, c):
