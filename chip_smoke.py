@@ -461,7 +461,32 @@ Phases, each of which must pass or the script exits non-zero:
              rounds alone on the card over its captured silo step: the
              round ms and the silo step (replayed and eager) without
              (c)'s three processes beside.
-21. report — each phase's seconds, a ``kernels`` JSON line (each flash
+21. async  — the federation plane's asynchronous tiers
+             (algos/fedasync.py, algos/fedbuff.py, ROADMAP.md A10b). (a)
+             FedML_FedAsync_distributed at the flagship's config (the
+             fed phase's data and model, 8 workers, alpha 0.6,
+             staleness exponent 0.5, 24 versions, bf16 wire codec, 4
+             ingest workers, eval on 1,024 samples at the end): ms a
+             version, staleness, bytes a upload, occupancy, GroupNorm
+             launches (> 0), a finite eval loss; 8 uploads of its
+             captured step at staleness 0..7 mixed inline and through
+             the pool's decode, bit-equal. (b) FedML_FedBuff_distributed
+             over the adapter phase's transformer (bf16, flash at T
+             2048, LoRA rank 16 on attention), 8 workers, buffer_k 4,
+             3 aggregations, topk0.01+int8 adapter deltas: bytes a
+             upload against the tree's and the model's, the flash
+             launches of each kind (> 0), the frozen base bit-equal;
+             one worker's captured step against the plain twin by the
+             adapter phase's bf16 rule; 64 requests served on the
+             trained global through main_extra's --serve path. (c) On
+             FED_SMALL's lr: coord_median over FedBuff's buffer against
+             a worker uploading NaNs (guard drops counted, the global
+             finite), and FedAsync with a worker cut off by a ChaosSpec
+             partition (evicted, the run ends). (d) main_extra's
+             FedAsync, FedBuff --serve and BaseFramework runners in
+             process at the JAX package's test sizes, each last line
+             parsed.
+22. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -487,6 +512,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -957,10 +983,16 @@ def phase_build():
     block, shared memory), each within the card's opt-in."""
     from fedml_tpu_torch.ops import build
 
+    from fedml_tpu_torch.native import load_msgnet
+
     t0 = time.perf_counter()
     build.extension()
     print(f"[build] extension built in {time.perf_counter() - t0:.1f} s "
           f"from {build.CSRC}", flush=True)
+    t0 = time.perf_counter()
+    load_msgnet()  # the TCP transport's host library, for the fed phase
+    print(f"[build] msgnet (host TCP transport) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     lib = os.path.join(build.BUILD_DIR, "fedml_tpu_torch_kernels.so")
     tool = "/usr/local/cuda/bin/cuobjdump"
 
@@ -7888,6 +7920,9 @@ FED_CLI = ["--size", "3", "--model", "resnet56", "--dataset", "cifar10",
            "--client_num_in_total", "128", "--batch_size", "256", "--lr",
            "0.03", "--epochs", "1", "--comm_round", "1",
            "--frequency_of_the_test", "1"]
+# (c)'s ranks must all have exited this long after their start (they take
+# ~50 s); a rank that exits with an error ends the wait at once.
+FED_CLI_DEADLINE_S = 240.0
 
 
 class _RoundClock:
@@ -7910,28 +7945,79 @@ def _fed_cli_start(tag):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fed_")
     data_dir = os.path.join(tmp, "cifar-10-batches-py")
     _write_cifar(data_dir, CLI_TRAIN, CLI_TEST, SEED)
-    port_base = 20000 + (os.getpid() % 4000) * 4
+    port_base = _free_port_base(3)
     argv = FED_CLI + ["--data_dir", data_dir, "--port_base", str(port_base)]
     print(f"[{tag}] (c) python -m fedml_tpu_torch.exp.main_cross_silo "
           f"{' '.join(FED_CLI)} --rank 0|1|2 over TCP (ports {port_base}-"
           f"{port_base + 2}) on {CLI_TRAIN} + {CLI_TEST} seeded images; it "
           "runs beside (a) and (b)", flush=True)
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "fedml_tpu_torch.exp.main_cross_silo",
-         "--rank", str(r)] + argv,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(3)]
-    return {"tmp": tmp, "procs": procs, "t0": time.perf_counter()}
+    # Each rank writes to files: the wait below polls, so no pipe fills.
+    files = [(os.path.join(tmp, f"rank{r}.out"),
+              os.path.join(tmp, f"rank{r}.err")) for r in range(3)]
+    procs = []
+    for r, (out, err) in enumerate(files):
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedml_tpu_torch.exp.main_cross_silo",
+                 "--rank", str(r)] + argv, stdout=fo, stderr=fe,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    return {"tmp": tmp, "procs": procs, "files": files,
+            "t0": time.perf_counter()}
+
+
+def _free_port_base(n):
+    """A base port below Linux's ephemeral range with the ``n`` ports from
+    it free to bind (as msgnet binds: any address, SO_REUSEADDR)."""
+    import socket
+
+    for i in range(3000):
+        base = 20000 + ((os.getpid() + i) % 3000) * 4
+        socks = []
+        try:
+            for r in range(n):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(sock)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                sock.bind(("", base + r))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise SmokeFailure(f"no {n} free ports from 20000 to 32000")
 
 
 def _fed_cli_finish(run, tag):
     """(c)'s end: each rank's exit and last line; the server's accuracy
-    and health, each silo's GroupNorm launches."""
-    outs, ended = [], []
-    for proc in run["procs"]:
-        out, err = proc.communicate(timeout=600)
-        outs.append((proc.returncode, out, err))
-        ended.append(time.perf_counter() - run["t0"])
+    and health, each silo's GroupNorm launches. The wait is bounded by
+    FED_CLI_DEADLINE_S and ends at the first rank that fails, with every
+    rank's standard error printed."""
+    procs, ended = run["procs"], [None] * len(run["procs"])
+    while True:
+        now = time.perf_counter() - run["t0"]
+        for r, proc in enumerate(procs):
+            if ended[r] is None and proc.poll() is not None:
+                ended[r] = now
+        failed = [r for r, p in enumerate(procs)
+                  if p.returncode not in (None, 0)]
+        if failed or now > FED_CLI_DEADLINE_S:
+            _fed_stop_procs(run)
+            for r, (_, err) in enumerate(run["files"]):
+                with open(err) as f:
+                    print(f"[{tag}] (c) rank {r} (exit "
+                          f"{procs[r].returncode}) stderr:\n"
+                          f"{f.read()[-4000:]}", file=sys.stderr, flush=True)
+            check(False, f"{tag}: cross-silo ranks {failed} failed" if failed
+                  else f"{tag}: cross-silo ranks still running after "
+                  f"{FED_CLI_DEADLINE_S:.0f} s (ended {ended})")
+        if all(t is not None for t in ended):
+            break
+        time.sleep(0.2)
+    outs = []
+    for proc, (out, err) in zip(procs, run["files"]):
+        with open(out) as fo, open(err) as fe:
+            outs.append((proc.returncode, fo.read(), fe.read()))
     print(f"[{tag}] (c) ranks 0, 1, 2 collected after "
           f"{', '.join(f'{t:.1f}' for t in ended)} s", flush=True)
     for r, (rc, out, err) in enumerate(outs):
@@ -7966,13 +8052,17 @@ def _fed_cli_finish(run, tag):
               "kernel")
 
 
-def _fed_stop_cli(run):
-    import shutil
-
+def _fed_stop_procs(run):
     for proc in run.get("procs", []):
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait()
+
+
+def _fed_stop_cli(run):
+    import shutil
+
+    _fed_stop_procs(run)
     shutil.rmtree(run["tmp"], ignore_errors=True)
 
 
@@ -8320,8 +8410,389 @@ def phase_fed():
     return dict(launches)
 
 
+# The asynchronous tiers (the async phase). (a) FedAsync at the flagship's
+# config (the fed phase's data and model, 8 workers) for 24 server
+# versions at the JAX runner's alpha 0.6 and staleness exponent 0.5, bf16
+# wire codec, 4 ingest workers, eval on 1,024 samples at the end; then
+# ASYNC_REPLAY uploads of its captured step at staleness 0..7 mixed by
+# an inline and a pooled server, bit for bit. (b) FedBuff over the
+# adapter phase's transformer (bf16, flash at T 2048, LoRA rank 16 on
+# attention), 16 clients of 8 sequences, 8 workers, buffer_k 4, alpha 1,
+# 3 aggregations, topk0.01+int8 deltas with error feedback, 4 ingest
+# workers; one worker's step held to the plain twin by the adapter
+# phase's bf16 rule; BUFF_SERVE_REQUESTS requests served on its global.
+# (c) FED_SMALL's lr: coord_median over a buffer of 3 with worker 1
+# uploading NaNs, and FedAsync with worker 3 cut off by a ChaosSpec
+# partition (done deadline 2 s). (d) main_extra in process at the JAX
+# package's test sizes (tests/test_exp_extra.py:11-16).
+ASYNC_VERSIONS, ASYNC_ALPHA, ASYNC_STALENESS_EXP = 24, 0.6, 0.5
+ASYNC_CODEC, ASYNC_INGEST, ASYNC_REPLAY = "bf16", 4, 8
+BUFF_K, BUFF_AGGS, BUFF_CODEC, BUFF_INGEST = 4, 3, "topk0.01+int8", 4
+BUFF_SERVE_REQUESTS, ASYNC_DONE_S = 64, 2.0
+ASYNC_CLI_BASE = ["--client_num_in_total", "4", "--client_num_per_round",
+                  "4", "--batch_size", "8", "--comm_round", "2",
+                  "--epochs", "1", "--lr", "0.05", "--device", "cuda"]
+ASYNC_CLI = (
+    ("FedAsync", ["--dataset", "cifar10", "--model", "resnet56", "--ci", "1",
+                  "--synthetic_samples", "96", "--partition_method", "homo"]),
+    ("FedBuff", ["--dataset", "shakespeare", "--model", "transformer_lm",
+                 "--adapter_rank", "8", "--serve", "--serve_requests",
+                 "32"]),
+    ("BaseFramework", ["--dataset", "cifar10", "--model", "resnet56"]))
+
+
+def _async_flagship(tag, card):
+    """(a): FedML_FedAsync_distributed at the flagship's config; then the
+    captured step's uploads mixed inline and pooled. Returns the
+    GroupNorm launches."""
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos import fedasync as fa
+    from fedml_tpu_torch.comm import codec as wire_codec
+    from fedml_tpu_torch.comm import pytree
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.core.tree import sorted_leaves
+    from fedml_tpu_torch.models import create_model
+
+    fed, test = _fed_data()
+    cfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                    client_num_per_round=TRAIN_PER_ROUND,
+                    comm_round=ASYNC_VERSIONS, epochs=1,
+                    batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                    frequency_of_the_test=ASYNC_VERSIONS,
+                    ingest_workers=ASYNC_INGEST)
+    model = create_model("resnet56", num_classes=10, dtype="bf16",
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    clock = _RoundClock()
+    _zero_gn_counts()
+    t0 = time.perf_counter()
+    srv = fa.FedML_FedAsync_distributed(
+        model, fed, test, cfg, alpha=ASYNC_ALPHA,
+        staleness_exp=ASYNC_STALENESS_EXP, wire_codec=ASYNC_CODEC,
+        loopback_wire="tensor", metrics=clock, device="cuda")
+    run_s = time.perf_counter() - t0
+    fwd, bwd, red, copies, _ = _gn_counts()
+    ms = [(b - a) * 1e3 for a, b in zip(clock.t, clock.t[1:])]
+    prof, health = srv.ingest_profile(), srv.final_health
+    dense = 4 * sum(int(np.prod(np.shape(l)))
+                    for l in sorted_leaves(srv.net))
+    pool = prof.get("ingest_pool", {})
+    losses = [h["loss"] for h in srv.test_history]
+    print(f"[{tag}] (a) FedAsync, resnet56 bf16, {TRAIN_PER_ROUND} workers, "
+          f"alpha {ASYNC_ALPHA}, staleness exp {ASYNC_STALENESS_EXP}, wire "
+          f"codec {ASYNC_CODEC}, ingest workers {ASYNC_INGEST}: "
+          f"{srv.version} versions in {run_s:.1f} s; ms a version "
+          f"{[round(m, 1) for m in ms]} (the first with the step's capture "
+          f"{srv.local_train.capture_ms:.0f} ms; median after it "
+          f"{statistics.median(ms[1:]):.1f} ms); staleness "
+          f"{srv.staleness_history}; bytes a upload "
+          f"{prof.get('bytes_per_upload_mean')} (f32 tree {dense}), on the "
+          f"wire {health['bytes_rx']} in all; dispatch occupancy "
+          f"{prof.get('ingest_occupancy')}, pool occupancy "
+          f"{pool.get('occupancy_per_worker')}; eval loss {losses}; GroupNorm "
+          f"launches fwd {fwd}, bwd {bwd}, reduce {red}, copies {copies}; "
+          f"{card}", flush=True)
+    check(fwd > 0 and bwd > 0, f"{tag}: FedAsync launched no GroupNorm "
+          f"kernel ({fwd}, {bwd})")
+    check(srv.version == ASYNC_VERSIONS and losses
+          and all(math.isfinite(l) for l in losses)
+          and health["codec_refusals"] == 0 and health["members"]
+          == TRAIN_PER_ROUND, f"{tag}: FedAsync {srv.version} versions, "
+          f"losses {losses}, health {health}")
+
+    # The same recorded uploads (the captured step from the final net,
+    # ASYNC_REPLAY clients, bf16 frames) mixed by an inline and a pooled
+    # server at staleness 0..7: bit-equal nets.
+    start = pytree.to_device(pytree.host_tree(srv.net), "cuda")
+    codec = wire_codec.make_wire_codec(ASYNC_CODEC)
+    ups = []
+    for i, c in enumerate(sample_clients(ASYNC_VERSIONS, TRAIN_CLIENTS,
+                                         ASYNC_REPLAY)):
+        rng = keys.fold_in(keys.fold_in(keys.key(SEED, "cuda"), i), 1)
+        net, _ = srv.local_train(start, fed.x[c], fed.y[c], fed.mask[c],
+                                 rng)
+        ups.append(codec.encode(pytree.host_tree(net), None, i)[0])
+    nets = []
+    for workers in (0, ASYNC_INGEST):
+        args = type("A", (), {"chaos": None})()
+        from fedml_tpu_torch.comm.loopback import LoopbackNetwork
+
+        args.network = LoopbackNetwork(ASYNC_REPLAY + 1)
+        rcfg = FedConfig(client_num_in_total=TRAIN_CLIENTS,
+                         client_num_per_round=ASYNC_REPLAY, comm_round=10 ** 6,
+                         ingest_workers=workers)
+        rsrv = fa.FedAsyncServerManager(args, start, rcfg, ASYNC_REPLAY + 1,
+                                        alpha=ASYNC_ALPHA, device="cuda")
+        for i, payload in enumerate(ups):
+            m = Message(3, i + 1, 0)
+            m.add(Message.MSG_ARG_KEY_MODEL_PARAMS, payload)
+            m.add(wire_codec.CODEC_KEY, ASYNC_CODEC)
+            m.add(fa.MSG_ARG_KEY_MODEL_VERSION, rsrv.version - i)
+            m.add(fa.MSG_ARG_KEY_TASK_SEQ, 0)
+            rsrv.handle_upload(m)
+        rsrv.finish()
+        nets.append((rsrv.net, list(rsrv.staleness_history)))
+    same = all(torch.equal(a, b) for a, b in zip(
+        sorted_leaves(nets[0][0]), sorted_leaves(nets[1][0])))
+    print(f"[{tag}] (a) {ASYNC_REPLAY} recorded uploads at staleness "
+          f"{nets[0][1]} mixed inline and through the pool's decode "
+          f"({ASYNC_INGEST} workers): {'bit-equal' if same else 'NOT '
+          'bit-equal'}", flush=True)
+    check(same and nets[0][1] == list(range(ASYNC_REPLAY)),
+          f"{tag}: the pooled decode's mix differs from the inline one")
+    del srv, model, fed, test, start
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
+def _async_adapter(tag, card):
+    """(b): FedML_FedBuff_distributed over the FedAdapter model at full
+    width; the step held to its twin; the serving plane on its global.
+    Returns the flash launches."""
+    import functools
+
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos import fedbuff as fb
+    from fedml_tpu_torch.algos.fedavg_distributed import (
+        build_federation_setup)
+    from fedml_tpu_torch.comm import pytree
+    from fedml_tpu_torch.core import keys
+    from fedml_tpu_torch.core.tree import sorted_leaves
+    from fedml_tpu_torch.data import build_federated_arrays, partition_homo
+    from fedml_tpu_torch.exp.main_extra import _serve_fedbuff_global
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
+    rng = np.random.RandomState(SEED)  # the adapter phase's data
+    seqs = rng.randint(1, VOCAB, size=(ADAPTER_CLIENTS * ADAPTER_PER_CLIENT,
+                                       SEQ_LEN + 1))
+    fed = build_federated_arrays(
+        seqs[:, :SEQ_LEN].astype(np.int32), seqs[:, 1:].astype(np.int32),
+        partition_homo(len(seqs), ADAPTER_CLIENTS), ADAPTER_BATCH,
+        device="cuda")
+    cfg = FedConfig(client_num_in_total=ADAPTER_CLIENTS,
+                    client_num_per_round=ADAPTER_PER_ROUND,
+                    comm_round=BUFF_AGGS, epochs=1, batch_size=ADAPTER_BATCH,
+                    lr=ADAPTER_LR, seed=SEED, adapter_rank=ADAPTER_RANK,
+                    ingest_workers=BUFF_INGEST)
+    loss_fn = functools.partial(seq_softmax_ce, pad_id=0)
+
+    def build(dtype="bf16", attn_fn=None):
+        return create_model(
+            "transformer_lm", vocab_size=VOCAB, d_model=D_MODEL,
+            n_heads=N_HEADS, n_layers=N_LAYERS, max_len=SEQ_LEN, dtype=dtype,
+            attn="flash", attn_fn=attn_fn, adapter_rank=ADAPTER_RANK,
+            adapter_scope="attn", device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+
+    model = build()
+    base0 = {k: v.clone() for k, v in model.state_dict().items()}
+    clock = _RoundClock()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    srv = fb.FedML_FedBuff_distributed(
+        model, fed, None, cfg, loss_fn=loss_fn, alpha=1.0, buffer_k=BUFF_K,
+        wire_codec=BUFF_CODEC, loopback_wire="tensor", metrics=clock,
+        device="cuda")
+    run_s = time.perf_counter() - t0
+    fwd, dq, dkv, copies = _flash_counts()
+    ms = [(b - a) * 1e3 for a, b in zip(clock.t, clock.t[1:])]
+    prof, health = srv.ingest_profile(), srv.final_health
+    tree_bytes = 4 * sum(int(l.numel()) for l in sorted_leaves(srv.net))
+    model_bytes = 4 * sum(int(v.numel()) for v in base0.values())
+    now = model.state_dict()
+    same_base = all(torch.equal(v, now[k]) for k, v in base0.items())
+    finite = all(bool(torch.isfinite(l).all())
+                 for l in sorted_leaves(srv.net))
+    print(f"[{tag}] (b) FedBuff over transformer_lm d_model {D_MODEL}, "
+          f"{N_LAYERS} layers, bf16, flash at T {SEQ_LEN}, LoRA rank "
+          f"{ADAPTER_RANK} on attn; {ADAPTER_PER_ROUND} workers, buffer_k "
+          f"{BUFF_K}, alpha 1, wire codec {BUFF_CODEC}, ingest workers "
+          f"{BUFF_INGEST}: {srv.version} aggregations in {run_s:.1f} s; ms "
+          f"an aggregation {[round(m, 1) for m in ms]} (the first with the "
+          f"step's capture {srv.local_train.capture_ms:.0f} ms); staleness "
+          f"{srv.staleness_history}; bytes a upload "
+          f"{prof.get('bytes_per_upload_mean')} against the adapter tree's "
+          f"{tree_bytes} and the dense model's {model_bytes}; occupancy "
+          f"{prof.get('ingest_occupancy')}; flash launches fwd {fwd}, dq "
+          f"{dq}, dkv {dkv}, copies {copies}; the frozen base "
+          f"{'bit-equal' if same_base else 'CHANGED'}; {card}", flush=True)
+    check(fwd > 0 and dq > 0 and dkv > 0, f"{tag}: FedBuff's adapter "
+          f"federation launched fwd {fwd}, dq {dq}, dkv {dkv}")
+    check(same_base, f"{tag}: the frozen base changed")
+    check(srv.version == BUFF_AGGS and finite
+          and health["codec_refusals"] == 0,
+          f"{tag}: FedBuff {srv.version} aggregations, health {health}")
+
+    # One worker's captured step from the trained global and one key, the
+    # kernels against the plain twin by the adapter phase's bf16 rule.
+    def twin_fn(q, k, v, causal):
+        return fa.flash_attention_plain(q, k, v, causal)[0]
+
+    start = pytree.to_device(pytree.host_tree(srv.net), "cuda")
+    key = keys.fold_in(keys.fold_in(keys.key(SEED, "cuda"), 0), 1)
+    one = (fed.x[0], fed.y[0], fed.mask[0], key)
+
+    def delta(step):
+        new = step(start, *one)[0]
+        return torch.cat([(a - b).float().flatten() for a, b in zip(
+            sorted_leaves(new), sorted_leaves(start))])
+
+    step_k = delta(srv.local_train)
+    steps = {}
+    for name, dtype in (("twin16", "bf16"), ("twin32", None)):
+        lt = build_federation_setup(build(dtype, twin_fn), fed, None, cfg,
+                                    "LOOPBACK", loss_fn)[2]
+        steps[name] = delta(lt.step)
+        del lt
+    want = steps["twin32"]
+    rel_k = ((step_k - want).norm() / want.norm()).item()
+    rel_t = ((steps["twin16"] - want).norm() / want.norm()).item()
+    bound = ADAPTER_BF16_FACTOR * rel_t + ADAPTER_BF16_SLACK
+    print(f"[{tag}] (b) one worker's step ({fed.steps_per_epoch} local "
+          f"steps) from the trained global, distance from the f32 twin's "
+          f"step: the captured step's kernels {rel_k:.4e}, the bf16 twin "
+          f"{rel_t:.4e} (tol: kernels <= {ADAPTER_BF16_FACTOR} x twin + "
+          f"{ADAPTER_BF16_SLACK} = {bound:.4e}); |update| "
+          f"{want.norm().item():.4e}", flush=True)
+    check(math.isfinite(rel_k) and rel_k <= bound,
+          f"{tag}: the worker's step is {rel_k} from the f32 twin's, the "
+          f"bf16 twin {rel_t}")
+
+    # The serving plane on the trained global (main_extra's --serve path).
+    t0 = time.perf_counter()
+    args = types.SimpleNamespace(serve_max_batch=32, serve_deadline_ms=5.0,
+                                 serve_port=0, device="cuda",
+                                 serve_requests=BUFF_SERVE_REQUESTS)
+    stats = _serve_fedbuff_global(args, model, srv)
+    print(f"[{tag}] (b) serving {BUFF_SERVE_REQUESTS} requests on the "
+          f"trained global (seq_len 32, 2 new tokens each) in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(stats)}",
+          flush=True)
+    check(stats.get("serve_served") == BUFF_SERVE_REQUESTS,
+          f"{tag}: served {stats}")
+    del srv, model, fed, start, step_k, steps, want
+    return {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+
+
+def _async_control(tag, card):
+    """(c): coord_median against a NaN-uploading worker, and a worker cut
+    off by a ChaosSpec partition, on FED_SMALL's lr."""
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos.fedasync import FedML_FedAsync_distributed
+    from fedml_tpu_torch.algos.fedbuff import FedML_FedBuff_distributed
+    from fedml_tpu_torch.comm.resilience import ChaosSpec
+    from fedml_tpu_torch.core.faults import UpdateCorruptor
+
+    fed, test, model = _fed_small()
+    cfg = FedConfig(comm_round=6, **FED_SMALL)
+    srv = FedML_FedBuff_distributed(
+        model(), fed, test, cfg, buffer_k=3, aggregator="coord_median",
+        corrupt_ranks=(1,), corruptor=UpdateCorruptor("nan", seed=SEED),
+        device="cuda", idle_timeout_s=30.0)
+    bad = sum(1 for w, _ in srv.arrival_log if w == 1)
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in srv.net.params.values())
+    print(f"[{tag}] (c) FedBuff coord_median, buffer 3, worker 1 uploading "
+          f"NaNs: {srv.version} aggregations, guard drops "
+          f"{srv.guard_drops} of worker 1's {bad} uploads, global "
+          f"{'finite' if finite else 'NOT finite'}, accuracy "
+          f"{srv.test_history[-1]['accuracy']:.4f}", flush=True)
+    check(finite and bad > 0 and srv.guard_drops == bad
+          and srv.version == 6, f"{tag}: the robust arm {srv.final_health}")
+    cfg = FedConfig(comm_round=6, heartbeat_interval_s=0.2, **FED_SMALL)
+    chaos = ChaosSpec(seed=SEED, partitions={(3, 0), (0, 3)})
+    t0 = time.perf_counter()
+    srv = FedML_FedAsync_distributed(
+        model(), fed, test, cfg, chaos=chaos, done_timeout_s=ASYNC_DONE_S,
+        idle_timeout_s=5.0, device="cuda")
+    took = time.perf_counter() - t0
+    h = srv.final_health
+    print(f"[{tag}] (c) FedAsync with worker 3 cut off by ChaosSpec: "
+          f"{srv.version} versions, the run ended in {took:.1f} s (done "
+          f"deadline {ASYNC_DONE_S} s, the cut worker's idle quit 5 s), "
+          f"evictions {h['evictions']}, members {h['members']}, chaos "
+          f"counts {chaos.counts}; {card}", flush=True)
+    check(srv.version == 6 and h["evictions"] >= 1 and 3 not in srv._members
+          and took < 60.0, f"{tag}: the partition drill {h}, {took:.1f} s")
+
+
+def _async_cli(tag):
+    """(d): main_extra's FedAsync, FedBuff (--serve) and BaseFramework
+    runners in this process; each last line parsed. Returns the kernels'
+    launches."""
+    import io
+
+    from fedml_tpu_torch.exp import main_extra
+
+    launches = collections.Counter()
+    for algo, extra in ASYNC_CLI:
+        _zero_gn_counts()
+        _zero_flash_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_extra.main(["--algorithm", algo] + ASYNC_CLI_BASE + extra)
+        took = time.perf_counter() - t0
+        gn = _gn_counts()
+        fl = _flash_counts()
+        n = {"group_norm_fwd": gn[0], "group_norm_bwd": gn[1],
+             "flash_fwd": fl[0], "flash_dq": fl[1], "flash_dkv": fl[2]}
+        launches.update(n)
+        last = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"[{tag}] (d) main_extra --algorithm {algo} "
+              f"{' '.join(extra)}: {took:.1f} s; last line "
+              f"{json.dumps(last)[:400]}; launches {n}", flush=True)
+        if algo == "BaseFramework":
+            check(last.get("aggregate") == 8.0, f"{tag}: {algo} {last}")
+            continue
+        check(math.isfinite(last.get("loss", float("nan")))
+              and last.get("version") == 2, f"{tag}: {algo} {last}")
+        if algo == "FedAsync":
+            check(n["group_norm_fwd"] > 0 and n["group_norm_bwd"] > 0,
+                  f"{tag}: {algo} launched {n}")
+        else:  # the CLI's transformer_lm attends densely, as JAX's does
+            check(last.get("serve_served") == 32, f"{tag}: {algo} {last}")
+    return launches
+
+
+def phase_async():
+    """The federation plane's asynchronous tiers on the card: (a)
+    FedAsync at the flagship's config, (b) FedBuff's adapter federation
+    at full width with its serving plane, (c) the robust arm and a
+    partition drill, (d) main_extra's runners. Returns {kernel name:
+    launches}."""
+    tag, card = "async", smi_line()
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    for name, fn in (("a", _async_flagship), ("b", _async_adapter)):
+        t0 = time.perf_counter()
+        launches.update(fn(tag, card))
+        _free()
+        print(f"[{tag}] ({name}) {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    _async_control(tag, card)
+    print(f"[{tag}] (c) {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(_async_cli(tag))
+    _free()
+    print(f"[{tag}] (d) {time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return dict(launches)
+
+
+# The whole script's limit: past it every thread's stack goes to stderr
+# and the script exits with 1 (a hang names itself before the runner's
+# 1,200 s cut).
+WATCHDOG_S = 1150
+
+
 def main() -> int:
     faulthandler.enable()  # a crash in native code prints the Python stack
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -8339,6 +8810,7 @@ def main() -> int:
     seconds = {}
 
     def timed(name, fn, *args):
+        print(f"[phase] {name}: start", file=sys.stderr, flush=True)
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -8379,13 +8851,15 @@ def main() -> int:
     cli = timed("cli", phase_cli, dp)
     for name, n in timed("fed", phase_fed).items():
         launches[name] += n
+    asyn = timed("async", phase_async)
     print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
           f"adapter {adapter}, vit {vit}, store {store}, knobs {knobs}, "
-          f"dp and cli {cli}", flush=True)
+          f"dp and cli {cli}, async {asyn}", flush=True)
     adapter["flash_fwd"] += launches["flash_fwd"]
     launches.update(adapter)
     for name, n in (list(vit.items()) + list(store.items())
-                    + list(knobs.items()) + list(cli.items())):
+                    + list(knobs.items()) + list(cli.items())
+                    + list(asyn.items())):
         launches[name] += n
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
@@ -8397,6 +8871,7 @@ def main() -> int:
           f"{sum(seconds.values()):.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi_line())
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,10 +57,14 @@ blocks unconditionally — one dead worker hangs its server forever):
   epoch, and deterministically rejects pre-crash uploads while workers
   adopt the new epoch from its re-broadcast assignments.
 
-Not ported yet (ROADMAP.md A10b), each refused by name: secure
+Adapter federations (``cfg.adapter_rank > 0``) put the LoRA adapters of a
+frozen-base ``transformer_lm`` on the wire (:func:`build_federation_setup`);
+the asynchronous tiers over these managers are ``algos/fedasync.py`` and
+``algos/fedbuff.py``.
+
+Not ported yet (ROADMAP.md A10c), each refused by name: secure
 aggregation (``cfg.secagg``), the sharded aggregation plane
-(``agg_shards``), adaptive controllers (``controller=``) and adapter
-federations (``cfg.adapter_rank > 0``).
+(``agg_shards``) and adaptive controllers (``controller=``).
 """
 
 from __future__ import annotations
@@ -119,7 +123,24 @@ log = logging.getLogger(__name__)
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet to the PyTorch federation plane "
-        "(ROADMAP.md A10b)")
+        "(ROADMAP.md A10c)")
+
+
+def unported_controller() -> NotImplementedError:
+    return _unported("an adaptive controller (controller=, the JAX "
+                     "package's ctrl/policy.py)")
+
+
+def check_device(train_fed, device):
+    """``device`` resolved (``None`` → cuda), refusing a ``train_fed``
+    that lies elsewhere."""
+    device = resolve_device(device)
+    fd = train_fed.device
+    if fd.type != device.type or (fd.index is not None and device.index
+                                  is not None and fd.index != device.index):
+        raise ValueError(f"train_fed lies on {train_fed.device}, the "
+                         f"federation runs on {device}")
+    return device
 
 
 def _tree_add(a, b):
@@ -353,7 +374,7 @@ class FedAVGServerManager(ServerManager):
         self.codec_refusals = 0
         self.evictions = 0
         self.readmissions = 0
-        self.seed_reveals = 0  # secure aggregation's counter (A10b)
+        self.seed_reveals = 0  # secure aggregation's counter (A10c)
         self.aborted = False
         self._members: Set[int] = set(range(1, size))
         self._done_set: Set[int] = set()
@@ -1344,7 +1365,12 @@ def build_federation_setup(model, train_fed: FederatedArrays, test_global,
     Everything lives on ``train_fed.device``, where ``model`` must lie.
     The initial net is ``model``'s own parameters; ``pretrained_params``
     (a ``{name: tensor or array}`` dict of the same keys and shapes)
-    replaces them (the dense warm start).
+    replaces them (the dense warm start). With ``cfg.adapter_rank > 0``
+    the net is the adapter tree alone, fresh from a generator seeded with
+    ``cfg.seed`` (A ~ N(0, 0.02), B = 0: the exact base), over the frozen
+    base that ``model`` is; ``pretrained_params`` is then the base's state
+    dict (structure-checked), and ``args.adapter_holder`` is
+    ``{"base": model}``.
 
     The local step is one :class:`core.graph.CapturedStep` (JAX:
     ``jax.jit``): captured on its first call on a CUDA device, replayed
@@ -1372,13 +1398,27 @@ def build_federation_setup(model, train_fed: FederatedArrays, test_global,
             "cfg.group_reduce shrinks the client-MESH collective "
             "(parallel/shard.py); the message-passing tiers aggregate "
             "on the server host — drop the flag")
-    if int(getattr(cfg, "adapter_rank", 0) or 0):
-        raise _unported(f"cfg.adapter_rank={cfg.adapter_rank} (frozen-base "
-                        "adapter federations over the wire)")
     device = train_fed.device
-    fns = model_fns(model)
-    net0 = fns.init()
-    if pretrained_params is not None:
+    adapter_holder = None
+    if int(getattr(cfg, "adapter_rank", 0) or 0):
+        # Frozen-base adapter finetuning (models/adapter.py): the
+        # federation's net — on the wire, in the server's accumulator, in
+        # the codecs' tree_spec — is the ADAPTER tree alone, its leaves in
+        # the JAX package's order (core/tree.sorted_flatten). The base is
+        # the model itself, built once a process (from its generator, or
+        # from ``pretrained_params``, structure-checked); the captured
+        # step reads it in place as constants, so every silo of the
+        # process shares its one device copy. It never crosses the wire.
+        # adapter_model_fns refuses a dense model loudly.
+        from fedml_tpu_torch.models.adapter import adapter_model_fns
+
+        fns = adapter_model_fns(model, base_params=pretrained_params)
+        adapter_holder = fns.holder
+        net0 = fns.init(torch.Generator().manual_seed(int(cfg.seed)))
+    else:
+        fns = model_fns(model)
+        net0 = fns.init()
+    if pretrained_params is not None and adapter_holder is None:
         # Dense warm start: same keys and shapes or refuse — a silently
         # reshaped warm start would train the wrong geometry.
         want = {k: tuple(v.shape) for k, v in net0.params.items()}
@@ -1401,7 +1441,10 @@ def build_federation_setup(model, train_fed: FederatedArrays, test_global,
 
     args = Args()
     args.chaos = chaos
-    args.adapter_holder = None
+    # None for dense federations; adapter mode's {"base": the frozen
+    # module} — drills pin the base's bitwise invariance through it, and
+    # the runners stamp it onto the returned server/aggregator.
+    args.adapter_holder = adapter_holder
     if backend == "LOOPBACK":
         args.network = LoopbackNetwork(size, wire=loopback_wire)
     elif backend == "TCP":
@@ -1473,20 +1516,14 @@ def FedML_FedAvg_distributed(
     tracer and flight recorder's dumps.
 
     ``agg_shards``, ``directory`` (the sharded plane's routing) and
-    ``controller`` are not ported yet (ROADMAP.md A10b) and raise."""
+    ``controller`` are not ported yet (ROADMAP.md A10c) and raise."""
     M = int(agg_shards or (getattr(cfg, "agg_shards", 0) or 0))
     if M > 0 or directory is not None:
         raise _unported(f"the sharded aggregation plane (agg_shards={M}, "
                         "the JAX package's comm/shardplane.py)")
     if controller is not None:
-        raise _unported("an adaptive controller (controller=, the JAX "
-                        "package's ctrl/policy.py)")
-    device = resolve_device(device)
-    fd = train_fed.device
-    if fd.type != device.type or (fd.index is not None and device.index
-                                  is not None and fd.index != device.index):
-        raise ValueError(f"train_fed lies on {train_fed.device}, the "
-                         f"federation runs on {device}")
+        raise unported_controller()
+    device = check_device(train_fed, device)
     size, net0, local_train, eval_fn, args = build_federation_setup(
         model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
         loopback_wire=loopback_wire, pretrained_params=pretrained_params)

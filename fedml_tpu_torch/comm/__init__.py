@@ -22,7 +22,7 @@ package; they walk a tree's leaves in ``jax.tree``'s order
 JAX package's byte for byte, and ``pytree.py`` holds a tree's leaves on
 the host (bfloat16 as CPU ``torch.bfloat16`` tensors). The
 gRPC, MQTT and TRPC backends, secure aggregation and the sharded plane are
-not ported yet (ROADMAP.md A10b).
+not ported yet (ROADMAP.md A10c).
 
 Cross-cutting resilience (``resilience.py``): one ``RetryPolicy`` shared
 by the transports' ``send_message``, and ``ChaosTransport`` — a seeded

@@ -107,8 +107,12 @@ class LoopbackCommManager(BaseCommunicationManager):
 def run_workers(worker_fns) -> None:
     """Run one callable per rank on daemon threads and join them all.
     Single-host analogue of ``mpirun -np N`` (run_fedavg_distributed_pytorch
-    .sh:21); exceptions in any worker are re-raised in the caller."""
+    .sh:21); an exception in any worker is re-raised in the caller as soon
+    as that worker has ended: its peers may wait for it forever (a server
+    that awaits a dead silo's upload, a silo that awaits a dead server's
+    reply), so they are left on their daemon threads."""
     errors: Dict[int, BaseException] = {}
+    failed = threading.Event()
 
     def wrap(i, fn):
         def run():
@@ -116,6 +120,7 @@ def run_workers(worker_fns) -> None:
                 fn()
             except BaseException as e:  # noqa: BLE001 — surfaced to caller
                 errors[i] = e
+                failed.set()
 
         return run
 
@@ -126,7 +131,10 @@ def run_workers(worker_fns) -> None:
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        while t.is_alive() and not failed.is_set():
+            t.join(timeout=0.05)
+        if failed.is_set():
+            break
     if errors:
         rank, err = sorted(errors.items())[0]
         raise RuntimeError(f"worker rank {rank} failed") from err

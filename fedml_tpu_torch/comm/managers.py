@@ -10,7 +10,7 @@ Backend selection is a string, as in the reference (client_manager.py:20-36):
 ``args.network``) or ``TCP`` (native C++ socket transport;
 ``args.host_table`` maps rank → (host, port)). The JAX package's ``GRPC``,
 ``MQTT``, ``TRPC`` and ``SIM`` backends are not ported yet (ROADMAP.md
-A10b): asking for one raises by name.
+A10c): asking for one raises by name.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 from fedml_tpu_torch.comm.message import Message
 
 
-#: The JAX package's other backends, ported with ROADMAP.md A10b.
+#: The JAX package's other backends, ported with ROADMAP.md A10c.
 UNPORTED_BACKENDS = ("GRPC", "MQTT", "TRPC", "SIM")
 
 
@@ -37,7 +37,7 @@ def _build_backend(args, rank: int, size: int, backend: str) -> BaseCommunicatio
     elif backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"comm backend {backend!r} is not ported yet to the PyTorch "
-            "federation plane (ROADMAP.md A10b); use LOOPBACK or TCP")
+            "federation plane (ROADMAP.md A10c); use LOOPBACK or TCP")
     else:
         raise ValueError(f"unknown comm backend {backend!r}")
     # Fault drills: ``args.chaos`` (a resilience.ChaosSpec, shared by the
@@ -154,14 +154,14 @@ class ServerManager(_Manager):
         """Bind a ``FederationController`` to this manager's actuation
         seam (``self.ctrl``, built by the subclass constructor); ``None``
         detaches. The controllers (the JAX package's ``ctrl/policy.py``)
-        are not ported yet (ROADMAP.md A10b), so binding one raises: the
+        are not ported yet (ROADMAP.md A10c), so binding one raises: the
         seam itself is here, and ``_ctrl_boundary`` drains its queued
         actuations."""
         if controller is not None:
             raise NotImplementedError(
                 "an adaptive controller (the JAX package's ctrl/policy.py "
                 "FederationController) is not ported yet to the PyTorch "
-                "federation plane (ROADMAP.md A10b); the actuation seam "
+                "federation plane (ROADMAP.md A10c); the actuation seam "
                 "(ctrl/actuator.py) takes manual actuations")
         self._controller = None
         self._ctrl_errors = 0

@@ -27,8 +27,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import keys
 from fedml_tpu_torch.core.robustness import gaussian_tree
-from fedml_tpu_torch.core.tree import tree_map
+from fedml_tpu_torch.core.tree import tree_leaves, tree_map
 
 
 def _first_nan(w):
@@ -70,17 +71,43 @@ class UpdateCorruptor:
     """Faults injected into trained client updates: ``sign_flip`` (model
     replacement ``g - scale·(w - g)``), ``scale`` (``w·scale``), ``nan``
     (the first element of every leaf) and ``random`` (``scale`` x standard
-    normals). The JAX package's host-side ``corrupt`` (one update, a
-    carried key) is not ported: the rounds run :meth:`device_fn`."""
+    normals). The rounds run :meth:`device_fn`; the message-passing tiers
+    corrupt one worker's update with :meth:`corrupt`, whose ``random``
+    mode carries a key chain from ``seed``."""
 
     MODES = ("sign_flip", "scale", "nan", "random")
 
-    def __init__(self, mode: str = "sign_flip", scale: float = 10.0):
+    def __init__(self, mode: str = "sign_flip", scale: float = 10.0,
+                 seed: int = 0):
         if mode not in self.MODES:
             raise ValueError(f"unknown corruption mode {mode!r}; known "
                              f"{self.MODES}")
         self.mode = mode
         self.scale = scale
+        self.seed = seed
+        self._draws = 0  # the random mode's position in its key chain
+
+    def corrupt(self, net, global_net=None):
+        """One trained update (a ``NetState`` or a param dict of tensors)
+        corrupted, params leaf-wise: ``sign_flip`` against ``global_net``
+        (or ``-w`` without one)."""
+        params = getattr(net, "params", net)
+        if self.mode == "sign_flip" and global_net is None:
+            new = tree_map(lambda w: -w, params)
+        elif self.mode == "sign_flip":
+            gp = getattr(global_net, "params", global_net)
+            new = tree_map(lambda w, g: g - self.scale * (w - g), params, gp)
+        else:  # scale, nan, random: the device form on a stack of one
+            rng = keys.fold_in(keys.key(self.seed,
+                                        tree_leaves(params)[0].device),
+                               self._draws)
+            if self.mode == "random":
+                self._draws += 1
+            new = tree_map(lambda t: t[0], self._corrupted(
+                tree_map(lambda t: t[None], params), None, rng[None]))
+        if hasattr(net, "params"):
+            return type(net)(new, net.model_state)
+        return new
 
     def _corrupted(self, params, global_params, keys_):
         """Every client of the stack corrupted (``[C, ...]`` leaves,

@@ -23,7 +23,7 @@ folds and evaluates there. The server prints one JSON line with the final
 test metrics, ``health()`` and the ingest profile when done; a silo
 prints its rank and the launches of the hand-written kernels it ran.
 ``--comm_backend GRPC`` and ``TRPC`` are not ported yet (ROADMAP.md
-A10b).
+A10c).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def main(argv=None):
     parser.add_argument("--comm_backend", type=str, default="TCP",
                         choices=["TCP", "GRPC", "TRPC"],
                         help="cross-silo transport: native C++ msgnet TCP "
-                             "(GRPC and TRPC: ROADMAP.md A10b)")
+                             "(GRPC and TRPC: ROADMAP.md A10c)")
     # --compress comes from the shared add_args flag set: here it is the
     # legacy codec (none | topk<ratio> with error feedback | q<bits>
     # stochastic quantization), decoded by the server per frame.
@@ -109,7 +109,7 @@ def main(argv=None):
     if args.comm_backend != "TCP":
         raise NotImplementedError(
             f"--comm_backend {args.comm_backend} is not ported yet to the "
-            "PyTorch federation plane (ROADMAP.md A10b); use TCP")
+            "PyTorch federation plane (ROADMAP.md A10c); use TCP")
     if args.client_selection != "random":
         raise SystemExit(
             f"--client_selection {args.client_selection} is a simulator "
@@ -119,7 +119,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--secagg (secure aggregation, the JAX package's "
             "comm/secagg.py) is not ported yet to the PyTorch federation "
-            "plane (ROADMAP.md A10b)")
+            "plane (ROADMAP.md A10c)")
     from fedml_tpu_torch.exp.args import (reject_adapter_flags,
                                           reject_agg_shards_flag,
                                           reject_async_tier_flags,

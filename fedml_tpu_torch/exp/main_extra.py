@@ -1,7 +1,7 @@
 """Experiment mains for the non-FedAvg-family algorithms (port of
 ``fedml_tpu/exp/main_extra.py``) — the L4 entries the reference keeps
 under ``fedml_experiments/distributed/{fedgan,fedgkt,fednas,split_nn,
-classical_vertical_fl,decentralized_demo}`` and
+classical_vertical_fl,base,decentralized_demo}`` and
 ``fedml_experiments/standalone/decentralized``.
 
 Each ``run_<algo>`` wires args → data → models → API with the reference's
@@ -9,12 +9,15 @@ defaults, on ``--device``; the module is executable:
 
     python -m fedml_tpu_torch.exp.main_extra --algorithm FedGAN \
         --comm_round 5 ...
+    python -m fedml_tpu_torch.exp.main_extra --algorithm FedBuff \
+        --model transformer_lm --dataset shakespeare --adapter_rank 8 \
+        --serve --serve_requests 32 ...
 
-The JAX package's message-passing runners (FedAsync, FedBuff with its
-serving plane, the BaseFramework demo) are not ported yet (ROADMAP.md
-A10b): asking for one is refused by name. The synchronous federation
-plane is ``algos/fedavg_distributed.py`` and its CLI
-``exp/main_cross_silo.py``.
+FedAsync and FedBuff run over the loopback message-passing tiers
+(``algos/fedasync.py``, ``algos/fedbuff.py``); FedBuff stands up the
+serving plane on its trained global with ``--serve``. The adaptive
+controller (``--controller``) is not ported yet (ROADMAP.md A10c). The
+synchronous federation plane's CLI is ``exp/main_cross_silo.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from fedml_tpu_torch.exp.args import (add_args, config_from_args,
                                       reject_secagg_flags,
                                       reject_serve_flags,
                                       reject_unported_flags)
-from fedml_tpu_torch.exp.setup import global_test_batches, load_data
+from fedml_tpu_torch.exp.setup import (create_model_for, global_test_batches,
+                                       load_data)
 
 
 def _setup(args):
@@ -154,6 +158,177 @@ def run_decentralized(args):
     return _loop(api, cfg)
 
 
+def _async_loss_kwargs(args):
+    """Sequence-dataset loss for the async runners (run.py's make_api
+    wiring, which these CLI paths bypass): without it a transformer_lm +
+    shakespeare worker dies on the classification CE's label shape and
+    the federation waits for its uploads."""
+    from fedml_tpu_torch.exp.run import SEQ_DATASETS
+
+    if args.dataset not in SEQ_DATASETS:
+        return {}
+    from functools import partial
+
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    pad_id = -1 if args.dataset == "shakespeare" else 0
+    return {"loss_fn": partial(seq_softmax_ce, pad_id=pad_id)}
+
+
+def _async_obs_kwargs(args):
+    """Shared --run_dir/--trace wiring for the async-tier runners: a
+    metrics.jsonl ctrl/ stream per model version (the sync server's
+    schema) and the flight recorder / span tracer. Returns ``(kwargs,
+    metrics_logger_or_None)`` — the caller closes the logger after the
+    run."""
+    from fedml_tpu_torch.exp.args import trace_dir_from
+
+    metrics = None
+    if getattr(args, "run_dir", None):
+        from fedml_tpu_torch.obs import MetricsLogger
+
+        metrics = MetricsLogger.for_run(run_dir=args.run_dir, stdout=False)
+    return {"metrics": metrics, "trace_dir": trace_dir_from(args)}, metrics
+
+
+def _refuse_controller(args):
+    """``--controller`` selects the JAX package's adaptive controller
+    (``ctrl/policy.py``), not ported yet (ROADMAP.md A10c)."""
+    if getattr(args, "controller", "none") != "none":
+        from fedml_tpu_torch.algos.fedavg_distributed import (
+            unported_controller)
+
+        raise unported_controller()
+
+
+def run_fedasync(args):
+    """Asynchronous FL (no barrier; staleness-weighted mixing) over the
+    loopback message-passing backend — fedasync.py."""
+    from fedml_tpu_torch.algos.fedasync import FedML_FedAsync_distributed
+
+    _refuse_controller(args)
+    fed, arrays, test, cfg = _setup(args)
+    model = create_model_for(args, fed)
+    obs_kw, metrics = _async_obs_kwargs(args)
+    try:
+        srv = FedML_FedAsync_distributed(
+            model, arrays, test, cfg,
+            alpha=(0.6 if args.fedasync_alpha < 0 else args.fedasync_alpha),
+            staleness_exp=args.staleness_exp, wire_codec=args.wire_codec,
+            device=args.device, **_async_loss_kwargs(args), **obs_kw)
+    finally:
+        if metrics is not None:
+            metrics.close()
+    logging.info("fedasync staleness history: %s", srv.staleness_history)
+    return srv.test_history or [{"version": srv.version}]
+
+
+def run_fedbuff(args):
+    """Buffered semi-sync FL (aggregate every ``--buffer_k`` arrivals with
+    polynomial staleness discounting) — fedbuff.py. Composes with
+    ``--aggregator`` (robust buffer reduction) and ``--corrupt_mode`` (the
+    first ``--attack_num_adversaries`` worker ranks turn Byzantine)."""
+    from fedml_tpu_torch.algos.fedbuff import FedML_FedBuff_distributed
+    from fedml_tpu_torch.core.faults import UpdateCorruptor
+
+    _refuse_controller(args)
+    fed, arrays, test, cfg = _setup(args)
+    model = create_model_for(args, fed)
+    corruptor = None
+    corrupt_ranks = ()
+    if args.corrupt_mode != "none":
+        corruptor = UpdateCorruptor(args.corrupt_mode, args.corrupt_scale,
+                                    seed=cfg.seed)
+        corrupt_ranks = tuple(range(1, 1 + args.attack_num_adversaries))
+    obs_kw, metrics = _async_obs_kwargs(args)
+    try:
+        srv = FedML_FedBuff_distributed(
+            model, arrays, test, cfg,
+            alpha=(1.0 if args.fedasync_alpha < 0 else args.fedasync_alpha),
+            staleness_exp=args.staleness_exp, buffer_k=args.buffer_k,
+            aggregator=args.aggregator, wire_codec=args.wire_codec,
+            corrupt_ranks=corrupt_ranks, corruptor=corruptor,
+            device=args.device, **_async_loss_kwargs(args), **obs_kw)
+    finally:
+        if metrics is not None:
+            metrics.close()
+    logging.info("fedbuff staleness history: %s (guard_drops=%d)",
+                 srv.staleness_history, srv.guard_drops)
+    history = srv.test_history or [{"version": srv.version}]
+    if getattr(args, "serve", False):
+        history[-1] = dict(history[-1], **_serve_fedbuff_global(args, model,
+                                                               srv))
+    return history
+
+
+def _serve_fedbuff_global(args, model, srv):
+    """Stand up the multi-tenant serving plane (fedml_tpu_torch.serve) on
+    the trained FedBuff global: batched LoRA inference over the run's
+    frozen base, ``--serve_requests`` smoke traffic through the
+    micro-batcher, optional ``--serve_port`` JSON socket. Returns flat
+    serve_* scalars for the output line."""
+    from fedml_tpu_torch.comm import pytree
+    from fedml_tpu_torch.models.adapter import adapter_model_fns
+    from fedml_tpu_torch.serve import (AdapterDecoder, ServeForward,
+                                       ServeManager, ServeSocketServer)
+
+    holder = getattr(srv, "adapter_holder", None)
+    if not holder or "base" not in holder:
+        raise SystemExit(
+            "--serve needs the frozen-base adapter run: pass "
+            "--adapter_rank > 0 with --model transformer_lm (the serving "
+            "plane batches per-request LoRA deltas over one frozen base)")
+    fns = adapter_model_fns(holder["base"])
+    glob = pytree.host_tree(srv.net.params)
+    fwd = ServeForward(fns, glob, device=args.device)
+    dec = AdapterDecoder(model, fns, glob, device=args.device)
+    seq_len = min(int(getattr(model, "max_len", 32)), 32)
+    vocab = int(getattr(model, "vocab_size", 64))
+    mgr = ServeManager(fwd, None, glob, seq_len=seq_len,
+                       max_batch=args.serve_max_batch,
+                       deadline_s=args.serve_deadline_ms / 1e3,
+                       decoder=dec, device=args.device).start()
+    sock = None
+    try:
+        if args.serve_port:
+            sock = ServeSocketServer(mgr, args.serve_port).start()
+            logging.info("serve socket listening on 127.0.0.1:%d", sock.port)
+        rng = np.random.default_rng(0)
+        pending = []
+        for i in range(int(args.serve_requests)):
+            toks = rng.integers(0, vocab,
+                                size=int(rng.integers(1, seq_len + 1)))
+            pending.append(mgr.submit(i, toks.astype(np.int32),
+                                      max_new_tokens=2))
+            if len(pending) >= 64:
+                for r in pending:
+                    r.result(120)
+                pending.clear()
+        for r in pending:
+            r.result(120)
+        stats = mgr.stats()
+    finally:
+        if sock is not None:
+            sock.close()
+        mgr.close()
+    return {k.replace("/", "_"): v for k, v in stats.items()
+            if isinstance(v, (int, float))}
+
+
+def run_base_framework(args):
+    """main_base.py parity: the didactic scalar-sum message-passing demo
+    over the loopback backend (local result = rank + round)."""
+    from fedml_tpu_torch.algos.base_framework import FedML_Base_distributed
+
+    worker_num = max(2, args.client_num_per_round)
+    results = FedML_Base_distributed(
+        worker_num, args.comm_round,
+        local_fn=lambda round_idx, _global: float(round_idx + 1))
+    logging.info("base framework per-round aggregates: %s", results)
+    return [{"round": i, "aggregate": float(r)}
+            for i, r in enumerate(results)]
+
+
 def _loop(api, cfg):
     history = []
     for r in range(cfg.comm_round):
@@ -169,48 +344,74 @@ def _loop(api, cfg):
 
 
 RUNNERS = {
+    "FedAsync": run_fedasync,
+    "FedBuff": run_fedbuff,
     "FedGAN": run_fedgan,
     "FedGKT": run_fedgkt,
     "FedNAS": run_fednas,
     "SplitNN": run_split_nn,
     "VFL": run_vfl,
     "Decentralized": run_decentralized,
+    "BaseFramework": run_base_framework,
 }
-#: The JAX package's runners over its message-passing tiers.
-UNPORTED_RUNNERS = ("FedAsync", "FedBuff", "BaseFramework")
+#: The JAX package's runners that the port has no counterpart for: none
+#: since the asynchronous tiers came.
+UNPORTED_RUNNERS = ()
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--algorithm", type=str, required=True,
-                        choices=sorted(RUNNERS) + list(UNPORTED_RUNNERS))
+                        choices=sorted(RUNNERS))
     parser.add_argument("--dol_mode", type=str, default="dsgd",
                         help="Decentralized only: dsgd | pushsum")
     add_args(parser)
     args = parser.parse_args(argv)
-    if args.algorithm in UNPORTED_RUNNERS:
-        raise NotImplementedError(
-            f"--algorithm {args.algorithm} runs over the JAX package's "
-            "message-passing tiers, which are not ported yet to the "
-            "PyTorch CLI (ROADMAP.md A10b)")
-    # Every specialty algorithm here refuses the FedAvg-family, async,
-    # serving, ingest, controller, shard-plane, secagg, pod-plane and
-    # adapter flags, as the JAX runner refuses them for these loops.
-    reject_fedavg_family_flags(args, args.algorithm)
-    reject_async_tier_flags(args, args.algorithm)
-    reject_serve_flags(args, args.algorithm)
-    if getattr(args, "wire_codec", "none") != "none":
+    # The JAX runner's refusals, in its order and words. FedBuff composes
+    # with the robust aggregator + corruption drill; every other specialty
+    # algorithm refuses those flags. The async-tier knobs are read by
+    # FedAsync/FedBuff only; only FedBuff serves.
+    if args.algorithm != "FedBuff":
+        reject_fedavg_family_flags(args, args.algorithm)
+        reject_async_tier_flags(args, args.algorithm,
+                                allow_mixing=args.algorithm == "FedAsync")
+        reject_serve_flags(args, args.algorithm)
+    elif not getattr(args, "serve", False):
+        reject_serve_flags(args, f"{args.algorithm} without --serve")
+    elif not getattr(args, "adapter_rank", 0):
+        raise SystemExit(
+            "--serve needs --adapter_rank > 0 (and --model "
+            "transformer_lm): the serving plane batches per-request "
+            "LoRA deltas over one frozen base (fedml_tpu.serve)")
+    if (args.algorithm not in ("FedAsync", "FedBuff")
+            and getattr(args, "wire_codec", "none") != "none"):
         raise SystemExit(
             f"{args.algorithm} does not support --wire_codec "
             f"{args.wire_codec}: the negotiated wire codec rides the "
             "message-passing upload path (FedAsync/FedBuff here, or the "
             "cross-silo CLI) — the flag would be silently inert")
-    reject_ingest_pool_flag(args, args.algorithm)
-    reject_controller_flags(args, args.algorithm)
+    if args.algorithm not in ("FedAsync", "FedBuff"):
+        reject_ingest_pool_flag(args, args.algorithm)
+        reject_controller_flags(args, args.algorithm)
     reject_agg_shards_flag(args, args.algorithm)
     reject_secagg_flags(args, args.algorithm)
-    reject_pod_plane_flags(args, args.algorithm)
-    reject_adapter_flags(args, args.algorithm)
+    if args.algorithm in ("FedAsync", "FedBuff"):
+        if getattr(args, "dcn_hosts", 0):
+            raise SystemExit(
+                f"{args.algorithm} does not support --dcn_hosts "
+                f"{args.dcn_hosts}: the async tiers shard by rank, not "
+                "over a device mesh (the flag would be silently inert)")
+        # The async tiers run the frozen-base adapter finetune, but only a
+        # transformer model has injection sites.
+        if (getattr(args, "adapter_rank", 0)
+                and args.model != "transformer_lm"):
+            raise SystemExit(
+                f"--adapter_rank {args.adapter_rank} needs --model "
+                f"transformer_lm (got {args.model!r}): adapter "
+                "injection lives in models/transformer.py")
+    else:
+        reject_pod_plane_flags(args, args.algorithm)
+        reject_adapter_flags(args, args.algorithm)
     reject_unported_flags(args)
     logging.basicConfig(level=logging.INFO,
                         format=f"[{args.algorithm} %(asctime)s] %(message)s")

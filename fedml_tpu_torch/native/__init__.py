@@ -6,11 +6,17 @@ toolchain and loaded via ctypes — no pybind11 dependency (port of
 as ``_build/libmsgnet.so``, keyed on source mtime) and returns the ctypes
 library with argtypes configured. This is host transport code for
 ``comm/tcp.py``, not a device kernel.
+
+Several processes may load it at once (the ranks of a cross-silo
+federation started together): one of them builds while the others wait on
+a file lock, and the build is written to a private file that is renamed
+into place, so no process ever opens a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -22,16 +28,27 @@ _LIB = None
 
 
 def _compile(src: str, out: str):
+    """Build ``src`` into ``out`` atomically: g++ writes a file of this
+    process's own, renamed onto ``out`` once complete."""
     os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O2", "-fPIC", "-shared", "-pthread", "-std=c++17",
-        src, "-o", out,
+        src, "-o", tmp,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         raise RuntimeError(
             f"native build failed: {' '.join(cmd)}\n{proc.stderr[-4000:]}"
         )
+    os.replace(tmp, out)
+
+
+def _stale(src: str, out: str) -> bool:
+    return (not os.path.isfile(out)
+            or os.path.getmtime(out) < os.path.getmtime(src))
 
 
 def load_msgnet() -> ctypes.CDLL:
@@ -42,8 +59,13 @@ def load_msgnet() -> ctypes.CDLL:
             return _LIB
         src = os.path.join(_HERE, "msgnet.cpp")
         out = os.path.join(_BUILD, "libmsgnet.so")
-        if not os.path.isfile(out) or os.path.getmtime(out) < os.path.getmtime(src):
-            _compile(src, out)
+        if _stale(src, out):
+            # One builder across processes; the others find it fresh.
+            os.makedirs(_BUILD, exist_ok=True)
+            with open(os.path.join(_BUILD, ".lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if _stale(src, out):
+                    _compile(src, out)
         lib = ctypes.CDLL(out)
         lib.mn_server_create.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.mn_server_create.restype = ctypes.c_int

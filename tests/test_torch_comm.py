@@ -4,8 +4,13 @@ JSON and tensor-wire encodings byte-equal on the same numpy trees
 (bfloat16 leaves included), bfloat16 round trips in a process without
 ``ml_dtypes``, loopback delivery, ChaosTransport's seeded decisions,
 RetryPolicy's seeded jitter, the heartbeat loop, and the base and
-decentralized templates' results."""
+decentralized templates' results; the TCP transport's native library
+built once and atomically when several processes load it together."""
 
+import importlib.util
+import os
+import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -138,7 +143,8 @@ def test_bf16_round_trips_without_ml_dtypes(monkeypatch):
     monkeypatch.setitem(sys.modules, "ml_dtypes", None)
     with pytest.raises(ImportError):
         import ml_dtypes as _  # noqa: F401
-    t = torch.randn(33).to(torch.bfloat16)
+    t = torch.randn(33, generator=torch.Generator().manual_seed(0)).to(
+        torch.bfloat16)
     tree = {"w": t, "x": np.arange(3, dtype=np.float32)}
     for fmt in ("tensor", "json"):
         back = wire.deserialize_message(
@@ -187,6 +193,28 @@ def test_loopback_point_to_point_both_packages():
         assert not t.is_alive()
         assert got == [(7, 0, 0), (7, 1, 10)]
         assert receiver.bytes_ledger.total_rx > 0
+
+
+def test_run_workers_raises_while_peers_wait():
+    """A worker that fails is reported at once, not after its peers end:
+    a peer waiting for the dead worker's message would never end. Both
+    packages return the same once every worker ends by itself."""
+    release = threading.Event()
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(RuntimeError, match="worker rank 1 failed") as e:
+            loopback.run_workers([lambda: release.wait(60),
+                                  lambda: 1 / 0])
+    finally:
+        release.set()
+    assert time.perf_counter() - t0 < 10
+    assert isinstance(e.value.__cause__, ZeroDivisionError)
+    for pkg in (loopback, jax_loopback):
+        got = []
+        pkg.run_workers([lambda: got.append(0), lambda: got.append(1)])
+        assert sorted(got) == [0, 1]
+        with pytest.raises(RuntimeError, match="worker rank 0 failed"):
+            pkg.run_workers([lambda: 1 / 0, lambda: got.append(2)])
 
 
 def _chaos_log(pkg, msg_pkg, seed):
@@ -403,3 +431,76 @@ def test_heartbeat_monitor_equal_jax():
     got = drill(faults)
     assert got == drill(jax_faults)
     assert got[1] == [2, 3] and got[-2] == [3]
+
+
+def _native_copy(tmp_path):
+    """A private copy of ``fedml_tpu_torch/native`` (loader and source),
+    so a test builds into its own ``_build``."""
+    import fedml_tpu_torch.native as native
+
+    pkg = tmp_path / "native"
+    pkg.mkdir()
+    for name in ("__init__.py", "msgnet.cpp"):
+        shutil.copy(os.path.join(os.path.dirname(native.__file__), name),
+                    pkg / name)
+    return pkg
+
+
+def _load_native(pkg):
+    spec = importlib.util.spec_from_file_location(
+        "native_copy", str(pkg / "__init__.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_msgnet_build_is_atomic(tmp_path, monkeypatch):
+    """g++ writes a file of the process's own; the library's path shows
+    only a complete build, and a failed build leaves nothing behind."""
+    mod = _load_native(_native_copy(tmp_path))
+    out = os.path.join(mod._BUILD, "libmsgnet.so")
+    seen = []
+
+    def fake_run(cmd, **kw):
+        target = cmd[cmd.index("-o") + 1]
+        seen.append((target, os.path.exists(out)))
+        with open(target, "wb") as f:
+            f.write(b"\x7fELF-complete")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(mod.subprocess, "run", fake_run)
+    mod._compile(str(tmp_path / "native" / "msgnet.cpp"), out)
+    assert seen == [(f"{out}.{os.getpid()}.tmp", False)]
+    assert open(out, "rb").read() == b"\x7fELF-complete"
+    assert sorted(os.listdir(mod._BUILD)) == ["libmsgnet.so"]
+
+    def failing_run(cmd, **kw):
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"\x7fEL")
+        return subprocess.CompletedProcess(cmd, 1, "", "error: boom")
+
+    os.remove(out)
+    monkeypatch.setattr(mod.subprocess, "run", failing_run)
+    with pytest.raises(RuntimeError, match="native build failed"):
+        mod._compile(str(tmp_path / "native" / "msgnet.cpp"), out)
+    assert os.listdir(mod._BUILD) == []
+
+
+def test_msgnet_loads_in_three_processes_at_once(tmp_path):
+    """The three ranks of a federation start together on a checkout with
+    no build: each loads a complete library (one of them builds it)."""
+    pkg = _native_copy(tmp_path)
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('n', sys.argv[1])\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "m.load_msgnet().mn_server_create\n"
+            "print('loaded')\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(pkg / "__init__.py")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(3)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and out.strip() == "loaded", err[-2000:]
+    assert sorted(os.listdir(pkg / "_build")) == [".lock", "libmsgnet.so"]

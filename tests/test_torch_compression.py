@@ -160,7 +160,9 @@ def test_codecs_round_trip_and_error_feedback():
     assert float((received - target).abs().max()) <= 2.0 + 1e-6
     assert float(received.abs().min()) > 0.0
     q = tc.QuantizeCompression(8)
-    tree = {"a": torch.randn(5, 3), "b": {"c": torch.randn(7)}}
+    g = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(5, 3, generator=g),
+            "b": {"c": torch.randn(7, generator=g)}}
     payload, st = q.encode(tree, "kept", keys.key(1))
     assert st == "kept" and all(p.dtype == np.int8 for p in payload["qs"])
     back = q.decode(payload, tc.tree_spec(tree))
@@ -238,8 +240,9 @@ def test_topk_rounds_match_jax():
         np.testing.assert_allclose(a, b, rtol=0, atol=ROUND_TOL)
     transform = api._client_transform()
     g = api.net
-    c = NetState({k: v + torch.randn_like(v) for k, v in g.params.items()},
-                 {})
+    gen = torch.Generator().manual_seed(0)
+    c = NetState({k: v + torch.randn(v.shape, generator=gen)
+                  for k, v in g.params.items()}, {})
     out = transform(g, c)
     changed = sum(int((out.params[k] != g.params[k]).sum())
                   for k in g.params)
@@ -256,8 +259,9 @@ def test_q8_rounds_on_the_grid_and_unbiased():
     transform = api._client_transform()
     assert transform.wants_rng
     g = api.net
+    gen = torch.Generator().manual_seed(0)
     for s in range(4):
-        c = NetState({k: v + 0.1 * torch.randn_like(v)
+        c = NetState({k: v + 0.1 * torch.randn(v.shape, generator=gen)
                       for k, v in g.params.items()}, {})
         out = transform(g, c, keys.key(s))
         delta = tc.tree_to_vector(out.params) - tc.tree_to_vector(g.params)

@@ -608,7 +608,7 @@ def test_group_norm_kernel_reads_strided_views(cuda):
     x = phys.to(torch.bfloat16).permute(2, 0, 1, 3)  # [R, M, S, C] view
     gamma = torch.rand(8, 64, generator=g, device=cuda) + 0.5
     beta = torch.randn(8, 64, generator=g, device=cuda)
-    dy = torch.randn_like(x)
+    dy = torch.empty_like(x).normal_(generator=g)
     copies = gn.group_norm.copies
     y = gn.group_norm_fwd(x, gamma, beta, 32)
     dx, dg, db = gn.group_norm_bwd(x, dy, gamma, 32)
@@ -2441,7 +2441,9 @@ def test_compressed_rounds_captured_equal_eager(cuda, monkeypatch, compress):
     if compress == "q8":
         t = fused._client_transform()
         g = fused.net
-        c = NetState({k: v + 0.01 * torch.randn_like(v)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        c = NetState({k: v + 0.01 * torch.randn(
+            v.shape, generator=gen, dtype=v.dtype, device=v.device)
                       for k, v in g.params.items()}, {})
         out = t(g, c, keys.key(3, cuda))
         delta = tc.tree_to_vector(out.params) - tc.tree_to_vector(g.params)
@@ -2510,7 +2512,8 @@ def test_im2col_stem_against_the_5x5_conv_on_the_card(cuda):
                                       .manual_seed(0)).to(cuda)
             layout = im2col_layout(model, torch.zeros(4, 28, 28, 1))
             net = model_fns(model).init()
-            x = torch.randn(16, 28, 28, 1, device=cuda)
+            x = torch.randn(16, 28, 28, 1, device=cuda, generator=torch
+                            .Generator(device=cuda).manual_seed(0))
             want = model_fns(model).apply(net, x)[0].float()
             got = model_fns(layout.physical_model).apply(layout.pad(net),
                                                          x)[0].float()
@@ -2709,3 +2712,96 @@ def test_server_fold_on_the_card_against_the_cpu(cuda):
         torch.testing.assert_close(means["cuda"][0].params[k].cpu(),
                                    means["cpu"][0].params[k], rtol=1e-6,
                                    atol=1e-7)
+
+
+# --- the asynchronous tiers (algos/fedasync.py, algos/fedbuff.py) -------------
+
+
+def test_fedasync_on_the_card(cuda, monkeypatch):
+    """FedAsync over the narrow GroupNorm ResNet with one worker (ordered
+    arrivals): the captured step launches the GroupNorm kernels, and the
+    run ends near its CPU twin (within 1e-4 after 3 versions, as the sync
+    tier's)."""
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos.fedasync import FedML_FedAsync_distributed
+    from fedml_tpu_torch.data import batching, partition, synthetic
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, y = synthetic.make_image_classification(60, (8, 8, 3), 4, seed=0)
+    parts = partition.partition_dirichlet(y, 6, 0.5, min_size=4, seed=0)
+    batch = max(len(v) for v in parts.values())
+
+    def run(device):
+        fed = batching.build_federated_arrays(x, y, parts, batch,
+                                              device=device)
+        cfg = FedConfig(client_num_in_total=6, client_num_per_round=1,
+                        comm_round=3, epochs=1, batch_size=batch, lr=1e-3)
+        model = create_model("resnet20", widths=(4, 8, 16), num_classes=4,
+                             device=device,
+                             generator=torch.Generator().manual_seed(0))
+        return FedML_FedAsync_distributed(
+            model, fed, None, cfg, wire_codec="bf16", loopback_wire="tensor",
+            device=device, idle_timeout_s=60.0)
+
+    fwd, bwd = gn.group_norm_fwd.launches, gn.group_norm_bwd.launches
+    srv = run("cuda")
+    assert gn.group_norm_fwd.launches > fwd
+    assert gn.group_norm_bwd.launches > bwd
+    assert srv.local_train.capture_ms is not None
+    assert srv.version == 3 and srv.final_health["codec_refusals"] == 0
+    ref = run("cpu")
+    for k, v in ref.net.params.items():
+        assert srv.net.params[k].device.type == "cuda"
+        torch.testing.assert_close(srv.net.params[k].cpu(), v, rtol=0,
+                                   atol=1e-4)
+
+
+def test_fedbuff_adapter_federation_on_the_card(cuda):
+    """FedBuff over a bf16 flash transformer's LoRA adapters at T 2048:
+    the captured step launches the flash forward, dq and dk/dv kernels,
+    the uploads are topk+int8 adapter deltas, and the frozen base is
+    bit-equal after the run."""
+    import functools
+
+    import numpy as np
+
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos.fedbuff import FedML_FedBuff_distributed
+    from fedml_tpu_torch.data import batching, partition
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from fedml_tpu_torch.trainer.local import seq_softmax_ce
+
+    t = 2048
+    rng = np.random.RandomState(0)
+    seqs = rng.randint(1, 64, size=(8, t + 1))
+    fed = batching.build_federated_arrays(
+        seqs[:, :t].astype(np.int32), seqs[:, 1:].astype(np.int32),
+        partition.partition_homo(8, 4), 2, device=cuda)
+    model = create_model("transformer_lm", vocab_size=64, d_model=128,
+                         n_heads=2, n_layers=2, max_len=t, dtype="bf16",
+                         attn="flash", adapter_rank=4, adapter_scope="attn",
+                         device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    base0 = {k: v.clone() for k, v in model.state_dict().items()}
+    cfg = FedConfig(client_num_in_total=4, client_num_per_round=2,
+                    comm_round=2, epochs=1, batch_size=2, lr=0.1,
+                    adapter_rank=4)
+    before = (flash_attention.launches, flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches)
+    srv = FedML_FedBuff_distributed(
+        model, fed, None, cfg, buffer_k=2, wire_codec="topk0.01+int8",
+        loopback_wire="tensor", loss_fn=functools.partial(seq_softmax_ce,
+                                                          pad_id=0),
+        device=cuda, idle_timeout_s=120.0)
+    after = (flash_attention.launches, flash_attention_bwd.dq_launches,
+             flash_attention_bwd.dkv_launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert srv.version == 2 and srv.final_health["codec_refusals"] == 0
+    assert srv.adapter_holder["base"] is model
+    now = model.state_dict()
+    assert all(torch.equal(v, now[k]) for k, v in base0.items())
+    for leaf in srv.net.params["Block_0"]["MHA_0"].values():
+        assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())

@@ -117,7 +117,7 @@ def test_all_masked_step_is_an_exact_no_op():
     lt = make_local_train_fn(fns.apply, make_client_optimizer(
         "adam", 0.01, wd=1e-3), 1)
     opt = lt.optimizer.init(net.params)
-    x = torch.randn(5, 8, 8, 3)
+    x = torch.randn(5, 8, 8, 3, generator=torch.Generator().manual_seed(0))
     y = torch.zeros(5, dtype=torch.long)
     p1, o1, _, _, _ = lt.step(net.params, opt, {}, x, y, torch.ones(5))
     p2, o2, _, loss, nb = lt.step(p1, o1, {}, x, y, torch.zeros(5))

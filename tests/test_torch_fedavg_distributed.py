@@ -14,7 +14,7 @@ package's ``fedml_tpu/algos/fedavg_distributed.py``:
   evicted sets, ``health()``, the messages each rank was sent and the nets
   are equal;
 - crash-resume bit-equal to the uninterrupted run, first-k rounds, and
-  every refusal of what ROADMAP.md A10b still holds.
+  every refusal of what ROADMAP.md A10c still holds.
 
 ``batch_size`` ≥ the largest client, so the port's shuffle (its own keys)
 only reorders a masked mean."""
@@ -574,41 +574,44 @@ def test_robust_aggregator_and_legacy_compress_run():
             aggregator="krum", **RUN)
 
 
-# --- what A10b holds -----------------------------------------------------------
+# --- what A10c holds -----------------------------------------------------------
 
 
 def test_a10b_refusals():
     fed, test, cfg, model = _lr_setup(comm_round=1)
     for kw in ({"agg_shards": 2}, {"controller": object()},
                {"directory": object()}):
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             pfd.FedML_FedAvg_distributed(model(), fed, test, cfg,
                                          **RUN, **kw)
-    for field, val in (("agg_shards", 2), ("adapter_rank", 4)):
-        bad = FedConfig(**{**cfg.__dict__, field: val})
-        with pytest.raises(NotImplementedError, match="A10b"):
-            pfd.FedML_FedAvg_distributed(model(), fed, test, bad,
-                                         **RUN)
+    bad = FedConfig(**{**cfg.__dict__, "agg_shards": 2})
+    with pytest.raises(NotImplementedError, match="A10c"):
+        pfd.FedML_FedAvg_distributed(model(), fed, test, bad, **RUN)
+    # Adapter federations are ported: a dense model under adapter_rank is
+    # refused loudly by the adapter seam, as in JAX.
+    bad = FedConfig(**{**cfg.__dict__, "adapter_rank": 4})
+    with pytest.raises(ValueError, match="adapter_rank > 0"):
+        pfd.FedML_FedAvg_distributed(model(), fed, test, bad, **RUN)
     secagg = FedConfig(**{**cfg.__dict__, "secagg": True,
                           "ingest_workers": 2})
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         pfd.FedML_FedAvg_distributed(model(), fed, test, secagg,
                                      **RUN)
     for backend in ("GRPC", "MQTT", "TRPC", "SIM"):
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             pfd.FedML_FedAvg_distributed(model(), fed, test, cfg,
                                          backend=backend, **RUN)
     args = type("A", (), {"network": loopback.LoopbackNetwork(2)})()
     srv = pfd.FedAVGServerManager(args, pfd.FedAVGAggregator(
         {"w": np.zeros(2, np.float32)}, 1, cfg, device="cpu"), cfg, 2)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         srv.attach_controller(object())
     srv.attach_controller(None)
     from fedml_tpu_torch.exp import main_cross_silo
 
     for extra in (["--comm_backend", "GRPC"], ["--comm_backend", "TRPC"],
                   ["--secagg"]):
-        with pytest.raises(NotImplementedError, match="A10b"):
+        with pytest.raises(NotImplementedError, match="A10c"):
             main_cross_silo.main(["--rank", "0", "--size", "2",
                                   "--device", "cpu"] + extra)
 

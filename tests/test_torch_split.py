@@ -589,7 +589,7 @@ def test_vfl_guest_only_bias_and_party_models():
     assert api.parties[2].params["local"]["Dense_0.weight"].shape == (8, 3)
     local = create_model("vfl_local", in_features=5, output_dim=3,
                          device="cpu")
-    x = torch.randn(4, 5)
+    x = torch.randn(4, 5, generator=torch.Generator().manual_seed(0))
     assert torch.equal(local(x), torch.nn.functional.leaky_relu(
         local.Dense_0(x), 0.01))
     head = create_model("vfl_dense", in_features=3, use_bias=False,
