@@ -486,7 +486,39 @@ Phases, each of which must pass or the script exits non-zero:
              FedAsync, FedBuff --serve and BaseFramework runners in
              process at the JAX package's test sizes, each last line
              parsed.
-22. report — each phase's seconds, a ``kernels`` JSON line (each flash
+22. plane  — the federation plane's secure, sharded and simulated
+             tiers (comm/secagg.py, comm/shardplane.py, sim/,
+             ctrl/policy.py) at the flagship's config (the fed phase's
+             data and model), under deterministic cuDNN, every
+             federation over one captured silo step. (a)
+             FedML_FedAvg_distributed with cfg.secagg, 4 silos, 2
+             ingest workers, 3 rounds: each round's merged total (after
+             mask cancellation) equal to the clear fold of the silos'
+             own contributions, recorded before masking, its weight sum
+             to the silos' quantized sample counts, and the global to
+             the fold's mean, bit for bit; no masked frame equal to its
+             clear contribution; then a drill whose silo 1 dies in round
+             1: evicted, t = 3 shares revealed, the correction folded,
+             round 1's total equal to the survivors' clear fold. (b)
+             agg_shards 2 over 4 silos, 3 rounds: each round's merged
+             shard partials equal to the single pool's fold of the same
+             uploads (agg_shards 0's path), the global to its mean; a
+             drill whose shard 2 dies after round 0 commits over the
+             survivor's partial. (c) FleetSimulator over a seeded
+             FleetSpec of 32 devices and a 3,600 s horizon: FedBuff
+             (buffer_k 4, 10 aggregations) and sync first-k (k 8, 2
+             rounds), each twice with event logs (every delivery's
+             virtual time, type, sender, receiver) identical; sync with
+             secagg over the spec's churn-free twin, 1 round, its total
+             the clear fold. (d) controller_from_args's adaptive
+             controller on (c)'s FedBuff runs (actuation logs
+             identical), the same object on a loopback FedBuff run; a
+             controller of no policies against none, bit-equal (5
+             aggregations each). GroupNorm
+             launches counted over (a)-(d) (> 0). (e) main_extra
+             --algorithm FedBuff --controller adaptive at --model lr, in
+             process, the attached controller read back.
+23. report — each phase's seconds, a ``kernels`` JSON line (each flash
              kernel with its ``vit_f32`` route's numbers), the card's
              name and power limit, and as the last line ``{"ok": true,
              "device": {...}}``.
@@ -8784,6 +8816,633 @@ def phase_async():
     return dict(launches)
 
 
+# The secure, sharded and simulated plane (the plane phase), at the
+# flagship's config (the fed phase's data and model: resnet56 bf16
+# compute, 128 clients of 256 seeded CIFAR-shaped samples, batch 32, 1
+# epoch, lr 0.1), every federation over ONE captured silo step (the
+# entry points build theirs through build_federation_setup, which
+# _plane_step hands the first one's), under deterministic cuDNN.
+# (a) secagg: PLANE_SILOS silos, PLANE_INGEST ingest workers,
+# PLANE_ROUNDS rounds; then a dropout drill of 2 rounds whose silo 1
+# dies in round 1. (b) agg_shards PLANE_SHARDS over PLANE_SILOS silos;
+# then a drill of PLANE_ROUNDS rounds whose shard 2 dies after round 0.
+# (c) FleetSimulator over PLANE_SPEC: FedBuff (buffer_k 4, PLANE_VERSIONS
+# aggregations, eval every PLANE_EVAL_EVERY) and sync first-k (aggregate_k
+# 8, PLANE_SYNC_ROUNDS rounds), each twice; sync with secagg over the
+# churn-free twin of the spec (all 32 online from t 0) for
+# PLANE_SECAGG_ROUNDS round: each upload expands 31 pair masks of the
+# 591,322-leaf tree on the host, ~0.3 s, so one round. (d)
+# controller_from_args's adaptive controller on (c)'s FedBuff runs, then
+# a loopback FedBuff run; a controller of no policies against none
+# (FedBuff, PLANE_VERSIONS // 2 aggregations). (e) main_extra FedBuff
+# --controller adaptive at --model lr.
+PLANE_SILOS, PLANE_INGEST, PLANE_ROUNDS, PLANE_SHARDS = 4, 2, 3, 2
+PLANE_SPEC = dict(n_devices=32, seed=SEED, horizon_s=3600.0)
+PLANE_VERSIONS, PLANE_BUFF_K, PLANE_EVAL_EVERY = 10, 4, 3
+PLANE_SYNC_K, PLANE_SYNC_ROUNDS, PLANE_SECAGG_ROUNDS = 8, 2, 1
+# (d)'s loopback FedBuff run: 8 workers, PLANE_LOOP_AGGS aggregations.
+PLANE_LOOP_AGGS = 4
+PLANE_CTRL = types.SimpleNamespace(controller="adaptive",
+                                   controller_interval=1,
+                                   controller_band_lo=2.0,
+                                   controller_band_hi=6.0)
+PLANE_CLI = ["--algorithm", "FedBuff", "--dataset", "synthetic_1_1",
+             "--model", "lr", "--client_num_in_total", "8",
+             "--client_num_per_round", "4", "--comm_round", "6",
+             "--buffer_k", "2", "--frequency_of_the_test", "1",
+             "--controller", "adaptive", "--device", "cuda"]
+
+
+def _plane_cfg(**kw):
+    from fedml_tpu_torch.algos import FedConfig
+
+    base = dict(client_num_in_total=TRAIN_CLIENTS,
+                client_num_per_round=PLANE_SILOS, comm_round=PLANE_ROUNDS,
+                epochs=1, batch_size=TRAIN_BATCH, lr=TRAIN_LR, seed=SEED,
+                frequency_of_the_test=10 ** 6)
+    base.update(kw)
+    return FedConfig(**base)
+
+
+def _plane_model():
+    from fedml_tpu_torch.models import create_model
+
+    return create_model("resnet56", num_classes=10, dtype="bf16",
+                        device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+
+
+@contextlib.contextmanager
+def _plane_step(step):
+    """Hands ``step`` (a captured silo step of the phase's model and
+    config) to every federation the entry points build meanwhile: the
+    three tiers and the simulator build the silos' step through
+    fedavg_distributed.build_federation_setup, looked up in its module at
+    each call, which would capture a new one (~2.5 s warm) each time."""
+    from fedml_tpu_torch.algos import fedavg_distributed as fd
+
+    orig = fd.build_federation_setup
+
+    def setup(*a, **kw):
+        out = list(orig(*a, **kw))
+        out[2] = step
+        return tuple(out)
+
+    fd.build_federation_setup = setup
+    try:
+        yield
+    finally:
+        fd.build_federation_setup = orig
+
+
+class _MaskSpy:
+    """Records, while active, each silo's clear fixed-point contribution
+    (a copy taken before masking), its masked frame and the sample count
+    it weighs its upload by, keyed by (rank, round), and each merged
+    total the server audits between mask cancellation and its division,
+    keyed by round."""
+
+    def __enter__(self):
+        from fedml_tpu_torch.algos.fedavg_distributed import (
+            FedAVGClientManager, FedAVGServerManager)
+        from fedml_tpu_torch.comm import secagg
+
+        self.clear, self.masked, self.weights, self.totals = {}, {}, {}, {}
+        self._mask = mask = secagg.SecAggClient.mask
+        self._check = check_ = FedAVGServerManager._secagg_envelope_check
+        self._body = body = FedAVGClientManager._masked_contribution
+        spy = self
+
+        def body_spy(mgr, host, global_net, c, codec):
+            spy.weights[(mgr.rank, int(mgr.round_idx))] = float(
+                mgr._counts[c])
+            return body(mgr, host, global_net, c, codec)
+
+        def mask_spy(client, leaves, round_idx, roster):
+            key = (client.rank, int(round_idx))
+            spy.clear[key] = [np.array(l, np.int64, copy=True)
+                              for l in leaves]
+            out = mask(client, leaves, round_idx, roster)
+            spy.masked[key] = [np.array(l, np.int64, copy=True)
+                               for l in out]
+            return out
+
+        def check_spy(server, total):
+            spy.totals[server.round_idx] = (
+                [np.array(l, np.int64, copy=True) for l in total.leaves],
+                int(total.wsum), int(total.count))
+            return check_(server, total)
+
+        secagg.SecAggClient.mask = mask_spy
+        FedAVGServerManager._secagg_envelope_check = check_spy
+        FedAVGClientManager._masked_contribution = body_spy
+        return self
+
+    def __exit__(self, *exc):
+        from fedml_tpu_torch.algos.fedavg_distributed import (
+            FedAVGClientManager, FedAVGServerManager)
+        from fedml_tpu_torch.comm import secagg
+
+        secagg.SecAggClient.mask = self._mask
+        FedAVGServerManager._secagg_envelope_check = self._check
+        FedAVGClientManager._masked_contribution = self._body
+
+    def clear_fold(self, round_idx, ranks):
+        """The wrapped int64 sum of ``ranks``' clear contributions."""
+        sums = None
+        for r in ranks:
+            leaves = [l.view(np.uint64) for l in self.clear[(r, round_idx)]]
+            sums = ([l.copy() for l in leaves] if sums is None
+                    else [np.add(a, b, out=a) for a, b in zip(sums, leaves)])
+        return [s.view(np.int64) for s in sums]
+
+
+def _plane_hold_rounds(tag, what, spy, rounds, ranks_of):
+    """Each round's merged total against the clear fold of the ranks
+    that ``ranks_of(round)`` names, its weight sum against their
+    quantized sample counts; the masked frames against their clear
+    contributions. Returns the last round's (clear fold, the silos' weight
+    sum, count)."""
+    from fedml_tpu_torch.comm.ingest import quantize_weight
+
+    for r in rounds:
+        check(r in spy.totals, f"{tag}: {what}: round {r} never merged")
+        got, wsum, count = spy.totals[r]
+        ranks = ranks_of(r)
+        want = spy.clear_fold(r, ranks)
+        want_wsum = sum(quantize_weight(spy.weights[(k, r)]) for k in ranks)
+        same = all(np.array_equal(a, b) for a, b in zip(got, want))
+        check(same and count == len(ranks) and wsum == want_wsum,
+              f"{tag}: {what}: round {r}'s merged total is not the clear "
+              f"fold of ranks {ranks} (count {count}, wsum {wsum} against "
+              f"the silos' {want_wsum})")
+    hidden = all(any(not np.array_equal(a, b) for a, b in zip(
+        spy.masked[k], spy.clear[k])) for k in spy.clear)
+    check(hidden, f"{tag}: {what}: a masked frame equals its clear "
+          "contribution")
+    return want, want_wsum, count
+
+
+def _plane_global_holds(tag, what, agg, leaves, wsum, count):
+    """The committed global against finalize_partial_mean of a clear
+    total (leaves, wsum, count): bit-equal."""
+    from fedml_tpu_torch.comm.ingest import (PartialAccumulator,
+                                             finalize_partial_mean)
+    from fedml_tpu_torch.core.tree import sorted_leaves
+
+    total = PartialAccumulator()
+    total.leaves, total.wsum, total.count = leaves, wsum, count
+    mean, _ = finalize_partial_mean(total, agg.net)
+    same = all(torch.equal(a, b) for a, b in zip(sorted_leaves(mean),
+                                                  sorted_leaves(agg.net)))
+    check(same, f"{tag}: {what}: the committed global is not the clear "
+          "fold's mean")
+    return same
+
+
+def _plane_secagg(tag, card, fed, test):
+    """(a): the masked federation against the clear fold of its own
+    uploads; the dropout drill against the survivors' clear fold.
+    Returns the captured silo step."""
+    from fedml_tpu_torch.algos.fedavg_distributed import (
+        FedAVGAggregator, FedAVGClientManager, FedAVGServerManager,
+        FedML_FedAvg_distributed, build_federation_setup)
+    from fedml_tpu_torch.comm.loopback import run_workers
+    from fedml_tpu_torch.core.tree import sorted_leaves
+    from fedml_tpu_torch.trainer.local import softmax_ce
+
+    cfg = _plane_cfg(secagg=True, ingest_workers=PLANE_INGEST,
+                     frequency_of_the_test=PLANE_ROUNDS - 1)
+    clock = _RoundClock()
+    t0 = time.perf_counter()
+    with _MaskSpy() as spy:
+        agg = FedML_FedAvg_distributed(
+            _plane_model(), fed, test, cfg, loopback_wire="tensor",
+            metrics=clock, device="cuda")
+    run_s = time.perf_counter() - t0
+    step = agg.local_train
+    h, prof = agg.final_health, agg.ingest_profile
+    ms = [(b - a) * 1e3 for a, b in zip(clock.t, clock.t[1:])]
+    silos = list(range(1, PLANE_SILOS + 1))
+    leaves, wsum, count = _plane_hold_rounds(
+        tag, "secagg", spy, range(PLANE_ROUNDS), lambda r: silos)
+    _plane_global_holds(tag, "secagg", agg, leaves, wsum, count)
+    dense = 4 * sum(l.numel() for l in sorted_leaves(agg.net))
+    print(f"[{tag}] (a) secagg over {PLANE_SILOS} silos, ingest workers "
+          f"{PLANE_INGEST}, {PLANE_ROUNDS} rounds in {run_s:.1f} s (round "
+          f"ms {[round(m, 1) for m in ms]}, the first with the pk/share "
+          f"handshake and the step's capture {step.capture_ms} ms): "
+          f"every round's merged total = the clear fold of its "
+          f"{PLANE_SILOS} uploads, its weight sum = theirs, the global = "
+          f"its mean, bit-equal; no "
+          f"masked frame equals its clear contribution; bytes a masked "
+          f"upload {prof.get('bytes_per_upload_mean')} (int64 leaves; the "
+          f"f32 tree {dense}), on the wire {h['bytes_rx']} in all; "
+          f"reveals {h['seed_reveals']}, saturated "
+          f"{h['ingest_saturated']}; eval {agg.test_history[-1]}; {card}",
+          flush=True)
+    check(h["seed_reveals"] == 0 and h["codec_refusals"] == 0
+          and h["members"] == PLANE_SILOS, f"{tag}: secagg health {h}")
+    del agg
+
+    # The dropout drill: silo 1 dies in round 1 after its roster was
+    # stamped; the watchdog evicts it, the survivors reveal t shares of
+    # its secret, the orphaned masks are corrected away.
+    cfg = _plane_cfg(secagg=True, ingest_workers=PLANE_INGEST, comm_round=2,
+                     heartbeat_interval_s=0.1)
+
+    class Victim(FedAVGClientManager):
+        def _train(self, global_net, client_index):
+            if self.round_idx >= 1:
+                self.finish()  # dies mid-round: no upload, beats stop
+                return
+            super()._train(global_net, client_index)
+
+    t0 = time.perf_counter()
+    with _MaskSpy() as spy:
+        size, net0, _, eval_fn, args = build_federation_setup(
+            _plane_model(), fed, None, cfg, "LOOPBACK", softmax_ce)
+        agg = FedAVGAggregator(net0, size - 1, cfg, eval_fn, None,
+                               device="cuda")
+        srv = FedAVGServerManager(args, agg, cfg, size, round_timeout_s=5.0,
+                                  heartbeat_timeout_s=1.0)
+        clients = [(Victim if r == 1 else FedAVGClientManager)(
+            args, r, size, fed, step, cfg, idle_timeout_s=60.0)
+            for r in range(1, size)]
+        run_workers([srv.run] + [c.run for c in clients])
+    run_s = time.perf_counter() - t0
+    h = srv.health()
+    survivors = list(range(2, PLANE_SILOS + 1))
+    leaves, wsum, count = _plane_hold_rounds(
+        tag, "the dropout drill", spy, (0, 1),
+        lambda r: silos if r == 0 else survivors)
+    _plane_global_holds(tag, "the dropout drill", agg, leaves, wsum, count)
+    reveal = srv._h_reveal.snapshot()
+    kinds = collections.Counter(e["kind"] for e in srv.flight.snapshot())
+    print(f"[{tag}] (a) dropout drill: silo 1 died in round 1 of 2; "
+          f"{run_s:.1f} s; evictions {h['evictions']}, seed reveals "
+          f"{h['seed_reveals']} (t {srv.secagg.t} of {PLANE_SILOS}, reveal "
+          f"ms {reveal.get('max')}), corrections "
+          f"{kinds['secagg_correction']}; round 1's merged total (after "
+          f"the correction) = the clear fold of survivors {survivors}, "
+          f"bit-equal, the global = its mean; silo 1 released "
+          f"(compromised {srv.secagg.compromised(1)})", flush=True)
+    check(not srv.aborted and srv.round_idx == 2 and h["seed_reveals"] == 1
+          and h["evictions"] >= 1 and srv.secagg.compromised(1)
+          and kinds["secagg_correction"] == 1,
+          f"{tag}: the dropout drill {h}, flight {dict(kinds)}")
+    del agg, srv, clients
+    return step
+
+
+def _plane_shards(tag, card, fed, test, step):
+    """(b): agg_shards PLANE_SHARDS against the single pool's fold of the
+    same uploads; a shard killed mid-federation."""
+    from fedml_tpu_torch.algos.fedavg_distributed import (
+        FedAVGAggregator, FedAVGClientManager, FedML_FedAvg_distributed,
+        build_federation_setup)
+    from fedml_tpu_torch.comm import pytree
+    from fedml_tpu_torch.comm import shardplane as sp
+    from fedml_tpu_torch.comm.ingest import PartialAccumulator
+    from fedml_tpu_torch.comm.loopback import run_workers
+    from fedml_tpu_torch.core.tree import sorted_leaves
+    from fedml_tpu_torch.trainer.local import softmax_ce
+
+    uploads, totals = collections.defaultdict(list), {}
+    submit, finalize = (sp.AggregatorShardManager._submit_upload,
+                        sp.finalize_partial_mean)
+
+    def submit_spy(shard, sender, t, msg):
+        uploads[t].append((sender, shard.rank, msg.get(
+            sp.MSG_ARG_KEY_MODEL_PARAMS), float(msg.get(
+                sp.MSG_ARG_KEY_NUM_SAMPLES))))
+        return submit(shard, sender, t, msg)
+
+    def finalize_spy(total, ref):
+        totals[len(totals)] = ([np.array(l, np.int64, copy=True)
+                                for l in total.leaves], total.wsum,
+                               total.count)
+        return finalize(total, ref)
+
+    cfg = _plane_cfg()
+    t0 = time.perf_counter()
+    sp.AggregatorShardManager._submit_upload = submit_spy
+    sp.finalize_partial_mean = finalize_spy
+    try:
+        with _plane_step(step):
+            agg = FedML_FedAvg_distributed(
+                _plane_model(), fed, test, cfg, agg_shards=PLANE_SHARDS,
+                loopback_wire="tensor", device="cuda")
+    finally:
+        sp.AggregatorShardManager._submit_upload = submit
+        sp.finalize_partial_mean = finalize
+    run_s = time.perf_counter() - t0
+    h = agg.final_health
+    routed = {}
+    for r in range(PLANE_ROUNDS):
+        single = PartialAccumulator()
+        for sender, shard, payload, w in sorted(uploads[r],
+                                                key=lambda u: u[0]):
+            routed[sender] = shard
+            single.add([pytree.np_leaf(l) for l in sorted_leaves(payload)],
+                       w)
+        got, wsum, count = totals[r]
+        same = (all(np.array_equal(a, b) for a, b in zip(got, single.leaves))
+                and wsum == single.wsum and count == single.count
+                == PLANE_SILOS)
+        check(same, f"{tag}: round {r}'s merged shard partials differ from "
+              "the single pool's fold of the same uploads")
+    _plane_global_holds(tag, "agg_shards", agg, single.leaves, single.wsum,
+                        single.count)
+    print(f"[{tag}] (b) agg_shards {PLANE_SHARDS} over {PLANE_SILOS} silos, "
+          f"{PLANE_ROUNDS} rounds in {run_s:.1f} s (silo -> shard "
+          f"{dict(sorted(routed.items()))}): each round's merged partials = "
+          f"the single pool's fold of the same uploads (agg_shards 0's "
+          f"path), the global = its mean, bit-equal; health shards "
+          f"{h['shards']}, bytes_rx {h['bytes_rx']} (the shard hops "
+          f"included); {card}", flush=True)
+    check(h["shards"] == PLANE_SHARDS and h["shard_evictions"] == 0
+          and len(set(routed.values())) == PLANE_SHARDS,
+          f"{tag}: agg_shards health {h}, routing {routed}")
+    del agg
+
+    cfg = _plane_cfg(heartbeat_interval_s=0.1,
+                     frequency_of_the_test=PLANE_ROUNDS - 1)
+    t0 = time.perf_counter()
+    size, net0, _, eval_fn, args = build_federation_setup(
+        _plane_model(), fed, test, cfg, "LOOPBACK", softmax_ce,
+        extra_ranks=PLANE_SHARDS)
+    agg = FedAVGAggregator(net0, size - 1 - PLANE_SHARDS, cfg, eval_fn,
+                           test, device="cuda")
+    srv = sp.ShardedFedAVGServerManager(
+        args, agg, cfg, size, PLANE_SHARDS, round_timeout_s=8.0,
+        heartbeat_timeout_s=1.0)
+    shards = [sp.AggregatorShardManager(args, r, size, cfg, net0)
+              for r in range(1, PLANE_SHARDS + 1)]
+    clients = [FedAVGClientManager(args, r, size, fed, step, cfg,
+                                   idle_timeout_s=60.0)
+               for r in range(PLANE_SHARDS + 1, size)]
+
+    def killer():
+        deadline = time.monotonic() + 60.0
+        while srv.round_idx < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        shards[-1].finish()  # its receive loop and beats stop
+
+    run_workers([srv.run] + [s.run for s in shards]
+                + [c.run for c in clients] + [killer])
+    run_s = time.perf_counter() - t0
+    h = srv.health()
+    kinds = collections.Counter(e["kind"] for e in srv.flight.snapshot())
+    losses = [m["loss"] for m in agg.test_history]
+    print(f"[{tag}] (b) shard {PLANE_SHARDS} killed after round 0: "
+          f"{srv.round_idx} rounds in {run_s:.1f} s, shard evictions "
+          f"{h['shard_evictions']}, live shards {h['shards']}, commits "
+          f"over the survivor's partial {kinds['round_commit']}, eval "
+          f"losses {losses}; {card}", flush=True)
+    check(srv.round_idx == PLANE_ROUNDS and not srv.aborted
+          and h["shard_evictions"] >= 1 and h["shards"] == PLANE_SHARDS - 1
+          and losses and all(math.isfinite(l) for l in losses),
+          f"{tag}: the shard drill {h}, flight {dict(kinds)}")
+    del agg, srv, shards, clients
+
+
+class _SimLog:
+    """Every delivery of the SIM fabric while active: (virtual s, message
+    type, sender, receiver) in event order."""
+
+    def __enter__(self):
+        from fedml_tpu_torch.sim import transport
+
+        self.events = []
+        self._deliver = deliver = transport.SimNetwork._deliver
+        log = self.events
+
+        def spy(network, msg, t_sent=0.0, blob=None):
+            log.append((network.events.clock.now, int(msg.get_type()),
+                        int(msg.get_sender_id()),
+                        int(msg.get_receiver_id())))
+            return deliver(network, msg, t_sent, blob)
+
+        transport.SimNetwork._deliver = spy
+        return self
+
+    def __exit__(self, *exc):
+        from fedml_tpu_torch.sim import transport
+
+        transport.SimNetwork._deliver = self._deliver
+
+
+def _plane_sim(mode, fed, test, spec, controller=None, **kw):
+    """One FleetSimulator run; returns (result, event log, final net,
+    uploads, seconds)."""
+    from fedml_tpu_torch.algos.fedavg_distributed import (
+        MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+    from fedml_tpu_torch.sim import FleetSimulator, make_fleet_trace
+
+    cfg_kw = kw.pop("cfg", {})
+    cfg = _plane_cfg(client_num_per_round=spec.n_devices, **cfg_kw)
+    t0 = time.perf_counter()
+    with _SimLog() as log:
+        sim = FleetSimulator(_plane_model(), fed, test, cfg,
+                             make_fleet_trace(spec), mode=mode,
+                             controller=controller, device="cuda", **kw)
+        res = sim.run()
+    took = time.perf_counter() - t0
+    net = sim.aggregator.net if mode == "sync" else sim.server.net
+    ups = sum(1 for e in log.events
+              if e[1] == MSG_TYPE_C2S_SEND_MODEL_TO_SERVER)
+    return res, log.events, net, ups, took
+
+
+def _same_net(a, b):
+    from fedml_tpu_torch.core.tree import sorted_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(sorted_leaves(a),
+                                                  sorted_leaves(b)))
+
+
+def _plane_fleet(tag, card, fed, test, step):
+    """(c) and (d): the simulator's FedBuff and sync first-k runs twice
+    each, the sync mode with secagg, the controllers."""
+    from fedml_tpu_torch.algos.fedbuff import FedML_FedBuff_distributed
+    from fedml_tpu_torch.ctrl import (FederationController,
+                                      controller_from_args)
+    from fedml_tpu_torch.sim import FleetSpec
+
+    spec = FleetSpec(**PLANE_SPEC)
+    buff = dict(buffer_k=PLANE_BUFF_K,
+                cfg=dict(comm_round=PLANE_VERSIONS,
+                         frequency_of_the_test=PLANE_EVAL_EVERY))
+    # The controller-off pair needs equality, not actuations: half depth.
+    off = dict(buff, cfg=dict(buff["cfg"], comm_round=PLANE_VERSIONS // 2))
+    ctrl = controller_from_args(PLANE_CTRL)
+    names = [p.name for p in ctrl.policies]
+    check(names == ["window_schedule", "timeout_autoscale",
+                    "staleness_admission"],
+          f"{tag}: controller_from_args built {names}")
+    with _plane_step(step):
+        runs = {}
+        for name, mode, ctl, kw in (
+                ("fedbuff", "fedbuff", ctrl, buff),
+                ("fedbuff again", "fedbuff", ctrl, buff),
+                ("fedbuff, no controller", "fedbuff", None, off),
+                ("fedbuff, a controller of no policies", "fedbuff",
+                 FederationController([]), off),
+                ("sync first-k", "sync", None,
+                 dict(aggregate_k=PLANE_SYNC_K,
+                      cfg=dict(comm_round=PLANE_SYNC_ROUNDS))),
+                ("sync first-k again", "sync", None,
+                 dict(aggregate_k=PLANE_SYNC_K,
+                      cfg=dict(comm_round=PLANE_SYNC_ROUNDS)))):
+            res, events, net, ups, took = _plane_sim(mode, fed, test, spec,
+                                                     controller=ctl, **kw)
+            log = list(ctl.actuation_log) if ctl is not None else None
+            runs[name] = (res, events, net, log)
+            s = res.summary()
+            print(f"[{tag}] (c) FleetSimulator {name}: {took:.1f} s wall, "
+                  f"{ups} uploads, {len(events)} deliveries, virtual s "
+                  f"{s['virtual_s']}, updates {s['updates']}, completed "
+                  f"{s['completed']}, evictions {s['evictions']}, "
+                  f"readmissions {s['readmissions']}, churn-killed "
+                  f"{s['churn_killed_uploads']}, staleness p95 "
+                  f"{s.get('staleness_p95')}, accuracy "
+                  f"{s['final_accuracy']}"
+                  + (f"; actuations {len(log)}" if log else ""), flush=True)
+            check(res.completed and ups > 0, f"{tag}: sim {name}: {s}")
+        for a, b in (("fedbuff", "fedbuff again"),
+                     ("sync first-k", "sync first-k again")):
+            ra, ea, na, la = runs[a]
+            rb, eb, nb, lb = runs[b]
+            same = (ea == eb and ra.completion_times == rb.completion_times
+                    and ra.arrival_log == rb.arrival_log and la == lb)
+            print(f"[{tag}] (c) {a} twice: event logs "
+                  f"{'identical' if ea == eb else 'DIFFERENT'} "
+                  f"({len(ea)} deliveries), actuation logs "
+                  f"{'identical' if la == lb else 'DIFFERENT'}, final nets "
+                  f"{'bit-equal' if _same_net(na, nb) else 'NOT bit-equal'}",
+                  flush=True)
+            check(same, f"{tag}: two {a} runs of one seed differ")
+        check(runs["fedbuff"][3], f"{tag}: the controller never actuated")
+        print(f"[{tag}] (d) the adaptive controller's actuations: "
+              f"{json.dumps(runs['fedbuff'][3])[:1500]}", flush=True)
+        off, empty = runs["fedbuff, no controller"], runs[
+            "fedbuff, a controller of no policies"]
+        inert = off[1] == empty[1] and _same_net(off[2], empty[2])
+        print(f"[{tag}] (d) no controller vs a controller of no policies: "
+              f"{'bit-equal' if inert else 'DIFFERENT'} (event log and "
+              "final net)", flush=True)
+        check(inert, f"{tag}: an attached controller that proposes nothing "
+              "changed the run")
+
+        # The sync mode with secagg over the churn-free twin of the spec.
+        calm = FleetSpec(**dict(PLANE_SPEC, mean_online=1.0,
+                                arrival_spread_s=0.0))
+        with _MaskSpy() as spy:
+            res, events, net, ups, took = _plane_sim(
+                "sync", fed, test, calm,
+                cfg=dict(comm_round=PLANE_SECAGG_ROUNDS, secagg=True,
+                         ingest_workers=PLANE_INGEST,
+                         round_timeout_s=10.0 ** 6))
+        devices = list(range(1, calm.n_devices + 1))
+        leaves, wsum, count = _plane_hold_rounds(
+            tag, "the sim's secagg", spy, range(PLANE_SECAGG_ROUNDS),
+            lambda r: sorted(d for d in devices if (d, r) in spy.clear))
+        print(f"[{tag}] (c) FleetSimulator sync with secagg, 32 devices "
+              f"online throughout: {took:.1f} s wall, {ups} uploads, "
+              f"{res.updates} rounds, reveals {res.health['seed_reveals']}; "
+              f"each round's merged total = the clear fold of its "
+              f"{count} uploads, bit-equal", flush=True)
+        check(res.completed and count == calm.n_devices,
+              f"{tag}: the sim's secagg run {res.summary()}")
+
+        # The same controller object, bound anew, on a loopback run.
+        t0 = time.perf_counter()
+        srv = FedML_FedBuff_distributed(
+            _plane_model(), fed, test,
+            _plane_cfg(client_num_per_round=8, comm_round=PLANE_LOOP_AGGS,
+                       frequency_of_the_test=1),
+            buffer_k=PLANE_BUFF_K, controller=ctrl, loopback_wire="tensor",
+            device="cuda")
+        print(f"[{tag}] (d) the same controller on a loopback FedBuff run "
+              f"(8 workers, {PLANE_LOOP_AGGS} aggregations) in "
+              f"{time.perf_counter() - t0:.1f} s: actuations "
+              f"{json.dumps(ctrl.actuation_log)[:600]}; knobs "
+              f"{srv.ctrl.values()}", flush=True)
+        check(srv.version == PLANE_LOOP_AGGS and srv._controller is ctrl,
+              f"{tag}: the loopback run with the controller")
+        del srv, runs
+
+
+def _plane_cli(tag):
+    """(e): main_extra FedBuff --controller adaptive at --model lr, in
+    process; the attached controller's actuation log read back."""
+    import io
+
+    from fedml_tpu_torch.comm.managers import ServerManager
+    from fedml_tpu_torch.exp import main_extra
+
+    attached = []
+    attach = ServerManager.attach_controller
+
+    def attach_spy(mgr, controller):
+        attached.append(controller)
+        return attach(mgr, controller)
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ServerManager.attach_controller = attach_spy
+    try:
+        with contextlib.redirect_stdout(out):
+            main_extra.main(PLANE_CLI)
+    finally:
+        ServerManager.attach_controller = attach
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    ctl = attached[0] if attached else None
+    print(f"[{tag}] (e) main_extra {' '.join(PLANE_CLI)}: "
+          f"{time.perf_counter() - t0:.1f} s; last line {json.dumps(last)}; "
+          f"controller {type(ctl).__name__}, actuations "
+          f"{len(ctl.actuation_log) if ctl else None}", flush=True)
+    check(ctl is not None and last.get("version") == 6
+          and math.isfinite(last.get("loss", float("nan"))),
+          f"{tag}: main_extra --controller {last}")
+
+
+def phase_plane():
+    """The federation plane's secure, sharded and simulated tiers on the
+    card at the flagship's width: (a) secagg and its dropout drill, (b)
+    agg_shards and a shard drill, (c) the fleet simulator, (d) the
+    controllers, (e) main_extra --controller. Returns {kernel name:
+    GroupNorm launches}."""
+    tag, card = "plane", smi_line()
+    t_phase = time.perf_counter()
+    fed, test = _fed_data()
+    _zero_gn_counts()
+    with _cudnn_deterministic():
+        t0 = time.perf_counter()
+        step = _plane_secagg(tag, card, fed, test)
+        print(f"[{tag}] (a) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        _plane_shards(tag, card, fed, test, step)
+        print(f"[{tag}] (b) {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        _plane_fleet(tag, card, fed, test, step)
+        print(f"[{tag}] (c, d) {time.perf_counter() - t0:.1f} s", flush=True)
+    fwd, bwd, red, copies, streamed = _gn_counts()
+    print(f"[{tag}] GroupNorm launches of (a)-(d): fwd {fwd}, bwd {bwd}, "
+          f"reduce {red}, copies {copies}, streamed {streamed}; silo step "
+          f"replays {step.replays}", flush=True)
+    check(fwd > 0 and bwd > 0 and red > 0, f"{tag}: the plane launched "
+          f"GroupNorm fwd {fwd}, bwd {bwd}, reduce {red}")
+    del step, fed, test
+    _free()
+    t0 = time.perf_counter()
+    _plane_cli(tag)
+    print(f"[{tag}] (e) {time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {"group_norm_fwd": fwd, "group_norm_bwd": bwd}
+
+
 # The whole script's limit: past it every thread's stack goes to stderr
 # and the script exits with 1 (a hang names itself before the runner's
 # 1,200 s cut).
@@ -8852,6 +9511,8 @@ def main() -> int:
     for name, n in timed("fed", phase_fed).items():
         launches[name] += n
     asyn = timed("async", phase_async)
+    for name, n in timed("plane", phase_plane).items():
+        launches[name] += n
     print(f"[report] flash launches: serve fwd {launches['flash_fwd']}, "
           f"adapter {adapter}, vit {vit}, store {store}, knobs {knobs}, "
           f"dp and cli {cli}, async {asyn}", flush=True)

@@ -32,9 +32,10 @@ leaves the worker; the server mixes each arrival into the global on the
 card (JAX ``jit``\\ s ``_mix``) and evaluates there, under the same lock;
 the wire, the codecs and the ingest pool are numpy on the host.
 
-Not ported yet (ROADMAP.md A10c): adaptive controllers (``controller=``).
-Secure aggregation and the sharded plane are refused in the JAX package's
-words: they are synchronous-FedAvg capabilities.
+An adaptive controller (``controller=``, ``ctrl/policy.py``) steps from
+the server's safe boundary after each model version. Secure aggregation
+and the sharded plane are refused in the JAX package's words: they are
+synchronous-FedAvg capabilities.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from typing import Deque, Dict, List, Optional, Set
 import numpy as np
 
 from fedml_tpu_torch.algos.config import FedConfig
+from fedml_tpu_torch.algos import fedavg_distributed
 from fedml_tpu_torch.algos.fedavg_distributed import (
     MSG_ARG_KEY_CLIENT_INDEX,
     MSG_ARG_KEY_MODEL_PARAMS,
@@ -58,9 +60,7 @@ from fedml_tpu_torch.algos.fedavg_distributed import (
     MSG_TYPE_S2C_INIT_CONFIG,
     MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
     MSG_TYPE_SRV_TICK,
-    build_federation_setup,
     check_device,
-    unported_controller,
 )
 from fedml_tpu_torch.comm import codec as wire_codec
 from fedml_tpu_torch.comm import pytree
@@ -845,20 +845,24 @@ def FedML_FedAsync_distributed(
     models here, so casts/quantization only) and ``loopback_wire`` makes
     loopback serialize for real. ``metrics`` (a MetricsLogger) gets one
     ctrl/ health row per model version; ``trace_dir`` arms the flight
-    recorder + span tracer. ``controller`` is not ported yet (ROADMAP.md
-    A10c) and raises."""
-    if controller is not None:
-        raise unported_controller()
+    recorder + span tracer. ``controller`` (a ``ctrl.FederationController``)
+    steps from the server's safe boundary after each model version."""
     device = check_device(train_fed, device)
-    size, net0, local_train, eval_fn, args = build_federation_setup(
-        model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
-        loopback_wire=loopback_wire, pretrained_params=pretrained_params)
+    size, net0, local_train, eval_fn, args = (
+        fedavg_distributed.build_federation_setup(
+            model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
+            loopback_wire=loopback_wire, pretrained_params=pretrained_params))
     server = FedAsyncServerManager(args, net0, cfg, size, backend=backend,
                                    alpha=alpha, staleness_exp=staleness_exp,
                                    eval_fn=eval_fn, test_data=test_global,
                                    done_timeout_s=done_timeout_s,
                                    metrics=metrics, flight_dir=trace_dir,
                                    device=device)
+    if controller is not None:
+        # Adaptive control (ctrl/policy.py): the same controller object
+        # that drove the fleet simulator drives this live run — it steps
+        # from the server's safe-boundary hook, owning no thread itself.
+        server.attach_controller(controller)
     clients = [
         FedAsyncClientManager(args, rank, size, train_fed, local_train, cfg,
                               backend=backend, wire_codec_spec=wire_codec,

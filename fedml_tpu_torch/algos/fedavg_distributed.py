@@ -62,9 +62,15 @@ frozen-base ``transformer_lm`` on the wire (:func:`build_federation_setup`);
 the asynchronous tiers over these managers are ``algos/fedasync.py`` and
 ``algos/fedbuff.py``.
 
-Not ported yet (ROADMAP.md A10c), each refused by name: secure
-aggregation (``cfg.secagg``), the sharded aggregation plane
-(``agg_shards``) and adaptive controllers (``controller=``).
+Secure aggregation (``cfg.secagg``, ``comm/secagg.py``): the silo quantizes
+its host copy onto the ingest pool's int64 grid and adds pairwise masks
+there; the masks cancel in the server's exact fold and a dropped silo's
+are corrected away after a t-of-n seed reveal. The sharded aggregation
+plane (``agg_shards``, ``comm/shardplane.py``) moves that fold onto M
+shard ranks whose int64 partials the coordinator merges; an adaptive
+controller (``controller=``, ``ctrl/policy.py``) steps at the server's
+between-rounds boundary. All three are host-side, as in JAX: only the
+silo's local step and the server's finalize and eval run on the card.
 """
 
 from __future__ import annotations
@@ -81,7 +87,10 @@ import torch
 from fedml_tpu_torch.algos.config import FedConfig
 from fedml_tpu_torch.comm import codec as wire_codec
 from fedml_tpu_torch.comm import pytree
-from fedml_tpu_torch.comm.ingest import finalize_partial_mean
+from fedml_tpu_torch.comm import secagg as secagg_mod
+from fedml_tpu_torch.comm.ingest import (FixedContribution, PartialAccumulator,
+                                         finalize_partial_mean,
+                                         upload_fold_task)
 from fedml_tpu_torch.comm.loopback import LoopbackNetwork, run_workers
 from fedml_tpu_torch.comm.managers import ClientManager, ServerManager
 from fedml_tpu_torch.comm.message import Message
@@ -112,23 +121,24 @@ MSG_TYPE_C2S_SEND_MODEL_TO_SERVER = 3
 # server watchdog's self-addressed deadline tick.
 MSG_TYPE_C2S_HEARTBEAT = 4
 MSG_TYPE_SRV_TICK = 5
+# Secure-aggregation control plane (comm/secagg.py): pk handshake,
+# roster/share distribution, and the dropout seed-reveal round. Kept
+# clear of the shardplane block (20-25).
+MSG_TYPE_C2S_SECAGG_PK = 30
+MSG_TYPE_S2C_SECAGG_ROSTER = 31
+MSG_TYPE_C2S_SECAGG_SHARES = 32
+MSG_TYPE_S2C_SEED_REVEAL = 33
+MSG_TYPE_C2S_SEED_SHARE = 34
 
 MSG_ARG_KEY_MODEL_PARAMS = Message.MSG_ARG_KEY_MODEL_PARAMS
 MSG_ARG_KEY_CLIENT_INDEX = Message.MSG_ARG_KEY_CLIENT_INDEX
 MSG_ARG_KEY_NUM_SAMPLES = Message.MSG_ARG_KEY_NUM_SAMPLES
+# Sharded aggregation plane (comm/shardplane.py): the assignment stamps
+# the rank the worker must UPLOAD to. Absent (the single-server path)
+# means rank 0 — the coordinator itself ingests.
+MSG_ARG_KEY_SHARD_RANK = "shard_rank"
 
 log = logging.getLogger(__name__)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet to the PyTorch federation plane "
-        "(ROADMAP.md A10c)")
-
-
-def unported_controller() -> NotImplementedError:
-    return _unported("an adaptive controller (controller=, the JAX "
-                     "package's ctrl/policy.py)")
 
 
 def check_device(train_fed, device):
@@ -290,15 +300,20 @@ class FedAVGAggregator:
             self.model_dict.pop(i, None)
         return self.net
 
-    def aggregate_pooled(self, indices, pool):
+    def aggregate_pooled(self, indices, pool, envelope_check=None):
         """The pooled-mean twin of :meth:`aggregate_from`: the ingest
         pool (comm/ingest.py) already holds ``Σ w·x`` in exact fixed
         point across its per-worker partials — merge, divide once, cast
         to the reference dtypes on the card. The pool's task count must
         equal the arrived set. An empty index set keeps the previous
-        net."""
+        net. ``envelope_check`` (secagg rounds) runs on the merged total
+        BETWEEN cancellation and the division — the only moment
+        mask-domain saturation is observable (comm/ingest.py
+        envelope_overflow)."""
         indices = list(indices)
         total = pool.merge_partials()
+        if envelope_check is not None:
+            envelope_check(total)
         with capture_lock:
             mean, count = finalize_partial_mean(total, self.net)
         if count != len(indices):
@@ -347,6 +362,11 @@ class FedAVGServerManager(ServerManager):
     done-handshake is watched the same way, so the run always ends.
     See the module docstring for the full failure model."""
 
+    # The sharded coordinator (comm/shardplane.py) folds on its shard
+    # ranks instead of a local ingest pool — it overrides this so the
+    # secagg constructor check accepts a pool-less coordinator.
+    _secagg_sharded = False
+
     def __init__(self, args, aggregator: FedAVGAggregator, cfg: FedConfig,
                  size: int, backend: str = "LOOPBACK", compress: str = "none",
                  aggregate_k: int = 0, *,
@@ -356,9 +376,6 @@ class FedAVGServerManager(ServerManager):
                  checkpoint_dir: Optional[str] = None,
                  metrics=None, clock=time.monotonic,
                  flight_dir: Optional[str] = None):
-        if getattr(cfg, "secagg", False):
-            raise _unported("secure aggregation (cfg.secagg, the JAX "
-                            "package's comm/secagg.py)")
         super().__init__(args, rank=0, size=size, backend=backend)
         if aggregate_k and not 1 <= aggregate_k <= size - 1:
             raise ValueError(
@@ -374,7 +391,6 @@ class FedAVGServerManager(ServerManager):
         self.codec_refusals = 0
         self.evictions = 0
         self.readmissions = 0
-        self.seed_reveals = 0  # secure aggregation's counter (A10c)
         self.aborted = False
         self._members: Set[int] = set(range(1, size))
         self._done_set: Set[int] = set()
@@ -427,6 +443,33 @@ class FedAVGServerManager(ServerManager):
                 "ingest_pool_queue_depth")
         else:
             self._pool = None
+        # Secure aggregation (comm/secagg.py, cfg.secagg): masked uploads
+        # ride the SAME fixed-point fold the pool (or the shard plane)
+        # already runs — integer adds are the only ingest arithmetic
+        # whose associativity cancels pairwise masks exactly.
+        self.secagg: Optional[secagg_mod.SecAggServer] = None
+        self.seed_reveals = 0
+        self._secagg_waitroom: Set[int] = set()
+        self._secagg_reveal_asked: Set[int] = set()
+        self._secagg_reveal_t0: Dict[int, float] = {}
+        if getattr(cfg, "secagg", False):
+            if not aggregator.aggregator.is_mean:
+                raise ValueError(
+                    "cfg.secagg masks the pooled MEAN's fixed-point fold; "
+                    f"aggregator {aggregator.aggregator.name!r} reduces "
+                    "the cohort side by side and would see per-client "
+                    "masked frames that never cancel")
+            if aggregate_k:
+                raise ValueError(
+                    "cfg.secagg is all-or-reveal: aggregate_k first-k "
+                    "rounds would orphan every straggler's masks and "
+                    "force a seed reveal per round — run aggregate_k=0")
+            if self._pool is None and not self._secagg_sharded:
+                raise ValueError(
+                    "cfg.secagg needs the fixed-point ingest path: set "
+                    "ingest_workers > 0 (comm/ingest.py) or agg_shards "
+                    "> 0 (comm/shardplane.py)")
+            self._secagg_init()
         self.flight = obs_trace.FlightRecorder(
             clock=clock,
             path=(os.path.join(flight_dir, "flight_recorder.jsonl")
@@ -551,6 +594,12 @@ class FedAVGServerManager(ServerManager):
             # Negotiated delta capability: this server decodes
             # delta-framed uploads against the round's broadcast anchor.
             msg.add(wire_codec.DELTA_OK_KEY, True)
+            if self.secagg is not None:
+                # Capability stage: no roster yet, so clients DEFER the
+                # round and open the pk handshake; the assignment
+                # re-arrives roster-stamped once the share matrix lands.
+                msg.add(wire_codec.SECAGG_OK_KEY, True)
+            self._stamp_routing(msg, ci)
             self._safe_send(msg, worker)
 
     def register_message_receive_handlers(self) -> None:
@@ -562,6 +611,12 @@ class FedAVGServerManager(ServerManager):
             MSG_TYPE_C2S_HEARTBEAT, self._handle_heartbeat)
         self.register_message_receive_handler(
             MSG_TYPE_SRV_TICK, self._handle_tick)
+        self.register_message_receive_handler(
+            MSG_TYPE_C2S_SECAGG_PK, self._handle_secagg_pk)
+        self.register_message_receive_handler(
+            MSG_TYPE_C2S_SECAGG_SHARES, self._handle_secagg_shares)
+        self.register_message_receive_handler(
+            MSG_TYPE_C2S_SEED_SHARE, self._handle_seed_share)
 
     # -- snapshots (watchdog thread reads; handlers mutate under _lock) -----
     def _members_snapshot(self) -> List[int]:
@@ -588,8 +643,15 @@ class FedAVGServerManager(ServerManager):
 
     def _worker_slot(self, worker: int) -> int:
         """Worker rank → its 0-based slot in the round's sampled
-        ``client_indexes`` (also the aggregator's worker index)."""
+        ``client_indexes`` (also the aggregator's worker index). The
+        sharded coordinator re-bases this — its worker ranks start after
+        the M aggregator-shard ranks (comm/shardplane.py)."""
         return worker - 1
+
+    def _stamp_routing(self, out: Message, client_index: int) -> None:
+        """Hook for the sharded aggregation plane: stamp the shard rank
+        this worker must upload to. The single-server path routes every
+        upload to rank 0 — nothing to stamp."""
 
     def health(self) -> Dict[str, int]:
         """Control-plane counters, surfaced per round through the metrics
@@ -597,7 +659,8 @@ class FedAVGServerManager(ServerManager):
         ``bytes_rx`` are the transport's ByteLedger totals (comm/wire.py);
         0 on plain in-memory loopback. ``ingest_saturated`` is the
         lifetime count of clipped fixed-point contributions
-        (comm/ingest.py)."""
+        (comm/ingest.py) — the sharded coordinator overrides it with the
+        fleet-wide sum over its shards' gauges."""
         ledger = getattr(self.com_manager, "bytes_ledger", None)
         saturated = 0
         if self._pool is not None:
@@ -680,6 +743,16 @@ class FedAVGServerManager(ServerManager):
         # re-admitted after the init was lost still learns the offer.
         out.add(wire_codec.OFFER_KEY, wire_codec.codec_offer())
         out.add(wire_codec.DELTA_OK_KEY, True)
+        if self.secagg is not None:
+            out.add(wire_codec.SECAGG_OK_KEY, True)
+            members = self._members_snapshot()
+            if self.secagg.setup_complete(members):
+                # Stamp the per-round roster (first stamp wins; resends
+                # re-ship the stored snapshot): every member of the
+                # round masks against the same peer set, or nothing
+                # cancels.
+                roster = self.secagg.stamp_roster(self.round_idx, members)
+                out.add("secagg_roster", [int(x) for x in roster])
         if resend:
             # Re-admission: the worker's upload (or our assignment) was
             # lost — a client that already trained this round should
@@ -687,6 +760,7 @@ class FedAVGServerManager(ServerManager):
             # that, so a plain transport duplicate of a normal assignment
             # is dropped instead of costing a model-sized resend.
             out.add("resend", True)
+        self._stamp_routing(out, ci)
         self._safe_send(out, worker)
 
     # -- checkpointing ------------------------------------------------------
@@ -765,6 +839,11 @@ class FedAVGServerManager(ServerManager):
             log.warning("round %d deadline: evicting silent ranks %s",
                         self.round_idx, evict)
             self._evict(evict)
+            if self.secagg is not None and not terminal:
+                # Setup-phase eviction can unblock the handshake: if the
+                # missing pk belonged to the corpse, the roster can
+                # broadcast to the survivors now.
+                self._secagg_nudge()
         if terminal:
             self._maybe_finish()
             return
@@ -803,7 +882,11 @@ class FedAVGServerManager(ServerManager):
         with self._lock:
             member = sender in self._members
         if member:
+            if self.secagg is not None:
+                self._secagg_redrive(sender)
             return
+        if self.secagg is not None and not self._secagg_readmit_ok(sender):
+            return  # released or waitroomed by the secagg policy
         # Evicted-but-alive: its upload or our assignment was lost, or it
         # was slow past the deadline. Re-admit with the current round's
         # work, resend-flagged.
@@ -814,6 +897,308 @@ class FedAVGServerManager(ServerManager):
         self.flight.record("readmission", sender=sender,
                            round=self.round_idx, via="beat")
         self._send_assignment(sender, resend=True)
+
+    # -- secure aggregation (comm/secagg.py) --------------------------------
+    def _secagg_init(self) -> None:
+        """(Re)key the secagg coordinator to the current membership —
+        the sharded coordinator re-bases its worker ranks AFTER the base
+        constructor ran and calls this again with the corrected set."""
+        self.secagg = secagg_mod.SecAggServer(
+            self._members_snapshot(),
+            t=int(getattr(self.cfg, "secagg_t", 0) or 0))
+        self._c_reveals = self.registry.counter("secagg_reveals")
+        self._c_mask_overflow = self.registry.counter(
+            "secagg_mask_overflow")
+        self._h_reveal = self.registry.histogram("secagg_reveal_ms")
+
+    def _secagg_readmit_ok(self, sender: int) -> bool:
+        """Re-admission policy for a non-member beat under secagg. True
+        → the normal resend-flagged re-admission proceeds; False → this
+        call already disposed of the sender (released for the epoch, or
+        parked in the waitroom until the next round's roster can take
+        it)."""
+        sa = self.secagg
+        if sa.compromised(sender):
+            # Its seeds are revealed (or mid-reveal): every future mask
+            # is server-derivable, so re-admission would silently void
+            # its privacy. Release it for the epoch.
+            self.flight.record("secagg_released", sender=sender,
+                               round=self.round_idx)
+            self._send_done(sender)
+            return False
+        if not sa.setup_complete(self._members_snapshot()):
+            return True  # the handshake absorbs it like any member
+        if sa.setup_roster is not None and sender not in sa.setup_roster:
+            # Missed the handshake window: the pair-key mesh froze
+            # without it, so no peer can ever cancel against it —
+            # release rather than admit a clear upload to a masked
+            # round.
+            self.flight.record("secagg_locked_out", sender=sender,
+                               round=self.round_idx)
+            self.flight.dump()
+            self._send_done(sender)
+            return False
+        roster = sa.roster_for(self.round_idx)
+        if roster and sender not in roster:
+            # The round's roster sealed without it — every member
+            # already masked against a peer set that excludes this
+            # rank, so a mid-round upload could never cancel. Park it;
+            # the commit tail admits it into the next round.
+            with self._lock:
+                self._secagg_waitroom.add(sender)
+            self.flight.record("secagg_waitroom", sender=sender,
+                               round=self.round_idx)
+            return False
+        return True
+
+    def _secagg_redrive(self, sender: int) -> None:
+        """Beat-driven secagg repair for a MEMBER: chaos can eat any
+        handshake or reveal frame; the member's own liveness beats are
+        the retry clock (no extra timers)."""
+        sa = self.secagg
+        members = self._members_snapshot()
+        missing_pks = sa.pks_missing(members)
+        if missing_pks:
+            if sender in missing_pks:
+                # Re-solicit the pk: the resent assignment makes the
+                # client defer and re-open the handshake.
+                self._send_assignment(sender, resend=True)
+            return
+        if sender in sa.rows_missing(members):
+            self._send_secagg_roster([sender])
+            return
+        # A reveal round in flight: re-ask this survivor for every share
+        # it still owes. Gated on the asked-set — a merely-slow rank
+        # must never be revealed before the control plane evicts it.
+        for d in sorted(self._secagg_reveal_asked):
+            if d != sender and d not in sa.revealed \
+                    and not sa.has_share(d, sender):
+                self._send_reveal_request(d, sender)
+
+    def _secagg_nudge(self) -> None:
+        """Post-eviction handshake re-check: with the corpse's pk no
+        longer awaited, the roster may be broadcastable now."""
+        members = self._members_snapshot()
+        if not members or self.secagg.pks_missing(members):
+            return
+        need = self.secagg.rows_missing(members)
+        if need:
+            self._send_secagg_roster(need)
+
+    def _handle_secagg_pk(self, msg: Message) -> None:
+        sender = msg.get_sender_id()
+        ep = msg.get("epoch")
+        if ep is not None and int(ep) != self.epoch:
+            self.epoch_drops += 1
+            return
+        self.heartbeat.beat(sender)
+        if self.secagg is None:
+            return
+        self.secagg.add_pk(sender, int(msg.get("pk")))
+        members = self._members_snapshot()
+        if self.secagg.pks_missing(members):
+            return  # beats redrive the stragglers
+        need = set(self.secagg.rows_missing(members))
+        if sender not in self.secagg.rows:
+            need.add(sender)
+        if need:
+            self._send_secagg_roster(sorted(need))
+
+    def _send_secagg_roster(self, workers) -> None:
+        body = self.secagg.roster_payload(self._members_snapshot())
+        ranks = sorted(body["pks"])
+        for w in workers:
+            out = Message(MSG_TYPE_S2C_SECAGG_ROSTER, 0, w)
+            out.add("epoch", self.epoch)
+            out.add("pk_ranks", [int(r) for r in ranks])
+            out.add("pk_vals", [int(body["pks"][r]) for r in ranks])
+            out.add("t", int(body["t"]))
+            out.add("universe", [int(u) for u in body["universe"]])
+            self._safe_send(out, w)
+
+    def _handle_secagg_shares(self, msg: Message) -> None:
+        sender = msg.get_sender_id()
+        ep = msg.get("epoch")
+        if ep is not None and int(ep) != self.epoch:
+            self.epoch_drops += 1
+            return
+        self.heartbeat.beat(sender)
+        if self.secagg is None:
+            return
+        new = sender not in self.secagg.rows
+        holders = [int(h) for h in msg.get("row_holders")]
+        ciphers = [int(c) for c in msg.get("row_ciphers")]
+        self.secagg.add_row(sender, dict(zip(holders, ciphers)))
+        members = self._members_snapshot()
+        if not (new and self.secagg.setup_complete(members)):
+            return
+        # The share matrix just completed: release the deferred round —
+        # every member that has not already uploaded gets its (now
+        # roster-stamped) assignment.
+        self.flight.record("secagg_setup", members=len(members),
+                           t=int(self.secagg.t))
+        if self.round_idx >= self.cfg.comm_round:
+            return
+        arrived = set(self._arrived_snapshot())
+        client_indexes = self.aggregator.client_sampling(self.round_idx)
+        for w in members:
+            if w not in arrived:
+                self._send_assignment(w, client_indexes)
+
+    def _send_reveal_request(self, target: int, holder: int) -> None:
+        cipher = self.secagg.reveal_request(target, holder)
+        if cipher is None:
+            return  # the target never shipped a row entry for holder
+        out = Message(MSG_TYPE_S2C_SEED_REVEAL, 0, holder)
+        out.add("epoch", self.epoch)
+        out.add("round", self.round_idx)
+        out.add("target", int(target))
+        out.add("cipher", int(cipher))
+        self._safe_send(out, holder)
+
+    def _secagg_request_reveals(self, targets) -> None:
+        """Open (or re-drive) the seed-reveal round for ``targets`` —
+        evicted roster ranks whose masks sit orphaned in the folded
+        uploads. Survivor shares flow back as SEED_SHARE messages; the
+        reveal latency histogram runs from the FIRST ask."""
+        now = self._clock()
+        survivors = [w for w in self._members_snapshot()
+                     if w not in targets]
+        for d in targets:
+            first = d not in self._secagg_reveal_asked
+            self._secagg_reveal_asked.add(d)
+            self._secagg_reveal_t0.setdefault(d, now)
+            if first:
+                self.flight.record("seed_reveal_request", target=int(d),
+                                   round=self.round_idx,
+                                   survivors=len(survivors))
+            for h in survivors:
+                if not self.secagg.has_share(d, h):
+                    self._send_reveal_request(d, h)
+        if targets:
+            self.flight.dump()
+
+    def _handle_seed_share(self, msg: Message) -> None:
+        sender = msg.get_sender_id()
+        ep = msg.get("epoch")
+        if ep is not None and int(ep) != self.epoch:
+            # A share from a previous incarnation must never unlock a
+            # live seed.
+            self.epoch_drops += 1
+            self.flight.record("seed_reveal_stale", sender=sender,
+                               epoch=int(ep))
+            return
+        self.heartbeat.beat(sender)
+        if self.secagg is None:
+            return
+        target = int(msg.get("target"))
+        tr = obs_trace.active()
+        ck = obs_trace.corr(epoch=self.epoch, round=self.round_idx,
+                            sender=sender)
+        with tr.span("secagg.reveal", cat="secagg", corr=ck,
+                     target=target):
+            done = self.secagg.add_reveal_share(target, sender,
+                                                int(msg.get("share")))
+        if not done:
+            return
+        self.seed_reveals += 1
+        self._c_reveals.inc()
+        t0 = self._secagg_reveal_t0.pop(target, None)
+        if t0 is not None:
+            self._h_reveal.record((self._clock() - t0) * 1e3)
+        self.flight.record("seed_reveal", target=target,
+                           round=self.round_idx,
+                           shares=self.secagg.shares_held(target))
+        self.flight.dump()
+        self._secagg_recheck()
+
+    def _secagg_recheck(self) -> None:
+        """A reveal just completed: if the round was blocked on it (the
+        precommit gate returned False), re-drive the commit."""
+        if self.round_idx >= self.cfg.comm_round:
+            return
+        with self._lock:
+            ready = bool(self._arrived) and (
+                len(self._arrived) >= self._k_effective())
+        if ready:
+            self._complete_round()
+
+    def _secagg_reveals_ready(self) -> bool:
+        pending = self.secagg.unreconstructed(self.round_idx,
+                                              self._arrived_snapshot())
+        if pending:
+            self._secagg_request_reveals(pending)
+            return False
+        return True
+
+    def _secagg_precommit(self) -> bool:
+        """The mask-completeness gate between the pool barrier and the
+        merge: every roster rank either arrived (its masks cancel in
+        the fold) or is an orphan whose reconstructed seeds yield an
+        exact int64 correction, folded here as a weight-0 count-0
+        contribution. Returns False while reveals are in flight —
+        :meth:`_secagg_recheck` re-enters on reconstruction."""
+        if not self._secagg_reveals_ready():
+            return False
+        r = self.round_idx
+        arrived = self._arrived_snapshot()
+        orphans = self.secagg.orphans(r, arrived)
+        if not orphans:
+            return True
+        shapes = [tuple(l.shape)
+                  for l in sorted_leaves(self.aggregator.net)]
+        for d in orphans:
+            corr = self.secagg.correction(d, r, self.epoch, arrived,
+                                          shapes)
+            self._pool.submit(
+                lambda c=corr: FixedContribution(c, 0, 0),
+                epoch=self.epoch, round=r, sender=int(d),
+                kind="secagg_correction")
+        for meta, err in self._pool.drain():
+            log.error("secagg correction task failed: %s (%s)", meta, err)
+        self.flight.record("secagg_correction", round=r,
+                           targets=[int(d) for d in orphans])
+        return True
+
+    def _secagg_envelope_check(self, total) -> None:
+        """Post-cancellation headroom audit: a merged masked total whose
+        leaves exceed count·2^50 means the masks did NOT fully cancel
+        (roster drift, a wrong correction) or the true sum genuinely
+        wrapped — count it loudly, never clamp (comm/ingest.py
+        envelope_overflow)."""
+        over = int(total.envelope_overflow())
+        if over:
+            self._c_mask_overflow.inc()
+            log.error("secagg: %d leaves outside the fixed-point "
+                      "envelope after mask cancellation (round %d)",
+                      over, self.round_idx)
+            self.flight.record("mask_envelope_overflow", leaves=over,
+                               round=self.round_idx)
+            self.flight.dump()
+
+    def _secagg_commit_tail(self, arrived) -> List[int]:
+        """Post-commit membership repair: admit waitroomed ranks into
+        the NEXT round's roster, purge compromised members, clear the
+        per-round reveal bookkeeping. Returns the admitted ranks that
+        still need an assignment fan-out."""
+        sa = self.secagg
+        with self._lock:
+            admit = sorted(w for w in self._secagg_waitroom
+                           if sa.can_participate(w))
+            self._secagg_waitroom.clear()
+            for w in admit:
+                if w not in self._members:
+                    self._members.add(w)
+                    self.readmissions += 1
+            for w in [m for m in self._members if sa.compromised(m)]:
+                self._members.discard(w)
+        self._secagg_reveal_asked.clear()
+        self._secagg_reveal_t0.clear()
+        for w in admit:
+            self.flight.record("readmission", sender=w,
+                               round=self.round_idx,
+                               via="secagg_waitroom")
+        return [w for w in admit if w not in arrived]
 
     # -- the round ----------------------------------------------------------
     def handle_message_receive_model_from_client(self, msg: Message) -> None:
@@ -838,10 +1223,19 @@ class FedAVGServerManager(ServerManager):
                 return
             self._last_upload_round[sender] = t
             if sender not in self._members:
-                self._members.add(sender)
-                self.readmissions += 1
-                self.flight.record("readmission", sender=sender,
-                                   round=t, via="upload")
+                if self.secagg is not None \
+                        and self.secagg.compromised(sender):
+                    # A rank whose seeds are revealed (or mid-reveal):
+                    # its current-round upload still FOLDS below if it
+                    # holds a roster slot — arrival and correction are
+                    # mutually exclusive, so the sum stays exact — but
+                    # membership is gone for the epoch.
+                    pass
+                else:
+                    self._members.add(sender)
+                    self.readmissions += 1
+                    self.flight.record("readmission", sender=sender,
+                                       round=t, via="upload")
         if self.round_idx >= self.cfg.comm_round:
             # Terminal: a straggler's in-flight upload after the final
             # aggregation — release it.
@@ -849,17 +1243,33 @@ class FedAVGServerManager(ServerManager):
             return
         if t != self.round_idx:
             # Stale upload from an older round: discard the model, catch
-            # the worker up on the current round.
+            # the worker up on the current round — unless its seeds were
+            # revealed while the upload was in flight, in which case it
+            # is released for the epoch instead of reassigned.
             self.straggler_drops += 1
             self.flight.record("straggler_drop", sender=sender, round=t)
-            self._send_assignment(sender)
+            if self.secagg is not None and self.secagg.compromised(sender):
+                self._send_done(sender)
+            else:
+                self._send_assignment(sender)
             return
         payload = msg.get(MSG_ARG_KEY_MODEL_PARAMS)
-        if msg.get(wire_codec.SECAGG_MASKED_KEY):
-            # A masked frame against this server could only ever fold as
-            # mask noise — the codec-refusal policy applies verbatim.
+        masked = bool(msg.get(wire_codec.SECAGG_MASKED_KEY))
+        if masked and self.secagg is None:
+            # A masked int64 frame against an unarmed server could only
+            # ever fold as mask noise — the codec-refusal policy (evict
+            # AND release) applies verbatim.
             self._refuse_upload(sender, t, "secagg_refusal",
                                 "masked upload but secagg is not armed")
+            return
+        if masked and sender not in self.secagg.roster_for(t):
+            # A masked frame from outside the round's sealed roster can
+            # never cancel — protocol violation or a deep chaos
+            # reordering. Drop the payload; the sender's beat routes it
+            # through the waitroom.
+            self.flight.record("secagg_nonroster_drop", sender=sender,
+                               round=t)
+            self.flight.dump()
             return
         codec = msg.get("compression")
         wcodec = msg.get(wire_codec.CODEC_KEY)
@@ -884,7 +1294,8 @@ class FedAVGServerManager(ServerManager):
             self._g_pool_queue.set(self._pool.queue_depth())
             self._submit_ingest(sender, t, payload, codec, wcodec,
                                 float(msg.get(MSG_ARG_KEY_NUM_SAMPLES)), ck,
-                                is_delta=is_delta)
+                                is_delta=is_delta, masked=masked,
+                                clipped=int(msg.get("secagg_clipped") or 0))
             with self._lock:
                 self._arrived.add(sender)
                 ready = len(self._arrived) >= self._k_effective()
@@ -991,33 +1402,20 @@ class FedAVGServerManager(ServerManager):
 
     def _submit_ingest(self, sender: int, round_idx: int, payload, codec,
                        wcodec, weight: float, ck, *,
-                       is_delta: bool = False) -> None:
+                       is_delta: bool = False, masked: bool = False,
+                       clipped: int = 0) -> None:
         """Build one upload's decode+fold task and hand it to the pool.
         The closure snapshots this round's broadcast anchor (its host
         copy: compressed uploads — and raw frames stamped delta — are
         deltas against it) so a late-running task cannot reconstruct
         against the NEXT round's net."""
-        anchor = self._host_of(self._broadcast_net)
         spec = self._spec
-
-        def task():
-            if codec:
-                delta = self._legacy_decode(codec, payload)
-            elif wcodec:
-                delta = self._wire_decoders.decode(wcodec, payload, spec)
-            elif is_delta:
-                delta = payload  # raw tensor-framed delta
-            else:
-                delta = None
-            if delta is None:
-                return ([pytree.np_leaf(l) for l in sorted_leaves(payload)],
-                        weight)
-            # Delta frame: the fold computes w*(anchor + delta) in the
-            # accumulator's preallocated scratch — no model-sized
-            # temporary on the task path.
-            return ([pytree.np_leaf(d) for d in sorted_leaves(delta)],
-                    weight,
-                    [pytree.np_leaf(a) for a in sorted_leaves(anchor)])
+        task = upload_fold_task(
+            payload, weight, self._host_of(self._broadcast_net),
+            codec=codec, legacy_decode=self._legacy_decode, wcodec=wcodec,
+            wire_decode=lambda w, p: self._wire_decoders.decode(w, p, spec),
+            is_delta=is_delta, masked=masked,
+            secagg_on=self.secagg is not None, clipped=clipped)
 
         # ck (the correlation key) already carries epoch/round/sender —
         # the span args double as the failure metadata _settle_pool reads.
@@ -1061,6 +1459,8 @@ class FedAVGServerManager(ServerManager):
     def _complete_round(self) -> None:
         if self._pool is not None and not self._settle_pool():
             return  # refusals thinned the round below readiness
+        if self.secagg is not None and not self._secagg_precommit():
+            return  # seed reveals in flight; _secagg_recheck re-enters
         with self._lock:
             arrived = sorted(self._arrived)
             self._arrived = set()
@@ -1070,7 +1470,9 @@ class FedAVGServerManager(ServerManager):
                 arrived=len(arrived)):
             if self._pool is not None:
                 global_net = self.aggregator.aggregate_pooled(
-                    [self._worker_slot(w) for w in arrived], self._pool)
+                    [self._worker_slot(w) for w in arrived], self._pool,
+                    envelope_check=(self._secagg_envelope_check
+                                    if self.secagg is not None else None))
             else:
                 global_net = self.aggregator.aggregate_from(
                     [self._worker_slot(w) for w in arrived])
@@ -1088,6 +1490,9 @@ class FedAVGServerManager(ServerManager):
         # increment.
         with self._lock:
             self.round_idx += 1
+        extra: List[int] = []
+        if self.secagg is not None:
+            extra = self._secagg_commit_tail(arrived)
         self._log_round_health(completed, arrived)
         # Safe actuation boundary: knob mutations here shape the NEXT
         # round's window and deadlines, never a fold in flight.
@@ -1097,11 +1502,16 @@ class FedAVGServerManager(ServerManager):
         ):
             self._save_checkpoint(wait=False)
         if self.round_idx >= self.cfg.comm_round:
-            for worker in arrived:
+            for worker in arrived + extra:
                 self._send_done(worker)
             return
         client_indexes = self.aggregator.client_sampling(self.round_idx)
-        for worker in arrived:
+        for worker in arrived + extra:
+            if self.secagg is not None and self.secagg.compromised(worker):
+                # Arrived under a mid-reveal race: its round slot held
+                # (the fold stayed exact) but the epoch releases it.
+                self._send_done(worker)
+                continue
             self._send_assignment(worker, client_indexes)
 
     def _log_round_health(self, round_idx: int, arrived) -> None:
@@ -1133,9 +1543,6 @@ class FedAVGClientManager(ClientManager):
                  compress: str = "none", wire_codec_spec: str = "none", *,
                  beat_interval_s: Optional[float] = None,
                  idle_timeout_s: float = 0.0):
-        if getattr(cfg, "secagg", False):
-            raise _unported("secure aggregation (cfg.secagg, the JAX "
-                            "package's comm/secagg.py)")
         super().__init__(args, rank=rank, size=size, backend=backend)
         self.train_fed = train_fed
         self.local_train = local_train
@@ -1161,6 +1568,20 @@ class FedAVGClientManager(ClientManager):
         self._codec_requested = wire_codec_spec or "none"
         self._codec = None  # set by negotiation on the first assignment
         self._delta_ok = False  # ditto (the delta capability)
+        # Secure aggregation (comm/secagg.py, cfg.secagg): the DH state
+        # is built lazily per epoch on the first assignment. Masked
+        # uploads ship the QUANTIZED fixed-point contribution, so the
+        # legacy float compressors cannot compose — the wire codec family
+        # can (the silo self-decodes its own frame onto the fixed grid
+        # before masking).
+        if getattr(cfg, "secagg", False) and compress not in ("", "none"):
+            raise ValueError(
+                "cfg.secagg masks the quantized fixed-point upload; the "
+                "legacy on-device compressor produces float frames "
+                f"(compress={compress!r}) — use wire_codec instead")
+        self._secagg: Optional[secagg_mod.SecAggClient] = None
+        self._secagg_roster: Optional[List[int]] = None
+        self._mask_decoders = wire_codec.CodecCache()
         # The last upload message, kept until the NEXT round's assignment
         # arrives: a RESEND-flagged re-assignment of the round we already
         # trained means our upload was lost in transit — resend it
@@ -1168,6 +1589,9 @@ class FedAVGClientManager(ClientManager):
         # server's per-worker round high-water mark makes resends
         # idempotent.
         self._last_upload: Optional[Message] = None
+        # Upload destination: rank 0 unless the assignment stamps a shard
+        # rank (the sharded aggregation plane, comm/shardplane.py).
+        # Control traffic — heartbeats — always goes to rank 0.
         self._upload_to = 0
         self._compressor = compression.make_compressor(compress)
         self._beats = HeartbeatSender(
@@ -1212,6 +1636,10 @@ class FedAVGClientManager(ClientManager):
             MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
             self.handle_message_receive_model_from_server,
         )
+        self.register_message_receive_handler(
+            MSG_TYPE_S2C_SECAGG_ROSTER, self._handle_secagg_roster)
+        self.register_message_receive_handler(
+            MSG_TYPE_S2C_SEED_REVEAL, self._handle_seed_reveal)
 
     def handle_message_init(self, msg: Message) -> None:
         self._handle_assignment(msg)
@@ -1233,9 +1661,52 @@ class FedAVGClientManager(ClientManager):
                 self.epoch = ep
                 self._last_handled = -1
                 self._last_upload = None
+                # New incarnation, new pair-key mesh: the old DH state
+                # (and its round rosters) died with the old epoch.
+                self._secagg = None
+                self._secagg_roster = None
         if msg.get("done"):
             self.finish()
             return
+        sr = msg.get(MSG_ARG_KEY_SHARD_RANK)
+        if sr is not None and int(sr) != self._upload_to:
+            # Sharded plane routing (first stamp, or a re-route after a
+            # shard eviction). The cached upload re-targets too: a
+            # resend-flagged re-assignment after its shard died must
+            # re-ship to the SURVIVING shard, not the corpse.
+            self._upload_to = int(sr)
+            if self._last_upload is not None:
+                self._last_upload.receiver_id = self._upload_to
+                self._last_upload.add(Message.MSG_ARG_KEY_RECEIVER,
+                                      self._upload_to)
+        if getattr(self.cfg, "secagg", False):
+            # Capability stage: a masked upload against a secagg-
+            # ignorant server would fold mask noise into the mean —
+            # refuse loudly (comm/codec.py).
+            wire_codec.require_secagg_peer(
+                msg.get(wire_codec.SECAGG_OK_KEY), peer="server")
+            if self._secagg is None:
+                self._secagg = secagg_mod.SecAggClient(self.rank,
+                                                       self.epoch)
+            roster = msg.get("secagg_roster")
+            if self._secagg.pair_keys is None or roster is None:
+                # Setup incomplete on one side or the other: publish the
+                # pk and DEFER the round — no _last_handled bump, so the
+                # roster-stamped re-send of this same round still
+                # processes; chaos duplicates of the pk are idempotent.
+                self._send_secagg_pk()
+                return
+            roster = [int(x) for x in roster]
+            if self.rank not in roster:
+                # Defensive: a roster that excludes us means our slot is
+                # sealed elsewhere — masking against it could never
+                # cancel. Sit the round out; the server's waitroom
+                # re-admits us at the next commit.
+                log.warning("rank %d: round %s roster %s excludes us — "
+                            "sitting out until re-rostered", self.rank,
+                            msg.get("round"), roster)
+                return
+            self._secagg_roster = roster
         # The server's round tag, not a local counter: under first-k
         # aggregation a straggler can be reassigned past skipped rounds.
         tag = msg.get("round")
@@ -1272,6 +1743,82 @@ class FedAVGClientManager(ClientManager):
                 wire_codec.require_delta_peer(self._delta_ok, peer="server")
         self._train(msg.get(MSG_ARG_KEY_MODEL_PARAMS), msg.get(MSG_ARG_KEY_CLIENT_INDEX))
 
+    # -- secure aggregation (comm/secagg.py) --------------------------------
+    def _send_secagg_pk(self) -> None:
+        out = Message(MSG_TYPE_C2S_SECAGG_PK, self.rank, 0)
+        out.add("epoch", self.epoch)
+        out.add("pk", int(self._secagg.pk))
+        self.send_message(out)
+
+    def _handle_secagg_roster(self, msg: Message) -> None:
+        self._beats.touch()
+        ep = msg.get("epoch")
+        if ep is not None and int(ep) != self.epoch:
+            # Either a dead incarnation's roster, or one that OUTRAN the
+            # assignment that adopts its epoch — drop; the server's
+            # beat-driven redrive re-sends it once we catch up.
+            return
+        if self._secagg is None:
+            return
+        pks = dict(zip([int(r) for r in msg.get("pk_ranks")],
+                       [int(v) for v in msg.get("pk_vals")]))
+        row = self._secagg.build_shares(
+            pks, int(msg.get("t")),
+            [int(u) for u in msg.get("universe")])
+        out = Message(MSG_TYPE_C2S_SECAGG_SHARES, self.rank, 0)
+        out.add("epoch", self.epoch)
+        out.add("row_holders", sorted(row))
+        out.add("row_ciphers", [int(row[h]) for h in sorted(row)])
+        self.send_message(out)
+
+    def _handle_seed_reveal(self, msg: Message) -> None:
+        self._beats.touch()
+        ep = msg.get("epoch")
+        if ep is not None and int(ep) != self.epoch:
+            return  # stale-epoch ask; the live epoch re-asks with its own cipher
+        target = int(msg.get("target"))
+        if self._secagg is None or self._secagg.pair_keys is None \
+                or target not in self._secagg.pair_keys:
+            return
+        share = self._secagg.reveal_share(target, int(msg.get("cipher")))
+        out = Message(MSG_TYPE_C2S_SEED_SHARE, self.rank, 0)
+        out.add("epoch", self.epoch)
+        out.add("round", msg.get("round"))
+        out.add("target", target)
+        out.add("share", int(share))
+        self.send_message(out)
+
+    def _masked_contribution(self, host, global_net, c: int, codec):
+        """The masked upload body: quantize this round's contribution
+        onto the server pool's EXACT fixed-point grid — by running the
+        identical decode+fold arithmetic the unmasked server path runs,
+        so masked ≡ unmasked is bit-equality by construction, not by
+        reimplementation — then add the pairwise masks. ``host`` is the
+        host copy of the trained net, or of its delta when a codec
+        runs; ``global_net`` the assignment's host tree."""
+        w = float(self._counts[c])
+        acc = PartialAccumulator()
+        if codec is not None:
+            payload, residual = codec.encode(
+                host, self._carry(c),
+                wire_codec.frame_seed(self.cfg.seed, self.epoch,
+                                      self.round_idx, c))
+            self._ef_state = (self.round_idx, c, residual)
+            # Self-decode the frame we WOULD have shipped in the clear:
+            # the server's unmasked fold is decode → w·(anchor + deltâ)
+            # on the fixed grid, so fold the DECODED tree, not the raw
+            # delta.
+            dhat = self._mask_decoders.decode(codec.name, payload,
+                                              wire_codec.tree_spec(global_net))
+            acc.add([pytree.np_leaf(l) for l in sorted_leaves(dhat)], w,
+                    base=[pytree.np_leaf(a)
+                          for a in sorted_leaves(global_net)])
+        else:
+            acc.add([pytree.np_leaf(l) for l in sorted_leaves(host)], w)
+        leaves = self._secagg.mask(acc.leaves, self.round_idx,
+                                   self._secagg_roster)
+        return leaves, acc.saturated
+
     def _carry(self, c: int):
         """The error-feedback carry for client ``c`` this round (or
         None), counting a dropped one."""
@@ -1290,6 +1837,7 @@ class FedAVGClientManager(ClientManager):
         codec = (self._codec if self._codec is not None
                  and self._codec.name != "none" else None)
         legacy = self._compressor.name != "none"
+        masked = self._secagg is not None and bool(self._secagg_roster)
         out = Message(MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank,
                       self._upload_to)
         with tr.span("client.train", cat="client", corr=ck, client=c):
@@ -1304,7 +1852,10 @@ class FedAVGClientManager(ClientManager):
                 # the lock is released: the next replay overwrites the
                 # captured step's outputs.
                 t_ser = tr.now()
-                if legacy:
+                if masked:
+                    host = pytree.host_tree(_tree_sub(net, start)
+                                            if codec is not None else net)
+                elif legacy:
                     payload, residual = self._compressor.encode(
                         _as_dict(_tree_sub(net, start)), self._carry(c),
                         keys.fold_in(rng, 0xC0))
@@ -1314,23 +1865,29 @@ class FedAVGClientManager(ClientManager):
                 else:
                     payload = pytree.host_tree(net)
                 loss = float(loss)
-        if codec is not None:
-            # Frame seed keyed on (run seed, epoch, round, client):
-            # deterministic — a cached RESEND re-ships identical bytes —
-            # and fresh per round for the stochastic rounding / mask
-            # expansion.
-            payload, residual = codec.encode(
-                delta, self._carry(c),
-                wire_codec.frame_seed(self.cfg.seed, self.epoch,
-                                      self.round_idx, c))
-            out.add(wire_codec.CODEC_KEY, codec.name)
-        if legacy or codec is not None:
-            self._ef_state = (self.round_idx, c, residual)
-            out.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
-            out.add(wire_codec.DELTA_KEY, True)
-        else:
-            out.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
+        if masked:
+            with tr.span("secagg.mask", cat="secagg", corr=ck, client=c):
+                leaves, clipped = self._masked_contribution(
+                    host, global_net, c, codec)
+            out.add(MSG_ARG_KEY_MODEL_PARAMS, leaves)
+            out.add(wire_codec.SECAGG_MASKED_KEY, True)
             out.add(wire_codec.DELTA_KEY, False)
+            out.add("secagg_clipped", int(clipped))
+        else:
+            if codec is not None:
+                # Frame seed keyed on (run seed, epoch, round, client):
+                # deterministic — a cached RESEND re-ships identical bytes
+                # — and fresh per round for the stochastic rounding /
+                # mask expansion.
+                payload, residual = codec.encode(
+                    delta, self._carry(c),
+                    wire_codec.frame_seed(self.cfg.seed, self.epoch,
+                                          self.round_idx, c))
+                out.add(wire_codec.CODEC_KEY, codec.name)
+            if legacy or codec is not None:
+                self._ef_state = (self.round_idx, c, residual)
+            out.add(MSG_ARG_KEY_MODEL_PARAMS, payload)
+            out.add(wire_codec.DELTA_KEY, legacy or codec is not None)
         if tr.enabled:
             # delta + encode (or the plain host copy) — the client half
             # of the upload lifecycle, correlated with the server's
@@ -1340,7 +1897,13 @@ class FedAVGClientManager(ClientManager):
         out.add(MSG_ARG_KEY_NUM_SAMPLES, int(self._counts[c]))
         out.add("round", self.round_idx)
         out.add("epoch", self.epoch)
-        if not (self.cfg.dp_clip and self.cfg.dp_clip > 0):
+        if masked:
+            # The masked run's contract is "the server learns only the
+            # sum" — a clear per-client train loss alongside would leak
+            # exactly the per-client signal the masks hide (same rule as
+            # DP below).
+            pass
+        elif not (self.cfg.dp_clip and self.cfg.dp_clip > 0):
             # Under DP-SGD the exact train loss is an un-noised function of
             # the private examples; releasing it would void the accounted
             # (eps, delta). Only the noised model leaves the silo.
@@ -1374,12 +1937,13 @@ def build_federation_setup(model, train_fed: FederatedArrays, test_global,
 
     The local step is one :class:`core.graph.CapturedStep` (JAX:
     ``jax.jit``): captured on its first call on a CUDA device, replayed
-    after, eager on the CPU. Returns ``(size, net0, local_train,
-    eval_fn, args)``."""
-    if int(extra_ranks):
-        raise _unported(f"extra_ranks={extra_ranks} (the sharded "
-                        "aggregation plane's shard ranks)")
-    size = cfg.client_num_per_round + 1
+    after, eager on the CPU.
+
+    ``extra_ranks`` widens the rank space for non-worker processes — the
+    sharded aggregation plane's M aggregator shards at ranks ``1..M``
+    (comm/shardplane.py), with workers shifted to ``M+1..size-1``.
+    Returns ``(size, net0, local_train, eval_fn, args)``."""
+    size = cfg.client_num_per_round + 1 + int(extra_ranks)
     if getattr(cfg, "compute_layout", "none") not in ("none", ""):
         # The message-passing tiers build their local trainer here,
         # outside FedAvgAPI._build_local_train where the layouts are
@@ -1447,6 +2011,12 @@ def build_federation_setup(model, train_fed: FederatedArrays, test_global,
     args.adapter_holder = adapter_holder
     if backend == "LOOPBACK":
         args.network = LoopbackNetwork(size, wire=loopback_wire)
+    elif backend == "SIM":
+        # Virtual-clock fleet simulation: the FleetSimulator installs
+        # args.network (a sim.transport.SimNetwork) and args.chaos_after
+        # (the event-queue scheduler for ChaosTransport's timers) itself
+        # before constructing the managers.
+        pass
     elif backend == "TCP":
         # Single-host table on ephemeral ports: bind rank servers first
         # (port 0), then share the resolved table. Multi-host deployments
@@ -1513,36 +2083,61 @@ def FedML_FedAvg_distributed(
     fault-injecting transport wrapper, ``metrics`` a MetricsLogger for
     per-round health counters, ``idle_timeout_s`` the workers'
     no-server-contact self-termination bound, ``trace_dir`` the span
-    tracer and flight recorder's dumps.
+    tracer and flight recorder's dumps. ``cfg.secagg`` (with
+    ``ingest_workers`` or ``agg_shards`` > 0) masks every upload
+    (comm/secagg.py).
 
-    ``agg_shards``, ``directory`` (the sharded plane's routing) and
-    ``controller`` are not ported yet (ROADMAP.md A10c) and raise."""
+    ``agg_shards`` = M > 0 stands up the SHARDED aggregation plane
+    (comm/shardplane.py): M aggregator-shard managers at ranks ``1..M``
+    ingest the uploads (workers shifted to ``M+1..``), and the rank-0
+    coordinator wire-merges their int64 fixed-point partials bit-equal to
+    the single-process IngestPool path. ``directory`` (an optional
+    data.directory.ClientDirectory) folds data-shard locality into the
+    client→shard routing. ``controller`` (a ``ctrl.FederationController``)
+    steps at the server's between-rounds boundary."""
     M = int(agg_shards or (getattr(cfg, "agg_shards", 0) or 0))
-    if M > 0 or directory is not None:
-        raise _unported(f"the sharded aggregation plane (agg_shards={M}, "
-                        "the JAX package's comm/shardplane.py)")
-    if controller is not None:
-        raise unported_controller()
     device = check_device(train_fed, device)
     size, net0, local_train, eval_fn, args = build_federation_setup(
         model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
-        loopback_wire=loopback_wire, pretrained_params=pretrained_params)
-    agg = FedAVGAggregator(net0, size - 1, cfg, eval_fn, test_global,
+        loopback_wire=loopback_wire, pretrained_params=pretrained_params,
+        extra_ranks=M)
+    agg = FedAVGAggregator(net0, size - 1 - M, cfg, eval_fn, test_global,
                            aggregator=aggregator, device=device)
-    server = FedAVGServerManager(args, agg, cfg, size, backend=backend,
-                                 compress=compress,
-                                 aggregate_k=aggregate_k,
-                                 checkpoint_dir=checkpoint_dir,
-                                 metrics=metrics, flight_dir=trace_dir)
+    shards = []
+    if M > 0:
+        from fedml_tpu_torch.comm.shardplane import (
+            AggregatorShardManager, ShardedFedAVGServerManager)
+
+        server = ShardedFedAVGServerManager(
+            args, agg, cfg, size, M, backend=backend,
+            aggregate_k=aggregate_k, checkpoint_dir=checkpoint_dir,
+            metrics=metrics, flight_dir=trace_dir, directory=directory)
+        shards = [
+            AggregatorShardManager(args, rank, size, cfg, net0,
+                                   backend=backend)
+            for rank in range(1, M + 1)
+        ]
+    else:
+        server = FedAVGServerManager(args, agg, cfg, size, backend=backend,
+                                     compress=compress,
+                                     aggregate_k=aggregate_k,
+                                     checkpoint_dir=checkpoint_dir,
+                                     metrics=metrics, flight_dir=trace_dir)
+    if controller is not None:
+        # Adaptive control (ctrl/policy.py): steps from the server's
+        # between-rounds boundary; the same object may have been tuned
+        # in the fleet simulator first.
+        server.attach_controller(controller)
     clients = [
         FedAVGClientManager(args, rank, size, train_fed, local_train, cfg,
                             backend=backend, compress=compress,
                             wire_codec_spec=wire_codec,
                             idle_timeout_s=idle_timeout_s)
-        for rank in range(1, size)
+        for rank in range(M + 1, size)
     ]
     with obs_trace.tracing_to(trace_dir):
-        run_workers([server.run] + [c.run for c in clients])
+        run_workers([server.run] + [sh.run for sh in shards]
+                    + [c.run for c in clients])
     # Post-run observability: the managers are finished but callers still
     # need the control-plane counters, ByteLedger totals and the ingest
     # latency profile — stamp the final snapshots onto the aggregator.

@@ -45,14 +45,13 @@ from fedml_tpu_torch.algos.fedasync import (
     FedAsyncServerManager,
     staleness_weight,
 )
+from fedml_tpu_torch.algos import fedavg_distributed
 from fedml_tpu_torch.algos.fedavg_distributed import (
     MSG_ARG_KEY_MODEL_PARAMS,
     _as_dict,
     _like,
     _tree_sub,
-    build_federation_setup,
     check_device,
-    unported_controller,
 )
 from fedml_tpu_torch.comm import codec as wire_codec
 from fedml_tpu_torch.comm import pytree
@@ -347,19 +346,22 @@ def FedML_FedBuff_distributed(
     server-side defense (core/robust_agg spec). ``metrics`` gets one ctrl/
     health row (buffer depth and staleness included) per aggregation;
     ``trace_dir`` arms the flight recorder + span tracer. ``controller``
-    is not ported yet (ROADMAP.md A10c) and raises."""
-    if controller is not None:
-        raise unported_controller()
+    (a ``ctrl.FederationController``) steps after each buffer commit."""
     device = check_device(train_fed, device)
-    size, net0, local_train, eval_fn, args = build_federation_setup(
-        model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
-        loopback_wire=loopback_wire, pretrained_params=pretrained_params)
+    size, net0, local_train, eval_fn, args = (
+        fedavg_distributed.build_federation_setup(
+            model, train_fed, test_global, cfg, backend, loss_fn, chaos=chaos,
+            loopback_wire=loopback_wire, pretrained_params=pretrained_params))
     server = FedBuffServerManager(
         args, net0, cfg, size, backend=backend, alpha=alpha,
         staleness_exp=staleness_exp, buffer_k=buffer_k,
         aggregator=aggregator, eval_fn=eval_fn, test_data=test_global,
         done_timeout_s=done_timeout_s, metrics=metrics,
         flight_dir=trace_dir, device=device)
+    if controller is not None:
+        # Same-object portability: the controller that tuned its policies
+        # in the fleet simulator drives this live run unchanged.
+        server.attach_controller(controller)
     clients = [
         FedBuffClientManager(args, rank, size, train_fed, local_train, cfg,
                              backend=backend, wire_codec_spec=wire_codec,

@@ -20,9 +20,12 @@ parallel ingest pool (``ingest.py``) are numpy on the host, as in the JAX
 package; they walk a tree's leaves in ``jax.tree``'s order
 (``core/tree.sorted_flatten``), so frames and fixed-point folds are the
 JAX package's byte for byte, and ``pytree.py`` holds a tree's leaves on
-the host (bfloat16 as CPU ``torch.bfloat16`` tensors). The
-gRPC, MQTT and TRPC backends, secure aggregation and the sharded plane are
-not ported yet (ROADMAP.md A10c).
+the host (bfloat16 as CPU ``torch.bfloat16`` tensors). Secure
+aggregation (``secagg.py``) and the sharded aggregation plane
+(``shardplane.py``, imported on use: it imports the model stack) fold on
+the host too; the fleet simulator's ``SIM`` fabric lives in
+``fedml_tpu_torch.sim``. The gRPC, MQTT and TRPC backends are not ported
+yet (ROADMAP.md A10d).
 
 Cross-cutting resilience (``resilience.py``): one ``RetryPolicy`` shared
 by the transports' ``send_message``, and ``ChaosTransport`` — a seeded

@@ -64,7 +64,8 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.comm import pytree
-from fedml_tpu_torch.core.tree import sorted_flatten, sorted_unflatten
+from fedml_tpu_torch.core.tree import (sorted_flatten, sorted_leaves,
+                                      sorted_unflatten)
 
 log = logging.getLogger(__name__)
 
@@ -170,6 +171,53 @@ class FixedContribution:
         self.qweight = int(qweight)
         self.count = int(count)
         self.clipped = int(clipped)
+
+
+def upload_fold_task(payload, weight: float, anchor, *,
+                     codec=None, legacy_decode=None, wcodec=None,
+                     wire_decode=None, is_delta: bool = False,
+                     masked: bool = False, secagg_on: bool = False,
+                     clipped: int = 0,
+                     refusal: str = "masked upload without --secagg"
+                     ) -> Callable[[], object]:
+    """One upload's decode+fold task for an :class:`IngestPool`: what
+    the single server's and each aggregator shard's pool fold.
+
+    A masked (secagg) frame is ALREADY exact int64 fixed point (the
+    client ran the identical quantize path before masking): it folds
+    modularly as a :class:`FixedContribution`, no decode, no re-clip; on
+    a manager without secagg it is refused with ``refusal``. Otherwise
+    ``legacy_decode(codec, payload)`` (the legacy ``compress`` codecs),
+    ``wire_decode(wcodec, payload)`` (the negotiated wire codec) or a
+    raw frame stamped ``is_delta`` gives a delta, which the fold adds
+    to ``anchor`` (``w*(anchor + delta)`` in the accumulator's
+    preallocated scratch, no model-sized temporary on the task path); a
+    plain frame folds as it is. The caller passes the round's anchor
+    at submit time, so a late task cannot reconstruct against the next
+    round's net."""
+
+    def task():
+        if masked:
+            if not secagg_on:
+                raise ValueError(refusal)
+            return FixedContribution(
+                [np.ascontiguousarray(l, np.int64) for l in payload],
+                quantize_weight(weight), 1, int(clipped))
+        if codec:
+            delta = legacy_decode(codec, payload)
+        elif wcodec:
+            delta = wire_decode(wcodec, payload)
+        elif is_delta:
+            delta = payload  # raw tensor-framed delta
+        else:
+            delta = None
+        if delta is None:
+            return ([pytree.np_leaf(l) for l in sorted_leaves(payload)],
+                    weight)
+        return ([pytree.np_leaf(d) for d in sorted_leaves(delta)], weight,
+                [pytree.np_leaf(a) for a in sorted_leaves(anchor)])
+
+    return task
 
 
 class PartialAccumulator:

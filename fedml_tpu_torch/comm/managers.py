@@ -7,10 +7,12 @@ keyed by message type, and runs a blocking receive loop until ``finish()``.
 
 Backend selection is a string, as in the reference (client_manager.py:20-36):
 ``LOOPBACK`` (in-memory; needs a shared ``LoopbackNetwork`` in
-``args.network``) or ``TCP`` (native C++ socket transport;
-``args.host_table`` maps rank → (host, port)). The JAX package's ``GRPC``,
-``MQTT``, ``TRPC`` and ``SIM`` backends are not ported yet (ROADMAP.md
-A10c): asking for one raises by name.
+``args.network``), ``TCP`` (native C++ socket transport;
+``args.host_table`` maps rank → (host, port)) or ``SIM`` (the fleet
+simulator's virtual-clock fabric; ``args.network`` is a
+``sim.transport.SimNetwork``). The JAX package's ``GRPC``, ``MQTT`` and
+``TRPC`` backends are not ported yet (ROADMAP.md A10d): asking for one
+raises by name.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 from fedml_tpu_torch.comm.message import Message
 
 
-#: The JAX package's other backends, ported with ROADMAP.md A10c.
-UNPORTED_BACKENDS = ("GRPC", "MQTT", "TRPC", "SIM")
+#: The JAX package's other backends, ported with ROADMAP.md A10d.
+UNPORTED_BACKENDS = ("GRPC", "MQTT", "TRPC")
 
 
 def _build_backend(args, rank: int, size: int, backend: str) -> BaseCommunicationManager:
@@ -34,15 +36,25 @@ def _build_backend(args, rank: int, size: int, backend: str) -> BaseCommunicatio
         from fedml_tpu_torch.comm.tcp import TcpCommManager
 
         mgr = TcpCommManager(args.host_table, rank)
+    elif backend == "SIM":
+        # Virtual-clock fleet simulation (fedml_tpu_torch.sim): the
+        # event-queue fabric dispatches deliveries in deterministic
+        # virtual-time order; ``args.network`` is a sim.transport.SimNetwork.
+        from fedml_tpu_torch.sim.transport import SimCommManager
+
+        mgr = SimCommManager(args.network, rank)
     elif backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"comm backend {backend!r} is not ported yet to the PyTorch "
-            "federation plane (ROADMAP.md A10c); use LOOPBACK or TCP")
+            "federation plane (ROADMAP.md A10d); use LOOPBACK, TCP or SIM")
     else:
         raise ValueError(f"unknown comm backend {backend!r}")
     # Fault drills: ``args.chaos`` (a resilience.ChaosSpec, shared by the
     # whole fleet) wraps the real backend in a ChaosTransport, so drills
     # exercise the exact transport code paths production uses.
+    # ``args.chaos_after`` (set by the fleet simulator) reroutes the
+    # wrapper's delay/reorder timers through the virtual-clock event
+    # queue so chaos drills stay deterministic under simulation.
     spec = getattr(args, "chaos", None)
     if spec is not None:
         from fedml_tpu_torch.comm.resilience import ChaosTransport
@@ -152,18 +164,18 @@ class ServerManager(_Manager):
     # -- adaptive control (fedml_tpu.ctrl) -----------------------------------
     def attach_controller(self, controller) -> None:
         """Bind a ``FederationController`` to this manager's actuation
-        seam (``self.ctrl``, built by the subclass constructor); ``None``
-        detaches. The controllers (the JAX package's ``ctrl/policy.py``)
-        are not ported yet (ROADMAP.md A10c), so binding one raises: the
-        seam itself is here, and ``_ctrl_boundary`` drains its queued
-        actuations."""
+        seam (``self.ctrl``, built by the subclass constructor). The
+        manager then invokes the controller from ``_ctrl_boundary()`` at
+        its safe boundaries; ``None`` detaches. The same controller
+        object may later be attached to a different manager — ``bind()``
+        resets policy state and the actuation log."""
         if controller is not None:
-            raise NotImplementedError(
-                "an adaptive controller (the JAX package's ctrl/policy.py "
-                "FederationController) is not ported yet to the PyTorch "
-                "federation plane (ROADMAP.md A10c); the actuation seam "
-                "(ctrl/actuator.py) takes manual actuations")
-        self._controller = None
+            if getattr(self, "ctrl", None) is None:
+                raise ValueError(
+                    f"{type(self).__name__} exposes no actuation seam; "
+                    "cannot attach a controller")
+            controller.bind()
+        self._controller = controller
         self._ctrl_errors = 0
 
     def _ctrl_boundary(self) -> None:

@@ -10,7 +10,7 @@ the three concerns every backend was solving ad hoc:
   seeded jitter, per-attempt and total deadlines, a retriable-error
   predicate, visible counters) shared by the transports'
   ``send_message`` paths (TCP here; gRPC and TRPC come with ROADMAP.md
-  A10c). Backends keep their *parameters* (first-contact
+  A10d). Backends keep their *parameters* (first-contact
   sends tolerate peers that haven't bound yet; established peers fail
   fast) but no longer their own loops.
 - :class:`ChaosTransport` / :class:`ChaosSpec` — a fault-injecting
@@ -211,8 +211,8 @@ class ChaosTransport(BaseCommunicationManager):
         self.spec = spec
         self.rank = rank
         # Deferred-delivery scheduler override: ``after(delay_s, fn)``.
-        # Default is a real threading.Timer; a virtual-clock fleet
-        # simulator (ROADMAP.md A10c) injects its event queue here so the
+        # Default is a real threading.Timer; the virtual-clock fleet
+        # simulator (fedml_tpu_torch.sim) injects its event queue here so the
         # delay/reorder faults fire in deterministic virtual-time order
         # instead of racing wall-clock timers.
         self._after_fn = after

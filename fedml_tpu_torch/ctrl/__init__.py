@@ -1,13 +1,53 @@
-"""Self-tuning federation control: the actuation seam (port of
-``fedml_tpu/ctrl``).
+"""Self-tuning federation control (port of ``fedml_tpu/ctrl``).
 
-The server managers build an :class:`ActuationSeam` over their live knobs
-on every run (``algos/fedavg_distributed.py``); external code tunes them
-through it between rounds. The JAX package's controllers
-(``ctrl/policy.py``: ``FederationController`` and its policies) are not
-ported yet (ROADMAP.md A10c).
+Closes the loop from the live telemetry the repo already emits (registry
+histograms, ``health()``, ``ingest_profile()``, flight events) to the
+knobs the server managers already expose — through a validated,
+boundary-gated actuation seam. See docs/ROBUSTNESS.md "Adaptive
+control" for the operational contract.
 """
 
 from .actuator import ActuationRefused, ActuationSeam, Knob
+from .policy import (
+    ControlPolicy,
+    FederationController,
+    StalenessAdmissionPolicy,
+    TimeoutAutoscalePolicy,
+    WindowSchedulePolicy,
+    read_telemetry,
+)
 
-__all__ = ["ActuationRefused", "ActuationSeam", "Knob"]
+__all__ = [
+    "ActuationRefused",
+    "ActuationSeam",
+    "ControlPolicy",
+    "FederationController",
+    "Knob",
+    "StalenessAdmissionPolicy",
+    "TimeoutAutoscalePolicy",
+    "WindowSchedulePolicy",
+    "controller_from_args",
+    "read_telemetry",
+]
+
+
+def controller_from_args(args):
+    """Build the controller selected by ``--controller`` (None when the
+    flag is ``none``, the default — the managers then behave bit-equal
+    to a build without this subsystem)."""
+    kind = getattr(args, "controller", "none")
+    if kind == "none":
+        return None
+    if kind != "adaptive":
+        raise SystemExit(f"unknown --controller {kind!r}; expected none|adaptive")
+    band_lo = getattr(args, "controller_band_lo", 2.0)
+    band_hi = getattr(args, "controller_band_hi", 6.0)
+    return FederationController(
+        [
+            WindowSchedulePolicy(),
+            TimeoutAutoscalePolicy(),
+            # safety last: admission control overrides the optimistic arms
+            StalenessAdmissionPolicy(band_lo=band_lo, band_hi=band_hi),
+        ],
+        interval=getattr(args, "controller_interval", 1),
+    )

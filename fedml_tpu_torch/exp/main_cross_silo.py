@@ -22,8 +22,9 @@ ask): a silo trains there through one captured local step, the server
 folds and evaluates there. The server prints one JSON line with the final
 test metrics, ``health()`` and the ingest profile when done; a silo
 prints its rank and the launches of the hand-written kernels it ran.
-``--comm_backend GRPC`` and ``TRPC`` are not ported yet (ROADMAP.md
-A10c).
+``--secagg`` (with ``--ingest_workers`` > 0 on rank 0) masks every silo's
+upload (comm/secagg.py). ``--comm_backend GRPC`` and ``TRPC`` are not
+ported yet (ROADMAP.md A10d).
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ def main(argv=None):
     parser.add_argument("--comm_backend", type=str, default="TCP",
                         choices=["TCP", "GRPC", "TRPC"],
                         help="cross-silo transport: native C++ msgnet TCP "
-                             "(GRPC and TRPC: ROADMAP.md A10c)")
+                             "(GRPC and TRPC: ROADMAP.md A10d)")
     # --compress comes from the shared add_args flag set: here it is the
     # legacy codec (none | topk<ratio> with error feedback | q<bits>
     # stochastic quantization), decoded by the server per frame.
@@ -89,6 +90,11 @@ def main(argv=None):
     # (comm/codec.py), mutually exclusive with --compress.
     # --ingest_workers (also shared) arms the server's parallel ingest
     # pool (comm/ingest.py; rank 0 only — silos ignore it).
+    # --secagg / --secagg_t (also shared) arm dropout-robust secure
+    # aggregation (comm/secagg.py): pairwise-masked int64 uploads that
+    # cancel exactly in the pool's fixed-point fold, with t-of-n Shamir
+    # seed reveal on eviction. Sync tier only; the rank-0 manager reads
+    # both through cfg (and refuses without an ingest pool).
     parser.add_argument("--aggregate_k", type=int, default=0,
                         help="straggler-tolerant first-k rounds: aggregate "
                              "as soon as k fresh uploads arrive (0 = wait "
@@ -109,17 +115,12 @@ def main(argv=None):
     if args.comm_backend != "TCP":
         raise NotImplementedError(
             f"--comm_backend {args.comm_backend} is not ported yet to the "
-            "PyTorch federation plane (ROADMAP.md A10c); use TCP")
+            "PyTorch federation plane (ROADMAP.md A10d); use TCP")
     if args.client_selection != "random":
         raise SystemExit(
             f"--client_selection {args.client_selection} is a simulator "
             "feature; the cross-silo server samples uniformly (it has no "
             "access to silo-local losses before assignment)")
-    if getattr(args, "secagg", False) or getattr(args, "secagg_t", 0):
-        raise NotImplementedError(
-            "--secagg (secure aggregation, the JAX package's "
-            "comm/secagg.py) is not ported yet to the PyTorch federation "
-            "plane (ROADMAP.md A10c)")
     from fedml_tpu_torch.exp.args import (reject_adapter_flags,
                                           reject_agg_shards_flag,
                                           reject_async_tier_flags,

@@ -15,8 +15,8 @@ defaults, on ``--device``; the module is executable:
 
 FedAsync and FedBuff run over the loopback message-passing tiers
 (``algos/fedasync.py``, ``algos/fedbuff.py``); FedBuff stands up the
-serving plane on its trained global with ``--serve``. The adaptive
-controller (``--controller``) is not ported yet (ROADMAP.md A10c). The
+serving plane on its trained global with ``--serve``; both take the
+adaptive controller (``--controller adaptive``, ``ctrl/policy.py``). The
 synchronous federation plane's CLI is ``exp/main_cross_silo.py``.
 """
 
@@ -191,22 +191,12 @@ def _async_obs_kwargs(args):
     return {"metrics": metrics, "trace_dir": trace_dir_from(args)}, metrics
 
 
-def _refuse_controller(args):
-    """``--controller`` selects the JAX package's adaptive controller
-    (``ctrl/policy.py``), not ported yet (ROADMAP.md A10c)."""
-    if getattr(args, "controller", "none") != "none":
-        from fedml_tpu_torch.algos.fedavg_distributed import (
-            unported_controller)
-
-        raise unported_controller()
-
-
 def run_fedasync(args):
     """Asynchronous FL (no barrier; staleness-weighted mixing) over the
     loopback message-passing backend — fedasync.py."""
     from fedml_tpu_torch.algos.fedasync import FedML_FedAsync_distributed
+    from fedml_tpu_torch.ctrl import controller_from_args
 
-    _refuse_controller(args)
     fed, arrays, test, cfg = _setup(args)
     model = create_model_for(args, fed)
     obs_kw, metrics = _async_obs_kwargs(args)
@@ -215,6 +205,7 @@ def run_fedasync(args):
             model, arrays, test, cfg,
             alpha=(0.6 if args.fedasync_alpha < 0 else args.fedasync_alpha),
             staleness_exp=args.staleness_exp, wire_codec=args.wire_codec,
+            controller=controller_from_args(args),
             device=args.device, **_async_loss_kwargs(args), **obs_kw)
     finally:
         if metrics is not None:
@@ -230,8 +221,8 @@ def run_fedbuff(args):
     first ``--attack_num_adversaries`` worker ranks turn Byzantine)."""
     from fedml_tpu_torch.algos.fedbuff import FedML_FedBuff_distributed
     from fedml_tpu_torch.core.faults import UpdateCorruptor
+    from fedml_tpu_torch.ctrl import controller_from_args
 
-    _refuse_controller(args)
     fed, arrays, test, cfg = _setup(args)
     model = create_model_for(args, fed)
     corruptor = None
@@ -248,6 +239,7 @@ def run_fedbuff(args):
             staleness_exp=args.staleness_exp, buffer_k=args.buffer_k,
             aggregator=args.aggregator, wire_codec=args.wire_codec,
             corrupt_ranks=corrupt_ranks, corruptor=corruptor,
+            controller=controller_from_args(args),
             device=args.device, **_async_loss_kwargs(args), **obs_kw)
     finally:
         if metrics is not None:

@@ -2805,3 +2805,185 @@ def test_fedbuff_adapter_federation_on_the_card(cuda):
     assert all(torch.equal(v, now[k]) for k, v in base0.items())
     for leaf in srv.net.params["Block_0"]["MHA_0"].values():
         assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())
+
+
+# --- the secure, sharded and simulated plane (comm/secagg.py,
+# comm/shardplane.py, sim/) -----------------------------------------------------
+
+
+def _plane_data(device):
+    from fedml_tpu_torch.data import batching, partition, synthetic
+
+    x, y = synthetic.make_image_classification(96, (8, 8, 3), 4, seed=0)
+    fed = batching.build_federated_arrays(
+        x, y, partition.partition_homo(len(x), 6), 16, device=device)
+    return fed, batching.batch_global(x[:32], y[:32], 16, device=device)
+
+
+def _plane_model(device):
+    from fedml_tpu_torch.models import create_model
+
+    return create_model("resnet20", widths=(4, 8, 16), num_classes=4,
+                        device=device,
+                        generator=torch.Generator().manual_seed(0))
+
+
+def _wrapped_sum(frames):
+    """The int64 sum of a list of contributions' leaves, wrapping."""
+    out = None
+    for leaves in frames:
+        u = [l.view("uint64") for l in leaves]
+        out = [x.copy() for x in u] if out is None else [a + b for a, b in
+                                                         zip(out, u)]
+    return [x.view("int64") for x in out]
+
+
+def test_secagg_loopback_on_the_card_is_the_clear_fold(cuda, monkeypatch):
+    """A masked federation of 4 silos on the card (the narrow GroupNorm
+    ResNet, 2 ingest workers, 2 rounds): every round's merged total after
+    mask cancellation is the wrapped sum of the silos' clear
+    contributions, recorded before masking, bit for bit; no masked frame
+    equals its clear contribution; the kernels ran."""
+    import numpy as np
+
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos import fedavg_distributed as fd
+    from fedml_tpu_torch.comm import secagg
+    from fedml_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    clear, masked, totals = {}, {}, {}
+    mask = secagg.SecAggClient.mask
+    check = fd.FedAVGServerManager._secagg_envelope_check
+
+    def mask_spy(client, leaves, round_idx, roster):
+        clear[(client.rank, round_idx)] = [np.array(l, copy=True)
+                                           for l in leaves]
+        out = mask(client, leaves, round_idx, roster)
+        masked[(client.rank, round_idx)] = [np.array(l, copy=True)
+                                            for l in out]
+        return out
+
+    def check_spy(server, total):
+        totals[server.round_idx] = ([np.array(l, copy=True)
+                                     for l in total.leaves], total.count)
+        return check(server, total)
+
+    monkeypatch.setattr(secagg.SecAggClient, "mask", mask_spy)
+    monkeypatch.setattr(fd.FedAVGServerManager, "_secagg_envelope_check",
+                        check_spy)
+    fed, test = _plane_data(cuda)
+    cfg = FedConfig(client_num_in_total=6, client_num_per_round=4,
+                    comm_round=2, epochs=1, batch_size=16, lr=1e-3,
+                    frequency_of_the_test=1, secagg=True, ingest_workers=2)
+    fwd = gn.group_norm_fwd.launches
+    agg = fd.FedML_FedAvg_distributed(_plane_model(cuda), fed, test, cfg,
+                                      loopback_wire="tensor", device=cuda,
+                                      idle_timeout_s=60.0)
+    assert gn.group_norm_fwd.launches > fwd
+    assert agg.final_health["seed_reveals"] == 0
+    for r in (0, 1):
+        got, count = totals[r]
+        want = _wrapped_sum([clear[(w, r)] for w in (1, 2, 3, 4)])
+        assert count == 4
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert all(any(not np.array_equal(a, b) for a, b in zip(masked[k],
+                                                             clear[k]))
+               for k in clear)
+    for leaf in agg.net.params.values():
+        assert leaf.device.type == "cuda" and bool(torch.isfinite(leaf).all())
+
+
+def test_agg_shards_on_the_card_equal_the_single_pool(cuda, monkeypatch):
+    """agg_shards 2 over 4 silos on the card: each round's merged shard
+    partials equal the single pool's fold of the same uploads (what
+    agg_shards 0 folds), and the global equals that fold's mean, bit for
+    bit."""
+    import collections
+
+    import numpy as np
+
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.algos import fedavg_distributed as fd
+    from fedml_tpu_torch.comm import pytree
+    from fedml_tpu_torch.comm import shardplane as sp
+    from fedml_tpu_torch.comm.ingest import PartialAccumulator
+    from fedml_tpu_torch.core.tree import sorted_leaves
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    uploads, totals = collections.defaultdict(list), []
+    submit, finalize = (sp.AggregatorShardManager._submit_upload,
+                        sp.finalize_partial_mean)
+
+    def submit_spy(shard, sender, t, msg):
+        uploads[t].append((sender, msg.get(fd.MSG_ARG_KEY_MODEL_PARAMS),
+                           float(msg.get(fd.MSG_ARG_KEY_NUM_SAMPLES))))
+        return submit(shard, sender, t, msg)
+
+    def finalize_spy(total, ref):
+        out = finalize(total, ref)
+        totals.append(([np.array(l, copy=True) for l in total.leaves],
+                       total.wsum, total.count, out[0]))
+        return out
+
+    monkeypatch.setattr(sp.AggregatorShardManager, "_submit_upload",
+                        submit_spy)
+    monkeypatch.setattr(sp, "finalize_partial_mean", finalize_spy)
+    fed, test = _plane_data(cuda)
+    cfg = FedConfig(client_num_in_total=6, client_num_per_round=4,
+                    comm_round=2, epochs=1, batch_size=16, lr=1e-3,
+                    frequency_of_the_test=1)
+    agg = fd.FedML_FedAvg_distributed(_plane_model(cuda), fed, test, cfg,
+                                      agg_shards=2, loopback_wire="tensor",
+                                      device=cuda, idle_timeout_s=60.0)
+    assert agg.final_health["shards"] == 2
+    for r in (0, 1):
+        single = PartialAccumulator()
+        for _, payload, w in sorted(uploads[r], key=lambda u: u[0]):
+            single.add([pytree.np_leaf(l) for l in sorted_leaves(payload)],
+                       w)
+        got, wsum, count, _ = totals[r]
+        assert (wsum, count) == (single.wsum, single.count) and count == 4
+        assert all(np.array_equal(a, b) for a, b in zip(got, single.leaves))
+    mean, _ = finalize(single, agg.net)
+    assert all(torch.equal(a, b) for a, b in zip(sorted_leaves(mean),
+                                                  sorted_leaves(agg.net)))
+
+
+def test_fleet_sim_two_runs_identical_on_the_card(cuda, monkeypatch):
+    """Two FleetSimulator runs of FedBuff on the card from one seed, under
+    deterministic cuDNN: the same deliveries in the same virtual order
+    and bit-equal globals."""
+    from fedml_tpu_torch.algos import FedConfig
+    from fedml_tpu_torch.sim import (FleetSimulator, FleetSpec,
+                                     make_fleet_trace, transport)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    deliver = transport.SimNetwork._deliver
+    runs = []
+    for _ in range(2):
+        events = []
+
+        def spy(network, msg, t_sent=0.0, blob=None, events=events):
+            events.append((network.events.clock.now, int(msg.get_type()),
+                           int(msg.get_sender_id()),
+                           int(msg.get_receiver_id())))
+            return deliver(network, msg, t_sent, blob)
+
+        monkeypatch.setattr(transport.SimNetwork, "_deliver", spy)
+        fed, test = _plane_data(cuda)
+        sim = FleetSimulator(
+            _plane_model(cuda), fed, test,
+            FedConfig(client_num_in_total=6, client_num_per_round=6,
+                      comm_round=6, epochs=1, batch_size=16, lr=1e-3,
+                      frequency_of_the_test=2),
+            make_fleet_trace(FleetSpec(n_devices=6, seed=3,
+                                       horizon_s=3600.0)),
+            mode="fedbuff", buffer_k=2, device=cuda)
+        res = sim.run()
+        assert res.completed
+        runs.append((events, res.arrival_log,
+                     [v.clone() for v in sim.server.net.params.values()]))
+    assert runs[0][:2] == runs[1][:2] and len(runs[0][0]) > 20
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))

@@ -204,16 +204,27 @@ def test_jax_guards_keep_jax_words(extra):
 
 
 def test_main_extra_refuses_the_message_passing_runners():
-    """The message-passing runners are ported (the asynchronous tiers):
-    what they still refuse is the adaptive controller, by name (ROADMAP.md
-    A10c)."""
+    """The message-passing runners are ported (the asynchronous tiers),
+    and take the adaptive controller: ``--controller adaptive`` runs
+    FedAsync and FedBuff to ``--comm_round`` versions; an unknown
+    controller kind exits in JAX's words."""
     assert main_extra.UNPORTED_RUNNERS == ()
     for algo in ("FedAsync", "FedBuff", "BaseFramework"):
         assert algo in main_extra.RUNNERS
+    argv = LR_ARGV + ["--device", "cpu", "--client_num_per_round", "2",
+                      "--controller", "adaptive"]
     for algo in ("FedAsync", "FedBuff"):
-        with pytest.raises(NotImplementedError, match=r"controller.*A10c"):
-            main_extra.main(["--algorithm", algo, "--device", "cpu",
-                             "--controller", "adaptive"])
+        history = main_extra.main(["--algorithm", algo] + argv)
+        assert history[-1]["version"] == 3
+    from fedml_tpu import ctrl as jctrl
+    from fedml_tpu_torch import ctrl as pctrl
+
+    flags = type("Flags", (), {"controller": "bandit"})()
+    with pytest.raises(SystemExit) as want:
+        jctrl.controller_from_args(flags)
+    with pytest.raises(SystemExit) as got:
+        pctrl.controller_from_args(flags)
+    assert str(got.value) == str(want.value)
 
 
 def _jax_init(seed, d, k):

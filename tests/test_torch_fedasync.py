@@ -15,8 +15,8 @@ against the JAX package's ``fedml_tpu/algos/fedasync.py``:
   both packages' client managers and codecs, byte-equal frames;
 - ports of the JAX package's async-tier drills (``tests/test_fedasync.py``,
   ``test_resilience.py``, ``test_ingest_pool.py``, ``test_wire_codec.py``)
-  and the refusals in JAX's words; the controller stays refused by name
-  (ROADMAP.md A10c).
+  and the refusals in JAX's words; an adaptive controller on both tiers
+  with the actuation log equal to JAX's.
 
 Helpers here are shared with ``test_torch_fedbuff.py``."""
 
@@ -103,11 +103,13 @@ def port_leaves(net):
         {k: v.detach().clone() for k, v in net.params.items()}))]
 
 
-def run_tier(port, tier, name, cfg_kw, start, server_kw=(), client_kw=()):
+def run_tier(port, tier, name, cfg_kw, start, server_kw=(), client_kw=(),
+             controller=None):
     """One loopback federation of ``tier`` ("async" or "buff") in one
     package, as its ``FedML_*_distributed`` builds it, every message
-    through the tensor wire, from JAX's start weights. Returns (the
-    server, the global's leaves after every version)."""
+    through the tensor wire, from JAX's start weights, with
+    ``controller`` (that package's) attached. Returns (the server, the
+    global's leaves after every version)."""
     x, y, parts, xt, yt, batch = task()
     jmodel, pmodel = models(name)
     cfg = (FedConfig if port else JaxFedConfig)(batch_size=batch, **cfg_kw)
@@ -141,6 +143,8 @@ def run_tier(port, tier, name, cfg_kw, start, server_kw=(), client_kw=()):
 
     server = Recording(args, net0, cfg, size, eval_fn=eval_fn,
                        test_data=test, **dict(server_kw), **extra)
+    if controller is not None:
+        server.attach_controller(controller)
     client_cls = (mods[0].FedAsyncClientManager if tier == "async"
                   else mods[1].FedBuffClientManager)
     clients = [client_cls(args, rank, size, fed, local_train, cfg,
@@ -598,13 +602,36 @@ def test_sync_only_capabilities_refused_in_jax_words(field):
 
 
 def test_controller_refused_by_name():
+    """The adaptive controller (``controller_from_args``) on both async
+    tiers, one worker so arrivals are ordered: each version within
+    FED_ATOL of JAX's and the actuation log equal to JAX's, entry for
+    entry (FedBuff's window schedule moves ``buffer_k``); the entry
+    points take ``controller=`` and attach it."""
+    from fedml_tpu import ctrl as jctrl
+    from fedml_tpu_torch import ctrl as pctrl
+
+    flags = type("Flags", (), {"controller": "adaptive"})()
+    start = jax_start("lr")
+    cfg = dict(client_num_in_total=6, client_num_per_round=1, comm_round=8,
+               epochs=1, lr=0.1, frequency_of_the_test=1)
+    for tier, kw in (("async", {}), ("buff", {"server_kw": {"buffer_k": 2}})):
+        pc, jc = (pctrl.controller_from_args(flags),
+                  jctrl.controller_from_args(flags))
+        _, got = run_tier(True, tier, "lr", cfg, start, controller=pc, **kw)
+        _, want = run_tier(False, tier, "lr", cfg, start, controller=jc,
+                           **kw)
+        assert_same_versions(got, want, start)
+        assert pc.actuation_log == jc.actuation_log
+        assert pc.actuation_log or tier == "async"
     fed, test = _lr_fed()
     cfg = FedConfig(client_num_in_total=6, client_num_per_round=2,
-                    comm_round=1, batch_size=16)
+                    comm_round=2, batch_size=16)
     for run in (pfa.FedML_FedAsync_distributed,
                 pfb.FedML_FedBuff_distributed):
-        with pytest.raises(NotImplementedError, match=r"controller.*A10c"):
-            run(_lr(), fed, test, cfg, controller=object(), device="cpu")
+        ctl = pctrl.controller_from_args(flags)
+        srv = run(_lr(), fed, test, cfg, controller=ctl, device="cpu",
+                  idle_timeout_s=IDLE_S)
+        assert srv._controller is ctl and srv.version == 2
 
 
 def test_entry_point_runs_on_the_card_unless_asked():

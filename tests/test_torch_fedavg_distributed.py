@@ -13,8 +13,9 @@ package's ``fedml_tpu/algos/fedavg_distributed.py``:
   against both packages' managers (handlers invoked directly): the
   evicted sets, ``health()``, the messages each rank was sent and the nets
   are equal;
-- crash-resume bit-equal to the uninterrupted run, first-k rounds, and
-  every refusal of what ROADMAP.md A10c still holds.
+- crash-resume bit-equal to the uninterrupted run, first-k rounds, the
+  sharded plane, secure aggregation and a controller through the entry
+  point, and every refusal of what ROADMAP.md A10d still holds.
 
 ``batch_size`` ≥ the largest client, so the port's shuffle (its own keys)
 only reorders a masked mean."""
@@ -574,46 +575,70 @@ def test_robust_aggregator_and_legacy_compress_run():
             aggregator="krum", **RUN)
 
 
-# --- what A10c holds -----------------------------------------------------------
+# --- the sharded plane, secagg and controllers; what A10d holds -------------
 
 
 def test_a10b_refusals():
-    fed, test, cfg, model = _lr_setup(comm_round=1)
-    for kw in ({"agg_shards": 2}, {"controller": object()},
-               {"directory": object()}):
-        with pytest.raises(NotImplementedError, match="A10c"):
-            pfd.FedML_FedAvg_distributed(model(), fed, test, cfg,
-                                         **RUN, **kw)
-    bad = FedConfig(**{**cfg.__dict__, "agg_shards": 2})
-    with pytest.raises(NotImplementedError, match="A10c"):
-        pfd.FedML_FedAvg_distributed(model(), fed, test, bad, **RUN)
+    """What the A10b slice refused runs now: ``agg_shards`` (by argument
+    and by config, with a ``directory``), ``cfg.secagg`` and a
+    ``controller`` through the entry point, each global bit-equal to the
+    clear single-pool run's (the same uploads: the silos' step does not
+    depend on how the server folds); ``attach_controller`` binds. A dense
+    model under ``adapter_rank`` is still refused by the adapter seam. The
+    GRPC, MQTT and TRPC backends still raise, citing ROADMAP.md A10d, and
+    the cross-silo CLI refuses them and a pool-less ``--secagg`` as JAX's
+    does."""
+    from fedml_tpu_torch.ctrl import FederationController
+    from fedml_tpu_torch.data.directory import ClientDirectory
+
+    fed, test, cfg, model = _lr_setup(comm_round=2)
+
+    def run(c, **kw):
+        return pfd.FedML_FedAvg_distributed(model(), fed, test, c, **RUN,
+                                            **kw)
+
+    pooled = FedConfig(**{**cfg.__dict__, "ingest_workers": 1})
+    base = run(pooled)
+    directory = ClientDirectory(counts=np.full(6, 4), shard_of=np.arange(6))
+    for c, kw in (
+            (cfg, {"agg_shards": 2}),
+            (FedConfig(**{**cfg.__dict__, "agg_shards": 2}),
+             {"directory": directory}),
+            (FedConfig(**{**pooled.__dict__, "secagg": True,
+                          "secagg_t": 1}), {}),
+            (pooled, {"controller": FederationController([])})):
+        agg = run(c, **kw)
+        for k in base.net.params:
+            assert torch.equal(agg.net.params[k], base.net.params[k]), kw
+        assert agg.final_health.get("shards", 0) == (
+            2 if (kw.get("agg_shards") or c.agg_shards) else 0)
     # Adapter federations are ported: a dense model under adapter_rank is
     # refused loudly by the adapter seam, as in JAX.
     bad = FedConfig(**{**cfg.__dict__, "adapter_rank": 4})
     with pytest.raises(ValueError, match="adapter_rank > 0"):
-        pfd.FedML_FedAvg_distributed(model(), fed, test, bad, **RUN)
-    secagg = FedConfig(**{**cfg.__dict__, "secagg": True,
-                          "ingest_workers": 2})
-    with pytest.raises(NotImplementedError, match="A10c"):
-        pfd.FedML_FedAvg_distributed(model(), fed, test, secagg,
-                                     **RUN)
-    for backend in ("GRPC", "MQTT", "TRPC", "SIM"):
-        with pytest.raises(NotImplementedError, match="A10c"):
+        run(bad)
+    for backend in ("GRPC", "MQTT", "TRPC"):
+        with pytest.raises(NotImplementedError, match="A10d"):
             pfd.FedML_FedAvg_distributed(model(), fed, test, cfg,
                                          backend=backend, **RUN)
     args = type("A", (), {"network": loopback.LoopbackNetwork(2)})()
     srv = pfd.FedAVGServerManager(args, pfd.FedAVGAggregator(
         {"w": np.zeros(2, np.float32)}, 1, cfg, device="cpu"), cfg, 2)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        srv.attach_controller(object())
+    ctrl = FederationController([])
+    srv.attach_controller(ctrl)
+    assert srv._controller is ctrl
     srv.attach_controller(None)
+    assert srv._controller is None
     from fedml_tpu_torch.exp import main_cross_silo
 
-    for extra in (["--comm_backend", "GRPC"], ["--comm_backend", "TRPC"],
-                  ["--secagg"]):
-        with pytest.raises(NotImplementedError, match="A10c"):
+    for extra in (["--comm_backend", "GRPC"], ["--comm_backend", "TRPC"]):
+        with pytest.raises(NotImplementedError, match="A10d"):
             main_cross_silo.main(["--rank", "0", "--size", "2",
                                   "--device", "cpu"] + extra)
+    with pytest.raises(ValueError, match="needs the fixed-point ingest"):
+        main_cross_silo.main(["--rank", "0", "--size", "3", "--device",
+                              "cpu", "--model", "lr", "--dataset",
+                              "synthetic_1_1", "--secagg"])
 
 
 def test_entry_point_runs_on_the_card_unless_asked():

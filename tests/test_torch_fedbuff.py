@@ -275,7 +275,35 @@ def test_main_extra_refusals_in_jax_words(algo, extra, exc):
 
 
 def test_main_extra_refuses_the_controller_by_name():
+    """``--controller adaptive`` on the FedAsync and FedBuff runners: both
+    packages' runners attach ``controller_from_args``'s controller to the
+    server and end at ``--comm_round`` versions; the other runners refuse
+    the flag in JAX's words (test_main_extra_refusals_in_jax_words)."""
+    from fedml_tpu.comm.managers import ServerManager as JaxServerManager
+    from fedml_tpu_torch.comm.managers import ServerManager
+
     for algo in ("FedAsync", "FedBuff"):
-        with pytest.raises(NotImplementedError, match=r"controller.*A10c"):
-            main_extra.main(["--algorithm", algo, "--device", "cpu",
-                             "--controller", "adaptive"] + LR_ARGV)
+        argv = ["--algorithm", algo, "--controller", "adaptive"] + LR_ARGV
+        lines = []
+        for cls, fn, extra in ((ServerManager, main_extra.main,
+                                ["--device", "cpu"]),
+                               (JaxServerManager, jax_main_extra.main, [])):
+            attached = []
+            attach = cls.attach_controller
+
+            def spy(mgr, controller, attach=attach, attached=attached):
+                attached.append(controller)
+                return attach(mgr, controller)
+
+            cls.attach_controller = spy
+            try:
+                history = fn(argv + extra)
+            finally:
+                cls.attach_controller = attach
+            assert [type(c).__name__ for c in attached] == [
+                "FederationController"]
+            assert [p.name for p in attached[0].policies] == [
+                "window_schedule", "timeout_autoscale",
+                "staleness_admission"]
+            lines.append(history)
+        assert lines[0][-1]["version"] == lines[1][-1]["version"] == 3
